@@ -1,0 +1,119 @@
+"""Build the CUDA sources in ``csrc/`` at first use and load them with ctypes.
+
+Each source is compiled on its own by nvcc into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused. ``_build/`` is listed in
+``.gitignore``. Every C entry returns ``cudaGetLastError()`` after its launch;
+``check`` raises if that is not 0. Pointers and the stream go to C as
+``c_void_p``.
+
+``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
+launches its kernel and nowhere else, so a run can show which kernels carried
+it (``reset_launches`` before the run, read after).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# kernel name -> (source, C entry, argtypes)
+KERNELS = {
+    "matmul_q4_0": ("matmul_q4_0.cu", "q4_0_matmul",
+                    [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "flash_attn": ("flash_attn.cu", "flash_attn_cached",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _F,
+                    _P]),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+_ENTRIES: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC, KERNELS[name][0])
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the named kernels (all by default) that are not built yet,
+    one nvcc process per source, all started together. Returns each
+    compiled kernel's compiler output (register and shared-memory use)."""
+    names = list(KERNELS) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        so = library_path(name)
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    logs, failed = {}, []
+    for name, (proc, tmp, so) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, so)  # atomic: a reader never sees a partial file
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def entry(name: str):
+    """The C entry of kernel ``name``, building its library first if needed."""
+    with _LOCK:
+        fn = _ENTRIES.get(name)
+        if fn is None:
+            build([name])
+            _, sym, argtypes = KERNELS[name]
+            fn = getattr(ctypes.CDLL(library_path(name)), sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _ENTRIES[name] = fn
+    return fn
+
+
+def check(name: str, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1

@@ -1,0 +1,110 @@
+"""Shared model blocks: linear, head reshapes and cached attention (port of
+ggmlsharp_tpu/models/common.py, the head-major cache with a host-side
+``prefix_bound``).
+
+``plain=True`` runs the plain PyTorch versions of the kernels on any
+device (``ops.mul_mat_q`` and ``kernels.flash._cached_ref``): the end-to-end
+reference a card run is held against. By default a quantized matmul and
+prefill attention go through the kernel wrappers.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import ops
+from ..config import quantize_activations
+from ..ops.attention import NEG_INF
+from ..quant.formats import QTensor
+from . import kv_cache as kvc
+
+
+def linear(w, x, quantize_acts: bool | None = None, plain: bool = False):
+    """y = x·wᵀ. w: [n_out, k] tensor or QTensor; x: [..., k].
+    quantize_acts defaults to GGML_TPU_QUANT_ACTS (on): the ggml Q8 round
+    trip of the activations before a quantized matmul."""
+    if isinstance(w, QTensor):
+        if quantize_acts is None:
+            quantize_acts = quantize_activations()
+        mm = ops.mul_mat_q if plain else ops.mul_mat
+        return mm(w, x, quantize_acts=quantize_acts)
+    return ops.mul_mat_f(w, x)
+
+
+def split_heads(x, n_head):
+    """[B, S, H*D] -> [B, H, S, D]"""
+    B, S, HD = x.shape
+    return x.reshape(B, S, n_head, HD // n_head).transpose(1, 2)
+
+
+def merge_heads(x):
+    """[B, H, S, D] -> [B, S, H*D]"""
+    B, H, S, D = x.shape
+    return x.transpose(1, 2).reshape(B, S, H * D)
+
+
+def _chunk_buckets(T: int, base: int = 256):
+    """Live-prefix buckets: geometric from ``base`` up to T."""
+    out = []
+    t = base
+    while t < T:
+        out.append(t)
+        t *= 2
+    out.append(T)
+    return out
+
+
+def _einsum_attention(q, k_sl, v_sl, positions, n_rep):
+    """Materialised-scores attention over a [B, Hkv, t, D] prefix. GQA
+    groups the q heads as [B, Hkv, n_rep, S, D]: no repeated K/V copy."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    B, Hq, S, D = q.shape
+    t = k_sl.shape[2]
+    kpos = torch.arange(t, dtype=torch.int32, device=q.device)
+    qg = q.reshape(B, Hq // n_rep, n_rep, S, D)
+    scores = torch.einsum("bgrsd,bgtd->bgrst", qg.to(torch.float32),
+                          k_sl.to(torch.float32)) * scale
+    mask = kpos[None, None, None, None, :] <= \
+        positions.to(torch.int32)[:, None, None, :, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1).to(v_sl.dtype)
+    out = torch.einsum("bgrst,bgtd->bgrsd", p.to(torch.float32),
+                       v_sl.to(torch.float32))
+    return out.reshape(B, Hq, S, D)
+
+
+def cached_attention(q, k_new, v_new, cache, layer, positions,
+                     n_rep: int = 1, prefix_bound: int | None = None,
+                     plain: bool = False):
+    """Causal attention of q over the live cache prefix of one layer.
+
+    q, k_new, v_new: [B, H(q|kv), S, D]; positions int [B, S], contiguous
+    per batch row. Writes k/v into the cache (in place), then attends over
+    the first ``prefix_bound`` rows (a bound >= every position + 1; without
+    one, the smallest bucket of ``_chunk_buckets`` that holds the live
+    prefix). S > 8 runs the flash kernel, S <= 8 grouped einsum. Returns
+    ([B, Hq, S, D] in q's dtype, cache)."""
+    cache = kvc.update_layer(cache, layer, k_new, v_new, positions)
+    S = q.shape[2]
+    T = cache.max_len
+    if prefix_bound is not None:
+        t = min(int(prefix_bound), T)
+    else:
+        lim = int(positions[:, -1].max()) + 1
+        t = next(b for b in _chunk_buckets(T) if lim <= b)
+    if S > 8:
+        from ..kernels.flash import _cached_ref, flash_attention_cached
+
+        npast = positions[:, 0]
+        if plain:
+            k_sl, v_sl = kvc.read_layer(cache, layer, q.dtype, t)
+            out = _cached_ref(q, k_sl, v_sl, npast, 1.0 / q.shape[-1] ** 0.5)
+        else:
+            # the stored rows (bf16) go in as a prefix view; kernel and
+            # plain version widen them to f32: read_layer's values for the
+            # f32 queries of the llama path
+            out = flash_attention_cached(q, cache.k[layer][:, :, :t],
+                                         cache.v[layer][:, :, :t], npast)
+    else:
+        k_sl, v_sl = kvc.read_layer(cache, layer, q.dtype, t)
+        out = _einsum_attention(q, k_sl, v_sl, positions, n_rep)
+    return out.to(q.dtype), cache

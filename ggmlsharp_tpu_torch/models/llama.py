@@ -1,0 +1,267 @@
+"""Llama family (port of ggmlsharp_tpu/models/llama.py, head-major cache).
+
+RMSNorm pre-norm, rotary embeddings (ggml interleaved mode by default),
+SwiGLU MLP, optional GQA. Parameters are plain dicts that mirror the JAX
+tree; after ``quantize_params`` the blocks hold the fused ``wqkv`` and
+``w_gate_up`` rows, as the JAX package's default fused layout does. Weight
+leaves are tensors or Q4_0/Q8_0 QTensors.
+
+dtype flow, as in the JAX package: embeddings and norms are bf16; the first
+residual add (bf16 + f32 matmul output) promotes the stream to f32.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..dtypes import GType
+from ..ops import get_rows, rms_norm, rope, silu
+from ..quant.formats import QTensor, concat_qtensors, from_wire
+from ..quant.quantize import quantize
+from . import kv_cache as kvc
+from .common import cached_attention, linear, merge_heads, split_heads
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    n_vocab: int = 32000
+    n_ctx: int = 2048
+    n_embd: int = 4096
+    n_head: int = 32
+    n_head_kv: int = 32  # < n_head: GQA
+    n_layer: int = 32
+    n_ff: int = 11008
+    rms_eps: float = 1e-6
+    rope_base: float = 10000.0
+    rope_mode: int = 0  # 0 = ggml interleaved, 2 = NeoX halves
+    tie_lm_head: bool = False
+
+    @property
+    def head_dim(self):
+        return self.n_embd // self.n_head
+
+
+LLAMA_7B = LlamaConfig()
+TINY_LLAMA = LlamaConfig(  # test-scale config
+    n_vocab=256, n_ctx=128, n_embd=128, n_head=4, n_head_kv=2, n_layer=2,
+    n_ff=256)
+
+PAD_ROWS = 256  # embedding / LM-head rows are padded to this (logits sliced)
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
+                device=None, dtype=torch.bfloat16):
+    """Random bf16 weights, N(0, 0.02), unit norms. ``generator`` must live on
+    ``device``; None means a fresh one seeded with 0."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else \
+        torch.Generator(dev).manual_seed(0)
+    hd = cfg.head_dim
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+
+    def ones():
+        return torch.ones(cfg.n_embd, dtype=dtype, device=dev)
+
+    return {
+        "tok_embd": w(cfg.n_vocab, cfg.n_embd),
+        "norm": ones(),
+        "output": None if cfg.tie_lm_head else w(cfg.n_vocab, cfg.n_embd),
+        "blocks": [
+            {
+                "attn_norm": ones(),
+                "wq": w(cfg.n_head * hd, cfg.n_embd),
+                "wk": w(cfg.n_head_kv * hd, cfg.n_embd),
+                "wv": w(cfg.n_head_kv * hd, cfg.n_embd),
+                "wo": w(cfg.n_embd, cfg.n_head * hd),
+                "ffn_norm": ones(),
+                "w_gate": w(cfg.n_ff, cfg.n_embd),
+                "w_up": w(cfg.n_ff, cfg.n_embd),
+                "w_down": w(cfg.n_embd, cfg.n_ff),
+            }
+            for _ in range(cfg.n_layer)
+        ],
+    }
+
+
+def fuse_params(params):
+    """wq/wk/wv -> wqkv and w_gate/w_up -> w_gate_up (row concat: one matmul
+    instead of three and two, bit-identical values)."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out["blocks"] = []
+    for b in params["blocks"]:
+        nb = {k: v for k, v in b.items()
+              if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
+        nb["wqkv"] = concat_qtensors([b["wq"], b["wk"], b["wv"]])
+        nb["w_gate_up"] = concat_qtensors([b["w_gate"], b["w_up"]])
+        out["blocks"].append(nb)
+    return out
+
+
+def quantize_params(params, gtype: GType):
+    """Weight-only quantization of the 2-D weights whose rows are whole
+    256-element groups, then fuse_params. The embedding and LM-head rows
+    are padded to PAD_ROWS (forward slices the logits back to n_vocab)."""
+
+    def q(t, pad_rows=False):
+        if t is None or isinstance(t, QTensor) or t.dim() != 2 \
+                or t.shape[-1] % 256:
+            return t
+        if pad_rows and t.shape[0] % PAD_ROWS:
+            pad = PAD_ROWS - t.shape[0] % PAD_ROWS
+            t = torch.cat([t, t.new_zeros((pad, t.shape[1]))], dim=0)
+        return quantize(t.to(torch.float32), gtype)
+
+    out = {
+        "tok_embd": q(params["tok_embd"], pad_rows=True),
+        "norm": params["norm"],
+        "output": q(params["output"], pad_rows=True),
+        "blocks": [
+            {k: (v if k.endswith("norm") else q(v)) for k, v in b.items()}
+            for b in params["blocks"]
+        ],
+    }
+    return fuse_params(out)
+
+
+def _from_numpy(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def params_from_jax(tree, device=None):
+    """Carry a JAX parameter tree across, values bit for bit. Dense leaves
+    are numpy arrays (bf16 included); a quantized leaf is a tuple
+    ``(gtype, ggml wire bytes, shape)``, as the JAX package's
+    ``io.gguf.qtensor_to_wire`` gives its bytes."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        if isinstance(x, tuple):
+            gtype, wire, shape = x
+            return from_wire(gtype, wire, shape, device=dev)
+        return _from_numpy(x).to(dev)
+
+    return conv(tree)
+
+
+def random_q4_0(n: int, k: int, generator: torch.Generator, device,
+                scale: float | None = None) -> QTensor:
+    """A random Q4_0 [n, k] drawn on ``device``: nibbles uniform in 1..15
+    (q - 8 symmetric about 0, RMS 4.32) and f16 scales in [0.5, 1.5)·s with
+    s = 1 / (4.32·sqrt(k)) by default, so a unit-RMS input row gives
+    unit-RMS outputs."""
+    s = scale if scale is not None else 1.0 / (4.32 * k ** 0.5)
+
+    def nibbles():
+        return torch.randint(1, 16, (n, k // 2), generator=generator,
+                             device=device, dtype=torch.uint8)
+
+    qs = nibbles() | (nibbles() << 4)
+    d = ((torch.rand((n, k // 32), generator=generator, device=device) + 0.5)
+         * s).to(torch.float16)
+    return QTensor(GType.Q4_0, (n, k), {"qs": qs, "d": d})
+
+
+def synthetic_q4_0_params(cfg: LlamaConfig, seed: int = 0, device=None):
+    """A fused Q4_0 parameter tree of random_q4_0 weights drawn directly on
+    ``device`` from ``seed``, unit norms, embedding rows of RMS about 1. No
+    f32 staging copy is made (at 7B it would take 27 GB). The projections
+    back into the residual stream (wo, w_down) are scaled by
+    1/sqrt(2·n_layer), GPT-2's residual init, so each block's update stays
+    small against the stream as in a trained model; with unit-scale updates
+    the 32-layer network carried rounding differences to several times
+    larger logit differences."""
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    hd = cfg.head_dim
+    E, F = cfg.n_embd, cfg.n_ff
+    nq, nkv = cfg.n_head * hd, cfg.n_head_kv * hd
+    vpad = -(-cfg.n_vocab // PAD_ROWS) * PAD_ROWS
+    res = (2 * cfg.n_layer) ** -0.5
+
+    def qt(n, k, scale=None):
+        return random_q4_0(n, k, gen, dev, scale)
+
+    def ones():
+        return torch.ones(E, dtype=torch.bfloat16, device=dev)
+
+    return {
+        "tok_embd": qt(vpad, E, 1.0 / 4.32),
+        "norm": ones(),
+        "output": qt(vpad, E),
+        "blocks": [
+            {
+                "attn_norm": ones(),
+                "wqkv": qt(nq + 2 * nkv, E),
+                "wo": qt(E, nq, res / (4.32 * nq ** 0.5)),
+                "ffn_norm": ones(),
+                "w_gate_up": qt(2 * F, E),
+                "w_down": qt(E, F, res / (4.32 * F ** 0.5)),
+            }
+            for _ in range(cfg.n_layer)
+        ],
+    }
+
+
+def _rms(x, g, eps):
+    return rms_norm(x.to(torch.float32), eps=eps).to(x.dtype) * g
+
+
+def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
+            prefix_bound: int | None = None, plain: bool = False):
+    """tokens/positions: int [B, S]. Returns (logits f32 [B, S, n_vocab],
+    cache advanced by S). The cache is written in place. prefix_bound: a
+    host-side bound on the live cache prefix (see sampling.length_bucket).
+    plain: run the kernels' plain PyTorch versions (a card run's reference)."""
+    x = get_rows(params["tok_embd"], tokens)
+    x = x.to(params["norm"].dtype)
+    n_rep = cfg.n_head // cfg.n_head_kv
+    S = tokens.shape[1]
+    hd = cfg.head_dim
+    nq = cfg.n_head * hd
+    nkv = cfg.n_head_kv * hd
+    for i, blk in enumerate(params["blocks"]):
+        h = _rms(x, blk["attn_norm"], cfg.rms_eps)
+        qkv = linear(blk["wqkv"], h, plain=plain)
+        q = split_heads(qkv[..., :nq], cfg.n_head)
+        k = split_heads(qkv[..., nq:nq + nkv], cfg.n_head_kv)
+        v = split_heads(qkv[..., nq + nkv:], cfg.n_head_kv)
+        q = rope(q, positions, mode=cfg.rope_mode, base=cfg.rope_base)
+        k = rope(k, positions, mode=cfg.rope_mode, base=cfg.rope_base)
+        a, cache = cached_attention(q, k, v, cache, i, positions, n_rep=n_rep,
+                                    prefix_bound=prefix_bound, plain=plain)
+        x = x + linear(blk["wo"], merge_heads(a), plain=plain)
+
+        h = _rms(x, blk["ffn_norm"], cfg.rms_eps)
+        gu = linear(blk["w_gate_up"], h, plain=plain)
+        gate, up = gu[..., :cfg.n_ff], gu[..., cfg.n_ff:]
+        x = x + linear(blk["w_down"], silu(gate) * up, plain=plain)
+
+    x = _rms(x, params["norm"], cfg.rms_eps)
+    w_out = params["output"] if params["output"] is not None \
+        else params["tok_embd"]
+    logits = linear(w_out, x.to(torch.float32), quantize_acts=False,
+                    plain=plain)
+    logits = logits[..., :cfg.n_vocab]  # drop the padding rows
+    return logits.to(torch.float32), kvc.advance(cache, S)
+
+
+def new_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
+              max_len: int | None = None, device=None) -> kvc.KVCache:
+    """Head-major [B, H_kv, T, D] cache (T = max_len or n_ctx)."""
+    return kvc.init_cache(cfg.n_layer, batch, cfg.n_head_kv,
+                          max_len or cfg.n_ctx, cfg.head_dim, dtype=dtype,
+                          device=resolve_device(device))

@@ -1,0 +1,51 @@
+"""Matrix multiply, float and quantized (port of ggmlsharp_tpu/ops/matmul.py).
+
+ggml convention: ``mul_mat(a, b)`` dots rows of ``a`` (weights [n_out, k])
+with rows of ``b`` (activations [..., k]) -> [..., n_out], i.e. ``b @ a.T``.
+
+Quantized semantics: activations are first rounded through the weight
+format's ``vec_dot_type`` (Q8_0 for Q4_0), then the dot of the two
+dequantized operands is taken in f32. ``mul_mat_q`` is that function in
+plain PyTorch; ``mul_mat`` sends a CUDA tensor to the hand-written kernel
+(``kernels.matmul_q``) and a CPU tensor to ``mul_mat_q``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..dtypes import TYPE_TRAITS, GType
+from ..quant.formats import QTensor
+from ..quant.quantize import dequantize, quantize
+
+
+def mul_mat_f(a, b):
+    """Float mul_mat: a [n_out, k], b [..., k] -> [..., n_out], f32
+    accumulation, result in the promoted type of a and b."""
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(b.to(torch.float32),
+                        a.to(torch.float32).transpose(-1, -2)).to(out_dtype)
+
+
+def quantize_activations(b, weight_gtype: GType) -> QTensor:
+    """Quantize activation rows to the weight format's companion dot type
+    (ggml's mul_mat INIT phase)."""
+    return quantize(b, TYPE_TRAITS[GType(weight_gtype)].vec_dot_type)
+
+
+def mul_mat_q(a: QTensor, b, quantize_acts: bool = True):
+    """Quantized mul_mat, plain version: dequantize, then an f32 matmul.
+    a: QTensor [n_out, k]; b: float activations [..., k] -> f32 [..., n_out]."""
+    w = dequantize(a)
+    if quantize_acts:
+        b = dequantize(quantize_activations(b, a.gtype))
+    return torch.matmul(b.to(torch.float32), w.transpose(-1, -2))
+
+
+def mul_mat(a, b, quantize_acts: bool = True):
+    """Dispatch on the weight type: QTensor weights go to the quantized
+    matmul (kernel on the card, plain version on the CPU)."""
+    if isinstance(a, QTensor):
+        from ..kernels.matmul_q import mul_mat_q_fused
+
+        return mul_mat_q_fused(a, b, quantize_acts=quantize_acts)
+    return mul_mat_f(a, b)

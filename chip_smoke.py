@@ -8,16 +8,24 @@ version):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ with nvcc, one process a source;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the Llama-7B main path gives it;
-  4. the main path: Llama-7B (full width and depth, random Q4_0 weights from
-     a seed), a 16-token prompt and 32 greedy tokens through
-     sampling.generate, with the launch counters reset just before and read
-     just after; then the plain path over the same tokens as reference;
-  5. each kernel's time at the main path's shapes (CUDA events), beside
-     its plain version, one PyTorch library call and its bound;
+     shapes the two paths give it;
+  4. the two paths, each with the launch counters reset just before and
+     read just after, and each held against its plain path:
+     a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
+        from a seed), a 16-token prompt and 32 greedy tokens through
+        sampling.generate;
+     b. serving: serving.Engine over the same model with an INT8 flat KV
+        cache, 8 slots, 24 requests of 16 prompt tokens and 24 new tokens
+        each; then a replay of its admission prefill and decode steps
+        through the kernels and the plain path, and three concurrent HTTP
+        requests through serving.EngineServer;
+  5. each kernel's time at the paths' shapes (CUDA events), beside its
+     plain version, one PyTorch library call and its bound;
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
      time, peak device memory, and a torch.profiler window of decode steps
-     (device time, launches and host operator calls a step, idle share).
+     (device time, launches and host operator calls a step, idle share);
+     serving tokens/s, time to first token, latency, ticks, peak memory
+     and the share of the batched roofline.
 
 Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
@@ -36,6 +44,10 @@ INT8_OP_S = 1979e12    # H100 SXM int8 tensor cores, dense
 L2_BYTES = 50 * 2**20
 SEED = 0
 PROMPT_LEN, N_NEW, N_CMP = 16, 32, 8
+# the serving path: bench.py's serve defaults at 8 slots, INT8 KV cache
+SLOTS, SERVE_MAX_LEN, SERVE_REQS, SERVE_PLEN, SERVE_NEW = 8, 256, 24, 16, 24
+REPLAY_STEPS = 8  # decode steps of the serving replay
+ATTN_TIMING_T = (64, 256, 2048)  # attn_decode timing: cache rows a slot
 # Llama-7B matmuls a decode token runs: (name, N, K, launches a token)
 Q4_SHAPES = [("wqkv", 12288, 4096, 32), ("wo", 4096, 4096, 32),
              ("w_gate_up", 22016, 4096, 32), ("w_down", 4096, 11008, 32),
@@ -112,7 +124,8 @@ def check_q4_0(dev, gen):
     for name, n, k, _ in Q4_SHAPES:
         w = random_q4_0(n, k, gen, dev)
         wabs = dequantize(w).abs()
-        for b in (1, 16):
+        # b = 1 and 8 slots decode; 16 and 8 x 16 rows prefill
+        for b in (1, SLOTS, 16, SLOTS * 16):
             x = torch.randn((b, k), generator=gen, device=dev)
             qa = name != "output"  # the LM head skips the Q8 round trip
             got = mul_mat_q_fused(w, x, quantize_acts=qa)
@@ -136,10 +149,60 @@ def check_q4_0(dev, gen):
     return worst
 
 
+def q4_rows_independent_of_b(dev, gen):
+    """Whether a row's Q4_0 result is bit for bit the same at b = 1, 8 and
+    128 (the kernel has one instantiation for b = 1, another for b > 1)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import q4_0_matmul
+    from ggmlsharp_tpu_torch.models.llama import random_q4_0
+
+    w = random_q4_0(4096, 4096, gen, dev)
+    x = torch.randn((SLOTS * 16, 4096), generator=gen, device=dev)
+    y = q4_0_matmul(x, w["qs"], w["d"])
+    return all(torch.equal(y[:b], q4_0_matmul(x[:b].contiguous(), w["qs"],
+                                              w["d"])) for b in (1, SLOTS))
+
+
+def rms_rows_independent_of_b(dev, gen, trials=64):
+    """How often a row of the port's rms norm (llama._rms, and the
+    torch.mean inside it) differs bit for bit between a batch of SLOTS rows
+    of [SLOTS, 1, E] and the row alone, as a slot's decode step gives it in
+    an 8-slot engine and in a one-slot one; f32 rows (the residual stream
+    after the first block) and bf16 rows (the embedding, first block)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models.llama import _rms
+
+    E = 4096
+    g = torch.ones(E, dtype=torch.bfloat16, device=dev)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        n_rms = n_mean = 0
+        worst = 0.0
+        for _ in range(trials):
+            x = torch.randn((SLOTS, 1, E), generator=gen, device=dev).to(dt)
+            xf = x.float()
+            batch, ms = _rms(x, g, 1e-6), torch.mean(xf * xf, -1)
+            for b in range(SLOTS):
+                alone = _rms(x[b:b + 1].contiguous(), g, 1e-6)
+                n_rms += not torch.equal(alone[0], batch[b])
+                n_mean += not torch.equal(
+                    torch.mean(xf[b:b + 1] * xf[b:b + 1], -1)[0], ms[b])
+                worst = max(worst, float((alone[0] - batch[b]).abs().max()))
+        res[str(dt).split(".")[1]] = {
+            "rows": trials * SLOTS, "rms_rows_differ": n_rms,
+            "mean_rows_differ": n_mean, "max_abs_diff": worst}
+    emit({"rms_rows_vs_b": res})
+    return res
+
+
 FLASH_CASES = [  # (label, B, Hq, Hkv, S, T used, T allocated, D, npast, kv dtype)
     ("7b_prefill", 1, 32, 32, 16, 256, 2048, 128, [0], "bf16"),
     ("gqa_npast", 2, 32, 8, 40, 512, 1024, 128, [100, 7], "bf16"),
     ("d64_f32", 1, 8, 4, 20, 64, 64, 64, [10], "f32"),
+    # the serving path's admission prefill: 8 fresh prompts, f32 K/V
+    ("serve_prefill", SLOTS, 32, 32, 16, 16, 16, 128, [0] * SLOTS, "f32"),
 ]
 
 
@@ -173,6 +236,78 @@ def check_flash(dev, gen):
     return worst
 
 
+ATTN_CASES = [  # (label, B, Hq, Hkv, T, npast a slot, cache)
+    ("mha_int8_T64", SLOTS, 32, 32, 64, [0, 63, 5, 17, 40, 1, 62, 33], "int8"),
+    ("mha_int8_T2048", SLOTS, 32, 32, 2048,
+     [0, 2047, 100, 1000, 1500, 7, 2046, 512], "int8"),
+    ("mha_bf16_T64", SLOTS, 32, 32, 64, [0, 63, 5, 17, 40, 1, 62, 33], "bf16"),
+    ("mha_bf16_T2048", SLOTS, 32, 32, 2048,
+     [0, 2047, 100, 1000, 1500, 7, 2046, 512], "bf16"),
+    ("gqa8_int8_T2048", SLOTS, 32, 8, 2048,
+     [0, 2047, 100, 1000, 1500, 7, 2046, 512], "int8"),
+    # D = 64, GQA n_rep 4, npast past the prefix view for one slot
+    ("gqa4_bf16_d64_T300", 4, 8, 2, 300, [0, 299, 150, 400], "bf16"),
+]
+
+
+def decode_inputs(dev, gen, B, Hq, Hkv, T, kind, copies=1, D=128):
+    """Random decode-attention inputs: q, fresh rows, and ``copies`` caches
+    (k, v, scales), each a T-row prefix view of a longer buffer. INT8 rows
+    are uniform in [-127, 127] with scales in [0, 1/64), so values are of
+    the order of 1, like the float rows."""
+    import torch
+
+    E, Ta = Hkv * D, T + 64
+    q = torch.randn((B, Hq, D), generator=gen, device=dev)
+    kn = torch.randn((B, E), generator=gen, device=dev)
+    vn = torch.randn((B, E), generator=gen, device=dev)
+    caches = []
+    for _ in range(copies):
+        if kind == "int8":
+            kv = [torch.randint(-127, 128, (B, Ta, E), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2)]
+            sc = [torch.rand((B, Ta, Hkv), generator=gen, device=dev) / 64
+                  for _ in range(2)]
+            caches.append((kv[0][:, :T], kv[1][:, :T],
+                           {"k_scale": sc[0][:, :T], "v_scale": sc[1][:, :T]}))
+        else:
+            kv = [torch.randn((B, Ta, E), generator=gen, device=dev)
+                  .to(torch.bfloat16)
+                  for _ in range(2)]
+            caches.append((kv[0][:, :T], kv[1][:, :T], {}))
+    return q, kn, vn, caches
+
+
+def check_attn_decode(dev, gen):
+    """Kernel vs plain _decode_ref: rtol 2e-4 / atol 2e-5 (both f32; online
+    vs dense softmax and summation order)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.attn_decode import _decode_ref, flash_decode_flat
+
+    worst, rows = 0.0, []
+    for label, B, Hq, Hkv, T, npast, kind in ATTN_CASES:
+        D = 64 if "d64" in label else 128
+        q, kn, vn, ((kc, vc, sc),) = decode_inputs(dev, gen, B, Hq, Hkv, T,
+                                                   kind, D=D)
+        np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+        got = flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+        want = _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (err <= 2e-5 + 2e-4 * want.abs()).all())
+        e = float(err.max())
+        worst = max(worst, e)
+        rows.append({"case": label, "max_abs_err": e, "ok": ok})
+        if not ok:
+            emit({"attn_decode_check": rows})
+            raise SystemExit(f"attn_decode kernel disagrees in case {label}")
+    emit({"attn_decode_check": rows})
+    return worst
+
+
 def run_main_path(cfg, params, prompt):
     """sampling.generate through the kernels, counters reset just before."""
     import torch
@@ -190,7 +325,8 @@ def run_main_path(cfg, params, prompt):
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     want = {"matmul_q4_0": 129 * (1 + N_NEW),  # 4 a block x 32 + LM head
-            "flash_attn": cfg.n_layer}         # one a layer, prefill only
+            "flash_attn": cfg.n_layer,         # one a layer, prefill only
+            "attn_decode": 0}                  # a head-major cache: einsum
     emit({"main_path": {"tokens": toks[0].tolist(), "seconds": seconds,
                         "launches": counts, "expected_launches": want}})
     if counts != want:
@@ -267,6 +403,227 @@ def compare_plain(cfg, params, prompt, quant_acts, cache_dtype, tol,
     return err
 
 
+def serving_prompts(cfg):
+    """bench.py's serve workload: SERVE_REQS prompts of SERVE_PLEN tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, cfg.n_vocab, size=SERVE_PLEN).tolist()
+            for _ in range(SERVE_REQS)]
+
+
+def new_engine(cfg, params, forward=None, slots=SLOTS):
+    import torch
+
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.serving import Engine
+
+    return Engine(forward or llama.forward, cfg, params, batch_slots=slots,
+                  max_len=SERVE_MAX_LEN, int8_kv=True,
+                  cache_dtype=torch.bfloat16)
+
+
+def run_serving(cfg, params):
+    """The serving path: a warm-up engine answers one admission wave of 2
+    tokens each; a fresh engine then answers the SERVE_REQS requests, with
+    the launch counters reset just before its run and read just after.
+    Every admission prefill here is a 16-row bucket (S > 8: flash), every
+    decode forward a batched single-token step (attn_decode)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.serving import Request
+
+    prompts = serving_prompts(cfg)
+    warm = new_engine(cfg, params)
+    for i in range(SLOTS):
+        warm.submit(Request(id=i, prompt=prompts[i], max_new_tokens=2))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = new_engine(cfg, params)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(id=i, prompt=p, max_new_tokens=SERVE_NEW))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    st = eng.stats()
+    n_dec, n_pre = st["decode_forwards"], st["prefill_dispatches"]
+    want = {"matmul_q4_0": (4 * cfg.n_layer + 1) * (n_dec + n_pre),
+            "flash_attn": cfg.n_layer * n_pre,
+            "attn_decode": cfg.n_layer * n_dec}
+    res = {"requests": len(results), "seconds": seconds, "stats": st,
+           "launches": counts, "expected_launches": want,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_tokens": [r.out_tokens[:4] for r in results[:3]]}
+    emit({"serving_path": res})
+    if counts != want or n_dec == 0:
+        raise SystemExit(f"serving launch counts {counts} != expected {want}")
+    bad = [r.id for r in results
+           if r.error is not None or len(r.out_tokens) != SERVE_NEW
+           or not all(0 <= t < cfg.n_vocab for t in r.out_tokens)]
+    if len(results) != SERVE_REQS or bad:
+        raise SystemExit(f"serving answered {len(results)} requests, bad {bad}")
+    return eng, res
+
+
+def replay_serving(cfg, params, tol):
+    """Kernel engine vs plain engine over the engine's own forward calls:
+    one batched admission prefill of 8 prompts of uneven length (4-16
+    tokens), then REPLAY_STEPS batched decode steps, both fed the kernel
+    path's greedy tokens. Row j holds the logits that chose token j. Fails
+    unless every row agrees within ``tol``, and each token is the plain
+    argmax wherever the plain top-2 gap exceeds 2 * tol. Then slot 0's
+    prompt alone through a one-slot engine shows whether a slot's logits
+    depend on the other slots; and a profiled window of batched decode
+    steps gives the device time a step."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.models.sampling import length_bucket
+    from ggmlsharp_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(11)
+    lens = [4, 16, 7, 12, 9, 5, 14, 10]
+    prompts = [rng.integers(0, cfg.n_vocab, size=n).tolist() for n in lens]
+    toks = None
+
+    def replay(forward, slots, plist):
+        nonlocal toks
+        eng = new_engine(cfg, params, forward, slots)
+        for i, p in enumerate(plist):
+            eng.submit(Request(id=i, prompt=p, max_new_tokens=SERVE_NEW))
+        active = torch.ones(slots, dtype=torch.bool, device=eng.device)
+        with torch.no_grad():
+            eng._admit()  # one admission prefill of all the prompts
+            rows = [eng._last_logits.clone()]
+            if toks is None:
+                toks = [rows[0].argmax(-1, keepdim=True).to(torch.int32)]
+            for j in range(REPLAY_STEPS):
+                t_eff = length_bucket(max(lens) + j + 1, SERVE_MAX_LEN,
+                                      base=64)
+                rows.append(eng._step(toks[j][:slots], active, t_eff).clone())
+                if len(toks) <= j + 1:
+                    toks.append(rows[-1].argmax(-1, keepdim=True)
+                                .to(torch.int32))
+        return eng, torch.stack(rows)  # [REPLAY_STEPS + 1, slots, V]
+
+    eng, kern = replay(llama.forward, SLOTS, prompts)
+    _, ref = replay(functools.partial(llama.forward, plain=True), SLOTS,
+                    prompts)
+    tk = torch.cat(toks, 1).T  # [REPLAY_STEPS + 1, SLOTS]
+    err = float((kern - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    same = ref.argmax(-1) == tk
+    decided = gap > 2 * tol
+    _, alone = replay(llama.forward, 1, prompts[:1])
+    row = {"prompt_lens": lens, "steps": REPLAY_STEPS, "max_abs_err": err,
+           "max_abs_logit": float(ref.abs().max()), "tol": tol,
+           "tokens_equal_plain_argmax": int(same.sum()),
+           "tokens": int(same.numel()),
+           "tokens_decided": int(decided.sum()),
+           "decided_tokens_agree": bool(same[decided].all()),
+           "min_top2_gap": float(gap.min()),
+           "finite": bool(torch.isfinite(kern).all()),
+           "slot0_alone_bit_equal": bool(torch.equal(alone[:, 0],
+                                                     kern[:, 0])),
+           "slot0_alone_max_abs_diff": float(
+               (alone[:, 0] - kern[:, 0]).abs().max())}
+    emit({"serving_plain_compare": row})
+    if not (row["finite"] and err <= tol and row["decided_tokens_agree"]):
+        raise SystemExit(f"serving kernel path disagrees with plain: {row}")
+
+    # batched decode steps of the kernel engine (8 live slots): untraced
+    # step time, then a profiled window
+    state = {"logits": kern[-1], "j": 0}
+    active = torch.ones(SLOTS, dtype=torch.bool, device=eng.device)
+
+    def one_step():
+        tok = state["logits"].argmax(-1, keepdim=True).to(torch.int32)
+        state["j"] += 1
+        t_eff = length_bucket(max(lens) + REPLAY_STEPS + state["j"],
+                              SERVE_MAX_LEN, base=64)
+        with torch.no_grad():
+            state["logits"] = eng._step(tok, active, t_eff)
+
+    lat = []
+    for i in range(12):  # 4 warm-up steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        if i >= 4:
+            lat.append(time.perf_counter() - t0)
+    prof = profile_steps(one_step, 4)
+    step_ms = statistics.median(lat) * 1e3
+    dev_ms = prof["device_ms_per_step"]
+    prof["untraced_step_ms_median"] = step_ms
+    prof["device_idle_share"] = (1.0 - dev_ms / step_ms
+                                 if isinstance(dev_ms, float)
+                                 else "not measured")
+    emit({"serving_decode_profile": prof})
+    return err, prof
+
+
+def http_check(eng, cfg):
+    """Three concurrent /v1/generate requests through EngineServer on port
+    0; each must answer with its tokens and no error; /v1/stats and
+    /health must answer."""
+    import threading
+    import urllib.request
+
+    from ggmlsharp_tpu_torch.serving import EngineServer
+
+    prompts = serving_prompts(cfg)[:3]
+    n_new = 8
+    srv = EngineServer(eng, port=0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+
+    def call(path, obj=None):
+        data = None if obj is None else json.dumps(obj).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                base + path, data=data), timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        outs = [None] * len(prompts)
+
+        def hit(i):
+            outs[i] = call("/v1/generate", {"prompt": prompts[i],
+                                            "max_new_tokens": n_new})
+
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        seconds = time.perf_counter() - t0
+        health = call("/health")
+        st = call("/v1/stats")
+    finally:
+        srv.stop()
+    res = {"requests": len(prompts), "seconds": seconds,
+           "tokens": [o and o["tokens"] for o in outs], "health": health,
+           "stats_tokens_emitted": st.get("tokens_emitted")}
+    emit({"http_check": res})
+    if any(o is None or o["error"] is not None or len(o["tokens"]) != n_new
+           for o in outs) or health != {"ok": True} or "ticks" not in st:
+        raise SystemExit(f"HTTP check failed: {res}")
+    return res
+
+
 def time_q4_0(dev, gen, counts):
     """Cold-L2 kernel, plain and library (bf16 torch.matmul against the
     weight dequantized to bf16) times at each shape, b in {1, 16}."""
@@ -339,6 +696,79 @@ def time_flash(dev, gen, counts):
            "unit": "one prefill launch: B=1 Hq=32 S=16 T=256 D=128 bf16 KV"}
     emit({"flash_timing": row})
     return row
+
+
+def attn_decode_bound_ms(B, Hq, Hkv, D, npast):
+    """Bytes: the live int8 K/V rows and their scales, the fresh rows, q and
+    out, once each; operations: 4 * Hq * D f32 flops a live key a slot."""
+    rows = sum(npast)
+    bytes_ = (2 * rows * Hkv * D + 2 * rows * Hkv * 4 + 2 * B * Hkv * D * 4
+              + 2 * B * Hq * D * 4)
+    flops = 4 * Hq * D * (rows + B)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_attn_decode(dev, gen, counts):
+    """Cold-L2 kernel, plain and library times of one decode-step layer call
+    at B = SLOTS, Hq = Hkv = 32, D = 128, INT8 cache, every slot at
+    npast = T - 1, for T = 64 (the serving path's bucket), 256 and 2048.
+    The library time is scaled_dot_product_attention over a bf16
+    head-major copy of the dequantized live rows and the fresh row, the
+    call alone (the copy is made before timing)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.attn_decode import _decode_ref, _dequant, flash_decode_flat
+
+    B, Hq, Hkv, D = SLOTS, 32, 32, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for T in ATTN_TIMING_T:
+        live = B * T * Hkv * D * 2
+        copies = max(2, -(-4 * L2_BYTES // live))
+        q, kn, vn, caches = decode_inputs(dev, gen, B, Hq, Hkv, T, "int8",
+                                          copies)
+        npast = [T - 1] * B
+        np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+
+        def kern(i):
+            kc, vc, sc = caches[i % copies]
+            return flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+
+        def plain(i):
+            kc, vc, sc = caches[i % copies]
+            return _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+
+        heads = []
+        for kc, vc, sc in caches:
+            kv = []
+            for rows_, s, new in ((kc, sc["k_scale"], kn), (vc, sc["v_scale"], vn)):
+                d = _dequant(rows_[:, :T - 1], s[:, :T - 1], Hkv)
+                d = torch.cat([d, new[:, None]], 1)  # the fresh row last
+                kv.append(d.reshape(B, T, Hkv, D).transpose(1, 2)
+                          .to(torch.bfloat16).contiguous())
+            heads.append(kv)
+        qb = q[:, :, None].to(torch.bfloat16)
+        kern_ms = time_ms(kern, 100)
+        plain_ms = time_ms(plain, 20)
+        lib_ms = time_ms(lambda i: sdpa(qb, *heads[i % copies]), 100)
+        bound, by = attn_decode_bound_ms(B, Hq, Hkv, D, npast)
+        rows.append({"T": T, "ms": kern_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                     "roofline_share": bound / kern_ms})
+        del caches, heads
+        torch.cuda.empty_cache()
+    emit({"attn_decode_timing": rows})
+    r = rows[0]
+    return {"name": "attn_decode", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/attn_decode.cu",
+            "replaces": "ggmlsharp_tpu/kernels/attn_decode.py:108",
+            "launches": counts["attn_decode"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "unit": "one decode-step layer call: B=8 Hq=Hkv=32 D=128 T=64 "
+                    "int8 KV, npast 63, cold L2; library = SDPA alone on a "
+                    "bf16 head-major copy"}
 
 
 def profile_steps(one_step, n_steps):
@@ -445,6 +875,7 @@ def measure_decode(cfg, params, prompt):
                  blk.items() if key.startswith("w")) + params["output"].nbytes()
     live = cur - n_win // 2
     kv_bytes = 2 * cfg.n_layer * live * cfg.n_head_kv * cfg.head_dim * 2
+    res["weight_bytes"] = wbytes
     res["bytes_per_token"] = wbytes + kv_bytes
     res["roofline_tok_s"] = HBM_BYTES_S / (wbytes + kv_bytes)
     res["roofline_share"] = res["window_tok_s"] / res["roofline_tok_s"]
@@ -488,9 +919,15 @@ def main():
 
     gen = torch.Generator(dev).manual_seed(SEED)
     q4_err = check_q4_0(dev, gen)
+    q4_rows_ok = q4_rows_independent_of_b(dev, gen)
+    rms_rows = rms_rows_independent_of_b(dev, gen)
     fl_err = check_flash(dev, gen)
+    ad_err = check_attn_decode(dev, gen)
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
-        f"{q4_err:.3g}, flash {fl_err:.3g}")
+        f"{q4_err:.3g} (rows independent of b: {q4_rows_ok}), flash "
+        f"{fl_err:.3g}, attn_decode {ad_err:.3g}; rms rows differing "
+        f"alone vs in a batch of {SLOTS}: "
+        f"{ {k: v['rms_rows_differ'] for k, v in rms_rows.items()} }")
 
     cfg = llama.LLAMA_7B
     params = llama.synthetic_q4_0_params(cfg, seed=SEED)
@@ -509,13 +946,29 @@ def main():
                   cache_dtype=torch.bfloat16, tol=0.1, toks=toks)
     compare_plain(cfg, params, prompt, quant_acts=False,
                   cache_dtype=torch.float32, tol=1e-3)
-    log(f"[4/6] Llama-7B Q4_0: {PROMPT_LEN}-token prompt + {N_NEW} greedy "
-        f"tokens through the kernels; launches {counts}")
+    log(f"[4/6] a. Llama-7B Q4_0: {PROMPT_LEN}-token prompt + {N_NEW} "
+        f"greedy tokens through the kernels; launches {counts}")
+    eng, serve = run_serving(cfg, params)
+    serve_counts = serve["launches"]
+    # the main settings again (Q8_0 activations), an INT8 cache whose
+    # rounding a one-ulp difference can move a whole step, like a Q8 one:
+    # tol 0.1, as for the b = 1 path
+    replay_err, serve_prof = replay_serving(cfg, params, tol=0.1)
+    http = http_check(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[4/6] b. serving: {serve['requests']} requests through "
+        f"{SLOTS} slots, launches {serve_counts}; replay vs plain max abs "
+        f"err {replay_err:.3g}; HTTP: {http['requests']} requests answered")
 
     q4_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_err
     fl_row = time_flash(dev, gen, counts)
     fl_row["max_abs_err"] = fl_err
+    ad_row = time_attn_decode(dev, gen, serve_counts)
+    ad_row["max_abs_err"] = ad_err
+    for row in (q4_row, fl_row):
+        row["launches_serving"] = serve_counts[row["name"]]
     log("[5/6] kernel times taken")
 
     dec = measure_decode(cfg, params, prompt)
@@ -523,14 +976,37 @@ def main():
     dec["q4_0_share_of_step"] = q4_row["ms"] / dec["step_ms_median"]
     dec["card"] = smi
     emit({"decode": dec})
+    st = serve["stats"]
+    tok_s = SERVE_REQS * SERVE_NEW / serve["seconds"]
+    # batched roofline: one pass over the weights serves SLOTS tokens
+    serve_roof = SLOTS * HBM_BYTES_S / dec["weight_bytes"]
+    srv = {"card": smi, "slots": SLOTS, "requests": SERVE_REQS,
+           "prompt_tokens": SERVE_PLEN, "new_tokens": SERVE_NEW,
+           "max_len": SERVE_MAX_LEN, "kv": "int8 flat",
+           "tokens_per_s": tok_s, "seconds": serve["seconds"],
+           "mean_ttft_s": st["mean_ttft_s"],
+           "mean_latency_s": st["mean_latency_s"], "ticks": st["ticks"],
+           "decode_forwards": st["decode_forwards"],
+           "prefill_dispatches": st["prefill_dispatches"],
+           "peak_mem_gb": serve["peak_mem_gb"],
+           "roofline_tok_s": serve_roof,
+           "roofline_share": tok_s / serve_roof,
+           "decode_step": serve_prof}
+    emit({"serving": srv})
     log(f"[6/6] decode b=1: {dec['window_tok_s']:.1f} tok/s, "
         f"{dec['roofline_share']:.3f} of the HBM roofline, device idle "
-        f"share {dec['device_idle_share']}; total "
+        f"share {dec['device_idle_share']}; serving {SLOTS} slots: "
+        f"{tok_s:.1f} tok/s, {srv['roofline_share']:.4f} of the batched "
+        f"roofline, mean TTFT {st['mean_ttft_s']:.2f} s, mean latency "
+        f"{st['mean_latency_s']:.2f} s ({smi}); total "
         f"{time.perf_counter() - t_start:.0f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "unit")
-    emit({"kernels": [{k: r[k] for k in keys} for r in (q4_row, fl_row)]})
+    emit({"kernels": [{k: r[k] for k in keys}
+                      | {"launches_serving": r.get("launches_serving",
+                                                   r["launches"])}
+                      for r in (q4_row, fl_row, ad_row)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Runtime numerics switches read from the environment (port of the part of
-ggmlsharp_tpu/config.py that the llama main path reads)."""
+"""Runtime switches read from the environment (port of the part of
+ggmlsharp_tpu/config.py that the llama and serving paths read)."""
 from __future__ import annotations
 
 import os
@@ -15,3 +15,9 @@ def quantize_activations() -> bool:
     weight format's Q8 companion type before every quantized matmul;
     0 gives weight-only quantization."""
     return _env_bool("GGML_TPU_QUANT_ACTS", True)
+
+
+def int8_kv() -> bool:
+    """GGML_TPU_INT8_KV (default off): the serving engine's KV cache holds
+    int8 rows with per-(token, head) absmax scales."""
+    return _env_bool("GGML_TPU_INT8_KV", False)

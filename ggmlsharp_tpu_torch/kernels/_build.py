@@ -39,6 +39,9 @@ KERNELS = {
     "flash_attn": ("flash_attn.cu", "flash_attn_cached",
                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _F,
                     _P]),
+    "attn_decode": ("attn_decode.cu", "attn_decode",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _LL, _LL, _I, _F, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

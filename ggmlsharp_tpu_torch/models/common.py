@@ -72,6 +72,16 @@ def _einsum_attention(q, k_sl, v_sl, positions, n_rep):
     return out.reshape(B, Hq, S, D)
 
 
+def flash(q, k, v, npast, plain: bool = False):
+    """Causal flash attention of q [B, Hq, S, D] over k/v [B, Hkv, T, D]
+    with per-row npast: the kernel wrapper, or its plain version."""
+    from ..kernels.flash import _cached_ref, flash_attention_cached
+
+    if plain:
+        return _cached_ref(q, k, v, npast, 1.0 / q.shape[-1] ** 0.5)
+    return flash_attention_cached(q, k, v, npast)
+
+
 def cached_attention(q, k_new, v_new, cache, layer, positions,
                      n_rep: int = 1, prefix_bound: int | None = None,
                      plain: bool = False):
@@ -92,18 +102,16 @@ def cached_attention(q, k_new, v_new, cache, layer, positions,
         lim = int(positions[:, -1].max()) + 1
         t = next(b for b in _chunk_buckets(T) if lim <= b)
     if S > 8:
-        from ..kernels.flash import _cached_ref, flash_attention_cached
-
         npast = positions[:, 0]
-        if plain:
+        if plain or cache.int8:
             k_sl, v_sl = kvc.read_layer(cache, layer, q.dtype, t)
-            out = _cached_ref(q, k_sl, v_sl, npast, 1.0 / q.shape[-1] ** 0.5)
+            out = flash(q, k_sl, v_sl, npast, plain)
         else:
             # the stored rows (bf16) go in as a prefix view; kernel and
             # plain version widen them to f32: read_layer's values for the
             # f32 queries of the llama path
-            out = flash_attention_cached(q, cache.k[layer][:, :, :t],
-                                         cache.v[layer][:, :, :t], npast)
+            out = flash(q, cache.k[layer][:, :, :t], cache.v[layer][:, :, :t],
+                        npast, plain)
     else:
         k_sl, v_sl = kvc.read_layer(cache, layer, q.dtype, t)
         out = _einsum_attention(q, k_sl, v_sl, positions, n_rep)

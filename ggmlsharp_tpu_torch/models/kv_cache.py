@@ -1,11 +1,20 @@
-"""Head-major KV cache (port of ggmlsharp_tpu/models/kv_cache.py).
+"""KV cache: head-major or flat, float or INT8 (port of
+ggmlsharp_tpu/models/kv_cache.py).
 
-One [B, H_kv, T, D] buffer per layer for K and one for V (bf16 by default),
-plus ``length`` int32 [B], the tokens filled in each batch slot. Unlike the
-JAX package, whose functional updates XLA turns into in-place writes under
-buffer donation, this port writes rows IN PLACE (``index_copy_``): a cache
-handed to ``update_layer`` is modified, and the returned cache shares its
-buffers. The flat [B, T, E_kv] and INT8 caches are not ported yet.
+Two layouts a layer, one buffer for K and one for V:
+  * head-major [B, H_kv, T, D] (bf16 by default): the b = 1 decode path;
+  * flat [B, T, E_kv] token rows (lane j belongs to head j // D, the order
+    ``merge_heads`` gives): the serving path, whose decode runs the
+    attn_decode kernel.
+An INT8 cache stores int8 rows beside f32 absmax scales a (token, head):
+[B, H_kv, T, 1] head-major, [B, T, H_kv] flat. ``length`` int32 [B] counts
+the tokens filled in each batch slot.
+
+Unlike the JAX package, whose functional updates XLA turns into in-place
+writes under buffer donation, this port writes rows IN PLACE (one
+``index_put_`` a buffer): a cache handed to ``update_layer`` or
+``update_layer_flat`` is modified, and the returned cache shares its
+buffers. The TPU write formulations (``_unroll_writes``) are not ported.
 """
 from __future__ import annotations
 
@@ -18,9 +27,19 @@ from ..device import resolve_device
 
 @dataclass
 class KVCache:
-    k: list  # L x [B, H_kv, T, D]
+    k: list  # L x [B, H_kv, T, D] or L x [B, T, E_kv] (storage dtype or int8)
     v: list
+    k_scale: list | None  # L x [B, H_kv, T, 1] or [B, T, H_kv] f32, INT8 only
+    v_scale: list | None
     length: torch.Tensor  # [B] int32
+
+    @property
+    def int8(self) -> bool:
+        return self.k[0].dtype == torch.int8
+
+    @property
+    def is_flat(self) -> bool:
+        return self.k[0].dim() == 3
 
     @property
     def n_layer(self) -> int:
@@ -32,40 +51,127 @@ class KVCache:
 
     @property
     def max_len(self) -> int:
-        return self.k[0].shape[2]
+        return self.k[0].shape[1 if self.is_flat else 2]
 
 
 def init_cache(n_layer, batch, n_head_kv, n_ctx, head_dim,
-               dtype=torch.bfloat16, device=None) -> KVCache:
+               dtype=torch.bfloat16, int8: bool = False, flat: bool = False,
+               device=None) -> KVCache:
+    """flat=True: per-layer [B, T, H_kv * D] buffers of token rows.
+    int8=True: int8 rows plus f32 scales (``dtype`` is then unused)."""
     device = resolve_device(device)
-    shape = (batch, n_head_kv, n_ctx, head_dim)
-    return KVCache(
-        [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layer)],
-        [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layer)],
-        torch.zeros((batch,), dtype=torch.int32, device=device),
-    )
+    if flat:
+        shape, sshape = (batch, n_ctx, n_head_kv * head_dim), \
+            (batch, n_ctx, n_head_kv)
+    else:
+        shape, sshape = (batch, n_head_kv, n_ctx, head_dim), \
+            (batch, n_head_kv, n_ctx, 1)
+
+    def bufs(shp, dt):
+        return [torch.zeros(shp, dtype=dt, device=device)
+                for _ in range(n_layer)]
+
+    store = torch.int8 if int8 else dtype
+    return KVCache(bufs(shape, store), bufs(shape, store),
+                   bufs(sshape, torch.float32) if int8 else None,
+                   bufs(sshape, torch.float32) if int8 else None,
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
-def update_layer(cache: KVCache, layer: int, k_new, v_new, positions) -> KVCache:
-    """Write k_new/v_new [B, H_kv, S, D] at ``positions`` int [B, S] of one
-    layer, in place (rows cast to the cache dtype). Returns ``cache``."""
+def _quant_rows(x):
+    """[..., D] -> int8 values and an f32 scale a row (absmax / 127, round
+    half to even, clip to +-127; a zero row gets scale 0 and values 0)."""
+    amax = x.abs().amax(dim=-1, keepdim=True).to(torch.float32)
+    scale = amax / 127.0
+    inv = torch.where(scale > 0,
+                      1.0 / torch.where(scale > 0, scale,
+                                        torch.ones_like(scale)),
+                      torch.zeros_like(scale))
+    q = torch.clamp(torch.round(x.to(torch.float32) * inv), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _write_rows(buf, rows, positions, time_axis: int):
+    """buf[b, ..., positions[b, s], ...] = rows[b, ..., s, ...] along
+    ``time_axis`` (1 flat, 2 head-major), in one index_put_."""
+    B, S = positions.shape
     idx = positions.long()
-    for buf, rows in ((cache.k[layer], k_new), (cache.v[layer], v_new)):
-        rows = rows.to(buf.dtype)
-        for b in range(buf.shape[0]):
-            buf[b].index_copy_(1, idx[b], rows[b])
+    bidx = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    rows = rows.to(buf.dtype)
+    if time_axis == 1:  # buf [B, T, X], rows [B, S, X]
+        buf.index_put_((bidx, idx), rows)
+    else:  # buf [B, H, T, X], rows [B, H, S, X]: write through [B, T, H, X]
+        buf.transpose(1, 2).index_put_((bidx, idx), rows.transpose(1, 2))
+    return buf
+
+
+def update_layer(cache: KVCache, layer: int, k_new, v_new,
+                 positions) -> KVCache:
+    """Write k_new/v_new [B, H_kv, S, D] at ``positions`` int [B, S] of one
+    layer of a head-major cache, in place (INT8: quantized a (token, head)
+    row). Returns ``cache``."""
+    if cache.int8:
+        for bufs, sbufs, rows in ((cache.k, cache.k_scale, k_new),
+                                  (cache.v, cache.v_scale, v_new)):
+            q, s = _quant_rows(rows)
+            _write_rows(bufs[layer], q, positions, 2)
+            _write_rows(sbufs[layer], s, positions, 2)
+        return cache
+    _write_rows(cache.k[layer], k_new, positions, 2)
+    _write_rows(cache.v[layer], v_new, positions, 2)
     return cache
 
 
 def read_layer(cache: KVCache, layer: int, compute_dtype=torch.float32,
                t: int | None = None):
-    """K, V of one layer as ``compute_dtype`` [B, H_kv, t, D]: the first
-    ``t`` rows (all by default)."""
+    """K, V of one layer of a head-major cache as ``compute_dtype``
+    [B, H_kv, t, D] (dequantized for INT8): the first ``t`` rows (all by
+    default)."""
     t = cache.max_len if t is None else t
-    return (cache.k[layer][:, :, :t].to(compute_dtype),
-            cache.v[layer][:, :, :t].to(compute_dtype))
+    k, v = cache.k[layer][:, :, :t], cache.v[layer][:, :, :t]
+    if cache.int8:
+        k = k.to(torch.float32) * cache.k_scale[layer][:, :, :t]
+        v = v.to(torch.float32) * cache.v_scale[layer][:, :, :t]
+    return k.to(compute_dtype), v.to(compute_dtype)
+
+
+def update_layer_flat(cache: KVCache, layer: int, k_rows, v_rows,
+                      positions) -> KVCache:
+    """Write flat rows k_rows/v_rows [B, S, E] at ``positions`` int [B, S]
+    of one layer of a flat cache, in place. INT8 caches quantize a
+    (token, head), the head-major granularity, with scales [B, S, H].
+    Returns ``cache``."""
+    if cache.int8:
+        H = cache.k_scale[layer].shape[-1]
+        B, S, E = k_rows.shape
+        for bufs, sbufs, rows in ((cache.k, cache.k_scale, k_rows),
+                                  (cache.v, cache.v_scale, v_rows)):
+            q, s = _quant_rows(rows.to(torch.float32).reshape(B, S, H, E // H))
+            _write_rows(bufs[layer], q.reshape(B, S, E), positions, 1)
+            _write_rows(sbufs[layer], s.reshape(B, S, H), positions, 1)
+        return cache
+    _write_rows(cache.k[layer], k_rows, positions, 1)
+    _write_rows(cache.v[layer], v_rows, positions, 1)
+    return cache
+
+
+def read_layer_flat(cache: KVCache, layer: int, t: int):
+    """The first ``t`` rows of one layer of a flat cache as f32
+    [B, t, E] (dequantized for INT8)."""
+    k, v = cache.k[layer][:, :t], cache.v[layer][:, :t]
+    if not cache.int8:
+        return k.to(torch.float32), v.to(torch.float32)
+    B, _, E = k.shape
+    H = cache.k_scale[layer].shape[-1]
+
+    def deq(rows, s):
+        return (rows.to(torch.float32).reshape(B, t, H, E // H)
+                * s[:, :t, :, None]).reshape(B, t, E)
+
+    return deq(k, cache.k_scale[layer]), deq(v, cache.v_scale[layer])
 
 
 def advance(cache: KVCache, n) -> KVCache:
     """A cache over the same buffers with every slot ``n`` tokens longer."""
-    return KVCache(cache.k, cache.v, cache.length + n)
+    return KVCache(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                   cache.length + n)

@@ -1,4 +1,5 @@
-"""Llama family (port of ggmlsharp_tpu/models/llama.py, head-major cache).
+"""Llama family (port of ggmlsharp_tpu/models/llama.py; head-major or flat
+KV cache, float or INT8).
 
 RMSNorm pre-norm, rotary embeddings (ggml interleaved mode by default),
 SwiGLU MLP, optional GQA. Parameters are plain dicts that mirror the JAX
@@ -42,6 +43,10 @@ class LlamaConfig:
     @property
     def head_dim(self):
         return self.n_embd // self.n_head
+
+    @property
+    def supports_flat_kv(self):  # forward handles the flat [B, T, E] cache
+        return True
 
 
 LLAMA_7B = LlamaConfig()
@@ -220,11 +225,65 @@ def _rms(x, g, eps):
     return rms_norm(x.to(torch.float32), eps=eps).to(x.dtype) * g
 
 
+def _flat_attention(q, k, v, cache, i, positions, cfg: LlamaConfig,
+                    prefix_bound, cached_prefix, plain):
+    """Attention of one layer over a flat [B, T, E_kv] cache (the serving
+    path; llama.py:318-442 of the JAX package). Writes this call's K/V rows
+    (quantized for INT8), then:
+      * S == 1: the attn_decode kernel over the live rows, the fresh row
+        attended unquantized;
+      * S <= 8 or cached_prefix: exact GQA attention over the live rows,
+        dequantized (flash over a head-major copy when S > 8);
+      * otherwise (prefill from an empty prefix): flash over this call's
+        own fresh, unquantized K/V.
+    Returns [B, S, Hq * D] in q's dtype."""
+    from ..kernels.attn_decode import _decode_ref, flash_decode_flat
+    from .common import _einsum_attention, flash
+
+    B, Hq, S, hd = q.shape
+    Hkv = cfg.n_head_kv
+    kn, vn = merge_heads(k), merge_heads(v)
+    cache = kvc.update_layer_flat(cache, i, kn, vn, positions)
+    t = cache.max_len if prefix_bound is None else \
+        min(int(prefix_bound), cache.max_len)
+    if S == 1:
+        scales = {}
+        if cache.int8:
+            scales = {"k_scale": cache.k_scale[i][:, :t],
+                      "v_scale": cache.v_scale[i][:, :t]}
+        decode = _decode_ref if plain else flash_decode_flat
+        out = decode(merge_heads(q)[:, 0].reshape(B, Hq, hd), kn[:, 0],
+                     vn[:, 0], cache.k[i][:, :t], cache.v[i][:, :t],
+                     positions[:, 0], Hkv, hd, **scales)
+        return out.reshape(B, 1, Hq * hd).to(q.dtype)
+    if cached_prefix if cached_prefix is not None else S <= 8:
+        # a multi-token step over a possibly non-empty prefix: the rows of
+        # this call were just written (quantized for INT8) and are read
+        # back with the prefix, as a head-major copy in q's dtype
+        kc, vc = kvc.read_layer_flat(cache, i, t)
+        k_all = kc.reshape(B, t, Hkv, hd).transpose(1, 2).to(q.dtype)
+        v_all = vc.reshape(B, t, Hkv, hd).transpose(1, 2).to(q.dtype)
+        if S > 8:
+            a = flash(q, k_all.contiguous(), v_all.contiguous(),
+                      positions[:, 0], plain)
+        else:
+            a = _einsum_attention(q, k_all, v_all, positions, Hq // Hkv)
+    else:
+        # prefill from the empty prefix over this call's fresh K/V
+        a = flash(q, k.contiguous(), v.contiguous(), positions[:, 0], plain)
+    return merge_heads(a).to(q.dtype)
+
+
 def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
-            prefix_bound: int | None = None, plain: bool = False):
+            prefix_bound: int | None = None,
+            cached_prefix: bool | None = None, plain: bool = False):
     """tokens/positions: int [B, S]. Returns (logits f32 [B, S, n_vocab],
     cache advanced by S). The cache is written in place. prefix_bound: a
     host-side bound on the live cache prefix (see sampling.length_bucket).
+    cached_prefix: whether a multi-token call over a flat cache attends the
+    cache's live prefix (True: needed when positions do not start at 0, as
+    in prefix-cached or chunked prefill) or flash over its own fresh K/V
+    only (False); None means True for S <= 8.
     plain: run the kernels' plain PyTorch versions (a card run's reference)."""
     x = get_rows(params["tok_embd"], tokens)
     x = x.to(params["norm"].dtype)
@@ -241,9 +300,16 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
         v = split_heads(qkv[..., nq + nkv:], cfg.n_head_kv)
         q = rope(q, positions, mode=cfg.rope_mode, base=cfg.rope_base)
         k = rope(k, positions, mode=cfg.rope_mode, base=cfg.rope_base)
-        a, cache = cached_attention(q, k, v, cache, i, positions, n_rep=n_rep,
-                                    prefix_bound=prefix_bound, plain=plain)
-        x = x + linear(blk["wo"], merge_heads(a), plain=plain)
+        if cache.is_flat:
+            a = _flat_attention(q, k, v, cache, i, positions, cfg,
+                                prefix_bound, cached_prefix, plain)
+        else:
+            a, cache = cached_attention(q, k, v, cache, i, positions,
+                                        n_rep=n_rep,
+                                        prefix_bound=prefix_bound,
+                                        plain=plain)
+            a = merge_heads(a)
+        x = x + linear(blk["wo"], a, plain=plain)
 
         h = _rms(x, blk["ffn_norm"], cfg.rms_eps)
         gu = linear(blk["w_gate_up"], h, plain=plain)
@@ -260,8 +326,15 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
 
 
 def new_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
-              max_len: int | None = None, device=None) -> kvc.KVCache:
-    """Head-major [B, H_kv, T, D] cache (T = max_len or n_ctx)."""
+              int8: bool = False, max_len: int | None = None,
+              flat: bool | None = None, device=None) -> kvc.KVCache:
+    """A cache of T = max_len or n_ctx rows. flat=None: the flat
+    [B, T, E_kv] layout (decode through the attn_decode kernel) for an
+    INT8 cache whose E_kv is a multiple of 128, head-major [B, H_kv, T, D]
+    otherwise: the JAX package's defaults."""
+    if flat is None:
+        flat = int8 and (cfg.n_head_kv * cfg.head_dim) % 128 == 0
     return kvc.init_cache(cfg.n_layer, batch, cfg.n_head_kv,
                           max_len or cfg.n_ctx, cfg.head_dim, dtype=dtype,
+                          int8=int8, flat=flat,
                           device=resolve_device(device))

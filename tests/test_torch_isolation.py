@@ -56,12 +56,17 @@ def test_entry_points_default_to_the_card():
     from ggmlsharp_tpu_torch import GType, resolve_device
     from ggmlsharp_tpu_torch.models import kv_cache, llama
     from ggmlsharp_tpu_torch.quant import from_wire
+    from ggmlsharp_tpu_torch.serving import Engine
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     cfg = llama.TINY_LLAMA
     for call in (lambda: llama.new_cache(cfg, 1),
                  lambda: kv_cache.init_cache(1, 1, 1, 8, 8),
+                 lambda: kv_cache.init_cache(1, 1, 1, 8, 128, flat=True,
+                                             int8=True),
+                 lambda: llama.new_cache(cfg, 1, int8=True),
+                 lambda: Engine(llama.forward, cfg, {}, int8_kv=True),
                  lambda: from_wire(GType.Q4_0, bytes(18), (1, 32)),
                  lambda: llama.init_params(cfg),
                  lambda: llama.synthetic_q4_0_params(cfg),

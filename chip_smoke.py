@@ -8,8 +8,8 @@ version):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ with nvcc, one process a source;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the two paths give it;
-  4. the two paths, each with the launch counters reset just before and
+     shapes the paths give it;
+  4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
         from a seed), a 16-token prompt and 32 greedy tokens through
@@ -19,13 +19,19 @@ version):
         each; then a replay of its admission prefill and decode steps
         through the kernels and the plain path, and three concurrent HTTP
         requests through serving.EngineServer;
+     c. GPT-2 Q8_0 greedy decode at b = 1, at the full width and depth of
+        GPT-2 124M and of GPT-2 774M (random Q8_0 weights from a seed, flat
+        bf16 cache): a 16-token prompt (per-matmul Q8_0 kernel, flash, the
+        fused MLP kernel) and 32 greedy tokens (one whole-block kernel call
+        a layer) through sampling.generate;
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound;
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
      time, peak device memory, and a torch.profiler window of decode steps
      (device time, launches and host operator calls a step, idle share);
      serving tokens/s, time to first token, latency, ticks, peak memory
-     and the share of the batched roofline.
+     and the share of the batched roofline; the same decode measurements
+     for GPT-2 124M and 774M.
 
 Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
@@ -52,6 +58,21 @@ ATTN_TIMING_T = (64, 256, 2048)  # attn_decode timing: cache rows a slot
 Q4_SHAPES = [("wqkv", 12288, 4096, 32), ("wo", 4096, 4096, 32),
              ("w_gate_up", 22016, 4096, 32), ("w_down", 4096, 11008, 32),
              ("output", 32000, 4096, 1)]
+
+
+GPT2_V = 50257
+
+
+def gpt2_shapes(E):
+    """The Q8_0 matmuls of a GPT-2 of width E: (name, N, K)."""
+    return [("c_attn", 3 * E, E), ("c_proj", E, E), ("c_fc", 4 * E, E),
+            ("mlp_c_proj", E, 4 * E), ("wte", GPT2_V, E)]
+
+
+def gpt2_configs():
+    from ggmlsharp_tpu_torch.models import gpt2
+
+    return [("124M", gpt2.GPT2_124M), ("774M", gpt2.GPT2_774M)]
 
 
 def log(msg):
@@ -203,6 +224,9 @@ FLASH_CASES = [  # (label, B, Hq, Hkv, S, T used, T allocated, D, npast, kv dtyp
     ("d64_f32", 1, 8, 4, 20, 64, 64, 64, [10], "f32"),
     # the serving path's admission prefill: 8 fresh prompts, f32 K/V
     ("serve_prefill", SLOTS, 32, 32, 16, 16, 16, 128, [0] * SLOTS, "f32"),
+    # the GPT-2 paths' prefill: the call's own fresh f32 K/V, D 64
+    ("gpt2_124m_prefill", 1, 12, 12, 16, 16, 16, 64, [0], "f32"),
+    ("gpt2_774m_prefill", 1, 20, 20, 16, 16, 16, 64, [0], "f32"),
 ]
 
 
@@ -324,9 +348,10 @@ def run_main_path(cfg, params, prompt):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
-    want = {"matmul_q4_0": 129 * (1 + N_NEW),  # 4 a block x 32 + LM head
-            "flash_attn": cfg.n_layer,         # one a layer, prefill only
-            "attn_decode": 0}                  # a head-major cache: einsum
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "matmul_q4_0": 129 * (1 + N_NEW),  # 4 a block x 32 + LM head
+        "flash_attn": cfg.n_layer}         # one a layer, prefill only
+    # attn_decode 0: a head-major cache decodes through einsum
     emit({"main_path": {"tokens": toks[0].tolist(), "seconds": seconds,
                         "launches": counts, "expected_launches": want}})
     if counts != want:
@@ -339,9 +364,10 @@ def run_main_path(cfg, params, prompt):
     return toks, counts
 
 
-def compare_plain(cfg, params, prompt, quant_acts, cache_dtype, tol,
+def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
                   toks=None):
-    """Kernel path vs plain path, step for step, under one setting.
+    """Kernel path vs plain path of ``model`` (models.llama or models.gpt2),
+    step for step, under one setting.
 
     ``toks``: greedy tokens that sampling.generate made under this setting;
     None runs generate here. Both paths then replay generate's prefill and
@@ -354,20 +380,20 @@ def compare_plain(cfg, params, prompt, quant_acts, cache_dtype, tol,
 
     import torch
 
-    from ggmlsharp_tpu_torch.models import llama, sampling
+    from ggmlsharp_tpu_torch.models import sampling
 
     os.environ["GGML_TPU_QUANT_ACTS"] = "1" if quant_acts else "0"
     try:
         if toks is None:
             toks, _ = sampling.generate(
-                llama.forward, cfg, params, prompt,
-                llama.new_cache(cfg, 1, dtype=cache_dtype), N_CMP)
+                model.forward, cfg, params, prompt,
+                model.new_cache(cfg, 1, dtype=cache_dtype), N_CMP)
         out = {}
         with torch.inference_mode():
             for plain in (False, True):
                 prefill, step = sampling.make_decode_fns(
-                    functools.partial(llama.forward, plain=plain), cfg)
-                cache = llama.new_cache(cfg, 1, dtype=cache_dtype)
+                    functools.partial(model.forward, plain=plain), cfg)
+                cache = model.new_cache(cfg, 1, dtype=cache_dtype)
                 cur = PROMPT_LEN
                 lg, cache = prefill(params, prompt, cache,
                                     t_eff=sampling.length_bucket(cur, cfg.n_ctx))
@@ -387,7 +413,9 @@ def compare_plain(cfg, params, prompt, quant_acts, cache_dtype, tol,
     gap = top2[:, 0] - top2[:, 1]
     same = ref.argmax(-1) == tk
     decided = gap > 2 * tol
-    row = {"quantize_acts": quant_acts, "cache": str(cache_dtype),
+    row = {"model": model.__name__.rsplit(".", 1)[-1],
+           "n_layer": cfg.n_layer, "quantize_acts": quant_acts,
+           "cache": str(cache_dtype),
            "steps": N_CMP, "max_abs_err": err,
            "max_abs_logit": float(ref.abs().max()), "tol": tol,
            "tokens_are_kernel_argmax": bool((kern.argmax(-1) == tk).all()),
@@ -455,9 +483,10 @@ def run_serving(cfg, params):
     counts = dict(kernels.LAUNCHES)
     st = eng.stats()
     n_dec, n_pre = st["decode_forwards"], st["prefill_dispatches"]
-    want = {"matmul_q4_0": (4 * cfg.n_layer + 1) * (n_dec + n_pre),
-            "flash_attn": cfg.n_layer * n_pre,
-            "attn_decode": cfg.n_layer * n_dec}
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "matmul_q4_0": (4 * cfg.n_layer + 1) * (n_dec + n_pre),
+        "flash_attn": cfg.n_layer * n_pre,
+        "attn_decode": cfg.n_layer * n_dec}
     res = {"requests": len(results), "seconds": seconds, "stats": st,
            "launches": counts, "expected_launches": want,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -771,6 +800,388 @@ def time_attn_decode(dev, gen, counts):
                     "bf16 head-major copy"}
 
 
+def q8_bound_ms(b, n, k, q8_acts):
+    """Bytes: Q8_0 weight (34 B a 32-weight block), x and y once each.
+    Operations: 2*b*n*k, int8 x int8 on the tensor cores after the Q8_0
+    activation round trip, f32 FMAs when x stays f32 (the LM head)."""
+    bytes_ = n * k * 34 // 32 + b * k * 4 + b * n * 4
+    t_bytes = bytes_ / HBM_BYTES_S
+    t_ops = 2 * b * n * k / (INT8_OP_S if q8_acts else F32_FLOP_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_q8_0(dev, gen):
+    """Kernel 4 (through its wrapper) vs plain at every GPT-2 124M and 774M
+    shape and one ragged one (K/32 no multiple of 8), b in {1, 8, 16, 64}.
+    Tolerance: the two sum K f32 products in different orders; allow 1e-5
+    of sum_k |x_k w_nk| (2^-24 is 6e-8 a rounding). Then whether a row's
+    result is bit for bit the same at every b."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused, q8_0_matmul
+    from ggmlsharp_tpu_torch.models.gpt2 import random_q8_0
+    from ggmlsharp_tpu_torch.ops import mul_mat_q
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    worst, rows = 0.0, []
+    shapes = [(f"{tag}_{name}", n, k) for tag, cfg in gpt2_configs()
+              for name, n, k in gpt2_shapes(cfg.n_embd)]
+    for name, n, k in shapes + [("ragged", 100, 352)]:
+        w = random_q8_0(n, k, gen, dev)
+        wabs = dequantize(w).abs()
+        for b in (1, 8, 16, 64):
+            x = torch.randn((b, k), generator=gen, device=dev)
+            qa = not name.endswith("wte")  # the LM head skips the round trip
+            got = mul_mat_q_fused(w, x, quantize_acts=qa)
+            want = mul_mat_q(w, x, quantize_acts=qa)
+            scale = x.abs() @ wabs.T
+            err = (got - want).abs()
+            torch.cuda.synchronize()
+            ok = bool(torch.isfinite(got).all()) and bool(
+                (err <= 1e-5 * scale).all())
+            e = float(err.max())
+            worst = max(worst, e)
+            rows.append({"shape": name, "b": b, "n": n, "k": k,
+                         "max_abs_err": e,
+                         "max_err_over_sum_abs": float((err / scale).max()),
+                         "ok": ok})
+            if not ok:
+                emit({"q8_0_check": rows})
+                raise SystemExit(f"Q8_0 kernel disagrees at {name} b={b}")
+        del w, wabs
+    w = random_q8_0(2304, 768, gen, dev)
+    x = torch.randn((64, 768), generator=gen, device=dev)
+    y = q8_0_matmul(x, w["qs"], w["d"])
+    same = all(torch.equal(y[:b], q8_0_matmul(x[:b].contiguous(), w["qs"],
+                                              w["d"])) for b in (1, 8, 16))
+    emit({"q8_0_check": rows, "rows_independent_of_b": same})
+    if not same:
+        raise SystemExit("a Q8_0 row's result depends on b")
+    return worst
+
+
+def mlp_inputs(E, gen, dev, copies=1):
+    """``copies`` random (W1, b1, W2, b2) of a GPT-2 MLP of width E."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models.gpt2 import random_q8_0
+
+    out = []
+    for _ in range(copies):
+        b1 = (torch.randn(4 * E, generator=gen, device=dev) * 0.1).bfloat16()
+        b2 = (torch.randn(E, generator=gen, device=dev) * 0.1).bfloat16()
+        out.append((random_q8_0(4 * E, E, gen, dev), b1,
+                    random_q8_0(E, 4 * E, gen, dev), b2))
+    return out
+
+
+def check_mlp_fused(dev, gen):
+    """Kernel 8 vs plain _ff_ref at both widths, rows in {1, 16, 64}, with
+    and without the Q8_0 round trip of the input (made by the same PyTorch
+    code on both sides). Tolerance: f32 summation order through two chained
+    products: h may differ by 1e-5 of s1 = sum |x w1| (GELU's slope is at
+    most 1.13), so y by 1e-5 of (1.13 s1 + |h|) |W2|^T."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, flash_ff_q8
+    from ggmlsharp_tpu_torch.ops import gelu, mul_mat_q
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    worst, rows = 0.0, []
+    for tag, cfg in gpt2_configs():
+        E = cfg.n_embd
+        ((w1, b1, w2, b2),) = mlp_inputs(E, gen, dev)
+        w1abs, w2abs = dequantize(w1).abs(), dequantize(w2).abs()
+        for n_rows in (1, 16, 64):
+            x = torch.randn((n_rows, E), generator=gen, device=dev)
+            for qa in (False, True):
+                got = flash_ff_q8(w1, b1, w2, b2, x, quantize_acts=qa)
+                want = _ff_ref(w1, b1, w2, b2, x, quantize_acts=qa)
+                h = gelu(mul_mat_q(w1, x, quantize_acts=qa) + b1)
+                scale = (1.13 * (x.abs() @ w1abs.T) + h.abs()) @ w2abs.T
+                err = (got - want).abs()
+                torch.cuda.synchronize()
+                ok = bool(torch.isfinite(got).all()) and bool(
+                    (err <= 1e-5 * scale).all())
+                e = float(err.max())
+                worst = max(worst, e)
+                rows.append({"config": tag, "rows": n_rows,
+                             "quantize_acts": qa, "max_abs_err": e, "ok": ok})
+                if not ok:
+                    emit({"mlp_fused_check": rows})
+                    raise SystemExit(f"mlp_fused_q8 disagrees: {rows[-1]}")
+    emit({"mlp_fused_check": rows})
+    return worst
+
+
+def gpt2_blocks(cfg, n, seed):
+    """n random GPT-2 blocks of cfg's width (non-trivial gains and biases)."""
+    import dataclasses
+
+    from ggmlsharp_tpu_torch.models import gpt2
+
+    small = dataclasses.replace(cfg, n_layer=n, n_vocab=256)
+    return gpt2.synthetic_q8_0_params(small, seed)["blocks"]
+
+
+def check_gpt2_layer(dev, gen):
+    """Kernel 11 vs plain _layer_ref at both widths, T in {256, 1024}, npast
+    in {0, 1, T/2, T - 1} over a bf16 cache, and one f32-cache case.
+    Tolerance (all f32, values of magnitude ~4): y through five chained
+    products and an online softmax 5e-5 + 5e-5 |want|; k_new, v_new (one
+    product after the layer norm) 2e-5 + 2e-5 |want|. One wrong or missing
+    cache row would move y by ~1e-3."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
+
+    worst, rows = 0.0, []
+    for tag, cfg in gpt2_configs():
+        E = cfg.n_embd
+        blk = gpt2_blocks(cfg, 1, SEED + 1)[0]
+        cases = [(torch.bfloat16, T, n) for T in (256, 1024)
+                 for n in (0, 1, T // 2, T - 1)] + [(torch.float32, 256, 100)]
+        for dt, T, npast in cases:
+            kc = torch.randn((1024, E), generator=gen, device=dev).to(dt)
+            vc = torch.randn((1024, E), generator=gen, device=dev).to(dt)
+            x = torch.randn((1, E), generator=gen, device=dev)
+            np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+            args = (blk, x, kc[:T], vc[:T], np_t, cfg.n_head, cfg.ln_eps)
+            got, want = gpt2_layer_step(*args), _layer_ref(*args)
+            torch.cuda.synchronize()
+            errs, ok = [], True
+            for g, w, tol in zip(got, want, (5e-5, 2e-5, 2e-5)):
+                err = (g - w).abs()
+                ok = ok and bool(torch.isfinite(g).all()) and bool(
+                    (err <= tol + tol * w.abs()).all())
+                errs.append(float(err.max()))
+            worst = max(worst, errs[0])
+            rows.append({"config": tag, "cache": str(dt), "T": T,
+                         "npast": npast, "max_abs_err_y": errs[0],
+                         "max_abs_err_k_new": errs[1],
+                         "max_abs_err_v_new": errs[2], "ok": ok})
+            if not ok:
+                emit({"gpt2_layer_check": rows})
+                raise SystemExit(f"gpt2_layer disagrees: {rows[-1]}")
+    emit({"gpt2_layer_check": rows})
+    return worst
+
+
+def run_gpt2_path(tag, cfg, params, prompt):
+    """sampling.generate of GPT-2 through the kernels, counters reset just
+    before and read just after."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import gpt2, sampling
+
+    cache = gpt2.new_cache(cfg, 1)
+    if not cache.is_flat or cache.int8:
+        raise SystemExit("GPT-2 at batch 1 must take the flat float cache")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks, cache = sampling.generate(gpt2.forward, cfg, params, prompt, cache,
+                                    N_NEW)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    L = cfg.n_layer
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "gpt2_layer": L * N_NEW,           # one a block a decode step
+        "mlp_fused_q8": L,                 # the prefill's 16 rows
+        "flash_attn": L,                   # prefill only
+        # prefill: c_attn, c_proj a block + LM head; a decode step: LM head
+        "matmul_q8_0": 2 * L + 1 + N_NEW}
+    emit({"gpt2_path": {"config": tag, "tokens": toks[0].tolist(),
+                        "seconds": seconds, "launches": counts,
+                        "expected_launches": want}})
+    if counts != want:
+        raise SystemExit(f"GPT-2 {tag} launch counts {counts} != {want}")
+    if toks.shape != (1, N_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.n_vocab:
+        raise SystemExit(f"bad tokens {toks}")
+    if int(cache.length[0]) != PROMPT_LEN + N_NEW:
+        raise SystemExit("cache length is wrong")
+    # a stream that repeats one token would leave the token checks below
+    # a single argmax to compare
+    if len(set(toks[0].tolist())) < N_NEW // 2:
+        raise SystemExit(f"GPT-2 {tag}: the greedy stream collapsed: {toks}")
+    return toks, counts
+
+
+def time_q8_0(dev, gen):
+    """Cold-L2 kernel, plain and library (bf16 torch.matmul against the
+    weight dequantized to bf16) times at each GPT-2 shape, b in {1, 16}.
+    On the path: c_attn, c_proj and wte at b = 16 (prefill), wte at b = 1
+    (every decode step)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import q8_0_matmul
+    from ggmlsharp_tpu_torch.models.gpt2 import random_q8_0
+    from ggmlsharp_tpu_torch.ops import mul_mat_q
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    rows = []
+    for tag, cfg in gpt2_configs():
+        for name, n, k in gpt2_shapes(cfg.n_embd):
+            copies = max(2, -(-4 * L2_BYTES // (n * k * 34 // 32)))
+            reps = max(64, copies)  # every copy is touched between two reads
+            ws = [random_q8_0(n, k, gen, dev) for _ in range(copies)]
+            wb = [dequantize(w).to(torch.bfloat16) for w in ws]
+            for b in (1, 16):
+                x = torch.randn((b, k), generator=gen, device=dev)
+                xb = x.to(torch.bfloat16)
+                kern = time_ms(lambda i: q8_0_matmul(
+                    x, ws[i % copies]["qs"], ws[i % copies]["d"]), reps)
+                plain = time_ms(lambda i: mul_mat_q(
+                    ws[i % copies], x, quantize_acts=False), 8)
+                lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
+                              reps)
+                bound, by = q8_bound_ms(b, n, k, q8_acts=name != "wte")
+                on_path = (b == 16 and name in ("c_attn", "c_proj", "wte")) \
+                    or (b == 1 and name == "wte")
+                rows.append({"config": tag, "shape": name, "b": b, "n": n,
+                             "k": k, "ms": kern, "plain_ms": plain,
+                             "library_ms": lib, "bound_ms": bound,
+                             "bound_by": by, "roofline_share": bound / kern,
+                             "cold_copies": copies, "on_path": on_path})
+            del ws, wb
+            torch.cuda.empty_cache()
+    emit({"q8_0_timing": rows})
+    r = next(r for r in rows if r["config"] == "124M" and r["shape"] == "wte"
+             and r["b"] == 1)
+    return {"name": "matmul_q8_0", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/matmul_q8_0.cu",
+            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:572",
+            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+            "unit": "one decode token of GPT-2 124M: the LM head launch "
+                    "(50257 x 768, b=1, f32 x), cold L2; library = bf16 "
+                    "torch.matmul"}
+
+
+def mlp_bound_ms(B, E):
+    """Bytes: both Q8_0 weights, x and y once each (h is no tensor of the
+    model). Operations: the first product is int8 x int8 after the input's
+    Q8_0 round trip, the second f32 x int8 (h is never quantized)."""
+    F = 4 * E
+    bytes_ = 2 * F * E * 34 // 32 + 2 * B * E * 4 + (F + E) * 2
+    t_bytes = bytes_ / HBM_BYTES_S
+    t_ops = 2 * B * F * E / INT8_OP_S + 2 * B * E * F / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_mlp_fused(dev, gen):
+    """Cold-L2 kernel, plain and library times of the prefill's MLP call
+    (16 rows) at both widths. Library: two bf16 torch.matmuls around
+    F.gelu(approximate="tanh") over weights dequantized to bf16."""
+    import torch
+    import torch.nn.functional as F_
+
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, mlp_fused_q8
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    rows = []
+    for tag, cfg in gpt2_configs():
+        E = cfg.n_embd
+        copies = max(2, -(-4 * L2_BYTES // (8 * E * E * 34 // 32)))
+        ws = mlp_inputs(E, gen, dev, copies)
+        wb = [(dequantize(w1).bfloat16(), dequantize(w2).bfloat16())
+              for w1, _, w2, _ in ws]
+        x = torch.randn((PROMPT_LEN, E), generator=gen, device=dev)
+        xb = x.bfloat16()
+
+        def lib(i):
+            (w1, w2), (_, b1, _, b2) = wb[i % copies], ws[i % copies]
+            return F_.gelu(xb @ w1.T + b1, approximate="tanh") @ w2.T + b2
+
+        def kern(i):
+            w1, b1, w2, b2 = ws[i % copies]
+            return mlp_fused_q8(x, w1, b1, w2, b2)
+
+        def plain(i):
+            return _ff_ref(*ws[i % copies], x, quantize_acts=False)
+
+        bound, by = mlp_bound_ms(PROMPT_LEN, E)
+        ms = time_ms(kern, 64)
+        rows.append({"config": tag, "rows": PROMPT_LEN, "ms": ms,
+                     "plain_ms": time_ms(plain, 8),
+                     "library_ms": time_ms(lib, 64), "bound_ms": bound,
+                     "bound_by": by, "roofline_share": bound / ms,
+                     "cold_copies": copies})
+        del ws, wb
+        torch.cuda.empty_cache()
+    emit({"mlp_fused_timing": rows})
+    r = rows[0]
+    return {"name": "mlp_fused_q8", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_q8.cu",
+            "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:130",
+            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+            "unit": "one prefill MLP call of GPT-2 124M: 16 rows, E 768, "
+                    "F 3072, cold L2; library = two bf16 torch.matmuls + "
+                    "F.gelu"}
+
+
+def layer_bound_ms(E, npast):
+    """Bytes: the four Q8_0 weights, the live bf16 K/V rows, biases and
+    gains, x, y, k_new, v_new once each. Operations: f32 FMAs of the four
+    products and of attention over the live rows."""
+    bytes_ = 12 * E * E * 34 // 32 + 2 * npast * E * 2 + 13 * E * 2 + 16 * E
+    flops = 2 * 12 * E * E + 4 * (npast + 1) * E
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_gpt2_layer(dev, gen):
+    """Cold-L2 kernel and plain times of one decode step's block call at both
+    widths: T 256 (the path's bucket), npast 32 (the path's steps run 16 to
+    47), bf16 cache; each call a different block's weights, as a decode step
+    walks the layers. No single PyTorch call computes a whole block:
+    library_ms is null."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
+
+    rows, T, npast = [], 256, 32
+    for tag, cfg in gpt2_configs():
+        E = cfg.n_embd
+        copies = max(2, -(-4 * L2_BYTES // (12 * E * E * 34 // 32)))
+        blocks = gpt2_blocks(cfg, copies, SEED + 2)
+        kc = torch.randn((T, E), generator=gen, device=dev).bfloat16()
+        vc = torch.randn((T, E), generator=gen, device=dev).bfloat16()
+        x = torch.randn((1, E), generator=gen, device=dev)
+        np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+
+        def kern(i):
+            return gpt2_layer_step(blocks[i % copies], x, kc, vc, np_t,
+                                   cfg.n_head, cfg.ln_eps)
+
+        def plain(i):
+            return _layer_ref(blocks[i % copies], x, kc, vc, np_t,
+                              cfg.n_head, cfg.ln_eps)
+
+        bound, by = layer_bound_ms(E, npast)
+        ms = time_ms(kern, 2 * copies)
+        rows.append({"config": tag, "T": T, "npast": npast, "ms": ms,
+                     "plain_ms": time_ms(plain, 8), "library_ms": None,
+                     "bound_ms": bound, "bound_by": by,
+                     "roofline_share": bound / ms, "cold_copies": copies})
+        del blocks
+        torch.cuda.empty_cache()
+    emit({"gpt2_layer_timing": rows})
+    r = rows[0]
+    return {"name": "gpt2_layer", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/gpt2_layer.cu",
+            "replaces": "ggmlsharp_tpu/kernels/gpt2_layer.py:131",
+            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+            "unit": "one block call of a GPT-2 124M decode step: E 768, "
+                    "12 heads, T 256, npast 32, bf16 KV, cold L2; no "
+                    "library call computes a block"}
+
+
 def profile_steps(one_step, n_steps):
     """torch.profiler over n_steps decode steps: device kernel time, kernel
     launches and aten calls a step, and the kernels that take the most
@@ -811,21 +1222,23 @@ def profile_steps(one_step, n_steps):
                             for name, (t, n) in top]}
 
 
-def measure_decode(cfg, params, prompt):
+def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width):
     """Prefill time, then per-token decode latency at b = 1 (host clock,
     synchronised each step), a 64-token window without per-step sync, and a
-    traced 8-step window (profile_steps)."""
+    traced 8-step window (profile_steps). ``model``: models.llama or
+    models.gpt2; weight_bytes: the matmul weights a token reads once;
+    kv_width: elements of one cached K (or V) row."""
     import torch
 
-    from ggmlsharp_tpu_torch.models import llama, sampling
+    from ggmlsharp_tpu_torch.models import sampling
 
-    prefill, step = sampling.make_decode_fns(llama.forward, cfg)
+    prefill, step = sampling.make_decode_fns(model.forward, cfg)
     T = cfg.n_ctx
     res = {}
     with torch.inference_mode():
         pre = []
         for _ in range(3):
-            cache = llama.new_cache(cfg, 1)
+            cache = model.new_cache(cfg, 1)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = prefill(params, prompt, cache,
@@ -871,15 +1284,22 @@ def measure_decode(cfg, params, prompt):
                                 if isinstance(dev_ms, float)
                                 else "not measured")
     # bytes a token must move: every matmul weight once plus the live K/V
-    wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
-                 blk.items() if key.startswith("w")) + params["output"].nbytes()
     live = cur - n_win // 2
-    kv_bytes = 2 * cfg.n_layer * live * cfg.n_head_kv * cfg.head_dim * 2
-    res["weight_bytes"] = wbytes
-    res["bytes_per_token"] = wbytes + kv_bytes
-    res["roofline_tok_s"] = HBM_BYTES_S / (wbytes + kv_bytes)
+    kv_bytes = 2 * cfg.n_layer * live * kv_width * 2
+    res["weight_bytes"] = weight_bytes
+    res["bytes_per_token"] = weight_bytes + kv_bytes
+    res["roofline_tok_s"] = HBM_BYTES_S / (weight_bytes + kv_bytes)
     res["roofline_share"] = res["window_tok_s"] / res["roofline_tok_s"]
     return res
+
+
+def gpt2_weight_bytes(params):
+    """Q8_0 bytes a GPT-2 decode token reads once: four weights a block and
+    wte (the LM head)."""
+    return params["wte"].nbytes() + sum(
+        blk[grp][key].nbytes() for blk in params["blocks"]
+        for grp, key in (("attn", "c_attn_w"), ("attn", "c_proj_w"),
+                         ("mlp", "c_fc_w"), ("mlp", "c_proj_w")))
 
 
 def main():
@@ -895,7 +1315,7 @@ def main():
         return 1
     sys.path.insert(0, repo)
     from ggmlsharp_tpu_torch import kernels
-    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.models import gpt2, llama
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -923,10 +1343,15 @@ def main():
     rms_rows = rms_rows_independent_of_b(dev, gen)
     fl_err = check_flash(dev, gen)
     ad_err = check_attn_decode(dev, gen)
+    q8_err = check_q8_0(dev, gen)
+    mlp_err = check_mlp_fused(dev, gen)
+    layer_err = check_gpt2_layer(dev, gen)
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
         f"{q4_err:.3g} (rows independent of b: {q4_rows_ok}), flash "
-        f"{fl_err:.3g}, attn_decode {ad_err:.3g}; rms rows differing "
-        f"alone vs in a batch of {SLOTS}: "
+        f"{fl_err:.3g}, attn_decode {ad_err:.3g}, Q8_0 {q8_err:.3g} (rows "
+        f"independent of b), mlp_fused_q8 {mlp_err:.3g}, gpt2_layer "
+        f"{layer_err:.3g}; rms rows differing alone vs in a batch of "
+        f"{SLOTS}: "
         f"{ {k: v['rms_rows_differ'] for k, v in rms_rows.items()} }")
 
     cfg = llama.LLAMA_7B
@@ -942,9 +1367,9 @@ def main():
     # logits up to 5): tol 0.1. Weight-only with an f32 cache, its own
     # generate run: the paths differ in f32 summation order alone
     # (measured 6e-6): tol 1e-3.
-    compare_plain(cfg, params, prompt, quant_acts=True,
+    compare_plain(llama, cfg, params, prompt, quant_acts=True,
                   cache_dtype=torch.bfloat16, tol=0.1, toks=toks)
-    compare_plain(cfg, params, prompt, quant_acts=False,
+    compare_plain(llama, cfg, params, prompt, quant_acts=False,
                   cache_dtype=torch.float32, tol=1e-3)
     log(f"[4/6] a. Llama-7B Q4_0: {PROMPT_LEN}-token prompt + {N_NEW} "
         f"greedy tokens through the kernels; launches {counts}")
@@ -961,17 +1386,64 @@ def main():
         f"{SLOTS} slots, launches {serve_counts}; replay vs plain max abs "
         f"err {replay_err:.3g}; HTTP: {http['requests']} requests answered")
 
+    # GPT-2 Q8_0 at b = 1, 124M and 774M. Tolerances as for llama: under the
+    # path's own settings (the prefill's Q8_0 activations, bf16 cache rows) a
+    # one-ulp difference can move a rounding by a whole step (measured
+    # 0.036-0.040 on logits up to 4.9): tol 0.1, 2.5 times that; weight-only
+    # with an f32 cache the paths differ in f32 summation order alone
+    # (measured 6e-6): tol 1e-3. The synthetic stream keeps changing
+    # (run_gpt2_path holds that), so the 8 tokens are 8 different argmaxes.
+    g_models = {}
+    for tag, gcfg in gpt2_configs():
+        gparams = gpt2.synthetic_q8_0_params(gcfg, seed=SEED)
+        gprompt = torch.randint(0, gcfg.n_vocab, (1, PROMPT_LEN),
+                                generator=gen, device=dev, dtype=torch.int32)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # llama's weights stay resident
+        torch.cuda.reset_peak_memory_stats()
+        gtoks, gcounts = run_gpt2_path(tag, gcfg, gparams, gprompt)
+        gpeak = torch.cuda.max_memory_allocated() - base \
+            + gpt2_weight_bytes(gparams)
+        e1 = compare_plain(gpt2, gcfg, gparams, gprompt, quant_acts=True,
+                           cache_dtype=torch.bfloat16, tol=0.1, toks=gtoks)
+        e2 = compare_plain(gpt2, gcfg, gparams, gprompt, quant_acts=False,
+                           cache_dtype=torch.float32, tol=1e-3)
+        g_models[tag] = (gcfg, gparams, gprompt, gcounts, gpeak)
+        log(f"[4/6] c. GPT-2 {tag} Q8_0: {PROMPT_LEN}-token prompt + {N_NEW} "
+            f"greedy tokens through the kernels; launches {gcounts}; vs "
+            f"plain max abs err {e1:.3g} (path settings), {e2:.3g} "
+            f"(weight-only, f32 cache)")
+
     q4_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_err
     fl_row = time_flash(dev, gen, counts)
     fl_row["max_abs_err"] = fl_err
     ad_row = time_attn_decode(dev, gen, serve_counts)
     ad_row["max_abs_err"] = ad_err
-    for row in (q4_row, fl_row):
-        row["launches_serving"] = serve_counts[row["name"]]
+    q8_row = time_q8_0(dev, gen)
+    q8_row["max_abs_err"] = q8_err
+    mlp_row = time_mlp_fused(dev, gen)
+    mlp_row["max_abs_err"] = mlp_err
+    layer_row = time_gpt2_layer(dev, gen)
+    layer_row["max_abs_err"] = layer_err
+    rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row)
+    g124, g774 = g_models["124M"][3], g_models["774M"][3]
+    for row in rows:
+        name = row["name"]
+        row["launches_llama_b1"] = counts[name]
+        row["launches_serving"] = serve_counts[name]
+        row["launches_gpt2_124m"] = g124[name]
+        row["launches_gpt2_774m"] = g774[name]
+        # the count on the first main path that runs the kernel
+        row["launches"] = next(c[name] for c in (counts, serve_counts, g124)
+                               if c[name])
     log("[5/6] kernel times taken")
 
-    dec = measure_decode(cfg, params, prompt)
+    llama_wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
+                       blk.items() if key.startswith("w")) \
+        + params["output"].nbytes()
+    dec = measure_decode(llama, cfg, params, prompt, llama_wbytes,
+                         cfg.n_head_kv * cfg.head_dim)
     dec["peak_mem_gb"] = peak / 1e9
     dec["q4_0_share_of_step"] = q4_row["ms"] / dec["step_ms_median"]
     dec["card"] = smi
@@ -998,15 +1470,26 @@ def main():
         f"share {dec['device_idle_share']}; serving {SLOTS} slots: "
         f"{tok_s:.1f} tok/s, {srv['roofline_share']:.4f} of the batched "
         f"roofline, mean TTFT {st['mean_ttft_s']:.2f} s, mean latency "
-        f"{st['mean_latency_s']:.2f} s ({smi}); total "
-        f"{time.perf_counter() - t_start:.0f} s")
+        f"{st['mean_latency_s']:.2f} s ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    for tag, (gcfg, gparams, gprompt, _, gpeak) in g_models.items():
+        gdec = measure_decode(gpt2, gcfg, gparams, gprompt,
+                              gpt2_weight_bytes(gparams), gcfg.n_embd)
+        gdec.update(config=tag, peak_mem_gb=gpeak / 1e9, card=smi)
+        emit({"gpt2_decode": gdec})
+        log(f"[6/6] GPT-2 {tag} decode b=1: {gdec['window_tok_s']:.1f} "
+            f"tok/s, {gdec['roofline_share']:.4f} of the HBM roofline "
+            f"({gdec['roofline_tok_s']:.0f} tok/s), step median "
+            f"{gdec['step_ms_median']:.3f} ms, device idle share "
+            f"{gdec['device_idle_share']}")
+    log(f"total {time.perf_counter() - t_start:.0f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "unit")
-    emit({"kernels": [{k: r[k] for k in keys}
-                      | {"launches_serving": r.get("launches_serving",
-                                                   r["launches"])}
-                      for r in (q4_row, fl_row, ad_row)]})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "unit",
+            "launches_llama_b1", "launches_serving", "launches_gpt2_124m",
+            "launches_gpt2_774m")
+    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``), the flags and the kernel's ``-D`` macros (``set_defines``:
+a source's tunables, for a probe that times the alternatives), so an edited
 source is rebuilt and an unchanged one is reused. ``_build/`` is listed in
 ``.gitignore``. Every C entry returns ``cudaGetLastError()`` after its launch;
 ``check`` raises if that is not 0. Pointers and the stream go to C as
@@ -19,6 +21,7 @@ it (``reset_launches`` before the run, read after).
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -42,11 +45,27 @@ KERNELS = {
     "attn_decode": ("attn_decode.cu", "attn_decode",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _LL, _LL, _I, _F, _P]),
+    "matmul_q8_0": ("matmul_q8_0.cu", "q8_0_matmul",
+                    [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "mlp_fused_q8": ("mlp_fused_q8.cu", "mlp_fused_q8",
+                     [_P] * 9 + [_I] * 5 + [_P]),
+    "gpt2_layer": ("gpt2_layer.cu", "gpt2_layer",
+                   [_P] * 25 + [_I] * 4 + [_F, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
+_DEFINES: dict = {}  # kernel name -> its -D macros, ("NAME=VALUE", ...)
 _ENTRIES: dict = {}
 _LOCK = threading.Lock()
+
+
+def set_defines(name: str, defines=()):
+    """From now on build and load kernel ``name`` with these ``-D`` macros
+    ("NAME=VALUE" strings overriding the tunables its source declares);
+    () restores the source's defaults."""
+    with _LOCK:
+        _DEFINES[name] = tuple(defines)
+        _ENTRIES.pop(name, None)
 
 
 def reset_launches():
@@ -66,9 +85,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, KERNELS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(
+        NVCC_FLAGS + _DEFINES.get(name, ())).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for src in [os.path.join(CSRC, KERNELS[name][0]), *headers]:
+        with open(src, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -84,7 +106,8 @@ def build(names=None) -> dict:
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [nvcc_path(), *NVCC_FLAGS,
+               *(f"-D{d}" for d in _DEFINES.get(name, ())), "-o", tmp,
                os.path.join(CSRC, KERNELS[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

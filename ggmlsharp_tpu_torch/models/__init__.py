@@ -1,3 +1,3 @@
-from . import common, kv_cache, llama, sampling
+from . import common, gpt2, kv_cache, llama, sampling
 
-__all__ = ["common", "kv_cache", "llama", "sampling"]
+__all__ = ["common", "gpt2", "kv_cache", "llama", "sampling"]

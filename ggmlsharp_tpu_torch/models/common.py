@@ -9,25 +9,59 @@ prefill attention go through the kernel wrappers.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import ops
 from ..config import quantize_activations
+from ..device import resolve_device
 from ..ops.attention import NEG_INF
-from ..quant.formats import QTensor
+from ..quant.formats import QTensor, from_wire
 from . import kv_cache as kvc
 
 
-def linear(w, x, quantize_acts: bool | None = None, plain: bool = False):
-    """y = x·wᵀ. w: [n_out, k] tensor or QTensor; x: [..., k].
+def _from_numpy(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def params_from_jax(tree, device=None):
+    """Carry a JAX parameter tree (any model's) across, values bit for bit.
+    Dense leaves are numpy arrays (bf16 included); a quantized leaf is a
+    tuple ``(gtype, ggml wire bytes, shape)``, as the JAX package's
+    ``io.gguf.qtensor_to_wire`` gives its bytes."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        if isinstance(x, tuple):
+            gtype, wire, shape = x
+            return from_wire(gtype, wire, shape, device=dev)
+        return _from_numpy(x).to(dev)
+
+    return conv(tree)
+
+
+def linear(w, x, b=None, quantize_acts: bool | None = None,
+           plain: bool = False):
+    """y = x·wᵀ (+ b). w: [n_out, k] tensor or QTensor; x: [..., k].
     quantize_acts defaults to GGML_TPU_QUANT_ACTS (on): the ggml Q8 round
     trip of the activations before a quantized matmul."""
     if isinstance(w, QTensor):
         if quantize_acts is None:
             quantize_acts = quantize_activations()
         mm = ops.mul_mat_q if plain else ops.mul_mat
-        return mm(w, x, quantize_acts=quantize_acts)
-    return ops.mul_mat_f(w, x)
+        y = mm(w, x, quantize_acts=quantize_acts)
+    else:
+        y = ops.mul_mat_f(w, x)
+    return y if b is None else y + b
 
 
 def split_heads(x, n_head):

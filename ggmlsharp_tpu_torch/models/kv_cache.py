@@ -2,17 +2,21 @@
 ggmlsharp_tpu/models/kv_cache.py).
 
 Two layouts a layer, one buffer for K and one for V:
-  * head-major [B, H_kv, T, D] (bf16 by default): the b = 1 decode path;
+  * head-major [B, H_kv, T, D] (bf16 by default);
   * flat [B, T, E_kv] token rows (lane j belongs to head j // D, the order
-    ``merge_heads`` gives): the serving path, whose decode runs the
-    attn_decode kernel.
+    ``merge_heads`` gives), read by the kernels that take whole token rows.
+Which layout a model's ``new_cache`` picks by default, as the JAX package's:
+  * llama: an INT8 cache is flat (serving: decode through the attn_decode
+    kernel), a float one head-major (b = 1 decode: einsum attention);
+  * gpt2: a float cache at batch 1 is flat (decode through the whole-block
+    gpt2_layer kernel); batch > 1 or INT8 is head-major.
 An INT8 cache stores int8 rows beside f32 absmax scales a (token, head):
 [B, H_kv, T, 1] head-major, [B, T, H_kv] flat. ``length`` int32 [B] counts
 the tokens filled in each batch slot.
 
 Unlike the JAX package, whose functional updates XLA turns into in-place
 writes under buffer donation, this port writes rows IN PLACE (one
-``index_put_`` a buffer): a cache handed to ``update_layer`` or
+``index_put_`` a head-major buffer, one ``index_copy_`` a flat one): a cache handed to ``update_layer`` or
 ``update_layer_flat`` is modified, and the returned cache shares its
 buffers. The TPU write formulations (``_unroll_writes``) are not ported.
 """
@@ -91,17 +95,14 @@ def _quant_rows(x):
     return q.to(torch.int8), scale
 
 
-def _write_rows(buf, rows, positions, time_axis: int):
-    """buf[b, ..., positions[b, s], ...] = rows[b, ..., s, ...] along
-    ``time_axis`` (1 flat, 2 head-major), in one index_put_."""
+def _write_rows(buf, rows, positions):
+    """Head-major buf[b, :, positions[b, s]] = rows[b, :, s] (buf
+    [B, H, T, X], rows [B, H, S, X]), in one index_put_ through the
+    [B, T, H, X] view."""
     B, S = positions.shape
-    idx = positions.long()
     bidx = torch.arange(B, device=buf.device)[:, None].expand(B, S)
-    rows = rows.to(buf.dtype)
-    if time_axis == 1:  # buf [B, T, X], rows [B, S, X]
-        buf.index_put_((bidx, idx), rows)
-    else:  # buf [B, H, T, X], rows [B, H, S, X]: write through [B, T, H, X]
-        buf.transpose(1, 2).index_put_((bidx, idx), rows.transpose(1, 2))
+    buf.transpose(1, 2).index_put_((bidx, positions.long()),
+                                   rows.to(buf.dtype).transpose(1, 2))
     return buf
 
 
@@ -114,11 +115,11 @@ def update_layer(cache: KVCache, layer: int, k_new, v_new,
         for bufs, sbufs, rows in ((cache.k, cache.k_scale, k_new),
                                   (cache.v, cache.v_scale, v_new)):
             q, s = _quant_rows(rows)
-            _write_rows(bufs[layer], q, positions, 2)
-            _write_rows(sbufs[layer], s, positions, 2)
+            _write_rows(bufs[layer], q, positions)
+            _write_rows(sbufs[layer], s, positions)
         return cache
-    _write_rows(cache.k[layer], k_new, positions, 2)
-    _write_rows(cache.v[layer], v_new, positions, 2)
+    _write_rows(cache.k[layer], k_new, positions)
+    _write_rows(cache.v[layer], v_new, positions)
     return cache
 
 
@@ -135,23 +136,45 @@ def read_layer(cache: KVCache, layer: int, compute_dtype=torch.float32,
     return k.to(compute_dtype), v.to(compute_dtype)
 
 
+def flat_index(cache: KVCache, positions) -> torch.Tensor:
+    """Row numbers long [B * S] of ``positions`` int [B, S] in a flat cache's
+    buffers seen as [B * T, X]. It depends on the positions alone, so a
+    forward makes it once and hands it to every layer's
+    ``update_layer_flat``."""
+    idx = positions.long()
+    B = idx.shape[0]
+    if B > 1:
+        idx = idx + torch.arange(B, device=idx.device)[:, None] * cache.max_len
+    return idx.reshape(-1)
+
+
+def _write_flat(buf, rows, index):
+    """buf [B, T, X] seen as [B * T, X]: rows [B, S, X] go to ``index``
+    (flat_index), in one index_copy_."""
+    X = buf.shape[-1]
+    buf.view(-1, X).index_copy_(0, index, rows.reshape(-1, X).to(buf.dtype))
+
+
 def update_layer_flat(cache: KVCache, layer: int, k_rows, v_rows,
-                      positions) -> KVCache:
+                      positions, index=None) -> KVCache:
     """Write flat rows k_rows/v_rows [B, S, E] at ``positions`` int [B, S]
-    of one layer of a flat cache, in place. INT8 caches quantize a
-    (token, head), the head-major granularity, with scales [B, S, H].
-    Returns ``cache``."""
+    of one layer of a flat cache, in place. ``index``: flat_index(cache,
+    positions) where the caller made it already (once for all layers). INT8
+    caches quantize a (token, head), the head-major granularity, with
+    scales [B, S, H]. Returns ``cache``."""
+    if index is None:
+        index = flat_index(cache, positions)
     if cache.int8:
         H = cache.k_scale[layer].shape[-1]
         B, S, E = k_rows.shape
         for bufs, sbufs, rows in ((cache.k, cache.k_scale, k_rows),
                                   (cache.v, cache.v_scale, v_rows)):
             q, s = _quant_rows(rows.to(torch.float32).reshape(B, S, H, E // H))
-            _write_rows(bufs[layer], q.reshape(B, S, E), positions, 1)
-            _write_rows(sbufs[layer], s.reshape(B, S, H), positions, 1)
+            _write_flat(bufs[layer], q, index)
+            _write_flat(sbufs[layer], s, index)
         return cache
-    _write_rows(cache.k[layer], k_rows, positions, 1)
-    _write_rows(cache.v[layer], v_rows, positions, 1)
+    _write_flat(cache.k[layer], k_rows, index)
+    _write_flat(cache.v[layer], v_rows, index)
     return cache
 
 

@@ -14,16 +14,16 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..dtypes import GType
 from ..ops import get_rows, rms_norm, rope, silu
-from ..quant.formats import QTensor, concat_qtensors, from_wire
+from ..quant.formats import QTensor, concat_qtensors
 from ..quant.quantize import quantize
 from . import kv_cache as kvc
 from .common import cached_attention, linear, merge_heads, split_heads
+from .common import params_from_jax  # noqa: F401  (llama.params_from_jax)
 
 
 @dataclass(frozen=True)
@@ -133,35 +133,6 @@ def quantize_params(params, gtype: GType):
     return fuse_params(out)
 
 
-def _from_numpy(arr) -> torch.Tensor:
-    arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
-
-
-def params_from_jax(tree, device=None):
-    """Carry a JAX parameter tree across, values bit for bit. Dense leaves
-    are numpy arrays (bf16 included); a quantized leaf is a tuple
-    ``(gtype, ggml wire bytes, shape)``, as the JAX package's
-    ``io.gguf.qtensor_to_wire`` gives its bytes."""
-    dev = resolve_device(device)
-
-    def conv(x):
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [conv(v) for v in x]
-        if isinstance(x, tuple):
-            gtype, wire, shape = x
-            return from_wire(gtype, wire, shape, device=dev)
-        return _from_numpy(x).to(dev)
-
-    return conv(tree)
-
-
 def random_q4_0(n: int, k: int, generator: torch.Generator, device,
                 scale: float | None = None) -> QTensor:
     """A random Q4_0 [n, k] drawn on ``device``: nibbles uniform in 1..15
@@ -225,11 +196,11 @@ def _rms(x, g, eps):
     return rms_norm(x.to(torch.float32), eps=eps).to(x.dtype) * g
 
 
-def _flat_attention(q, k, v, cache, i, positions, cfg: LlamaConfig,
+def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
                     prefix_bound, cached_prefix, plain):
     """Attention of one layer over a flat [B, T, E_kv] cache (the serving
     path; llama.py:318-442 of the JAX package). Writes this call's K/V rows
-    (quantized for INT8), then:
+    (quantized for INT8) at widx = kv_cache.flat_index of the positions, then:
       * S == 1: the attn_decode kernel over the live rows, the fresh row
         attended unquantized;
       * S <= 8 or cached_prefix: exact GQA attention over the live rows,
@@ -243,7 +214,7 @@ def _flat_attention(q, k, v, cache, i, positions, cfg: LlamaConfig,
     B, Hq, S, hd = q.shape
     Hkv = cfg.n_head_kv
     kn, vn = merge_heads(k), merge_heads(v)
-    cache = kvc.update_layer_flat(cache, i, kn, vn, positions)
+    cache = kvc.update_layer_flat(cache, i, kn, vn, positions, widx)
     t = cache.max_len if prefix_bound is None else \
         min(int(prefix_bound), cache.max_len)
     if S == 1:
@@ -292,6 +263,7 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
     hd = cfg.head_dim
     nq = cfg.n_head * hd
     nkv = cfg.n_head_kv * hd
+    widx = kvc.flat_index(cache, positions) if cache.is_flat else None
     for i, blk in enumerate(params["blocks"]):
         h = _rms(x, blk["attn_norm"], cfg.rms_eps)
         qkv = linear(blk["wqkv"], h, plain=plain)
@@ -301,7 +273,7 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
         q = rope(q, positions, mode=cfg.rope_mode, base=cfg.rope_base)
         k = rope(k, positions, mode=cfg.rope_mode, base=cfg.rope_base)
         if cache.is_flat:
-            a = _flat_attention(q, k, v, cache, i, positions, cfg,
+            a = _flat_attention(q, k, v, cache, i, positions, widx, cfg,
                                 prefix_bound, cached_prefix, plain)
         else:
             a, cache = cached_attention(q, k, v, cache, i, positions,

@@ -6,8 +6,9 @@ with rows of ``b`` (activations [..., k]) -> [..., n_out], i.e. ``b @ a.T``.
 Quantized semantics: activations are first rounded through the weight
 format's ``vec_dot_type`` (Q8_0 for Q4_0), then the dot of the two
 dequantized operands is taken in f32. ``mul_mat_q`` is that function in
-plain PyTorch; ``mul_mat`` sends a CUDA tensor to the hand-written kernel
-(``kernels.matmul_q``) and a CPU tensor to ``mul_mat_q``.
+plain PyTorch; ``mul_mat`` sends a CUDA tensor to the hand-written kernel of
+the weight's format (``kernels.matmul_q``: Q4_0, Q8_0) and a CPU tensor to
+``mul_mat_q``.
 """
 from __future__ import annotations
 

@@ -54,7 +54,7 @@ def test_entry_points_default_to_the_card():
     """With no card and no device argument, entry points raise; they never
     carry on on the CPU."""
     from ggmlsharp_tpu_torch import GType, resolve_device
-    from ggmlsharp_tpu_torch.models import kv_cache, llama
+    from ggmlsharp_tpu_torch.models import gpt2, kv_cache, llama
     from ggmlsharp_tpu_torch.quant import from_wire
     from ggmlsharp_tpu_torch.serving import Engine
 
@@ -71,7 +71,20 @@ def test_entry_points_default_to_the_card():
                  lambda: llama.init_params(cfg),
                  lambda: llama.synthetic_q4_0_params(cfg),
                  lambda: llama.params_from_jax({}),
+                 lambda: gpt2.init_params(gpt2.GPT2_TINY),
+                 lambda: gpt2.synthetic_q8_0_params(gpt2.GPT2_TINY),
+                 lambda: gpt2.new_cache(gpt2.GPT2_TINY, 1),
+                 lambda: gpt2.new_cache(gpt2.GPT2_TINY, 4, int8=True),
+                 lambda: gpt2.params_from_jax({}),
                  lambda: resolve_device()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"
+    assert gpt2.new_cache(gpt2.GPT2_TINY, 1, device="cpu").k[0].device.type \
+        == "cpu"
+
+
+def test_import_scan_covers_the_gpt2_slice():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"models/gpt2.py", "kernels/mlp_fused.py", "kernels/gpt2_layer.py",
+            "kernels/matmul_q.py", "ops/basic.py"} <= rel

@@ -24,6 +24,13 @@ version):
         bf16 cache): a 16-token prompt (per-matmul Q8_0 kernel, flash, the
         fused MLP kernel) and 32 greedy tokens (one whole-block kernel call
         a layer) through sampling.generate;
+     d. Llama-7B Q4_0 through its two fused routes, the weights of path a
+        plus the whole-block route's own wo copies: with both switches on
+        and a flat bf16 cache, the 16-token prompt (Q4_0 matmul, flash, the
+        fused SwiGLU MLP at 16 rows) and 32 greedy tokens (one whole-block
+        kernel call a layer, the LM head); then with the fused MLP alone
+        over the head-major cache, the prompt and 8 greedy tokens (the fused
+        MLP at b = 1, once a layer a token);
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound;
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
@@ -31,7 +38,7 @@ version):
      (device time, launches and host operator calls a step, idle share);
      serving tokens/s, time to first token, latency, ticks, peak memory
      and the share of the batched roofline; the same decode measurements
-     for GPT-2 124M and 774M.
+     for GPT-2 124M and 774M and for Llama-7B on its whole-block route.
 
 Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
@@ -50,6 +57,7 @@ INT8_OP_S = 1979e12    # H100 SXM int8 tensor cores, dense
 L2_BYTES = 50 * 2**20
 SEED = 0
 PROMPT_LEN, N_NEW, N_CMP = 16, 32, 8
+MLP_STEPS = 8  # decode steps of path d's fused-MLP-alone run
 # the serving path: bench.py's serve defaults at 8 slots, INT8 KV cache
 SLOTS, SERVE_MAX_LEN, SERVE_REQS, SERVE_PLEN, SERVE_NEW = 8, 256, 24, 16, 24
 REPLAY_STEPS = 8  # decode steps of the serving replay
@@ -365,7 +373,7 @@ def run_main_path(cfg, params, prompt):
 
 
 def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
-                  toks=None):
+                  toks=None, route=None, **cache_kw):
     """Kernel path vs plain path of ``model`` (models.llama or models.gpt2),
     step for step, under one setting.
 
@@ -375,7 +383,8 @@ def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
     that chose token i. Fails unless every row agrees within ``tol``, each
     token is the argmax of the kernel path's row, and each token is the
     plain argmax wherever the plain top-2 gap exceeds 2 * tol (logits
-    within tol of each other cannot reorder such a pair)."""
+    within tol of each other cannot reorder such a pair). ``route`` names
+    the path in the printed row; ``cache_kw`` goes to new_cache."""
     import functools
 
     import torch
@@ -387,13 +396,13 @@ def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
         if toks is None:
             toks, _ = sampling.generate(
                 model.forward, cfg, params, prompt,
-                model.new_cache(cfg, 1, dtype=cache_dtype), N_CMP)
+                model.new_cache(cfg, 1, dtype=cache_dtype, **cache_kw), N_CMP)
         out = {}
         with torch.inference_mode():
             for plain in (False, True):
                 prefill, step = sampling.make_decode_fns(
                     functools.partial(model.forward, plain=plain), cfg)
-                cache = model.new_cache(cfg, 1, dtype=cache_dtype)
+                cache = model.new_cache(cfg, 1, dtype=cache_dtype, **cache_kw)
                 cur = PROMPT_LEN
                 lg, cache = prefill(params, prompt, cache,
                                     t_eff=sampling.length_bucket(cur, cfg.n_ctx))
@@ -413,7 +422,7 @@ def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
     gap = top2[:, 0] - top2[:, 1]
     same = ref.argmax(-1) == tk
     decided = gap > 2 * tol
-    row = {"model": model.__name__.rsplit(".", 1)[-1],
+    row = {"model": model.__name__.rsplit(".", 1)[-1], "route": route,
            "n_layer": cfg.n_layer, "quantize_acts": quant_acts,
            "cache": str(cache_dtype),
            "steps": N_CMP, "max_abs_err": err,
@@ -1182,6 +1191,385 @@ def time_gpt2_layer(dev, gen):
                     "library call computes a block"}
 
 
+def llama_blocks(cfg, n, seed, gen, dev):
+    """n random llama blocks of cfg's widths with both fused routes packed
+    and non-trivial f32 gains for the whole-block route."""
+    import dataclasses
+
+    import torch
+
+    from ggmlsharp_tpu_torch.models import llama
+
+    small = dataclasses.replace(cfg, n_layer=n, n_vocab=256)
+    blocks = llama.synthetic_q4_0_params(small, seed, mlp_fused=True,
+                                         layer_fused=True)["blocks"]
+    for blk in blocks:
+        for key in ("g1", "g2"):
+            blk["layer_fused"][key] = 1.0 + 0.1 * torch.randn(
+                cfg.n_embd, generator=gen, device=dev)
+    return small, blocks
+
+
+def check_mlp_fused_silu(dev, gen):
+    """Kernel 9 vs plain _ff_silu_ref at Llama-7B's E and F, rows in {1, 8,
+    16}, with and without the Q8_0 round trip of the input (made by the same
+    PyTorch code on both sides). Tolerance: f32 summation order through two
+    chained products. g and u may each differ by 1e-5 of their s = sum |x w|;
+    silu's slope is at most 1.1 and |silu(g)| <= |g|, so the gated product a
+    by 1e-5 of (1.1 |u| s_g + |g| s_u), and y by 1e-5 of that plus |a|,
+    through |W2|^T. That bound sums 15000 magnitudes and is far above what
+    random rounding leaves (measured 7e-10 of it), so y is also held to 5e-5
+    + 5e-5 |want| (measured 4.6e-6 on values up to 3.3): a dropped quant
+    block would move y by ~1e-2."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_silu_ref, flash_ff_silu_q4
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.ops import mul_mat_q, silu
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    cfg = llama.LLAMA_7B
+    E, F = cfg.n_embd, cfg.n_ff
+    w1 = llama.random_q4_0(2 * F, E, gen, dev)
+    w2 = llama.random_q4_0(E, F, gen, dev)
+    w1abs, w2abs = dequantize(w1).abs(), dequantize(w2).abs()
+    worst, rows = 0.0, []
+    for n_rows in (1, SLOTS, PROMPT_LEN):
+        x = torch.randn((n_rows, E), generator=gen, device=dev)
+        for qa in (False, True):
+            got = flash_ff_silu_q4(w1, w2, x, quantize_acts=qa)
+            want = _ff_silu_ref(w1, w2, x, quantize_acts=qa)
+            gu = mul_mat_q(w1, x, quantize_acts=qa)
+            g, u = gu[:, :F], gu[:, F:]
+            s1 = x.abs() @ w1abs.T
+            scale = (1.1 * u.abs() * s1[:, :F] + g.abs() * s1[:, F:]
+                     + (silu(g) * u).abs()) @ w2abs.T
+            err = (got - want).abs()
+            torch.cuda.synchronize()
+            ok = bool(torch.isfinite(got).all()) and bool(
+                (err <= 1e-5 * scale).all()) and bool(
+                (err <= 5e-5 + 5e-5 * want.abs()).all())
+            e = float(err.max())
+            worst = max(worst, e)
+            rows.append({"rows": n_rows, "quantize_acts": qa,
+                         "max_abs_err": e, "max_abs": float(want.abs().max()),
+                         "max_err_over_scale": float((err / scale).max()),
+                         "ok": ok})
+            if not ok:
+                emit({"mlp_fused_silu_check": rows})
+                raise SystemExit(f"mlp_fused_silu_q4 disagrees: {rows[-1]}")
+    emit({"mlp_fused_silu_check": rows})
+    return worst
+
+
+# whole-block check shapes: (label, n_head_kv, n_ff, rope mode)
+LAYER_SHAPES = [("7b_mha", 32, 11008, 0), ("7b_mha_neox", 32, 11008, 2),
+                # Mistral-7B's block: GQA n_rep 4, F 14336 (57 KB of shared
+                # memory for the gated product: over the 48 KB default)
+                ("gqa4_f14336", 8, 14336, 0)]
+LAYER_TOL = (5e-5, 2e-5, 2e-5)  # y, k_new, v_new: tol + tol * |want|
+
+
+def check_llama_layer(dev, gen):
+    """Kernel 10 vs plain _layer_ref at Llama-7B's block (MHA, D 128), rope
+    modes 0 and 2, and at one GQA shape; T 256 with npast in {0, 32, T - 1}
+    over a bf16 cache, npast 100 over an f32 cache, and T 2048 at npast
+    2047. Tolerance (all f32, values of magnitude ~4; gpt2_layer's bars): y
+    through five chained products of K up to 14336 and an online softmax
+    5e-5 + 5e-5 |want| (measured 1.7e-6); k_new, v_new (one product after
+    the norm, k rotated) 2e-5 + 2e-5 |want| (measured 9.5e-7). One wrong or
+    missing cache row would move y by ~1e-3."""
+    import dataclasses
+
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.llama_layer import _layer_ref, llama_layer_step
+    from ggmlsharp_tpu_torch.models import llama
+
+    worst, rows = 0.0, []
+    for label, hkv, n_ff, mode in LAYER_SHAPES:
+        cfg = dataclasses.replace(llama.LLAMA_7B, n_head_kv=hkv, n_ff=n_ff,
+                                  rope_mode=mode)
+        cfg, (blk,) = llama_blocks(cfg, 1, SEED + 1, gen, dev)
+        Ekv = cfg.n_head_kv * cfg.head_dim
+        cases = [(torch.bfloat16, 256, n) for n in (0, 32, 255)] \
+            + [(torch.float32, 256, 100), (torch.bfloat16, 2048, 2047)]
+        for dt, T, npast in cases:
+            kc = torch.randn((2048, Ekv), generator=gen, device=dev).to(dt)
+            vc = torch.randn((2048, Ekv), generator=gen, device=dev).to(dt)
+            x = torch.randn((1, cfg.n_embd), generator=gen, device=dev)
+            np_t = torch.tensor([npast], dtype=torch.int32, device=dev)
+            args = (blk, x, kc[:T], vc[:T], np_t, cfg)
+            got, want = llama_layer_step(*args), _layer_ref(*args)
+            torch.cuda.synchronize()
+            errs, ok = [], True
+            for g, w, tol in zip(got, want, LAYER_TOL):
+                err = (g - w).abs()
+                ok = ok and bool(torch.isfinite(g).all()) and bool(
+                    (err <= tol + tol * w.abs()).all())
+                errs.append(float(err.max()))
+            worst = max(worst, errs[0])
+            rows.append({"shape": label, "cache": str(dt), "T": T,
+                         "npast": npast, "max_abs_err_y": errs[0],
+                         "max_abs_err_k_new": errs[1],
+                         "max_abs_err_v_new": errs[2],
+                         "max_abs_y": float(want[0].abs().max()), "ok": ok})
+            if not ok:
+                emit({"llama_layer_check": rows})
+                raise SystemExit(f"llama_layer disagrees: {rows[-1]}")
+        del blk
+        torch.cuda.empty_cache()
+    emit({"llama_layer_check": rows})
+    return worst
+
+
+ATTN_LAYOUT_CASES = [  # (label, B, Hq, Hkv, T, npast a slot), D 128, bf16
+    ("attn_mha_T64", SLOTS, 32, 32, 64, [0, 63, 5, 17, 40, 1, 62, 33]),
+    ("attn_mha_T2048", SLOTS, 32, 32, 2048,
+     [0, 2047, 100, 1000, 1500, 7, 2046, 512]),
+    ("attn_gqa4_T2048", SLOTS, 32, 8, 2048,
+     [0, 2047, 100, 1000, 1500, 7, 2046, 512]),
+]
+
+
+def check_attn_layout(dev, gen):
+    """Kernel 3 with the "attn" lane map vs its plain version (permute to
+    element order, _decode_ref, permute back): rtol 2e-4 / atol 2e-5, as for
+    the heads map."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref_attn,
+                                                         flash_decode_flat_attn)
+
+    worst, rows = 0.0, []
+    for label, B, Hq, Hkv, T, npast in ATTN_LAYOUT_CASES:
+        q, kn, vn, ((kc, vc, _),) = decode_inputs(dev, gen, B, Hq, Hkv, T,
+                                                  "bf16")
+        np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+        args = (q.reshape(B, Hq * 128), kn, vn, kc, vc, np_t, Hq, Hkv, 128)
+        got, want = flash_decode_flat_attn(*args), _decode_ref_attn(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (err <= 2e-5 + 2e-4 * want.abs()).all())
+        e = float(err.max())
+        worst = max(worst, e)
+        rows.append({"case": label, "max_abs_err": e, "ok": ok})
+        if not ok:
+            emit({"attn_layout_check": rows})
+            raise SystemExit(f"attn_decode (attn lane map) disagrees in "
+                             f"case {label}")
+    emit({"attn_layout_check": rows})
+    return worst
+
+
+def strip_routes(params, keys):
+    """The same tree (tensors shared) without the fused routes' block
+    entries named in ``keys``."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [{k: v for k, v in blk.items() if k not in keys}
+                     for blk in params["blocks"]]
+    return out
+
+
+def run_fused_path(cfg, params, prompt, label, n_new, want, **cache_kw):
+    """sampling.generate of Llama through a fused route, counters reset just
+    before and read just after; ``want``: the launches expected."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import llama, sampling
+
+    cache = llama.new_cache(cfg, 1, **cache_kw)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks, cache = sampling.generate(llama.forward, cfg, params, prompt, cache,
+                                    n_new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | want
+    emit({"llama_fused_path": {"route": label, "tokens": toks[0].tolist(),
+                               "seconds": seconds, "launches": counts,
+                               "expected_launches": want}})
+    if counts != want:
+        raise SystemExit(f"{label}: launch counts {counts} != {want}")
+    if toks.shape != (1, n_new) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.n_vocab:
+        raise SystemExit(f"bad tokens {toks}")
+    if int(cache.length[0]) != PROMPT_LEN + n_new:
+        raise SystemExit("cache length is wrong")
+    return toks, counts
+
+
+def mlp_silu_bound_ms(B, E, F):
+    """Bytes: both Q4_0 weights (18 B a 32-weight block), x and y once each
+    (the gated product is no tensor of the model). Operations: the gate/up
+    product is int8 x int4 after the input's Q8_0 round trip, the down
+    product f32 x int4 (the gated product is never quantized)."""
+    bytes_ = 3 * E * F * 18 // 32 + 2 * B * E * 4
+    t_bytes = bytes_ / HBM_BYTES_S
+    t_ops = 4 * B * F * E / INT8_OP_S + 2 * B * E * F / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_mlp_fused_silu(dev, gen):
+    """Cold-L2 kernel, plain and library times of one Llama-7B MLP call at 1
+    row (a decode step), 8 (a serving step) and 16 (the prompt). Library: two
+    bf16 torch.matmuls around F.silu over weights dequantized to bf16."""
+    import torch
+    import torch.nn.functional as F_
+
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_silu_ref, mlp_fused_silu_q4
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    cfg = llama.LLAMA_7B
+    E, F = cfg.n_embd, cfg.n_ff
+    copies = max(2, -(-4 * L2_BYTES // (3 * E * F * 18 // 32)))
+    ws = [(llama.random_q4_0(2 * F, E, gen, dev),
+           llama.random_q4_0(E, F, gen, dev)) for _ in range(copies)]
+    wb = [(dequantize(w1).bfloat16(), dequantize(w2).bfloat16())
+          for w1, w2 in ws]
+    rows = []
+    for n_rows in (1, SLOTS, PROMPT_LEN):
+        x = torch.randn((n_rows, E), generator=gen, device=dev)
+        xb = x.bfloat16()
+
+        def lib(i):
+            w1, w2 = wb[i % copies]
+            gu = xb @ w1.T
+            return (F_.silu(gu[:, :F]) * gu[:, F:]) @ w2.T
+
+        bound, by = mlp_silu_bound_ms(n_rows, E, F)
+        ms = time_ms(lambda i: mlp_fused_silu_q4(x, *ws[i % copies]), 48)
+        rows.append({"rows": n_rows, "ms": ms,
+                     "plain_ms": time_ms(lambda i: _ff_silu_ref(
+                         *ws[i % copies], x, quantize_acts=False), 6),
+                     "library_ms": time_ms(lib, 48), "bound_ms": bound,
+                     "bound_by": by, "roofline_share": bound / ms,
+                     "cold_copies": copies})
+    del ws, wb
+    torch.cuda.empty_cache()
+    emit({"mlp_fused_silu_timing": rows})
+    r = rows[0]
+    return {"name": "mlp_fused_silu_q4", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_silu_q4.cu",
+            "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:268",
+            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+            "unit": "one Llama-7B MLP call at 1 row (a decode step): E 4096, "
+                    "F 11008, cold L2; library = two bf16 torch.matmuls + "
+                    "F.silu"}
+
+
+def llama_layer_bound_ms(cfg, npast):
+    """Bytes: the four Q4_0 weights, the live bf16 K/V rows, gains, cos/sin,
+    slot, x, y, k_new, v_new once each. Operations: f32 FMAs of the four
+    products and of attention over the live rows."""
+    E, F = cfg.n_embd, cfg.n_ff
+    Ekv = cfg.n_head_kv * cfg.head_dim
+    n_w = 2 * E * E + 2 * E * Ekv + 3 * E * F
+    bytes_ = n_w * 18 // 32 + 2 * npast * Ekv * 2 + 12 * E + 8 * E + 8 * Ekv \
+        + 4 * cfg.head_dim
+    flops = 2 * n_w + 4 * (npast + 1) * E
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_llama_layer(dev, gen):
+    """Cold-L2 kernel and plain times of one decode step's block call at
+    Llama-7B's block, bf16 cache: T 256 at npast 32 (path d's steps run 16 to
+    47) and T 2048 at npast 2047; each call a different block's weights, as a
+    decode step walks the layers (a block's 113.8 MB exceed L2 alone). cos
+    and sin are made before timing, as forward makes them once a step. No
+    single PyTorch call computes a whole block: library_ms is null."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.llama_layer import (_layer_ref,
+                                                         llama_layer_step,
+                                                         rope_vectors)
+    from ggmlsharp_tpu_torch.models import llama
+
+    copies = 3
+    cfg, blocks = llama_blocks(llama.LLAMA_7B, copies, SEED + 2, gen, dev)
+    Ekv = cfg.n_head_kv * cfg.head_dim
+    kc = torch.randn((2048, Ekv), generator=gen, device=dev).bfloat16()
+    vc = torch.randn((2048, Ekv), generator=gen, device=dev).bfloat16()
+    x = torch.randn((1, cfg.n_embd), generator=gen, device=dev)
+    rows = []
+    for T, npast in ((256, 32), (2048, 2047)):
+        np_t = torch.tensor([npast], dtype=torch.int32, device=dev)
+        rope = rope_vectors(np_t, cfg)
+        bound, by = llama_layer_bound_ms(cfg, npast)
+        ms = time_ms(lambda i: llama_layer_step(
+            blocks[i % copies], x, kc[:T], vc[:T], np_t, cfg, rope), 24)
+        plain = time_ms(lambda i: _layer_ref(
+            blocks[i % copies], x, kc[:T], vc[:T], np_t, cfg, rope), 6)
+        rows.append({"T": T, "npast": npast, "ms": ms, "plain_ms": plain,
+                     "library_ms": None, "bound_ms": bound, "bound_by": by,
+                     "roofline_share": bound / ms, "cold_copies": copies})
+    del blocks
+    torch.cuda.empty_cache()
+    emit({"llama_layer_timing": rows})
+    r = rows[0]
+    return {"name": "llama_layer", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/llama_layer.cu",
+            "replaces": "ggmlsharp_tpu/kernels/llama_layer.py:213",
+            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+            "unit": "one block call of a Llama-7B decode step: E 4096, 32 "
+                    "heads, D 128, F 11008, T 256, npast 32, bf16 KV, cold "
+                    "L2; no library call computes a block"}
+
+
+def time_attn_layout(dev, gen):
+    """Kernel 3's two lane maps beside each other on one bf16 cache (cold
+    L2): B = SLOTS, Hq = Hkv = 32, D 128, every slot at npast = T - 1, T 64
+    and 2048. The same rows are read, only their lanes are mapped otherwise,
+    so both calls move the same bytes."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref_attn,
+                                                         flash_decode_flat,
+                                                         flash_decode_flat_attn)
+
+    B, Hq, Hkv, D = SLOTS, 32, 32, 128
+    rows = []
+    for T in (64, 2048):
+        copies = max(2, -(-4 * L2_BYTES // (B * T * Hkv * D * 4)))
+        q, kn, vn, caches = decode_inputs(dev, gen, B, Hq, Hkv, T, "bf16",
+                                          copies)
+        np_t = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
+        qa = q.reshape(B, Hq * D)
+
+        def attn(i):
+            kc, vc, _ = caches[i % copies]
+            return flash_decode_flat_attn(qa, kn, vn, kc, vc, np_t, Hq, Hkv, D)
+
+        def heads(i):
+            kc, vc, _ = caches[i % copies]
+            return flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D)
+
+        def plain(i):
+            kc, vc, _ = caches[i % copies]
+            return _decode_ref_attn(qa, kn, vn, kc, vc, np_t, Hq, Hkv, D)
+
+        live = B * (T - 1)
+        bytes_ = 2 * live * Hkv * D * 2 + 2 * B * Hkv * D * 4 \
+            + 2 * B * Hq * D * 4
+        rows.append({"T": T, "attn_layout_ms": time_ms(attn, 100),
+                     "heads_layout_ms": time_ms(heads, 100),
+                     "plain_ms": time_ms(plain, 20),
+                     "bound_ms": bytes_ / HBM_BYTES_S * 1e3,
+                     "bound_by": "bytes"})
+        del caches
+        torch.cuda.empty_cache()
+    emit({"attn_layout_timing": rows})
+    return rows
+
+
 def profile_steps(one_step, n_steps):
     """torch.profiler over n_steps decode steps: device kernel time, kernel
     launches and aten calls a step, and the kernels that take the most
@@ -1222,12 +1610,14 @@ def profile_steps(one_step, n_steps):
                             for name, (t, n) in top]}
 
 
-def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width):
+def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
+                   **cache_kw):
     """Prefill time, then per-token decode latency at b = 1 (host clock,
     synchronised each step), a 64-token window without per-step sync, and a
     traced 8-step window (profile_steps). ``model``: models.llama or
     models.gpt2; weight_bytes: the matmul weights a token reads once;
-    kv_width: elements of one cached K (or V) row."""
+    kv_width: elements of one cached K (or V) row; cache_kw goes to
+    new_cache."""
     import torch
 
     from ggmlsharp_tpu_torch.models import sampling
@@ -1238,7 +1628,7 @@ def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width):
     with torch.inference_mode():
         pre = []
         for _ in range(3):
-            cache = model.new_cache(cfg, 1)
+            cache = model.new_cache(cfg, 1, **cache_kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = prefill(params, prompt, cache,
@@ -1346,16 +1736,28 @@ def main():
     q8_err = check_q8_0(dev, gen)
     mlp_err = check_mlp_fused(dev, gen)
     layer_err = check_gpt2_layer(dev, gen)
+    silu_err = check_mlp_fused_silu(dev, gen)
+    llayer_err = check_llama_layer(dev, gen)
+    attn_lay_err = check_attn_layout(dev, gen)
+    if not q4_rows_ok:
+        raise SystemExit("a Q4_0 row's result depends on b")
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
         f"{q4_err:.3g} (rows independent of b: {q4_rows_ok}), flash "
-        f"{fl_err:.3g}, attn_decode {ad_err:.3g}, Q8_0 {q8_err:.3g} (rows "
+        f"{fl_err:.3g}, attn_decode {ad_err:.3g} (attn lane map "
+        f"{attn_lay_err:.3g}), Q8_0 {q8_err:.3g} (rows "
         f"independent of b), mlp_fused_q8 {mlp_err:.3g}, gpt2_layer "
-        f"{layer_err:.3g}; rms rows differing alone vs in a batch of "
+        f"{layer_err:.3g}, mlp_fused_silu_q4 {silu_err:.3g}, llama_layer "
+        f"{llayer_err:.3g}; rms rows differing alone vs in a batch of "
         f"{SLOTS}: "
         f"{ {k: v['rms_rows_differ'] for k, v in rms_rows.items()} }")
 
     cfg = llama.LLAMA_7B
-    params = llama.synthetic_q4_0_params(cfg, seed=SEED)
+    # one tree for paths a, b and d: the fused routes' entries are stripped
+    # for a and b (the whole-block route's wo copies are drawn after every
+    # other weight, so the rest is the tree the switches-off call gives)
+    params_d = llama.synthetic_q4_0_params(cfg, seed=SEED, mlp_fused=True,
+                                           layer_fused=True)
+    params = strip_routes(params_d, ("mlp_fused", "layer_fused"))
     prompt = torch.randint(0, cfg.n_vocab, (1, PROMPT_LEN), generator=gen,
                            device=dev, dtype=torch.int32)
     torch.cuda.reset_peak_memory_stats()
@@ -1414,19 +1816,68 @@ def main():
             f"plain max abs err {e1:.3g} (path settings), {e2:.3g} "
             f"(weight-only, f32 cache)")
 
+    # d. Llama-7B through the fused routes. Both switches, flat bf16 cache:
+    # the prompt on the per-op loop (wqkv, wo and the LM head through the
+    # Q4_0 kernel, flash, the fused MLP at 16 rows), every decode step one
+    # whole-block call a layer and the LM head.
+    L = cfg.n_layer
+    ftoks, fcounts = run_fused_path(
+        cfg, params_d, prompt, "mlp_fused + layer_fused, flat bf16 cache",
+        N_NEW, {"llama_layer": L * N_NEW, "mlp_fused_silu_q4": L,
+                "flash_attn": L, "matmul_q4_0": 2 * L + 1 + N_NEW},
+        flat=True)
+    # The fused MLP alone, head-major cache (path a's route with one call
+    # in place of w_gate_up, silu and w_down): kernel 9 at b = 1.
+    params_m = strip_routes(params_d, ("layer_fused",))
+    mtoks, mcounts = run_fused_path(
+        cfg, params_m, prompt, "mlp_fused, head-major bf16 cache", MLP_STEPS,
+        {"mlp_fused_silu_q4": L * (1 + MLP_STEPS), "flash_attn": L,
+         "matmul_q4_0": (2 * L + 1) * (1 + MLP_STEPS)})
+    # Tolerances as for path a. The whole-block route quantizes no
+    # activation, but its prompt and bf16 cache rows do round: tol 0.1 under
+    # the path's own settings; weight-only with an f32 cache the paths differ
+    # in f32 summation order alone: tol 1e-3.
+    f_errs = [
+        compare_plain(llama, cfg, params_d, prompt, quant_acts=True,
+                      cache_dtype=torch.bfloat16, tol=0.1, toks=ftoks,
+                      route="both", flat=True),
+        compare_plain(llama, cfg, params_d, prompt, quant_acts=False,
+                      cache_dtype=torch.float32, tol=1e-3, route="both",
+                      flat=True),
+        compare_plain(llama, cfg, params_m, prompt, quant_acts=True,
+                      cache_dtype=torch.bfloat16, tol=0.1, toks=mtoks,
+                      route="mlp_fused"),
+        compare_plain(llama, cfg, params_m, prompt, quant_acts=False,
+                      cache_dtype=torch.float32, tol=1e-3,
+                      route="mlp_fused")]
+    log(f"[4/6] d. Llama-7B fused routes: {PROMPT_LEN}-token prompt + "
+        f"{N_NEW} greedy tokens, launches {fcounts}; fused MLP alone + "
+        f"{MLP_STEPS} tokens, launches {mcounts}; vs plain max abs err "
+        f"{f_errs[0]:.3g}, {f_errs[2]:.3g} (path settings), {f_errs[1]:.3g}, "
+        f"{f_errs[3]:.3g} (weight-only, f32 cache)")
+
     q4_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_err
     fl_row = time_flash(dev, gen, counts)
     fl_row["max_abs_err"] = fl_err
     ad_row = time_attn_decode(dev, gen, serve_counts)
     ad_row["max_abs_err"] = ad_err
+    lay = time_attn_layout(dev, gen)
+    ad_row["attn_layout_max_abs_err"] = attn_lay_err
+    ad_row["attn_layout_ms"] = lay[0]["attn_layout_ms"]
+    ad_row["heads_layout_bf16_ms"] = lay[0]["heads_layout_ms"]
     q8_row = time_q8_0(dev, gen)
     q8_row["max_abs_err"] = q8_err
     mlp_row = time_mlp_fused(dev, gen)
     mlp_row["max_abs_err"] = mlp_err
     layer_row = time_gpt2_layer(dev, gen)
     layer_row["max_abs_err"] = layer_err
-    rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row)
+    silu_row = time_mlp_fused_silu(dev, gen)
+    silu_row["max_abs_err"] = silu_err
+    llayer_row = time_llama_layer(dev, gen)
+    llayer_row["max_abs_err"] = llayer_err
+    rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row, silu_row,
+            llayer_row)
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
         name = row["name"]
@@ -1434,9 +1885,11 @@ def main():
         row["launches_serving"] = serve_counts[name]
         row["launches_gpt2_124m"] = g124[name]
         row["launches_gpt2_774m"] = g774[name]
+        row["launches_llama_fused"] = fcounts[name]
+        row["launches_llama_mlp_fused"] = mcounts[name]
         # the count on the first main path that runs the kernel
-        row["launches"] = next(c[name] for c in (counts, serve_counts, g124)
-                               if c[name])
+        row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
+                                                 fcounts) if c[name])
     log("[5/6] kernel times taken")
 
     llama_wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
@@ -1471,7 +1924,19 @@ def main():
         f"{tok_s:.1f} tok/s, {srv['roofline_share']:.4f} of the batched "
         f"roofline, mean TTFT {st['mean_ttft_s']:.2f} s, mean latency "
         f"{st['mean_latency_s']:.2f} s ({smi})")
-    del params
+    fdec = measure_decode(llama, cfg, params_d, prompt, llama_wbytes,
+                          cfg.n_head_kv * cfg.head_dim, flat=True)
+    fdec.update(route="mlp_fused + layer_fused, flat bf16 cache", card=smi,
+                llama_layer_share_of_step=llayer_row["ms"] * cfg.n_layer
+                / fdec["step_ms_median"],
+                unfused_window_tok_s=dec["window_tok_s"])
+    emit({"llama_fused_decode": fdec})
+    log(f"[6/6] Llama-7B whole-block route b=1: "
+        f"{fdec['window_tok_s']:.1f} tok/s ({dec['window_tok_s']:.1f} "
+        f"unfused), {fdec['roofline_share']:.4f} of the HBM roofline, step "
+        f"median {fdec['step_ms_median']:.3f} ms, device idle share "
+        f"{fdec['device_idle_share']}")
+    del params, params_d, params_m
     torch.cuda.empty_cache()
     for tag, (gcfg, gparams, gprompt, _, gpeak) in g_models.items():
         gdec = measure_decode(gpt2, gcfg, gparams, gprompt,
@@ -1488,8 +1953,12 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "unit",
             "launches_llama_b1", "launches_serving", "launches_gpt2_124m",
-            "launches_gpt2_774m")
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+            "launches_gpt2_774m", "launches_llama_fused",
+            "launches_llama_mlp_fused")
+    extra = ("attn_layout_max_abs_err", "attn_layout_ms",
+             "heads_layout_bf16_ms")  # kernel 3's second lane map
+    emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
+                      for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -21,3 +21,19 @@ def int8_kv() -> bool:
     """GGML_TPU_INT8_KV (default off): the serving engine's KV cache holds
     int8 rows with per-(token, head) absmax scales."""
     return _env_bool("GGML_TPU_INT8_KV", False)
+
+
+def mlp_fused() -> bool:
+    """GGML_TPU_MLP_FUSED (default off): quantize_params marks each llama
+    block whose Q4_0 MLP pair passes the gate, and forward then runs the MLP
+    of up to 64 rows as one fused SwiGLU kernel call. On only for the value
+    "1", as in the JAX package."""
+    return os.environ.get("GGML_TPU_MLP_FUSED", "0") == "1"
+
+
+def llama_fused() -> bool:
+    """GGML_TPU_LLAMA_FUSED (default off): quantize_params (given cfg) packs
+    each llama block for the whole-block kernel, and a b = 1 decode step over
+    a flat float cache then runs one kernel call a block. On only for the
+    value "1", as in the JAX package."""
+    return os.environ.get("GGML_TPU_LLAMA_FUSED", "0") == "1"

@@ -1,9 +1,11 @@
 // Batched single-token decode attention over a flat KV cache, for Hopper
 // (sm_90a), f32 online softmax.
 //
-// Replaces ggmlsharp_tpu/kernels/attn_decode.py::_call_flash_decode (entry
-// flash_decode_flat, layout "heads"): the attention of every batched decode
-// step of the serving path.
+// Replaces ggmlsharp_tpu/kernels/attn_decode.py::_call_flash_decode, both
+// lane maps: entry flash_decode_flat (layout "heads"), the attention of every
+// batched decode step of the serving path, and entry flash_decode_flat_attn
+// (layout "attn"), batched decode over a cache kept in the whole-block llama
+// kernel's TPU row order.
 //
 //   q [B, Hq, D] f32 (unscaled: the kernel multiplies it by `scale`, as the
 //   JAX kernel's caller pre-scales it); kn/vn [B, E] f32: the fresh
@@ -16,6 +18,11 @@
 //   the fresh row stands in for it) plus the fresh row, which seeds the
 //   online softmax with weight exp(0). Query head h reads KV head h / n_rep
 //   (GQA without a repeated copy).
+//   With attn_layout set, the lanes of a row are mapped otherwise: KV head h
+//   owns lanes [h D/2, (h+1) D/2) and the same run at + E/2, and q and out
+//   are [B, n_rep, E] (sub-query r of every KV head in one E-wide row in
+//   that same map). Only where a head's features lie changes: the loop is
+//   the same.
 //
 // What bounds it: bytes. Each live K/V element is read once and used for
 // 2 * n_rep FMAs; at B = 8, T = 2048, E = 4096 int8 that is 134 MB a call
@@ -40,6 +47,13 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+// Where feature i of KV head h lies in a row of E lanes.
+__device__ __forceinline__ int lane_of(int h, int i, int D, int E, int attn_layout) {
+  if (!attn_layout) return h * D + i;
+  const int half = D >> 1;
+  return i < half ? h * half + i : (E >> 1) + h * half + i - half;
+}
 
 // 16 bytes of a row -> VEC floats.
 __device__ __forceinline__ void load16(const int8_t* p, float* out) {
@@ -70,7 +84,8 @@ __global__ void attn_decode_kernel(const float* __restrict__ q,
                                    const int* __restrict__ npast,
                                    float* __restrict__ out, int Hkv, int n_rep,
                                    int T, long long kv_batch_stride,
-                                   long long sc_batch_stride, float scale) {
+                                   long long sc_batch_stride, float scale,
+                                   int attn_layout) {
   constexpr int DL = D / 32;              // output features a lane owns
   constexpr int VEC = 16 / sizeof(KT);    // elements a 16-byte load
   constexpr int CH = D / VEC;             // 16-byte chunks a head row
@@ -92,8 +107,12 @@ __global__ void attn_decode_kernel(const float* __restrict__ q,
   float* lsh = msh + nwarps;
   float* ash = lsh + nwarps;              // [nwarps][D] merge: acc
 
-  const float* qr = q + ((size_t)b * Hkv * n_rep + hq) * D;
-  for (int i = lane; i < D; i += 32) qsh[r * D + i] = qr[i] * scale;
+  // feature i of this query row (and of its output row)
+  auto q_at = [&](int i) -> size_t {
+    return attn_layout ? ((size_t)b * n_rep + r) * E + lane_of(hkv, i, D, E, 1)
+                       : ((size_t)b * Hkv * n_rep + hq) * D + i;
+  };
+  for (int i = lane; i < D; i += 32) qsh[r * D + i] = q[q_at(i)] * scale;
   __syncwarp();
 
   // The fresh row seeds split 0's state: m = its score, l = 1, acc = v.
@@ -101,21 +120,24 @@ __global__ void attn_decode_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < DL; ++i) acc[i] = 0.f;
   if (split == 0) {
-    const float* knr = kn + (size_t)b * E + hkv * D;
-    const float* vnr = vn + (size_t)b * E + hkv * D;
+    const float* knr = kn + (size_t)b * E;
+    const float* vnr = vn + (size_t)b * E;
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) s = fmaf(qsh[r * D + lane + 32 * i], knr[lane + 32 * i], s);
+    for (int i = 0; i < DL; ++i)
+      s = fmaf(qsh[r * D + lane + 32 * i],
+               knr[lane_of(hkv, lane + 32 * i, D, E, attn_layout)], s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     m = s;
     l = 1.f;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) acc[i] = vnr[lane + 32 * i];
+    for (int i = 0; i < DL; ++i)
+      acc[i] = vnr[lane_of(hkv, lane + 32 * i, D, E, attn_layout)];
   }
 
-  const KT* kb = kc + (size_t)b * kv_batch_stride + hkv * D;
-  const KT* vb = vc + (size_t)b * kv_batch_stride + hkv * D;
+  const KT* kb = kc + (size_t)b * kv_batch_stride;
+  const KT* vb = vc + (size_t)b * kv_batch_stride;
   const float* ksb = ks ? ks + (size_t)b * sc_batch_stride + hkv : nullptr;
   const float* vsb = vs ? vs + (size_t)b * sc_batch_stride + hkv : nullptr;
 
@@ -128,8 +150,10 @@ __global__ void attn_decode_kernel(const float* __restrict__ q,
       const int row = t0 + jr;
       float kv[VEC], vv[VEC];
       if (row < live) {
-        load16(kb + (size_t)row * E + c, kv);
-        load16(vb + (size_t)row * E + c, vv);
+        // a 16-byte chunk never straddles the two halves (VEC divides D/2)
+        const size_t at = (size_t)row * E + lane_of(hkv, c, D, E, attn_layout);
+        load16(kb + at, kv);
+        load16(vb + at, vv);
         if (ksb) {
           const float sk = ksb[(size_t)row * Hkv], sv = vsb[(size_t)row * Hkv];
 #pragma unroll
@@ -193,9 +217,8 @@ __global__ void attn_decode_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < DL; ++i) o[i] = fmaf(ash[w * D + lane + 32 * i], f, o[i]);
     }
-    float* orow = out + ((size_t)b * Hkv * n_rep + hq) * D;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) orow[lane + 32 * i] = o[i] / ll;
+    for (int i = 0; i < DL; ++i) out[q_at(lane + 32 * i)] = o[i] / ll;
   }
 }
 
@@ -204,7 +227,7 @@ int launch(const float* q, const float* kn, const float* vn, const void* kc,
            const void* vc, const float* ks, const float* vs, const int* npast,
            float* out, int B, int Hkv, int n_rep, int T,
            long long kv_batch_stride, long long sc_batch_stride, float scale,
-           cudaStream_t stream) {
+           int attn_layout, cudaStream_t stream) {
   const int ns = n_rep >= 4 ? 1 : 4 / n_rep;
   const int nwarps = n_rep * ns, kt = ns * 32;
   const size_t smem = sizeof(float) *
@@ -221,7 +244,7 @@ int launch(const float* q, const float* kn, const float* vn, const void* kc,
   dim3 grid(Hkv, B);
   kern<<<grid, nwarps * 32, smem, stream>>>(
       q, kn, vn, static_cast<const KT*>(kc), static_cast<const KT*>(vc), ks,
-      vs, npast, out, Hkv, n_rep, T, kv_batch_stride, sc_batch_stride, scale);
+      vs, npast, out, Hkv, n_rep, T, kv_batch_stride, sc_batch_stride, scale, attn_layout);
   return (int)cudaGetLastError();
 }
 
@@ -229,19 +252,21 @@ template <typename KT>
 int launch_d(int D, const float* q, const float* kn, const float* vn,
              const void* kc, const void* vc, const float* ks, const float* vs,
              const int* npast, float* out, int B, int Hkv, int n_rep, int T,
-             long long kvs, long long scs, float scale, cudaStream_t stream) {
+             long long kvs, long long scs, float scale, int attn_layout,
+             cudaStream_t stream) {
   if (D == 128)
     return launch<128, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, B, Hkv, n_rep, T, kvs, scs,
-                           scale, stream);
+                           scale, attn_layout, stream);
   if (D == 64)
     return launch<64, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, B, Hkv, n_rep, T, kvs, scs,
-                          scale, stream);
+                          scale, attn_layout, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// kv_kind: 0 bf16, 1 int8 (then ks/vs are required). D must be 64 or
+// kv_kind: 0 bf16, 1 int8 (then ks/vs are required). attn_layout: 0 the
+// "heads" lane map, 1 the "attn" one (float caches only). D must be 64 or
 // 128 and n_rep in 1..32. Pointers 16-byte aligned and batch strides
 // multiples of 16 bytes (the wrapper checks). Returns the first CUDA error
 // of the launch, or 0.
@@ -251,15 +276,17 @@ extern "C" int attn_decode(const float* q, const float* kn, const float* vn,
                            int B, int Hkv, int n_rep, int T, int D,
                            long long kv_batch_stride,
                            long long sc_batch_stride, int kv_kind,
-                           float scale, cudaStream_t stream) {
+                           float scale, int attn_layout, cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || T <= 0 || n_rep <= 0 || n_rep > 32)
     return (int)cudaErrorInvalidValue;
+  if (attn_layout && kv_kind != 0) return (int)cudaErrorInvalidValue;
   if (kv_kind == 1 && (ks == nullptr || vs == nullptr)) return (int)cudaErrorInvalidValue;
   if (kv_kind == 1)
     return launch_d<int8_t>(D, q, kn, vn, kc, vc, ks, vs, npast, out, B, Hkv, n_rep, T,
-                            kv_batch_stride, sc_batch_stride, scale, stream);
+                            kv_batch_stride, sc_batch_stride, scale, 0, stream);
   if (kv_kind == 0)
     return launch_d<__nv_bfloat16>(D, q, kn, vn, kc, vc, nullptr, nullptr, npast, out, B,
-                                   Hkv, n_rep, T, kv_batch_stride, 0, scale, stream);
+                                   Hkv, n_rep, T, kv_batch_stride, 0, scale, attn_layout,
+                                   stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -44,13 +44,17 @@ KERNELS = {
                     _P]),
     "attn_decode": ("attn_decode.cu", "attn_decode",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _LL, _LL, _I, _F, _P]),
+                     _LL, _LL, _I, _F, _I, _P]),
     "matmul_q8_0": ("matmul_q8_0.cu", "q8_0_matmul",
                     [_P, _P, _P, _P, _I, _I, _I, _P]),
     "mlp_fused_q8": ("mlp_fused_q8.cu", "mlp_fused_q8",
                      [_P] * 9 + [_I] * 5 + [_P]),
     "gpt2_layer": ("gpt2_layer.cu", "gpt2_layer",
                    [_P] * 25 + [_I] * 4 + [_F, _I, _I, _P]),
+    "mlp_fused_silu_q4": ("mlp_fused_silu_q4.cu", "mlp_fused_silu_q4",
+                          [_P] * 7 + [_I] * 3 + [_P]),
+    "llama_layer": ("llama_layer.cu", "llama_layer",
+                    [_P] * 23 + [_I] * 5 + [_F, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,6 +1,7 @@
 """Batched single-token decode attention over a flat KV cache: the CUDA
-kernel ``csrc/attn_decode.cu`` and its wrapper (port of
-ggmlsharp_tpu/kernels/attn_decode.py::flash_decode_flat, layout "heads").
+kernel ``csrc/attn_decode.cu`` and its wrappers (port of
+ggmlsharp_tpu/kernels/attn_decode.py::flash_decode_flat, layout "heads", and
+::flash_decode_flat_attn, layout "attn").
 
 Each slot's one query attends the cache rows t < min(npast[b], T) of a
 flat [B, T, E_kv] cache (lane j belongs to KV head j // D) plus the fresh
@@ -10,9 +11,18 @@ f32 throughout: the JAX kernel's exact mode (GGML_TPU_MM_DOT=f32); its
 default mode rounds the softmax weights to the cache dtype for the MXU,
 which the port does not copy.
 
+``flash_decode_flat_attn`` is the same function over rows in the "attn"
+lane map of the JAX package's whole-block llama kernel: KV head h owns lanes
+[h·D/2, (h+1)·D/2) and the same run at +E_kv/2, and the query and the output
+are n_rep consecutive E_kv-wide blocks in that map. The kernel takes the map
+as one more argument. The port's own caches stay in element order, so no path
+of the port calls it; it is ported so the kernel is whole, and
+``chip_smoke.py`` holds it against its plain version and times it.
+
 The plain version is ``_decode_ref``: dequantize, append the fresh row
-as key T, mask the cache rows t >= npast, softmax, P.V, all dense f32.
-The wrapper runs it for a CPU tensor, and for a CUDA tensor it launches
+as key T, mask the cache rows t >= npast, softmax, P.V, all dense f32
+(``_decode_ref_attn``: permute to element order, ``_decode_ref``, permute
+back). A wrapper runs it for a CPU tensor, and for a CUDA tensor it launches
 the kernel or raises.
 """
 from __future__ import annotations
@@ -71,6 +81,8 @@ def _cache_kind(k_cache, v_cache):
 
 def _check(q, k_new, v_new, k_cache, v_cache, npast, n_head_kv, head_dim,
            k_scale, v_scale):
+    """q: (B, Hq, D) in either lane map (only its first two dims' product
+    and its last dim are looked at)."""
     B, Hq, D = q.shape
     E = n_head_kv * head_dim
     T = k_cache.shape[1]
@@ -127,6 +139,15 @@ def flash_decode_flat(q_heads, k_new, v_new, k_cache, v_cache, npast,
     if not q_heads.is_cuda:
         return _decode_ref(q_heads, k_new, v_new, k_cache, v_cache, npast,
                            n_head_kv, head_dim, k_scale, v_scale)
+    return _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
+                   head_dim, k_scale, v_scale, attn_layout=False)
+
+
+def _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
+            head_dim, k_scale, v_scale, attn_layout: bool):
+    """Check the operands and launch the kernel. q_heads (B, Hq, D): in the
+    "attn" lane map the same memory is (B, n_rep, E_kv), and so is the
+    output."""
     kind, batch_stride = _check(q_heads, k_new, v_new, k_cache, v_cache,
                                 npast, n_head_kv, head_dim, k_scale, v_scale)
     B, Hq, D = q_heads.shape
@@ -146,6 +167,60 @@ def flash_decode_flat(q_heads, k_new, v_new, k_cache, v_cache, npast,
                 None if v_scale is None else v_scale.data_ptr(),
                 np32.data_ptr(), out.data_ptr(), B, n_head_kv,
                 Hq // n_head_kv, T, D, batch_stride, sc_stride, kind,
-                1.0 / D ** 0.5, stream)
+                1.0 / D ** 0.5, int(attn_layout), stream)
     _build.check("attn_decode", rc)
     return out
+
+
+def attn_to_elem(n_head_kv: int, head_dim: int, device=None) -> torch.Tensor:
+    """Index long [E_kv]: lane p of an "attn"-map row holds the element
+    ``attn_to_elem[p]`` of a head-major row with the same heads (first halves
+    of the heads, then second halves). Attention is a dot over a head's
+    features, so any such within-head order gives the same result."""
+    half = head_dim // 2
+    p = torch.arange(n_head_kv * half, device=device)
+    first = (p // half) * head_dim + p % half
+    return torch.cat([first, first + half])
+
+
+def _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
+                     n_head: int, n_head_kv: int, head_dim: int):
+    """Plain version of flash_decode_flat_attn: rows to element order,
+    _decode_ref, the output back to the "attn" map."""
+    B = q_att.shape[0]
+    Ekv = n_head_kv * head_dim
+    n_rep = n_head // n_head_kv
+    a2e = attn_to_elem(n_head_kv, head_dim, q_att.device)
+    inv = torch.argsort(a2e)
+    # [B, n_rep, Ekv] attn map -> [B, n_rep, Hkv, D] -> heads hkv * n_rep + r
+    q = q_att.reshape(B, n_rep, Ekv)[..., inv] \
+        .reshape(B, n_rep, n_head_kv, head_dim).transpose(1, 2) \
+        .reshape(B, n_head, head_dim)
+    out = _decode_ref(q, k_new[..., inv], v_new[..., inv], k_cache[..., inv],
+                      v_cache[..., inv], npast, n_head_kv, head_dim)
+    out = out.reshape(B, n_head_kv, n_rep, head_dim).transpose(1, 2) \
+        .reshape(B, n_rep, Ekv)[..., a2e]
+    return out.reshape(B, n_rep * Ekv)
+
+
+def flash_decode_flat_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
+                           n_head: int, n_head_kv: int, head_dim: int):
+    """Decode attention over a flat cache whose rows are in the "attn" lane
+    map. q_att: (B, E) f32 UNscaled query rows, n_rep consecutive E_kv blocks
+    in that map; k_new/v_new: (B, E_kv); k_cache/v_cache: (B, T, E_kv) bf16
+    prefix views (row ``npast[b]`` stale); npast: int (B,). Returns (B, E)
+    f32 in the query's map."""
+    B, E = q_att.shape
+    Ekv = n_head_kv * head_dim
+    if n_head % n_head_kv or E != n_head * head_dim:
+        raise ValueError(f"attn_decode: q {tuple(q_att.shape)}, heads "
+                         f"{n_head}/{n_head_kv}, head_dim {head_dim}")
+    if _cache_kind(k_cache, v_cache) != 0:
+        raise TypeError("attn_decode: the attn lane map takes a bf16 cache")
+    if not q_att.is_cuda:
+        return _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
+                                n_head, n_head_kv, head_dim)
+    out = _launch(q_att.reshape(B, n_head, head_dim), k_new, v_new, k_cache,
+                  v_cache, npast, n_head_kv, head_dim, None, None,
+                  attn_layout=True)
+    return out.reshape(B, E)

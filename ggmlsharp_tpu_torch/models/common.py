@@ -31,13 +31,24 @@ def params_from_jax(tree, device=None):
     """Carry a JAX parameter tree (any model's) across, values bit for bit.
     Dense leaves are numpy arrays (bf16 included); a quantized leaf is a
     tuple ``(gtype, ggml wire bytes, shape)``, as the JAX package's
-    ``io.gguf.qtensor_to_wire`` gives its bytes."""
+    ``io.gguf.qtensor_to_wire`` gives its bytes. The JAX package's fused
+    routes keep TPU plane copies in a block (``mlp_fused``, ``layer_fused``),
+    which have no meaning here: such a tree is refused. Carry the raw weights
+    across and switch the routes on in the port's own ``quantize_params``
+    (``mlp_fused=``, ``layer_fused=``), which makes the same matrices."""
     dev = resolve_device(device)
 
     def conv(x):
         if x is None:
             return None
         if isinstance(x, dict):
+            tpu = sorted(k for k in ("mlp_fused", "layer_fused")
+                         if isinstance(x.get(k), dict))
+            if tpu:
+                raise ValueError(
+                    f"params_from_jax: {tpu} hold TPU plane copies; carry "
+                    "the raw weights and pass mlp_fused= / layer_fused= to "
+                    "the port's quantize_params")
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, list):
             return [conv(v) for v in x]

@@ -9,6 +9,19 @@ leaves are tensors or Q4_0/Q8_0 QTensors.
 
 dtype flow, as in the JAX package: embeddings and norms are bf16; the first
 residual add (bf16 + f32 matmul output) promotes the stream to f32.
+
+Two opt-in fused routes, off by default as in the JAX package
+(``quantize_params(..., mlp_fused=, layer_fused=, cfg=)`` or the
+environment names in ``config``):
+  * ``mlp_fused``: a block's MLP of up to 64 rows (every decode step, short
+    prefills) is one ``kernels.mlp_fused.flash_ff_silu_q4`` call; the gated
+    product is not re-quantized before ``w_down``;
+  * ``layer_fused``: a b = 1 decode step over a flat float cache is one
+    ``kernels.llama_layer.llama_layer_step`` call a block
+    (``_forward_llama_fused``), with no activation quantized anywhere and its
+    own re-quantized ``wo``. Every other call keeps the per-op loop and the
+    standard ``wo``; the cache stays in element order on both.
+So fused and unfused logits differ by design.
 """
 from __future__ import annotations
 
@@ -16,10 +29,16 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import config
 from ..device import resolve_device
 from ..dtypes import GType
 from ..ops import get_rows, rms_norm, rope, silu
 from ..quant.formats import QTensor, concat_qtensors
+from ..kernels.llama_layer import (_layer_ref, fuse_llama_layer,
+                                   llama_layer_fuse_supported,
+                                   llama_layer_step, rope_vectors, wo_colperm)
+from ..kernels.mlp_fused import (_MAX_FUSED_B, _ff_silu_ref, flash_ff_silu_q4,
+                                 mlp_silu_fuse_supported)
 from ..quant.quantize import quantize
 from . import kv_cache as kvc
 from .common import cached_attention, linear, merge_heads, split_heads
@@ -107,10 +126,27 @@ def fuse_params(params):
     return out
 
 
-def quantize_params(params, gtype: GType):
+def _mark_mlp_fused(blocks):
+    """Mark the blocks whose MLP pair passes the fused SwiGLU kernel's gate.
+    The kernel reads the block's own w_gate_up and w_down: no copy."""
+    for blk in blocks:
+        if mlp_silu_fuse_supported(blk.get("w_gate_up"), blk.get("w_down")):
+            blk["mlp_fused"] = True
+
+
+def quantize_params(params, gtype: GType, cfg: LlamaConfig | None = None,
+                    mlp_fused: bool | None = None,
+                    layer_fused: bool | None = None):
     """Weight-only quantization of the 2-D weights whose rows are whole
     256-element groups, then fuse_params. The embedding and LM-head rows
-    are padded to PAD_ROWS (forward slices the logits back to n_vocab)."""
+    are padded to PAD_ROWS (forward slices the logits back to n_vocab).
+    mlp_fused / layer_fused (None: config.mlp_fused() / config.llama_fused(),
+    off by default) switch the fused routes on for Q4_0: blocks whose MLP
+    pair passes mlp_silu_fuse_supported get the marker ``mlp_fused``; given
+    ``cfg`` passing llama_layer_fuse_supported, each block whose raw weights
+    are floats or Q4_0 gets ``layer_fused`` (kernels.llama_layer.
+    fuse_llama_layer: the whole-block route's re-quantized ``wo`` beside the
+    block's own Q4_0 tensors, shared)."""
 
     def q(t, pad_rows=False):
         if t is None or isinstance(t, QTensor) or t.dim() != 2 \
@@ -130,7 +166,26 @@ def quantize_params(params, gtype: GType):
             for b in params["blocks"]
         ],
     }
-    return fuse_params(out)
+    out = fuse_params(out)
+    if gtype != GType.Q4_0:
+        return out
+    if config.mlp_fused() if mlp_fused is None else mlp_fused:
+        _mark_mlp_fused(out["blocks"])
+    if cfg is not None and llama_layer_fuse_supported(cfg) and (
+            config.llama_fused() if layer_fused is None else layer_fused):
+
+        def fusable(w):
+            return w is not None and (not isinstance(w, QTensor)
+                                      or w.gtype == GType.Q4_0)
+
+        for ob, rb in zip(out["blocks"], params["blocks"]):
+            if all(fusable(rb.get(n)) for n in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")):
+                # the tensors quantized above are shared, not made again
+                shared = {k: ob[k] for k in ("wqkv", "w_gate_up", "w_down")
+                          if isinstance(ob[k], QTensor)}
+                ob["layer_fused"] = fuse_llama_layer({**rb, **shared}, cfg)
+    return out
 
 
 def random_q4_0(n: int, k: int, generator: torch.Generator, device,
@@ -151,11 +206,16 @@ def random_q4_0(n: int, k: int, generator: torch.Generator, device,
     return QTensor(GType.Q4_0, (n, k), {"qs": qs, "d": d})
 
 
-def synthetic_q4_0_params(cfg: LlamaConfig, seed: int = 0, device=None):
+def synthetic_q4_0_params(cfg: LlamaConfig, seed: int = 0, device=None,
+                          mlp_fused: bool | None = None,
+                          layer_fused: bool | None = None):
     """A fused Q4_0 parameter tree of random_q4_0 weights drawn directly on
     ``device`` from ``seed``, unit norms, embedding rows of RMS about 1. No
-    f32 staging copy is made (at 7B it would take 27 GB). The projections
-    back into the residual stream (wo, w_down) are scaled by
+    f32 staging copy is made (at 7B it would take 27 GB). mlp_fused /
+    layer_fused as in quantize_params; the whole-block route's ``wo`` copies
+    are drawn after every other weight (random, as ``wo`` is; at 7B 32 x 9.4
+    MB), so the rest of the tree is the same with the switch on or off. The
+    projections back into the residual stream (wo, w_down) are scaled by
     1/sqrt(2·n_layer), GPT-2's residual init, so each block's update stays
     small against the stream as in a trained model; with unit-scale updates
     the 32-layer network carried rounding differences to several times
@@ -174,7 +234,7 @@ def synthetic_q4_0_params(cfg: LlamaConfig, seed: int = 0, device=None):
     def ones():
         return torch.ones(E, dtype=torch.bfloat16, device=dev)
 
-    return {
+    params = {
         "tok_embd": qt(vpad, E, 1.0 / 4.32),
         "norm": ones(),
         "output": qt(vpad, E),
@@ -190,6 +250,20 @@ def synthetic_q4_0_params(cfg: LlamaConfig, seed: int = 0, device=None):
             for _ in range(cfg.n_layer)
         ],
     }
+    if config.mlp_fused() if mlp_fused is None else mlp_fused:
+        _mark_mlp_fused(params["blocks"])
+    if llama_layer_fuse_supported(cfg) and (
+            config.llama_fused() if layer_fused is None else layer_fused):
+        slot = torch.from_numpy(wo_colperm(cfg).argsort().astype("int32")
+                                ).to(dev)
+        for blk in params["blocks"]:
+            blk["layer_fused"] = {
+                "wqkv": blk["wqkv"], "w_gate_up": blk["w_gate_up"],
+                "w_down": blk["w_down"],
+                "wo": qt(E, nq, res / (4.32 * nq ** 0.5)), "slot": slot,
+                "g1": blk["attn_norm"].to(torch.float32),
+                "g2": blk["ffn_norm"].to(torch.float32)}
+    return params
 
 
 def _rms(x, g, eps):
@@ -245,6 +319,34 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
     return merge_heads(a).to(q.dtype)
 
 
+def _forward_llama_fused(params, cfg: LlamaConfig, tokens, cache, positions,
+                         prefix_bound, plain):
+    """One token at b = 1 through the whole-block route: one llama_layer_step
+    a block, the block's new K/V row (roped k, bf16-rounded by the write)
+    written to the flat cache here, after the call that read the cache and
+    attended the row unrounded. The stream is f32 from the embedding row on;
+    no activation is quantized, the LM head's included."""
+    E = cfg.n_embd
+    x = get_rows(params["tok_embd"], tokens).reshape(1, E) \
+        .to(torch.float32).contiguous()
+    npast = positions[0].to(torch.int32)  # [1], read on the device
+    rope_cs = rope_vectors(npast, cfg)
+    widx = kvc.flat_index(cache, positions)
+    T = cache.max_len if prefix_bound is None else \
+        min(int(prefix_bound), cache.max_len)
+    step = _layer_ref if plain else llama_layer_step
+    for i, blk in enumerate(params["blocks"]):
+        x, kn, vn = step(blk, x, cache.k[i][0, :T], cache.v[i][0, :T], npast,
+                         cfg, rope_cs)
+        cache = kvc.update_layer_flat(cache, i, kn, vn, positions, widx)
+    x = _rms(x, params["norm"], cfg.rms_eps)
+    w_out = params["output"] if params["output"] is not None \
+        else params["tok_embd"]
+    logits = linear(w_out, x, quantize_acts=False, plain=plain)
+    logits = logits[..., :cfg.n_vocab]
+    return logits.reshape(1, 1, -1).to(torch.float32), kvc.advance(cache, 1)
+
+
 def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
             prefix_bound: int | None = None,
             cached_prefix: bool | None = None, plain: bool = False):
@@ -256,10 +358,14 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
     in prefix-cached or chunked prefill) or flash over its own fresh K/V
     only (False); None means True for S <= 8.
     plain: run the kernels' plain PyTorch versions (a card run's reference)."""
+    if (cache.is_flat and tokens.shape == (1, 1) and not cache.int8
+            and all("layer_fused" in b for b in params["blocks"])):
+        return _forward_llama_fused(params, cfg, tokens, cache, positions,
+                                    prefix_bound, plain)
     x = get_rows(params["tok_embd"], tokens)
     x = x.to(params["norm"].dtype)
     n_rep = cfg.n_head // cfg.n_head_kv
-    S = tokens.shape[1]
+    B, S = tokens.shape
     hd = cfg.head_dim
     nq = cfg.n_head * hd
     nkv = cfg.n_head_kv * hd
@@ -284,9 +390,15 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
         x = x + linear(blk["wo"], a, plain=plain)
 
         h = _rms(x, blk["ffn_norm"], cfg.rms_eps)
-        gu = linear(blk["w_gate_up"], h, plain=plain)
-        gate, up = gu[..., :cfg.n_ff], gu[..., cfg.n_ff:]
-        x = x + linear(blk["w_down"], silu(gate) * up, plain=plain)
+        if "mlp_fused" in blk and B * S <= _MAX_FUSED_B:
+            ff = _ff_silu_ref if plain else flash_ff_silu_q4
+            x = x + ff(blk["w_gate_up"], blk["w_down"], h,
+                       quantize_acts=config.quantize_activations()
+                       ).to(x.dtype)
+        else:
+            gu = linear(blk["w_gate_up"], h, plain=plain)
+            gate, up = gu[..., :cfg.n_ff], gu[..., cfg.n_ff:]
+            x = x + linear(blk["w_down"], silu(gate) * up, plain=plain)
 
     x = _rms(x, params["norm"], cfg.rms_eps)
     w_out = params["output"] if params["output"] is not None \

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""H100 probe of the port's two cooperative Q8_0 kernels (mlp_fused_q8,
-gpt2_layer): build each with one of its tunables changed (the -D macros its
+"""H100 probe of the port's cooperative kernels: the two Q8_0 ones
+(mlp_fused_q8, gpt2_layer) and the two Q4_0 ones (mlp_fused_silu_q4,
+llama_layer). Build each with one of its tunables changed (the -D macros its
 source declares), check it against the plain version, and time it as
 chip_smoke.py does (CUDA-graph replay, a different weight copy a launch so
 L2 is cold).
 
 Run from the repository root on a machine with the card:
-    python3 scripts/probe_q8_kernels.py
+    python3 scripts/probe_q8_kernels.py          # both families
+    python3 scripts/probe_q8_kernels.py q4       # or q8: one family
 Prints one JSON line a variant: {"kernel", "variant", "config", "ms", "err"}.
 """
 import os
@@ -36,16 +38,86 @@ LAYER_VARIANTS = {
     # no product at all: barriers, layer norms, attention, merge
     "no_matvec": ("LAYER_NO_MATVEC=1",),
 }
+SILU_VARIANTS = {
+    "baseline": (),
+    "blocks_sm_2": ("MLP_MAX_BLOCKS_SM=2",),
+    "blocks_sm_8": ("MLP_MAX_BLOCKS_SM=8",),
+    "rw_1": ("MLP_RW=1",),
+    "rw_4": ("MLP_RW=4",),
+    "no_work": ("MLP_NO_WORK=1",),  # the launch and the barrier alone
+}
+LLAMA_VARIANTS = {
+    "baseline": (),
+    "blocks_sm_1": ("LAYER_MAX_BLOCKS_SM=1",),
+    "blocks_sm_2": ("LAYER_MAX_BLOCKS_SM=2",),
+    "blocks_sm_3": ("LAYER_MAX_BLOCKS_SM=3",),
+    "rw_1": ("LAYER_RW=1",),
+    "rw_4": ("LAYER_RW=4",),
+    "chunks_4": ("LAYER_CHUNKS=4",),
+    # no product at all: barriers, norms, rope, attention, merge
+    "no_matvec": ("LAYER_NO_MATVEC=1",),
+}
+
+
+def probe_q4(cs, dev, gen):
+    """The Q4_0 kernels at Llama-7B's widths: the fused MLP at 1 and 16 rows,
+    the whole-block kernel at T 256 / npast 32 and T 2048 / npast 2047."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import set_defines
+    from ggmlsharp_tpu_torch.kernels.llama_layer import (_layer_ref,
+                                                         llama_layer_step,
+                                                         rope_vectors)
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_silu_ref, mlp_fused_silu_q4
+    from ggmlsharp_tpu_torch.models import llama
+
+    cfg = llama.LLAMA_7B
+    E, F = cfg.n_embd, cfg.n_ff
+    copies = 3  # a pair is 76 MB, a block 114 MB: each exceeds L2 alone
+    ws = [(llama.random_q4_0(2 * F, E, gen, dev),
+           llama.random_q4_0(E, F, gen, dev)) for _ in range(copies)]
+    for n_rows in (1, 16):
+        x = torch.randn((n_rows, E), generator=gen, device=dev)
+        want = _ff_silu_ref(*ws[0], x, quantize_acts=False)
+        for variant, defines in SILU_VARIANTS.items():
+            set_defines("mlp_fused_silu_q4", defines)
+            err = float((mlp_fused_silu_q4(x, *ws[0]) - want).abs().max())
+            ms = cs.time_ms(lambda i: mlp_fused_silu_q4(x, *ws[i % copies]),
+                            24)
+            cs.emit({"kernel": "mlp_fused_silu_q4", "variant": variant,
+                     "config": f"7B rows {n_rows}", "ms": ms, "err": err})
+    set_defines("mlp_fused_silu_q4", ())
+    del ws
+    torch.cuda.empty_cache()
+    cfg, blocks = cs.llama_blocks(cfg, copies, 2, gen, dev)
+    kc = torch.randn((2048, E), generator=gen, device=dev).bfloat16()
+    xv = torch.randn((1, E), generator=gen, device=dev)
+    for T, npast in ((256, 32), (2048, 2047)):
+        np_t = torch.tensor([npast], dtype=torch.int32, device=dev)
+        rope = rope_vectors(np_t, cfg)
+        args = (xv, kc[:T], kc[:T], np_t, cfg, rope)
+        want = _layer_ref(blocks[0], *args)[0]
+        for variant, defines in LLAMA_VARIANTS.items():
+            set_defines("llama_layer", defines)
+            err = float((llama_layer_step(blocks[0], *args)[0] - want)
+                        .abs().max())
+            ms = cs.time_ms(lambda i: llama_layer_step(blocks[i % copies],
+                                                       *args), 24)
+            cs.emit({"kernel": "llama_layer", "variant": variant,
+                     "config": f"7B T {T} npast {npast}", "ms": ms,
+                     "err": err})
+    set_defines("llama_layer", ())
 
 
 def main():
     import torch
 
     import chip_smoke as cs
-    from ggmlsharp_tpu_torch.kernels import set_defines
-    from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
-    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, mlp_fused_q8
 
+    family = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if family not in ("all", "q4", "q8"):
+        print("usage: probe_q8_kernels.py [q4|q8]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("probe_q8_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -55,6 +127,21 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip(), flush=True)
+    if family in ("all", "q4"):
+        probe_q4(cs, dev, gen)
+    if family in ("all", "q8"):
+        probe_q8(cs, dev, gen)
+    return 0
+
+
+def probe_q8(cs, dev, gen):
+    """The Q8_0 kernels at GPT-2 124M's and 774M's widths."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import set_defines
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, mlp_fused_q8
+
     for tag, cfg in cs.gpt2_configs():
         E = cfg.n_embd
         copies = max(2, -(-4 * cs.L2_BYTES // (8 * E * E * 34 // 32)))
@@ -85,7 +172,6 @@ def main():
                      "config": tag, "ms": ms, "err": err})
         del blocks
         torch.cuda.empty_cache()
-    return 0
 
 
 if __name__ == "__main__":

@@ -88,3 +88,86 @@ def test_import_scan_covers_the_gpt2_slice():
     rel = {os.path.relpath(p, PKG) for p in _port_files()}
     assert {"models/gpt2.py", "kernels/mlp_fused.py", "kernels/gpt2_layer.py",
             "kernels/matmul_q.py", "ops/basic.py"} <= rel
+
+
+def test_import_scan_covers_the_fused_llama_slice():
+    """The whole-block llama module is scanned, and every kernel source of
+    the slice is registered in kernels._build and present in csrc/."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"kernels/llama_layer.py", "kernels/mlp_fused.py",
+            "kernels/attn_decode.py", "models/llama.py", "config.py"} <= rel
+    for name, src in (("mlp_fused_silu_q4", "mlp_fused_silu_q4.cu"),
+                      ("llama_layer", "llama_layer.cu"),
+                      ("attn_decode", "attn_decode.cu")):
+        assert _build.KERNELS[name][0] == src
+        assert os.path.isfile(os.path.join(_build.CSRC, src))
+        assert name in _build.LAUNCHES
+    assert os.path.isfile(os.path.join(_build.CSRC, "q4_dot.cuh"))
+    for src in ("mlp_fused_silu_q4.cu", "llama_layer.cu"):
+        with open(os.path.join(_build.CSRC, src)) as f:
+            text = f.read()
+        assert '#include "q4_dot.cuh"' in text
+        assert "cublas" not in text.lower() and "torch" not in text.lower()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: what a wrapper sees of a
+    CUDA tensor before it builds and launches its kernel."""
+    is_cuda = property(lambda self: True)
+
+
+def _fused_llama_calls():
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels import attn_decode, llama_layer, mlp_fused
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.quant import quantize
+
+    cfg = llama.LlamaConfig(n_vocab=256, n_ctx=32, n_embd=256, n_head=4,
+                            n_head_kv=4, n_layer=1, n_ff=512)
+    gen = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=gen) * 0.1
+    blk = {"layer_fused": llama_layer.fuse_llama_layer(
+        {"attn_norm": torch.ones(256), "ffn_norm": torch.ones(256),
+         "wqkv": r(768, 256), "wo": r(256, 256), "w_gate_up": r(1024, 256),
+         "w_down": r(256, 512)}, cfg)}
+    card = lambda t: t.as_subclass(_OnCard)
+    kv = torch.zeros((8, 256), dtype=torch.bfloat16)
+    npast = torch.tensor([3], dtype=torch.int32)
+    fused = blk["layer_fused"]
+    return {
+        "mlp_fused_silu_q4": (mlp_fused, "_ff_silu_ref", lambda: (
+            mlp_fused.flash_ff_silu_q4(fused["w_gate_up"], fused["w_down"],
+                                       card(r(2, 256))))),
+        "llama_layer": (llama_layer, "_layer_ref", lambda: (
+            llama_layer.llama_layer_step(blk, card(r(1, 256)), kv, kv, npast,
+                                         cfg))),
+        "attn_decode": (attn_decode, "_decode_ref", lambda: (
+            attn_decode.flash_decode_flat_attn(
+                card(r(1, 256)), r(1, 256), r(1, 256), kv[None], kv[None],
+                npast, 4, 4, 64))),
+    }
+
+
+@pytest.mark.parametrize("name", ["mlp_fused_silu_q4", "llama_layer",
+                                  "attn_decode"])
+def test_fused_llama_wrappers_never_fall_back(monkeypatch, name):
+    """Given a tensor on the card and no way to build the kernel, a wrapper
+    raises: it does not reach its plain version, and it counts no launch."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("the wrapper fell back to its plain version")
+
+    module, ref, call = _fused_llama_calls()[name]
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    monkeypatch.setattr(module, ref, plain)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        call()
+    assert _build.LAUNCHES == before

@@ -31,6 +31,15 @@ version):
         kernel call a layer, the LM head); then with the fused MLP alone
         over the head-major cache, the prompt and 8 greedy tokens (the fused
         MLP at b = 1, once a layer a token);
+     e. BASELINE config 3: Llama-7B (full width and depth) with every matmul
+        weight and both tables in Q4_K, then in Q6_K (random from the seed,
+        quantized on the card), an INT8 flat cache of 2048 rows: the 16-token
+        prompt and 32 greedy tokens (matmul_q.cu in every matmul, flash for
+        the prompt, attn_decode in every decode step);
+     f. at full width and 8 layers, a 16-token prompt and 8 greedy tokens
+        each: Q4_1, Q4_2, Q4_3, Q5_0, Q5_1 over the bf16 head-major cache
+        (matmul_q.cu), then GGML_TPU_INT_DOT=1 with Q8_0, Q4_0, Q4_1, Q5_0,
+        Q5_1 (matmul_int_dot.cu in every decode matmul but the LM head's);
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound;
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
@@ -38,7 +47,8 @@ version):
      (device time, launches and host operator calls a step, idle share);
      serving tokens/s, time to first token, latency, ticks, peak memory
      and the share of the batched roofline; the same decode measurements
-     for GPT-2 124M and 774M and for Llama-7B on its whole-block route.
+     for GPT-2 124M and 774M, for Llama-7B on its whole-block route and
+     for path e in Q4_K and Q6_K.
 
 Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
@@ -1372,9 +1382,11 @@ def strip_routes(params, keys):
     return out
 
 
-def run_fused_path(cfg, params, prompt, label, n_new, want, **cache_kw):
-    """sampling.generate of Llama through a fused route, counters reset just
-    before and read just after; ``want``: the launches expected."""
+def run_fused_path(cfg, params, prompt, label, n_new, want,
+                   tag="llama_fused_path", **cache_kw):
+    """sampling.generate of Llama through a fused route (or, paths e and f,
+    a weight format), counters reset just before and read just after;
+    ``want``: the launches expected; ``tag``: the printed row's key."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
@@ -1390,9 +1402,9 @@ def run_fused_path(cfg, params, prompt, label, n_new, want, **cache_kw):
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     want = dict.fromkeys(kernels.LAUNCHES, 0) | want
-    emit({"llama_fused_path": {"route": label, "tokens": toks[0].tolist(),
-                               "seconds": seconds, "launches": counts,
-                               "expected_launches": want}})
+    emit({tag: {"route": label, "tokens": toks[0].tolist(),
+                "seconds": seconds, "launches": counts,
+                "expected_launches": want}})
     if counts != want:
         raise SystemExit(f"{label}: launch counts {counts} != {want}")
     if toks.shape != (1, n_new) or int(toks.min()) < 0 \
@@ -1570,6 +1582,383 @@ def time_attn_layout(dev, gen):
     return rows
 
 
+# --- the formats slice: kernel A (matmul_q.cu), kernel B (matmul_int_dot.cu),
+# paths e (BASELINE config 3) and f (the other formats, the int-dot route) --
+
+A_FORMATS = ("Q4_1", "Q4_2", "Q4_3", "Q5_0", "Q5_1", "Q4_K", "Q6_K")
+B_FORMATS = ("Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1")
+E_FORMATS = ("Q4_K", "Q6_K")  # path e: BASELINE config 3, INT8 flat cache
+F_LAYERS, F_NEW = 8, 8        # path f: depth cut to bound the phase's time
+
+
+def random_weight(fmt, n, k, gen, dev):
+    """A random [n, k] weight of ``fmt``: N(0, 1/k) quantized on the card."""
+    import torch
+
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.quant.quantize import quantize
+
+    return quantize(torch.randn((n, k), generator=gen, device=dev) / k ** 0.5,
+                    GType[fmt])
+
+
+def weight_abs_terms(w):
+    """|q·d| + |m| element by element (fused k-quant scales): the magnitudes
+    a kernel adds for one weight, whatever order it adds them in."""
+    import torch
+
+    from ggmlsharp_tpu_torch.quant.formats import QTensor
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    full = dequantize(w, fused_scales=True)
+    mins = [key for key in ("m", "dmin") if key in w.planes]
+    if not mins:
+        return full.abs()
+    v = dequantize(QTensor(w.gtype, w.shape, {
+        **w.planes, **{key: torch.zeros_like(w[key]) for key in mins}}),
+        fused_scales=True)
+    return v.abs() + (full - v).abs()
+
+
+def check_matmul_q(dev, gen):
+    """Kernel A (through mul_mat_q_fused) vs plain mul_mat_q for its seven
+    formats at every 7B shape (K 4096 and 11008), b in {1, 16}. Tolerance:
+    f32 summation order, with the min terms folded through per-block
+    activation sums: 1e-5 of sum_k |x_k| (|q d| + |m|)_nk (2^-24 is 6e-8 a
+    rounding). Then whether a row's result is bit for bit the same at b =
+    1, 8 and 128, for each format."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused, q_matmul
+    from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    worst, rows, same = {}, [], {}
+    for fmt in A_FORMATS:
+        for name, n, k, _ in Q4_SHAPES:
+            w = random_weight(fmt, n, k, gen, dev)
+            wabs = weight_abs_terms(w)
+            for b in (1, 16):
+                x = torch.randn((b, k), generator=gen, device=dev)
+                qa = name != "output"  # the LM head skips the round trip
+                got = mul_mat_q_fused(w, x, quantize_acts=qa)
+                want = mul_mat_q(w, x, quantize_acts=qa)
+                xq = dequantize(quantize_activations(x, w.gtype)) if qa else x
+                scale = xq.abs() @ wabs.T
+                err = (got - want).abs()
+                torch.cuda.synchronize()
+                ok = bool(torch.isfinite(got).all()) and bool(
+                    (err <= 1e-5 * scale).all())
+                e = float(err.max())
+                worst[fmt] = max(worst.get(fmt, 0.0), e)
+                rows.append({"format": fmt, "shape": name, "b": b, "n": n,
+                             "k": k, "max_abs_err": e,
+                             "max_err_over_sum_abs": float((err / scale).max()),
+                             "ok": ok})
+                if not ok:
+                    emit({"matmul_q_check": rows})
+                    raise SystemExit(f"matmul_q disagrees: {rows[-1]}")
+            del w, wabs
+        w = random_weight(fmt, 4096, 4096, gen, dev)
+        x = torch.randn((SLOTS * 16, 4096), generator=gen, device=dev)
+        y = q_matmul(x, w)
+        same[fmt] = all(torch.equal(y[:b], q_matmul(x[:b].contiguous(), w))
+                        for b in (1, SLOTS))
+    emit({"matmul_q_check": rows, "rows_independent_of_b": same})
+    if not all(same.values()):
+        raise SystemExit(f"a matmul_q row's result depends on b: {same}")
+    return worst
+
+
+def check_int_dot(dev, gen):
+    """Kernel B vs its plain _int_dot_ref for its five formats at the 7B
+    shapes of a decode step's matmuls (b = 1), the same quantized
+    activations on both sides. The block sums are exact integers on both;
+    tolerance: f32 summation order over blocks, 1e-5 of sum_k |x_k| (|q d|
+    + |m|)_nk with x the Q8 activations."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import (_int_dot_ref,
+                                                      int_dot_acts,
+                                                      int_dot_launch)
+
+    worst, rows = {}, []
+    for fmt in B_FORMATS:
+        for name, n, k, _ in Q4_SHAPES[:4]:  # the LM head keeps f32 x
+            w = random_weight(fmt, n, k, gen, dev)
+            wabs = weight_abs_terms(w)
+            x = torch.randn(k, generator=gen, device=dev)
+            xq, da, xs = int_dot_acts(w, x)
+            got = int_dot_launch(w, xq, da, xs)
+            want = _int_dot_ref(w, xq, da, xs)
+            scale = (xq.float() * da.repeat_interleave(32)).abs() @ wabs.T
+            err = (got - want).abs()
+            torch.cuda.synchronize()
+            ok = bool(torch.isfinite(got).all()) and bool(
+                (err <= 1e-5 * scale).all())
+            e = float(err.max())
+            worst[fmt] = max(worst.get(fmt, 0.0), e)
+            rows.append({"format": fmt, "shape": name, "n": n, "k": k,
+                         "max_abs_err": e,
+                         "max_err_over_sum_abs": float((err / scale).max()),
+                         "ok": ok})
+            if not ok:
+                emit({"int_dot_check": rows})
+                raise SystemExit(f"matmul_int_dot disagrees: {rows[-1]}")
+            del w, wabs
+    emit({"int_dot_check": rows})
+    return worst
+
+
+def quantizers_on_card(dev, gen):
+    """Whether each quantizer gives on the card the wire bytes it gives on
+    the CPU (the tests hold the CPU's against the JAX package), for every
+    block format, and for the k-quant searches; the share of blocks that
+    differ where they do not."""
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.quant.formats import FORMATS, to_wire, wire_block_bytes
+    from ggmlsharp_tpu_torch.quant.quantize import quantize
+
+    res = {}
+    x = torch.randn((256, 4096), generator=gen, device=dev)
+    x[:, ::7] *= 8.0  # outliers: ties and clamps
+    for g in FORMATS:
+        for search in ((False, True) if g in (GType.Q4_K, GType.Q6_K)
+                       else (False,)):
+            a = np.frombuffer(to_wire(quantize(x, g, search=search)), np.uint8)
+            b = np.frombuffer(to_wire(quantize(x.cpu(), g, search=search)),
+                              np.uint8)
+            bb = wire_block_bytes(g)[1]
+            diff = (a.reshape(-1, bb) != b.reshape(-1, bb)).any(-1)
+            res[g.name + (" search" if search else "")] = float(diff.mean())
+    emit({"quantizers_card_vs_cpu_blocks_differing": res})
+    return res
+
+
+def wq_bound_ms(b, n, k, wbytes, q8_acts):
+    """Bytes: the packed weight as the kernel reads it, x and y once each.
+    Operations: 2*b*n*k; after the Q8 round trip the operands are int8 x
+    int4..int6 values, which the int8 tensor cores multiply exactly; the LM
+    head's x stays f32."""
+    t_bytes = (wbytes + b * k * 4 + b * n * 4) / HBM_BYTES_S
+    t_ops = 2 * b * n * k / (INT8_OP_S if q8_acts else F32_FLOP_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_matmul_q(dev, gen, counts):
+    """Cold-L2 kernel A, plain and library (bf16 torch.matmul against the
+    weight dequantized to bf16) times: Q4_K and Q6_K at every 7B shape, b in
+    {1, 16}; the other formats at w_gate_up, b = 1. The row: one decode
+    token of path e1 (Q4_K), its 129 b = 1 launches."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import q_matmul
+    from ggmlsharp_tpu_torch.ops import mul_mat_q
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    rows = []
+    for fmt in A_FORMATS:
+        shapes = Q4_SHAPES if fmt in E_FORMATS else Q4_SHAPES[2:3]
+        for name, n, k, per_tok in shapes:
+            w0 = random_weight(fmt, n, k, gen, dev)
+            wbytes = w0.nbytes()
+            copies = max(2, -(-4 * L2_BYTES // wbytes))
+            ws = [w0] + [random_weight(fmt, n, k, gen, dev)
+                         for _ in range(copies - 1)]
+            wb = [dequantize(w, fused_scales=True).to(torch.bfloat16)
+                  for w in ws]
+            for b in ((1, 16) if fmt in E_FORMATS else (1,)):
+                x = torch.randn((b, k), generator=gen, device=dev)
+                xb = x.to(torch.bfloat16)
+                kern = time_ms(lambda i: q_matmul(x, ws[i % copies]),
+                               max(50, copies))
+                plain = time_ms(lambda i: mul_mat_q(ws[i % copies], x,
+                                                    quantize_acts=False), 8)
+                lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
+                              max(50, copies))
+                bound, by = wq_bound_ms(b, n, k, wbytes, name != "output")
+                rows.append({"format": fmt, "shape": name, "b": b, "n": n,
+                             "k": k, "weight_bytes": wbytes, "ms": kern,
+                             "plain_ms": plain, "library_ms": lib,
+                             "bound_ms": bound, "bound_by": by,
+                             "roofline_share": bound / kern,
+                             "cold_copies": copies,
+                             "launches_per_token": per_tok if b == 1 else 0})
+            del ws, wb
+            torch.cuda.empty_cache()
+    emit({"matmul_q_timing": rows})
+
+    def token(fmt):
+        dec = [r for r in rows if r["format"] == fmt and r["b"] == 1]
+        return {key: sum(r[key] * r["launches_per_token"] for r in dec)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    gu = {r["format"]: r["ms"] for r in rows
+          if r["shape"] == "w_gate_up" and r["b"] == 1}
+    return {"name": "matmul_q", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/matmul_q.cu",
+            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377 (and :199, "
+                        ":737)",
+            "launches": counts["matmul_q"], **token("Q4_K"),
+            "bound_by": "bytes", "q6_k_token": token("Q6_K"),
+            "w_gate_up_b1_ms": gu,
+            "unit": "one decode token of path e1 (Q4_K): the 129 b=1 "
+                    "launches, cold L2; library = bf16 torch.matmul"}
+
+
+def time_int_dot(dev, gen, counts):
+    """Cold-L2 kernel B, plain and library (bf16 torch.matmul against the
+    weight dequantized to bf16) times at w_gate_up (22016 x 4096), b = 1,
+    for each of its formats; the activations quantized once before
+    timing, as a call quantizes them before its launch."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import (_int_dot_ref,
+                                                      int_dot_acts,
+                                                      int_dot_launch)
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    _, n, k, _ = Q4_SHAPES[2]
+    rows = []
+    for fmt in B_FORMATS:
+        w0 = random_weight(fmt, n, k, gen, dev)
+        wbytes = w0.nbytes()
+        copies = max(2, -(-4 * L2_BYTES // wbytes))
+        ws = [w0] + [random_weight(fmt, n, k, gen, dev)
+                     for _ in range(copies - 1)]
+        wb = [dequantize(w).to(torch.bfloat16) for w in ws]
+        x = torch.randn(k, generator=gen, device=dev)
+        xq, da, xs = int_dot_acts(w0, x)
+        xb = x.to(torch.bfloat16)[None]
+        kern = time_ms(lambda i: int_dot_launch(ws[i % copies], xq, da, xs),
+                       max(50, copies))
+        plain = time_ms(lambda i: _int_dot_ref(ws[i % copies], xq, da, xs), 8)
+        lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
+                      max(50, copies))
+        act_bytes = k + k // 32 * 4 * (2 if xs is not None else 1)
+        t_bytes = (wbytes + act_bytes + n * 4) / HBM_BYTES_S
+        t_ops = 2 * n * k / INT8_OP_S
+        bound = max(t_bytes, t_ops) * 1e3
+        rows.append({"format": fmt, "n": n, "k": k, "weight_bytes": wbytes,
+                     "ms": kern, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "roofline_share": bound / kern, "cold_copies": copies})
+        del ws, wb
+        torch.cuda.empty_cache()
+    emit({"int_dot_timing": rows})
+    r = next(r for r in rows if r["format"] == "Q4_0")
+    return {"name": "matmul_int_dot", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/matmul_int_dot.cu",
+            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:803",
+            "launches": counts["matmul_int_dot"],
+            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+            "w_gate_up_ms": {r["format"]: r["ms"] for r in rows},
+            "unit": "one w_gate_up launch (22016 x 4096, b=1) of Q4_0, cold "
+                    "L2; library = bf16 torch.matmul"}
+
+
+def time_attn_decode_b1(dev, gen):
+    """Kernel 3 at path e's shape: B = 1, Hq = Hkv = 32, D 128, INT8 cache,
+    npast = T - 1, T 64 and 2048 (cold L2), beside its plain version and
+    SDPA over a bf16 head-major copy of the live rows (the call alone)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref, _dequant,
+                                                         flash_decode_flat)
+
+    B, Hq, Hkv, D = 1, 32, 32, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for T in (64, 2048):
+        copies = max(2, -(-4 * L2_BYTES // (B * T * Hkv * D * 2)))
+        q, kn, vn, caches = decode_inputs(dev, gen, B, Hq, Hkv, T, "int8",
+                                          copies)
+        np_t = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
+
+        def kern(i):
+            kc, vc, sc = caches[i % copies]
+            return flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+
+        def plain(i):
+            kc, vc, sc = caches[i % copies]
+            return _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+
+        heads = []
+        for kc, vc, sc in caches:
+            kv = []
+            for rows_, s, new in ((kc, sc["k_scale"], kn),
+                                  (vc, sc["v_scale"], vn)):
+                d = torch.cat([_dequant(rows_[:, :T - 1], s[:, :T - 1], Hkv),
+                               new[:, None]], 1)
+                kv.append(d.reshape(B, T, Hkv, D).transpose(1, 2)
+                          .to(torch.bfloat16).contiguous())
+            heads.append(kv)
+        qb = q[:, :, None].to(torch.bfloat16)
+        bound, by = attn_decode_bound_ms(B, Hq, Hkv, D, [T - 1] * B)
+        ms = time_ms(kern, 100)
+        rows.append({"B": B, "T": T, "ms": ms, "plain_ms": time_ms(plain, 20),
+                     "library_ms": time_ms(lambda i: sdpa(
+                         qb, *heads[i % copies]), 100),
+                     "bound_ms": bound, "bound_by": by,
+                     "roofline_share": bound / ms, "cold_copies": copies})
+        del caches, heads
+        torch.cuda.empty_cache()
+    emit({"attn_decode_b1_timing": rows})
+    return rows
+
+
+def run_format_paths(cfg, prompt, gen):
+    """Path f at full width and F_LAYERS layers: f1, each of Q4_1, Q4_2,
+    Q4_3, Q5_0, Q5_1 over the bf16 head-major cache (kernel A in every
+    matmul); f2, GGML_TPU_INT_DOT=1 for Q8_0, Q4_0, Q4_1, Q5_0, Q5_1
+    (kernel B in every decode matmul but the LM head's, whose activations
+    stay f32; the prompt's 16 rows keep the dequant kernels). A prompt plus
+    F_NEW tokens each, counters reset around each run, each run held
+    against its plain path under its own settings (tol 0.1, as path a).
+    Returns the summed launches and the compare errors."""
+    import dataclasses
+
+    import torch
+
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels.matmul_q import KERNEL_OF
+    from ggmlsharp_tpu_torch.models import llama
+
+    fcfg = dataclasses.replace(cfg, n_layer=F_LAYERS)
+    L = F_LAYERS
+    total, errs = {}, {}
+    for route, formats in (("f1", A_FORMATS[:5]), ("f2", B_FORMATS)):
+        for fmt in formats:
+            params = llama.synthetic_params(fcfg, GType[fmt], seed=SEED)
+            kern = KERNEL_OF[GType[fmt]]
+            if route == "f1":
+                want = {kern: (4 * L + 1) * (1 + F_NEW), "flash_attn": L}
+            else:
+                os.environ["GGML_TPU_INT_DOT"] = "1"
+                want = {kern: 4 * L + 1 + F_NEW, "flash_attn": L,
+                        "matmul_int_dot": 4 * L * F_NEW}
+            try:
+                toks, counts = run_fused_path(
+                    fcfg, params, prompt, f"{route} {fmt}", F_NEW, want,
+                    tag="llama_format_path")
+                errs[f"{route} {fmt}"] = compare_plain(
+                    llama, fcfg, params, prompt, quant_acts=True,
+                    cache_dtype=torch.bfloat16, tol=0.1, toks=toks,
+                    route=f"{route} {fmt}")
+            finally:
+                os.environ.pop("GGML_TPU_INT_DOT", None)
+            for key, v in counts.items():
+                total[key] = total.get(key, 0) + v
+            del params
+            torch.cuda.empty_cache()
+    return total, errs
+
+
 def profile_steps(one_step, n_steps):
     """torch.profiler over n_steps decode steps: device kernel time, kernel
     launches and aten calls a step, and the kernels that take the most
@@ -1611,13 +2000,13 @@ def profile_steps(one_step, n_steps):
 
 
 def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
-                   **cache_kw):
+                   kv_row_bytes=None, **cache_kw):
     """Prefill time, then per-token decode latency at b = 1 (host clock,
     synchronised each step), a 64-token window without per-step sync, and a
     traced 8-step window (profile_steps). ``model``: models.llama or
     models.gpt2; weight_bytes: the matmul weights a token reads once;
-    kv_width: elements of one cached K (or V) row; cache_kw goes to
-    new_cache."""
+    kv_width: elements of one cached K (or V) row; kv_row_bytes: its bytes
+    (default bf16: 2 * kv_width); cache_kw goes to new_cache."""
     import torch
 
     from ggmlsharp_tpu_torch.models import sampling
@@ -1675,7 +2064,7 @@ def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
                                 else "not measured")
     # bytes a token must move: every matmul weight once plus the live K/V
     live = cur - n_win // 2
-    kv_bytes = 2 * cfg.n_layer * live * kv_width * 2
+    kv_bytes = 2 * cfg.n_layer * live * (kv_row_bytes or 2 * kv_width)
     res["weight_bytes"] = weight_bytes
     res["bytes_per_token"] = weight_bytes + kv_bytes
     res["roofline_tok_s"] = HBM_BYTES_S / (weight_bytes + kv_bytes)
@@ -1704,7 +2093,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, repo)
-    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch import GType, kernels
     from ggmlsharp_tpu_torch.models import gpt2, llama
 
     t_start = time.perf_counter()
@@ -1739,6 +2128,9 @@ def main():
     silu_err = check_mlp_fused_silu(dev, gen)
     llayer_err = check_llama_layer(dev, gen)
     attn_lay_err = check_attn_layout(dev, gen)
+    mq_errs = check_matmul_q(dev, gen)
+    ib_errs = check_int_dot(dev, gen)
+    q_card = quantizers_on_card(dev, gen)
     if not q4_rows_ok:
         raise SystemExit("a Q4_0 row's result depends on b")
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
@@ -1747,8 +2139,12 @@ def main():
         f"{attn_lay_err:.3g}), Q8_0 {q8_err:.3g} (rows "
         f"independent of b), mlp_fused_q8 {mlp_err:.3g}, gpt2_layer "
         f"{layer_err:.3g}, mlp_fused_silu_q4 {silu_err:.3g}, llama_layer "
-        f"{llayer_err:.3g}; rms rows differing alone vs in a batch of "
-        f"{SLOTS}: "
+        f"{llayer_err:.3g}; matmul_q {max(mq_errs.values()):.3g} (7 "
+        f"formats, rows independent of b), matmul_int_dot "
+        f"{max(ib_errs.values()):.3g} (5 formats); quantizers on the card "
+        f"vs the CPU, share of blocks differing: "
+        f"{max(q_card.values()):.3g}; rms rows differing alone "
+        f"vs in a batch of {SLOTS}: "
         f"{ {k: v['rms_rows_differ'] for k, v in rms_rows.items()} }")
 
     cfg = llama.LLAMA_7B
@@ -1856,6 +2252,43 @@ def main():
         f"{f_errs[0]:.3g}, {f_errs[2]:.3g} (path settings), {f_errs[1]:.3g}, "
         f"{f_errs[3]:.3g} (weight-only, f32 cache)")
 
+    # e. BASELINE config 3: Llama-7B with every matmul weight and both
+    # tables in Q4_K, then in Q6_K (random from the seed, quantized on the
+    # card), an INT8 flat cache of 2048 rows, b = 1: the 16-token prompt
+    # (kernel A, flash over the fresh rows) and 32 greedy tokens (kernel A
+    # in every matmul, attn_decode in every layer). Tolerances as path a's;
+    # the INT8 cache rounds a one-ulp difference by a whole step, as Q8 does.
+    e_models, e_counts, e_errs = {}, {}, {}
+    for fmt in E_FORMATS:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        eparams = llama.synthetic_params(cfg, GType[fmt], seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        etoks, e_counts[fmt] = run_fused_path(
+            cfg, eparams, prompt, f"e {fmt}, int8 flat cache", N_NEW,
+            {"matmul_q": (4 * L + 1) * (1 + N_NEW), "flash_attn": L,
+             "attn_decode": L * N_NEW}, tag="llama_kquant_path", int8=True)
+        epeak = torch.cuda.max_memory_allocated() - base
+        e_errs[fmt] = [
+            compare_plain(llama, cfg, eparams, prompt, quant_acts=True,
+                          cache_dtype=torch.bfloat16, tol=0.1, toks=etoks,
+                          route=f"e {fmt}, int8 flat cache", int8=True),
+            compare_plain(llama, cfg, eparams, prompt, quant_acts=False,
+                          cache_dtype=torch.float32, tol=1e-3,
+                          route=f"e {fmt}, f32 head-major cache")]
+        e_models[fmt] = (eparams, epeak)
+        log(f"[4/6] e. Llama-7B {fmt} + INT8 KV: {PROMPT_LEN}-token prompt + "
+            f"{N_NEW} greedy tokens, launches {e_counts[fmt]}; vs plain max "
+            f"abs err {e_errs[fmt][0]:.3g} (path settings), "
+            f"{e_errs[fmt][1]:.3g} (weight-only, f32 cache)")
+    kq_counts = {k: sum(c[k] for c in e_counts.values()) for k in counts}
+    # f. the other formats at full width and F_LAYERS layers
+    fmt_counts, f_cmp = run_format_paths(cfg, prompt, gen)
+    log(f"[4/6] f. Llama-7B widths, {F_LAYERS} layers, {PROMPT_LEN}-token "
+        f"prompt + {F_NEW} tokens: f1 {', '.join(A_FORMATS[:5])} (matmul_q), "
+        f"f2 GGML_TPU_INT_DOT=1 {', '.join(B_FORMATS)}; launches "
+        f"{fmt_counts}; vs plain max abs err {max(f_cmp.values()):.3g}")
+
     q4_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_err
     fl_row = time_flash(dev, gen, counts)
@@ -1876,8 +2309,19 @@ def main():
     silu_row["max_abs_err"] = silu_err
     llayer_row = time_llama_layer(dev, gen)
     llayer_row["max_abs_err"] = llayer_err
+    mq_row = time_matmul_q(dev, gen, kq_counts)
+    mq_row["max_abs_err"] = max(mq_errs.values())
+    mq_row["max_abs_err_by_format"] = mq_errs
+    ib_row = time_int_dot(dev, gen, fmt_counts)
+    ib_row["max_abs_err"] = max(ib_errs.values())
+    ib_row["max_abs_err_by_format"] = ib_errs
+    for r in time_attn_decode_b1(dev, gen):
+        ad_row[f"b1_T{r['T']}_ms"] = r["ms"]
+        ad_row[f"b1_T{r['T']}_bound_ms"] = r["bound_ms"]
+        ad_row[f"b1_T{r['T']}_plain_ms"] = r["plain_ms"]
+        ad_row[f"b1_T{r['T']}_library_ms"] = r["library_ms"]
     rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row, silu_row,
-            llayer_row)
+            llayer_row, mq_row, ib_row)
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
         name = row["name"]
@@ -1887,9 +2331,12 @@ def main():
         row["launches_gpt2_774m"] = g774[name]
         row["launches_llama_fused"] = fcounts[name]
         row["launches_llama_mlp_fused"] = mcounts[name]
+        row["launches_llama_kquant"] = kq_counts[name]
+        row["launches_llama_formats"] = fmt_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
-                                                 fcounts) if c[name])
+                                                 fcounts, kq_counts,
+                                                 fmt_counts) if c[name])
     log("[5/6] kernel times taken")
 
     llama_wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
@@ -1938,6 +2385,26 @@ def main():
         f"{fdec['device_idle_share']}")
     del params, params_d, params_m
     torch.cuda.empty_cache()
+    ekv = cfg.n_head_kv * cfg.head_dim
+    for fmt, (eparams, epeak) in e_models.items():
+        wbytes = sum(v.nbytes() for blk in eparams["blocks"]
+                     for key, v in blk.items() if key.startswith("w")) \
+            + eparams["output"].nbytes()
+        edec = measure_decode(llama, cfg, eparams, prompt, wbytes, ekv,
+                              kv_row_bytes=ekv + 4 * cfg.n_head_kv, int8=True)
+        tok = mq_row if fmt == "Q4_K" else mq_row["q6_k_token"]
+        edec.update(format=fmt, cache="int8 flat, 2048 rows", card=smi,
+                    peak_mem_gb=epeak / 1e9,
+                    matmul_q_share_of_step=tok["ms"] / edec["step_ms_median"])
+        emit({"llama_kquant_decode": edec})
+        log(f"[6/6] e. Llama-7B {fmt} + INT8 KV b=1: "
+            f"{edec['window_tok_s']:.1f} tok/s, {edec['roofline_share']:.4f} "
+            f"of the HBM roofline ({edec['roofline_tok_s']:.0f} tok/s on "
+            f"{wbytes / 1e9:.3f} GB of weights), step median "
+            f"{edec['step_ms_median']:.3f} ms, device idle share "
+            f"{edec['device_idle_share']}")
+    del e_models, eparams
+    torch.cuda.empty_cache()
     for tag, (gcfg, gparams, gprompt, _, gpeak) in g_models.items():
         gdec = measure_decode(gpt2, gcfg, gparams, gprompt,
                               gpt2_weight_bytes(gparams), gcfg.n_embd)
@@ -1954,9 +2421,15 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "unit",
             "launches_llama_b1", "launches_serving", "launches_gpt2_124m",
             "launches_gpt2_774m", "launches_llama_fused",
-            "launches_llama_mlp_fused")
+            "launches_llama_mlp_fused", "launches_llama_kquant",
+            "launches_llama_formats")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
-             "heads_layout_bf16_ms")  # kernel 3's second lane map
+             "heads_layout_bf16_ms",  # kernel 3's second lane map
+             "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",
+             "b1_T64_library_ms", "b1_T2048_ms", "b1_T2048_bound_ms",
+             "b1_T2048_plain_ms", "b1_T2048_library_ms",  # kernel 3, B = 1
+             "q6_k_token", "w_gate_up_b1_ms", "w_gate_up_ms",
+             "max_abs_err_by_format")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

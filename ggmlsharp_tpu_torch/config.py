@@ -37,3 +37,11 @@ def llama_fused() -> bool:
     a flat float cache then runs one kernel call a block. On only for the
     value "1", as in the JAX package."""
     return os.environ.get("GGML_TPU_LLAMA_FUSED", "0") == "1"
+
+
+def int_dot() -> bool:
+    """GGML_TPU_INT_DOT (default off): a matmul of one activation row, with
+    the activations quantized and Q8_0, Q4_0, Q4_1, Q5_0 or Q5_1 weights,
+    runs ggml's exact integer dot (kernels.matmul_q.int_dot_matmul). On only
+    for the value "1", as in the JAX package."""
+    return os.environ.get("GGML_TPU_INT_DOT", "0") == "1"

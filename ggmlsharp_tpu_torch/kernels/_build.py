@@ -55,6 +55,9 @@ KERNELS = {
                           [_P] * 7 + [_I] * 3 + [_P]),
     "llama_layer": ("llama_layer.cu", "llama_layer",
                     [_P] * 23 + [_I] * 5 + [_F, _I, _I, _P]),
+    "matmul_q": ("matmul_q.cu", "q_matmul", [_I] + [_P] * 6 + [_I] * 3 + [_P]),
+    "matmul_int_dot": ("matmul_int_dot.cu", "int_dot_matmul",
+                       [_I] + [_P] * 8 + [_I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -3,9 +3,10 @@ ggmlsharp_tpu/models/common.py, the head-major cache with a host-side
 ``prefix_bound``).
 
 ``plain=True`` runs the plain PyTorch versions of the kernels on any
-device (``ops.mul_mat_q`` and ``kernels.flash._cached_ref``): the end-to-end
-reference a card run is held against. By default a quantized matmul and
-prefill attention go through the kernel wrappers.
+device (``ops.mul_mat_q`` or the integer-dot route's ``_int_dot_ref``, and
+``kernels.flash._cached_ref``): the end-to-end reference a card run is held
+against. By default a quantized matmul and prefill attention go through
+the kernel wrappers.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ def _from_numpy(arr) -> torch.Tensor:
 def params_from_jax(tree, device=None):
     """Carry a JAX parameter tree (any model's) across, values bit for bit.
     Dense leaves are numpy arrays (bf16 included); a quantized leaf is a
-    tuple ``(gtype, ggml wire bytes, shape)``, as the JAX package's
-    ``io.gguf.qtensor_to_wire`` gives its bytes. The JAX package's fused
+    tuple ``(gtype, ggml wire bytes, shape)`` of any block format, as the
+    JAX package's ``io.gguf.qtensor_to_wire`` gives its bytes. The JAX
+    package's fused
     routes keep TPU plane copies in a block (``mlp_fused``, ``layer_fused``),
     which have no meaning here: such a tree is refused. Carry the raw weights
     across and switch the routes on in the port's own ``quantize_params``
@@ -68,8 +70,7 @@ def linear(w, x, b=None, quantize_acts: bool | None = None,
     if isinstance(w, QTensor):
         if quantize_acts is None:
             quantize_acts = quantize_activations()
-        mm = ops.mul_mat_q if plain else ops.mul_mat
-        y = mm(w, x, quantize_acts=quantize_acts)
+        y = ops.mul_mat(w, x, quantize_acts=quantize_acts, plain=plain)
     else:
         y = ops.mul_mat_f(w, x)
     return y if b is None else y + b

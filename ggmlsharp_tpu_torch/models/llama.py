@@ -5,7 +5,8 @@ RMSNorm pre-norm, rotary embeddings (ggml interleaved mode by default),
 SwiGLU MLP, optional GQA. Parameters are plain dicts that mirror the JAX
 tree; after ``quantize_params`` the blocks hold the fused ``wqkv`` and
 ``w_gate_up`` rows, as the JAX package's default fused layout does. Weight
-leaves are tensors or Q4_0/Q8_0 QTensors.
+leaves are tensors or QTensors of any block format (``synthetic_params``
+draws a tree in one on the card).
 
 dtype flow, as in the JAX package: embeddings and norms are bf16; the first
 residual add (bf16 + f32 matmul output) promotes the stream to f32.
@@ -136,10 +137,13 @@ def _mark_mlp_fused(blocks):
 
 def quantize_params(params, gtype: GType, cfg: LlamaConfig | None = None,
                     mlp_fused: bool | None = None,
-                    layer_fused: bool | None = None):
+                    layer_fused: bool | None = None,
+                    embd_gtype: GType | None = None, search: bool = False):
     """Weight-only quantization of the 2-D weights whose rows are whole
-    256-element groups, then fuse_params. The embedding and LM-head rows
-    are padded to PAD_ROWS (forward slices the logits back to n_vocab).
+    256-element groups, then fuse_params. The embedding and LM-head tables
+    take ``embd_gtype`` (default ``gtype``, as llama.cpp's policy allows a
+    different one) and their rows are padded to PAD_ROWS (forward slices the
+    logits back to n_vocab). search: the k-quants' quality search.
     mlp_fused / layer_fused (None: config.mlp_fused() / config.llama_fused(),
     off by default) switch the fused routes on for Q4_0: blocks whose MLP
     pair passes mlp_silu_fuse_supported get the marker ``mlp_fused``; given
@@ -148,6 +152,8 @@ def quantize_params(params, gtype: GType, cfg: LlamaConfig | None = None,
     fuse_llama_layer: the whole-block route's re-quantized ``wo`` beside the
     block's own Q4_0 tensors, shared)."""
 
+    embd_gtype = embd_gtype or gtype
+
     def q(t, pad_rows=False):
         if t is None or isinstance(t, QTensor) or t.dim() != 2 \
                 or t.shape[-1] % 256:
@@ -155,7 +161,8 @@ def quantize_params(params, gtype: GType, cfg: LlamaConfig | None = None,
         if pad_rows and t.shape[0] % PAD_ROWS:
             pad = PAD_ROWS - t.shape[0] % PAD_ROWS
             t = torch.cat([t, t.new_zeros((pad, t.shape[1]))], dim=0)
-        return quantize(t.to(torch.float32), gtype)
+        return quantize(t.to(torch.float32), embd_gtype if pad_rows else gtype,
+                        search=search)
 
     out = {
         "tok_embd": q(params["tok_embd"], pad_rows=True),
@@ -264,6 +271,49 @@ def synthetic_q4_0_params(cfg: LlamaConfig, seed: int = 0, device=None,
                 "g1": blk["attn_norm"].to(torch.float32),
                 "g2": blk["ffn_norm"].to(torch.float32)}
     return params
+
+
+def synthetic_params(cfg: LlamaConfig, gtype: GType, seed: int = 0,
+                     device=None):
+    """A fused parameter tree in ``gtype`` (every matmul weight and both
+    tables, as quantize_params gives it) from random weights drawn on
+    ``device`` from ``seed``: each matrix is drawn in f32, quantized by the
+    port's quantizer and freed before the next, so no f32 copy of the model
+    exists (at 7B it would take 27 GB; the largest matrix, w_gate_up, is 361
+    MB). Weights are N(0, 1/k) for k inputs (a unit-RMS row gives unit-RMS
+    outputs), embedding rows N(0, 1); wo and w_down are scaled by
+    1/sqrt(2·n_layer) as in synthetic_q4_0_params; unit norms."""
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    hd = cfg.head_dim
+    E, F = cfg.n_embd, cfg.n_ff
+    nq, nkv = cfg.n_head * hd, cfg.n_head_kv * hd
+    vpad = -(-cfg.n_vocab // PAD_ROWS) * PAD_ROWS
+    res = (2 * cfg.n_layer) ** -0.5
+
+    def qt(n, k, scale=1.0):
+        w = torch.randn((n, k), generator=gen, device=dev)
+        return quantize(w.mul_(scale / k ** 0.5), gtype)
+
+    def ones():
+        return torch.ones(E, dtype=torch.bfloat16, device=dev)
+
+    return {
+        "tok_embd": qt(vpad, E, E ** 0.5),
+        "norm": ones(),
+        "output": qt(vpad, E),
+        "blocks": [
+            {
+                "attn_norm": ones(),
+                "wqkv": qt(nq + 2 * nkv, E),
+                "wo": qt(E, nq, res),
+                "ffn_norm": ones(),
+                "w_gate_up": qt(2 * F, E),
+                "w_down": qt(E, F, res),
+            }
+            for _ in range(cfg.n_layer)
+        ],
+    }
 
 
 def _rms(x, g, eps):

@@ -4,11 +4,13 @@ ggml convention: ``mul_mat(a, b)`` dots rows of ``a`` (weights [n_out, k])
 with rows of ``b`` (activations [..., k]) -> [..., n_out], i.e. ``b @ a.T``.
 
 Quantized semantics: activations are first rounded through the weight
-format's ``vec_dot_type`` (Q8_0 for Q4_0), then the dot of the two
-dequantized operands is taken in f32. ``mul_mat_q`` is that function in
-plain PyTorch; ``mul_mat`` sends a CUDA tensor to the hand-written kernel of
-the weight's format (``kernels.matmul_q``: Q4_0, Q8_0) and a CPU tensor to
-``mul_mat_q``.
+format's ``vec_dot_type`` (Q8_0, Q8_1 or Q8_K), then the dot of the two
+dequantized operands is taken in f32, the k-quant weights with their fused
+f16 sub-block scales (``dequantize(..., fused_scales=True)``, the scales the
+JAX package's matmul kernels read). ``mul_mat_q`` is that function in plain
+PyTorch; ``mul_mat`` sends a CUDA tensor to the hand-written kernel of the
+weight's format (``kernels.matmul_q``: every block format a weight takes)
+and a CPU tensor to its plain version.
 """
 from __future__ import annotations
 
@@ -36,17 +38,19 @@ def quantize_activations(b, weight_gtype: GType) -> QTensor:
 def mul_mat_q(a: QTensor, b, quantize_acts: bool = True):
     """Quantized mul_mat, plain version: dequantize, then an f32 matmul.
     a: QTensor [n_out, k]; b: float activations [..., k] -> f32 [..., n_out]."""
-    w = dequantize(a)
+    w = dequantize(a, fused_scales=True)
     if quantize_acts:
         b = dequantize(quantize_activations(b, a.gtype))
     return torch.matmul(b.to(torch.float32), w.transpose(-1, -2))
 
 
-def mul_mat(a, b, quantize_acts: bool = True):
+def mul_mat(a, b, quantize_acts: bool = True, plain: bool = False):
     """Dispatch on the weight type: QTensor weights go to the quantized
-    matmul (kernel on the card, plain version on the CPU)."""
+    matmul (kernel on the card, plain version on the CPU or with
+    plain=True)."""
     if isinstance(a, QTensor):
         from ..kernels.matmul_q import mul_mat_q_fused
 
-        return mul_mat_q_fused(a, b, quantize_acts=quantize_acts)
+        return mul_mat_q_fused(a, b, quantize_acts=quantize_acts,
+                               plain=plain)
     return mul_mat_f(a, b)

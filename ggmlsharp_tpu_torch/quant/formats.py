@@ -1,17 +1,33 @@
 """Block-quantized tensors in the port's own layout.
 
-Blocks run along the last axis, 32 elements each, as in ggml. The planes
-are ggml's block fields split into two arrays:
+Blocks run along the last axis, as in ggml. A tensor's planes are ggml's
+block fields, each field of every block gathered into one array (``_WIRE``
+lists them in wire order), so the planes hold a row's wire bytes split by
+field:
 
-  * ``qs``: Q4_0 as uint8 ``[..., K/2]`` in ggml's in-block nibble order
-    (byte j of a block holds element j in its low nibble and element j+16
-    in its high nibble); Q8_0 as int8 ``[..., K]`` in element order.
-  * ``d``: the per-block scale, float16 ``[..., K/32]``.
+  * ``qs``: 4-bit formats as uint8 ``[..., K/2]`` in ggml's in-block nibble
+    order (byte j of a block of B elements holds element j in its low nibble
+    and element j + B/2 in its high nibble; Q4_K's 64-element groups
+    likewise: byte l of group g holds elements 64g + l and 64g + 32 + l);
+    Q8_0, Q8_1 and Q8_K as int8 ``[..., K]`` in element order.
+  * ``d`` (and ``m``, ``s``, ``dmin``): per-block scales, float16 ``[...,
+    K/B]``; Q8_1's d and s and Q8_K's d are float32, as the JAX package
+    keeps them.
+  * ``qh``: Q5_0/Q5_1's high bits, one int32 a block (bit l is element l's
+    fifth bit); Q6_K's 2-bit high plane, uint8 ``[..., K/4]`` in ggml's
+    order (byte l of a 128-element half carries elements l, l+32, l+64,
+    l+96 in bit pairs 0-1, 2-3, 4-5, 6-7; ``ql`` likewise: byte l holds l
+    and l+64, byte l+32 holds l+32 and l+96).
+  * ``scales``: Q4_K's twelve bytes a superblock of 6-bit sub-block scales
+    and mins, packed as ggml packs them; ``sc``: Q6_K's int8 sub-block
+    scales; ``bsums``: Q8_K's int16 sums of 16 quants.
 
-So a row's ``qs`` bytes are exactly the payload bytes of its wire blocks.
-The JAX package's planar, storage-order and SWAR layouts exist for the
-TPU's vector units and have no counterpart here; the two packages compute
-the same function and exchange tensors as ggml wire bytes.
+So ``from_wire`` / ``to_wire`` only move bytes. Q4_2 and Q4_3 (16-element
+blocks) have no GGUF type id; their wire block is ggml's (f16 d, [f16 m],
+8 bytes of nibbles) in the same split-half nibble order. The JAX package's
+planar, storage-order, f16-pair and SWAR layouts exist for the TPU's vector
+units and have no counterpart here; the two packages compute the same
+function and exchange tensors as ggml wire bytes.
 """
 from __future__ import annotations
 
@@ -19,9 +35,35 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..dtypes import GType, TYPE_TRAITS, row_size_bytes
+from ..dtypes import GType, TYPE_TRAITS
 
-_FORMATS = (GType.Q4_0, GType.Q8_0)
+_U8, _I8, _F16 = np.uint8, np.int8, np.float16
+# gtype -> (block elements, [(plane, wire bytes a block, wire dtype, plane
+# dtype)]) in wire order; the plane dtype differs only where the JAX package
+# widens a field (Q8_1's f16 d and s to f32)
+_WIRE = {
+    GType.Q4_0: (32, [("d", 2, _F16, _F16), ("qs", 16, _U8, _U8)]),
+    GType.Q4_1: (32, [("d", 2, _F16, _F16), ("m", 2, _F16, _F16),
+                      ("qs", 16, _U8, _U8)]),
+    GType.Q4_2: (16, [("d", 2, _F16, _F16), ("qs", 8, _U8, _U8)]),
+    GType.Q4_3: (16, [("d", 2, _F16, _F16), ("m", 2, _F16, _F16),
+                      ("qs", 8, _U8, _U8)]),
+    GType.Q5_0: (32, [("d", 2, _F16, _F16), ("qh", 4, np.int32, np.int32),
+                      ("qs", 16, _U8, _U8)]),
+    GType.Q5_1: (32, [("d", 2, _F16, _F16), ("m", 2, _F16, _F16),
+                      ("qh", 4, np.int32, np.int32), ("qs", 16, _U8, _U8)]),
+    GType.Q8_0: (32, [("d", 2, _F16, _F16), ("qs", 32, _I8, _I8)]),
+    GType.Q8_1: (32, [("d", 2, _F16, np.float32), ("s", 2, _F16, np.float32),
+                      ("qs", 32, _I8, _I8)]),
+    GType.Q4_K: (256, [("d", 2, _F16, _F16), ("dmin", 2, _F16, _F16),
+                       ("scales", 12, _U8, _U8), ("qs", 128, _U8, _U8)]),
+    GType.Q6_K: (256, [("ql", 128, _U8, _U8), ("qh", 64, _U8, _U8),
+                       ("sc", 16, _I8, _I8), ("d", 2, _F16, _F16)]),
+    GType.Q8_K: (256, [("d", 4, np.float32, np.float32),
+                       ("qs", 256, _I8, _I8), ("bsums", 32, np.int16,
+                                                np.int16)]),
+}
+FORMATS = tuple(_WIRE)
 
 
 class QTensor:
@@ -42,7 +84,8 @@ class QTensor:
                        {k: v.to(device) for k, v in self.planes.items()})
 
     def nbytes(self) -> int:
-        """Bytes the planes hold (equal to the ggml wire size)."""
+        """Bytes the planes hold (the ggml wire size, but for Q8_1's f32 d
+        and s)."""
         return sum(p.numel() * p.element_size() for p in self.planes.values())
 
     def __repr__(self):
@@ -52,8 +95,23 @@ class QTensor:
 
 
 def _check_format(gtype):
-    if GType(gtype) not in _FORMATS:
-        raise NotImplementedError(f"{GType(gtype).name} is not ported yet")
+    if GType(gtype) not in _WIRE:
+        raise NotImplementedError(
+            f"{GType(gtype).name} is not a block format")
+
+
+def wire_block_bytes(gtype) -> tuple:
+    """(elements, wire bytes) of one block of ``gtype``."""
+    bs, fields = _WIRE[GType(gtype)]
+    return bs, sum(f[1] for f in fields)
+
+
+def plane_specs(gtype, k: int) -> dict:
+    """{plane: (torch dtype, columns a row of k elements)} of ``gtype``."""
+    bs, fields = _WIRE[GType(gtype)]
+    return {name: (torch.from_numpy(np.zeros(0, pdt)).dtype,
+                   k // bs * nbytes // np.dtype(wdt).itemsize)
+            for name, nbytes, wdt, pdt in fields}
 
 
 def from_wire(gtype, wire, shape, device=None) -> QTensor:
@@ -63,33 +121,38 @@ def from_wire(gtype, wire, shape, device=None) -> QTensor:
     gtype = GType(gtype)
     _check_format(gtype)
     shape = tuple(int(s) for s in shape)
-    k = shape[-1]
-    rows = int(np.prod(shape[:-1]))
-    nb = k // 32
-    bb = TYPE_TRAITS[gtype].type_size_bytes
+    lead, k = shape[:-1], shape[-1]
+    rows = int(np.prod(lead))
+    bs, fields = _WIRE[gtype]
+    _, bb = wire_block_bytes(gtype)
+    if k % bs:
+        raise ValueError(f"{gtype.name}: row of {k} is not whole blocks")
+    nb = k // bs
     raw = np.frombuffer(wire, np.uint8) if isinstance(wire, (bytes, bytearray)) \
         else np.asarray(wire, np.uint8)
-    if raw.size != rows * row_size_bytes(gtype, k):
+    if raw.size != rows * nb * bb:
         raise ValueError(f"wire size {raw.size} does not match {shape}")
     blocks = raw.reshape(rows, nb, bb)
-    d = np.ascontiguousarray(blocks[:, :, 0:2]).view(np.float16)
-    payload = np.ascontiguousarray(blocks[:, :, 2:]).reshape(*shape[:-1], -1)
-    if gtype == GType.Q8_0:
-        payload = payload.view(np.int8)
-    planes = {"qs": torch.from_numpy(payload.copy()),
-              "d": torch.from_numpy(d.reshape(*shape[:-1], nb).copy())}
+    planes, off = {}, 0
+    for name, nbytes, wdt, pdt in fields:
+        v = np.ascontiguousarray(blocks[:, :, off:off + nbytes]).view(wdt)
+        planes[name] = torch.from_numpy(
+            v.astype(pdt).reshape(*lead, -1))
+        off += nbytes
     return QTensor(gtype, shape, planes).to(device)
 
 
 def to_wire(qt: QTensor) -> bytes:
-    """QTensor -> ggml wire blocks (18 bytes a block for Q4_0, 34 for Q8_0)."""
+    """QTensor -> ggml wire blocks."""
     _check_format(qt.gtype)
-    k = qt.shape[-1]
     rows = int(np.prod(qt.shape[:-1]))
-    nb = k // 32
-    d = qt["d"].detach().cpu().numpy().reshape(rows, nb, 1).view(np.uint8)
-    qs = qt["qs"].detach().cpu().numpy().view(np.uint8).reshape(rows, nb, -1)
-    return np.concatenate([d, qs], axis=-1).tobytes()
+    bs, fields = _WIRE[qt.gtype]
+    nb = qt.shape[-1] // bs
+    parts = []
+    for name, _, wdt, _ in fields:
+        v = qt[name].detach().cpu().numpy().astype(wdt)
+        parts.append(v.reshape(rows, nb, -1).view(np.uint8))
+    return np.concatenate(parts, axis=-1).tobytes()
 
 
 def concat_qtensors(qts: list):

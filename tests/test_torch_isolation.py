@@ -171,3 +171,78 @@ def test_fused_llama_wrappers_never_fall_back(monkeypatch, name):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         call()
     assert _build.LAUNCHES == before
+
+
+def _matmul_calls():
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels import matmul_q
+    from ggmlsharp_tpu_torch.ops import matmul as ops_matmul
+    from ggmlsharp_tpu_torch.quant import quantize
+
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn((256, 512), generator=gen)
+    x = torch.randn((2, 512), generator=gen).as_subclass(_OnCard)
+    qk, q5 = quantize(w, GType.Q4_K), quantize(w, GType.Q5_1)
+    return {
+        "matmul_q": (ops_matmul, "mul_mat_q",
+                     lambda: matmul_q.mul_mat_q_fused(qk, x)),
+        "matmul_int_dot": (matmul_q, "_int_dot_ref",
+                           lambda: matmul_q.mul_mat_q_fused(q5, x[:1])),
+    }
+
+
+@pytest.mark.parametrize("name", ["matmul_q", "matmul_int_dot"])
+def test_matmul_wrappers_never_fall_back(monkeypatch, name):
+    """Kernel A (Q4_K here) and kernel B (Q5_1, GGML_TPU_INT_DOT=1) on a
+    tensor on the card with no way to build the kernel: the wrapper raises,
+    reaches no plain version and counts no launch. Both sources are
+    registered and free of PyTorch's headers."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("the wrapper fell back to its plain version")
+
+    src = _build.KERNELS[name][0]
+    with open(os.path.join(_build.CSRC, src)) as f:
+        text = f.read()
+    includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
+    assert includes and not any("torch" in ln or "ATen" in ln
+                                for ln in includes)
+    assert name in _build.LAUNCHES
+    module, ref, call = _matmul_calls()[name]
+    monkeypatch.setenv("GGML_TPU_INT_DOT", "1")
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    monkeypatch.setattr(module, ref, plain)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        call()
+    assert _build.LAUNCHES == before
+
+
+def test_import_scan_covers_the_formats_slice():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"quant/registry.py", "quant/quantize.py", "quant/formats.py",
+            "kernels/matmul_q.py", "ops/matmul.py"} <= rel
+
+
+def test_format_entry_points_default_to_the_card():
+    """synthetic_params and from_wire in the new formats follow the device
+    rule: without a card and without device="cpu" they raise."""
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.quant import from_wire
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = llama.LlamaConfig(n_vocab=256, n_ctx=32, n_embd=256, n_head=4,
+                            n_head_kv=4, n_layer=1, n_ff=512)
+    for call in (lambda: llama.synthetic_params(cfg, GType.Q4_K),
+                 lambda: from_wire(GType.Q6_K, bytes(210), (1, 256))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    p = llama.synthetic_params(cfg, GType.Q4_K, device="cpu")
+    assert p["blocks"][0]["wo"]["qs"].device.type == "cpu"

@@ -40,15 +40,29 @@ version):
         each: Q4_1, Q4_2, Q4_3, Q5_0, Q5_1 over the bf16 head-major cache
         (matmul_q.cu), then GGML_TPU_INT_DOT=1 with Q8_0, Q4_0, Q4_1, Q5_0,
         Q5_1 (matmul_int_dot.cu in every decode matmul but the LM head's);
+     g. training: GPT-2 124M (full width and depth, bf16 parameters from a
+        seed), one batch of 8 x 129 tokens, the JAX bench's loss; the loss
+        and every gradient against the plain route, then 4 Adam steps
+        through optim.opt_fn (the cached flash entry's Function in every
+        layer, its backward a dense recompute);
+     h. the graph layer: the reference's Test3 (4096 x 256 L-BFGS fit) by
+        ggml_opt on the card, then a graph-API decoder (E 768, 12 heads, S
+        128, 2 layers) with flash_attn: forward, backward graph against the
+        plain route, and 4 Adam steps of opt() (the uncached flash entry);
+     and GPT-2 124M behind serving.Engine with an INT8 (head-major) cache,
+     against the same engine's plain run;
   5. each kernel's time at the paths' shapes (CUDA events), beside its
-     plain version, one PyTorch library call and its bound;
+     plain version, one PyTorch library call and its bound; kernel 2 also
+     at path g's shape, both entries, softcap, and its backward against
+     SDPA's;
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
      time, peak device memory, and a torch.profiler window of decode steps
      (device time, launches and host operator calls a step, idle share);
      serving tokens/s, time to first token, latency, ticks, peak memory
      and the share of the batched roofline; the same decode measurements
      for GPT-2 124M and 774M, for Llama-7B on its whole-block route and
-     for path e in Q4_K and Q6_K.
+     for path e in Q4_K and Q6_K; path g's step time, tokens/s, share of
+     the bf16 dense peak and peak memory.
 
 Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
@@ -64,6 +78,7 @@ import time
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_S = 67e12     # H100 SXM f32 outside the tensor cores
 INT8_OP_S = 1979e12    # H100 SXM int8 tensor cores, dense
+BF16_FLOP_S = 989e12   # H100 SXM bf16 tensor cores, dense
 L2_BYTES = 50 * 2**20
 SEED = 0
 PROMPT_LEN, N_NEW, N_CMP = 16, 32, 8
@@ -1959,6 +1974,584 @@ def run_format_paths(cfg, prompt, gen):
     return total, errs
 
 
+# --- the training slice: kernel 2 in full (both entries, softcap, f16,
+# D <= 256, the gradient), path g (GPT-2 124M Adam steps), path h (the
+# graph layer: Test3's L-BFGS fit and a flash-attention decoder), and GPT-2
+# 124M INT8 serving over the head-major cache --------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 128, 4   # path g: bench.py's train shape
+# path h's decoder: GPT-2 124M's widths and vocabulary, 2 layers
+GRAPH_V, GRAPH_E, GRAPH_H, GRAPH_S, GRAPH_LAYERS, GRAPH_STEPS = \
+    50257, 768, 12, 128, 2, 4
+TEST3_NP, TEST3_NF = 4096, 256              # the reference's Test3
+SERVE_G_SLOTS, SERVE_G_REQS, SERVE_G_PLEN, SERVE_G_NEW = 2, 4, 16, 16
+# (label, entry, lead dims or (B, Hq, Hkv), Sq, Sk, D, causal, n_past, dtype,
+#  softcap); the cached entry's npast is [n_past] * B
+FLASH2_CASES = [
+    ("unc_causal_f32_d64", "uncached", (4, 8), 40, 40, 64, True, 0, "f32", 0.0),
+    ("unc_full_f32_d64_sq_ne_sk", "uncached", (2, 8), 24, 72, 64, False, 0,
+     "f32", 0.0),
+    ("unc_causal_npast16_bf16_d64", "uncached", (2, 8), 24, 40, 64, True, 16,
+     "bf16", 0.0),
+    ("unc_causal_d8_f32", "uncached", (12,), 128, 128, 8, True, 0, "f32", 0.0),
+    ("unc_causal_d256_bf16", "uncached", (2, 4), 64, 64, 256, True, 0, "bf16",
+     0.0),
+    ("unc_full_d256_f16", "uncached", (2, 4), 33, 50, 256, False, 0, "f16",
+     0.0),
+    ("unc_causal_d64_f16_softcap30", "uncached", (2, 8), 48, 48, 64, True, 0,
+     "f16", 30.0),
+    ("cached_gqa_d256_f32_softcap30", "cached", (2, 8, 2), 20, 64, 256, True,
+     9, "f32", 30.0),
+    ("cached_d8_bf16", "cached", (1, 4, 4), 16, 32, 8, True, 3, "bf16", 0.0),
+    ("cached_train_g_bf16", "cached", (TRAIN_B, 12, 12), TRAIN_S, TRAIN_S, 64,
+     True, 0, "bf16", 0.0),
+    ("cached_train_g_bf16_softcap30", "cached", (TRAIN_B, 12, 12), TRAIN_S,
+     TRAIN_S, 64, True, 0, "bf16", 30.0),
+]
+_DT = {"f32": "float32", "bf16": "bfloat16", "f16": "float16"}
+
+
+def flash2_inputs(dev, gen, entry, lead, sq, sk, D, n_past, dt):
+    """q, k, v (and npast for the cached entry) of one FLASH2 case; k/v of
+    the cached entry are T-row prefix views of a buffer 16 rows longer."""
+    import torch
+
+    dtype = getattr(torch, _DT[dt])
+    if entry == "uncached":
+        q = torch.randn((*lead, sq, D), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((*lead, sk, D), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        return q, k, v, None
+    B, Hq, Hkv = lead
+    q = torch.randn((B, Hq, sq, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, Hkv, sk + 16, D), generator=gen, device=dev)
+            .to(dtype)[:, :, :sk] for _ in range(2))
+    npast = torch.full((B,), n_past, dtype=torch.int32, device=dev)
+    return q, k, v, npast
+
+
+def check_flash_train(dev, gen):
+    """Kernel 2's entries vs their plain versions (_uncached_ref,
+    _cached_ref) on the same inputs, every FLASH2 case. Both compute in f32
+    from the same (bf16, f16) input values: rtol 2e-4 / atol 2e-5 as for the
+    cached entry (online vs dense softmax, f32 summation order), plus one
+    output ulp where the uncached entry rounds to a 16-bit q dtype (up to
+    2^-7 of |want| for bf16, 2^-10 for f16). Then, at path g's shape, the
+    gradients dq, dk, dv of the cached entry's Function (its backward
+    recomputes _cached_ref under autograd) against autograd of _cached_ref
+    itself, and a double backward (an HVP) at a small shape: both sides
+    run the same dense operations, so they must agree to the f32 bar (bf16
+    gradients: one bf16 ulp, up to 2^-7 of |want|)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.flash import (
+        _cached_ref, _uncached_ref, flash_attention, flash_attention_cached)
+
+    rows, worst = [], {}
+    for label, entry, lead, sq, sk, D, causal, n_past, dt, cap in FLASH2_CASES:
+        q, k, v, npast = flash2_inputs(dev, gen, entry, lead, sq, sk, D,
+                                       n_past, dt)
+        sc = D ** -0.5
+        if entry == "uncached":
+            got = flash_attention(q, k, v, causal=causal, n_past=n_past,
+                                  softcap=cap)
+            want = _uncached_ref(q, k, v, causal, n_past, sc, cap).to(q.dtype)
+            ulp = {"f32": 0.0, "bf16": 2 ** -7, "f16": 2 ** -10}[dt]
+        else:
+            got = flash_attention_cached(q, k, v, npast, softcap=cap)
+            want = _cached_ref(q, k, v, npast, sc, cap)
+            ulp = 0.0
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        ok = got.dtype == want.dtype and bool(torch.isfinite(got).all()) \
+            and bool((err <= 2e-5 + (2e-4 + ulp) * want.abs()).all())
+        worst[entry] = max(worst.get(entry, 0.0), float(err.max()))
+        rows.append({"case": label, "entry": entry, "dtype": dt, "D": D,
+                     "softcap": cap, "max_abs_err": float(err.max()),
+                     "ok": ok})
+        if not ok:
+            emit({"flash2_check": rows})
+            raise SystemExit(f"flash kernel disagrees in case {label}")
+
+    def grads(fn, xs, g, create=False):
+        out = fn(*xs)
+        return torch.autograd.grad(out, xs, g, create_graph=create)
+
+    grad_rows = []
+    for label, (B, H, S, D, dt), hvp in (
+            ("train_g_grad", (TRAIN_B, 12, TRAIN_S, 64, "bf16"), False),
+            ("hvp_small_f32", (2, 4, 24, 32, "f32"), True)):
+        dtype = getattr(torch, _DT[dt])
+        xs = [torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+              .requires_grad_() for _ in range(3)]
+        npast = torch.zeros((B,), dtype=torch.int32, device=dev)
+        g = torch.randn((B, H, S, D), generator=gen, device=dev)
+        kern = lambda a, b, c: flash_attention_cached(a, b, c, npast)
+        plain = lambda a, b, c: _cached_ref(a, b, c, npast, D ** -0.5)
+        gk = grads(kern, xs, g, hvp)
+        gp = grads(plain, xs, g, hvp)
+        if hvp:
+            us = [torch.randn_like(x) for x in xs]
+            gk = torch.autograd.grad(sum((a * u).sum()
+                                         for a, u in zip(gk, us)), xs)
+            gp = torch.autograd.grad(sum((a * u).sum()
+                                         for a, u in zip(gp, us)), xs)
+        torch.cuda.synchronize()
+        ulp = 2 ** -7 if dt == "bf16" else 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), gk, gp):
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            ok = bool(torch.isfinite(a).all()) and bool(
+                (err <= 2e-5 + (2e-4 + ulp) * b.abs()).all())
+            grad_rows.append({"case": label, "grad": name,
+                              "max_abs_err": float(err.max()),
+                              "max_abs": float(b.abs().max()), "ok": ok})
+            worst["grad"] = max(worst.get("grad", 0.0), float(err.max()))
+            if not ok:
+                emit({"flash2_check": rows, "flash2_grad_check": grad_rows})
+                raise SystemExit(f"flash gradient disagrees: {label} {name}")
+    emit({"flash2_check": rows, "flash2_grad_check": grad_rows})
+    return worst
+
+
+def train_step_flops(n_params, tokens):
+    """bench.py's basis: 6 FLOPs a parameter a token (forward + backward)."""
+    return 6.0 * n_params * tokens
+
+
+def run_train_path(dev, smi, cfg):
+    """Path g: GPT-2 124M at full width and depth, bf16 parameters from
+    init_params (seed 0), one fixed batch of TRAIN_B x (TRAIN_S + 1) tokens
+    from a seeded generator, bench.py's loss (models.common.lm_loss).
+
+    First the loss and every leaf's gradient on the kernel route against the
+    plain route (plain=True: _cached_ref in place of the kernel); bar: 5e-2
+    relative L2 a leaf, 1e-3 relative on the loss. The routes differ in f32
+    summation order inside attention, and bf16 rounds every op's output, so
+    a one-ulp flip (up to 2^-8 relative) at one place starts a difference
+    that each later bf16 rounding on the backward's path (12 layers x ~15
+    ops) can grow by as much again: as a random walk, 2^-8 * sqrt(180) =
+    0.05. Then TRAIN_STEPS Adam steps through
+    optim.opt_fn (AdamParams' alpha 1e-3, stopping rules off), the launch
+    counters reset just before and read just after: one flash launch a
+    layer a step. The loss at the final parameters must be below the first;
+    the median step time of steps 2-4 gives tokens/s and the share of the
+    bf16 dense peak at 6 FLOPs a parameter a token; peak memory counts what
+    the path allocates above what earlier paths keep resident. Last, a
+    torch.profiler window of two more steps (device time, launches, idle
+    share)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import gpt2
+    from ggmlsharp_tpu_torch.models.common import lm_loss
+    from ggmlsharp_tpu_torch.optim import OptParams, OptType, opt_fn, \
+        value_and_grad
+    from ggmlsharp_tpu_torch.optim.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = gpt2.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                              device=dev, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    toks = torch.randint(0, cfg.n_vocab, (TRAIN_B, TRAIN_S + 1),
+                         generator=torch.Generator(dev).manual_seed(SEED + 1),
+                         device=dev, dtype=torch.int32)
+    loss = lambda p: lm_loss(gpt2.forward, cfg, p, toks)
+    loss_plain = lambda p: lm_loss(gpt2.forward, cfg, p, toks, plain=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    f_k, g_k = value_and_grad(loss)(params)
+    torch.cuda.synchronize()
+    vg_counts = dict(kernels.LAUNCHES)
+    f_p, g_p = value_and_grad(loss_plain)(params)
+    rel = [float((a.float() - b.float()).norm() / b.float().norm())
+           for a, b in zip(tree_leaves(g_k), tree_leaves(g_p))]
+    cmp = {"loss": float(f_k), "loss_plain": float(f_p),
+           "loss_rel_err": abs(float(f_k) - float(f_p)) / abs(float(f_p)),
+           "leaves": len(rel), "grad_rel_l2_max": max(rel),
+           "grad_rel_l2_median": statistics.median(rel), "bar": 5e-2,
+           "vg_launches": {k: v for k, v in vg_counts.items() if v}}
+    emit({"train_plain_compare": cmp})
+    if not (cmp["loss_rel_err"] <= 1e-3 and max(rel) <= 5e-2
+            and all(v == v for v in rel)):
+        raise SystemExit(f"path g: kernel route disagrees with plain: {cmp}")
+    if vg_counts != dict.fromkeys(kernels.LAUNCHES, 0) | {
+            "flash_attn": cfg.n_layer}:
+        raise SystemExit(f"path g: a loss evaluation launched {vg_counts}")
+    del g_k, g_p
+
+    prm = OptParams(type=OptType.ADAM)
+    prm.adam.n_iter = TRAIN_STEPS
+    prm.adam.eps_f = 0.0
+    prm.past = prm.max_no_improvement = 0
+    stamps, losses = [], []
+
+    def on_step(it, f):  # opt_adam has read f back: the step is done
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(f)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    x, fx, res, iters = opt_fn(loss, params, prm, on_step)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        f_end = float(loss(x))
+    one = OptParams(type=OptType.ADAM)
+    one.adam.n_iter = 1
+    prof = profile_steps(lambda: opt_fn(loss, x, one), 2)
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    med = statistics.median(step_s[1:])
+    tok_s = TRAIN_B * TRAIN_S / med
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "flash_attn": cfg.n_layer * TRAIN_STEPS}
+    out = {"config": f"GPT-2 E {cfg.n_embd} x {cfg.n_layer} layers, bf16",
+           "card": smi, "n_params": n_params,
+           "batch": TRAIN_B, "seq": TRAIN_S, "steps": iters,
+           "result": res.name, "losses": losses, "loss_after": f_end,
+           "step_s": step_s, "step_ms_median_2_4": med * 1e3,
+           "tokens_per_s": tok_s,
+           "model_flop_s": train_step_flops(n_params, TRAIN_B * TRAIN_S) / med,
+           "bf16_peak_share": train_step_flops(n_params, tok_s) / BF16_FLOP_S,
+           "peak_mem_gb": (peak - base) / 1e9, "launches": counts,
+           "profile": prof,
+           "device_idle_share": (1.0 - prof["device_ms_per_step"] / (med * 1e3)
+                                 if isinstance(prof["device_ms_per_step"],
+                                               float) else "not measured"),
+           "expected_launches": want,
+           "flash_launches_per_step": counts["flash_attn"] / TRAIN_STEPS}
+    emit({"train_path": out})
+    if counts != want:
+        raise SystemExit(f"path g launch counts {counts} != {want}")
+    if iters != TRAIN_STEPS or not f_end < losses[0] or f_end != f_end:
+        raise SystemExit(f"path g: the loss did not fall: {out}")
+    return out, counts
+
+
+def test3_data(np_, nf):
+    """The reference's Test3 data: MSVC-LCG noise over a block-indicator
+    design (tests/test_optim.py::_test3_data), made on the host."""
+    import numpy as np
+
+    state = 0
+    F = np.zeros((np_, nf), np.float32)
+    lab = np.where(np.arange(np_) < np_ // 2, 1.0, -1.0).astype(np.float32)
+    for j in range(np_):
+        row = F[j]
+        for i in range(nf):
+            state = (214013 * state + 2531011) & 0xFFFFFFFF
+            ind = 1.0 if (lab[j] > 0) == (i < nf // 2) else 0.0
+            row[i] = (ind + (((state >> 16) & 0x7FFF) / 32767.0 - 0.5)
+                      * 0.1) / (0.5 * nf)
+    return F, lab
+
+
+def graph_decoder(B, leaf, weights, S, H, plain):
+    """The decoder of examples/graph_transformer.py through the graph API,
+    B.flash_attn in place of its mul_mat / diag_mask_inf / soft_max chain
+    (plain=True: the op's materialised-scores route). weights: wte [V, E],
+    then per layer wq, wk, wv, wo [E, E], w_up [4E, E], w_down [E, 4E], each
+    a tensor on the card. Returns (tokens leaf, logits node, params)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.graph import set_param
+
+    ws = [set_param(leaf(w)) for w in weights]
+    it = iter(ws)
+    wte = next(it)
+    E = weights[0].shape[1]
+    hd = E // H
+    tok = leaf(torch.zeros((S,), dtype=torch.int32, device=weights[0].device))
+    x = B.get_rows(wte, tok)
+    for _ in range((len(weights) - 1) // 6):
+        wq, wk, wv, wo, w_up, w_down = (next(it) for _ in range(6))
+        h = B.rms_norm(x)
+        q, k, v = (B.permute(B.reshape(B.mul_mat(w, h), (S, H, hd)),
+                             (1, 0, 2)) for w in (wq, wk, wv))
+        o = B.flash_attn(B.rope(q, 0), B.rope(k, 0), v, plain=plain)
+        o = B.reshape(B.cont(B.permute(o, (1, 0, 2))), (S, E))
+        x = B.add(x, B.mul_mat(wo, o))
+        x = B.add(x, B.mul_mat(w_down, B.gelu(B.mul_mat(w_up, B.rms_norm(x)))))
+    return tok, B.mul_mat(wte, B.rms_norm(x)), ws
+
+
+def run_graph_test3(dev, smi):
+    """Path h1, Test3, the reference's largest workload: the 4096 x 256
+    L2-regularised linear classifier through the ggml_* API (a context on
+    the card) and ggml_opt with L-BFGS; every weight within 1e-2 of +-1."""
+    import torch
+
+    from ggmlsharp_tpu_torch import GType, compat
+    from ggmlsharp_tpu_torch.graph import builders as B, set_data
+
+    F, lab = test3_data(TEST3_NP, TEST3_NF)
+    ctx = compat.ggml_init()
+    Fl = set_data(compat.ggml_new_tensor_2d(ctx, GType.F32, TEST3_NF,
+                                            TEST3_NP), F)
+    ll = set_data(compat.ggml_new_tensor_1d(ctx, GType.F32, TEST3_NP), lab)
+    w = compat.ggml_new_tensor_1d(ctx, GType.F32, TEST3_NF)
+    compat.ggml_set_param(ctx, w)
+    err = compat.ggml_sub(ctx, compat.ggml_mul_mat(ctx, Fl, w), ll)
+    f = compat.ggml_add(
+        ctx, B.scale_const(compat.ggml_sum(ctx, compat.ggml_sqr(ctx, err)),
+                           1.0 / TEST3_NP),
+        B.scale_const(compat.ggml_sum(ctx, compat.ggml_sqr(ctx, w)), 1e-5))
+    prm = compat.ggml_opt_default_params(compat.GGML_OPT_LBFGS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = compat.ggml_opt(ctx, prm, f)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    w_true = torch.where(torch.arange(TEST3_NF, device=dev) < TEST3_NF // 2,
+                         1.0, -1.0)
+    w_err = float((w.data - w_true).abs().max())
+    h1 = {"workload": "Test3 4096 x 256 L-BFGS via ggml_opt", "card": smi,
+          "result": res.name, "max_abs_weight_err": w_err, "bar": 1e-2,
+          "seconds": secs, "device": str(w.data.device)}
+    emit({"graph_test3": h1})
+    if w_err > 1e-2 or res.name not in ("OK", "DID_NOT_CONVERGE") \
+            or w.data.device.type != dev.type:
+        raise SystemExit(f"path h1: Test3 missed its criterion: {h1}")
+    return h1
+
+
+def run_graph_decoder(dev, gen, smi):
+    """Path h2: a decoder built as examples/graph_transformer.py builds it, with
+    flash_attn in place of its attention chain, at E 768, 12 heads of D 64,
+    S 128, 2 layers, V 50257, f32 weights N(0, 0.02) from the generator. The
+    objective -mean over positions of soft_max(logits) at the target token.
+    build_forward and build_backward, computed once on the kernel route and
+    once on the plain route (the same graph built with plain=True), held to
+    1e-4 relative on the loss and 1e-3 relative L2 a weight's gradient (f32
+    throughout; the routes differ in summation order, and the generic VJPs
+    add the dense backward's own). Then GRAPH_STEPS Adam steps of opt()
+    (stopping rules off), the counters reset just before: the uncached
+    entry launches once a layer a forward, and the backward graph's generic
+    VJPs of each flash_attn node rerun its forward once a source (3 a
+    layer)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.graph import (build_backward, build_forward,
+                                           builders as B, leaf, set_data,
+                                           set_f32)
+    from ggmlsharp_tpu_torch.optim import OptParams, OptType, opt
+
+    V, E, H, S = GRAPH_V, GRAPH_E, GRAPH_H, GRAPH_S
+    shapes = [(V, E)] + ([(E, E)] * 4 + [(4 * E, E), (E, 4 * E)]) \
+        * GRAPH_LAYERS
+    weights = [torch.randn(s, generator=gen, device=dev) * 0.02
+               for s in shapes]
+    toks = torch.randint(0, V, (S,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    onehot = torch.zeros((S, V), device=dev)
+    onehot[torch.arange(S, device=dev),
+           torch.randint(0, V, (S,), generator=gen, device=dev)] = 1.0
+    runs = {}
+    for plain in (False, True):
+        tok, logits, ws = graph_decoder(B, leaf, weights, S, H, plain)
+        set_data(tok, toks)
+        obj = B.scale_const(B.sum(B.mul(B.soft_max(logits), leaf(onehot))),
+                            -1.0 / S)
+        gf = build_forward(obj)
+        gb = build_backward(gf)
+        gf.reset()
+        set_f32(obj.grad, 1.0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        gb.compute()
+        torch.cuda.synchronize()
+        runs[plain] = {"obj": obj, "ws": ws, "f": float(obj.data[0]),
+                       "grads": [x.grad.data.clone() for x in ws],
+                       "launches": dict(kernels.LAUNCHES),
+                       "seconds": time.perf_counter() - t0,
+                       "n_nodes": len(gb.nodes)}
+    k, p = runs[False], runs[True]
+    rel = [float((a - b).norm() / b.norm()) for a, b in
+           zip(k["grads"], p["grads"])]
+    want_bwd = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "flash_attn_uncached": 4 * GRAPH_LAYERS}
+    cmp = {"loss": k["f"], "loss_plain": p["f"],
+           "loss_rel_err": abs(k["f"] - p["f"]) / abs(p["f"]),
+           "grad_rel_l2_max": max(rel), "n_nodes": k["n_nodes"],
+           "backward_graph_seconds": k["seconds"],
+           "launches": k["launches"], "expected_launches": want_bwd,
+           "plain_launches": {n: c for n, c in p["launches"].items() if c}}
+    emit({"graph_decoder_compare": cmp})
+    if cmp["loss_rel_err"] > 1e-4 or max(rel) > 1e-3 \
+            or k["launches"] != want_bwd or any(p["launches"].values()):
+        raise SystemExit(f"path h2: the graph disagrees or launched wrong: "
+                         f"{cmp}")
+    prm = OptParams(type=OptType.ADAM)
+    prm.adam.n_iter = GRAPH_STEPS
+    prm.adam.eps_f = 0.0
+    prm.past = prm.max_no_improvement = 0
+    losses = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res2, fx = opt(k["obj"], prm, lambda it, fv: losses.append(fv))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    gf = build_forward(k["obj"])
+    gf.compute()
+    f_end = float(k["obj"].data[0])
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "flash_attn_uncached": GRAPH_LAYERS * GRAPH_STEPS}
+    h2 = {"decoder": f"E {E}, {H} heads, S {S}, {GRAPH_LAYERS} layers, V {V}",
+          "card": smi, "steps": GRAPH_STEPS, "losses": losses,
+          "loss_after": f_end, "seconds": secs, "launches": counts,
+          "expected_launches": want}
+    emit({"graph_decoder_train": h2})
+    if counts != want or not f_end < losses[0]:
+        raise SystemExit(f"path h2: opt() failed: {h2}")
+    total = {n: k["launches"][n] + counts[n] for n in counts}
+    return cmp, h2, total
+
+
+def run_gpt2_int8_serving(gcfg, gparams):
+    """GPT-2 124M (path c's Q8_0 weights) behind serving.Engine with an INT8
+    cache, which for GPT-2 is head-major: SERVE_G_SLOTS slots, SERVE_G_REQS
+    requests of SERVE_G_PLEN + SERVE_G_NEW tokens, the counters reset just
+    before; then the same engine with plain=True. Weight-only
+    (GGML_TPU_QUANT_ACTS=0), so the two differ in f32 summation order alone
+    (the INT8 rows round the same values); each request's tokens must be the
+    plain engine's."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import gpt2
+    from ggmlsharp_tpu_torch.serving import Engine, Request
+
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, gcfg.n_vocab, size=SERVE_G_PLEN).tolist()
+               for _ in range(SERVE_G_REQS)]
+    outs, counts, layout = {}, None, None
+    os.environ["GGML_TPU_QUANT_ACTS"] = "0"
+    try:
+        for plain in (False, True):
+            fwd = functools.partial(gpt2.forward, plain=True) if plain \
+                else gpt2.forward
+            eng = Engine(fwd, gcfg, gparams, batch_slots=SERVE_G_SLOTS,
+                         max_len=SERVE_MAX_LEN, int8_kv=True)
+            layout = (eng.cache.int8, eng.cache.is_flat,
+                      tuple(eng.cache.k[0].shape))
+            for i, p in enumerate(prompts):
+                eng.submit(Request(id=i, prompt=p,
+                                   max_new_tokens=SERVE_G_NEW))
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = {r.id: r for r in eng.run()}
+            torch.cuda.synchronize()
+            if not plain:
+                counts = dict(kernels.LAUNCHES)
+                secs = time.perf_counter() - t0
+                st = eng.stats()
+            outs[plain] = res
+            del eng
+    finally:
+        os.environ.pop("GGML_TPU_QUANT_ACTS")
+    same = [outs[False][i].out_tokens == outs[True][i].out_tokens
+            for i in range(SERVE_G_REQS)]
+    out = {"model": "GPT2_124M Q8_0", "slots": SERVE_G_SLOTS,
+           "requests": SERVE_G_REQS, "cache_int8_flat_shape": layout,
+           "seconds": secs, "tokens_per_s": SERVE_G_REQS * SERVE_G_NEW / secs,
+           "ticks": st["ticks"], "launches": counts,
+           "tokens_equal_plain": same,
+           "first_tokens": [outs[False][i].out_tokens[:4] for i in range(2)]}
+    emit({"gpt2_int8_serving": out})
+    bad = [i for i in range(SERVE_G_REQS)
+           if outs[False][i].error or len(outs[False][i].out_tokens)
+           != SERVE_G_NEW]
+    if not (layout[0] and not layout[1]) or bad or not all(same) \
+            or counts["flash_attn"] == 0 or counts["attn_decode"] != 0:
+        raise SystemExit(f"GPT-2 INT8 serving failed: {out}")
+    return out, counts
+
+
+def flash2_bound_ms(B, Hq, Hkv, S, T, D, in_bytes, out_bytes, npast=0,
+                    causal=True):
+    """Bytes of q (in_bytes an element), out (out_bytes) and the K/V rows the
+    queries keep, once each; 4 * D operations a kept (query, key) pair at
+    the bf16 tensor-core rate (16-bit inputs) or the f32 rate."""
+    kept = min(T, S + npast) if causal else T
+    bytes_ = B * Hq * S * D * (in_bytes + out_bytes) \
+        + 2 * B * Hkv * kept * D * in_bytes
+    pairs = sum(min(T, s + npast + 1) for s in range(S)) if causal else S * T
+    flops = 4 * B * Hq * pairs * D
+    rate = BF16_FLOP_S if in_bytes == 2 else F32_FLOP_S
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_flash_train(dev, gen):
+    """Path g's attention call (B 8, H 12, S = T 128, D 64, bf16 q/k/v,
+    causal, npast 0): the uncached entry, the cached entry with softcap 30
+    and without, the plain version (_cached_ref and _uncached_ref), SDPA
+    (is_causal) forward; then the Function's backward (its dense recompute)
+    against SDPA's backward, each as forward + backward less the forward.
+    CUDA-graph replay, cold L2: the calls cycle through enough input copies
+    to exceed it four times."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.flash import (
+        _cached_ref, _uncached_ref, flash_attention, flash_attention_cached)
+
+    B, H, S, D = TRAIN_B, 12, TRAIN_S, 64
+    copies = max(2, -(-4 * L2_BYTES // (3 * B * H * S * D * 2)))
+    xs = [[torch.randn((B, H, S, D), generator=gen, device=dev)
+           .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+          for _ in range(copies)]
+    npast = torch.zeros((B,), dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    reps = max(100, copies)
+    with torch.no_grad():
+        res = {
+            "cold_copies": copies,
+            "uncached_ms": time_ms(lambda i: flash_attention(
+                *xs[i % copies]), reps),
+            "cached_ms": time_ms(lambda i: flash_attention_cached(
+                *xs[i % copies], npast), reps),
+            "cached_softcap_ms": time_ms(lambda i: flash_attention_cached(
+                *xs[i % copies], npast, softcap=30.0), reps),
+            "plain_ms": time_ms(lambda i: _cached_ref(
+                *xs[i % copies], npast, D ** -0.5), reps),
+            "uncached_plain_ms": time_ms(lambda i: _uncached_ref(
+                *xs[i % copies], True, 0, D ** -0.5).to(torch.bfloat16), reps),
+            "sdpa_ms": time_ms(lambda i: sdpa(*xs[i % copies], is_causal=True),
+                               reps),
+        }
+    g = torch.randn((B, H, S, D), generator=gen, device=dev)
+    gs = g.to(torch.bfloat16)
+    # forward and backward captured together (a backward replays on its
+    # forward's stream); the backward alone is the difference
+    res["fwd_bwd_ms"] = time_ms(lambda i: torch.autograd.grad(
+        flash_attention_cached(*xs[i % copies], npast), xs[i % copies], g),
+        copies)
+    res["sdpa_fwd_bwd_ms"] = time_ms(lambda i: torch.autograd.grad(
+        sdpa(*xs[i % copies], is_causal=True), xs[i % copies], gs), copies)
+    res["bwd_ms"] = res["fwd_bwd_ms"] - res["cached_ms"]
+    res["sdpa_bwd_ms"] = res["sdpa_fwd_bwd_ms"] - res["sdpa_ms"]
+    res["uncached_bound_ms"], res["bound_by"] = flash2_bound_ms(
+        B, H, H, S, S, D, 2, 2)
+    res["cached_bound_ms"], _ = flash2_bound_ms(B, H, H, S, S, D, 2, 4)
+    emit({"flash_train_timing": res})
+    return res
+
+
 def profile_steps(one_step, n_steps):
     """torch.profiler over n_steps decode steps: device kernel time, kernel
     launches and aten calls a step, and the kernels that take the most
@@ -2121,6 +2714,7 @@ def main():
     q4_rows_ok = q4_rows_independent_of_b(dev, gen)
     rms_rows = rms_rows_independent_of_b(dev, gen)
     fl_err = check_flash(dev, gen)
+    fl2_err = check_flash_train(dev, gen)
     ad_err = check_attn_decode(dev, gen)
     q8_err = check_q8_0(dev, gen)
     mlp_err = check_mlp_fused(dev, gen)
@@ -2141,7 +2735,9 @@ def main():
         f"{layer_err:.3g}, mlp_fused_silu_q4 {silu_err:.3g}, llama_layer "
         f"{llayer_err:.3g}; matmul_q {max(mq_errs.values()):.3g} (7 "
         f"formats, rows independent of b), matmul_int_dot "
-        f"{max(ib_errs.values()):.3g} (5 formats); quantizers on the card "
+        f"{max(ib_errs.values()):.3g} (5 formats); flash entries "
+        f"{ {k: float(f'{v:.3g}') for k, v in fl2_err.items()} } (uncached, "
+        f"softcap, f16, D 8-256, gradients, HVP); quantizers on the card "
         f"vs the CPU, share of blocks differing: "
         f"{max(q_card.values()):.3g}; rms rows differing alone "
         f"vs in a batch of {SLOTS}: "
@@ -2289,10 +2885,54 @@ def main():
         f"f2 GGML_TPU_INT_DOT=1 {', '.join(B_FORMATS)}; launches "
         f"{fmt_counts}; vs plain max abs err {max(f_cmp.values()):.3g}")
 
+    # g. training: GPT-2 124M, bf16, TRAIN_STEPS Adam steps through
+    # optim.opt_fn, the cached flash entry's Function in every layer
+    train, g_counts = run_train_path(dev, smi, gpt2.GPT2_124M)
+    log(f"[4/6] g. GPT-2 124M training, B {TRAIN_B} x S {TRAIN_S}: losses "
+        f"{[round(x, 4) for x in train['losses']]} -> "
+        f"{train['loss_after']:.4f}; flash launches a step "
+        f"{train['flash_launches_per_step']:.0f}; launches {g_counts}")
+    # h. the graph layer: Test3 by ggml_opt (L-BFGS), a flash decoder's
+    # forward, backward and opt() (the uncached entry)
+    h1 = run_graph_test3(dev, smi)
+    h2cmp, h2, h_counts = run_graph_decoder(dev, gen, smi)
+    log(f"[4/6] h. graph layer: Test3 {h1['result']}, max weight err "
+        f"{h1['max_abs_weight_err']:.3g} in {h1['seconds']:.2f} s; decoder "
+        f"kernel vs plain loss err {h2cmp['loss_rel_err']:.3g}, grad rel L2 "
+        f"{h2cmp['grad_rel_l2_max']:.3g}; opt() losses "
+        f"{[round(x, 5) for x in h2['losses']]}; launches {h_counts}")
+    # GPT-2 124M behind the engine with an INT8 (head-major) cache
+    gserve, gs_counts = run_gpt2_int8_serving(*g_models["124M"][:2])
+    log(f"[4/6] GPT-2 124M INT8 serving: {SERVE_G_REQS} requests through "
+        f"{SERVE_G_SLOTS} slots, cache {gserve['cache_int8_flat_shape']}, "
+        f"tokens equal to the plain engine's: {gserve['tokens_equal_plain']}"
+        f"; launches {gs_counts}")
+
     q4_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_err
     fl_row = time_flash(dev, gen, counts)
     fl_row["max_abs_err"] = fl_err
+    ft = time_flash_train(dev, gen)
+    fl_row.update({
+        "train_g_ms": ft["cached_ms"], "train_g_softcap_ms":
+        ft["cached_softcap_ms"], "train_g_plain_ms": ft["plain_ms"],
+        "train_g_library_ms": ft["sdpa_ms"],
+        "train_g_bound_ms": ft["cached_bound_ms"], "bwd_ms": ft["bwd_ms"],
+        "library_bwd_ms": ft["sdpa_bwd_ms"],
+        "softcap_gradient_max_abs_err": max(fl2_err["cached"],
+                                            fl2_err["grad"])})
+    unc_row = {"name": "flash_attn_uncached", "route": "cuda",
+               "source": "ggmlsharp_tpu_torch/csrc/flash_attn.cu",
+               "replaces": "ggmlsharp_tpu/kernels/flash.py:104",
+               "ms": ft["uncached_ms"], "plain_ms": ft["uncached_plain_ms"],
+               "bound_ms": ft["uncached_bound_ms"],
+               "bound_by": ft["bound_by"], "library_ms": ft["sdpa_ms"],
+               "max_abs_err": fl2_err["uncached"], "bwd_ms": ft["bwd_ms"],
+               "library_bwd_ms": ft["sdpa_bwd_ms"],
+               "unit": "one causal call at path g's shape: B 8 x H 12, S 128, "
+                       "D 64, bf16 q/k/v and out (entry flash.py:170); "
+                       "library = SDPA is_causal; bwd = the Function's dense "
+                       "recompute vs SDPA's backward"}
     ad_row = time_attn_decode(dev, gen, serve_counts)
     ad_row["max_abs_err"] = ad_err
     lay = time_attn_layout(dev, gen)
@@ -2321,7 +2961,7 @@ def main():
         ad_row[f"b1_T{r['T']}_plain_ms"] = r["plain_ms"]
         ad_row[f"b1_T{r['T']}_library_ms"] = r["library_ms"]
     rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row, silu_row,
-            llayer_row, mq_row, ib_row)
+            llayer_row, mq_row, ib_row, unc_row)
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
         name = row["name"]
@@ -2333,10 +2973,14 @@ def main():
         row["launches_llama_mlp_fused"] = mcounts[name]
         row["launches_llama_kquant"] = kq_counts[name]
         row["launches_llama_formats"] = fmt_counts[name]
+        row["launches_train_g"] = g_counts[name]
+        row["launches_graph_h"] = h_counts[name]
+        row["launches_gpt2_int8_serving"] = gs_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, kq_counts,
-                                                 fmt_counts) if c[name])
+                                                 fmt_counts, g_counts,
+                                                 h_counts) if c[name])
     log("[5/6] kernel times taken")
 
     llama_wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
@@ -2415,6 +3059,14 @@ def main():
             f"({gdec['roofline_tok_s']:.0f} tok/s), step median "
             f"{gdec['step_ms_median']:.3f} ms, device idle share "
             f"{gdec['device_idle_share']}")
+    train["flash_share_of_step"] = ft["fwd_bwd_ms"] * gpt2.GPT2_124M.n_layer / (
+        train["step_ms_median_2_4"])
+    emit({"train": train})
+    log(f"[6/6] g. GPT-2 124M training B {TRAIN_B} x S {TRAIN_S} bf16: "
+        f"step median {train['step_ms_median_2_4']:.1f} ms, "
+        f"{train['tokens_per_s']:.0f} tok/s, {train['bf16_peak_share']:.4f} "
+        f"of the bf16 dense peak, peak memory {train['peak_mem_gb']:.2f} GB "
+        f"({smi})")
     log(f"total {time.perf_counter() - t_start:.0f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2422,14 +3074,20 @@ def main():
             "launches_llama_b1", "launches_serving", "launches_gpt2_124m",
             "launches_gpt2_774m", "launches_llama_fused",
             "launches_llama_mlp_fused", "launches_llama_kquant",
-            "launches_llama_formats")
+            "launches_llama_formats", "launches_train_g", "launches_graph_h",
+            "launches_gpt2_int8_serving")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
              "heads_layout_bf16_ms",  # kernel 3's second lane map
              "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",
              "b1_T64_library_ms", "b1_T2048_ms", "b1_T2048_bound_ms",
              "b1_T2048_plain_ms", "b1_T2048_library_ms",  # kernel 3, B = 1
              "q6_k_token", "w_gate_up_b1_ms", "w_gate_up_ms",
-             "max_abs_err_by_format")
+             "max_abs_err_by_format",
+             # kernel 2 at path g's shape: the cached entry, softcap, the
+             # backward (the Function's dense recompute) against SDPA's
+             "train_g_ms", "train_g_softcap_ms", "train_g_plain_ms",
+             "train_g_library_ms", "train_g_bound_ms", "bwd_ms",
+             "library_bwd_ms", "softcap_gradient_max_abs_err")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -1,32 +1,38 @@
-// Cached causal flash attention for Hopper (sm_90a), f32 online softmax.
+// Flash attention for Hopper (sm_90a), f32 online softmax.
 //
-// Replaces ggmlsharp_tpu/kernels/flash.py::_flash_bhsd (entry
-// flash_attention_cached): prompt-prefill attention of the llama main path.
+// Replaces ggmlsharp_tpu/kernels/flash.py::_flash_bhsd, both of its entries:
+//   * flash_attention_cached (cached causal GQA, per-row npast): prompt
+//     prefill of the llama and GPT-2 paths, and the attention of training;
+//   * flash_attention (uncached: causal or not, a static n_past, Sq != Sk):
+//     the graph layer's flash_attn op.
 //
-//   q [B, Hq, S, D] f32 (new tokens), k/v [B, Hkv, T, D] f32 or bf16 (the
-//   cache prefix; read as f32), npast int32 [B]  ->  out [B, Hq, S, D] f32.
-//   Query s of batch b sits at absolute position npast[b] + s and sees keys
-//   kidx <= npast[b] + s. Query head h reads KV head h / (Hq / Hkv) (GQA
-//   without a repeated copy).
+//   q [B, Hq, S, D], k/v [B, Hkv, T, D]  ->  out [B, Hq, S, D] f32.
+//   Query s of batch b sits at position npast[b] + s (or n_past when npast
+//   is null) and, when causal, sees keys kidx <= npast + s; otherwise every
+//   key. Query head h reads KV head h / (Hq / Hkv) (GQA without a repeated
+//   copy). With softcap > 0 a score s becomes tanh(s / softcap) * softcap
+//   before the mask. q and k/v are read in their own types (f32, bf16, f16;
+//   q is f32 or the k/v type) and widened to f32 in registers.
 //
 // The cache may be a prefix view of a longer buffer: rows of one head are
 // contiguous (stride D) and heads are kv_head_stride elements apart, batch
 // entries Hkv * kv_head_stride.
 //
-// What bounds it: at the main path's prefill (S = 16, D = 128, npast = 0)
-// the work is tiny; the bytes of q, out and the K/V rows causality keeps
-// (npast + S of them) bound it, and in practice the launch does. The
-// design keeps scores out of device memory and skips every K tile above
-// the diagonal, as the TPU kernel does.
+// What bounds it: at the paths' shapes (S 16-128, D 64-128) the work is
+// small; the bytes of q, out and the K/V rows causality keeps bound it, and
+// in practice the launch does. The design keeps scores out of device memory
+// and skips every K tile above the diagonal, as the TPU kernel does.
 //
 // Design: one block per (b*Hq + h, tile of BQ = 8 queries), one warp per
 // query. The block loops over K tiles of BK = 32 rows staged in shared memory
 // as f32 (K rows padded to D + 1 floats so that lane j reading row j hits
-// distinct banks). Lane j scores key j of the tile against the warp's query;
-// the tile max and sum are warp shuffles; the P.V update has each lane own
-// D/32 output features, broadcasting p_j with a shuffle. Fully masked rows
-// end with l = 0 and are divided by 1, as the TPU kernel does.
+// distinct banks; dynamic shared memory, 74 KB at D = 256). Lane j scores key
+// j of the tile against the warp's query; the tile max and sum are warp
+// shuffles; the P.V update has each lane own D/32 output features,
+// broadcasting p_j with a shuffle. Fully masked rows end with l = 0 and are
+// divided by 1, as the TPU kernel does. Instances: D in {32, 64, 128, 256}.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,17 +44,23 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
-template <int D, typename KT>
+template <int D>
+constexpr int smem_bytes() { return (BK * (D + 1) + BK * D + BQ * D) * 4; }
+
+template <int D, typename QT, typename KT>
 __global__ void __launch_bounds__(BQ * 32)
-flash_attn_kernel(const float* __restrict__ q, const KT* __restrict__ k,
+flash_attn_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                   const KT* __restrict__ v, const int* __restrict__ npast,
-                  float* __restrict__ out, int Hq, int Hkv, int S, int T,
-                  long long kv_head_stride, float scale) {
+                  int n_past, float* __restrict__ out, int Hq, int Hkv, int S,
+                  int T, long long kv_head_stride, float scale, float softcap,
+                  int causal) {
   constexpr int DL = D / 32;  // output features a lane owns
-  __shared__ float ks[BK][D + 1];
-  __shared__ float vs[BK][D];
-  __shared__ float qsh[BQ][D];
+  extern __shared__ float smem[];
+  float* ks = smem;                // [BK][D + 1]
+  float* vs = ks + BK * (D + 1);   // [BK][D]
+  float* qsh = vs + BK * D;        // [BQ][D]
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -57,16 +69,18 @@ flash_attn_kernel(const float* __restrict__ q, const KT* __restrict__ k,
   const int hkv = (bh % Hq) / (Hq / Hkv);
   const int q_first = blockIdx.y * BQ;
   const int s = q_first + warp;  // this warp's query
-  const int np = npast[b];
+  const int np = npast ? npast[b] : n_past;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
 
   for (int i = lane; i < D; i += 32)
-    qsh[warp][i] = s < S ? q[((size_t)bh * S + s) * D + i] : 0.f;
+    qsh[warp * D + i] = s < S ? to_f32(q[((size_t)bh * S + s) * D + i]) : 0.f;
 
   const size_t head = ((size_t)b * Hkv + hkv) * (size_t)kv_head_stride;
   const KT* kh = k + head;
   const KT* vh = v + head;
   const int q_last = min(q_first + BQ, S) - 1;
-  const int kmax = min(T, q_last + np + 1);  // tiles past it are above the diagonal
+  // tiles past kmax are above the diagonal
+  const int kmax = causal ? min(T, q_last + np + 1) : T;
 
   float m = NEG_INF, l = 0.f, acc[DL];
 #pragma unroll
@@ -82,17 +96,20 @@ flash_attn_kernel(const float* __restrict__ q, const KT* __restrict__ k,
         kv = to_f32(kh[(size_t)row * D + dd]);
         vv = to_f32(vh[(size_t)row * D + dd]);
       }
-      ks[jr][dd] = kv;
-      vs[jr][dd] = vv;
+      ks[jr * (D + 1) + dd] = kv;
+      vs[jr * D + dd] = vv;
     }
     __syncthreads();
 
     const int kidx = k0 + lane;
+    const float* qrow = qsh + warp * D;
+    const float* krow = ks + lane * (D + 1);
     float sc = 0.f;
 #pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) sc = fmaf(qsh[warp][dd], ks[lane][dd], sc);
+    for (int dd = 0; dd < D; ++dd) sc = fmaf(qrow[dd], krow[dd], sc);
     sc *= scale;
-    const bool valid = s < S && kidx < T && kidx <= s + np;
+    if (softcap > 0.f) sc = tanhf(sc * inv_cap) * softcap;
+    const bool valid = s < S && kidx < T && (!causal || kidx <= s + np);
     sc = valid ? sc : NEG_INF;
 
     float mcur = sc;
@@ -111,7 +128,7 @@ flash_attn_kernel(const float* __restrict__ q, const KT* __restrict__ k,
     for (int jr = 0; jr < BK; ++jr) {
       const float pj = __shfl_sync(0xffffffffu, p, jr);
 #pragma unroll
-      for (int i = 0; i < DL; ++i) acc[i] = fmaf(pj, vs[jr][lane + 32 * i], acc[i]);
+      for (int i = 0; i < DL; ++i) acc[i] = fmaf(pj, vs[jr * D + lane + 32 * i], acc[i]);
     }
     m = m_new;
   }
@@ -124,35 +141,61 @@ flash_attn_kernel(const float* __restrict__ q, const KT* __restrict__ k,
   }
 }
 
-template <int D, typename KT>
-void launch(const float* q, const void* k, const void* v, const int* npast,
-            float* out, int B, int Hq, int Hkv, int S, int T,
-            long long kv_head_stride, float scale, cudaStream_t stream) {
+template <int D, typename QT, typename KT>
+int launch(const void* q, const void* k, const void* v, const int* npast,
+           int n_past, float* out, int B, int Hq, int Hkv, int S, int T,
+           long long kv_head_stride, int causal, float scale, float softcap,
+           cudaStream_t stream) {
+  auto kern = flash_attn_kernel<D, QT, KT>;
+  constexpr int bytes = smem_bytes<D>();
+  static bool attr_set = false;  // once an instance, before any capture
+  if (bytes > 48 * 1024 && !attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
   dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_attn_kernel<D, KT><<<grid, BQ * 32, 0, stream>>>(
-      q, static_cast<const KT*>(k), static_cast<const KT*>(v), npast, out,
-      Hq, Hkv, S, T, kv_head_stride, scale);
+  kern<<<grid, BQ * 32, bytes, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), npast, n_past, out, Hq, Hkv, S, T,
+      kv_head_stride, scale, softcap, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename QT, typename KT>
+int dispatch_d(int D, const void* q, const void* k, const void* v,
+               const int* npast, int n_past, float* out, int B, int Hq,
+               int Hkv, int S, int T, long long kv_head_stride, int causal,
+               float scale, float softcap, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch<32, QT, KT>(q, k, v, npast, n_past, out, B, Hq, Hkv, S, T, kv_head_stride, causal, scale, softcap, stream);
+    case 64: return launch<64, QT, KT>(q, k, v, npast, n_past, out, B, Hq, Hkv, S, T, kv_head_stride, causal, scale, softcap, stream);
+    case 128: return launch<128, QT, KT>(q, k, v, npast, n_past, out, B, Hq, Hkv, S, T, kv_head_stride, causal, scale, softcap, stream);
+    case 256: return launch<256, QT, KT>(q, k, v, npast, n_past, out, B, Hq, Hkv, S, T, kv_head_stride, causal, scale, softcap, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// kv_bf16: 1 when k/v hold bf16, 0 for f32. D must be 64 or 128 and Hq a
-// multiple of Hkv. Returns cudaGetLastError() after the launch.
-extern "C" int flash_attn_cached(const float* q, const void* k, const void* v,
-                                 const int* npast, float* out, int B, int Hq,
-                                 int Hkv, int S, int T, int D,
-                                 long long kv_head_stride, int kv_bf16,
-                                 float scale, cudaStream_t stream) {
+// Element types: 0 f32, 1 bf16, 2 f16. (q_type, kv_type) is one of (0, 0),
+// (0, 1), (0, 2), (1, 1), (2, 2). D is 32, 64, 128 or 256 and Hq a multiple
+// of Hkv. npast: int32 [B] on the device, or null for the static n_past.
+// Returns cudaGetLastError() after the launch.
+extern "C" int flash_attn(const void* q, const void* k, const void* v,
+                          const int* npast, int n_past, float* out, int B,
+                          int Hq, int Hkv, int S, int T, int D,
+                          long long kv_head_stride, int q_type, int kv_type,
+                          int causal, float scale, float softcap,
+                          cudaStream_t stream) {
   if (B <= 0 || S <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
-  if (D == 128 && kv_bf16)
-    launch<128, __nv_bfloat16>(q, k, v, npast, out, B, Hq, Hkv, S, T, kv_head_stride, scale, stream);
-  else if (D == 128)
-    launch<128, float>(q, k, v, npast, out, B, Hq, Hkv, S, T, kv_head_stride, scale, stream);
-  else if (D == 64 && kv_bf16)
-    launch<64, __nv_bfloat16>(q, k, v, npast, out, B, Hq, Hkv, S, T, kv_head_stride, scale, stream);
-  else if (D == 64)
-    launch<64, float>(q, k, v, npast, out, B, Hq, Hkv, S, T, kv_head_stride, scale, stream);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define FLASH_ARGS D, q, k, v, npast, n_past, out, B, Hq, Hkv, S, T, kv_head_stride, causal, scale, softcap, stream
+  if (q_type == 0 && kv_type == 0) return dispatch_d<float, float>(FLASH_ARGS);
+  if (q_type == 0 && kv_type == 1) return dispatch_d<float, __nv_bfloat16>(FLASH_ARGS);
+  if (q_type == 0 && kv_type == 2) return dispatch_d<float, __half>(FLASH_ARGS);
+  if (q_type == 1 && kv_type == 1) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(FLASH_ARGS);
+  if (q_type == 2 && kv_type == 2) return dispatch_d<__half, __half>(FLASH_ARGS);
+#undef FLASH_ARGS
+  return (int)cudaErrorInvalidValue;
 }

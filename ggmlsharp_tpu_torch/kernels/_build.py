@@ -16,7 +16,9 @@ source is rebuilt and an unchanged one is reused. ``_build/`` is listed in
 
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels carried
-it (``reset_launches`` before the run, read after).
+it (``reset_launches`` before the run, read after). A kernel with two
+entries counts each under its own name (``flash_attn`` for the cached entry,
+``flash_attn_uncached`` for the uncached one, one source).
 """
 from __future__ import annotations
 
@@ -39,9 +41,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 KERNELS = {
     "matmul_q4_0": ("matmul_q4_0.cu", "q4_0_matmul",
                     [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "flash_attn": ("flash_attn.cu", "flash_attn_cached",
-                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _F,
-                    _P]),
+    "flash_attn": ("flash_attn.cu", "flash_attn",
+                   [_P, _P, _P, _P, _I, _P] + [_I] * 6 + [_LL, _I, _I, _I, _F,
+                                                        _F, _P]),
     "attn_decode": ("attn_decode.cu", "attn_decode",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _LL, _LL, _I, _F, _I, _P]),
@@ -60,7 +62,7 @@ KERNELS = {
                        [_I] + [_P] * 8 + [_I, _I, _P]),
 }
 
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in (*KERNELS, "flash_attn_uncached")}
 _DEFINES: dict = {}  # kernel name -> its -D macros, ("NAME=VALUE", ...)
 _ENTRIES: dict = {}
 _LOCK = threading.Lock()
@@ -146,7 +148,9 @@ def entry(name: str):
     return fn
 
 
-def check(name: str, rc: int):
+def check(name: str, rc: int, counter: str | None = None):
+    """Raise if the launch of kernel ``name`` failed; else count it under
+    ``counter`` (default ``name``)."""
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1

@@ -6,7 +6,8 @@ ggmlsharp_tpu/models/common.py, the head-major cache with a host-side
 device (``ops.mul_mat_q`` or the integer-dot route's ``_int_dot_ref``, and
 ``kernels.flash._cached_ref``): the end-to-end reference a card run is held
 against. By default a quantized matmul and prefill attention go through
-the kernel wrappers.
+the kernel wrappers. Both routes are differentiable with float weights: the
+flash kernel's Function recomputes its backward through ``_cached_ref``.
 """
 from __future__ import annotations
 
@@ -99,9 +100,10 @@ def _chunk_buckets(T: int, base: int = 256):
     return out
 
 
-def _einsum_attention(q, k_sl, v_sl, positions, n_rep):
+def _einsum_attention(q, k_sl, v_sl, positions, n_rep, softcap=0.0):
     """Materialised-scores attention over a [B, Hkv, t, D] prefix. GQA
-    groups the q heads as [B, Hkv, n_rep, S, D]: no repeated K/V copy."""
+    groups the q heads as [B, Hkv, n_rep, S, D]: no repeated K/V copy.
+    softcap > 0: scores become tanh(s / softcap) * softcap."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     B, Hq, S, D = q.shape
     t = k_sl.shape[2]
@@ -109,6 +111,8 @@ def _einsum_attention(q, k_sl, v_sl, positions, n_rep):
     qg = q.reshape(B, Hq // n_rep, n_rep, S, D)
     scores = torch.einsum("bgrsd,bgtd->bgrst", qg.to(torch.float32),
                           k_sl.to(torch.float32)) * scale
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
     mask = kpos[None, None, None, None, :] <= \
         positions.to(torch.int32)[:, None, None, :, None]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
@@ -118,28 +122,32 @@ def _einsum_attention(q, k_sl, v_sl, positions, n_rep):
     return out.reshape(B, Hq, S, D)
 
 
-def flash(q, k, v, npast, plain: bool = False):
+def flash(q, k, v, npast, plain: bool = False, softcap: float = 0.0):
     """Causal flash attention of q [B, Hq, S, D] over k/v [B, Hkv, T, D]
-    with per-row npast: the kernel wrapper, or its plain version."""
+    with per-row npast: the kernel's autograd Function, or its plain
+    version (differentiable by autograd itself)."""
     from ..kernels.flash import _cached_ref, flash_attention_cached
 
     if plain:
-        return _cached_ref(q, k, v, npast, 1.0 / q.shape[-1] ** 0.5)
-    return flash_attention_cached(q, k, v, npast)
+        return _cached_ref(q, k, v, npast, 1.0 / q.shape[-1] ** 0.5, softcap)
+    return flash_attention_cached(q, k, v, npast, softcap=softcap)
 
 
 def cached_attention(q, k_new, v_new, cache, layer, positions,
-                     n_rep: int = 1, prefix_bound: int | None = None,
-                     plain: bool = False):
+                     n_rep: int = 1, attn_softcap: float | None = None,
+                     prefix_bound: int | None = None, plain: bool = False):
     """Causal attention of q over the live cache prefix of one layer.
 
     q, k_new, v_new: [B, H(q|kv), S, D]; positions int [B, S], contiguous
     per batch row. Writes k/v into the cache (in place), then attends over
     the first ``prefix_bound`` rows (a bound >= every position + 1; without
     one, the smallest bucket of ``_chunk_buckets`` that holds the live
-    prefix). S > 8 runs the flash kernel, S <= 8 grouped einsum. Returns
-    ([B, Hq, S, D] in q's dtype, cache)."""
+    prefix). S > 8 runs the flash kernel, S <= 8 grouped einsum;
+    attn_softcap caps the scores of both. Differentiable in q, k_new and
+    v_new on a float cache (the rows reach the attention through the
+    in-place write). Returns ([B, Hq, S, D] in q's dtype, cache)."""
     cache = kvc.update_layer(cache, layer, k_new, v_new, positions)
+    softcap = attn_softcap or 0.0
     S = q.shape[2]
     T = cache.max_len
     if prefix_bound is not None:
@@ -151,14 +159,35 @@ def cached_attention(q, k_new, v_new, cache, layer, positions,
         npast = positions[:, 0]
         if plain or cache.int8:
             k_sl, v_sl = kvc.read_layer(cache, layer, q.dtype, t)
-            out = flash(q, k_sl, v_sl, npast, plain)
+            out = flash(q, k_sl, v_sl, npast, plain, softcap)
         else:
             # the stored rows (bf16) go in as a prefix view; kernel and
             # plain version widen them to f32: read_layer's values for the
             # f32 queries of the llama path
             out = flash(q, cache.k[layer][:, :, :t], cache.v[layer][:, :, :t],
-                        npast, plain)
+                        npast, plain, softcap)
     else:
         k_sl, v_sl = kvc.read_layer(cache, layer, q.dtype, t)
-        out = _einsum_attention(q, k_sl, v_sl, positions, n_rep)
+        out = _einsum_attention(q, k_sl, v_sl, positions, n_rep, softcap)
     return out.to(q.dtype), cache
+
+
+def lm_loss(forward, cfg, params, toks, plain: bool = False):
+    """The training loss of the JAX package's bench (``BENCH_MODE=train``):
+    mean next-token NLL of toks [B, S + 1] over f32 log-softmax, the forward
+    run over a fresh head-major cache of S rows in the parameters' dtype
+    (``wpe`` or ``norm``), positions 0..S-1 and ``prefix_bound=S``.
+    forward: gpt2.forward or llama.forward with float parameters.
+    Differentiable in every parameter."""
+    inp, tgt = toks[:, :-1], toks[:, 1:]
+    B, S = inp.shape
+    dtype = (params["wpe"] if "wpe" in params else params["norm"]).dtype
+    cache = kvc.init_cache(cfg.n_layer, B,
+                           getattr(cfg, "n_head_kv", cfg.n_head), S,
+                           cfg.head_dim, dtype=dtype, device=toks.device)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=toks.device)[None].expand(B, S)
+    logits, _ = forward(params, cfg, inp, cache, positions, prefix_bound=S,
+                        plain=plain)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, tgt.long()[..., None]).mean()

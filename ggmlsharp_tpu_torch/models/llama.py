@@ -4,9 +4,11 @@ KV cache, float or INT8).
 RMSNorm pre-norm, rotary embeddings (ggml interleaved mode by default),
 SwiGLU MLP, optional GQA. Parameters are plain dicts that mirror the JAX
 tree; after ``quantize_params`` the blocks hold the fused ``wqkv`` and
-``w_gate_up`` rows, as the JAX package's default fused layout does. Weight
-leaves are tensors or QTensors of any block format (``synthetic_params``
-draws a tree in one on the card).
+``w_gate_up`` rows, as the JAX package's default fused layout does;
+``forward`` also takes ``init_params``' separate float weights, the layout
+training differentiates (the per-op loop over a head-major float cache).
+Weight leaves are tensors or QTensors of any block format
+(``synthetic_params`` draws a tree in one on the card).
 
 dtype flow, as in the JAX package: embeddings and norms are bf16; the first
 residual add (bf16 + f32 matmul output) promotes the stream to f32.
@@ -422,10 +424,15 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
     widx = kvc.flat_index(cache, positions) if cache.is_flat else None
     for i, blk in enumerate(params["blocks"]):
         h = _rms(x, blk["attn_norm"], cfg.rms_eps)
-        qkv = linear(blk["wqkv"], h, plain=plain)
-        q = split_heads(qkv[..., :nq], cfg.n_head)
-        k = split_heads(qkv[..., nq:nq + nkv], cfg.n_head_kv)
-        v = split_heads(qkv[..., nq + nkv:], cfg.n_head_kv)
+        if "wqkv" in blk:  # the fused layout (fuse_params)
+            qkv = linear(blk["wqkv"], h, plain=plain)
+            q = split_heads(qkv[..., :nq], cfg.n_head)
+            k = split_heads(qkv[..., nq:nq + nkv], cfg.n_head_kv)
+            v = split_heads(qkv[..., nq + nkv:], cfg.n_head_kv)
+        else:  # init_params' separate weights (the training layout)
+            q = split_heads(linear(blk["wq"], h, plain=plain), cfg.n_head)
+            k = split_heads(linear(blk["wk"], h, plain=plain), cfg.n_head_kv)
+            v = split_heads(linear(blk["wv"], h, plain=plain), cfg.n_head_kv)
         q = rope(q, positions, mode=cfg.rope_mode, base=cfg.rope_base)
         k = rope(k, positions, mode=cfg.rope_mode, base=cfg.rope_base)
         if cache.is_flat:
@@ -445,10 +452,15 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
             x = x + ff(blk["w_gate_up"], blk["w_down"], h,
                        quantize_acts=config.quantize_activations()
                        ).to(x.dtype)
-        else:
+        elif "w_gate_up" in blk:
             gu = linear(blk["w_gate_up"], h, plain=plain)
             gate, up = gu[..., :cfg.n_ff], gu[..., cfg.n_ff:]
             x = x + linear(blk["w_down"], silu(gate) * up, plain=plain)
+        else:
+            gate = silu(linear(blk["w_gate"], h, plain=plain))
+            x = x + linear(blk["w_down"],
+                           gate * linear(blk["w_up"], h, plain=plain),
+                           plain=plain)
 
     x = _rms(x, params["norm"], cfg.rms_eps)
     w_out = params["output"] if params["output"] is not None \

@@ -54,3 +54,9 @@ def mul_mat(a, b, quantize_acts: bool = True, plain: bool = False):
         return mul_mat_q_fused(a, b, quantize_acts=quantize_acts,
                                plain=plain)
     return mul_mat_f(a, b)
+
+
+def out_prod(a, b):
+    """Outer product: a [m], b [n] -> [n, m], batched over leading dims
+    (the operand the full mul_mat VJP needs)."""
+    return torch.einsum("...i,...j->...ji", a, b)

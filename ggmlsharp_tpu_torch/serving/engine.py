@@ -21,10 +21,12 @@ The host never reads a device tensor a slot a step: the live-prefix bound
 and ``active`` come from host-side request lengths, and one fetch a tick
 (or a window) brings the tokens back.
 
-With an INT8 cache the engine takes the flat [B, T, E_kv] layout, whose
-decode runs the attn_decode kernel, or raises: it never falls back to
-the head-major einsum. A plain engine (the kernels' plain versions on any
-device) is ``Engine(functools.partial(llama.forward, plain=True), ...)``.
+An INT8 cache takes the flat [B, T, E_kv] layout, whose decode runs the
+attn_decode kernel, when the model handles it (``cfg.supports_flat_kv``) and
+n_head_kv * head_dim is a multiple of 128; otherwise (every GPT-2, narrow
+llamas) it is head-major, as in the JAX engine. A plain engine (the
+kernels' plain versions on any device) is
+``Engine(functools.partial(llama.forward, plain=True), ...)``.
 """
 from __future__ import annotations
 
@@ -56,8 +58,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
         ``device`` (the card unless the caller asks for the CPU).
 
         int8_kv: None reads GGML_TPU_INT8_KV. An INT8 cache takes the flat
-        layout, which needs E_kv a multiple of 128 and a model that handles
-        it, or the engine raises; a float cache is head-major.
+        layout where E_kv is a multiple of 128 and the model handles it,
+        the head-major one otherwise; a float cache is head-major.
 
         prefill_chunk: split prompts longer than this into one chunk a tick,
         so one long admission cannot hold up decode for the live slots.
@@ -80,15 +82,15 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
         if int8_kv is None:
             int8_kv = _int8_kv_default()
         self.int8_kv = int8_kv
-        if int8_kv and ((self._n_head_kv * cfg.head_dim) % 128
-                        or not getattr(cfg, "supports_flat_kv", False)):
-            raise ValueError(
-                "an INT8 KV cache serves through the flat-cache attn_decode "
-                "kernel: it needs n_head_kv * head_dim a multiple of 128 and "
-                "a model that supports the flat cache")
+        # the JAX engine's layout rule under its default switch: an INT8
+        # cache of a model that handles the flat layout, with E_kv a multiple
+        # of 128, is flat (decode through attn_decode); every other cache is
+        # head-major (decode through cached_attention over read_layer)
+        flat = (int8_kv and (self._n_head_kv * cfg.head_dim) % 128 == 0
+                and getattr(cfg, "supports_flat_kv", False))
         self.cache = kvc.init_cache(
             cfg.n_layer, batch_slots, self._n_head_kv, self.max_len,
-            cfg.head_dim, dtype=cache_dtype, int8=int8_kv, flat=int8_kv,
+            cfg.head_dim, dtype=cache_dtype, int8=int8_kv, flat=flat,
             device=self.device)
         self.slots: list[Request | None] = [None] * batch_slots
         self.pending: list[Request] = []

@@ -246,3 +246,85 @@ def test_format_entry_points_default_to_the_card():
             call()
     p = llama.synthetic_params(cfg, GType.Q4_K, device="cpu")
     assert p["blocks"][0]["wo"]["qs"].device.type == "cpu"
+
+
+def test_import_scan_covers_the_training_slice():
+    """The graph, optimizer and tooling layers and the ggml API are scanned;
+    the flash source keeps PyTorch's headers out and both of its entries
+    have a launch counter."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"graph/core.py", "graph/builders.py", "graph/op_defs.py",
+            "optim/adam.py", "optim/lbfgs.py", "optim/facade.py",
+            "optim/params.py", "utils/debug.py", "utils/graphviz.py",
+            "compat.py", "ops/attention.py", "ops/basic.py", "ops/conv.py",
+            "kernels/flash.py"} <= rel
+    with open(os.path.join(_build.CSRC, "flash_attn.cu")) as f:
+        text = f.read()
+    assert "torch" not in text.lower()
+    assert {"flash_attn", "flash_attn_uncached"} <= set(_build.LAUNCHES)
+
+
+def test_training_entry_points_default_to_the_card():
+    """leaf() of host data and ggml_init() follow the device rule: without a
+    card and without device="cpu" they raise."""
+    import numpy as np
+
+    from ggmlsharp_tpu_torch import compat
+    from ggmlsharp_tpu_torch.graph import leaf
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    for call in (lambda: leaf(np.zeros(3, np.float32)),
+                 lambda: leaf([1.0, 2.0]),
+                 lambda: compat.ggml_init()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert leaf(np.zeros(3), device="cpu").data.device.type == "cpu"
+    assert compat.ggml_init(device="cpu").device.type == "cpu"
+    # a tensor stays where it is
+    assert leaf(torch.zeros(2)).data.device.type == "cpu"
+
+
+def _flash_calls():
+    from ggmlsharp_tpu_torch import ops
+    from ggmlsharp_tpu_torch.kernels import flash
+
+    gen = torch.Generator().manual_seed(0)
+    card = lambda *s: torch.randn(s, generator=gen).as_subclass(_OnCard)
+    r = lambda *s: torch.randn(s, generator=gen)
+    npast = torch.tensor([2], dtype=torch.int32)
+    return {
+        "cached": ("_cached_ref", lambda: flash.flash_attention_cached(
+            card(1, 2, 4, 32), r(1, 2, 8, 32), r(1, 2, 8, 32), npast)),
+        "uncached": ("_uncached_ref", lambda: flash.flash_attention(
+            card(2, 4, 32), r(2, 6, 32), r(2, 6, 32), causal=False)),
+        "graph_op": ("_uncached_ref", lambda: ops.flash_attn(
+            card(2, 4, 8), r(2, 4, 8), r(2, 4, 8))),
+    }
+
+
+@pytest.mark.parametrize("entry", ["cached", "uncached", "graph_op"])
+def test_flash_wrappers_never_fall_back(monkeypatch, entry):
+    """Both flash entries, and the graph op, on a tensor on the card with no
+    way to build the kernel: they raise, reach neither plain version and
+    count no launch."""
+    from ggmlsharp_tpu_torch.kernels import _build, flash
+    from ggmlsharp_tpu_torch.ops import attention
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("the wrapper fell back to its plain version")
+
+    ref, call = _flash_calls()[entry]
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    monkeypatch.setattr(flash, ref, plain)
+    monkeypatch.setattr(attention, "_flash_dense", plain)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        call()
+    assert _build.LAUNCHES == before

@@ -143,7 +143,8 @@ def test_quant_rows_matches_jax():
 def test_new_cache_layout_rule():
     """INT8 takes the flat cache, a float cache head-major (the JAX
     package's defaults); an explicit flat= wins. An INT8 engine whose
-    E_kv is not a multiple of 128 cannot take the flat cache and raises."""
+    E_kv is not a multiple of 128 takes a head-major INT8 cache, as the JAX
+    engine does."""
     cfg = llama.LlamaConfig(**CFG)
     assert llama.new_cache(cfg, 1, int8=True, device="cpu").is_flat
     assert not llama.new_cache(cfg, 1, device="cpu").is_flat
@@ -152,8 +153,8 @@ def test_new_cache_layout_rule():
                                device="cpu").is_flat
     narrow = llama.LlamaConfig(**{**CFG, "n_head_kv": 1})
     assert not llama.new_cache(narrow, 1, int8=True, device="cpu").is_flat
-    with pytest.raises(ValueError, match="flat-cache attn_decode"):
-        Engine(llama.forward, narrow, {}, int8_kv=True, device="cpu")
+    eng = Engine(llama.forward, narrow, {}, int8_kv=True, device="cpu")
+    assert eng.cache.int8 and not eng.cache.is_flat
 
 
 # --- sampler ------------------------------------------------------------------
@@ -499,3 +500,54 @@ def test_server_round_trip(models):
             assert e.value.code == 400
     finally:
         srv.stop()
+
+
+# --- INT8 head-major engine: GPT-2 and TINY_LLAMA -------------------------------
+
+def _float_models(name):
+    """Float parameters of a tiny GPT-2 or TINY_LLAMA (f32, from numpy), in
+    both packages."""
+    from ggmlsharp_tpu.models import gpt2 as jgpt2
+    from ggmlsharp_tpu_torch.models import gpt2
+
+    if name == "gpt2":
+        kw = dict(n_vocab=96, n_ctx=64, n_embd=64, n_head=4, n_layer=2)
+        jmod, tmod, jcfg, tcfg = (jgpt2, gpt2, jgpt2.GPT2Config(**kw),
+                                  gpt2.GPT2Config(**kw))
+    else:
+        jmod, tmod, jcfg, tcfg = (jllama, llama, jllama.TINY_LLAMA,
+                                  llama.TINY_LLAMA)
+    rng = np.random.default_rng(17)
+    tree = jax.tree.map(
+        lambda a: (rng.standard_normal(a.shape) * 0.1
+                   + (a == 1)).astype(np.float32),
+        jmod.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32))
+    return (jmod, jcfg, jax.tree.map(jnp.asarray, tree), tmod, tcfg,
+            tmod.params_from_jax(tree, device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["gpt2", "tiny_llama"])
+def test_int8_engine_head_major_matches_jax_engine(name):
+    """Engine(int8_kv=True) for a model without the flat cache (every
+    GPT-2; TINY_LLAMA's E_kv of 64): a head-major INT8 cache of the JAX
+    engine's shape and dtypes, and two requests answered token for token as
+    the JAX engine answers them."""
+    jmod, jcfg, jp, tmod, tcfg, tp = _float_models(name)
+    jeng = JEngine(jmod.forward, jcfg, jp, batch_slots=2, int8_kv=True,
+                   max_len=64)
+    eng = Engine(tmod.forward, tcfg, tp, batch_slots=2, int8_kv=True,
+                 max_len=64, device="cpu")
+    assert eng.cache.int8 and not eng.cache.is_flat
+    assert not jkvc.is_flat(jeng.cache)
+    for got, want in ((eng.cache.k[0], jeng.cache.k[0]),
+                      (eng.cache.k_scale[0], jeng.cache.k_scale[0])):
+        assert tuple(got.shape) == tuple(want.shape)
+        assert str(got.dtype).split(".")[1] == str(want.dtype)
+    prompts = [[5, 17, 33, 2], [7, 1, 2, 3, 4, 5, 6, 8, 9, 10, 11]]
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(id=i, prompt=list(p), max_new_tokens=N_NEW))
+    jout = {r.id: r.out_tokens for r in jeng.run()}
+    got = _serve(eng, prompts=prompts)
+    for i in range(len(prompts)):
+        assert got[i].error is None
+        assert got[i].out_tokens == jout[i], i

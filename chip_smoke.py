@@ -8,7 +8,8 @@ version):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ with nvcc, one process a source;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the paths give it;
+     shapes the paths give it, and every launch geometry of the three
+     dequant-matmul sources against the default bit for bit;
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
@@ -50,7 +51,19 @@ version):
         128, 2 layers) with flash_attn: forward, backward graph against the
         plain route, and 4 Adam steps of opt() (the uncached flash entry);
      and GPT-2 124M behind serving.Engine with an INT8 (head-major) cache,
-     against the same engine's plain run;
+     against the same engine's plain run; then the tuning path:
+     the TPU probes' counterparts (probes/: the three Q4_UNPACK builds of
+     matmul_q4_0.cu, i2f bit-equal to prmt and half2 within its bar; the
+     copy ceiling at 8 MB and 1 GiB; the byte map; the K-major matvec; the
+     f16 decode, block maps and bad-entry map), the tune table's entries
+     timed against the default geometry at b = 1, where dispatch reads
+     them, and at b = 8, where it does not (its card checked against this
+     one), and the host cost of the table's lookup, and
+     i. LLAMA_13B Q4_0 (full width and depth, random weights quantized on
+        the card) at b = 1: a 16-token prompt and 8 greedy tokens, every
+        b = 1 matmul through matmul_q4_0 at the tune table's geometry for
+        its shape (the prompt's at the default); held against the plain
+        route; tok/s and roofline share;
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound; kernel 2 also
      at path g's shape, both entries, softcap, and its backward against
@@ -118,27 +131,11 @@ def emit(obj):
 
 def time_ms(fn, reps, warmup=3):
     """Mean device ms a call of fn(i), i = 0..reps-1 (i picks the caller's
-    input copy). The reps calls are captured into one CUDA graph and the
-    replay is timed with CUDA events, so the host's per-call overhead
-    (Python, checks, ctypes) stays out of the kernel's time."""
-    import torch
+    input copy): the reps calls captured into one CUDA graph, its replay
+    timed with CUDA events (the package's probes.common.time_ms)."""
+    from ggmlsharp_tpu_torch.probes.common import time_ms as graph_time_ms
 
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(reps):
-            fn(i)
-    graph.replay()  # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return graph_time_ms(fn, reps, warmup)
 
 
 def q4_bound_ms(b, n, k, q8_acts):
@@ -2552,6 +2549,299 @@ def time_flash_train(dev, gen):
     return res
 
 
+# --- the tuning slice: the TPU probes' counterparts (sites 12-17, the last
+# pallas_call sites of the repo, in scripts/), the launch geometry of the
+# three dequant-matmul sources and the tune table that dispatch reads, and
+# path i (LLAMA_13B Q4_0 decode through the tuned dispatch) ------------------
+I_NEW = 8  # path i: greedy tokens after the 16-token prompt
+GEOM_SHAPES = [("7b_wo", 4096, 4096), ("ragged", 4099, 11008)]
+GEOM_B = (1, 5)
+
+
+def check_geometries(dev, gen):
+    """Every compiled launch geometry of the three dequant-matmul sources
+    gives the default's bits, at a 7B shape and at a ragged one (N a
+    multiple of no block's rows, K = 11008), b 1 and 5 (ragged b), for each
+    format the source decodes."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import tune
+    from ggmlsharp_tpu_torch.kernels.matmul_q import (q4_0_matmul,
+                                                      q8_0_matmul, q_matmul)
+
+    calls = {"Q4_0": lambda x, w, g: q4_0_matmul(x, w["qs"], w["d"], g),
+             "Q8_0": lambda x, w, g: q8_0_matmul(x, w["qs"], w["d"], g)}
+    calls.update({f: (lambda x, w, g: q_matmul(x, w, g)) for f in A_FORMATS})
+    rows = []
+    for fmt, fn in calls.items():
+        for label, n, k in GEOM_SHAPES:
+            w = random_weight(fmt, n, k, gen, dev)
+            for b in GEOM_B:
+                x = torch.randn((b, k), generator=gen, device=dev)
+                ref = fn(x, w, tune.DEFAULT)
+                same = {f"{g[0]}x{g[1]}": bool(torch.equal(fn(x, w, g), ref))
+                        for g in tune.GEOMETRIES}
+                rows.append({"format": fmt, "shape": label, "n": n, "k": k,
+                             "b": b, "bit_equal_default": same,
+                             "finite": bool(torch.isfinite(ref).all())})
+                if not (all(same.values()) and rows[-1]["finite"]):
+                    emit({"geometry_check": rows})
+                    raise SystemExit(f"a launch geometry changes the bits: "
+                                     f"{rows[-1]}")
+    emit({"geometry_check": {"cases": len(rows), "geometries":
+                             [list(g) for g in tune.GEOMETRIES],
+                             "all_bit_equal": True}})
+    return len(rows)
+
+
+def run_probe_path(dev):
+    """The TPU probes' counterparts through their entry points' run(): the
+    three Q4_UNPACK builds (i2f bit-equal to prmt, half2 within its bar),
+    the copy ceiling at 8 MB and 1 GiB, the byte map, the K-major matvec
+    (checked and timed), the f16 decode, the block maps and the bad-entry
+    map; counters reset just before, read just after."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.probes import dq_variants, scale_decode, swar
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = {"dq": dq_variants.run(dev), "swar": swar.run(dev),
+           "scale": scale_decode.run(dev)}
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    ran = ("matmul_q4_0", "matmul_q4_0_i2f", "matmul_q4_0_half2",
+           "probe_copy", "probe_byte_order", "matmul_q4_0_kmajor",
+           "probe_f16_decode", "probe_block_map")
+    emit({"tuning_probes": {"seconds": res["seconds"], "launches": counts}})
+    if not all(counts[k] for k in ran):
+        raise SystemExit(f"a probe kernel never launched: {counts}")
+    return res, counts
+
+
+def tune_rows(res):
+    """The kernels-line rows of sites 12-17 from the probe path's results."""
+    from ggmlsharp_tpu_torch.probes.dq_variants import VARIANTS
+
+    site = next(r for r in res["dq"]["timing"]
+                if (r["n"], r["k"]) == (4096, 4096))
+    chk = res["dq"]["check"]
+    unit = ("one call at the site's shape, N = K = 4096, b = 1, cold L2; "
+            "plain = ops.mul_mat_q, library = bf16 torch.matmul over the "
+            "dequantized weight")
+    rows = []
+    for var in ("i2f", "half2"):
+        rows.append({
+            "name": f"matmul_q4_0_{var}", "route": "cuda",
+            "source": "ggmlsharp_tpu_torch/csrc/matmul_q4_0.cu "
+                      f"(-DQ4_UNPACK={VARIANTS[var]})",
+            "replaces": "scripts/probe_dq_variants.py:81",
+            "ms": site[f"{var}_ms"], "plain_ms": site["plain_ms"],
+            "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
+            "library_ms": site["library_ms"],
+            "max_abs_err": max(c["max_abs_err"][var] for c in chk),
+            "prmt_ms": site["prmt_ms"], "unit": unit,
+            "by_shape_ms": {f"{r['n']}x{r['k']}": r[f"{var}_ms"]
+                            for r in res["dq"]["timing"]},
+            "prmt_by_shape_ms": {f"{r['n']}x{r['k']}": r["prmt_ms"]
+                                 for r in res["dq"]["timing"]},
+            **({"i2f_bit_equal_prmt": all(c["i2f_equals_prmt"]
+                                          for c in chk)} if var == "i2f"
+               else {"half2_err_over_bar": max(c["half2_err_over_bar"]
+                                               for c in chk),
+                     "half2_terms_t": chk[0]["half2_terms_t"]})})
+    c8, c1g = res["dq"]["copy"]
+    rows.append({
+        "name": "probe_copy", "route": "cuda",
+        "source": "ggmlsharp_tpu_torch/csrc/probes.cu",
+        "replaces": "scripts/probe_dq_variants.py:105",
+        "ms": c8["ms"], "plain_ms": c8["plain_ms"], "bound_ms": c8["bound_ms"],
+        "bound_by": c8["bound_by"], "library_ms": c8["library_ms"],
+        "max_abs_err": 0.0, "gb_s": c8["gb_s"], "ms_1gib": c1g["ms"],
+        "gb_s_1gib": c1g["gb_s"], "library_ms_1gib": c1g["library_ms"],
+        "library_gb_s_1gib": c1g["library_gb_s"],
+        "plain_ms_1gib": c1g["plain_ms"], "bound_ms_1gib": c1g["bound_ms"],
+        "unit": "one copy of the site's 8 MB u32 plane (copies rotated past "
+                "the L2); _1gib: of a 1 GiB plane; library = dst.copy_(src), "
+                "plain = src.clone(); GB/s = read + write bytes"})
+    bo = res["swar"]["byte_order"]
+    rows.append({
+        "name": "probe_byte_order", "route": "cuda",
+        "source": "ggmlsharp_tpu_torch/csrc/probes.cu",
+        "replaces": "scripts/probe_swar.py:61",
+        "ms": bo["ms"], "plain_ms": bo["plain_ms"], "bound_ms": bo["bound_ms"],
+        "bound_by": bo["bound_by"], "library_ms": None,
+        "max_abs_err": bo["max_abs_err"], "order": bo["order"],
+        "unit": "one call over 64 words; no library call maps load order"})
+    km = next(r for r in res["swar"]["timing"]
+              if (r["n"], r["k"]) == (4096, 4096))
+    rows.append({
+        "name": "matmul_q4_0_kmajor", "route": "cuda",
+        "source": "ggmlsharp_tpu_torch/csrc/matmul_q4_0_kmajor.cu",
+        "replaces": "scripts/probe_swar.py:105",
+        "ms": km["kmajor_ms"], "plain_ms": km["plain_ms"],
+        "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],
+        "library_ms": km["library_ms"],
+        "max_abs_err": max(c["max_abs_err"] for c in res["swar"]["check"]),
+        "row_default_ms": km["row_default_ms"],
+        "row_tuned_ms": km["row_tuned_ms"],
+        "by_shape": {f"{r['n']}x{r['k']}": {
+            k: r[k] for k in ("kmajor_ms", "row_default_ms", "row_tuned_ms",
+                              "tuned_geometry")}
+            for r in res["swar"]["timing"]},
+        "unit": "one call at N = K = 4096, b = 1, cold L2; row_* = "
+                "matmul_q4_0 over the same weights in the row layout; "
+                "library = bf16 torch.matmul over the dequantized weight"})
+    for key, name, line, unit in (
+            ("decode_timing", "probe_f16_decode", 42,
+             "one call over all 65,536 f16 patterns; plain = library = "
+             "d.float()"),
+            ("block_map_timing", "probe_block_map", 68,
+             "one Q4_0 row map at K = 11008; plain = library = "
+             "repeat_interleave")):
+        t = res["scale"][key]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "ggmlsharp_tpu_torch/csrc/probes.cu",
+                     "replaces": f"scripts/diag_chunked10.py:{line}",
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"], "max_abs_err": 0.0,
+                     "unit": unit})
+    return rows
+
+
+def check_tune_table(dev, gen, smi):
+    """The packaged tune table: its card against this one (a different card
+    is an error line), each entry legal, and each entry timed against the
+    default geometry at its shape, cold L2, three rounds in turns: at
+    b = 1, where dispatch reads the table, and at b = 8 (the other
+    instance of each source), where dispatch launches the default. Then
+    the host time of one dispatch lookup (matmul_q.geometry)."""
+    import statistics
+
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import autotune, matmul_q, tune
+
+    table = tune.table()
+    name = smi.split(",")[0].strip()
+    tcard = table.get("_card", "")
+    if tcard.split(",")[0].strip() != name:
+        emit({"error": f"tune table measured on {tcard!r}; this card is "
+                       f"{smi!r}"})
+    kinds = {key: (kern, g) for key, kern, g, _, _ in autotune.targets()}
+    rows, t0 = [], time.perf_counter()
+    for key, ent in sorted(table.items()):
+        if key.startswith("_"):
+            continue
+        geom = tune.legal(ent)
+        if geom is None or key not in kinds:
+            raise SystemExit(f"tune table entry {key}: {ent} is not legal")
+        kern, g = kinds[key]
+        n, k = (int(v) for v in key.split(":")[1].split("x"))
+        ws = autotune.random_copies(g, n, k, gen, dev)
+        fn = autotune.launcher(kern)
+        reps = int(min(200, max(20, 1e-3 * 2.5e12 / ws[0].nbytes())))
+        row = {"key": key, "geometry": list(geom)}
+        for b in (1, 8):
+            x = torch.randn((b, k), generator=gen, device=dev)
+            s = {"default": [], "table": []}
+            for _ in range(3):
+                for lab, gg in (("default", tune.DEFAULT), ("table", geom)):
+                    s[lab].append(time_ms(
+                        lambda i: fn(x, ws[i % len(ws)], gg), reps))
+            dm, tm = statistics.median(s["default"]), \
+                statistics.median(s["table"])
+            row[f"b{b}"] = {"default_ms": dm, "table_ms": tm,
+                            "gain": dm / tm}
+        rows.append(row)
+        del ws
+    _, kern0, g0, n0, k0 = autotune.targets()[0]
+    matmul_q.geometry(kern0, n0, k0, g0)
+    calls, h0 = 100_000, time.perf_counter()
+    for _ in range(calls):
+        matmul_q.geometry(kern0, n0, k0, g0)
+    lookup_us = (time.perf_counter() - h0) * 1e6 / calls
+    gains = {b: [r[b]["gain"] for r in rows] or [1.0] for b in ("b1", "b8")}
+    out = {"card": tcard, "entries": len(rows), "rows": rows,
+           "gain_b1_median": statistics.median(gains["b1"]),
+           "gain_b8_median": statistics.median(gains["b8"]),
+           "entries_slower_at_b8": sum(v < 1 for v in gains["b8"]),
+           "lookup_us_per_launch": lookup_us,
+           "seconds": time.perf_counter() - t0}
+    emit({"tune_check": out})
+    return out
+
+
+def q4_0_weight_bytes(cfg):
+    """Q4_0 bytes of the matmul weights a decode token reads once, counted
+    from the config: four per block and the LM head (18 bytes a 32)."""
+    E, F = cfg.n_embd, cfg.n_ff
+    nq, nkv = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+    per_block = (nq + 2 * nkv) * E + E * nq + 2 * F * E + E * F
+    vpad = -(-cfg.n_vocab // 256) * 256
+    return (cfg.n_layer * per_block + vpad * E) * 18 // 32
+
+
+def run_13b_path(dev, gen, smi):
+    """Path i: LLAMA_13B (full width and depth) Q4_0 at b = 1, random N(0,
+    1/k) weights quantized on the card one tensor at a time, a bf16
+    head-major cache of n_ctx rows: a 16-token prompt and I_NEW greedy
+    tokens, counters reset just before; every matmul through matmul_q4_0
+    at the tune table's geometry for its shape (else the default), flash
+    for the prompt; held against the plain route; then tok/s and the share
+    of the HBM roofline."""
+    import torch
+
+    from ggmlsharp_tpu_torch import GType, kernels
+    from ggmlsharp_tpu_torch.kernels import _build, tune
+    from ggmlsharp_tpu_torch.kernels.matmul_q import geometry
+    from ggmlsharp_tpu_torch.models import llama
+
+    cfg = llama.LLAMA_13B
+    t0 = time.perf_counter()
+    params = llama.synthetic_params(cfg, GType.Q4_0, seed=SEED)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.n_vocab, (1, PROMPT_LEN), generator=gen,
+                           device=dev, dtype=torch.int32)
+    L = cfg.n_layer
+    toks, counts = run_fused_path(
+        cfg, params, prompt, "i LLAMA_13B Q4_0, head-major bf16 cache",
+        I_NEW, {"matmul_q4_0": (4 * L + 1) * (1 + I_NEW), "flash_attn": L},
+        tag="llama_13b_path")
+    geo = {k: v for k, v in _build.GEOMETRY_LAUNCHES.items()}
+    shapes = {}
+    for (kern, n, k, w, r, b), c in geo.items():
+        want = geometry(kern, n, k, GType.Q4_0, b)
+        shapes[f"{n}x{k} b{b}"] = {
+            "geometry": [w, r], "launches": c,
+            "from_table": b == 1
+            and tune.lookup(kern, n, k, GType.Q4_0) is not None}
+        if kern != "matmul_q4_0" or (w, r) != want:
+            raise SystemExit(f"path i launched {kern} {n}x{k} b {b} at "
+                             f"{(w, r)}; dispatch gives {want}")
+    errs = [compare_plain(llama, cfg, params, prompt, quant_acts=True,
+                          cache_dtype=torch.bfloat16, tol=0.1, toks=toks,
+                          route="i LLAMA_13B Q4_0"),
+            compare_plain(llama, cfg, params, prompt, quant_acts=False,
+                          cache_dtype=torch.float32, tol=1e-3,
+                          route="i LLAMA_13B Q4_0, f32 cache")]
+    wbytes = q4_0_weight_bytes(cfg)
+    dec = measure_decode(llama, cfg, params, prompt, wbytes,
+                         cfg.n_head_kv * cfg.head_dim, n_warm=4, n_lat=16,
+                         n_win=16, n_prof=4)
+    dec.update(config="LLAMA_13B Q4_0", card=smi, load_s=load_s,
+               geometry_by_shape=shapes, vs_plain_max_abs_err=errs)
+    emit({"llama_13b_decode": dec})
+    del params
+    torch.cuda.empty_cache()
+    return dec, counts
+
+
 def profile_steps(one_step, n_steps):
     """torch.profiler over n_steps decode steps: device kernel time, kernel
     launches and aten calls a step, and the kernels that take the most
@@ -2593,13 +2883,15 @@ def profile_steps(one_step, n_steps):
 
 
 def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
-                   kv_row_bytes=None, **cache_kw):
+                   kv_row_bytes=None, n_warm=8, n_lat=64, n_win=64, n_prof=8,
+                   **cache_kw):
     """Prefill time, then per-token decode latency at b = 1 (host clock,
-    synchronised each step), a 64-token window without per-step sync, and a
-    traced 8-step window (profile_steps). ``model``: models.llama or
-    models.gpt2; weight_bytes: the matmul weights a token reads once;
-    kv_width: elements of one cached K (or V) row; kv_row_bytes: its bytes
-    (default bf16: 2 * kv_width); cache_kw goes to new_cache."""
+    synchronised each step; n_lat steps after n_warm), an n_win-token
+    window without per-step sync, and a traced n_prof-step window
+    (profile_steps). ``model``: models.llama or models.gpt2; weight_bytes:
+    the matmul weights a token reads once; kv_width: elements of one cached
+    K (or V) row; kv_row_bytes: its bytes (default bf16: 2 * kv_width);
+    cache_kw goes to new_cache."""
     import torch
 
     from ggmlsharp_tpu_torch.models import sampling
@@ -2629,13 +2921,12 @@ def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
                 t_eff=sampling.length_bucket(state["cur"], T))
 
         lat = []
-        for i in range(8 + 64):  # 8 warm-up steps
+        for i in range(n_warm + n_lat):
             t0 = time.perf_counter()
             one_step()
             torch.cuda.synchronize()
-            if i >= 8:
+            if i >= n_warm:
                 lat.append(time.perf_counter() - t0)
-        n_win = 64
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_win):
@@ -2643,7 +2934,7 @@ def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
         torch.cuda.synchronize()
         win = time.perf_counter() - t0
         cur = state["cur"]
-        res["profile"] = profile_steps(one_step, 8)
+        res["profile"] = profile_steps(one_step, n_prof)
     lat_ms = sorted(x * 1e3 for x in lat)
     res["step_ms_median"] = statistics.median(lat_ms)
     res["step_ms_p84"] = lat_ms[int(0.84 * len(lat_ms))]
@@ -2700,8 +2991,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    from ggmlsharp_tpu_torch.kernels.config import kernels_setting
+    from ggmlsharp_tpu_torch.probes.dq_variants import variant_defines
+
+    if kernels_setting() is not None:
+        raise SystemExit(f"kernels_enabled() must be auto on every path, is "
+                         f"forced to {kernels_setting()}")
     t0 = time.perf_counter()
-    logs = kernels.build()
+    # every source, and the probe builds of matmul_q4_0.cu, in parallel
+    logs = kernels.build(variants=[("matmul_q4_0", variant_defines(v))
+                                   for v in ("i2f", "half2")])
     log(f"[2/6] built {sorted(logs) or 'nothing new'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -2725,6 +3024,7 @@ def main():
     mq_errs = check_matmul_q(dev, gen)
     ib_errs = check_int_dot(dev, gen)
     q_card = quantizers_on_card(dev, gen)
+    geom_cases = check_geometries(dev, gen)
     if not q4_rows_ok:
         raise SystemExit("a Q4_0 row's result depends on b")
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
@@ -2739,7 +3039,8 @@ def main():
         f"{ {k: float(f'{v:.3g}') for k, v in fl2_err.items()} } (uncached, "
         f"softcap, f16, D 8-256, gradients, HVP); quantizers on the card "
         f"vs the CPU, share of blocks differing: "
-        f"{max(q_card.values()):.3g}; rms rows differing alone "
+        f"{max(q_card.values()):.3g}; launch geometries bit-equal to the "
+        f"default in {geom_cases} cases; rms rows differing alone "
         f"vs in a batch of {SLOTS}: "
         f"{ {k: v['rms_rows_differ'] for k, v in rms_rows.items()} }")
 
@@ -2908,6 +3209,32 @@ def main():
         f"tokens equal to the plain engine's: {gserve['tokens_equal_plain']}"
         f"; launches {gs_counts}")
 
+    # the tuning path: the probes (sites 12-17), the tune table against the
+    # default geometry, and path i through the tuned dispatch
+    probes, probe_counts = run_probe_path(dev)
+    cp = probes["dq"]["copy"]
+    log(f"[4/6] tuning probes in {probes['seconds']:.1f} s: i2f bit-equal to "
+        f"prmt, half2 within its bar; copy {cp[0]['gb_s']:.0f} GB/s (8 MB), "
+        f"{cp[1]['gb_s']:.0f} GB/s (1 GiB); byte order "
+        f"{probes['swar']['byte_order']['order']}; K-major matvec agrees; "
+        f"f16 decode and block maps exact; bad entries "
+        f"{probes['scale']['bad_entry_map']['bad_entries']}; launches "
+        f"{ {k: v for k, v in probe_counts.items() if v} }")
+    tcheck = check_tune_table(dev, gen, smi)
+    log(f"[4/6] tune table ({tcheck['card']}): {tcheck['entries']} entries "
+        f"timed against the default in {tcheck['seconds']:.1f} s: median "
+        f"gain {tcheck['gain_b1_median']:.3f} at b = 1 (read there), "
+        f"{tcheck['gain_b8_median']:.3f} at b = 8 (not read; "
+        f"{tcheck['entries_slower_at_b8']} entries slower); lookup "
+        f"{tcheck['lookup_us_per_launch']:.2f} us a launch")
+    i_dec, i_counts = run_13b_path(dev, gen, smi)
+    log(f"[4/6] i. LLAMA_13B Q4_0: {PROMPT_LEN}-token prompt + {I_NEW} "
+        f"greedy tokens, launches {i_counts}; geometry by shape "
+        f"{ {k: v['geometry'] for k, v in i_dec['geometry_by_shape'].items()} }"
+        f"; {i_dec['window_tok_s']:.2f} tok/s, {i_dec['roofline_share']:.4f} "
+        f"of the HBM roofline, device idle share "
+        f"{i_dec['device_idle_share']}")
+
     q4_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_err
     fl_row = time_flash(dev, gen, counts)
@@ -2961,7 +3288,7 @@ def main():
         ad_row[f"b1_T{r['T']}_plain_ms"] = r["plain_ms"]
         ad_row[f"b1_T{r['T']}_library_ms"] = r["library_ms"]
     rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row, silu_row,
-            llayer_row, mq_row, ib_row, unc_row)
+            llayer_row, mq_row, ib_row, unc_row, *tune_rows(probes))
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
         name = row["name"]
@@ -2976,11 +3303,14 @@ def main():
         row["launches_train_g"] = g_counts[name]
         row["launches_graph_h"] = h_counts[name]
         row["launches_gpt2_int8_serving"] = gs_counts[name]
+        row["launches_tuning_probes"] = probe_counts[name]
+        row["launches_llama_13b"] = i_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, kq_counts,
                                                  fmt_counts, g_counts,
-                                                 h_counts) if c[name])
+                                                 h_counts, probe_counts,
+                                                 i_counts) if c[name])
     log("[5/6] kernel times taken")
 
     llama_wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
@@ -3075,7 +3405,8 @@ def main():
             "launches_gpt2_774m", "launches_llama_fused",
             "launches_llama_mlp_fused", "launches_llama_kquant",
             "launches_llama_formats", "launches_train_g", "launches_graph_h",
-            "launches_gpt2_int8_serving")
+            "launches_gpt2_int8_serving", "launches_tuning_probes",
+            "launches_llama_13b")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
              "heads_layout_bf16_ms",  # kernel 3's second lane map
              "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",
@@ -3087,7 +3418,13 @@ def main():
              # backward (the Function's dense recompute) against SDPA's
              "train_g_ms", "train_g_softcap_ms", "train_g_plain_ms",
              "train_g_library_ms", "train_g_bound_ms", "bwd_ms",
-             "library_bwd_ms", "softcap_gradient_max_abs_err")
+             "library_bwd_ms", "softcap_gradient_max_abs_err",
+             # sites 12-17 (the tuning probes)
+             "prmt_ms", "by_shape_ms", "prmt_by_shape_ms",
+             "i2f_bit_equal_prmt", "half2_err_over_bar", "half2_terms_t",
+             "gb_s", "ms_1gib", "gb_s_1gib", "library_ms_1gib",
+             "library_gb_s_1gib", "plain_ms_1gib", "bound_ms_1gib", "order",
+             "row_default_ms", "row_tuned_ms", "by_shape")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -44,6 +44,11 @@
 //  * Each activation row keeps its own f32 accumulators (RB rows a pass: 1
 //    at decode, 8 for any larger b), so a row's sum is the same at every b;
 //    a warp-shuffle reduction ends each row.
+//  * Launch geometry: WARPS warps a block, ROWS_PER_WARP rows a warp, both
+//    template parameters, one instance for each pair of kernels/tune.py's
+//    GEOMETRIES and each format (the C entry takes the pair). Each row keeps
+//    its own accumulator chain and lane map whatever the pair, so every
+//    pair gives the same bits.
 //  * Ragged edges are masked: N not a multiple of the rows a block, K/32 not
 //    a multiple of 8 groups (K = 11008 is 344 blocks of 32 and 43
 //    superblocks of 256: the k-quants take one superblock a warp step).
@@ -54,9 +59,6 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int ROWS_PER_WARP = 2;
-constexpr int ROWS_PER_BLOCK = WARPS * ROWS_PER_WARP;
 constexpr int GROUPS_PER_STEP = 8;  // 32-element groups a warp covers a step
 
 // format ids: GType's numbering (dtypes.py)
@@ -105,7 +107,7 @@ __device__ __forceinline__ uint32_t ldw(const uint8_t* p) {
 }
 
 // ---- legacy formats: a lane takes 4 bytes of a 32-element group a step ----
-template <int F, int RB>
+template <int F, int RB, int ROWS_PER_WARP>
 __device__ __forceinline__ void legacy_rows(const float* __restrict__ x, const void* p0,
                                             const void* p1, const void* p2, const void* p3,
                                             int B, int N, int K, int n0, int b0, int lane,
@@ -173,7 +175,7 @@ __device__ __forceinline__ void legacy_rows(const float* __restrict__ x, const v
 // ---- Q4_K: a warp takes one superblock (128 bytes of qs) a row a step ----
 // Lane L holds bytes 4L..4L+3: group g = L/8, elements 64g + 4(L%8) + t (low
 // nibbles, sub-block 2g) and 32 more (high nibbles, sub-block 2g + 1).
-template <int RB>
+template <int RB, int ROWS_PER_WARP>
 __device__ __forceinline__ void q4_k_rows(const float* __restrict__ x, const void* p0,
                                           const void* p1, const void* p2, const void* p3,
                                           int B, int N, int K, int n0, int b0, int lane,
@@ -244,7 +246,7 @@ __device__ __forceinline__ void q4_k_rows(const float* __restrict__ x, const voi
 // (h*64 + part*32 + l) hold elements e = 128h + 32part + l + t (low nibbles)
 // and e + 64 (high); qh bytes h*32 + l + t hold their two high bits at bit
 // pairs part (e) and part + 2 (e + 64).
-template <int RB>
+template <int RB, int ROWS_PER_WARP>
 __device__ __forceinline__ void q6_k_rows(const float* __restrict__ x, const void* p0,
                                           const void* p1, const void* p2, const void* p3,
                                           int B, int N, int K, int n0, int b0, int lane,
@@ -293,7 +295,7 @@ __device__ __forceinline__ void q6_k_rows(const float* __restrict__ x, const voi
   }
 }
 
-template <int F, int RB>
+template <int F, int WARPS, int ROWS_PER_WARP, int RB>
 __global__ void __launch_bounds__(WARPS * 32)
 q_matmul_kernel(const float* __restrict__ x, const void* p0, const void* p1, const void* p2,
                 const void* p3, float* __restrict__ y, int B, int N, int K) {
@@ -310,11 +312,11 @@ q_matmul_kernel(const float* __restrict__ x, const void* p0, const void* p1, con
     for (int w = 0; w < ROWS_PER_WARP; ++w) acc[r][w] = 0.f;
 
   if constexpr (F == Q4_K)
-    q4_k_rows<RB>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
+    q4_k_rows<RB, ROWS_PER_WARP>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
   else if constexpr (F == Q6_K)
-    q6_k_rows<RB>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
+    q6_k_rows<RB, ROWS_PER_WARP>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
   else
-    legacy_rows<F, RB>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
+    legacy_rows<F, RB, ROWS_PER_WARP>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
 
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
@@ -328,38 +330,58 @@ q_matmul_kernel(const float* __restrict__ x, const void* p0, const void* p1, con
   }
 }
 
+template <int F, int WARPS, int RPW>
+void launch_geom(const float* x, const void* p0, const void* p1, const void* p2,
+                 const void* p3, float* y, int B, int N, int K, cudaStream_t stream) {
+  constexpr int rows = WARPS * RPW;  // weight rows a block
+  if (B == 1) {  // decode
+    dim3 grid((N + rows - 1) / rows, 1);
+    q_matmul_kernel<F, WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B,
+                                                                       N, K);
+  } else {  // prefill; ragged B masked
+    dim3 grid((N + rows - 1) / rows, (B + 7) / 8);
+    q_matmul_kernel<F, WARPS, RPW, 8><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B,
+                                                                       N, K);
+  }
+}
+
 template <int F>
 int launch(const float* x, const void* p0, const void* p1, const void* p2, const void* p3,
-           float* y, int B, int N, int K, cudaStream_t stream) {
+           float* y, int B, int N, int K, int warps, int rpw, cudaStream_t stream) {
   const bool kq = F == Q4_K || F == Q6_K;
   if (K % (kq ? 256 : 32)) return (int)cudaErrorInvalidValue;
-  const int rb = B == 1 ? 1 : 8;  // decode; prefill, ragged B masked
-  dim3 grid((N + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, (B + rb - 1) / rb);
-  if (B == 1)
-    q_matmul_kernel<F, 1><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B, N, K);
-  else
-    q_matmul_kernel<F, 8><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B, N, K);
+  switch (warps * 16 + rpw) {
+    case 4 * 16 + 1: launch_geom<F, 4, 1>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
+    case 4 * 16 + 2: launch_geom<F, 4, 2>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
+    case 4 * 16 + 4: launch_geom<F, 4, 4>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
+    case 8 * 16 + 1: launch_geom<F, 8, 1>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
+    case 8 * 16 + 2: launch_geom<F, 8, 2>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
+    case 8 * 16 + 4: launch_geom<F, 8, 4>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // fmt: the weight's GType id; p0..p3 its planes in kernels/matmul_q.py's
-// _PLANES order (unused ones null). x f32 [B, K], y f32 [B, N]. K must be a
-// multiple of 32 (256 for the k-quants); x 16-byte and the planes 4-byte
-// aligned (the wrapper checks). Returns cudaGetLastError() after the launch.
+// _PLANES order (unused ones null). x f32 [B, K], y f32 [B, N]; `warps` warps
+// a block and `rpw` weight rows a warp: one of kernels/tune.py's GEOMETRIES
+// (any other pair returns cudaErrorInvalidValue). K must be a multiple of 32
+// (256 for the k-quants); x 16-byte and the planes 4-byte aligned (the
+// wrapper checks). Returns cudaGetLastError() after the launch.
 extern "C" int q_matmul(int fmt, const float* x, const void* p0, const void* p1,
                         const void* p2, const void* p3, float* y, int B, int N, int K,
-                        cudaStream_t stream) {
+                        int warps, int rpw, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   switch (fmt) {
-    case Q4_1: return launch<Q4_1>(x, p0, p1, p2, p3, y, B, N, K, stream);
-    case Q4_2: return launch<Q4_2>(x, p0, p1, p2, p3, y, B, N, K, stream);
-    case Q4_3: return launch<Q4_3>(x, p0, p1, p2, p3, y, B, N, K, stream);
-    case Q5_0: return launch<Q5_0>(x, p0, p1, p2, p3, y, B, N, K, stream);
-    case Q5_1: return launch<Q5_1>(x, p0, p1, p2, p3, y, B, N, K, stream);
-    case Q4_K: return launch<Q4_K>(x, p0, p1, p2, p3, y, B, N, K, stream);
-    case Q6_K: return launch<Q6_K>(x, p0, p1, p2, p3, y, B, N, K, stream);
+    case Q4_1: return launch<Q4_1>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
+    case Q4_2: return launch<Q4_2>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
+    case Q4_3: return launch<Q4_3>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
+    case Q5_0: return launch<Q5_0>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
+    case Q5_1: return launch<Q5_1>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
+    case Q4_K: return launch<Q4_K>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
+    case Q6_K: return launch<Q6_K>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

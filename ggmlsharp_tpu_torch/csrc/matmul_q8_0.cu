@@ -22,6 +22,11 @@
 //  * Each activation row keeps its own f32 accumulator (RB rows a pass: 1 at
 //    decode, 8 for any larger b, so a row's sum does not depend on b); a
 //    warp-shuffle reduction ends each row.
+//  * Launch geometry: WARPS warps a block, ROWS_PER_WARP rows a warp, both
+//    template parameters, one instance for each pair of kernels/tune.py's
+//    GEOMETRIES (the C entry takes the pair). warp_dot keeps one accumulator
+//    chain a row whatever the number of rows, so every pair gives the same
+//    bits.
 //  * Ragged edges are masked by row and by block: N = 50257 (the LM head)
 //    is a multiple of nothing, and neighbouring rows are not padded.
 // No tensor cores and no TMA: those designs are left to a later change.
@@ -29,11 +34,7 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int ROWS_PER_WARP = 2;
-constexpr int ROWS_PER_BLOCK = WARPS * ROWS_PER_WARP;
-
-template <int RB>
+template <int WARPS, int ROWS_PER_WARP, int RB>
 __global__ void __launch_bounds__(WARPS * 32)
 q8_0_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
                    const __half* __restrict__ d, float* __restrict__ y,
@@ -60,22 +61,38 @@ q8_0_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   }
 }
 
-template <int RB>
+template <int WARPS, int RPW>
 void launch(const float* x, const int8_t* qs, const __half* d, float* y,
             int B, int N, int K, cudaStream_t stream) {
-  dim3 grid((N + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, (B + RB - 1) / RB);
-  q8_0_matmul_kernel<RB><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
+  constexpr int rows = WARPS * RPW;  // weight rows a block
+  if (B == 1) {  // decode
+    dim3 grid((N + rows - 1) / rows, 1);
+    q8_0_matmul_kernel<WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
+  } else {  // prefill; ragged B masked
+    dim3 grid((N + rows - 1) / rows, (B + 7) / 8);
+    q8_0_matmul_kernel<WARPS, RPW, 8><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
+  }
 }
 
 }  // namespace
 
-// x f32 [B, K], qs int8 [N, K], d f16 [N, K/32] -> y f32 [B, N].
+// x f32 [B, K], qs int8 [N, K], d f16 [N, K/32] -> y f32 [B, N], launched
+// with `warps` warps a block and `rpw` weight rows a warp: one of
+// kernels/tune.py's GEOMETRIES (any other pair returns cudaErrorInvalidValue).
 // K must be a multiple of 32; x and qs 16-byte aligned (the wrapper checks).
 // Returns cudaGetLastError() after the launch.
 extern "C" int q8_0_matmul(const float* x, const int8_t* qs, const __half* d,
-                           float* y, int B, int N, int K, cudaStream_t stream) {
+                           float* y, int B, int N, int K, int warps, int rpw,
+                           cudaStream_t stream) {
   if (B <= 0 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
-  if (B == 1) launch<1>(x, qs, d, y, B, N, K, stream);  // decode
-  else launch<8>(x, qs, d, y, B, N, K, stream);         // prefill; ragged B masked
+  switch (warps * 16 + rpw) {
+    case 4 * 16 + 1: launch<4, 1>(x, qs, d, y, B, N, K, stream); break;
+    case 4 * 16 + 2: launch<4, 2>(x, qs, d, y, B, N, K, stream); break;
+    case 4 * 16 + 4: launch<4, 4>(x, qs, d, y, B, N, K, stream); break;
+    case 8 * 16 + 1: launch<8, 1>(x, qs, d, y, B, N, K, stream); break;
+    case 8 * 16 + 2: launch<8, 2>(x, qs, d, y, B, N, K, stream); break;
+    case 8 * 16 + 4: launch<8, 4>(x, qs, d, y, B, N, K, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,7 @@ import torch
 
 from ..ops.attention import NEG_INF
 from . import _build
+from .config import use_kernel
 
 _KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
 
@@ -136,7 +137,7 @@ def flash_decode_flat(q_heads, k_new, v_new, k_cache, v_cache, npast,
     npast: int (B,); k_scale/v_scale: (B, T, H_kv) f32 for INT8 caches.
     Returns (B, Hq, D) f32."""
     _cache_kind(k_cache, v_cache)
-    if not q_heads.is_cuda:
+    if not use_kernel(q_heads):
         return _decode_ref(q_heads, k_new, v_new, k_cache, v_cache, npast,
                            n_head_kv, head_dim, k_scale, v_scale)
     return _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
@@ -217,7 +218,7 @@ def flash_decode_flat_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
                          f"{n_head}/{n_head_kv}, head_dim {head_dim}")
     if _cache_kind(k_cache, v_cache) != 0:
         raise TypeError("attn_decode: the attn lane map takes a bf16 cache")
-    if not q_att.is_cuda:
+    if not use_kernel(q_att):
         return _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
                                 n_head, n_head_kv, head_dim)
     out = _launch(q_att.reshape(B, n_head, head_dim), k_new, v_new, k_cache,

@@ -28,6 +28,7 @@ import torch
 
 from ..ops.attention import NEG_INF
 from . import _build
+from .config import use_kernel
 
 _INSTANCES = (32, 64, 128, 256)
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -154,7 +155,7 @@ class _FlashCached(torch.autograd.Function):
     def forward(ctx, q, k, v, npast, scale, softcap):
         ctx.save_for_backward(q, k, v, npast)
         ctx.scale, ctx.softcap = scale, softcap
-        if q.is_cuda:
+        if use_kernel(q):
             return _launch(q, k, v, npast, 0, True, scale, softcap,
                            "flash_attn")
         return _cached_ref(q, k, v, npast, scale, softcap)
@@ -174,7 +175,7 @@ class _FlashUncached(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, n_past, scale, softcap):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, n_past, scale, softcap)
-        if not q.is_cuda:
+        if not use_kernel(q):
             return _uncached_ref(q, k, v, *ctx.args).to(q.dtype)
         lead, (sq, D), sk = q.shape[:-2], q.shape[-2:], k.shape[-2]
         if k.shape[:-2] != lead or k.shape[-1] != D or v.shape != k.shape:

@@ -27,6 +27,7 @@ from ..ops.basic import gelu, norm
 from ..ops.matmul import mul_mat_q
 from ..quant.formats import QTensor
 from . import _build
+from .config import use_kernel
 
 _TILE_BYTES = 9 * 1024 * 1024
 _CHUNKS = 8  # attention partials a head (csrc/gpt2_layer.cu CHUNKS)
@@ -108,7 +109,7 @@ def gpt2_layer_step(blk, x, k_cache, v_cache, npast, n_head: int,
     (ln_1, attn, ln_2, mlp; Q8_0 weights); x f32 [1, E]; k_cache/v_cache
     [T, E], the cache's first T rows (bf16 or f32); npast: an int tensor on
     x's device. Returns (y, k_new, v_new), each f32 [1, E]."""
-    if not x.is_cuda:
+    if not use_kernel(x):
         return _layer_ref(blk, x, k_cache, v_cache, npast, n_head, ln_eps)
     attn, mlp = blk["attn"], blk["mlp"]
     ws = (attn["c_attn_w"], attn["c_proj_w"], mlp["c_fc_w"], mlp["c_proj_w"])

@@ -39,6 +39,7 @@ from ..ops.matmul import mul_mat_q
 from ..quant.formats import QTensor, concat_qtensors
 from ..quant.quantize import dequantize, quantize
 from . import _build
+from .config import use_kernel
 
 _TILE_BYTES = 9 * 1024 * 1024
 _CHUNKS = 8  # attention partials a head (csrc/llama_layer.cu CHUNKS)
@@ -226,7 +227,7 @@ def llama_layer_step(blk, x, k_cache, v_cache, npast, cfg, rope=None):
     device; rope: rope_vectors(npast, cfg) where the caller made it already
     (once for all blocks). Returns (y [1, E], k_new, v_new [1, E_kv]), f32;
     k_new is rotated."""
-    if not x.is_cuda:
+    if not use_kernel(x):
         return _layer_ref(blk, x, k_cache, v_cache, npast, cfg, rope)
     fused = blk.get("layer_fused")
     if fused is None:

@@ -25,8 +25,14 @@ version is ``_int_dot_ref``. In the JAX package the switch takes effect only
 with ``GGML_TPU_SWAR=0`` (its SWAR kernel comes first); the port has one
 layout, so the switch alone selects the route.
 
+The three dequant-matmul sources are compiled for every launch geometry
+of ``tune.GEOMETRIES`` (warps a block x weight rows a warp; all give the same
+bits); a wrapper launches, at b = 1, the tune table's pair for the weight's
+shape (``geometry``), else ``tune.DEFAULT``, and refuses a pair never
+compiled.
+
 A wrapper runs the plain version for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises (``kernels.config.use_kernel``).
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from .. import config
 from ..dtypes import GType
 from ..quant.formats import QTensor, plane_specs
 from ..quant.quantize import dequantize, int_values, quantize
-from . import _build
+from . import _build, tune
+from .config import use_kernel
 
 # the planes kernel A reads, in its argument order (C: ``Fmt``, GType's ids)
 _PLANES = {
@@ -81,10 +88,36 @@ def _check_planes(name, a: QTensor, keys, device):
                              f"{dtype}, contiguous, aligned, on {device}")
 
 
-def _launch(name, x, qs, d, qs_dtype, qs_cols):
+def geometry(kernel: str, n: int, k: int, gtype=None,
+             b: int = 1) -> tuple[int, int]:
+    """The launch geometry (warps a block, rows a warp) of dequant-matmul
+    ``kernel`` at an [n, k] weight and b activation rows: at b = 1 the tune
+    table's pair (``tune.lookup``), else ``tune.DEFAULT``. The table was
+    timed on the sources' b = 1 instance (RB = 1); more rows run the RB = 8
+    instance, which no sweep measured. Every pair gives the same bits; the
+    choice moves time only."""
+    if b != 1:
+        return tune.DEFAULT
+    return tune.lookup(kernel, n, k, gtype) or tune.DEFAULT
+
+
+def _check_geometry(name, geom):
+    """The pair as ints if ``name`` was compiled for it; raises otherwise,
+    so no table entry reaches a launch with a geometry never built."""
+    pair = tuple(int(v) for v in geom)
+    if pair not in tune.GEOMETRIES:
+        raise ValueError(f"{name}: geometry {tuple(geom)} is not compiled; "
+                         f"the sources hold {tune.GEOMETRIES}")
+    return pair
+
+
+def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
+            counter=None):
     """Check the operands of kernel ``name`` and launch it: x f32 [B, K], qs
     ``qs_dtype`` [N, qs_cols], d f16 [N, K/32] (all contiguous, on one card)
-    -> y f32 [B, N]."""
+    -> y f32 [B, N]. geom: (warps, rows_per_warp); None: ``geometry``.
+    counter: the launch counter (default ``name``; a probe's build
+    of the source counts apart)."""
     B, K = x.shape
     N = qs.shape[0]
     if not (x.is_cuda and qs.device == x.device and d.device == x.device):
@@ -100,31 +133,37 @@ def _launch(name, x, qs, d, qs_dtype, qs_cols):
         raise ValueError(f"{name}: inputs must be contiguous")
     if x.data_ptr() % 16 or qs.data_ptr() % 16 or d.data_ptr() % 2:
         raise ValueError(f"{name}: misaligned input")
+    warps, rpw = _check_geometry(
+        name, geometry(name, N, K, gtype, B) if geom is None else geom)
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     fn = _build.entry(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), qs.data_ptr(), d.data_ptr(), y.data_ptr(),
-                B, N, K, stream)
-    _build.check(name, rc)
+                B, N, K, warps, rpw, stream)
+    _build.check(name, rc, counter, geometry=(N, K, warps, rpw, B))
     return y
 
 
-def q4_0_matmul(x, qs, d):
+def q4_0_matmul(x, qs, d, geom=None):
     """Launch the Q4_0 kernel. x f32 [B, K]; qs uint8 [N, K/2]; d f16
-    [N, K/32] -> y f32 [B, N]."""
-    return _launch("matmul_q4_0", x, qs, d, torch.uint8, x.shape[1] // 2)
+    [N, K/32] -> y f32 [B, N]. geom: (warps, rows_per_warp), None:
+    ``geometry`` (the tune table's at b = 1)."""
+    return _launch("matmul_q4_0", x, qs, d, torch.uint8, x.shape[1] // 2,
+                   GType.Q4_0, geom)
 
 
-def q8_0_matmul(x, qs, d):
+def q8_0_matmul(x, qs, d, geom=None):
     """Launch the Q8_0 kernel. x f32 [B, K]; qs int8 [N, K]; d f16
-    [N, K/32] -> y f32 [B, N]."""
-    return _launch("matmul_q8_0", x, qs, d, torch.int8, x.shape[1])
+    [N, K/32] -> y f32 [B, N]. geom as for q4_0_matmul."""
+    return _launch("matmul_q8_0", x, qs, d, torch.int8, x.shape[1],
+                   GType.Q8_0, geom)
 
 
-def q_matmul(x, a: QTensor):
+def q_matmul(x, a: QTensor, geom=None):
     """Launch kernel A (``csrc/matmul_q.cu``) for a weight of a format in
-    ``_PLANES``: x f32 [B, K] -> y f32 [B, N]."""
+    ``_PLANES``: x f32 [B, K] -> y f32 [B, N]. geom as for q4_0_matmul
+    (the table's ``g<format>`` entry)."""
     name = "matmul_q"
     if a.gtype not in _PLANES:
         raise NotImplementedError(f"{name}: no decode for {a.gtype.name}")
@@ -134,14 +173,17 @@ def q_matmul(x, a: QTensor):
         raise ValueError(f"{name}: x {tuple(x.shape)} against {a.shape}")
     keys = _PLANES[a.gtype]
     _check_planes(name, a, keys, x.device)
+    warps, rpw = _check_geometry(
+        name, geometry(name, n, k, a.gtype, x.shape[0]) if geom is None
+        else geom)
     ptrs = [a[key].data_ptr() for key in keys] + [None] * (4 - len(keys))
     y = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)
     fn = _build.entry(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(int(a.gtype), x.data_ptr(), *ptrs, y.data_ptr(), x.shape[0],
-                n, k, stream)
-    _build.check(name, rc)
+                n, k, warps, rpw, stream)
+    _build.check(name, rc, geometry=(n, k, warps, rpw, x.shape[0]))
     return y
 
 
@@ -231,7 +273,7 @@ def int_dot_matmul(a: QTensor, x, plain: bool = False):
     if x.shape[0] != 1:
         raise ValueError(f"int_dot_matmul: one row, got {tuple(x.shape)}")
     xq, da, xs = int_dot_acts(a, x[0])
-    if plain or not x.is_cuda:
+    if not use_kernel(x, plain):
         return _int_dot_ref(a, xq, da, xs)[None]
     return int_dot_launch(a, xq, da, xs)[None]
 
@@ -250,7 +292,7 @@ def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
     if quantize_acts and config.int_dot() \
             and int_dot_supported(a, x2.shape[0]):
         return int_dot_matmul(a, x2, plain=plain).reshape(*lead, n)
-    if plain or not bx.is_cuda:
+    if not use_kernel(bx, plain):
         from ..ops.matmul import mul_mat_q
 
         return mul_mat_q(a, bx, quantize_acts=quantize_acts)

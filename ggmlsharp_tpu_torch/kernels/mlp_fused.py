@@ -32,6 +32,7 @@ from ..ops.matmul import mul_mat_q, quantize_activations
 from ..quant.formats import QTensor
 from ..quant.quantize import dequantize
 from . import _build
+from .config import use_kernel
 
 _MAX_FUSED_B = 64  # h is a [rows, n1] f32 scratch; prefill beyond it is unfused
 
@@ -99,7 +100,7 @@ def mlp_fused_q8(x, w1: QTensor, b1, w2: QTensor, b2):
 def flash_ff_q8(w1: QTensor, b1, w2: QTensor, b2, x,
                 quantize_acts: bool = True):
     """Apply the fused MLP to x [..., k1] -> f32 [..., n2]."""
-    if not x.is_cuda:
+    if not use_kernel(x):
         return _ff_ref(w1, b1, w2, b2, x, quantize_acts)
     k1 = w1.shape[1]
     lead = x.shape[:-1]
@@ -180,7 +181,7 @@ def mlp_fused_silu_q4(x, w1: QTensor, w2: QTensor):
 def flash_ff_silu_q4(w_gate_up: QTensor, w_down: QTensor, x,
                      quantize_acts: bool = True):
     """Apply the fused SwiGLU MLP to x [..., E] -> f32 [..., E]."""
-    if not x.is_cuda:
+    if not use_kernel(x):
         return _ff_silu_ref(w_gate_up, w_down, x, quantize_acts)
     E = w_gate_up.shape[1]
     lead = x.shape[:-1]

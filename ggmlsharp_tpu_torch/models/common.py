@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .. import ops
-from ..config import quantize_activations
+from ..config import attn_impl, quantize_activations
 from ..device import resolve_device
 from ..ops.attention import NEG_INF
 from ..quant.formats import QTensor, from_wire
@@ -133,6 +133,13 @@ def flash(q, k, v, npast, plain: bool = False, softcap: float = 0.0):
     return flash_attention_cached(q, k, v, npast, softcap=softcap)
 
 
+def _ring_unported():
+    raise NotImplementedError(
+        "GGML_TPU_ATTN=ring (sequence-parallel prefill over a device mesh) "
+        "waits for the port's parallel layer; use auto, einsum, flash or "
+        "legacy")
+
+
 def cached_attention(q, k_new, v_new, cache, layer, positions,
                      n_rep: int = 1, attn_softcap: float | None = None,
                      prefix_bound: int | None = None, plain: bool = False):
@@ -142,20 +149,38 @@ def cached_attention(q, k_new, v_new, cache, layer, positions,
     per batch row. Writes k/v into the cache (in place), then attends over
     the first ``prefix_bound`` rows (a bound >= every position + 1; without
     one, the smallest bucket of ``_chunk_buckets`` that holds the live
-    prefix). S > 8 runs the flash kernel, S <= 8 grouped einsum;
-    attn_softcap caps the scores of both. Differentiable in q, k_new and
-    v_new on a float cache (the rows reach the attention through the
-    in-place write). Returns ([B, Hq, S, D] in q's dtype, cache)."""
+    prefix). GGML_TPU_ATTN (config.attn_impl) picks the route, as in the
+    JAX package: auto (default) runs the flash kernel for S > 8 and grouped
+    einsum for S <= 8; einsum always grouped einsum; flash always the flash
+    kernel, decode included; legacy materialised scores over the whole
+    cache with K/V repeated to the query heads; ring raises (it waits for
+    the parallel layer). attn_softcap caps the scores of every route.
+    Differentiable in q, k_new and v_new on a float cache (the rows reach
+    the attention through the in-place write). Returns ([B, Hq, S, D] in
+    q's dtype, cache)."""
+    impl = attn_impl()
+    if impl == "ring":
+        _ring_unported()
+    if impl not in ("auto", "einsum", "flash", "legacy"):
+        raise ValueError(f"GGML_TPU_ATTN={impl!r}: auto, einsum, flash, "
+                         f"legacy or ring")
     cache = kvc.update_layer(cache, layer, k_new, v_new, positions)
     softcap = attn_softcap or 0.0
     S = q.shape[2]
     T = cache.max_len
+    if impl == "legacy":
+        k_all, v_all = kvc.read_layer(cache, layer, q.dtype)
+        if n_rep > 1:
+            k_all = k_all.repeat_interleave(n_rep, dim=1)
+            v_all = v_all.repeat_interleave(n_rep, dim=1)
+        out = _einsum_attention(q, k_all, v_all, positions, 1, softcap)
+        return out.to(q.dtype), cache
     if prefix_bound is not None:
         t = min(int(prefix_bound), T)
     else:
         lim = int(positions[:, -1].max()) + 1
         t = next(b for b in _chunk_buckets(T) if lim <= b)
-    if S > 8:
+    if impl == "flash" or (impl == "auto" and S > 8):
         npast = positions[:, 0]
         if plain or cache.int8:
             k_sl, v_sl = kvc.read_layer(cache, layer, q.dtype, t)

@@ -72,6 +72,8 @@ class LlamaConfig:
 
 
 LLAMA_7B = LlamaConfig()
+LLAMA_13B = LlamaConfig(n_embd=5120, n_head=40, n_head_kv=40, n_layer=40,
+                        n_ff=13824)
 TINY_LLAMA = LlamaConfig(  # test-scale config
     n_vocab=256, n_ctx=128, n_embd=128, n_head=4, n_head_kv=2, n_layer=2,
     n_ff=256)
@@ -335,7 +337,7 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
         own fresh, unquantized K/V.
     Returns [B, S, Hq * D] in q's dtype."""
     from ..kernels.attn_decode import _decode_ref, flash_decode_flat
-    from .common import _einsum_attention, flash
+    from .common import _einsum_attention, _ring_unported, flash
 
     B, Hq, S, hd = q.shape
     Hkv = cfg.n_head_kv
@@ -366,7 +368,10 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
         else:
             a = _einsum_attention(q, k_all, v_all, positions, Hq // Hkv)
     else:
-        # prefill from the empty prefix over this call's fresh K/V
+        # prefill from the empty prefix over this call's fresh K/V (the JAX
+        # package's GGML_TPU_ATTN=ring would shard it over a sequence mesh)
+        if config.attn_impl() == "ring":
+            _ring_unported()
         a = flash(q, k.contiguous(), v.contiguous(), positions[:, 0], plain)
     return merge_heads(a).to(q.dtype)
 

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ..kernels.config import use_kernel
+
 NEG_INF = -1e30  # finite sentinel: a fully masked softmax row stays NaN-free
 
 
@@ -116,7 +118,7 @@ def flash_attn(q, k, v, masked: bool = True,
     ``_flash_dense``."""
     sc = scale_override if scale_override is not None \
         else 1.0 / (q.shape[-1] ** 0.5)
-    if q.is_cuda and not plain:
+    if use_kernel(q, plain):
         from ..kernels.flash import flash_attention
 
         return flash_attention(q, k, v, causal=bool(masked),

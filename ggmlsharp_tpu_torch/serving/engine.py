@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from ..config import batch_slots as _batch_slots_default
 from ..config import int8_kv as _int8_kv_default
 from ..device import resolve_device
 from ..models import kv_cache as kvc
@@ -48,7 +49,7 @@ __all__ = ["Engine", "Request"]
 
 
 class Engine(AdmissionMixin, PrefixCacheMixin):
-    def __init__(self, forward, cfg, params, batch_slots: int = 4,
+    def __init__(self, forward, cfg, params, batch_slots: int | None = None,
                  max_len: int | None = None, cache_dtype=torch.float32,
                  int8_kv: bool | None = None, rng_seed: int = 0,
                  prefill_chunk: int | None = None,
@@ -57,7 +58,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
         cached_prefix=) is the model (llama.forward); params live on
         ``device`` (the card unless the caller asks for the CPU).
 
-        int8_kv: None reads GGML_TPU_INT8_KV. An INT8 cache takes the flat
+        batch_slots: None reads GGML_TPU_BATCH_SLOTS (config.batch_slots,
+        default 4). int8_kv: None reads GGML_TPU_INT8_KV. An INT8 cache takes the flat
         layout where E_kv is a multiple of 128 and the model handles it,
         the head-major one otherwise; a float cache is head-major.
 
@@ -76,6 +78,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        if batch_slots is None:
+            batch_slots = _batch_slots_default()
         self.B = batch_slots
         self._n_head_kv = getattr(cfg, "n_head_kv", cfg.n_head)
         self.max_len = max_len or cfg.n_ctx

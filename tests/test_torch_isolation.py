@@ -328,3 +328,95 @@ def test_flash_wrappers_never_fall_back(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         call()
     assert _build.LAUNCHES == before
+
+
+def test_import_scan_covers_the_tuning_slice():
+    """The config layer, the tune table, the autotuner and the probes are
+    scanned; each new source is registered, free of PyTorch's headers, and
+    each of its entries has a launch counter."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"config.py", "kernels/config.py", "kernels/tune.py",
+            "kernels/autotune.py", "probes/common.py",
+            "probes/dq_variants.py", "probes/swar.py",
+            "probes/scale_decode.py", "models/common.py"} <= rel
+    for name, src in (("matmul_q4_0_kmajor", "matmul_q4_0_kmajor.cu"),
+                      ("probe_copy", "probes.cu"),
+                      ("probe_byte_order", "probes.cu"),
+                      ("probe_f16_decode", "probes.cu"),
+                      ("probe_block_map", "probes.cu")):
+        assert _build.KERNELS[name][0] == src and name in _build.LAUNCHES
+        with open(os.path.join(_build.CSRC, src)) as f:
+            includes = [ln for ln in f.read().splitlines()
+                        if ln.startswith("#include")]
+        assert includes and not any("torch" in ln or "ATen" in ln
+                                    or "cublas" in ln for ln in includes)
+    assert {"matmul_q4_0_i2f", "matmul_q4_0_half2"} <= set(_build.LAUNCHES)
+
+
+def test_tuning_entry_points_default_to_the_card():
+    """The probes and the autotuner (python -m ...) refuse to run without a
+    card unless asked for the CPU."""
+    from ggmlsharp_tpu_torch.kernels import autotune
+    from ggmlsharp_tpu_torch.probes import dq_variants, scale_decode, swar
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    for main in (dq_variants.main, swar.main, scale_decode.main,
+                 autotune.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--device", "cuda"])
+    assert swar.main(["--device", "cpu"]) == 0
+
+
+def _probe_calls():
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.models.llama import random_q4_0
+    from ggmlsharp_tpu_torch.probes import dq_variants, scale_decode, swar
+
+    card = lambda t: t.as_subclass(_OnCard)
+    w = random_q4_0(64, 256, torch.Generator().manual_seed(0), "cpu")
+    P, d = swar.kmajor_repack(w)
+    return {
+        "matmul_q4_0_kmajor": (swar, "kmajor_matmul_ref", lambda: (
+            swar.kmajor_matmul(card(torch.randn(1, 256)), P, d))),
+        "probe_copy": (torch.Tensor, None, lambda: dq_variants.copy_plane(
+            card(torch.zeros(64, dtype=torch.int32)))),
+        "probe_byte_order": (swar, "byte_order_ref", lambda: swar.byte_order(
+            card(torch.arange(16, dtype=torch.uint8)))),
+        "probe_f16_decode": (scale_decode, "f16_decode_ref",
+                             lambda: scale_decode.f16_decode(
+                                 card(torch.zeros(8, dtype=torch.float16)))),
+        "probe_block_map": (scale_decode, "block_map_ref",
+                            lambda: scale_decode.block_map(
+                                GType.Q4_0, card(torch.ones(2)), 64)),
+    }
+
+
+@pytest.mark.parametrize("name", ["matmul_q4_0_kmajor", "probe_copy",
+                                  "probe_byte_order", "probe_f16_decode",
+                                  "probe_block_map"])
+def test_probe_wrappers_never_fall_back(monkeypatch, name):
+    """Each probe kernel's wrapper, given a tensor on the card and no way to
+    build the kernel, raises: it reaches no plain version and counts no
+    launch."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("the wrapper fell back to its plain version")
+
+    module, ref, call = _probe_calls()[name]
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    if ref is not None:
+        monkeypatch.setattr(module, ref, plain)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        call()
+    assert _build.LAUNCHES == before

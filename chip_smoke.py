@@ -8,8 +8,10 @@ version):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ with nvcc, one process a source;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the paths give it, and every launch geometry of the three
-     dequant-matmul sources against the default bit for bit;
+     shapes the paths give it (kernel 3 also against its split algorithm,
+     _decode_ref_split, at the splits its wrapper chooses), kernels 2 and 3
+     at ragged edges, and every launch geometry of the three dequant-matmul
+     sources against the default bit for bit;
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
@@ -67,7 +69,8 @@ version):
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound; kernel 2 also
      at path g's shape, both entries, softcap, and its backward against
-     SDPA's;
+     SDPA's; kernels 2 and 3 at every shape a path runs them
+     (FLASH_TIMING, ATTN_DECODE_TIMING);
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
      time, peak device memory, and a torch.profiler window of decode steps
      (device time, launches and host operator calls a step, idle share);
@@ -76,6 +79,13 @@ version):
      for GPT-2 124M and 774M, for Llama-7B on its whole-block route and
      for path e in Q4_K and Q6_K; path g's step time, tokens/s, share of
      the bf16 dense peak and peak memory.
+
+``python3 chip_smoke.py --attention-timing [ROOT]`` is a development
+mode with no compatibility promise: it builds and times only kernels 2
+and 3 at those shapes, from the package under ROOT (default: this
+checkout), so that a parent checkout's kernels and this one's are timed by
+one script on one card. It imports whatever package ROOT holds, and works
+only while ROOT's wrappers take this file's call signatures.
 
 Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
@@ -99,7 +109,6 @@ MLP_STEPS = 8  # decode steps of path d's fused-MLP-alone run
 # the serving path: bench.py's serve defaults at 8 slots, INT8 KV cache
 SLOTS, SERVE_MAX_LEN, SERVE_REQS, SERVE_PLEN, SERVE_NEW = 8, 256, 24, 16, 24
 REPLAY_STEPS = 8  # decode steps of the serving replay
-ATTN_TIMING_T = (64, 256, 2048)  # attn_decode timing: cache rows a slot
 # Llama-7B matmuls a decode token runs: (name, N, K, launches a token)
 Q4_SHAPES = [("wqkv", 12288, 4096, 32), ("wo", 4096, 4096, 32),
              ("w_gate_up", 22016, 4096, 32), ("w_down", 4096, 11008, 32),
@@ -260,16 +269,30 @@ FLASH_CASES = [  # (label, B, Hq, Hkv, S, T used, T allocated, D, npast, kv dtyp
 ]
 
 
-def check_flash(dev, gen):
+# ragged edges of kernel 2: S not a multiple of 16 or 64, T not a multiple
+# of the 64-key tile, npast past the prefix view, GQA with n_rep 3 and 4, an
+# f16 cache under an f32 q
+FLASH_RAGGED = [
+    ("ragged_gqa4_s37_t203", 2, 8, 2, 37, 203, 256, 128, [166, 400], "bf16"),
+    ("ragged_f32_s70_t90", 1, 4, 4, 70, 90, 96, 64, [20], "f32"),
+    ("ragged_f16_gqa3_s5_t33_d32", 3, 6, 2, 5, 33, 40, 32, [28, 0, 31],
+     "f16"),
+    ("ragged_f16_s130_t200_d128", 1, 2, 2, 130, 200, 208, 128, [70], "f16"),
+]
+_KV_DT = {"bf16": "bfloat16", "f32": "float32", "f16": "float16"}
+
+
+def check_flash(dev, gen, cases=FLASH_CASES, tag="flash_check"):
     """Kernel vs plain _cached_ref: rtol 2e-4 / atol 2e-5 (online vs dense
-    softmax, f32 summation order; the JAX package's kernel test bar)."""
+    softmax, f32 summation order; the JAX package's kernel test bar). q is
+    f32; the cache bf16, f32 or f16."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.flash import _cached_ref, flash_attention_cached
 
     worst, rows = 0.0, []
-    for label, B, Hq, Hkv, S, T, Ta, D, npast, kvd in FLASH_CASES:
-        dt = torch.bfloat16 if kvd == "bf16" else torch.float32
+    for label, B, Hq, Hkv, S, T, Ta, D, npast, kvd in cases:
+        dt = getattr(torch, _KV_DT[kvd])
         q = torch.randn((B, Hq, S, D), generator=gen, device=dev)
         kc = torch.randn((B, Hkv, Ta, D), generator=gen, device=dev).to(dt)
         vc = torch.randn((B, Hkv, Ta, D), generator=gen, device=dev).to(dt)
@@ -284,9 +307,9 @@ def check_flash(dev, gen):
         worst = max(worst, e)
         rows.append({"case": label, "max_abs_err": e, "ok": ok})
         if not ok:
-            emit({"flash_check": rows})
+            emit({tag: rows})
             raise SystemExit(f"flash kernel disagrees in case {label}")
-    emit({"flash_check": rows})
+    emit({tag: rows})
     return worst
 
 
@@ -333,32 +356,61 @@ def decode_inputs(dev, gen, B, Hq, Hkv, T, kind, copies=1, D=128):
     return q, kn, vn, caches
 
 
-def check_attn_decode(dev, gen):
-    """Kernel vs plain _decode_ref: rtol 2e-4 / atol 2e-5 (both f32; online
-    vs dense softmax and summation order)."""
+# ragged edges of kernel 3: T not a multiple of the split's rows, npast past
+# the prefix view, n_rep 3 and 8 (query passes of 4), n_rep 32 over 64 splits
+ATTN_RAGGED = [
+    ("ragged_int8_T1000", 3, 32, 32, 1000, [999, 1003, 517], "int8"),
+    ("ragged_bf16_d64_nrep8_T777", 2, 16, 2, 777, [776, 900], "bf16"),
+    ("ragged_int8_d64_nrep3_T130", 2, 6, 2, 130, [129, 64], "int8"),
+    ("ragged_mqa_int8_nrep32_T4100", 1, 32, 1, 4100, [4100], "int8"),
+]
+
+
+def decode_splits_on(dev, B, Hkv, T):
+    """The splits the kernel's wrapper gives a launch on this card."""
     import torch
 
-    from ggmlsharp_tpu_torch.kernels.attn_decode import _decode_ref, flash_decode_flat
+    from ggmlsharp_tpu_torch.kernels.attn_decode import decode_splits
+
+    return decode_splits(B * Hkv, T,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
+
+
+def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
+    """Kernel vs both plain versions, the dense _decode_ref and the split
+    algorithm _decode_ref_split at the kernel's splits: rtol 2e-4 / atol
+    2e-5 (all f32; online vs dense softmax and summation order)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref,
+                                                         _decode_ref_split,
+                                                         flash_decode_flat)
 
     worst, rows = 0.0, []
-    for label, B, Hq, Hkv, T, npast, kind in ATTN_CASES:
+    for label, B, Hq, Hkv, T, npast, kind in cases:
         D = 64 if "d64" in label else 128
         q, kn, vn, ((kc, vc, sc),) = decode_inputs(dev, gen, B, Hq, Hkv, T,
                                                    kind, D=D)
         np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+        splits = decode_splits_on(dev, B, Hkv, T)
         got = flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
-        want = _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        ok = bool(torch.isfinite(got).all()) and bool(
-            (err <= 2e-5 + 2e-4 * want.abs()).all())
-        e = float(err.max())
-        worst = max(worst, e)
-        rows.append({"case": label, "max_abs_err": e, "ok": ok})
-        if not ok:
-            emit({"attn_decode_check": rows})
+        row = {"case": label, "splits": splits, "ok": True}
+        for name, want in (
+                ("dense", _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)),
+                ("split", _decode_ref_split(q, kn, vn, kc, vc, np_t, Hkv, D,
+                                            **sc, splits=splits))):
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            row["ok"] &= bool(torch.isfinite(got).all()) and bool(
+                (err <= 2e-5 + 2e-4 * want.abs()).all())
+            row[f"max_abs_err_{name}"] = float(err.max())
+            worst = max(worst, float(err.max()))
+        rows.append(row)
+        if not row["ok"]:
+            emit({tag: rows})
             raise SystemExit(f"attn_decode kernel disagrees in case {label}")
-    emit({"attn_decode_check": rows})
+    emit({tag: rows})
     return worst
 
 
@@ -728,107 +780,70 @@ def time_q4_0(dev, gen, counts):
             "unit": "one decode token: the 129 b=1 launches, cold L2"}
 
 
-def time_flash(dev, gen, counts):
-    """The main path's prefill call (warm: the rows were just written)."""
-    import torch
-
-    from ggmlsharp_tpu_torch.kernels.flash import _cached_ref, flash_attention_cached
-
-    _, B, Hq, Hkv, S, T, Ta, D, npast, _ = FLASH_CASES[0]
-    q = torch.randn((B, Hq, S, D), generator=gen, device=dev)
-    kc = torch.randn((B, Hkv, Ta, D), generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn((B, Hkv, Ta, D), generator=gen, device=dev).to(torch.bfloat16)
-    k, v = kc[:, :, :T], vc[:, :, :T]
-    np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
-    qpos = torch.arange(S, device=dev)[:, None] + npast[0]
-    mask = torch.arange(T, device=dev)[None, :] <= qpos  # [S, T], True = keep
-    k32, v32 = k.float(), v.float()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kern = time_ms(lambda i: flash_attention_cached(q, k, v, np_t), 200)
-    plain = time_ms(lambda i: _cached_ref(q, k, v, np_t, D ** -0.5), 50)
-    lib = time_ms(lambda i: sdpa(q, k32, v32, attn_mask=mask), 200)
-    bound, by = flash_bound_ms(B, Hq, Hkv, S, D, npast, 2)
-    row = {"name": "flash_attn", "route": "cuda",
-           "source": "ggmlsharp_tpu_torch/csrc/flash_attn.cu",
-           "replaces": "ggmlsharp_tpu/kernels/flash.py:104",
-           "launches": counts["flash_attn"], "ms": kern, "plain_ms": plain,
-           "bound_ms": bound, "bound_by": by, "library_ms": lib,
-           "unit": "one prefill launch: B=1 Hq=32 S=16 T=256 D=128 bf16 KV"}
-    emit({"flash_timing": row})
-    return row
-
-
-def attn_decode_bound_ms(B, Hq, Hkv, D, npast):
-    """Bytes: the live int8 K/V rows and their scales, the fresh rows, q and
-    out, once each; operations: 4 * Hq * D f32 flops a live key a slot."""
+def attn_decode_bound_ms(B, Hq, Hkv, D, npast, kv_bytes=1):
+    """Bytes: the live K/V rows (kv_bytes an element; int8 rows with their
+    f32 scales), the fresh rows, q and out, once each; operations: 4 * Hq *
+    D f32 flops a live key a slot."""
     rows = sum(npast)
-    bytes_ = (2 * rows * Hkv * D + 2 * rows * Hkv * 4 + 2 * B * Hkv * D * 4
-              + 2 * B * Hq * D * 4)
+    bytes_ = (2 * rows * Hkv * D * kv_bytes
+              + (2 * rows * Hkv * 4 if kv_bytes == 1 else 0)
+              + 2 * B * Hkv * D * 4 + 2 * B * Hq * D * 4)
     flops = 4 * Hq * D * (rows + B)
     t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_attn_decode(dev, gen, counts):
-    """Cold-L2 kernel, plain and library times of one decode-step layer call
-    at B = SLOTS, Hq = Hkv = 32, D = 128, INT8 cache, every slot at
-    npast = T - 1, for T = 64 (the serving path's bucket), 256 and 2048.
-    The library time is scaled_dot_product_attention over a bf16
-    head-major copy of the dequantized live rows and the fresh row, the
-    call alone (the copy is made before timing)."""
+def time_decode_shape(dev, gen, B, Hq, Hkv, T, D=128, kind="int8"):
+    """Cold-L2 kernel, plain and library times of one decode-step layer
+    call, every slot at npast = T - 1, beside its bound. The library time
+    is scaled_dot_product_attention over a bf16 head-major copy of the
+    dequantized live rows and the fresh row (its K/V heads repeated n_rep
+    times under GQA), the call alone (the copy is made before timing)."""
     import torch
 
-    from ggmlsharp_tpu_torch.kernels.attn_decode import _decode_ref, _dequant, flash_decode_flat
+    from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref, _dequant,
+                                                         flash_decode_flat)
 
-    B, Hq, Hkv, D = SLOTS, 32, 32, 128
+    kv_bytes = 1 if kind == "int8" else 2
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
-    for T in ATTN_TIMING_T:
-        live = B * T * Hkv * D * 2
-        copies = max(2, -(-4 * L2_BYTES // live))
-        q, kn, vn, caches = decode_inputs(dev, gen, B, Hq, Hkv, T, "int8",
-                                          copies)
-        npast = [T - 1] * B
-        np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+    copies = max(2, -(-4 * L2_BYTES // (B * T * Hkv * D * 2 * kv_bytes)))
+    q, kn, vn, caches = decode_inputs(dev, gen, B, Hq, Hkv, T, kind, copies,
+                                      D=D)
+    npast = [T - 1] * B
+    np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
 
-        def kern(i):
-            kc, vc, sc = caches[i % copies]
-            return flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+    def kern(i):
+        kc, vc, sc = caches[i % copies]
+        return flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
 
-        def plain(i):
-            kc, vc, sc = caches[i % copies]
-            return _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+    def plain(i):
+        kc, vc, sc = caches[i % copies]
+        return _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
 
-        heads = []
-        for kc, vc, sc in caches:
-            kv = []
-            for rows_, s, new in ((kc, sc["k_scale"], kn), (vc, sc["v_scale"], vn)):
-                d = _dequant(rows_[:, :T - 1], s[:, :T - 1], Hkv)
-                d = torch.cat([d, new[:, None]], 1)  # the fresh row last
-                kv.append(d.reshape(B, T, Hkv, D).transpose(1, 2)
-                          .to(torch.bfloat16).contiguous())
-            heads.append(kv)
-        qb = q[:, :, None].to(torch.bfloat16)
-        kern_ms = time_ms(kern, 100)
-        plain_ms = time_ms(plain, 20)
-        lib_ms = time_ms(lambda i: sdpa(qb, *heads[i % copies]), 100)
-        bound, by = attn_decode_bound_ms(B, Hq, Hkv, D, npast)
-        rows.append({"T": T, "ms": kern_ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
-                     "roofline_share": bound / kern_ms})
-        del caches, heads
-        torch.cuda.empty_cache()
-    emit({"attn_decode_timing": rows})
-    r = rows[0]
-    return {"name": "attn_decode", "route": "cuda",
-            "source": "ggmlsharp_tpu_torch/csrc/attn_decode.cu",
-            "replaces": "ggmlsharp_tpu/kernels/attn_decode.py:108",
-            "launches": counts["attn_decode"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "unit": "one decode-step layer call: B=8 Hq=Hkv=32 D=128 T=64 "
-                    "int8 KV, npast 63, cold L2; library = SDPA alone on a "
-                    "bf16 head-major copy"}
+    heads = []
+    for kc, vc, sc in caches:
+        kv = []
+        for rows_, s, new in ((kc, sc.get("k_scale"), kn),
+                              (vc, sc.get("v_scale"), vn)):
+            d = _dequant(rows_[:, :T - 1],
+                         None if s is None else s[:, :T - 1], Hkv)
+            d = torch.cat([d, new[:, None]], 1)  # the fresh row last
+            kv.append(d.reshape(B, T, Hkv, D).transpose(1, 2)
+                      .repeat_interleave(Hq // Hkv, 1)
+                      .to(torch.bfloat16).contiguous())
+        heads.append(kv)
+    qb = q[:, :, None].to(torch.bfloat16)
+    ms = time_ms(kern, 100)
+    bound, by = attn_decode_bound_ms(B, Hq, Hkv, D, npast, kv_bytes)
+    row = {"B": B, "Hq": Hq, "Hkv": Hkv, "T": T, "D": D, "cache": kind,
+           "ms": ms, "plain_ms": time_ms(plain, 20),
+           "library_ms": time_ms(lambda i: sdpa(qb, *heads[i % copies]),
+                                 100),
+           "bound_ms": bound, "bound_by": by, "roofline_share": bound / ms,
+           "cold_copies": copies}
+    del caches, heads
+    torch.cuda.empty_cache()
+    return row
 
 
 def q8_bound_ms(b, n, k, q8_acts):
@@ -1354,35 +1369,55 @@ ATTN_LAYOUT_CASES = [  # (label, B, Hq, Hkv, T, npast a slot), D 128, bf16
 ]
 
 
-def check_attn_layout(dev, gen):
+ATTN_LAYOUT_RAGGED = [  # as ATTN_LAYOUT_CASES: T 777 over 12 splits, GQA 2
+    ("attn_gqa2_T777_ragged", 3, 16, 8, 777, [776, 900, 301]),
+]
+
+
+def check_attn_layout(dev, gen, cases=ATTN_LAYOUT_CASES,
+                      tag="attn_layout_check"):
     """Kernel 3 with the "attn" lane map vs its plain version (permute to
-    element order, _decode_ref, permute back): rtol 2e-4 / atol 2e-5, as for
-    the heads map."""
+    element order, _decode_ref or _decode_ref_split at the kernel's splits,
+    permute back): rtol 2e-4 / atol 2e-5, as for the heads map."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref_attn,
                                                          flash_decode_flat_attn)
 
     worst, rows = 0.0, []
-    for label, B, Hq, Hkv, T, npast in ATTN_LAYOUT_CASES:
+    for label, B, Hq, Hkv, T, npast in cases:
         q, kn, vn, ((kc, vc, _),) = decode_inputs(dev, gen, B, Hq, Hkv, T,
                                                   "bf16")
         np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
         args = (q.reshape(B, Hq * 128), kn, vn, kc, vc, np_t, Hq, Hkv, 128)
-        got, want = flash_decode_flat_attn(*args), _decode_ref_attn(*args)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        ok = bool(torch.isfinite(got).all()) and bool(
-            (err <= 2e-5 + 2e-4 * want.abs()).all())
-        e = float(err.max())
-        worst = max(worst, e)
-        rows.append({"case": label, "max_abs_err": e, "ok": ok})
-        if not ok:
-            emit({"attn_layout_check": rows})
+        splits = decode_splits_on(dev, B, Hkv, T)
+        got = flash_decode_flat_attn(*args)
+        row = {"case": label, "splits": splits, "ok": True}
+        for name, want in (("dense", _decode_ref_attn(*args)),
+                           ("split", _decode_ref_attn(*args, splits=splits))):
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            row["ok"] &= bool(torch.isfinite(got).all()) and bool(
+                (err <= 2e-5 + 2e-4 * want.abs()).all())
+            row[f"max_abs_err_{name}"] = float(err.max())
+            worst = max(worst, float(err.max()))
+        rows.append(row)
+        if not row["ok"]:
+            emit({tag: rows})
             raise SystemExit(f"attn_decode (attn lane map) disagrees in "
                              f"case {label}")
-    emit({"attn_layout_check": rows})
+    emit({tag: rows})
     return worst
+
+
+def check_ragged(dev, gen):
+    """Kernels 2 and 3 at ragged edges (FLASH_RAGGED, ATTN_RAGGED for both
+    lane maps), at the bars of their regular checks."""
+    return max(check_flash(dev, gen, FLASH_RAGGED, "flash_ragged_check"),
+               check_attn_decode(dev, gen, ATTN_RAGGED,
+                                 "attn_decode_ragged_check"),
+               check_attn_layout(dev, gen, ATTN_LAYOUT_RAGGED,
+                                 "attn_layout_ragged_check"))
 
 
 def strip_routes(params, keys):
@@ -1874,56 +1909,6 @@ def time_int_dot(dev, gen, counts):
                     "L2; library = bf16 torch.matmul"}
 
 
-def time_attn_decode_b1(dev, gen):
-    """Kernel 3 at path e's shape: B = 1, Hq = Hkv = 32, D 128, INT8 cache,
-    npast = T - 1, T 64 and 2048 (cold L2), beside its plain version and
-    SDPA over a bf16 head-major copy of the live rows (the call alone)."""
-    import torch
-
-    from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref, _dequant,
-                                                         flash_decode_flat)
-
-    B, Hq, Hkv, D = 1, 32, 32, 128
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
-    for T in (64, 2048):
-        copies = max(2, -(-4 * L2_BYTES // (B * T * Hkv * D * 2)))
-        q, kn, vn, caches = decode_inputs(dev, gen, B, Hq, Hkv, T, "int8",
-                                          copies)
-        np_t = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
-
-        def kern(i):
-            kc, vc, sc = caches[i % copies]
-            return flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
-
-        def plain(i):
-            kc, vc, sc = caches[i % copies]
-            return _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
-
-        heads = []
-        for kc, vc, sc in caches:
-            kv = []
-            for rows_, s, new in ((kc, sc["k_scale"], kn),
-                                  (vc, sc["v_scale"], vn)):
-                d = torch.cat([_dequant(rows_[:, :T - 1], s[:, :T - 1], Hkv),
-                               new[:, None]], 1)
-                kv.append(d.reshape(B, T, Hkv, D).transpose(1, 2)
-                          .to(torch.bfloat16).contiguous())
-            heads.append(kv)
-        qb = q[:, :, None].to(torch.bfloat16)
-        bound, by = attn_decode_bound_ms(B, Hq, Hkv, D, [T - 1] * B)
-        ms = time_ms(kern, 100)
-        rows.append({"B": B, "T": T, "ms": ms, "plain_ms": time_ms(plain, 20),
-                     "library_ms": time_ms(lambda i: sdpa(
-                         qb, *heads[i % copies]), 100),
-                     "bound_ms": bound, "bound_by": by,
-                     "roofline_share": bound / ms, "cold_copies": copies})
-        del caches, heads
-        torch.cuda.empty_cache()
-    emit({"attn_decode_b1_timing": rows})
-    return rows
-
-
 def run_format_paths(cfg, prompt, gen):
     """Path f at full width and F_LAYERS layers: f1, each of Q4_1, Q4_2,
     Q4_3, Q5_0, Q5_1 over the bf16 head-major cache (kernel A in every
@@ -1997,6 +1982,9 @@ FLASH2_CASES = [
      0.0),
     ("unc_causal_d64_f16_softcap30", "uncached", (2, 8), 48, 48, 64, True, 0,
      "f16", 30.0),
+    # n_past -5: queries 0-4 see no key, and give 0
+    ("unc_causal_masked_rows_f32", "uncached", (2, 4), 24, 24, 64, True, -5,
+     "f32", 0.0),
     ("cached_gqa_d256_f32_softcap30", "cached", (2, 8, 2), 20, 64, 256, True,
      9, "f32", 30.0),
     ("cached_d8_bf16", "cached", (1, 4, 4), 16, 32, 8, True, 3, "bf16", 0.0),
@@ -2480,16 +2468,18 @@ def run_gpt2_int8_serving(gcfg, gparams):
 
 
 def flash2_bound_ms(B, Hq, Hkv, S, T, D, in_bytes, out_bytes, npast=0,
-                    causal=True):
+                    causal=True, kv_bytes=None):
     """Bytes of q (in_bytes an element), out (out_bytes) and the K/V rows the
-    queries keep, once each; 4 * D operations a kept (query, key) pair at
-    the bf16 tensor-core rate (16-bit inputs) or the f32 rate."""
+    queries keep (kv_bytes an element, default in_bytes), once each; 4 * D
+    operations a kept (query, key) pair at the bf16 tensor-core rate (16-bit
+    inputs) or the f32 rate."""
+    kv_bytes = in_bytes if kv_bytes is None else kv_bytes
     kept = min(T, S + npast) if causal else T
     bytes_ = B * Hq * S * D * (in_bytes + out_bytes) \
-        + 2 * B * Hkv * kept * D * in_bytes
+        + 2 * B * Hkv * kept * D * kv_bytes
     pairs = sum(min(T, s + npast + 1) for s in range(S)) if causal else S * T
     flops = 4 * B * Hq * pairs * D
-    rate = BF16_FLOP_S if in_bytes == 2 else F32_FLOP_S
+    rate = BF16_FLOP_S if in_bytes == kv_bytes == 2 else F32_FLOP_S
     t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -2546,6 +2536,107 @@ def time_flash_train(dev, gen):
         B, H, H, S, S, D, 2, 2)
     res["cached_bound_ms"], _ = flash2_bound_ms(B, H, H, S, S, D, 2, 4)
     emit({"flash_train_timing": res})
+    return res
+
+
+# kernel 2 at every shape a path runs it: (label, entry, B, Hq, Hkv, S, T,
+# T allocated, D, npast, q dtype, kv dtype, softcap, cold L2). Path a's
+# prefill reads the rows it just wrote (warm); the others rotate copies.
+FLASH_TIMING = [
+    ("7b_prefill", "cached", 1, 32, 32, 16, 256, 2048, 128, 0, "f32", "bf16",
+     0.0, False),
+    ("serve_prefill", "cached", SLOTS, 32, 32, 16, 16, 16, 128, 0, "f32",
+     "f32", 0.0, True),
+    ("gpt2_124m_prefill", "cached", 1, 12, 12, 16, 16, 16, 64, 0, "f32",
+     "f32", 0.0, True),
+    ("gpt2_774m_prefill", "cached", 1, 20, 20, 16, 16, 16, 64, 0, "f32",
+     "f32", 0.0, True),
+    ("train_g_cached", "cached", TRAIN_B, 12, 12, TRAIN_S, TRAIN_S, TRAIN_S,
+     64, 0, "bf16", "bf16", 0.0, True),
+    ("train_g_softcap30", "cached", TRAIN_B, 12, 12, TRAIN_S, TRAIN_S,
+     TRAIN_S, 64, 0, "bf16", "bf16", 30.0, True),
+    ("train_g_uncached", "uncached", TRAIN_B, 12, 12, TRAIN_S, TRAIN_S,
+     TRAIN_S, 64, 0, "bf16", "bf16", 0.0, True),
+    ("graph_h2_uncached", "uncached", 1, GRAPH_H, GRAPH_H, GRAPH_S, GRAPH_S,
+     GRAPH_S, GRAPH_E // GRAPH_H, 0, "f32", "f32", 0.0, True),
+]
+# kernel 3 beyond the serving and path e shapes: (label, B, Hq, Hkv, T, D,
+# cache), npast = T - 1
+ATTN_DECODE_TIMING = [
+    ("b8_T64", SLOTS, 32, 32, 64, 128, "int8"),
+    ("b8_T256", SLOTS, 32, 32, 256, 128, "int8"),
+    ("b8_T2048", SLOTS, 32, 32, 2048, 128, "int8"),
+    ("b1_T64", 1, 32, 32, 64, 128, "int8"),
+    ("b1_T2048", 1, 32, 32, 2048, 128, "int8"),
+    ("gqa8_int8_T2048", SLOTS, 32, 8, 2048, 128, "int8"),
+    ("gqa4_bf16_d64_T300", 4, 8, 2, 300, 64, "bf16"),
+]
+
+
+def time_flash_shape(dev, gen, entry, B, Hq, Hkv, S, T, Ta, D, npast, qd,
+                     kvd, cap, cold):
+    """One kernel-2 call: kernel, plain version and SDPA (no softcap: none),
+    CUDA-graph replay; SDPA takes q's dtype (its K/V copies are made before
+    timing). The uncached entry takes lead dims (B, Hq) and Hkv = Hq."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.flash import (
+        _cached_ref, _uncached_ref, flash_attention, flash_attention_cached)
+
+    qt, kt = getattr(torch, _KV_DT[qd]), getattr(torch, _KV_DT[kvd])
+    per = (B * Hq * S * D * qt.itemsize + 2 * B * Hkv * Ta * D * kt.itemsize)
+    copies = max(2, -(-4 * L2_BYTES // per)) if cold else 1
+    xs = []
+    for _ in range(copies):
+        q = torch.randn((B, Hq, S, D), generator=gen, device=dev).to(qt)
+        k, v = (torch.randn((B, Hkv, Ta, D), generator=gen, device=dev)
+                .to(kt)[:, :, :T] for _ in range(2))
+        xs.append((q, k, v, k.to(qt), v.to(qt)))
+    np_t = torch.full((B,), npast, dtype=torch.int32, device=dev)
+    sc = D ** -0.5
+    if entry == "cached":
+        kern = lambda i: flash_attention_cached(*xs[i % copies][:3], np_t,
+                                                softcap=cap)
+        plain = lambda i: _cached_ref(*xs[i % copies][:3], np_t, sc, cap)
+    else:
+        kern = lambda i: flash_attention(*xs[i % copies][:3], causal=True,
+                                         n_past=npast, softcap=cap)
+        plain = lambda i: _uncached_ref(*xs[i % copies][:3], True, npast, sc,
+                                        cap).to(qt)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = torch.arange(T, device=dev)[None, :] <= \
+        torch.arange(S, device=dev)[:, None] + npast  # [S, T], True = keep
+    causal = npast == 0 and S == T
+    lib = (lambda i: sdpa(xs[i % copies][0], *xs[i % copies][3:],
+                          is_causal=True)) if causal else \
+        (lambda i: sdpa(xs[i % copies][0], *xs[i % copies][3:],
+                        attn_mask=mask))
+    reps = max(100, copies)
+    with torch.no_grad():
+        ms = time_ms(kern, reps)
+        res = {"ms": ms, "plain_ms": time_ms(plain, max(20, copies)),
+               "library_ms": None if cap else time_ms(lib, reps)}
+    out_bytes = 4 if entry == "cached" else qt.itemsize
+    res["bound_ms"], res["bound_by"] = flash2_bound_ms(
+        B, Hq, Hkv, S, T, D, qt.itemsize, out_bytes, npast,
+        kv_bytes=kt.itemsize)
+    res.update(roofline_share=res["bound_ms"] / ms, cold_copies=copies)
+    del xs
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_attention(dev, gen):
+    """Kernels 2 and 3 at every shape a path runs them (FLASH_TIMING,
+    ATTN_DECODE_TIMING): each time beside its bound, plain and SDPA time."""
+    flash = {}
+    for label, *args in FLASH_TIMING:
+        flash[label] = time_flash_shape(dev, gen, *args)
+    decode = {}
+    for label, B, Hq, Hkv, T, D, kind in ATTN_DECODE_TIMING:
+        decode[label] = time_decode_shape(dev, gen, B, Hq, Hkv, T, D, kind)
+    res = {"flash_attn": flash, "attn_decode": decode}
+    emit({"attention_timing": res})
     return res
 
 
@@ -2965,13 +3056,33 @@ def gpt2_weight_bytes(params):
                          ("mlp", "c_fc_w"), ("mlp", "c_proj_w")))
 
 
-def main():
+def attention_timing(dev):
+    """--attention-timing [ROOT], a development mode (no compatibility
+    promise): kernels 2 and 3 of the package under ROOT (default: this
+    checkout) built and timed at every shape a path runs them, nothing
+    else; so two checkouts' kernels can be timed by one script, in one
+    call, on one card."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build(["flash_attn", "attn_decode"])
+    log(f"built kernels 2 and 3 in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(dev).manual_seed(SEED)
+    time_attention(dev, gen)
+
+
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     repo = os.path.dirname(os.path.abspath(__file__))
+    timing_only = argv[:1] == ["--attention-timing"]
+    if timing_only and len(argv) > 1:
+        repo = os.path.abspath(argv[1])
     if not os.path.isdir(os.path.join(repo, "ggmlsharp_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
@@ -2985,6 +3096,14 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if timing_only:
+        log(f"card: {smi} | package {repo}")
+        attention_timing(torch.device("cuda"))
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     log(f"[1/6] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -3021,6 +3140,7 @@ def main():
     silu_err = check_mlp_fused_silu(dev, gen)
     llayer_err = check_llama_layer(dev, gen)
     attn_lay_err = check_attn_layout(dev, gen)
+    ragged_err = check_ragged(dev, gen)
     mq_errs = check_matmul_q(dev, gen)
     ib_errs = check_int_dot(dev, gen)
     q_card = quantizers_on_card(dev, gen)
@@ -3037,7 +3157,8 @@ def main():
         f"formats, rows independent of b), matmul_int_dot "
         f"{max(ib_errs.values()):.3g} (5 formats); flash entries "
         f"{ {k: float(f'{v:.3g}') for k, v in fl2_err.items()} } (uncached, "
-        f"softcap, f16, D 8-256, gradients, HVP); quantizers on the card "
+        f"softcap, f16, D 8-256, gradients, HVP); kernels 2 and 3 at ragged "
+        f"edges {ragged_err:.3g}; quantizers on the card "
         f"vs the CPU, share of blocks differing: "
         f"{max(q_card.values()):.3g}; launch geometries bit-equal to the "
         f"default in {geom_cases} cases; rms rows differing alone "
@@ -3237,8 +3358,17 @@ def main():
 
     q4_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_err
-    fl_row = time_flash(dev, gen, counts)
-    fl_row["max_abs_err"] = fl_err
+    shapes = time_attention(dev, gen)
+    fl = shapes["flash_attn"]["7b_prefill"]
+    fl_row = {"name": "flash_attn", "route": "cuda",
+              "source": "ggmlsharp_tpu_torch/csrc/flash_attn.cu",
+              "replaces": "ggmlsharp_tpu/kernels/flash.py:104",
+              "launches": counts["flash_attn"], "max_abs_err": fl_err,
+              **{k: fl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+              "attention_shapes": shapes["flash_attn"],
+              "unit": "one prefill launch: B=1 Hq=32 S=16 T=256 D=128 bf16 "
+                      "KV (warm: the rows were just written)"}
     ft = time_flash_train(dev, gen)
     fl_row.update({
         "train_g_ms": ft["cached_ms"], "train_g_softcap_ms":
@@ -3260,8 +3390,17 @@ def main():
                        "D 64, bf16 q/k/v and out (entry flash.py:170); "
                        "library = SDPA is_causal; bwd = the Function's dense "
                        "recompute vs SDPA's backward"}
-    ad_row = time_attn_decode(dev, gen, serve_counts)
-    ad_row["max_abs_err"] = ad_err
+    ad = shapes["attn_decode"]
+    ad_row = {"name": "attn_decode", "route": "cuda",
+              "source": "ggmlsharp_tpu_torch/csrc/attn_decode.cu",
+              "replaces": "ggmlsharp_tpu/kernels/attn_decode.py:108",
+              "launches": serve_counts["attn_decode"], "max_abs_err": ad_err,
+              **{k: ad["b8_T64"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+              "attention_shapes": ad, "ragged_max_abs_err": ragged_err,
+              "unit": "one decode-step layer call: B=8 Hq=Hkv=32 D=128 T=64 "
+                      "int8 KV, npast 63, cold L2; library = SDPA alone on a "
+                      "bf16 head-major copy"}
     lay = time_attn_layout(dev, gen)
     ad_row["attn_layout_max_abs_err"] = attn_lay_err
     ad_row["attn_layout_ms"] = lay[0]["attn_layout_ms"]
@@ -3282,11 +3421,9 @@ def main():
     ib_row = time_int_dot(dev, gen, fmt_counts)
     ib_row["max_abs_err"] = max(ib_errs.values())
     ib_row["max_abs_err_by_format"] = ib_errs
-    for r in time_attn_decode_b1(dev, gen):
-        ad_row[f"b1_T{r['T']}_ms"] = r["ms"]
-        ad_row[f"b1_T{r['T']}_bound_ms"] = r["bound_ms"]
-        ad_row[f"b1_T{r['T']}_plain_ms"] = r["plain_ms"]
-        ad_row[f"b1_T{r['T']}_library_ms"] = r["library_ms"]
+    for T in (64, 2048):  # path e's shape, B = 1
+        for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            ad_row[f"b1_T{T}_{k}"] = ad[f"b1_T{T}"][k]
     rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row, silu_row,
             llayer_row, mq_row, ib_row, unc_row, *tune_rows(probes))
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
@@ -3419,6 +3556,8 @@ def main():
              "train_g_ms", "train_g_softcap_ms", "train_g_plain_ms",
              "train_g_library_ms", "train_g_bound_ms", "bwd_ms",
              "library_bwd_ms", "softcap_gradient_max_abs_err",
+             # kernels 2 and 3 at every shape a path runs them; ragged edges
+             "attention_shapes", "ragged_max_abs_err",
              # sites 12-17 (the tuning probes)
              "prmt_ms", "by_shape_ms", "prmt_by_shape_ms",
              "i2f_bit_equal_prmt", "half2_err_over_bar", "half2_terms_t",
@@ -3435,4 +3574,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,5 +1,5 @@
 // Batched single-token decode attention over a flat KV cache, for Hopper
-// (sm_90a), f32 online softmax.
+// (sm_90a), f32 online softmax, split over the cache rows.
 //
 // Replaces ggmlsharp_tpu/kernels/attn_decode.py::_call_flash_decode, both
 // lane maps: entry flash_decode_flat (layout "heads"), the attention of every
@@ -14,10 +14,10 @@
 //   belongs to KV head j / D), int8 or bf16; for int8, ks/vs [B, T, Hkv]
 //   f32 scales a (token, head), batch entries sc_batch_stride apart;
 //   npast int32 [B]  ->  out [B, Hq, D] f32.
-//   Slot b's query sees the cache rows t < min(npast[b], T) (row npast[b] is stale:
-//   the fresh row stands in for it) plus the fresh row, which seeds the
-//   online softmax with weight exp(0). Query head h reads KV head h / n_rep
-//   (GQA without a repeated copy).
+//   Slot b's query sees the cache rows t < min(npast[b], T) (row npast[b] is
+//   stale: the fresh row stands in for it) plus the fresh row, which seeds
+//   the online softmax with weight exp(0). Query head h reads KV head
+//   h / n_rep (GQA without a repeated copy).
 //   With attn_layout set, the lanes of a row are mapped otherwise: KV head h
 //   owns lanes [h D/2, (h+1) D/2) and the same run at + E/2, and q and out
 //   are [B, n_rep, E] (sub-query r of every KV head in one E-wide row in
@@ -26,20 +26,41 @@
 //
 // What bounds it: bytes. Each live K/V element is read once and used for
 // 2 * n_rep FMAs; at B = 8, T = 2048, E = 4096 int8 that is 134 MB a call
-// (40 us at 3.35 TB/s) against 1.1 GFLOP of f32 work.
+// (40 us at 3.35 TB/s) against 1.1 GFLOP of f32 work. So the kernel needs
+// enough loads in flight to cover the memory's latency, on every SM, at
+// every batch size; tensor cores buy nothing at n_rep = 1.
 //
-// Design, simple first: one block a (KV head, slot). Its warps are n_rep
-// query rows times NS splits of the key range (NS = 4 / n_rep, at least 1,
-// so a block has at least 4 warps to keep loads in flight). A step stages
-// NS * 32 rows of K and V in shared memory as f32, dequantized on the way
-// for int8 (16-byte loads; rows padded to D + 1 floats so that lane j
-// reading row j, and the staging stores, hit distinct banks); the warp of
-// (row r, split s) then scores keys s*32 .. s*32+31 of the tile, one key a
-// lane, takes the tile max and sum with warp shuffles and updates its D/32
-// output features a lane, broadcasting p_j with a shuffle. At the end the
-// NS partial softmax states of a row merge in shared memory. Split-K over T
-// across blocks (long prefixes at small B) and tensor cores are left to a
-// later change.
+// Design: split-K over the cache. The grid is (Hkv, B, splits); `splits`
+// comes from the host (kernels/attn_decode.py::decode_splits: as many as
+// keep the grid within one wave of four blocks an SM, at least 64 rows a
+// split), and split z takes the rows [z * chunk, (z + 1) * chunk), chunk =
+// ceil(T / splits), that are live. A block is 4 warps. It copies its rows
+// tile by tile (8 KB of K and 8 KB of V: 64 int8 rows at D 128, 32 bf16)
+// with cp.async, in the storage type, double buffered, with the rows'
+// scales: the loads in flight cost no registers, which a load into
+// registers would (8 a row: the register-load version of this kernel kept
+// too few bytes in flight, 17.3 us at B 1, T 2048 on an H100 80GB HBM3,
+// against 13.3).
+// A row of one head is D * sizeof(KT) bytes: G lanes hold it, 16 bytes
+// each (G = 8 for int8 at D 128, 16 for bf16), so a warp takes R = 32 / G
+// rows at once and a row group takes 4 rows of a tile. A lane dequantizes
+// its 16 bytes in registers (an int8 score or weight is scaled once, by the
+// row's scale; an int8 value becomes a float by a byte permute and one
+// subtraction, not the conversion unit) and holds, for up to QR query heads
+// at once (n_rep in passes of QR <= 4), its q slice and an online-softmax
+// state (m, l, acc[16 bytes' worth of features]); the score of a row is a
+// sum over its G lanes (xor shuffles). Shared memory holds the two stages
+// and, once they are read, the merge state: about 37 KB a block.
+//
+// The merge, in the same launch: the states of a warp's R row groups merge
+// by xor shuffles, the block's 4 warps in shared memory. With one split the
+// block writes out = acc / l. Otherwise it writes its (m, l, acc[D]) to the
+// f32 scratch `part` [B, Hkv, splits, n_rep, D + 2], and the last block of a
+// (slot, KV head) to arrive (a per-(b, hkv) counter, atomicAdd after a
+// __threadfence) merges the splits in split order, a thread a (query row,
+// feature), writes out, and sets the counter back to 0 for the next launch. The fresh row seeds split 0's
+// first row group only. Against the dense reference only the order of the
+// f32 sums changes: rtol 2e-4 / atol 2e-5.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +68,8 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr int WARPS = 4;
+constexpr int MAX_SPLITS = 512;
 
 // Where feature i of KV head h lies in a row of E lanes.
 __device__ __forceinline__ int lane_of(int h, int i, int D, int E, int attn_layout) {
@@ -55,15 +78,23 @@ __device__ __forceinline__ int lane_of(int h, int i, int D, int E, int attn_layo
   return i < half ? h * half + i : (E >> 1) + h * half + i - half;
 }
 
-// 16 bytes of a row -> VEC floats.
-__device__ __forceinline__ void load16(const int8_t* p, float* out) {
-  const int4 u = *reinterpret_cast<const int4*>(p);
-  const int w[4] = {u.x, u.y, u.z, u.w};
+// 16 bytes of a row -> 16 / sizeof(KT) floats (int8 values unscaled). An
+// int8 b becomes a float without the conversion unit (a quarter of the FMA
+// rate on Hopper, and the kernel's bottleneck when it converted each
+// element): the byte b + 128 goes into the mantissa of 2^23, and
+// 2^23 + 128 is subtracted, exactly.
+__device__ __forceinline__ void unpack16(const int4& u, const int8_t*, float* out) {
+  const unsigned w[4] = {(unsigned)u.x, (unsigned)u.y, (unsigned)u.z, (unsigned)u.w};
 #pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = (float)(int8_t)(w[i / 4] >> (8 * (i % 4)));
+  for (int j = 0; j < 4; ++j) {
+    const unsigned biased = w[j] ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      out[4 * j + i] =
+          __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u | i)) - 8388736.f;
+  }
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const int4 u = *reinterpret_cast<const int4*>(p);
+__device__ __forceinline__ void unpack16(const int4& u, const __nv_bfloat16*, float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -73,193 +104,331 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
-template <int D, typename KT>
-__global__ void attn_decode_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ kn,
-                                   const float* __restrict__ vn,
-                                   const KT* __restrict__ kc,
-                                   const KT* __restrict__ vc,
-                                   const float* __restrict__ ks,
-                                   const float* __restrict__ vs,
-                                   const int* __restrict__ npast,
-                                   float* __restrict__ out, int Hkv, int n_rep,
-                                   int T, long long kv_batch_stride,
-                                   long long sc_batch_stride, float scale,
-                                   int attn_layout) {
-  constexpr int DL = D / 32;              // output features a lane owns
-  constexpr int VEC = 16 / sizeof(KT);    // elements a 16-byte load
-  constexpr int CH = D / VEC;             // 16-byte chunks a head row
-  const int nwarps = blockDim.x >> 5;
-  const int ns = nwarps / n_rep;          // splits of the key range
-  const int kt = ns * 32;                 // rows a staged tile
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? bytes : 0;  // 0: fill with zeros
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+constexpr int TILE_BYTES = 8192;  // one K (or V) tile of a stage
+
+template <int D, typename KT, int QR>
+__global__ void __launch_bounds__(WARPS * 32)
+attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
+                   const float* __restrict__ vn, const KT* __restrict__ kc,
+                   const KT* __restrict__ vc, const float* __restrict__ ks,
+                   const float* __restrict__ vs, const int* __restrict__ npast,
+                   float* __restrict__ out, float* __restrict__ part,
+                   int* __restrict__ counter, int Hkv, int n_rep, int T,
+                   int chunk, long long kv_batch_stride,
+                   long long sc_batch_stride, float scale, int attn_layout) {
+  constexpr int VEC = 16 / sizeof(KT);  // features a 16-byte chunk
+  constexpr int G = D / VEC;            // lanes a row
+  constexpr int R = 32 / G;             // rows a warp reads at once
+  constexpr int NG = WARPS * R;         // row groups of the block
+  constexpr int RB = D * (int)sizeof(KT);  // bytes of a head's row
+  constexpr int TR = TILE_BYTES / RB;   // rows a tile: 64 int8 / 32 bf16 at D 128
+  constexpr int UT = TR / NG;           // rows a group takes from a tile (4)
+  constexpr int DP = D + 2;             // a partial state: acc[D], m, l
+  constexpr unsigned FULL = 0xffffffffu;
+  // two stages of K and V tiles, then the rows' scales; the merge state
+  // reuses the tiles' bytes once they are read
+  __shared__ __align__(16) unsigned char tiles[2 * 2 * TILE_BYTES];
+  __shared__ float scl[2][2][TR];
+  __shared__ float wm[WARPS][QR], wl[WARPS][QR];
+  __shared__ int is_last;
+  static_assert(WARPS * QR * D * 4 <= (int)sizeof(tiles), "merge state fits");
+  float* wacc = reinterpret_cast<float*>(tiles);  // [WARPS][QR][D]
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = warp % n_rep, split = warp / n_rep;
-  const int hkv = blockIdx.x, b = blockIdx.y;
-  const int hq = hkv * n_rep + r;
+  const int gi = lane / G, f0 = (lane % G) * VEC;
+  const int hkv = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int splits = gridDim.z;
   const int E = Hkv * D;
-  const int live = min(npast[b], T);      // cache rows this slot attends
-
-  extern __shared__ float smem[];
-  float* ksh = smem;                      // [kt][D + 1]
-  float* vsh = ksh + kt * (D + 1);        // [kt][D + 1]
-  float* qsh = vsh + kt * (D + 1);        // [n_rep][D]
-  float* msh = qsh + n_rep * D;           // [nwarps] merge: m, l
-  float* lsh = msh + nwarps;
-  float* ash = lsh + nwarps;              // [nwarps][D] merge: acc
-
-  // feature i of this query row (and of its output row)
-  auto q_at = [&](int i) -> size_t {
-    return attn_layout ? ((size_t)b * n_rep + r) * E + lane_of(hkv, i, D, E, 1)
-                       : ((size_t)b * Hkv * n_rep + hq) * D + i;
-  };
-  for (int i = lane; i < D; i += 32) qsh[r * D + i] = q[q_at(i)] * scale;
-  __syncwarp();
-
-  // The fresh row seeds split 0's state: m = its score, l = 1, acc = v.
-  float m = NEG_INF, l = 0.f, acc[DL];
-#pragma unroll
-  for (int i = 0; i < DL; ++i) acc[i] = 0.f;
-  if (split == 0) {
-    const float* knr = kn + (size_t)b * E;
-    const float* vnr = vn + (size_t)b * E;
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < DL; ++i)
-      s = fmaf(qsh[r * D + lane + 32 * i],
-               knr[lane_of(hkv, lane + 32 * i, D, E, attn_layout)], s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    m = s;
-    l = 1.f;
-#pragma unroll
-    for (int i = 0; i < DL; ++i)
-      acc[i] = vnr[lane_of(hkv, lane + 32 * i, D, E, attn_layout)];
-  }
-
+  const int live = min(npast[b], T);  // cache rows this slot attends
+  const int t_begin = z * chunk, t_end = min(t_begin + chunk, live);
+  const int ntiles = t_end > t_begin ? (t_end - t_begin + TR - 1) / TR : 0;
+  const int at = lane_of(hkv, f0, D, E, attn_layout);  // where its features lie in a row
   const KT* kb = kc + (size_t)b * kv_batch_stride;
   const KT* vb = vc + (size_t)b * kv_batch_stride;
   const float* ksb = ks ? ks + (size_t)b * sc_batch_stride + hkv : nullptr;
   const float* vsb = vs ? vs + (size_t)b * sc_batch_stride + hkv : nullptr;
+  const size_t head = (size_t)b * Hkv + hkv;
+  float* pz = part ? part + ((head * splits + z) * n_rep) * DP : nullptr;
 
-  for (int t0 = 0; t0 < live; t0 += kt) {
-    __syncthreads();  // the previous tile is fully read
-    // consecutive threads take consecutive rows: with rows padded to D + 1
-    // floats the shared-memory stores of a warp hit distinct banks
-    for (int idx = threadIdx.x; idx < kt * CH; idx += blockDim.x) {
-      const int jr = idx % kt, c = (idx / kt) * VEC;
-      const int row = t0 + jr;
-      float kv[VEC], vv[VEC];
-      if (row < live) {
-        // a 16-byte chunk never straddles the two halves (VEC divides D/2)
-        const size_t at = (size_t)row * E + lane_of(hkv, c, D, E, attn_layout);
-        load16(kb + at, kv);
-        load16(vb + at, vv);
-        if (ksb) {
-          const float sk = ksb[(size_t)row * Hkv], sv = vsb[(size_t)row * Hkv];
+  // feature f of query row r (and of its output row)
+  auto q_at = [&](int r, int f) -> size_t {
+    return attn_layout ? ((size_t)b * n_rep + r) * E + lane_of(hkv, f, D, E, 1)
+                       : (head * n_rep + r) * D + f;
+  };
+  // rows [t0, t0 + TR) of K, V (and their scales) into stage st; zeros past t_end
+  auto stage = [&](int t0, int st) {
+    unsigned char* kd = tiles + st * 2 * TILE_BYTES;
+    for (int idx = threadIdx.x; idx < TR * G; idx += WARPS * 32) {
+      const int jr = idx / G, c = idx % G, t = t0 + jr;
+      const bool ok = t < t_end;
+      const size_t off = (size_t)(ok ? t : 0) * E + lane_of(hkv, c * VEC, D, E, attn_layout);
+      cp_async(kd + jr * RB + c * 16, kb + off, 16, ok);
+      cp_async(kd + TILE_BYTES + jr * RB + c * 16, vb + off, 16, ok);
+    }
+    if (ksb)
+      for (int jr = threadIdx.x; jr < TR; jr += WARPS * 32) {
+        const int t = t0 + jr;
+        const bool ok = t < t_end;
+        cp_async(&scl[st][0][jr], ksb + (size_t)(ok ? t : 0) * Hkv, 4, ok);
+        cp_async(&scl[st][1][jr], vsb + (size_t)(ok ? t : 0) * Hkv, 4, ok);
+      }
+  };
+
+  for (int r0 = 0; r0 < n_rep; r0 += QR) {
+    // the first tile is in flight before q is read
+    if (ntiles > 0) stage(t_begin, 0);
+    cp_async_commit();
+
+    float qv[QR][VEC], m[QR], l[QR], acc[QR][VEC];
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) { kv[i] *= sk; vv[i] *= sv; }
-        }
-      } else {
+    for (int r = 0; r < QR; ++r) {
+      const bool ok = r0 + r < n_rep;
+      const float4* qa = reinterpret_cast<const float4*>(q + (ok ? q_at(r0 + r, f0) : 0));
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) { kv[i] = 0.f; vv[i] = 0.f; }
+      for (int i = 0; i < VEC / 4; ++i) {
+        const float4 x = ok ? qa[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+        qv[r][4 * i] = x.x * scale;
+        qv[r][4 * i + 1] = x.y * scale;
+        qv[r][4 * i + 2] = x.z * scale;
+        qv[r][4 * i + 3] = x.w * scale;
       }
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        ksh[jr * (D + 1) + c + i] = kv[i];
-        vsh[jr * (D + 1) + c + i] = vv[i];
+      for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
+      m[r] = NEG_INF;
+      l[r] = 0.f;
+    }
+
+    // The fresh row seeds split 0's first row group: m = its score, l = 1,
+    // acc = its V slice.
+    if (z == 0 && warp == 0) {
+      float kf[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) kf[i] = kn[(size_t)b * E + at + i];
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) d = fmaf(qv[r][i], kf[i], d);
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
+        if (gi == 0) {
+          m[r] = d;
+          l[r] = 1.f;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[r][i] = vn[(size_t)b * E + at + i];
+        }
+      }
+    }
+
+    // the split's rows, a tile of TR at a time, the next tile loading; a
+    // group takes rows gi + NG * u of a tile (whole rows across G lanes)
+    const int my = warp * R + gi;
+    for (int it = 0; it < ntiles; ++it) {
+      const int t0 = t_begin + it * TR;
+      if (it + 1 < ntiles) stage(t0 + TR, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait1();  // tile it has landed
+      __syncthreads();
+      const unsigned char* kt = tiles + (it & 1) * 2 * TILE_BYTES;
+      const unsigned char* vt = kt + TILE_BYTES;
+      float p[QR][UT];
+#pragma unroll
+      for (int u = 0; u < UT; ++u) {
+        const int jr = my + u * NG;
+        float kf[VEC];
+        unpack16(*reinterpret_cast<const int4*>(kt + jr * RB + (lane % G) * 16), kc, kf);
+        const float sk = ksb ? scl[it & 1][0][jr] : 1.f;
+        const bool ok = t0 + jr < t_end;
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          float d4[4] = {0.f, 0.f, 0.f, 0.f};  // four short FMA chains
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) d4[i % 4] = fmaf(qv[r][i], kf[i], d4[i % 4]);
+          float d = (d4[0] + d4[1]) + (d4[2] + d4[3]);
+#pragma unroll
+          for (int off = G / 2; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
+          p[r][u] = ok ? d * sk : NEG_INF;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int u = 0; u < UT; ++u) mx = fmaxf(mx, p[r][u]);
+        const float alpha = expf(m[r] - mx);
+        l[r] *= alpha;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[r][i] *= alpha;
+#pragma unroll
+        for (int u = 0; u < UT; ++u) {
+          p[r][u] = t0 + my + u * NG < t_end ? expf(p[r][u] - mx) : 0.f;
+          l[r] += p[r][u];
+        }
+        m[r] = mx;
+      }
+#pragma unroll
+      for (int u = 0; u < UT; ++u) {
+        const int jr = my + u * NG;
+        float vf[VEC];
+        unpack16(*reinterpret_cast<const int4*>(vt + jr * RB + (lane % G) * 16), vc, vf);
+        const float sv = vsb ? scl[it & 1][1][jr] : 1.f;
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          const float w = p[r][u] * sv;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(w, vf[i], acc[r][i]);
+        }
+      }
+      __syncthreads();  // the stage is read before it is refilled
+    }
+
+    // merge the warp's R row groups (lanes G, 2G, ... apart hold the same
+    // features), then the block's warps in shared memory
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        const float mo = __shfl_xor_sync(FULL, m[r], off);
+        const float lo = __shfl_xor_sync(FULL, l[r], off);
+        const float mm = fmaxf(m[r], mo);
+        const float a = expf(m[r] - mm), c = expf(mo - mm);
+        l[r] = l[r] * a + lo * c;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          acc[r][i] = acc[r][i] * a + __shfl_xor_sync(FULL, acc[r][i], off) * c;
+        m[r] = mm;
+      }
+    }
+    cp_async_wait0();
+    __syncthreads();  // the tiles' bytes now hold the merge state
+    if (gi == 0) {
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) wacc[(warp * QR + r) * D + f0 + i] = acc[r][i];
+        if (lane == 0) {
+          wm[warp][r] = m[r];
+          wl[warp][r] = l[r];
+        }
       }
     }
     __syncthreads();
-
-    const int j0 = split * 32;  // this warp's keys in the tile
-    const int kidx = t0 + j0 + lane;
-    const bool valid = kidx < live;
-    float sc = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) sc = fmaf(qsh[r * D + dd], ksh[(j0 + lane) * (D + 1) + dd], sc);
-    sc = valid ? sc : NEG_INF;
-    float mcur = sc;
+    for (int idx = threadIdx.x; idx < QR * D; idx += WARPS * 32) {
+      const int r = idx / D, f = idx % D;
+      if (r0 + r >= n_rep) continue;
+      float mm = NEG_INF;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mcur = fmaxf(mcur, __shfl_xor_sync(0xffffffffu, mcur, off));
-    const float m_new = fmaxf(m, mcur);
-    const float alpha = expf(m - m_new);
-    const float p = valid ? expf(sc - m_new) : 0.f;
-    float psum = p;
+      for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, wm[w][r]);
+      float ll = 0.f, aa = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l = alpha * l + psum;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) acc[i] *= alpha;
-#pragma unroll 8
-    for (int jr = 0; jr < 32; ++jr) {
-      const float pj = __shfl_sync(0xffffffffu, p, jr);
-#pragma unroll
-      for (int i = 0; i < DL; ++i) acc[i] = fmaf(pj, vsh[(j0 + jr) * (D + 1) + lane + 32 * i], acc[i]);
+      for (int w = 0; w < WARPS; ++w) {
+        const float e = expf(wm[w][r] - mm);
+        ll = fmaf(wl[w][r], e, ll);
+        aa = fmaf(wacc[(w * QR + r) * D + f], e, aa);
+      }
+      if (splits == 1) {
+        out[q_at(r0 + r, f)] = aa / ll;
+      } else {
+        float* pr = pz + (size_t)(r0 + r) * DP;
+        pr[f] = aa;
+        if (f == 0) {
+          pr[D] = mm;
+          pr[D + 1] = ll;
+        }
+      }
     }
-    m = m_new;
+    __syncthreads();  // wacc's bytes are tiles again in the next pass
   }
+  if (splits == 1) return;
 
-  // Merge the splits of each query row; split 0 writes the row.
-  if (lane == 0) { msh[warp] = m; lsh[warp] = l; }
-#pragma unroll
-  for (int i = 0; i < DL; ++i) ash[warp * D + lane + 32 * i] = acc[i];
+  // the last block of this (slot, KV head) to finish merges the splits
+  __threadfence();
   __syncthreads();
-  if (split == 0) {
+  if (threadIdx.x == 0) is_last = atomicAdd(counter + head, 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // every (query row, feature) of the slot's KV head at once: a thread
+  // reads the splits' (m, l) and its feature's acc, in split order
+  const float* ph = part + head * splits * n_rep * DP;  // [splits][n_rep][DP]
+  for (int idx = threadIdx.x; idx < n_rep * D; idx += WARPS * 32) {
+    const int r = idx / D, f = idx % D;
+    const float* pr = ph + (size_t)r * DP;
+    const size_t zs = (size_t)n_rep * DP;  // split stride
     float mm = NEG_INF;
-    for (int s = 0; s < ns; ++s) mm = fmaxf(mm, msh[s * n_rep + r]);
-    float ll = 0.f, o[DL];
-#pragma unroll
-    for (int i = 0; i < DL; ++i) o[i] = 0.f;
-    for (int s = 0; s < ns; ++s) {
-      const int w = s * n_rep + r;
-      const float f = expf(msh[w] - mm);
-      ll = fmaf(lsh[w], f, ll);
-#pragma unroll
-      for (int i = 0; i < DL; ++i) o[i] = fmaf(ash[w * D + lane + 32 * i], f, o[i]);
+#pragma unroll 8
+    for (int zz = 0; zz < splits; ++zz) mm = fmaxf(mm, __ldcg(pr + zz * zs + D));
+    float ll = 0.f, aa = 0.f;
+#pragma unroll 8
+    for (int zz = 0; zz < splits; ++zz) {
+      const float e = expf(__ldcg(pr + zz * zs + D) - mm);
+      ll = fmaf(__ldcg(pr + zz * zs + D + 1), e, ll);
+      aa = fmaf(__ldcg(pr + zz * zs + f), e, aa);
     }
-#pragma unroll
-    for (int i = 0; i < DL; ++i) out[q_at(lane + 32 * i)] = o[i] / ll;
+    out[q_at(r, f)] = aa / ll;
   }
+  if (threadIdx.x == 0) counter[head] = 0;
+}
+
+template <int D, typename KT, int QR>
+int launch(const float* q, const float* kn, const float* vn, const void* kc,
+           const void* vc, const float* ks, const float* vs, const int* npast,
+           float* out, float* part, int* counter, int B, int Hkv, int n_rep,
+           int T, long long kv_batch_stride, long long sc_batch_stride,
+           float scale, int attn_layout, int splits, cudaStream_t stream) {
+  dim3 grid(Hkv, B, splits);
+  attn_decode_kernel<D, KT, QR><<<grid, WARPS * 32, 0, stream>>>(
+      q, kn, vn, static_cast<const KT*>(kc), static_cast<const KT*>(vc), ks,
+      vs, npast, out, part, counter, Hkv, n_rep, T, (T + splits - 1) / splits,
+      kv_batch_stride, sc_batch_stride, scale, attn_layout);
+  return (int)cudaGetLastError();
 }
 
 template <int D, typename KT>
-int launch(const float* q, const float* kn, const float* vn, const void* kc,
-           const void* vc, const float* ks, const float* vs, const int* npast,
-           float* out, int B, int Hkv, int n_rep, int T,
-           long long kv_batch_stride, long long sc_batch_stride, float scale,
-           int attn_layout, cudaStream_t stream) {
-  const int ns = n_rep >= 4 ? 1 : 4 / n_rep;
-  const int nwarps = n_rep * ns, kt = ns * 32;
-  const size_t smem = sizeof(float) *
-      (2 * (size_t)kt * (D + 1) + (size_t)n_rep * D +
-       2 * (size_t)nwarps + (size_t)nwarps * D);
-  auto kern = attn_decode_kernel<D, KT>;
-  static size_t smem_set = 48 * 1024;  // opt in once per instantiation
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
-  dim3 grid(Hkv, B);
-  kern<<<grid, nwarps * 32, smem, stream>>>(
-      q, kn, vn, static_cast<const KT*>(kc), static_cast<const KT*>(vc), ks,
-      vs, npast, out, Hkv, n_rep, T, kv_batch_stride, sc_batch_stride, scale, attn_layout);
-  return (int)cudaGetLastError();
+int launch_qr(const float* q, const float* kn, const float* vn, const void* kc,
+              const void* vc, const float* ks, const float* vs, const int* npast,
+              float* out, float* part, int* counter, int B, int Hkv, int n_rep,
+              int T, long long kvs, long long scs, float scale, int attn_layout,
+              int splits, cudaStream_t stream) {
+#define DECODE_ARGS q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv, n_rep, T, kvs, scs, scale, attn_layout, splits, stream
+  if (n_rep == 1) return launch<D, KT, 1>(DECODE_ARGS);
+  if (n_rep == 2) return launch<D, KT, 2>(DECODE_ARGS);
+  return launch<D, KT, 4>(DECODE_ARGS);
+#undef DECODE_ARGS
 }
 
 template <typename KT>
 int launch_d(int D, const float* q, const float* kn, const float* vn,
              const void* kc, const void* vc, const float* ks, const float* vs,
-             const int* npast, float* out, int B, int Hkv, int n_rep, int T,
-             long long kvs, long long scs, float scale, int attn_layout,
-             cudaStream_t stream) {
+             const int* npast, float* out, float* part, int* counter, int B,
+             int Hkv, int n_rep, int T, long long kvs, long long scs,
+             float scale, int attn_layout, int splits, cudaStream_t stream) {
   if (D == 128)
-    return launch<128, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, B, Hkv, n_rep, T, kvs, scs,
-                           scale, attn_layout, stream);
+    return launch_qr<128, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
+                              n_rep, T, kvs, scs, scale, attn_layout, splits, stream);
   if (D == 64)
-    return launch<64, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, B, Hkv, n_rep, T, kvs, scs,
-                          scale, attn_layout, stream);
+    return launch_qr<64, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
+                             n_rep, T, kvs, scs, scale, attn_layout, splits, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -268,25 +437,33 @@ int launch_d(int D, const float* q, const float* kn, const float* vn,
 // kv_kind: 0 bf16, 1 int8 (then ks/vs are required). attn_layout: 0 the
 // "heads" lane map, 1 the "attn" one (float caches only). D must be 64 or
 // 128 and n_rep in 1..32. Pointers 16-byte aligned and batch strides
-// multiples of 16 bytes (the wrapper checks). Returns the first CUDA error
-// of the launch, or 0.
+// multiples of 16 bytes (the wrapper checks). splits in 1..min(T, 512);
+// above 1, part is an f32 scratch of B * Hkv * splits * n_rep * (D + 2)
+// floats and counter an int32 [B * Hkv], all 0 (the kernel leaves it so).
+// One launch at a time may use a counter buffer (the wrapper keeps one a
+// stream). Returns the first CUDA
+// error of the launch, or 0.
 extern "C" int attn_decode(const float* q, const float* kn, const float* vn,
                            const void* kc, const void* vc, const float* ks,
                            const float* vs, const int* npast, float* out,
-                           int B, int Hkv, int n_rep, int T, int D,
-                           long long kv_batch_stride,
+                           float* part, int* counter, int B, int Hkv,
+                           int n_rep, int T, int D, long long kv_batch_stride,
                            long long sc_batch_stride, int kv_kind,
-                           float scale, int attn_layout, cudaStream_t stream) {
+                           float scale, int attn_layout, int splits,
+                           cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || T <= 0 || n_rep <= 0 || n_rep > 32)
     return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > MAX_SPLITS || splits > T) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (part == nullptr || counter == nullptr)) return (int)cudaErrorInvalidValue;
   if (attn_layout && kv_kind != 0) return (int)cudaErrorInvalidValue;
   if (kv_kind == 1 && (ks == nullptr || vs == nullptr)) return (int)cudaErrorInvalidValue;
   if (kv_kind == 1)
-    return launch_d<int8_t>(D, q, kn, vn, kc, vc, ks, vs, npast, out, B, Hkv, n_rep, T,
-                            kv_batch_stride, sc_batch_stride, scale, 0, stream);
+    return launch_d<int8_t>(D, q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
+                            n_rep, T, kv_batch_stride, sc_batch_stride, scale, 0, splits,
+                            stream);
   if (kv_kind == 0)
-    return launch_d<__nv_bfloat16>(D, q, kn, vn, kc, vc, nullptr, nullptr, npast, out, B,
-                                   Hkv, n_rep, T, kv_batch_stride, 0, scale, attn_layout,
-                                   stream);
+    return launch_d<__nv_bfloat16>(D, q, kn, vn, kc, vc, nullptr, nullptr, npast, out, part,
+                                   counter, B, Hkv, n_rep, T, kv_batch_stride, 0, scale,
+                                   attn_layout, splits, stream);
   return (int)cudaErrorInvalidValue;
 }

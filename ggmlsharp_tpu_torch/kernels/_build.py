@@ -49,8 +49,7 @@ KERNELS = {
                    [_P, _P, _P, _P, _I, _P] + [_I] * 6 + [_LL, _I, _I, _I, _F,
                                                         _F, _P]),
     "attn_decode": ("attn_decode.cu", "attn_decode",
-                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _LL, _LL, _I, _F, _I, _P]),
+                    [_P] * 11 + [_I] * 5 + [_LL, _LL, _I, _F, _I, _I, _P]),
     "matmul_q8_0": ("matmul_q8_0.cu", "q8_0_matmul",
                     [_P, _P, _P, _P] + [_I] * 5 + [_P]),
     "mlp_fused_q8": ("mlp_fused_q8.cu", "mlp_fused_q8",

@@ -11,6 +11,16 @@ f32 throughout: the JAX kernel's exact mode (GGML_TPU_MM_DOT=f32); its
 default mode rounds the softmax weights to the cache dtype for the MXU,
 which the port does not copy.
 
+The kernel is bound by the bytes of the live rows. It splits each slot's
+rows over ``decode_splits(B * H_kv, T)`` blocks a (slot, KV head), so that a
+small batch or a long cache still fills the card; each block copies its
+rows from the cache in their storage type (cp.async, double-buffered tiles
+in shared memory), dequantizes them in registers into an online-softmax
+state, and the last block of a (slot, KV head) to finish merges the
+splits' states in the same launch (an f32 scratch from ``torch.empty`` and
+arrival counters, one fixed buffer a stream). Against the dense reference
+only the order of the f32 sums changes.
+
 ``flash_decode_flat_attn`` is the same function over rows in the "attn"
 lane map of the JAX package's whole-block llama kernel: KV head h owns lanes
 [h·D/2, (h+1)·D/2) and the same run at +E_kv/2, and the query and the output
@@ -19,11 +29,13 @@ as one more argument. The port's own caches stay in element order, so no path
 of the port calls it; it is ported so the kernel is whole, and
 ``chip_smoke.py`` holds it against its plain version and times it.
 
-The plain version is ``_decode_ref``: dequantize, append the fresh row
+The plain versions are ``_decode_ref``: dequantize, append the fresh row
 as key T, mask the cache rows t >= npast, softmax, P.V, all dense f32
 (``_decode_ref_attn``: permute to element order, ``_decode_ref``, permute
-back). A wrapper runs it for a CPU tensor, and for a CUDA tensor it launches
-the kernel or raises.
+back), and ``_decode_ref_split``, the kernel's split algorithm (a partial
+softmax state a split, then the merge) in plain PyTorch. A wrapper runs
+``_decode_ref`` for a CPU tensor, and for a CUDA tensor it launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -34,6 +46,51 @@ from . import _build
 from .config import use_kernel
 
 _KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+_BLOCKS_PER_SM = 4  # decode_splits: at most this many blocks an SM
+_SPLIT_MIN_ROWS = 64  # cache rows a split takes at least
+MAX_SPLITS = 512  # the most splits the kernel takes
+_COUNTERS: dict = {}  # (device, stream) -> int32 arrival counters, all 0
+_SMS: dict = {}  # device -> its streaming multiprocessors
+
+
+def decode_splits(batch_heads: int, rows: int, sms: int = H100_SMS) -> int:
+    """Splits of the cache rows a (slot, KV head) for one launch:
+    ``batch_heads`` = B * H_kv blocks come before splitting, ``rows`` is the
+    longest live prefix the launch may see (the view's T). As many splits
+    as keep the grid within one wave of four blocks an SM (so at least two
+    blocks an SM wherever the rows allow), but never fewer than 64 rows a
+    split, never more splits than rows, never 0, never above MAX_SPLITS."""
+    if batch_heads < 1 or rows < 1 or sms < 1:
+        raise ValueError(f"decode_splits: batch_heads {batch_heads}, rows "
+                         f"{rows}, sms {sms}")
+    want = _BLOCKS_PER_SM * sms // batch_heads
+    return max(1, min(want, rows // _SPLIT_MIN_ROWS, MAX_SPLITS))
+
+
+def _device_sms(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def _counter(device, stream: int, n: int) -> torch.Tensor:
+    """The int32 arrival counters of launches on ``stream`` of ``device``:
+    zeroed once, left at 0 by every launch, and never reallocated, so a
+    CUDA graph that captured their address stays valid. Launches on one
+    stream run one at a time; another stream gets its own counters. They
+    are as many as the blocks of one wave (``decode_splits`` splits only
+    where B * H_kv is at most half that)."""
+    buf = _COUNTERS.get((device, stream))
+    if buf is None:
+        buf = torch.zeros(_BLOCKS_PER_SM * _device_sms(device),
+                          dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    if n > buf.numel():
+        raise ValueError(f"attn_decode: {n} split (slot, KV head) pairs, "
+                         f"{buf.numel()} counters")
+    return buf
 
 
 def _dequant(rows, scale, n_head_kv):
@@ -70,6 +127,57 @@ def _decode_ref(q, k_new, v_new, k_cache, v_cache, npast, n_head_kv: int,
     s = torch.where(live[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgrt,btgd->bgrd", p, vh).reshape(B, Hq, D)
+
+
+def _decode_ref_split(q, k_new, v_new, k_cache, v_cache, npast,
+                      n_head_kv: int, head_dim: int, k_scale=None,
+                      v_scale=None, splits: int = 1):
+    """The kernel's algorithm in plain f32 PyTorch, arguments as
+    ``_decode_ref``'s. Split z of ``splits`` takes the cache rows
+    [z * chunk, (z + 1) * chunk), chunk = ceil(T / splits), that are live
+    (t < npast[b]); split 0 also takes the fresh row. Each split keeps its
+    own softmax state (m, l, acc); the states merge as
+    out = sum_z acc_z e^(m_z - M) / sum_z l_z e^(m_z - M), M = max_z m_z.
+    A split with no row has m = -inf-like, l = 0 and adds nothing."""
+    B, Hq, D = q.shape
+    T = k_cache.shape[1]
+    if not 1 <= splits <= T:
+        raise ValueError(f"_decode_ref_split: splits {splits} for T {T}")
+    n_rep = Hq // n_head_kv
+    chunk = -(-T // splits)
+    pad = splits * chunk - T
+
+    def heads(rows, scale):
+        x = _dequant(rows, scale, n_head_kv).reshape(B, T, n_head_kv, D)
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, splits, chunk, n_head_kv, D)
+
+    kh, vh = heads(k_cache, k_scale), heads(v_cache, v_scale)
+    qg = (q.to(torch.float32) * (1.0 / D ** 0.5)).reshape(B, n_head_kv,
+                                                          n_rep, D)
+    s = torch.einsum("bgrd,bzcgd->bgrzc", qg, kh)
+    s_new = torch.einsum("bgrd,bgd->bgr", qg, k_new.to(torch.float32)
+                         .reshape(B, n_head_kv, D))
+    t = torch.arange(splits * chunk, device=q.device).reshape(splits, chunk)
+    npl = npast.to(device=q.device, dtype=torch.long)
+    live = t[None] < torch.minimum(npl, torch.full_like(npl, T))[:, None,
+                                                                  None]
+    # the fresh row: one more column, live in split 0 only
+    fresh = torch.zeros((B, splits, 1), dtype=torch.bool, device=q.device)
+    fresh[:, 0] = True
+    live = torch.cat([live, fresh], -1)[:, None, None]  # [B, 1, 1, Z, C + 1]
+    s = torch.cat([s, s_new[..., None, None].expand(*s.shape[:-1], 1)], -1)
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)  # [B, G, R, Z]
+    p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    v_new = v_new.to(torch.float32).reshape(B, 1, 1, n_head_kv, D)
+    vz = torch.cat([vh, v_new.expand(B, splits, 1, n_head_kv, D)], 2)
+    acc = torch.einsum("bgrzc,bzcgd->bgrzd", p, vz)
+    M = m.amax(-1, keepdim=True)
+    w = torch.exp(m - M)
+    out = (acc * w[..., None]).sum(-2) / (l * w).sum(-1)[..., None]
+    return out.reshape(B, Hq, D)
 
 
 def _cache_kind(k_cache, v_cache):
@@ -126,6 +234,12 @@ def _check(q, k_new, v_new, k_cache, v_cache, npast, n_head_kv, head_dim,
     return kind, st[0]
 
 
+def _aligned(t):
+    """t, or a fresh copy when its data is not 16-byte aligned (the
+    kernel's vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_decode_flat(q_heads, k_new, v_new, k_cache, v_cache, npast,
                       n_head_kv: int, head_dim: int,
                       k_scale=None, v_scale=None):
@@ -151,24 +265,32 @@ def _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
     output."""
     kind, batch_stride = _check(q_heads, k_new, v_new, k_cache, v_cache,
                                 npast, n_head_kv, head_dim, k_scale, v_scale)
+    fn = _build.entry("attn_decode")
     B, Hq, D = q_heads.shape
     T = k_cache.shape[1]
-    q32 = q_heads.to(torch.float32).contiguous()
-    kn = k_new.to(torch.float32).contiguous()
-    vn = v_new.to(torch.float32).contiguous()
+    q32, kn, vn = (_aligned(x.to(torch.float32).contiguous())
+                   for x in (q_heads, k_new, v_new))
     np32 = npast.to(torch.int32).contiguous()
-    out = torch.empty((B, Hq, D), dtype=torch.float32, device=q_heads.device)
+    dev = q_heads.device
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     sc_stride = k_scale.stride()[0] if k_scale is not None else 0
-    fn = _build.entry("attn_decode")
-    with torch.cuda.device(q_heads.device):
+    splits = decode_splits(B * n_head_kv, T, _device_sms(dev))
+    part = counter = None
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        if splits > 1:
+            part = torch.empty(B * n_head_kv * splits * Hq // n_head_kv
+                               * (D + 2), dtype=torch.float32, device=dev)
+            counter = _counter(dev, stream, B * n_head_kv)
         rc = fn(q32.data_ptr(), kn.data_ptr(), vn.data_ptr(),
                 k_cache.data_ptr(), v_cache.data_ptr(),
                 None if k_scale is None else k_scale.data_ptr(),
                 None if v_scale is None else v_scale.data_ptr(),
-                np32.data_ptr(), out.data_ptr(), B, n_head_kv,
-                Hq // n_head_kv, T, D, batch_stride, sc_stride, kind,
-                1.0 / D ** 0.5, int(attn_layout), stream)
+                np32.data_ptr(), out.data_ptr(),
+                None if part is None else part.data_ptr(),
+                None if counter is None else counter.data_ptr(), B,
+                n_head_kv, Hq // n_head_kv, T, D, batch_stride, sc_stride,
+                kind, 1.0 / D ** 0.5, int(attn_layout), splits, stream)
     _build.check("attn_decode", rc)
     return out
 
@@ -185,9 +307,11 @@ def attn_to_elem(n_head_kv: int, head_dim: int, device=None) -> torch.Tensor:
 
 
 def _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
-                     n_head: int, n_head_kv: int, head_dim: int):
+                     n_head: int, n_head_kv: int, head_dim: int,
+                     splits: int | None = None):
     """Plain version of flash_decode_flat_attn: rows to element order,
-    _decode_ref, the output back to the "attn" map."""
+    _decode_ref (or, given ``splits``, _decode_ref_split), the output back
+    to the "attn" map."""
     B = q_att.shape[0]
     Ekv = n_head_kv * head_dim
     n_rep = n_head // n_head_kv
@@ -197,8 +321,10 @@ def _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
     q = q_att.reshape(B, n_rep, Ekv)[..., inv] \
         .reshape(B, n_rep, n_head_kv, head_dim).transpose(1, 2) \
         .reshape(B, n_head, head_dim)
-    out = _decode_ref(q, k_new[..., inv], v_new[..., inv], k_cache[..., inv],
-                      v_cache[..., inv], npast, n_head_kv, head_dim)
+    args = (q, k_new[..., inv], v_new[..., inv], k_cache[..., inv],
+            v_cache[..., inv], npast, n_head_kv, head_dim)
+    out = _decode_ref(*args) if splits is None else \
+        _decode_ref_split(*args, splits=splits)
     out = out.reshape(B, n_head_kv, n_rep, head_dim).transpose(1, 2) \
         .reshape(B, n_rep, Ekv)[..., a2e]
     return out.reshape(B, n_rep * Ekv)

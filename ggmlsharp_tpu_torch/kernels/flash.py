@@ -4,6 +4,20 @@ ggmlsharp_tpu/kernels/flash.py: ``flash_attention_cached`` with its backward
 ``_flash_cached_bwd``, and ``flash_attention`` with ops/attention.py's
 ``_flash_pallas_bwd``).
 
+The kernel runs on the tensor cores (mma.sync, bf16 operands, f32
+accumulation) and keeps the f32 function: an operand is held as bf16
+planes, x = x0 + x1 + ..., each the bf16 rounding of what the earlier ones
+leave: one plane for bf16 (exact), two for f16 (exact), three for f32 and
+for the softmax weights P. A product takes every plane pair of order
+i + j <= 2, so the terms left out are below the f32 rounding itself. Two
+planes for f32 (2^-18) met the reference's bar too, but then GPT-2 behind
+the INT8 serving engine, which rounds to INT8 downstream, parted from its
+plain run at a near tie. A block takes up to 64 rows (every query head
+of one KV head, by position) and reuses each double-buffered K/V tile
+(cp.async) for all of them, two groups of warps taking every other tile
+where there are two; tiles past the causal limit are skipped. At the paths' shapes it is bound
+by the bytes of q, out and the kept K/V rows, and by the launch.
+
 Plain versions, beside the kernel:
   * ``_cached_ref``: dense f32 cached causal GQA attention, softcap, the mask
     ``kpos <= npast + s`` (flash.py:199-216);
@@ -20,7 +34,8 @@ Head dims: the kernel has instances for D 32, 64, 128 and 256. Any other
 D <= 256 is zero-padded to the next instance (zero columns add nothing to a
 score, and the output's padded columns are cut off); D > 256 raises. q, k
 and v are read in their own types (f32, bf16, f16; q in f32 or the K/V
-type, else widened to f32 first).
+type, else widened to f32 first), from 16-byte aligned memory (an input
+that is not is copied first).
 """
 from __future__ import annotations
 
@@ -112,10 +127,15 @@ def _launch(q, k, v, npast, n_past, causal, scale, softcap, counter):
     Dp = _padded_d(D)
     if Dp != D:
         q, k, v = _pad_d(q, Dp), _pad_d(k, Dp), _pad_d(v, Dp)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:  # the kernel's 16-byte loads
+        k, v = k.clone(memory_format=torch.contiguous_format), \
+            v.clone(memory_format=torch.contiguous_format)
     head_stride = _check_kv(k, v, q)
     if q.dtype not in (torch.float32, k.dtype):
         q = q.to(torch.float32)
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     np32 = None
     if npast is not None:
         np32 = npast.to(device=q.device, dtype=torch.int32).contiguous()

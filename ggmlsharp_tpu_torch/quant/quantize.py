@@ -225,13 +225,23 @@ def _sum(v):
     return acc
 
 
+def _sqrt_rn(v):
+    """f32 square root, correctly rounded on every device. PyTorch's
+    vectorised CPU root (AVX-512 builds) is off by one ulp for about one
+    value in seven, which the search's argmin can carry into a different
+    candidate; the f64 root rounded to f32 is exact (53 >= 2 * 24 + 2
+    bits, so the double rounding cannot err), as ggml's sqrtf and XLA's
+    are."""
+    return torch.sqrt(v.to(torch.float64)).to(F32)
+
+
 def _qkx2_search(x, nmax: int, rmin=-1.0, rdelta=0.1, nstep=20):
     """make_qkx2_quants-style weighted grid search (llama.cpp's Q4_K
     quality path), per sub-block: nstep + 1 candidate inverse scales, the
     (scale, min) refit by weighted least squares for each candidate's
     levels, the lowest weighted squared error kept. Weights rms(x) + |x|.
     Returns (scale, min <= 0) per sub-block."""
-    w = torch.sqrt(_sum(x * x)[..., None] / x.shape[-1]) + x.abs()
+    w = _sqrt_rn(_sum(x * x)[..., None] / x.shape[-1]) + x.abs()
     mn = torch.clamp(x.amin(dim=-1), max=0.0)
     rng = x.amax(dim=-1) - mn
     safe = rng > 0

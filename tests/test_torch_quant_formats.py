@@ -32,6 +32,7 @@ from ggmlsharp_tpu_torch.quant import registry
 from ggmlsharp_tpu_torch.quant.formats import (
     FORMATS, from_wire, plane_specs, to_wire, wire_block_bytes,
 )
+from ggmlsharp_tpu_torch.quant.quantize import _sqrt_rn
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden", "golden.bin")
 ROWS, K = 4, 256
@@ -104,11 +105,24 @@ def test_quantize_matches_jax_bit_exact(fmt, kind):
 def test_search_quantize_matches_jax_bit_exact(fmt, kind):
     """search=True (make_qkx2_quants / make_qx_quants-style): the candidate
     kept is an argmin over f32 sums, bit-equal because the sums run in the
-    JAX package's order."""
+    JAX package's (and ggml's) left-to-right order and the weights' square
+    root is correctly rounded on both sides (_sqrt_rn)."""
     x = _inputs(kind, (4, 512), seed=3 + len(kind))
     jqt = jquantize(jnp.asarray(x), JGType[fmt], search=True)
     qt = quantize(torch.from_numpy(x), GType[fmt], search=True)
     assert to_wire(qt) == jax_wire(jqt)
+
+
+def test_search_weight_root_is_correctly_rounded():
+    """The search weights' root is the f32 rounding of the exact root, on
+    values spread over the range the weights' mean squares take (PyTorch's
+    vectorised CPU root is not, on some hosts)."""
+    rng = np.random.default_rng(17)
+    v = (10.0 ** rng.uniform(-12, 6, 4096)).astype(np.float32)
+    want = np.sqrt(v.astype(np.float64)).astype(np.float32)
+    got = _sqrt_rn(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.sqrt(v))
 
 
 @pytest.mark.parametrize("fmt", ["Q8_1", "Q8_K"])

@@ -244,7 +244,21 @@ def test_flat_int8_forward_matches_jax(models, exact_jax, acts):
     """B = 2 with uneven npast over a flat INT8 cache: a 12-token prefill
     (flash over the fresh K/V), three decode steps (attn_decode), a 3-token
     step (einsum over the dequantized live rows) and a 10-token step over
-    the live prefix (flash over a head-major copy)."""
+    the live prefix (flash over a head-major copy).
+
+    Weight-only, each call starts both packages from the same cache,
+    JAX's. A one-ulp f32 difference in a K/V value (summation order, libm)
+    can move its INT8 rounding by a whole step, and every later call reads
+    that element: on this input one V element of the prefill's 6144 flips,
+    and moves the next call's logits by 1.5e-4, past the weight-only bar.
+    So the cache a call writes is held on its own: scales to 1e-5 relative
+    (each is the largest of a row's 256-term f32 dot products over 127,
+    and the two packages' sums differ there by up to ten ulps), INT8
+    values within one step, and at most one element in a thousand a step
+    apart (a flip needs the value within an ulp or so of a rounding
+    boundary). With the Q8_0 activation round trip each package runs on
+    the cache it wrote itself, and a wrong INT8 value or scale shows in
+    the next call's logits at the 2e-2 bar."""
     jcfg, jq, tcfg, tq = models
     rng = np.random.default_rng(11)
     jc = jllama.new_cache(jcfg, 2, int8=True, max_len=64)
@@ -265,6 +279,21 @@ def test_flat_int8_forward_matches_jax(models, exact_jax, acts):
                                    cached_prefix=cached)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                    atol=acts, err_msg=f"call {i} (S={S})")
+        if not get_config().quantize_activations:
+            for name in ("k_scale", "v_scale", "k", "v"):  # per layer
+                want = np.asarray(getattr(jc, name))
+                got = getattr(tc, name)
+                have = torch.stack(got).numpy()
+                if name.endswith("scale"):
+                    np.testing.assert_allclose(have, want, rtol=1e-5, atol=0,
+                                               err_msg=name)
+                else:
+                    step = np.abs(have.astype(np.int32) - want)
+                    assert step.max() <= 1, (name, i)
+                    assert np.count_nonzero(step) <= step.size // 1000, \
+                        (name, i, np.count_nonzero(step))
+                for t, w in zip(got, want):
+                    t.copy_(torch.from_numpy(w.copy()))
         length = pos[:, -1] + 1
         if i == 0:
             length = np.array([12, 7], np.int32)  # slot 1: 5 pad rows

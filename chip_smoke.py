@@ -11,7 +11,10 @@ version):
      shapes the paths give it (kernel 3 also against its split algorithm,
      _decode_ref_split, at the splits its wrapper chooses), kernels 2 and 3
      at ragged edges, and every launch geometry of the three dequant-matmul
-     sources against the default bit for bit;
+     sources against the default bit for bit; the Q4_0 and kernel A
+     dequant-matmuls at b 1, 2, 5, 8, 16, 128 (both instances) at every 7B
+     shape and 4099 x 11008, and a row's bits equal at every b that takes
+     the multi-row instance;
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
@@ -59,8 +62,8 @@ version):
      copy ceiling at 8 MB and 1 GiB; the byte map; the K-major matvec; the
      f16 decode, block maps and bad-entry map), the tune table's entries
      timed against the default geometry at b = 1, where dispatch reads
-     them, and at b = 8, where it does not (its card checked against this
-     one), and the host cost of the table's lookup, and
+     them (its card checked against this one), and the host cost of the
+     table's lookup, and
      i. LLAMA_13B Q4_0 (full width and depth, random weights quantized on
         the card) at b = 1: a 16-token prompt and 8 greedy tokens, every
         b = 1 matmul through matmul_q4_0 at the tune table's geometry for
@@ -80,12 +83,15 @@ version):
      for path e in Q4_K and Q6_K; path g's step time, tokens/s, share of
      the bf16 dense peak and peak memory.
 
-``python3 chip_smoke.py --attention-timing [ROOT]`` is a development
-mode with no compatibility promise: it builds and times only kernels 2
-and 3 at those shapes, from the package under ROOT (default: this
-checkout), so that a parent checkout's kernels and this one's are timed by
-one script on one card. It imports whatever package ROOT holds, and works
-only while ROOT's wrappers take this file's call signatures.
+``python3 chip_smoke.py --attention-timing [ROOT]`` and ``--matmul-timing
+[ROOT]`` are development modes with no compatibility promise: they build
+and time only kernels 2 and 3 at those shapes, or only the Q4_0 and kernel
+A dequant-matmuls (every 7B shape in Q4_0, Q4_K and Q6_K at b 1, 2, 4, 8,
+16, 128; the other formats at w_gate_up, b 1 and 16), from the package under
+ROOT (default: this checkout), so that a parent checkout's kernels and
+this one's are timed by one script on one card. They import whatever
+package ROOT holds, and work only while ROOT's wrappers take this file's
+call signatures.
 
 Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
@@ -147,17 +153,6 @@ def time_ms(fn, reps, warmup=3):
     return graph_time_ms(fn, reps, warmup)
 
 
-def q4_bound_ms(b, n, k, q8_acts):
-    """Bytes: packed weight, x and y once each. Operations: 2*b*n*k; after
-    the Q8_0 round trip the operands are int8 x int4 values, which the
-    int8 tensor cores multiply exactly; the LM head's x stays f32."""
-    bytes_ = n * k * 18 // 32 + b * k * 4 + b * n * 4
-    flops = 2 * b * n * k
-    t_bytes = bytes_ / HBM_BYTES_S
-    t_ops = flops / (INT8_OP_S if q8_acts else F32_FLOP_S)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def flash_bound_ms(B, Hq, Hkv, S, D, npast, kv_itemsize):
     """Bytes of q, out and the K/V rows causality keeps; f32 FMAs of the
     kept scores. npast: list of ints, one a batch entry."""
@@ -169,59 +164,120 @@ def flash_bound_ms(B, Hq, Hkv, S, D, npast, kv_itemsize):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_q4_0(dev, gen):
-    """Kernel (through its wrapper) vs plain at every 7B shape, b in {1, 16}.
-    Tolerance: the two sum K f32 products in different orders; allow 1e-5
-    of sum_k |x_k w_nk| (2^-24 is 6e-8 a rounding)."""
+CHECK_B = (1, 2, 5, 8, 16, 128)  # both instances; 5 and 128: ragged tiles
+MMA_B = (2, 5, 8, 16, 128)       # the rows that take the multi-row instance
+RAGGED = ("ragged", 4099, 11008, 0)  # N a multiple of no tile, K 43 superblocks
+SHORT_K = ("short_k", 4099, 4128, 0)  # legacy formats: K % 256 = 32, a short last chunk
+
+
+def check_weight_rows(dev, gen, fmt, tag):
+    """The dequant-matmul of weight format ``fmt`` (through
+    mul_mat_q_fused, which picks the instance for b) vs the plain
+    mul_mat_q at every 7B shape and the ragged 4099 x 11008, b in CHECK_B,
+    with the Q8 activation round trip but at the LM head; for the legacy
+    formats also at SHORT_K (K not a multiple of the multi-row instance's
+    256-column chunk), f32 and Q8 x. Tolerance: the two sum f32 terms in different orders, with the min
+    terms folded through per-block activation sums: 1e-5 of sum_k |x_k|
+    (|q d| + |m|)_nk (2^-24 is 6e-8 a rounding). Returns the largest
+    error; raises on a disagreement."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused
-    from ggmlsharp_tpu_torch.models.llama import random_q4_0
-    from ggmlsharp_tpu_torch.ops import mul_mat_q
+    from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     worst, rows = 0.0, []
-    for name, n, k, _ in Q4_SHAPES:
-        w = random_q4_0(n, k, gen, dev)
-        wabs = dequantize(w).abs()
-        # b = 1 and 8 slots decode; 16 and 8 x 16 rows prefill
-        for b in (1, SLOTS, 16, SLOTS * 16):
+    shapes = [*Q4_SHAPES, RAGGED]
+    if fmt not in ("Q4_K", "Q6_K"):  # the k-quants need K % 256 == 0
+        shapes.append(SHORT_K)
+    for name, n, k, _ in shapes:
+        w = random_weight(fmt, n, k, gen, dev)
+        wabs = weight_abs_terms(w)
+        # the LM head skips the Q8 round trip
+        acts = ((False, True) if name == "short_k"
+                else (name != "output",))
+        for b in CHECK_B:
             x = torch.randn((b, k), generator=gen, device=dev)
-            qa = name != "output"  # the LM head skips the Q8 round trip
-            got = mul_mat_q_fused(w, x, quantize_acts=qa)
-            want = mul_mat_q(w, x, quantize_acts=qa)
-            scale = x.abs() @ wabs.T
-            err = (got - want).abs()
-            torch.cuda.synchronize()
-            ok = bool(torch.isfinite(got).all()) and bool(
-                (err <= 1e-5 * scale).all())
-            e = float(err.max())
-            worst = max(worst, e)
-            rows.append({"shape": name, "b": b, "n": n, "k": k,
-                         "max_abs_err": e,
-                         "max_err_over_sum_abs": float((err / scale).max()),
-                         "ok": ok})
-            if not ok:
-                emit({"q4_0_check": rows})
-                raise SystemExit(f"Q4_0 kernel disagrees at {name} b={b}")
+            for qa in acts:
+                got = mul_mat_q_fused(w, x, quantize_acts=qa)
+                want = mul_mat_q(w, x, quantize_acts=qa)
+                xq = dequantize(quantize_activations(x, w.gtype)) if qa \
+                    else x
+                scale = xq.abs() @ wabs.T
+                err = (got - want).abs()
+                torch.cuda.synchronize()
+                ok = bool(torch.isfinite(got).all()) and bool(
+                    (err <= 1e-5 * scale).all())
+                e = float(err.max())
+                worst = max(worst, e)
+                rows.append({"format": fmt, "shape": name, "b": b, "n": n,
+                             "k": k, "acts": "q8" if qa else "f32",
+                             "max_abs_err": e,
+                             "max_err_over_sum_abs": float(
+                                 (err / scale).max()),
+                             "ok": ok})
+                if not ok:
+                    emit({tag: rows})
+                    raise SystemExit(f"{fmt} dequant-matmul disagrees: "
+                                     f"{rows[-1]}")
         del w, wabs
-    emit({"q4_0_check": rows})
+    emit({tag: rows})
     return worst
 
 
-def q4_rows_independent_of_b(dev, gen):
-    """Whether a row's Q4_0 result is bit for bit the same at b = 1, 8 and
-    128 (the kernel has one instantiation for b = 1, another for b > 1)."""
+def rows_independent_of_b(dev, gen, fmt):
+    """Whether a row's result is bit for bit the same at every b that takes
+    the multi-row instance (MMA_B: each against b = 128), for f32 x and for
+    Q8 activations (mma_q8_matmul), at 4096 x 4096 (K split 16 ways) and
+    the ragged 4099 x 11008; and whether b = 1, the other instance (another
+    order of sums by design), agrees with it within check_weight_rows'
+    bar."""
     import torch
 
-    from ggmlsharp_tpu_torch.kernels.matmul_q import q4_0_matmul
-    from ggmlsharp_tpu_torch.models.llama import random_q4_0
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels.matmul_q import (mma_q8_matmul,
+                                                      mul_mat_q_fused)
+    from ggmlsharp_tpu_torch.ops import quantize_activations
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
-    w = random_q4_0(4096, 4096, gen, dev)
-    x = torch.randn((SLOTS * 16, 4096), generator=gen, device=dev)
-    y = q4_0_matmul(x, w["qs"], w["d"])
-    return all(torch.equal(y[:b], q4_0_matmul(x[:b].contiguous(), w["qs"],
-                                              w["d"])) for b in (1, SLOTS))
+    res = {}
+    for n, k in ((4096, 4096), RAGGED[1:3]):
+        w = random_weight(fmt, n, k, gen, dev)
+        wabs = weight_abs_terms(w).T
+        x = torch.randn((MMA_B[-1], k), generator=gen, device=dev)
+        for acts in ("f32", "q8"):
+            if acts == "f32":
+                call = lambda xs: mul_mat_q_fused(w, xs, quantize_acts=False)
+                xr = x
+            else:
+                call = lambda xs: mma_q8_matmul(
+                    w, quantize_activations(xs, GType[fmt]))
+                xr = dequantize(quantize_activations(x, GType[fmt]))
+            y = call(x)
+            same = all(torch.equal(y[:b], call(x[:b].contiguous()))
+                       for b in MMA_B[:-1])
+            err = (mul_mat_q_fused(w, x[:1], quantize_acts=acts == "q8")
+                   - y[:1]).abs()
+            res[f"{n}x{k} {acts}"] = {
+                "mma_rows_bit_equal": same,
+                "b1_vs_mma_err_over_sum_abs":
+                    float((err / (xr[:1].abs() @ wabs)).max())}
+    res["ok"] = all(r["mma_rows_bit_equal"]
+                    and r["b1_vs_mma_err_over_sum_abs"] <= 1e-5
+                    for r in res.values())
+    return res
+
+
+def check_q4_0(dev, gen):
+    """matmul_q4_0.cu's two instances vs plain (check_weight_rows)."""
+    return check_weight_rows(dev, gen, "Q4_0", "q4_0_check")
+
+
+def q4_rows_independent_of_b(dev, gen):
+    """rows_independent_of_b for Q4_0, printed; True if it holds."""
+    res = rows_independent_of_b(dev, gen, "Q4_0")
+    emit({"q4_0_rows_vs_b": res})
+    return res["ok"]
 
 
 def rms_rows_independent_of_b(dev, gen, trials=64):
@@ -414,6 +470,13 @@ def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
     return worst
 
 
+def dq_launches(kern, multi, single):
+    """Expected launches of a dequant-matmul source: ``multi`` of its
+    multi-row instance (counter ``<kern>_mma``, b >= MMA_MIN_ROWS) and
+    ``single`` of its b = 1 instance."""
+    return {f"{kern}_mma": multi, kern: single}
+
+
 def run_main_path(cfg, params, prompt):
     """sampling.generate through the kernels, counters reset just before."""
     import torch
@@ -431,7 +494,8 @@ def run_main_path(cfg, params, prompt):
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     want = dict.fromkeys(kernels.LAUNCHES, 0) | {
-        "matmul_q4_0": 129 * (1 + N_NEW),  # 4 a block x 32 + LM head
+        # 4 a block x 32 + LM head: the prompt's at 16 rows, each token's at 1
+        **dq_launches("matmul_q4_0", 129, 129 * N_NEW),
         "flash_attn": cfg.n_layer}         # one a layer, prefill only
     # attn_decode 0: a head-major cache decodes through einsum
     emit({"main_path": {"tokens": toks[0].tolist(), "seconds": seconds,
@@ -567,7 +631,9 @@ def run_serving(cfg, params):
     st = eng.stats()
     n_dec, n_pre = st["decode_forwards"], st["prefill_dispatches"]
     want = dict.fromkeys(kernels.LAUNCHES, 0) | {
-        "matmul_q4_0": (4 * cfg.n_layer + 1) * (n_dec + n_pre),
+        # every forward batches 8 slots (decode) or 8 prompts (prefill)
+        **dq_launches("matmul_q4_0", (4 * cfg.n_layer + 1) * (n_dec + n_pre),
+                      0),
         "flash_attn": cfg.n_layer * n_pre,
         "attn_decode": cfg.n_layer * n_dec}
     res = {"requests": len(results), "seconds": seconds, "stats": st,
@@ -736,48 +802,119 @@ def http_check(eng, cfg):
     return res
 
 
-def time_q4_0(dev, gen, counts):
-    """Cold-L2 kernel, plain and library (bf16 torch.matmul against the
-    weight dequantized to bf16) times at each shape, b in {1, 16}."""
+TIMING_B = (1, 2, 4, 8, 16, 128)  # --matmul-timing's activation rows
+PHASE5_B = (1, 8, 16, 128)     # phase 5's: decode, a serving tick,
+                               # a prompt, a serving prefill
+
+
+def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
+    """Cold-L2 times of the dequant-matmul of weight format ``fmt``
+    (matmul_q4_0.cu for Q4_0, else kernel A) through its wrappers, which
+    pick the instance for b, at each (name, N, K, launches a forward) of
+    ``shapes`` and each b of ``bs``, in two rows: ``acts`` "f32", x as it
+    comes (the LM head's case), and, but at the LM head, "q8", x rounded
+    through the format's Q8 activation type, the operands the path's other
+    matmuls hand the kernel (the multi-row instance takes the Q8 values,
+    kernels.matmul_q.mma_q8_matmul, where the package has it; else the
+    wrapper takes the rounded x in f32). Each row: the kernel, the library
+    call (bf16 torch.matmul of x against the weight dequantized to bf16)
+    and, with ``plain``, the plain version; the bound (wq_bound_ms).
+    Weights are random from the seed, rotated over copies past four L2
+    sizes."""
     import torch
 
-    from ggmlsharp_tpu_torch.kernels.matmul_q import q4_0_matmul
-    from ggmlsharp_tpu_torch.models.llama import random_q4_0
-    from ggmlsharp_tpu_torch.ops import mul_mat_q
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels import matmul_q as mq
+    from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
+    call = ((lambda x, w: mq.q4_0_matmul(x, w["qs"], w["d"]))
+            if fmt == "Q4_0" else mq.q_matmul)
+    q8_call = getattr(mq, "mma_q8_matmul", None)
+    min_rows = getattr(mq, "MMA_MIN_ROWS", 2)
     rows = []
-    for name, n, k, per_tok in Q4_SHAPES:
-        copies = max(2, -(-4 * L2_BYTES // (n * k * 18 // 32)))
-        ws = [random_q4_0(n, k, gen, dev) for _ in range(copies)]
-        wb = [dequantize(w).to(torch.bfloat16) for w in ws]
-        for b in (1, 16):
+    for name, n, k, per_fwd in shapes:
+        w0 = random_weight(fmt, n, k, gen, dev)
+        wbytes = w0.nbytes()
+        copies = max(2, -(-4 * L2_BYTES // wbytes))
+        ws = [w0] + [random_weight(fmt, n, k, gen, dev)
+                     for _ in range(copies - 1)]
+        wb = [dequantize(w, fused_scales=True).to(torch.bfloat16)
+              for w in ws]
+        reps = max(50, copies)
+        for b in bs:
             x = torch.randn((b, k), generator=gen, device=dev)
-            xb = x.to(torch.bfloat16)
-            reps = 50
-            kern = time_ms(lambda i: q4_0_matmul(x, ws[i % copies]["qs"],
-                                                 ws[i % copies]["d"]), reps)
-            plain = time_ms(lambda i: mul_mat_q(ws[i % copies], x,
-                                                quantize_acts=False), 10)
-            lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T), reps)
-            bound, by = q4_bound_ms(b, n, k, q8_acts=name != "output")
-            rows.append({"shape": name, "b": b, "n": n, "k": k, "ms": kern,
-                         "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": bound, "bound_by": by,
-                         "roofline_share": bound / kern,
-                         "launches_per_token": per_tok if b == 1 else 0})
+            for acts in ("f32",) if name == "output" else ("f32", "q8"):
+                x_bytes = b * k * 4  # f32 x
+                if acts == "f32":
+                    xr, kern = x, (lambda i: call(x, ws[i % copies]))
+                elif q8_call is not None and b >= min_rows:
+                    aq = quantize_activations(x, GType[fmt])
+                    xr = dequantize(aq)
+                    kern = lambda i: q8_call(ws[i % copies], aq)
+                    x_bytes = aq["qs"].nbytes + aq["d"].nbytes
+                else:
+                    xr = dequantize(quantize_activations(x, GType[fmt]))
+                    kern = lambda i: call(xr, ws[i % copies])
+                xb = xr.to(torch.bfloat16)
+                ms = time_ms(kern, reps)
+                lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
+                              reps)
+                bound, by = wq_bound_ms(b, n, k, wbytes, x_bytes,
+                                        acts == "q8")
+                row = {"format": fmt, "shape": name, "b": b, "acts": acts,
+                       "n": n, "k": k, "weight_bytes": wbytes, "ms": ms,
+                       "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                       "roofline_share": bound / ms, "cold_copies": copies,
+                       "launches_per_forward": per_fwd}
+                if plain:
+                    row["plain_ms"] = time_ms(
+                        lambda i: mul_mat_q(ws[i % copies], xr,
+                                            quantize_acts=False), 8)
+                rows.append(row)
         del ws, wb
         torch.cuda.empty_cache()
+    return rows
+
+
+def forward_sum(rows, fmt, b):
+    """ms, plain, library and bound of one forward's launches at b rows
+    as the path runs them: each shape's time times its launches a forward,
+    the Q8-activation row where the shape has one (all but the LM head)."""
+    sel = [r for r in rows if r["format"] == fmt and r["b"] == b]
+    sel = [r for r in sel if r["acts"] == "q8" or not any(
+        o["shape"] == r["shape"] and o["acts"] == "q8" for o in sel)]
+    return {key: sum(r[key] * r["launches_per_forward"] for r in sel)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+            if all(key in r for r in sel)}
+
+
+def time_q4_0(dev, gen, counts):
+    """Phase 5 of matmul_q4_0.cu at every 7B shape, b in PHASE5_B: the
+    kernels-line rows of its b = 1 instance (one decode token: 129
+    launches) and its multi-row instance (one prompt forward of path a:
+    129 launches at b = 16)."""
+    rows = time_weight_rows(dev, gen, "Q4_0", Q4_SHAPES, PHASE5_B)
     emit({"q4_0_timing": rows})
-    # one decode token: 32 x (wqkv, wo, w_gate_up, w_down) + LM head at b = 1
-    dec = [r for r in rows if r["b"] == 1]
-    tot = {key: sum(r[key] * r["launches_per_token"] for r in dec)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return {"name": "matmul_q4_0", "route": "cuda",
-            "source": "ggmlsharp_tpu_torch/csrc/matmul_q4_0.cu",
-            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377",
-            "launches": counts["matmul_q4_0"], **tot, "bound_by": "bytes",
-            "unit": "one decode token: the 129 b=1 launches, cold L2"}
+    b1 = {"name": "matmul_q4_0", "route": "cuda",
+          "source": "ggmlsharp_tpu_torch/csrc/matmul_q4_0.cu",
+          "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377",
+          "launches": counts["matmul_q4_0"], **forward_sum(rows, "Q4_0", 1),
+          "bound_by": "bytes",
+          "unit": "one decode token: the 129 b=1 launches, cold L2"}
+    mma = {"name": "matmul_q4_0_mma", "route": "cuda",
+           "source": "ggmlsharp_tpu_torch/csrc/matmul_q4_0.cu",
+           "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377",
+           "launches": counts["matmul_q4_0_mma"],
+           **forward_sum(rows, "Q4_0", 16), "bound_by": "bytes",
+           "b8_forward": forward_sum(rows, "Q4_0", 8),
+           "b128_forward": forward_sum(rows, "Q4_0", 128),
+           "unit": "one prompt forward of path a: the 129 launches at b=16 "
+                   "(the multi-row instance, csrc/dq_mma.cuh; Q8 activations "
+                   "but at the LM head), cold L2; "
+                   "b8/b128_forward: the same 129 at b=8 (a serving tick) "
+                   "and b=128 (a serving prefill)"}
+    return b1, mma
 
 
 def attn_decode_bound_ms(B, Hq, Hkv, D, npast, kv_bytes=1):
@@ -1668,51 +1805,15 @@ def weight_abs_terms(w):
 
 
 def check_matmul_q(dev, gen):
-    """Kernel A (through mul_mat_q_fused) vs plain mul_mat_q for its seven
-    formats at every 7B shape (K 4096 and 11008), b in {1, 16}. Tolerance:
-    f32 summation order, with the min terms folded through per-block
-    activation sums: 1e-5 of sum_k |x_k| (|q d| + |m|)_nk (2^-24 is 6e-8 a
-    rounding). Then whether a row's result is bit for bit the same at b =
-    1, 8 and 128, for each format."""
-    import torch
-
-    from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused, q_matmul
-    from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
-    from ggmlsharp_tpu_torch.quant.quantize import dequantize
-
-    worst, rows, same = {}, [], {}
+    """Kernel A's two instances vs plain for its seven formats
+    (check_weight_rows), then rows_independent_of_b for each format;
+    raises if a format's rows depend on b."""
+    worst, same = {}, {}
     for fmt in A_FORMATS:
-        for name, n, k, _ in Q4_SHAPES:
-            w = random_weight(fmt, n, k, gen, dev)
-            wabs = weight_abs_terms(w)
-            for b in (1, 16):
-                x = torch.randn((b, k), generator=gen, device=dev)
-                qa = name != "output"  # the LM head skips the round trip
-                got = mul_mat_q_fused(w, x, quantize_acts=qa)
-                want = mul_mat_q(w, x, quantize_acts=qa)
-                xq = dequantize(quantize_activations(x, w.gtype)) if qa else x
-                scale = xq.abs() @ wabs.T
-                err = (got - want).abs()
-                torch.cuda.synchronize()
-                ok = bool(torch.isfinite(got).all()) and bool(
-                    (err <= 1e-5 * scale).all())
-                e = float(err.max())
-                worst[fmt] = max(worst.get(fmt, 0.0), e)
-                rows.append({"format": fmt, "shape": name, "b": b, "n": n,
-                             "k": k, "max_abs_err": e,
-                             "max_err_over_sum_abs": float((err / scale).max()),
-                             "ok": ok})
-                if not ok:
-                    emit({"matmul_q_check": rows})
-                    raise SystemExit(f"matmul_q disagrees: {rows[-1]}")
-            del w, wabs
-        w = random_weight(fmt, 4096, 4096, gen, dev)
-        x = torch.randn((SLOTS * 16, 4096), generator=gen, device=dev)
-        y = q_matmul(x, w)
-        same[fmt] = all(torch.equal(y[:b], q_matmul(x[:b].contiguous(), w))
-                        for b in (1, SLOTS))
-    emit({"matmul_q_check": rows, "rows_independent_of_b": same})
-    if not all(same.values()):
+        worst[fmt] = check_weight_rows(dev, gen, fmt, "matmul_q_check")
+        same[fmt] = rows_independent_of_b(dev, gen, fmt)
+    emit({"matmul_q_rows_vs_b": same})
+    if not all(r["ok"] for r in same.values()):
         raise SystemExit(f"a matmul_q row's result depends on b: {same}")
     return worst
 
@@ -1785,75 +1886,58 @@ def quantizers_on_card(dev, gen):
     return res
 
 
-def wq_bound_ms(b, n, k, wbytes, q8_acts):
-    """Bytes: the packed weight as the kernel reads it, x and y once each.
-    Operations: 2*b*n*k; after the Q8 round trip the operands are int8 x
-    int4..int6 values, which the int8 tensor cores multiply exactly; the LM
-    head's x stays f32."""
-    t_bytes = (wbytes + b * k * 4 + b * n * 4) / HBM_BYTES_S
-    t_ops = 2 * b * n * k / (INT8_OP_S if q8_acts else F32_FLOP_S)
+def wq_bound_ms(b, n, k, wbytes, x_bytes, q8_acts):
+    """Bytes: the packed weight as the kernel reads it, the activations as
+    the timed call takes them (``x_bytes``: f32 x, b*k*4, or the Q8 int8
+    values and their block scales) and y, once each. Operations, the least
+    any implementation needs on this card: after the Q8 round trip the
+    operands are int8 x int4..int6 values, which the int8 tensor cores
+    multiply exactly (2*b*n*k at INT8_OP_S); the LM head's x stays f32,
+    which bf16 tensor cores multiply exactly as three products a term (x in
+    three bf16 planes: 6*b*n*k at BF16_FLOP_S)."""
+    t_bytes = (wbytes + x_bytes + b * n * 4) / HBM_BYTES_S
+    t_ops = (2 * b * n * k / INT8_OP_S if q8_acts
+             else 6 * b * n * k / BF16_FLOP_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_matmul_q(dev, gen, counts):
-    """Cold-L2 kernel A, plain and library (bf16 torch.matmul against the
-    weight dequantized to bf16) times: Q4_K and Q6_K at every 7B shape, b in
-    {1, 16}; the other formats at w_gate_up, b = 1. The row: one decode
-    token of path e1 (Q4_K), its 129 b = 1 launches."""
-    import torch
-
-    from ggmlsharp_tpu_torch.kernels.matmul_q import q_matmul
-    from ggmlsharp_tpu_torch.ops import mul_mat_q
-    from ggmlsharp_tpu_torch.quant.quantize import dequantize
-
+    """Phase 5 of kernel A: Q4_K and Q6_K at every 7B shape, b in
+    PHASE5_B; the other formats at w_gate_up, b 1 and 16. The kernels-line
+    rows of its b = 1 instance (one decode token of path e1, Q4_K: its 129
+    b = 1 launches) and its multi-row instance (path e1's prompt forward:
+    129 launches at b = 16)."""
     rows = []
     for fmt in A_FORMATS:
-        shapes = Q4_SHAPES if fmt in E_FORMATS else Q4_SHAPES[2:3]
-        for name, n, k, per_tok in shapes:
-            w0 = random_weight(fmt, n, k, gen, dev)
-            wbytes = w0.nbytes()
-            copies = max(2, -(-4 * L2_BYTES // wbytes))
-            ws = [w0] + [random_weight(fmt, n, k, gen, dev)
-                         for _ in range(copies - 1)]
-            wb = [dequantize(w, fused_scales=True).to(torch.bfloat16)
-                  for w in ws]
-            for b in ((1, 16) if fmt in E_FORMATS else (1,)):
-                x = torch.randn((b, k), generator=gen, device=dev)
-                xb = x.to(torch.bfloat16)
-                kern = time_ms(lambda i: q_matmul(x, ws[i % copies]),
-                               max(50, copies))
-                plain = time_ms(lambda i: mul_mat_q(ws[i % copies], x,
-                                                    quantize_acts=False), 8)
-                lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
-                              max(50, copies))
-                bound, by = wq_bound_ms(b, n, k, wbytes, name != "output")
-                rows.append({"format": fmt, "shape": name, "b": b, "n": n,
-                             "k": k, "weight_bytes": wbytes, "ms": kern,
-                             "plain_ms": plain, "library_ms": lib,
-                             "bound_ms": bound, "bound_by": by,
-                             "roofline_share": bound / kern,
-                             "cold_copies": copies,
-                             "launches_per_token": per_tok if b == 1 else 0})
-            del ws, wb
-            torch.cuda.empty_cache()
+        if fmt in E_FORMATS:
+            rows += time_weight_rows(dev, gen, fmt, Q4_SHAPES, PHASE5_B)
+        else:
+            rows += time_weight_rows(dev, gen, fmt, Q4_SHAPES[2:3], (1, 16))
     emit({"matmul_q_timing": rows})
-
-    def token(fmt):
-        dec = [r for r in rows if r["format"] == fmt and r["b"] == 1]
-        return {key: sum(r[key] * r["launches_per_token"] for r in dec)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-
-    gu = {r["format"]: r["ms"] for r in rows
-          if r["shape"] == "w_gate_up" and r["b"] == 1}
-    return {"name": "matmul_q", "route": "cuda",
-            "source": "ggmlsharp_tpu_torch/csrc/matmul_q.cu",
-            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377 (and :199, "
-                        ":737)",
-            "launches": counts["matmul_q"], **token("Q4_K"),
-            "bound_by": "bytes", "q6_k_token": token("Q6_K"),
-            "w_gate_up_b1_ms": gu,
-            "unit": "one decode token of path e1 (Q4_K): the 129 b=1 "
-                    "launches, cold L2; library = bf16 torch.matmul"}
+    gu = {b: {r["format"]: r["ms"] for r in rows if r["shape"] == "w_gate_up"
+              and r["b"] == b and r["acts"] == "q8"} for b in (1, 16)}
+    b1 = {"name": "matmul_q", "route": "cuda",
+          "source": "ggmlsharp_tpu_torch/csrc/matmul_q.cu",
+          "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377 (and :199, "
+                      ":737)",
+          "launches": counts["matmul_q"], **forward_sum(rows, "Q4_K", 1),
+          "bound_by": "bytes", "q6_k_token": forward_sum(rows, "Q6_K", 1),
+          "w_gate_up_b1_ms": gu[1],
+          "unit": "one decode token of path e1 (Q4_K): the 129 b=1 "
+                  "launches, cold L2; library = bf16 torch.matmul"}
+    mma = {"name": "matmul_q_mma", "route": "cuda",
+           "source": "ggmlsharp_tpu_torch/csrc/matmul_q.cu",
+           "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377 (and :199, "
+                       ":737)",
+           "launches": counts["matmul_q_mma"],
+           **forward_sum(rows, "Q4_K", 16), "bound_by": "bytes",
+           "q6_k_prompt": forward_sum(rows, "Q6_K", 16),
+           "w_gate_up_b16_ms": gu[16],
+           "unit": "one prompt forward of path e1 (Q4_K): the 129 launches "
+                   "at b=16 (the multi-row instance, csrc/dq_mma.cuh; Q8_K "
+                   "activations but at the LM head), cold L2; library = bf16 "
+                   "torch.matmul"}
+    return b1, mma
 
 
 def time_int_dot(dev, gen, counts):
@@ -1923,6 +2007,7 @@ def run_format_paths(cfg, prompt, gen):
     import torch
 
     from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels._build import KERNELS
     from ggmlsharp_tpu_torch.kernels.matmul_q import KERNEL_OF
     from ggmlsharp_tpu_torch.models import llama
 
@@ -1933,12 +2018,17 @@ def run_format_paths(cfg, prompt, gen):
         for fmt in formats:
             params = llama.synthetic_params(fcfg, GType[fmt], seed=SEED)
             kern = KERNEL_OF[GType[fmt]]
+            # the prompt's matmuls at 16 rows (Q8_0: its RB = 8 instance)
+            prompt_ = (dq_launches(kern, 4 * L + 1, 0)
+                       if f"{kern}_mma" in KERNELS else {kern: 4 * L + 1})
             if route == "f1":
-                want = {kern: (4 * L + 1) * (1 + F_NEW), "flash_attn": L}
+                want = {**prompt_, "flash_attn": L}
+                want[kern] += (4 * L + 1) * F_NEW
             else:
                 os.environ["GGML_TPU_INT_DOT"] = "1"
-                want = {kern: 4 * L + 1 + F_NEW, "flash_attn": L,
+                want = {**prompt_, "flash_attn": L,
                         "matmul_int_dot": 4 * L * F_NEW}
+                want[kern] += F_NEW  # the LM head's x stays f32
             try:
                 toks, counts = run_fused_path(
                     fcfg, params, prompt, f"{route} {fmt}", F_NEW, want,
@@ -2807,10 +2897,11 @@ def tune_rows(res):
 def check_tune_table(dev, gen, smi):
     """The packaged tune table: its card against this one (a different card
     is an error line), each entry legal, and each entry timed against the
-    default geometry at its shape, cold L2, three rounds in turns: at
-    b = 1, where dispatch reads the table, and at b = 8 (the other
-    instance of each source), where dispatch launches the default. Then
-    the host time of one dispatch lookup (matmul_q.geometry)."""
+    default geometry at its shape, cold L2, three rounds in turns, at
+    b = 1, the only instance that reads a geometry (more rows take Q8_0's
+    RB = 8 instance at the default, the other formats' multi-row instance
+    at none). Then the host time of one dispatch lookup
+    (matmul_q.geometry)."""
     import statistics
 
     import torch
@@ -2837,7 +2928,7 @@ def check_tune_table(dev, gen, smi):
         fn = autotune.launcher(kern)
         reps = int(min(200, max(20, 1e-3 * 2.5e12 / ws[0].nbytes())))
         row = {"key": key, "geometry": list(geom)}
-        for b in (1, 8):
+        for b in (1,):
             x = torch.randn((b, k), generator=gen, device=dev)
             s = {"default": [], "table": []}
             for _ in range(3):
@@ -2856,11 +2947,9 @@ def check_tune_table(dev, gen, smi):
     for _ in range(calls):
         matmul_q.geometry(kern0, n0, k0, g0)
     lookup_us = (time.perf_counter() - h0) * 1e6 / calls
-    gains = {b: [r[b]["gain"] for r in rows] or [1.0] for b in ("b1", "b8")}
+    gains = [r["b1"]["gain"] for r in rows] or [1.0]
     out = {"card": tcard, "entries": len(rows), "rows": rows,
-           "gain_b1_median": statistics.median(gains["b1"]),
-           "gain_b8_median": statistics.median(gains["b8"]),
-           "entries_slower_at_b8": sum(v < 1 for v in gains["b8"]),
+           "gain_b1_median": statistics.median(gains),
            "lookup_us_per_launch": lookup_us,
            "seconds": time.perf_counter() - t0}
     emit({"tune_check": out})
@@ -2902,17 +2991,18 @@ def run_13b_path(dev, gen, smi):
     L = cfg.n_layer
     toks, counts = run_fused_path(
         cfg, params, prompt, "i LLAMA_13B Q4_0, head-major bf16 cache",
-        I_NEW, {"matmul_q4_0": (4 * L + 1) * (1 + I_NEW), "flash_attn": L},
-        tag="llama_13b_path")
+        I_NEW, {**dq_launches("matmul_q4_0", 4 * L + 1, (4 * L + 1) * I_NEW),
+                "flash_attn": L}, tag="llama_13b_path")
     geo = {k: v for k, v in _build.GEOMETRY_LAUNCHES.items()}
     shapes = {}
     for (kern, n, k, w, r, b), c in geo.items():
-        want = geometry(kern, n, k, GType.Q4_0, b)
+        want = geometry(kern, n, k, GType.Q4_0) if b == 1 else (None, None)
         shapes[f"{n}x{k} b{b}"] = {
             "geometry": [w, r], "launches": c,
             "from_table": b == 1
             and tune.lookup(kern, n, k, GType.Q4_0) is not None}
-        if kern != "matmul_q4_0" or (w, r) != want:
+        if kern != ("matmul_q4_0" if b == 1 else "matmul_q4_0_mma") \
+                or (w, r) != want:
             raise SystemExit(f"path i launched {kern} {n}x{k} b {b} at "
                              f"{(w, r)}; dispatch gives {want}")
     errs = [compare_plain(llama, cfg, params, prompt, quant_acts=True,
@@ -3073,6 +3163,36 @@ def attention_timing(dev):
     time_attention(dev, gen)
 
 
+def matmul_timing(dev):
+    """--matmul-timing [ROOT], a development mode (no compatibility
+    promise): the Q4_0 and kernel A dequant-matmuls of the package under
+    ROOT built and timed (time_weight_rows, no plain version), nothing
+    else."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    names = [n for n in ("matmul_q4_0", "matmul_q", "matmul_q4_0_mma",
+                         "matmul_q_mma") if n in _build.KERNELS]
+    t0 = time.perf_counter()
+    kernels.build(names)
+    log(f"built {names} in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(dev).manual_seed(SEED)
+    rows = []
+    for fmt in ("Q4_0", *E_FORMATS):
+        rows += time_weight_rows(dev, gen, fmt, Q4_SHAPES, TIMING_B,
+                                 plain=False)
+    for fmt in A_FORMATS[:5]:
+        rows += time_weight_rows(dev, gen, fmt, Q4_SHAPES[2:3], (1, 16),
+                                 plain=False)
+    emit({"matmul_timing": rows})
+    for fmt in ("Q4_0", *E_FORMATS):
+        log(f"{fmt} prompt forward (129 launches, b 16): "
+            f"{forward_sum(rows, fmt, 16)['ms']:.3f} ms; decode token: "
+            f"{forward_sum(rows, fmt, 1)['ms']:.3f} ms")
+
+
 def main(argv):
     import torch
 
@@ -3080,7 +3200,7 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     repo = os.path.dirname(os.path.abspath(__file__))
-    timing_only = argv[:1] == ["--attention-timing"]
+    timing_only = argv[:1] in (["--attention-timing"], ["--matmul-timing"])
     if timing_only and len(argv) > 1:
         repo = os.path.abspath(argv[1])
     if not os.path.isdir(os.path.join(repo, "ggmlsharp_tpu_torch", "csrc")):
@@ -3098,7 +3218,8 @@ def main(argv):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if timing_only:
         log(f"card: {smi} | package {repo}")
-        attention_timing(torch.device("cuda"))
+        (attention_timing if argv[0] == "--attention-timing"
+         else matmul_timing)(torch.device("cuda"))
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -3148,13 +3269,14 @@ def main(argv):
     if not q4_rows_ok:
         raise SystemExit("a Q4_0 row's result depends on b")
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
-        f"{q4_err:.3g} (rows independent of b: {q4_rows_ok}), flash "
+        f"{q4_err:.3g} at b {CHECK_B} (a row's bits equal at b {MMA_B}: "
+        f"{q4_rows_ok}), flash "
         f"{fl_err:.3g}, attn_decode {ad_err:.3g} (attn lane map "
         f"{attn_lay_err:.3g}), Q8_0 {q8_err:.3g} (rows "
         f"independent of b), mlp_fused_q8 {mlp_err:.3g}, gpt2_layer "
         f"{layer_err:.3g}, mlp_fused_silu_q4 {silu_err:.3g}, llama_layer "
         f"{llayer_err:.3g}; matmul_q {max(mq_errs.values()):.3g} (7 "
-        f"formats, rows independent of b), matmul_int_dot "
+        f"formats, b as Q4_0's, rows as Q4_0's), matmul_int_dot "
         f"{max(ib_errs.values()):.3g} (5 formats); flash entries "
         f"{ {k: float(f'{v:.3g}') for k, v in fl2_err.items()} } (uncached, "
         f"softcap, f16, D 8-256, gradients, HVP); kernels 2 and 3 at ragged "
@@ -3238,7 +3360,8 @@ def main(argv):
     ftoks, fcounts = run_fused_path(
         cfg, params_d, prompt, "mlp_fused + layer_fused, flat bf16 cache",
         N_NEW, {"llama_layer": L * N_NEW, "mlp_fused_silu_q4": L,
-                "flash_attn": L, "matmul_q4_0": 2 * L + 1 + N_NEW},
+                "flash_attn": L, **dq_launches("matmul_q4_0", 2 * L + 1,
+                                               N_NEW)},
         flat=True)
     # The fused MLP alone, head-major cache (path a's route with one call
     # in place of w_gate_up, silu and w_down): kernel 9 at b = 1.
@@ -3246,7 +3369,7 @@ def main(argv):
     mtoks, mcounts = run_fused_path(
         cfg, params_m, prompt, "mlp_fused, head-major bf16 cache", MLP_STEPS,
         {"mlp_fused_silu_q4": L * (1 + MLP_STEPS), "flash_attn": L,
-         "matmul_q4_0": (2 * L + 1) * (1 + MLP_STEPS)})
+         **dq_launches("matmul_q4_0", 2 * L + 1, (2 * L + 1) * MLP_STEPS)})
     # Tolerances as for path a. The whole-block route quantizes no
     # activation, but its prompt and bf16 cache rows do round: tol 0.1 under
     # the path's own settings; weight-only with an f32 cache the paths differ
@@ -3284,8 +3407,9 @@ def main(argv):
         torch.cuda.reset_peak_memory_stats()
         etoks, e_counts[fmt] = run_fused_path(
             cfg, eparams, prompt, f"e {fmt}, int8 flat cache", N_NEW,
-            {"matmul_q": (4 * L + 1) * (1 + N_NEW), "flash_attn": L,
-             "attn_decode": L * N_NEW}, tag="llama_kquant_path", int8=True)
+            {**dq_launches("matmul_q", 4 * L + 1, (4 * L + 1) * N_NEW),
+             "flash_attn": L, "attn_decode": L * N_NEW},
+            tag="llama_kquant_path", int8=True)
         epeak = torch.cuda.max_memory_allocated() - base
         e_errs[fmt] = [
             compare_plain(llama, cfg, eparams, prompt, quant_acts=True,
@@ -3344,9 +3468,7 @@ def main(argv):
     tcheck = check_tune_table(dev, gen, smi)
     log(f"[4/6] tune table ({tcheck['card']}): {tcheck['entries']} entries "
         f"timed against the default in {tcheck['seconds']:.1f} s: median "
-        f"gain {tcheck['gain_b1_median']:.3f} at b = 1 (read there), "
-        f"{tcheck['gain_b8_median']:.3f} at b = 8 (not read; "
-        f"{tcheck['entries_slower_at_b8']} entries slower); lookup "
+        f"gain {tcheck['gain_b1_median']:.3f} at b = 1; lookup "
         f"{tcheck['lookup_us_per_launch']:.2f} us a launch")
     i_dec, i_counts = run_13b_path(dev, gen, smi)
     log(f"[4/6] i. LLAMA_13B Q4_0: {PROMPT_LEN}-token prompt + {I_NEW} "
@@ -3356,8 +3478,8 @@ def main(argv):
         f"of the HBM roofline, device idle share "
         f"{i_dec['device_idle_share']}")
 
-    q4_row = time_q4_0(dev, gen, counts)
-    q4_row["max_abs_err"] = q4_err
+    q4_row, q4_mma_row = time_q4_0(dev, gen, counts)
+    q4_row["max_abs_err"] = q4_mma_row["max_abs_err"] = q4_err
     shapes = time_attention(dev, gen)
     fl = shapes["flash_attn"]["7b_prefill"]
     fl_row = {"name": "flash_attn", "route": "cuda",
@@ -3415,17 +3537,19 @@ def main(argv):
     silu_row["max_abs_err"] = silu_err
     llayer_row = time_llama_layer(dev, gen)
     llayer_row["max_abs_err"] = llayer_err
-    mq_row = time_matmul_q(dev, gen, kq_counts)
-    mq_row["max_abs_err"] = max(mq_errs.values())
-    mq_row["max_abs_err_by_format"] = mq_errs
+    mq_row, mq_mma_row = time_matmul_q(dev, gen, kq_counts)
+    for row in (mq_row, mq_mma_row):
+        row["max_abs_err"] = max(mq_errs.values())
+        row["max_abs_err_by_format"] = mq_errs
     ib_row = time_int_dot(dev, gen, fmt_counts)
     ib_row["max_abs_err"] = max(ib_errs.values())
     ib_row["max_abs_err_by_format"] = ib_errs
     for T in (64, 2048):  # path e's shape, B = 1
         for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
             ad_row[f"b1_T{T}_{k}"] = ad[f"b1_T{T}"][k]
-    rows = (q4_row, fl_row, ad_row, q8_row, mlp_row, layer_row, silu_row,
-            llayer_row, mq_row, ib_row, unc_row, *tune_rows(probes))
+    rows = (q4_row, q4_mma_row, fl_row, ad_row, q8_row, mlp_row, layer_row,
+            silu_row, llayer_row, mq_row, mq_mma_row, ib_row, unc_row,
+            *tune_rows(probes))
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
         name = row["name"]
@@ -3550,6 +3674,8 @@ def main(argv):
              "b1_T64_library_ms", "b1_T2048_ms", "b1_T2048_bound_ms",
              "b1_T2048_plain_ms", "b1_T2048_library_ms",  # kernel 3, B = 1
              "q6_k_token", "w_gate_up_b1_ms", "w_gate_up_ms",
+             # the multi-row instances (b8/b128: a serving tick and prefill)
+             "b8_forward", "b128_forward", "q6_k_prompt", "w_gate_up_b16_ms",
              "max_abs_err_by_format",
              # kernel 2 at path g's shape: the cached entry, softcap, the
              # backward (the Function's dense recompute) against SDPA's

@@ -41,9 +41,9 @@
 //  * The min terms are folded, as kernel 1 folds them: sum_k x_k (q_k d +
 //    m) = d sum_k x_k q_k + m sum_k x_k, the activation sum taken once a
 //    lane a step for all the warp's rows.
-//  * Each activation row keeps its own f32 accumulators (RB rows a pass: 1
-//    at decode, 8 for any larger b), so a row's sum is the same at every b;
-//    a warp-shuffle reduction ends each row.
+//  * The activation row keeps its own f32 accumulators (RB rows a pass, a
+//    template parameter launched at 1: decode); a warp-shuffle reduction
+//    ends each row.
 //  * Launch geometry: WARPS warps a block, ROWS_PER_WARP rows a warp, both
 //    template parameters, one instance for each pair of kernels/tune.py's
 //    GEOMETRIES and each format (the C entry takes the pair). Each row keeps
@@ -52,10 +52,15 @@
 //  * Ragged edges are masked: N not a multiple of the rows a block, K/32 not
 //    a multiple of 8 groups (K = 11008 is 344 blocks of 32 and 43
 //    superblocks of 256: the k-quants take one superblock a warp step).
-// No tensor cores and no TMA: those designs are left to a later change.
+// No tensor cores and no TMA in this instance, which runs one activation
+// row. Two or more rows take the multi-row instance on the tensor cores
+// (dq_mma.cuh, q_matmul_mma below; kernels/matmul_q.py MMA_MIN_ROWS), with
+// the Q4_K and Q6_K decoders defined here.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dq_mma.cuh"
 
 namespace {
 
@@ -334,15 +339,9 @@ template <int F, int WARPS, int RPW>
 void launch_geom(const float* x, const void* p0, const void* p1, const void* p2,
                  const void* p3, float* y, int B, int N, int K, cudaStream_t stream) {
   constexpr int rows = WARPS * RPW;  // weight rows a block
-  if (B == 1) {  // decode
-    dim3 grid((N + rows - 1) / rows, 1);
-    q_matmul_kernel<F, WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B,
-                                                                       N, K);
-  } else {  // prefill; ragged B masked
-    dim3 grid((N + rows - 1) / rows, (B + 7) / 8);
-    q_matmul_kernel<F, WARPS, RPW, 8><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B,
-                                                                       N, K);
-  }
+  dim3 grid((N + rows - 1) / rows, 1);  // decode: one activation row
+  q_matmul_kernel<F, WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B,
+                                                                     N, K);
 }
 
 template <int F>
@@ -364,8 +363,93 @@ int launch(const float* x, const void* p0, const void* p1, const void* p2, const
 
 }  // namespace
 
+// ---- the multi-row instance's k-quant decoders (dq_mma.cuh) ----
+
+// Q4_K: a chunk is one superblock; group gi is sub-block gi (64-element
+// group gi / 2, low nibbles for even gi, high for odd): k-step ks of the
+// lane reads bytes 32 (gi / 2) + 16 ks + 4t..+3. Scale and min from ggml's
+// 6-bit packing (get_scale_min_k4), fused to f16 as the b = 1 instance.
+// Slices: qs (32 words), scales (3), d (1), dmin (1).
+struct DecQ4K {
+  static constexpr int BS = 32, KALIGN = 256;
+  static constexpr bool M = true;
+  static constexpr int NSLICE = 4;
+  __host__ __device__ static constexpr int ws(int s) { return s == 0 ? 32 : s == 1 ? 3 : 1; }
+  __host__ __device__ static constexpr int off(int s) { return s == 0 ? 0 : off(s - 1) + ws(s - 1); }
+  __host__ __device__ static constexpr int rw() { return dqm::row_words(off(NSLICE - 1) + ws(NSLICE - 1)); }
+  __host__ __device__ static constexpr bool bulk(int s) { return s == 0; }
+  __device__ static dqm::Lin lin(int s, const dqm::Planes& p, int K) {
+    const uint8_t* base = static_cast<const uint8_t*>(p.p[s]);
+    const int nsb = K >> 8;
+    if (s == 0) return {base, K / 2, 128};
+    if (s == 1) return {base, nsb * 12, 12};
+    return {base, nsb * 2, 2};
+  }
+  __device__ static void group(const uint32_t* wr, size_t row, int c, int gi, int K, int t,
+                               uint32_t w[2][2], float d[2], float m[2]) {
+    const int mis = (int)(((row * (K >> 8) + c) * 2) & 3);
+    const float dd = dqm::lds_h(wr + off(2), mis), dm = dqm::lds_h(wr + off(3), mis);
+    // get_scale_min_k4(gi): bytes gi % 4, + 4 and + 8 of the 12
+    auto byte = [&](int i) { return (int)((wr[off(1) + (i >> 2)] >> (8 * (i & 3))) & 0xFF); };
+    const int a = byte(gi & 3), b = byte((gi & 3) + 4), e = byte((gi & 3) + 8);
+    const int sc = gi < 4 ? a & 63 : (e & 0xF) | ((a >> 6) << 4);
+    const int mn = gi < 4 ? b & 63 : (e >> 4) | ((b >> 6) << 4);
+    const float kd = dqm::f16_round(dd * (float)sc), km = dqm::f16_round(dm * (float)mn);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint32_t u = wr[8 * (gi >> 1) + 4 * ks + t];
+      dqm::bytes_bf16<0>((u >> (4 * (gi & 1))) & 0x0F0F0F0Fu, w[ks]);
+      d[ks] = kd;
+      m[ks] = -km;
+    }
+  }
+};
+
+// Q6_K: a chunk is one superblock; group gi holds elements 32 gi..: half
+// h = gi / 4, quarter qd = gi % 4 (ggml's order: ql bytes 64h + 32 (qd % 2)
+// + l, low nibbles for qd < 2, high for qd >= 2; qh bytes 32h + l, bits
+// 2 qd), l = 16 ks + 4t + i. Sub-block 2 gi + ks of 16 takes scale
+// f16(d * sc). Slices: ql (32 words), qh (16), sc (4), d (1).
+struct DecQ6K {
+  static constexpr int BS = 16, KALIGN = 256;
+  static constexpr bool M = false;
+  static constexpr int NSLICE = 4;
+  __host__ __device__ static constexpr int ws(int s) { return s == 0 ? 32 : s == 1 ? 16 : s == 2 ? 4 : 1; }
+  __host__ __device__ static constexpr int off(int s) { return s == 0 ? 0 : off(s - 1) + ws(s - 1); }
+  __host__ __device__ static constexpr int rw() { return dqm::row_words(off(NSLICE - 1) + ws(NSLICE - 1)); }
+  __host__ __device__ static constexpr bool bulk(int s) { return s < 2; }
+  __device__ static dqm::Lin lin(int s, const dqm::Planes& p, int K) {
+    const uint8_t* base = static_cast<const uint8_t*>(p.p[s]);
+    if (s == 0) return {base, K / 2, 128};
+    if (s == 1) return {base, K / 4, 64};
+    if (s == 2) return {base, K / 16, 16};
+    return {base, (K >> 8) * 2, 2};
+  }
+  __device__ static void group(const uint32_t* wr, size_t row, int c, int gi, int K, int t,
+                               uint32_t w[2][2], float d[2], float m[2]) {
+    const int h = gi >> 2, qd = gi & 3;
+    const float dd = dqm::lds_h(wr + off(3), (int)(((row * (K >> 8) + c) * 2) & 3));
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint32_t u = wr[16 * h + 8 * (qd & 1) + 4 * ks + t];
+      const uint32_t v = wr[off(1) + 8 * h + 4 * ks + t];
+      dqm::bytes_bf16<32>(((u >> (4 * (qd >> 1))) & 0x0F0F0F0Fu) |
+                              (((v >> (2 * qd)) & 0x03030303u) << 4),
+                          w[ks]);
+      const int sb = 2 * gi + ks;
+      const int sc = (int)(int8_t)((wr[off(2) + (sb >> 2)] >> (8 * (sb & 3))) & 0xFF);
+      d[ks] = dqm::f16_round(dd * (float)sc);
+      m[ks] = 0.f;
+    }
+  }
+};
+
+template <int F>
+using DecOf = dqm::DecLegacy<Traits<F>::BS, Traits<F>::OFF, Traits<F>::M, Traits<F>::Q5>;
+
 // fmt: the weight's GType id; p0..p3 its planes in kernels/matmul_q.py's
-// _PLANES order (unused ones null). x f32 [B, K], y f32 [B, N]; `warps` warps
+// _PLANES order (unused ones null). x f32 [1, K], y f32 [1, N]: the b = 1
+// instance (any other B returns cudaErrorInvalidValue); `warps` warps
 // a block and `rpw` weight rows a warp: one of kernels/tune.py's GEOMETRIES
 // (any other pair returns cudaErrorInvalidValue). K must be a multiple of 32
 // (256 for the k-quants); x 16-byte and the planes 4-byte aligned (the
@@ -373,7 +457,7 @@ int launch(const float* x, const void* p0, const void* p1, const void* p2, const
 extern "C" int q_matmul(int fmt, const float* x, const void* p0, const void* p1,
                         const void* p2, const void* p3, float* y, int B, int N, int K,
                         int warps, int rpw, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (B != 1 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   switch (fmt) {
     case Q4_1: return launch<Q4_1>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
     case Q4_2: return launch<Q4_2>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
@@ -384,4 +468,29 @@ extern "C" int q_matmul(int fmt, const float* x, const void* p0, const void* p1,
     case Q6_K: return launch<Q6_K>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The multi-row instance (dq_mma.cuh): fmt and planes as q_matmul;
+// activations x f32 [B, K], or Q8 (xq int8 [B, K], its block scales xd of
+// dqm::ScaleKind `kind`; x null); y f32 [B, N] for any B (the wrappers send B >= 2 here); K a
+// multiple of 32 (256 for the k-quants), split `splits` ways
+// (kernels/matmul_q.py mma_splits); scratch as for q4_0_matmul_mma.
+// Returns cudaGetLastError() after the launches.
+extern "C" int q_matmul_mma(int fmt, const float* x, const int8_t* xq, const void* xd, int kind,
+                            const void* p0, const void* p1, const void* p2, const void* p3,
+                            float* y, unsigned char* scratch, int B, int N, int K, int splits,
+                            cudaStream_t stream) {
+  const dqm::Planes pl{{p0, p1, p2, p3}};
+#define DQ_LAUNCH(D) dqm::launch<D>(x, xq, xd, kind, pl, y, scratch, B, N, K, splits, stream)
+  switch (fmt) {
+    case Q4_1: return DQ_LAUNCH(DecOf<Q4_1>);
+    case Q4_2: return DQ_LAUNCH(DecOf<Q4_2>);
+    case Q4_3: return DQ_LAUNCH(DecOf<Q4_3>);
+    case Q5_0: return DQ_LAUNCH(DecOf<Q5_0>);
+    case Q5_1: return DQ_LAUNCH(DecOf<Q5_1>);
+    case Q4_K: return DQ_LAUNCH(DecQ4K);
+    case Q6_K: return DQ_LAUNCH(DecQ6K);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DQ_LAUNCH
 }

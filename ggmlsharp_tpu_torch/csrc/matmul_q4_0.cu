@@ -24,20 +24,22 @@
 //  * Nibbles become floats without an int-to-float conversion (Q4_UNPACK,
 //    below): a byte permute puts the nibble in the mantissa of 2^23, one
 //    subtraction of 2^23 + 8 leaves q - 8 exactly.
-//  * Each activation row keeps its own f32 accumulator (RB rows a pass, a
-//    template parameter: 1 for decode, so b = 1 carries no dead registers,
-//    and 8 for every larger b); the scale is applied once a block and a
-//    warp-shuffle reduction ends each row.
+//  * The activation row keeps its own f32 accumulator (RB rows a pass, a
+//    template parameter launched at 1: decode); the scale is applied once a
+//    block and a warp-shuffle reduction ends each row.
 //  * Launch geometry: WARPS warps a block, RPW rows a warp, both template
 //    parameters, one instance for each pair of kernels/tune.py's GEOMETRIES
 //    (the C entry takes the pair; kernels/tune_h100.json holds the measured
 //    choice a shape). A row's lane partial sums and shuffle tree depend on
 //    neither number, so every pair gives the same bits.
 //  * Ragged edges are masked: N not a multiple of the rows a block, K/32 not a
-//    multiple of 8 blocks (K = 11008 has 344 blocks), b not a multiple of RB.
-// No tensor cores and no TMA: wgmma and TMA designs are left to a later change.
+//    multiple of 8 blocks (K = 11008 has 344 blocks).
+// No tensor cores and no TMA in this instance, which runs one activation
+// row. Two or more rows take the multi-row instance on the tensor cores
+// (dq_mma.cuh, q4_0_matmul_mma below; kernels/matmul_q.py MMA_MIN_ROWS).
 //
-// Q4_UNPACK (-D, default 0), the nibble-to-number step, a probe's variants
+// Q4_UNPACK (-D, default 0; the multi-row instance ignores it), the
+// nibble-to-number step, a probe's variants
 // (probes/dq_variants.py; counterpart of scripts/probe_dq_variants.py's
 // three TPU inner loops):
 //   0 prmt  (TPU variant b): the byte permute into 2^23's mantissa above;
@@ -54,6 +56,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dq_mma.cuh"
 
 #ifndef Q4_UNPACK
 #define Q4_UNPACK 0
@@ -205,18 +209,14 @@ template <int WARPS, int RPW>
 void launch(const float* x, const uint8_t* qs, const __half* d, float* y,
             int B, int N, int K, cudaStream_t stream) {
   constexpr int rows = WARPS * RPW;  // weight rows a block
-  if (B == 1) {  // decode
-    dim3 grid((N + rows - 1) / rows, 1);
-    q4_0_matmul_kernel<WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
-  } else {  // prefill; ragged B masked
-    dim3 grid((N + rows - 1) / rows, (B + 7) / 8);
-    q4_0_matmul_kernel<WARPS, RPW, 8><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
-  }
+  dim3 grid((N + rows - 1) / rows, 1);  // decode: one activation row
+  q4_0_matmul_kernel<WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
 }
 
 }  // namespace
 
-// x f32 [B, K], qs uint8 [N, K/2], d f16 [N, K/32] -> y f32 [B, N], launched
+// x f32 [1, K], qs uint8 [N, K/2], d f16 [N, K/32] -> y f32 [1, N]: the b = 1
+// instance (any other B returns cudaErrorInvalidValue), launched
 // with `warps` warps a block and `rpw` weight rows a warp: one of
 // kernels/tune.py's GEOMETRIES (any other pair returns cudaErrorInvalidValue).
 // K must be a multiple of 32; x and qs 16-byte aligned (the wrapper checks).
@@ -224,7 +224,7 @@ void launch(const float* x, const uint8_t* qs, const __half* d, float* y,
 extern "C" int q4_0_matmul(const float* x, const uint8_t* qs, const __half* d,
                            float* y, int B, int N, int K, int warps, int rpw,
                            cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
+  if (B != 1 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
   switch (warps * 16 + rpw) {
     case 4 * 16 + 1: launch<4, 1>(x, qs, d, y, B, N, K, stream); break;
     case 4 * 16 + 2: launch<4, 2>(x, qs, d, y, B, N, K, stream); break;
@@ -235,4 +235,20 @@ extern "C" int q4_0_matmul(const float* x, const uint8_t* qs, const __half* d,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The multi-row instance (dq_mma.cuh): activations x f32 [B, K], or Q8
+// (xq int8 [B, K], its block scales xd of dqm::ScaleKind `kind`; x null),
+// qs uint8 [N, K/2], d f16
+// [N, K/32] -> y f32 [B, N], for any B (the wrappers send B >= 2 here), K
+// split `splits` ways (kernels/matmul_q.py mma_splits); scratch: 16-byte
+// aligned, dqm::scratch_bytes (matmul_q.py _mma_scratch_bytes). Returns
+// cudaGetLastError() after the launches.
+extern "C" int q4_0_matmul_mma(const float* x, const int8_t* xq, const void* xd, int kind,
+                               const uint8_t* qs, const __half* d, float* y,
+                               unsigned char* scratch, int B, int N, int K, int splits,
+                               cudaStream_t stream) {
+  const dqm::Planes pl{{qs, d, nullptr, nullptr}};
+  return dqm::launch<dqm::DecLegacy<32, 8, false, false>>(x, xq, xd, kind, pl, y, scratch, B, N,
+                                                          K, splits, stream);
 }

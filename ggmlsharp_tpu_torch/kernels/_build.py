@@ -19,10 +19,14 @@ is reused, and several C entries of one source share one library.
 launches its kernel and nowhere else, so a run can show which kernels carried
 it (``reset_launches`` before the run, read after). A kernel with two
 entries counts each under its own name (``flash_attn`` for the cached entry,
-``flash_attn_uncached`` for the uncached one, one source). The dequant-matmul
+``flash_attn_uncached`` for the uncached one, one source; ``matmul_q4_0`` and
+``matmul_q4_0_mma`` for the b = 1 and the multi-row instance of one source,
+likewise ``matmul_q`` and ``matmul_q_mma``). The dequant-matmul
 wrappers also count each launch by shape and launch geometry in
-``GEOMETRY_LAUNCHES`` ((kernel, N, K, warps, rows_per_warp, B) -> launches),
-so a run can show which geometry each shape and row count was given.
+``GEOMETRY_LAUNCHES`` ((kernel, N, K, warps, rows_per_warp, B) -> launches,
+the kernel the counter's name; warps and rows_per_warp None for the
+multi-row instance, which takes no geometry), so a run can show which
+instance and geometry each shape and row count was given.
 """
 from __future__ import annotations
 
@@ -61,6 +65,11 @@ KERNELS = {
     "llama_layer": ("llama_layer.cu", "llama_layer",
                     [_P] * 23 + [_I] * 5 + [_F, _I, _I, _P]),
     "matmul_q": ("matmul_q.cu", "q_matmul", [_I] + [_P] * 6 + [_I] * 5 + [_P]),
+    # the multi-row instances of the two sources above (csrc/dq_mma.cuh)
+    "matmul_q4_0_mma": ("matmul_q4_0.cu", "q4_0_matmul_mma",
+                        [_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P]),
+    "matmul_q_mma": ("matmul_q.cu", "q_matmul_mma",
+                     [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_I] * 4 + [_P]),
     "matmul_int_dot": ("matmul_int_dot.cu", "int_dot_matmul",
                        [_I] + [_P] * 8 + [_I, _I, _P]),
     # the tuning path's probes (ggmlsharp_tpu_torch/probes/)

@@ -43,15 +43,13 @@ import torch
 
 from ..ops.attention import NEG_INF
 from . import _build
-from .config import use_kernel
+from .config import H100_SMS, device_sms, use_kernel
 
 _KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
-H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 _BLOCKS_PER_SM = 4  # decode_splits: at most this many blocks an SM
 _SPLIT_MIN_ROWS = 64  # cache rows a split takes at least
 MAX_SPLITS = 512  # the most splits the kernel takes
 _COUNTERS: dict = {}  # (device, stream) -> int32 arrival counters, all 0
-_SMS: dict = {}  # device -> its streaming multiprocessors
 
 
 def decode_splits(batch_heads: int, rows: int, sms: int = H100_SMS) -> int:
@@ -68,13 +66,6 @@ def decode_splits(batch_heads: int, rows: int, sms: int = H100_SMS) -> int:
     return max(1, min(want, rows // _SPLIT_MIN_ROWS, MAX_SPLITS))
 
 
-def _device_sms(device) -> int:
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]
-
-
 def _counter(device, stream: int, n: int) -> torch.Tensor:
     """The int32 arrival counters of launches on ``stream`` of ``device``:
     zeroed once, left at 0 by every launch, and never reallocated, so a
@@ -84,7 +75,7 @@ def _counter(device, stream: int, n: int) -> torch.Tensor:
     where B * H_kv is at most half that)."""
     buf = _COUNTERS.get((device, stream))
     if buf is None:
-        buf = torch.zeros(_BLOCKS_PER_SM * _device_sms(device),
+        buf = torch.zeros(_BLOCKS_PER_SM * device_sms(device),
                           dtype=torch.int32, device=device)
         _COUNTERS[(device, stream)] = buf
     if n > buf.numel():
@@ -274,7 +265,7 @@ def _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
     dev = q_heads.device
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     sc_stride = k_scale.stride()[0] if k_scale is not None else 0
-    splits = decode_splits(B * n_head_kv, T, _device_sms(dev))
+    splits = decode_splits(B * n_head_kv, T, device_sms(dev))
     part = counter = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

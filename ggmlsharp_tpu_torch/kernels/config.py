@@ -33,6 +33,18 @@ import torch
 from .. import config
 
 _override: bool | None = None
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+_SMS: dict = {}  # device -> its streaming multiprocessors
+
+
+def device_sms(device) -> int:
+    """The streaming multiprocessors of CUDA device ``device`` (read once):
+    what the split choosers (attn_decode.decode_splits,
+    matmul_q.mma_splits) fill."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def kernels_enabled() -> bool:

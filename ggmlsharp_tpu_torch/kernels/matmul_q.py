@@ -31,6 +31,21 @@ bits); a wrapper launches, at b = 1, the tune table's pair for the weight's
 shape (``geometry``), else ``tune.DEFAULT``, and refuses a pair never
 compiled.
 
+From ``MMA_MIN_ROWS`` activation rows on (set by measurement: at 2 rows it
+already beats the b = 1 kernel's 8-row pass at every 7B shape), the Q4_0
+wrapper and kernel A launch their sources' multi-row instance instead
+(``csrc/dq_mma.cuh``, entries ``matmul_q4_0_mma`` and ``matmul_q_mma``,
+each with its own launch counter): bf16 mma.sync on the tensor cores,
+weights on the M side, f32 x in three bf16 planes (exact), K split
+``mma_splits`` ways where the row tiles alone leave SMs idle. With the Q8
+activation round trip, ``mul_mat_q_fused`` hands it the int8 values and
+their block scales instead (``mma_q8_matmul``): one exact plane. It takes
+no launch geometry: a pair the caller names is still checked (a pair never
+compiled raises) and otherwise ignored, and ``GEOMETRY_LAUNCHES`` records
+its launches with no pair. A row's bits are the same at
+every b that takes it; against the b = 1 instance, which sums in another
+order, they agree to f32 rounding.
+
 A wrapper runs the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises (``kernels.config.use_kernel``).
 """
@@ -43,7 +58,7 @@ from ..dtypes import GType
 from ..quant.formats import QTensor, plane_specs
 from ..quant.quantize import dequantize, int_values, quantize
 from . import _build, tune
-from .config import use_kernel
+from .config import H100_SMS, device_sms, use_kernel
 
 # the planes kernel A reads, in its argument order (C: ``Fmt``, GType's ids)
 _PLANES = {
@@ -63,6 +78,19 @@ INT_DOT_FORMATS = (GType.Q8_0, GType.Q4_0, GType.Q4_1, GType.Q5_0,
 _INT_DOT_PLANES = ("qs", "qh", "d", "m")  # kernel B's order; absent: null
 _INT_DOT_OFF = {GType.Q4_0: 8.0, GType.Q5_0: 16.0}  # value offsets
 _INT_DOT_M = (GType.Q4_1, GType.Q5_1)  # Q8_1 activations, + sum m·s
+# the multi-row instance (csrc/dq_mma.cuh): the activation rows from which
+# it runs (below them the b = 1 instance), its weight rows a CTA (ROWS) and
+# activation columns a chunk (KC, the unit of a K split)
+MMA_MIN_ROWS = 2
+MMA_ROWS = 128
+MMA_KC = 256
+_MMA_CTAS_PER_SM = 4  # mma_splits fills this many CTAs an SM,
+_MMA_MAX_SPLITS = 8  # with at most this many splits (more: slower at N 4096)
+# Q8 activation scales the multi-row instance reads: (format, scale dtype)
+# -> (dqm::ScaleKind, columns a scale)
+_Q8_SCALES = {(GType.Q8_0, torch.float16): (0, 32),
+              (GType.Q8_1, torch.float32): (1, 32),
+              (GType.Q8_K, torch.float32): (2, 256)}
 
 
 def _check_x(name, x):
@@ -93,12 +121,67 @@ def geometry(kernel: str, n: int, k: int, gtype=None,
     """The launch geometry (warps a block, rows a warp) of dequant-matmul
     ``kernel`` at an [n, k] weight and b activation rows: at b = 1 the tune
     table's pair (``tune.lookup``), else ``tune.DEFAULT``. The table was
-    timed on the sources' b = 1 instance (RB = 1); more rows run the RB = 8
-    instance, which no sweep measured. Every pair gives the same bits; the
-    choice moves time only."""
+    timed on the sources' b = 1 instance (RB = 1); more rows run Q8_0's
+    RB = 8 instance, which no sweep measured, or the other formats'
+    multi-row instance, which takes no geometry. Every pair gives the same
+    bits; the choice moves time only."""
     if b != 1:
         return tune.DEFAULT
     return tune.lookup(kernel, n, k, gtype) or tune.DEFAULT
+
+
+def mma_splits(n: int, k: int, sms: int = H100_SMS) -> int:
+    """K splits of the multi-row instance at an [n, k] weight on a card of
+    ``sms`` SMs: enough to give ``_MMA_CTAS_PER_SM`` CTAs an SM where the
+    row tiles (``MMA_ROWS`` rows each) are fewer, at most
+    ``_MMA_MAX_SPLITS``, then as few as keep the most chunks (``MMA_KC``
+    columns) a split takes (so 16 chunks go 4 x 4, not 4, 3, 3, 3, 3).
+    Never 0. It reads neither b nor the format, so a row's sums run in the
+    same order whatever rows share the launch."""
+    if n < 1 or k < 1 or sms < 1:
+        raise ValueError(f"mma_splits: n {n}, k {k}, sms {sms}")
+    tiles = -(-n // MMA_ROWS)
+    chunks = -(-k // MMA_KC)
+    want = max(1, min(_MMA_CTAS_PER_SM * sms // tiles, _MMA_MAX_SPLITS,
+                      chunks))
+    return -(-chunks // -(-chunks // want))
+
+
+def _mma_scratch_bytes(b: int, n: int, k: int, splits: int,
+                       planes: int = 3) -> int:
+    """Bytes of the multi-row instance's scratch (dq_mma.cuh): the
+    activations' bf16 planes (3 for f32 x, 1 for Q8; rounded up to 16
+    bytes), their 16-column sums and, for Q8, their 32-column scales (rows
+    padded to a multiple of 4) and, when K is split, the partial sums."""
+    pad4 = lambda v: -(-v // 4) * 4
+    return -(-planes * b * k * 2 // 16) * 16 + b * pad4(k // 16) * 4 \
+        + (b * pad4(k // 32) * 4 if planes == 1 else 0) \
+        + (splits * b * n * 4 if splits > 1 else 0)
+
+
+def _launch_mma(name, fmt, acts, planes, n):
+    """Launch the multi-row instance ``name`` (operands checked by the
+    caller): ``acts`` f32 x [B, K], or Q8 activations (xq int8 [B, K], its
+    block scales xd and their ``_Q8_SCALES`` kind); ``planes`` the weight's
+    in the entry's order (None: unused), an [n, K] weight -> y f32 [B, n].
+    Recorded in ``GEOMETRY_LAUNCHES`` with no (warps, rows a warp) pair."""
+    q8 = isinstance(acts, tuple)
+    x, xq, xd, kind = (None, *acts) if q8 else (acts, None, None, 0)
+    lead = xq if q8 else x
+    B, K = lead.shape
+    fn = _build.entry(name)
+    splits = mma_splits(n, K, device_sms(lead.device))
+    y = torch.empty((B, n), dtype=torch.float32, device=lead.device)
+    scratch = torch.empty(_mma_scratch_bytes(B, n, K, splits, 1 if q8 else 3),
+                          dtype=torch.uint8, device=lead.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    head = [] if fmt is None else [int(fmt)]
+    with torch.cuda.device(lead.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*head, ptr(x), ptr(xq), ptr(xd), kind, *map(ptr, planes),
+                y.data_ptr(), scratch.data_ptr(), B, n, K, splits, stream)
+    _build.check(name, rc, geometry=(n, K, None, None, B))
+    return y
 
 
 def _check_geometry(name, geom):
@@ -112,12 +195,14 @@ def _check_geometry(name, geom):
 
 
 def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
-            counter=None):
+            counter=None, mma=None):
     """Check the operands of kernel ``name`` and launch it: x f32 [B, K], qs
     ``qs_dtype`` [N, qs_cols], d f16 [N, K/32] (all contiguous, on one card)
     -> y f32 [B, N]. geom: (warps, rows_per_warp); None: ``geometry``.
     counter: the launch counter (default ``name``; a probe's build
-    of the source counts apart)."""
+    of the source counts apart). mma: the source's multi-row entry, launched
+    instead from ``MMA_MIN_ROWS`` rows on (an explicit geom is checked and
+    otherwise ignored there)."""
     B, K = x.shape
     N = qs.shape[0]
     if not (x.is_cuda and qs.device == x.device and d.device == x.device):
@@ -133,6 +218,10 @@ def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
         raise ValueError(f"{name}: inputs must be contiguous")
     if x.data_ptr() % 16 or qs.data_ptr() % 16 or d.data_ptr() % 2:
         raise ValueError(f"{name}: misaligned input")
+    if mma is not None and B >= MMA_MIN_ROWS:
+        if geom is not None:
+            _check_geometry(name, geom)
+        return _launch_mma(mma, None, x, (qs, d), N)
     warps, rpw = _check_geometry(
         name, geometry(name, N, K, gtype, B) if geom is None else geom)
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
@@ -148,9 +237,10 @@ def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
 def q4_0_matmul(x, qs, d, geom=None):
     """Launch the Q4_0 kernel. x f32 [B, K]; qs uint8 [N, K/2]; d f16
     [N, K/32] -> y f32 [B, N]. geom: (warps, rows_per_warp), None:
-    ``geometry`` (the tune table's at b = 1)."""
+    ``geometry`` (the tune table's at b = 1). From ``MMA_MIN_ROWS`` rows on
+    the multi-row instance runs (counted as ``matmul_q4_0_mma``)."""
     return _launch("matmul_q4_0", x, qs, d, torch.uint8, x.shape[1] // 2,
-                   GType.Q4_0, geom)
+                   GType.Q4_0, geom, mma="matmul_q4_0_mma")
 
 
 def q8_0_matmul(x, qs, d, geom=None):
@@ -163,7 +253,8 @@ def q8_0_matmul(x, qs, d, geom=None):
 def q_matmul(x, a: QTensor, geom=None):
     """Launch kernel A (``csrc/matmul_q.cu``) for a weight of a format in
     ``_PLANES``: x f32 [B, K] -> y f32 [B, N]. geom as for q4_0_matmul
-    (the table's ``g<format>`` entry)."""
+    (the table's ``g<format>`` entry). From ``MMA_MIN_ROWS`` rows on the
+    multi-row instance runs (counted as ``matmul_q_mma``)."""
     name = "matmul_q"
     if a.gtype not in _PLANES:
         raise NotImplementedError(f"{name}: no decode for {a.gtype.name}")
@@ -173,10 +264,16 @@ def q_matmul(x, a: QTensor, geom=None):
         raise ValueError(f"{name}: x {tuple(x.shape)} against {a.shape}")
     keys = _PLANES[a.gtype]
     _check_planes(name, a, keys, x.device)
+    planes = [a[key] for key in keys] + [None] * (4 - len(keys))
+    if x.shape[0] >= MMA_MIN_ROWS:
+        if geom is not None:
+            _check_geometry(name, geom)
+        return _launch_mma("matmul_q_mma", a.gtype, x, planes, n)
     warps, rpw = _check_geometry(
         name, geometry(name, n, k, a.gtype, x.shape[0]) if geom is None
         else geom)
-    ptrs = [a[key].data_ptr() for key in keys] + [None] * (4 - len(keys))
+    ptrs = [p.data_ptr() for p in planes[:len(keys)]] \
+        + [None] * (4 - len(keys))
     y = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)
     fn = _build.entry(name)
     with torch.cuda.device(x.device):
@@ -185,6 +282,38 @@ def q_matmul(x, a: QTensor, geom=None):
                 n, k, warps, rpw, stream)
     _build.check(name, rc, geometry=(n, k, warps, rpw, x.shape[0]))
     return y
+
+
+def mma_q8_matmul(a: QTensor, aq: QTensor):
+    """The multi-row instance on Q8 activations: ``aq`` [B, K], x quantized
+    to the weight's vec_dot type (Q8_0, Q8_1 or Q8_K), times ``a`` (Q4_0 or
+    a format of ``_PLANES``) -> y f32 [B, N], the function ``dequantize(aq)
+    @ dequantize(a, fused_scales=True).T``. The int8 values take one bf16
+    plane (exact) and each block's activation scale folds with the
+    weight's."""
+    q40 = a.gtype == GType.Q4_0
+    name = "matmul_q4_0_mma" if q40 else "matmul_q_mma"
+    if not q40 and a.gtype not in _PLANES:
+        raise NotImplementedError(f"{name}: no decode for {a.gtype.name}")
+    n, k = a.shape
+    xq = aq["qs"]
+    if not xq.is_cuda or xq.dtype != torch.int8 or xq.dim() != 2 \
+            or xq.shape[1] != k or not xq.is_contiguous() \
+            or xq.data_ptr() % 4 or len(a.shape) != 2:
+        raise ValueError(f"{name}: Q8 activations {tuple(xq.shape)} "
+                         f"{xq.dtype} do not fit {a.shape}")
+    xd = aq["d"]
+    kind, cols = _Q8_SCALES.get((aq.gtype, xd.dtype), (None, 1))
+    if kind is None or tuple(xd.shape) != (xq.shape[0], k // cols) \
+            or not xd.is_contiguous() or xd.device != xq.device \
+            or xd.data_ptr() % xd.element_size():
+        raise ValueError(f"{name}: Q8 scales {tuple(xd.shape)} {xd.dtype} "
+                         f"of {aq.gtype.name} do not fit")
+    keys = ("qs", "d") if q40 else _PLANES[a.gtype]
+    _check_planes(name, a, keys, xq.device)
+    planes = [a[key] for key in keys] + [None] * (4 - len(keys)) * (not q40)
+    return _launch_mma(name, None if q40 else a.gtype, (xq, xd, kind), planes,
+                       n)
 
 
 def fused_supported(a: QTensor) -> bool:
@@ -284,7 +413,9 @@ def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
     One activation row with quantized activations under GGML_TPU_INT_DOT=1
     takes the integer-dot route (its plain version for a CPU tensor or with
     plain=True); everything else the dequant-matmul of a's format (plain
-    version: ops.matmul.mul_mat_q)."""
+    version: ops.matmul.mul_mat_q), with quantized activations from
+    ``MMA_MIN_ROWS`` rows on through ``mma_q8_matmul`` (but Q8_0, which
+    has no multi-row instance)."""
     n, k = a.shape
     x = bx.to(torch.float32)
     lead = x.shape[:-1]
@@ -302,7 +433,11 @@ def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
     if quantize_acts:
         from ..ops.matmul import quantize_activations
 
-        x2 = dequantize(quantize_activations(x2, a.gtype))
+        aq = quantize_activations(x2, a.gtype)
+        if x2.shape[0] >= MMA_MIN_ROWS and a.gtype in KERNEL_OF \
+                and a.gtype != GType.Q8_0:
+            return mma_q8_matmul(a, aq).reshape(*lead, n)
+        x2 = dequantize(aq)
     x2 = x2.contiguous()
     if a.gtype == GType.Q4_0:
         y = q4_0_matmul(x2, a["qs"], a["d"])

@@ -183,19 +183,28 @@ def _matmul_calls():
     w = torch.randn((256, 512), generator=gen)
     x = torch.randn((2, 512), generator=gen).as_subclass(_OnCard)
     qk, q5 = quantize(w, GType.Q4_K), quantize(w, GType.Q5_1)
+    q40 = quantize(w, GType.Q4_0)
+    fused = matmul_q.mul_mat_q_fused
     return {
-        "matmul_q": (ops_matmul, "mul_mat_q",
-                     lambda: matmul_q.mul_mat_q_fused(qk, x)),
+        "matmul_q": (ops_matmul, "mul_mat_q", lambda: fused(qk, x[:1])),
+        "matmul_q_mma": (ops_matmul, "mul_mat_q", lambda: fused(qk, x)),
+        "matmul_q4_0": (ops_matmul, "mul_mat_q", lambda: fused(
+            q40, x[:1], quantize_acts=False)),
+        "matmul_q4_0_mma": (ops_matmul, "mul_mat_q", lambda: fused(q40, x)),
         "matmul_int_dot": (matmul_q, "_int_dot_ref",
                            lambda: matmul_q.mul_mat_q_fused(q5, x[:1])),
     }
 
 
-@pytest.mark.parametrize("name", ["matmul_q", "matmul_int_dot"])
+@pytest.mark.parametrize("name", ["matmul_q", "matmul_int_dot",
+                                  "matmul_q_mma", "matmul_q4_0",
+                                  "matmul_q4_0_mma"])
 def test_matmul_wrappers_never_fall_back(monkeypatch, name):
-    """Kernel A (Q4_K here) and kernel B (Q5_1, GGML_TPU_INT_DOT=1) on a
-    tensor on the card with no way to build the kernel: the wrapper raises,
-    reaches no plain version and counts no launch. Both sources are
+    """Kernel A (Q4_K here) and the Q4_0 kernel, each instance (one row: the
+    b = 1 instance; two: the multi-row one, counted as ``<kernel>_mma``),
+    and kernel B (Q5_1, GGML_TPU_INT_DOT=1) on a tensor on the card with no
+    way to build the kernel: the wrapper raises, reaches no plain version
+    and counts no launch. Every instance has its counter; the sources are
     registered and free of PyTorch's headers."""
     from ggmlsharp_tpu_torch.kernels import _build
 

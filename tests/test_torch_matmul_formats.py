@@ -17,7 +17,9 @@ the CPU (Pallas interpret mode, the f32 dot mode):
     (``mul_mat_q_int_dot``) and the C oracle's vec_dot (golden.bin), with
     the oracle test's own tolerance, rtol 1e-6 / atol 1e-6.
 
-Shapes: N 256 (the TPU kernels' tile), K 512, a few activation rows."""
+Shapes: N 256 (the TPU kernels' tile), K 512; the dequant-matmuls at 3, 5,
+8 and 16 activation rows (``ROWS``: the port's multi-row instance takes
+them in ragged and whole tiles of 8 rows)."""
 import os
 import struct
 
@@ -41,7 +43,8 @@ from ggmlsharp_tpu_torch.kernels import matmul_q as mq
 from ggmlsharp_tpu_torch.ops import mul_mat, mul_mat_q
 from ggmlsharp_tpu_torch.quant.formats import from_wire
 
-N, K, ROWS = 256, 512, 3
+N, K = 256, 512
+ROWS = (3, 5, 8, 16)
 GOLD = os.path.join(os.path.dirname(__file__), "golden", "golden.bin")
 
 
@@ -80,7 +83,7 @@ def _pair(fmt):
     return _CACHE[fmt]
 
 
-def _x(rows=ROWS, seed=5):
+def _x(rows, seed=5):
     return np.random.default_rng(seed).standard_normal((rows, K)).astype(
         np.float32)
 
@@ -100,12 +103,13 @@ def _check(got, want):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("quantize_acts", [False, True])
 @pytest.mark.parametrize("fmt", ["Q4_0", "Q4_1", "Q4_2", "Q4_3", "Q5_0",
                                  "Q5_1", "Q8_0", "Q4_K", "Q6_K"])
-def test_plain_matches_tpu_kernel_6(fmt, quantize_acts):
+def test_plain_matches_tpu_kernel_6(fmt, quantize_acts, rows):
     jw, tw = _pair(fmt)
-    x = _x()
+    x = _x(rows)
     _, keys, bs = jmq._DEQUANT_TILE[JGType[fmt]]
     want = jmq._call_kernel(to_storage_order(_jax_acts(x, fmt, quantize_acts),
                                              bs), dict(jw.planes),
@@ -114,26 +118,30 @@ def test_plain_matches_tpu_kernel_6(fmt, quantize_acts):
            want)
 
 
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("quantize_acts", [False, True])
 @pytest.mark.parametrize("v2", [False, True])
 @pytest.mark.parametrize("fmt", ["Q4_0", "Q4_1", "Q4_K"])
-def test_plain_matches_tpu_kernel_5(fmt, v2):
+def test_plain_matches_tpu_kernel_5(fmt, v2, quantize_acts, rows):
     """v2 folds the affine term through per-position activation sums, as
     kernel A folds the min terms through per-block sums."""
     jw, tw = _pair(fmt)
-    x = _x()
-    want = jmq._call_kernel_planes(to_storage_order(jnp.asarray(x), 32),
-                                   dict(jw.planes), JGType[fmt], N, K, "f32",
-                                   v2)
-    _check(mul_mat_q(tw, torch.from_numpy(x), quantize_acts=False), want)
+    x = _x(rows)
+    want = jmq._call_kernel_planes(
+        to_storage_order(_jax_acts(x, fmt, quantize_acts), 32),
+        dict(jw.planes), JGType[fmt], N, K, "f32", v2)
+    _check(mul_mat_q(tw, torch.from_numpy(x), quantize_acts=quantize_acts),
+           want)
 
 
+@pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("quantize_acts", [False, True])
 @pytest.mark.parametrize("fmt", ["Q4_0", "Q4_1", "Q4_K", "Q5_0", "Q5_1",
                                  "Q6_K"])
-def test_plain_matches_tpu_kernel_1(fmt, quantize_acts):
+def test_plain_matches_tpu_kernel_1(fmt, quantize_acts, rows):
     """The SWAR kernel quantizes the activations itself."""
     jw, tw = _pair(fmt)
-    x = _x()
+    x = _x(rows)
     want = jmq.mul_mat_swar(to_swar(jw), jnp.asarray(x),
                             quantize_acts=quantize_acts)
     _check(mul_mat_q(tw, torch.from_numpy(x), quantize_acts=quantize_acts),

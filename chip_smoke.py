@@ -14,7 +14,10 @@ version):
      sources against the default bit for bit; the Q4_0 and kernel A
      dequant-matmuls at b 1, 2, 5, 8, 16, 128 (both instances) at every 7B
      shape and 4099 x 11008, and a row's bits equal at every b that takes
-     the multi-row instance;
+     the multi-row instance; the Q8_0 one likewise at b 1, 2, 5, 8, 16,
+     64, 128, Q8_0 and f32 x, at every GPT-2 shape and 100 x 352; the
+     fused SwiGLU MLP (both instances) at 1-64 rows at 7B and at E 384, F
+     640;
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
@@ -85,9 +88,11 @@ version):
 
 ``python3 chip_smoke.py --attention-timing [ROOT]`` and ``--matmul-timing
 [ROOT]`` are development modes with no compatibility promise: they build
-and time only kernels 2 and 3 at those shapes, or only the Q4_0 and kernel
-A dequant-matmuls (every 7B shape in Q4_0, Q4_K and Q6_K at b 1, 2, 4, 8,
-16, 128; the other formats at w_gate_up, b 1 and 16), from the package under
+and time only kernels 2 and 3 at those shapes, or only the dequant-matmuls
+and the fused SwiGLU MLP (every 7B shape in Q4_0, Q4_K and Q6_K at b 1, 2,
+4, 8, 16, 128; the other formats at w_gate_up, b 1 and 16; Q8_0 at the
+GPT-2 shapes, b 1, 2, 3, 4, 16, 128; the MLP at 1, 2, 8, 16, 64 rows), from
+the package under
 ROOT (default: this checkout), so that a parent checkout's kernels and
 this one's are timed by one script on one card. They import whatever
 package ROOT holds, and work only while ROOT's wrappers take this file's
@@ -225,13 +230,14 @@ def check_weight_rows(dev, gen, fmt, tag):
     return worst
 
 
-def rows_independent_of_b(dev, gen, fmt):
-    """Whether a row's result is bit for bit the same at every b that takes
-    the multi-row instance (MMA_B: each against b = 128), for f32 x and for
-    Q8 activations (mma_q8_matmul), at 4096 x 4096 (K split 16 ways) and
-    the ragged 4099 x 11008; and whether b = 1, the other instance (another
-    order of sums by design), agrees with it within check_weight_rows'
-    bar."""
+def rows_independent_of_b(dev, gen, fmt, shapes=((4096, 4096), RAGGED[1:3]),
+                          bs=MMA_B):
+    """Whether a row's result is bit for bit the same at every b of ``bs``
+    (the rows that take the multi-row instance: each against the last), for
+    f32 x and for Q8 activations (mma_q8_matmul), at each (n, k) of
+    ``shapes`` (default 4096 x 4096, K split 16 ways, and the ragged 4099 x
+    11008); and whether b = 1, the other instance (another order of sums by
+    design), agrees with it within check_weight_rows' bar."""
     import torch
 
     from ggmlsharp_tpu_torch import GType
@@ -241,10 +247,10 @@ def rows_independent_of_b(dev, gen, fmt):
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     res = {}
-    for n, k in ((4096, 4096), RAGGED[1:3]):
+    for n, k in shapes:
         w = random_weight(fmt, n, k, gen, dev)
         wabs = weight_abs_terms(w).T
-        x = torch.randn((MMA_B[-1], k), generator=gen, device=dev)
+        x = torch.randn((bs[-1], k), generator=gen, device=dev)
         for acts in ("f32", "q8"):
             if acts == "f32":
                 call = lambda xs: mul_mat_q_fused(w, xs, quantize_acts=False)
@@ -255,7 +261,7 @@ def rows_independent_of_b(dev, gen, fmt):
                 xr = dequantize(quantize_activations(x, GType[fmt]))
             y = call(x)
             same = all(torch.equal(y[:b], call(x[:b].contiguous()))
-                       for b in MMA_B[:-1])
+                       for b in bs[:-1])
             err = (mul_mat_q_fused(w, x[:1], quantize_acts=acts == "q8")
                    - y[:1]).abs()
             res[f"{n}x{k} {acts}"] = {
@@ -471,9 +477,9 @@ def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
 
 
 def dq_launches(kern, multi, single):
-    """Expected launches of a dequant-matmul source: ``multi`` of its
-    multi-row instance (counter ``<kern>_mma``, b >= MMA_MIN_ROWS) and
-    ``single`` of its b = 1 instance."""
+    """Expected launches of a source with two instances (the dequant-matmuls,
+    kernel 9): ``multi`` of its multi-row instance (counter ``<kern>_mma``,
+    b >= MMA_MIN_ROWS) and ``single`` of its b = 1 instance."""
     return {f"{kern}_mma": multi, kern: single}
 
 
@@ -809,10 +815,11 @@ PHASE5_B = (1, 8, 16, 128)     # phase 5's: decode, a serving tick,
 
 def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
     """Cold-L2 times of the dequant-matmul of weight format ``fmt``
-    (matmul_q4_0.cu for Q4_0, else kernel A) through its wrappers, which
-    pick the instance for b, at each (name, N, K, launches a forward) of
-    ``shapes`` and each b of ``bs``, in two rows: ``acts`` "f32", x as it
-    comes (the LM head's case), and, but at the LM head, "q8", x rounded
+    (matmul_q4_0.cu for Q4_0, matmul_q8_0.cu for Q8_0, else kernel A)
+    through its wrappers, which pick the instance for b, at each (name, N,
+    K, launches a forward) of ``shapes`` and each b of ``bs``, in two rows:
+    ``acts`` "f32", x as it comes (the LM head's case), and, but at the LM
+    head (``output``, ``wte``), "q8", x rounded
     through the format's Q8 activation type, the operands the path's other
     matmuls hand the kernel (the multi-row instance takes the Q8 values,
     kernels.matmul_q.mma_q8_matmul, where the package has it; else the
@@ -824,13 +831,16 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
     import torch
 
     from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels import _build
     from ggmlsharp_tpu_torch.kernels import matmul_q as mq
     from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
-    call = ((lambda x, w: mq.q4_0_matmul(x, w["qs"], w["d"]))
-            if fmt == "Q4_0" else mq.q_matmul)
+    own = {"Q4_0": mq.q4_0_matmul, "Q8_0": mq.q8_0_matmul}.get(fmt)
+    call = (lambda x, w: own(x, w["qs"], w["d"])) if own else mq.q_matmul
     q8_call = getattr(mq, "mma_q8_matmul", None)
+    if fmt == "Q8_0" and "matmul_q8_0_mma" not in _build.KERNELS:
+        q8_call = None  # a package whose Q8_0 has no multi-row instance
     min_rows = getattr(mq, "MMA_MIN_ROWS", 2)
     rows = []
     for name, n, k, per_fwd in shapes:
@@ -844,7 +854,8 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
         reps = max(50, copies)
         for b in bs:
             x = torch.randn((b, k), generator=gen, device=dev)
-            for acts in ("f32",) if name == "output" else ("f32", "q8"):
+            for acts in ("f32",) if name in ("output", "wte") \
+                    else ("f32", "q8"):
                 x_bytes = b * k * 4  # f32 x
                 if acts == "f32":
                     xr, kern = x, (lambda i: call(x, ws[i % copies]))
@@ -877,16 +888,25 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
     return rows
 
 
-def forward_sum(rows, fmt, b):
+def forward_sum(rows, fmt, b, acts="q8"):
     """ms, plain, library and bound of one forward's launches at b rows
     as the path runs them: each shape's time times its launches a forward,
-    the Q8-activation row where the shape has one (all but the LM head)."""
+    the row with activations ``acts`` where the shape has one (the LM
+    head's f32 otherwise); bound_by: what bounds the rows that take the
+    larger share of the summed bound."""
     sel = [r for r in rows if r["format"] == fmt and r["b"] == b]
-    sel = [r for r in sel if r["acts"] == "q8" or not any(
-        o["shape"] == r["shape"] and o["acts"] == "q8" for o in sel)]
-    return {key: sum(r[key] * r["launches_per_forward"] for r in sel)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")
-            if all(key in r for r in sel)}
+    sel = [r for r in sel if r["acts"] == acts or not any(
+        o["shape"] == r["shape"] and o["acts"] == acts for o in sel)]
+    out = {key: sum(r[key] * r["launches_per_forward"] for r in sel)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+           if all(key in r for r in sel)}
+    share = {}
+    for r in sel:
+        share[r["bound_by"]] = (share.get(r["bound_by"], 0.0)
+                                + r["bound_ms"] * r["launches_per_forward"])
+    if share:
+        out["bound_by"] = max(share, key=share.get)
+    return out
 
 
 def time_q4_0(dev, gen, counts):
@@ -900,13 +920,12 @@ def time_q4_0(dev, gen, counts):
           "source": "ggmlsharp_tpu_torch/csrc/matmul_q4_0.cu",
           "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377",
           "launches": counts["matmul_q4_0"], **forward_sum(rows, "Q4_0", 1),
-          "bound_by": "bytes",
           "unit": "one decode token: the 129 b=1 launches, cold L2"}
     mma = {"name": "matmul_q4_0_mma", "route": "cuda",
            "source": "ggmlsharp_tpu_torch/csrc/matmul_q4_0.cu",
            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377",
            "launches": counts["matmul_q4_0_mma"],
-           **forward_sum(rows, "Q4_0", 16), "bound_by": "bytes",
+           **forward_sum(rows, "Q4_0", 16),
            "b8_forward": forward_sum(rows, "Q4_0", 8),
            "b128_forward": forward_sum(rows, "Q4_0", 128),
            "unit": "one prompt forward of path a: the 129 launches at b=16 "
@@ -983,63 +1002,69 @@ def time_decode_shape(dev, gen, B, Hq, Hkv, T, D=128, kind="int8"):
     return row
 
 
-def q8_bound_ms(b, n, k, q8_acts):
-    """Bytes: Q8_0 weight (34 B a 32-weight block), x and y once each.
-    Operations: 2*b*n*k, int8 x int8 on the tensor cores after the Q8_0
-    activation round trip, f32 FMAs when x stays f32 (the LM head)."""
-    bytes_ = n * k * 34 // 32 + b * k * 4 + b * n * 4
-    t_bytes = bytes_ / HBM_BYTES_S
-    t_ops = 2 * b * n * k / (INT8_OP_S if q8_acts else F32_FLOP_S)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+Q8_CHECK_B = (1, 2, 5, 8, 16, 64, 128)  # both instances; 5: a ragged tile
+Q8_RAGGED = ("ragged", 100, 352)  # N a multiple of no tile, K % 256 = 96
+Q8_7B_B = (2, 5, 16)  # path f's Q8_0 prompt (b 16) at the Llama-7B shapes
 
 
 def check_q8_0(dev, gen):
-    """Kernel 4 (through its wrapper) vs plain at every GPT-2 124M and 774M
-    shape and one ragged one (K/32 no multiple of 8), b in {1, 8, 16, 64}.
-    Tolerance: the two sum K f32 products in different orders; allow 1e-5
-    of sum_k |x_k w_nk| (2^-24 is 6e-8 a rounding). Then whether a row's
-    result is bit for bit the same at every b."""
+    """Kernel 4's two instances (through mul_mat_q_fused, which picks the
+    instance for b) vs plain at every GPT-2 124M and 774M shape and
+    Q8_RAGGED (a short last chunk), b in Q8_CHECK_B, and at every Llama-7B
+    shape (path f's Q8_0 prompt: long runs of chunks a CTA, the LM head on
+    the 128-row route for f32 x), b in Q8_7B_B, with the Q8_0 activation
+    round trip (the int8 route) and f32 x (three bf16 planes). Tolerance:
+    the two sum f32 terms in different orders; allow 1e-5 of sum_k |x_k
+    w_nk|, x as the call rounds it (2^-24 is 6e-8 a rounding). Then whether
+    a row's result is bit for bit the same at every b >= 2
+    (rows_independent_of_b at c_attn 124M, the 7B w_down 4096 x 11008 and
+    Q8_RAGGED, b 2-128), b = 1 within the bar; raises if not."""
     import torch
 
-    from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused, q8_0_matmul
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused
     from ggmlsharp_tpu_torch.models.gpt2 import random_q8_0
-    from ggmlsharp_tpu_torch.ops import mul_mat_q
+    from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     worst, rows = 0.0, []
-    shapes = [(f"{tag}_{name}", n, k) for tag, cfg in gpt2_configs()
-              for name, n, k in gpt2_shapes(cfg.n_embd)]
-    for name, n, k in shapes + [("ragged", 100, 352)]:
+    shapes = [(f"{tag}_{name}", n, k, Q8_CHECK_B) for tag, cfg in
+              gpt2_configs() for name, n, k in gpt2_shapes(cfg.n_embd)]
+    shapes += [(*Q8_RAGGED, Q8_CHECK_B)]
+    shapes += [(f"7B_{name}", n, k, Q8_7B_B) for name, n, k, _ in Q4_SHAPES]
+    for name, n, k, bs in shapes:
         w = random_q8_0(n, k, gen, dev)
         wabs = dequantize(w).abs()
-        for b in (1, 8, 16, 64):
+        for b in bs:
             x = torch.randn((b, k), generator=gen, device=dev)
-            qa = not name.endswith("wte")  # the LM head skips the round trip
-            got = mul_mat_q_fused(w, x, quantize_acts=qa)
-            want = mul_mat_q(w, x, quantize_acts=qa)
-            scale = x.abs() @ wabs.T
-            err = (got - want).abs()
-            torch.cuda.synchronize()
-            ok = bool(torch.isfinite(got).all()) and bool(
-                (err <= 1e-5 * scale).all())
-            e = float(err.max())
-            worst = max(worst, e)
-            rows.append({"shape": name, "b": b, "n": n, "k": k,
-                         "max_abs_err": e,
-                         "max_err_over_sum_abs": float((err / scale).max()),
-                         "ok": ok})
-            if not ok:
-                emit({"q8_0_check": rows})
-                raise SystemExit(f"Q8_0 kernel disagrees at {name} b={b}")
+            for qa in (True, False):
+                got = mul_mat_q_fused(w, x, quantize_acts=qa)
+                want = mul_mat_q(w, x, quantize_acts=qa)
+                xr = dequantize(quantize_activations(x, GType.Q8_0)) if qa \
+                    else x
+                scale = xr.abs() @ wabs.T
+                err = (got - want).abs()
+                torch.cuda.synchronize()
+                ok = bool(torch.isfinite(got).all()) and bool(
+                    (err <= 1e-5 * scale).all())
+                e = float(err.max())
+                worst = max(worst, e)
+                rows.append({"shape": name, "b": b, "n": n, "k": k,
+                             "acts": "q8" if qa else "f32",
+                             "max_abs_err": e,
+                             "max_err_over_sum_abs": float(
+                                 (err / scale).max()),
+                             "ok": ok})
+                if not ok:
+                    emit({"q8_0_check": rows})
+                    raise SystemExit(f"Q8_0 kernel disagrees: {rows[-1]}")
         del w, wabs
-    w = random_q8_0(2304, 768, gen, dev)
-    x = torch.randn((64, 768), generator=gen, device=dev)
-    y = q8_0_matmul(x, w["qs"], w["d"])
-    same = all(torch.equal(y[:b], q8_0_matmul(x[:b].contiguous(), w["qs"],
-                                              w["d"])) for b in (1, 8, 16))
-    emit({"q8_0_check": rows, "rows_independent_of_b": same})
-    if not same:
-        raise SystemExit("a Q8_0 row's result depends on b")
+    same = rows_independent_of_b(dev, gen, "Q8_0",
+                                 ((2304, 768), (4096, 11008),
+                                  Q8_RAGGED[1:3]), Q8_CHECK_B[1:])
+    emit({"q8_0_check": rows, "q8_0_rows_vs_b": same})
+    if not same["ok"]:
+        raise SystemExit(f"a Q8_0 row's result depends on b: {same}")
     return worst
 
 
@@ -1174,8 +1199,9 @@ def run_gpt2_path(tag, cfg, params, prompt):
         "gpt2_layer": L * N_NEW,           # one a block a decode step
         "mlp_fused_q8": L,                 # the prefill's 16 rows
         "flash_attn": L,                   # prefill only
-        # prefill: c_attn, c_proj a block + LM head; a decode step: LM head
-        "matmul_q8_0": 2 * L + 1 + N_NEW}
+        # prefill: c_attn, c_proj a block + LM head at 16 rows (the
+        # multi-row instance); a decode step: the LM head at one row
+        **dq_launches("matmul_q8_0", 2 * L + 1, N_NEW)}
     emit({"gpt2_path": {"config": tag, "tokens": toks[0].tolist(),
                         "seconds": seconds, "launches": counts,
                         "expected_launches": want}})
@@ -1193,55 +1219,61 @@ def run_gpt2_path(tag, cfg, params, prompt):
     return toks, counts
 
 
-def time_q8_0(dev, gen):
-    """Cold-L2 kernel, plain and library (bf16 torch.matmul against the
-    weight dequantized to bf16) times at each GPT-2 shape, b in {1, 16}.
-    On the path: c_attn, c_proj and wte at b = 16 (prefill), wte at b = 1
-    (every decode step)."""
-    import torch
+Q8_TIMING_B = (1, 2, 16, 128)  # decode, GPT-2 INT8 serving, a prompt, a prefill
 
-    from ggmlsharp_tpu_torch.kernels.matmul_q import q8_0_matmul
-    from ggmlsharp_tpu_torch.models.gpt2 import random_q8_0
-    from ggmlsharp_tpu_torch.ops import mul_mat_q
-    from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
+def gpt2_q8_shapes(cfg):
+    """The Q8_0 matmuls a GPT-2 forward runs through kernel 4, (name, N, K,
+    launches a forward): c_attn and c_proj a block, the LM head (wte) once
+    (the MLP is kernel 8)."""
+    per = {"c_attn": cfg.n_layer, "c_proj": cfg.n_layer, "wte": 1}
+    return [(name, n, k, per[name]) for name, n, k in gpt2_shapes(cfg.n_embd)
+            if name in per]
+
+
+def time_q8_0(dev, gen, counts, bs=Q8_TIMING_B, plain=True):
+    """Kernel 4 through the calls the paths make (time_weight_rows: Q8_0
+    activations through mma_q8_matmul at b >= 2, f32 x at the LM head and
+    in the weight-only rows) at each GPT-2 shape it runs, b in ``bs``; the
+    kernels-line rows of its b = 1 instance (a decode token of GPT-2 124M:
+    the LM head, f32 x) and its multi-row instance (path c's 124M prompt
+    forward: c_attn, c_proj at b = 16 with Q8_0 activations, the LM head
+    with f32 x; also 774M's, and GPT-2 INT8 serving's decode step at b = 2,
+    weight-only: f32 x). Returns (timing rows, b1 row, multi-row row)."""
     rows = []
     for tag, cfg in gpt2_configs():
-        for name, n, k in gpt2_shapes(cfg.n_embd):
-            copies = max(2, -(-4 * L2_BYTES // (n * k * 34 // 32)))
-            reps = max(64, copies)  # every copy is touched between two reads
-            ws = [random_q8_0(n, k, gen, dev) for _ in range(copies)]
-            wb = [dequantize(w).to(torch.bfloat16) for w in ws]
-            for b in (1, 16):
-                x = torch.randn((b, k), generator=gen, device=dev)
-                xb = x.to(torch.bfloat16)
-                kern = time_ms(lambda i: q8_0_matmul(
-                    x, ws[i % copies]["qs"], ws[i % copies]["d"]), reps)
-                plain = time_ms(lambda i: mul_mat_q(
-                    ws[i % copies], x, quantize_acts=False), 8)
-                lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
-                              reps)
-                bound, by = q8_bound_ms(b, n, k, q8_acts=name != "wte")
-                on_path = (b == 16 and name in ("c_attn", "c_proj", "wte")) \
-                    or (b == 1 and name == "wte")
-                rows.append({"config": tag, "shape": name, "b": b, "n": n,
-                             "k": k, "ms": kern, "plain_ms": plain,
-                             "library_ms": lib, "bound_ms": bound,
-                             "bound_by": by, "roofline_share": bound / kern,
-                             "cold_copies": copies, "on_path": on_path})
-            del ws, wb
-            torch.cuda.empty_cache()
+        for r in time_weight_rows(dev, gen, "Q8_0", gpt2_q8_shapes(cfg), bs,
+                                  plain):
+            rows.append({"config": tag, **r})
     emit({"q8_0_timing": rows})
-    r = next(r for r in rows if r["config"] == "124M" and r["shape"] == "wte"
-             and r["b"] == 1)
-    return {"name": "matmul_q8_0", "route": "cuda",
-            "source": "ggmlsharp_tpu_torch/csrc/matmul_q8_0.cu",
-            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:572",
-            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by")},
-            "unit": "one decode token of GPT-2 124M: the LM head launch "
-                    "(50257 x 768, b=1, f32 x), cold L2; library = bf16 "
-                    "torch.matmul"}
+    if not plain:
+        return rows, None, None
+    by = {tag: [r for r in rows if r["config"] == tag] for tag, _ in
+          gpt2_configs()}
+    r = next(r for r in by["124M"] if r["shape"] == "wte" and r["b"] == 1)
+    b1 = {"name": "matmul_q8_0", "route": "cuda",
+          "source": "ggmlsharp_tpu_torch/csrc/matmul_q8_0.cu",
+          "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:572",
+          "launches": counts["matmul_q8_0"],
+          **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")},
+          "unit": "one decode token of GPT-2 124M: the LM head launch "
+                  "(50257 x 768, b=1, f32 x), cold L2; library = bf16 "
+                  "torch.matmul"}
+    mma = {"name": "matmul_q8_0_mma", "route": "cuda",
+           "source": "ggmlsharp_tpu_torch/csrc/matmul_q8_0.cu",
+           "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:572",
+           "launches": counts["matmul_q8_0_mma"],
+           **forward_sum(by["124M"], "Q8_0", 16),
+           "forward_774m": forward_sum(by["774M"], "Q8_0", 16),
+           "b2_forward": forward_sum(by["124M"], "Q8_0", 2, "f32"),
+           "unit": "one prompt forward of path c 124M: c_attn, c_proj (Q8_0 "
+                   "activations, the int8 route) x 12 and the LM head (f32 "
+                   "x, three bf16 planes) at b=16, cold L2 (the multi-row "
+                   "instance, csrc/dq_mma.cuh); forward_774m: the same for "
+                   "774M; b2_forward: GPT-2 124M INT8 serving's decode step "
+                   "(weight-only: f32 x) at b=2; library = bf16 torch.matmul"}
+    return rows, b1, mma
 
 
 def mlp_bound_ms(B, E):
@@ -1384,10 +1416,16 @@ def llama_blocks(cfg, n, seed, gen, dev):
     return small, blocks
 
 
+SILU_CHECK_ROWS = (1, 2, 5, 8, 16, 33, 64)  # 1: the b = 1 instance
+SILU_SHORT = (384, 640)  # (E, F): both products end in a short chunk
+
+
 def check_mlp_fused_silu(dev, gen):
-    """Kernel 9 vs plain _ff_silu_ref at Llama-7B's E and F, rows in {1, 8,
-    16}, with and without the Q8_0 round trip of the input (made by the same
-    PyTorch code on both sides). Tolerance: f32 summation order through two
+    """Kernel 9's two instances vs plain _ff_silu_ref at Llama-7B's E and F,
+    rows in SILU_CHECK_ROWS, and at SILU_SHORT (E and F not multiples of the
+    multi-row instance's 256-column chunk), with and without the Q8_0 round
+    trip of the input (made by the same PyTorch code on both sides).
+    Tolerance: f32 summation order through two
     chained products. g and u may each differ by 1e-5 of their s = sum |x w|;
     silu's slope is at most 1.1 and |silu(g)| <= |g|, so the gated product a
     by 1e-5 of (1.1 |u| s_g + |g| s_u), and y by 1e-5 of that plus |a|,
@@ -1403,14 +1441,14 @@ def check_mlp_fused_silu(dev, gen):
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     cfg = llama.LLAMA_7B
-    E, F = cfg.n_embd, cfg.n_ff
-    w1 = llama.random_q4_0(2 * F, E, gen, dev)
-    w2 = llama.random_q4_0(E, F, gen, dev)
-    w1abs, w2abs = dequantize(w1).abs(), dequantize(w2).abs()
     worst, rows = 0.0, []
-    for n_rows in (1, SLOTS, PROMPT_LEN):
-        x = torch.randn((n_rows, E), generator=gen, device=dev)
-        for qa in (False, True):
+    for (E, F), row_set in (((cfg.n_embd, cfg.n_ff), SILU_CHECK_ROWS),
+                            (SILU_SHORT, (1, 2, 5, 16, 64))):
+        w1 = llama.random_q4_0(2 * F, E, gen, dev)
+        w2 = llama.random_q4_0(E, F, gen, dev)
+        w1abs, w2abs = dequantize(w1).abs(), dequantize(w2).abs()
+        for n_rows, qa in ((r, q) for r in row_set for q in (False, True)):
+            x = torch.randn((n_rows, E), generator=gen, device=dev)
             got = flash_ff_silu_q4(w1, w2, x, quantize_acts=qa)
             want = _ff_silu_ref(w1, w2, x, quantize_acts=qa)
             gu = mul_mat_q(w1, x, quantize_acts=qa)
@@ -1425,13 +1463,14 @@ def check_mlp_fused_silu(dev, gen):
                 (err <= 5e-5 + 5e-5 * want.abs()).all())
             e = float(err.max())
             worst = max(worst, e)
-            rows.append({"rows": n_rows, "quantize_acts": qa,
+            rows.append({"E": E, "F": F, "rows": n_rows, "quantize_acts": qa,
                          "max_abs_err": e, "max_abs": float(want.abs().max()),
                          "max_err_over_scale": float((err / scale).max()),
                          "ok": ok})
             if not ok:
                 emit({"mlp_fused_silu_check": rows})
                 raise SystemExit(f"mlp_fused_silu_q4 disagrees: {rows[-1]}")
+        del w1, w2, w1abs, w2abs
     emit({"mlp_fused_silu_check": rows})
     return worst
 
@@ -1599,28 +1638,49 @@ def run_fused_path(cfg, params, prompt, label, n_new, want,
     return toks, counts
 
 
-def mlp_silu_bound_ms(B, E, F):
-    """Bytes: both Q4_0 weights (18 B a 32-weight block), x and y once each
-    (the gated product is no tensor of the model). Operations: the gate/up
-    product is int8 x int4 after the input's Q8_0 round trip, the down
-    product f32 x int4 (the gated product is never quantized)."""
-    bytes_ = 3 * E * F * 18 // 32 + 2 * B * E * 4
+def mlp_silu_bound_ms(B, E, F, q8_acts=False):
+    """Bytes: both Q4_0 weights (18 B a 32-weight block), x as the timed
+    call takes it (f32, or with ``q8_acts`` its Q8_0 values and block
+    scales) and y, once each (the gated product is no tensor of the model).
+    Operations, the least any implementation needs on this card: the
+    gate/up product int8 x int4 on the int8 tensor cores after the Q8_0
+    round trip, else f32 x exactly as three bf16 products a term; the down
+    product's operand, the f32 gated product, three bf16 products a term
+    (it is never quantized)."""
+    x_bytes = B * E + B * E // 32 * 2 if q8_acts else B * E * 4
+    bytes_ = 3 * E * F * 18 // 32 + x_bytes + B * E * 4
     t_bytes = bytes_ / HBM_BYTES_S
-    t_ops = 4 * B * F * E / INT8_OP_S + 2 * B * E * F / F32_FLOP_S
+    t_ops = (4 * B * F * E / INT8_OP_S if q8_acts
+             else 12 * B * F * E / BF16_FLOP_S) + 6 * B * E * F / BF16_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_mlp_fused_silu(dev, gen):
-    """Cold-L2 kernel, plain and library times of one Llama-7B MLP call at 1
-    row (a decode step), 8 (a serving step) and 16 (the prompt). Library: two
-    bf16 torch.matmuls around F.silu over weights dequantized to bf16."""
+SILU_TIMING_ROWS = (1, 2, 8, 16, 64)  # decode, serving ticks, a prompt, the gate
+
+
+def time_mlp_fused_silu(dev, gen, counts=None, plain=True,
+                        n_rows_set=SILU_TIMING_ROWS):
+    """Cold-L2 kernel, plain and library times of one Llama-7B MLP call at
+    each row count of ``n_rows_set``, in two rows where the package has the
+    multi-row instance: "f32", x as it comes, and "q8", the operands the
+    path hands it (the Q8_0 activations of quantize_activations(x, Q4_0)
+    from MMA_MIN_ROWS rows on; one row, and a package without the instance,
+    takes their dequantized f32 copy). Library: two bf16 torch.matmuls
+    around F.silu over weights dequantized to bf16. With ``counts``, also
+    returns the kernels-line rows of the b = 1 instance (1 row) and the
+    multi-row instance (16 rows, the prompt of paths d1 and d2, Q8_0
+    activations)."""
     import torch
     import torch.nn.functional as F_
 
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels import _build
     from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_silu_ref, mlp_fused_silu_q4
     from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.ops import quantize_activations
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
+    multi = "mlp_fused_silu_q4_mma" in _build.KERNELS
     cfg = llama.LLAMA_7B
     E, F = cfg.n_embd, cfg.n_ff
     copies = max(2, -(-4 * L2_BYTES // (3 * E * F * 18 // 32)))
@@ -1629,35 +1689,62 @@ def time_mlp_fused_silu(dev, gen):
     wb = [(dequantize(w1).bfloat16(), dequantize(w2).bfloat16())
           for w1, w2 in ws]
     rows = []
-    for n_rows in (1, SLOTS, PROMPT_LEN):
+    for n_rows in n_rows_set:
         x = torch.randn((n_rows, E), generator=gen, device=dev)
-        xb = x.bfloat16()
+        aq = quantize_activations(x, GType.Q4_0)
+        xr = dequantize(aq)
+        for acts in ("f32", "q8"):
+            q8 = acts == "q8" and multi and n_rows >= 2
+            xa = aq if q8 else (x if acts == "f32" else xr)
+            xb = xa.bfloat16() if not q8 else xr.bfloat16()
 
-        def lib(i):
-            w1, w2 = wb[i % copies]
-            gu = xb @ w1.T
-            return (F_.silu(gu[:, :F]) * gu[:, F:]) @ w2.T
+            def lib(i, xb=xb):
+                w1, w2 = wb[i % copies]
+                gu = xb @ w1.T
+                return (F_.silu(gu[:, :F]) * gu[:, F:]) @ w2.T
 
-        bound, by = mlp_silu_bound_ms(n_rows, E, F)
-        ms = time_ms(lambda i: mlp_fused_silu_q4(x, *ws[i % copies]), 48)
-        rows.append({"rows": n_rows, "ms": ms,
-                     "plain_ms": time_ms(lambda i: _ff_silu_ref(
-                         *ws[i % copies], x, quantize_acts=False), 6),
-                     "library_ms": time_ms(lib, 48), "bound_ms": bound,
-                     "bound_by": by, "roofline_share": bound / ms,
-                     "cold_copies": copies})
+            bound, by = mlp_silu_bound_ms(n_rows, E, F, q8)
+            ms = time_ms(lambda i, xa=xa: mlp_fused_silu_q4(
+                xa, *ws[i % copies]), 48)
+            row = {"rows": n_rows, "acts": acts, "ms": ms,
+                   "library_ms": time_ms(lib, 48), "bound_ms": bound,
+                   "bound_by": by, "roofline_share": bound / ms,
+                   "cold_copies": copies}
+            if plain:
+                row["plain_ms"] = time_ms(lambda i, xv=x if acts == "f32"
+                                          else xr: _ff_silu_ref(
+                                              *ws[i % copies], xv,
+                                              quantize_acts=False), 6)
+            rows.append(row)
     del ws, wb
     torch.cuda.empty_cache()
     emit({"mlp_fused_silu_timing": rows})
-    r = rows[0]
-    return {"name": "mlp_fused_silu_q4", "route": "cuda",
-            "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_silu_q4.cu",
-            "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:268",
-            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by")},
-            "unit": "one Llama-7B MLP call at 1 row (a decode step): E 4096, "
-                    "F 11008, cold L2; library = two bf16 torch.matmuls + "
-                    "F.silu"}
+    if counts is None:
+        return rows
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    r1 = next(r for r in rows if r["rows"] == 1 and r["acts"] == "f32")
+    r16 = next(r for r in rows if r["rows"] == PROMPT_LEN and r["acts"] == "q8")
+    b1 = {"name": "mlp_fused_silu_q4", "route": "cuda",
+          "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_silu_q4.cu",
+          "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:268",
+          "launches": counts["mlp_fused_silu_q4"],
+          **{key: r1[key] for key in keys},
+          "unit": "one Llama-7B MLP call at 1 row (a decode step): E 4096, "
+                  "F 11008, cold L2; library = two bf16 torch.matmuls + "
+                  "F.silu"}
+    mma = {"name": "mlp_fused_silu_q4_mma", "route": "cuda",
+           "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_silu_q4.cu",
+           "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:268",
+           "launches": counts["mlp_fused_silu_q4_mma"],
+           **{key: r16[key] for key in keys},
+           "rows_ms": {f"{r['rows']} {r['acts']}": r["ms"] for r in rows},
+           "rows_library_ms": {f"{r['rows']} {r['acts']}": r["library_ms"]
+                               for r in rows},
+           "unit": "one Llama-7B MLP call at 16 rows (the prompt of paths d1, "
+                   "d2), Q8_0 activations, cold L2 (the multi-row instance, "
+                   "csrc/dq_mma.cuh: split, gate/up, merge_gate, down, "
+                   "merge); library = two bf16 torch.matmuls + F.silu"}
+    return rows, b1, mma
 
 
 def llama_layer_bound_ms(cfg, npast):
@@ -1921,7 +2008,7 @@ def time_matmul_q(dev, gen, counts):
           "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377 (and :199, "
                       ":737)",
           "launches": counts["matmul_q"], **forward_sum(rows, "Q4_K", 1),
-          "bound_by": "bytes", "q6_k_token": forward_sum(rows, "Q6_K", 1),
+          "q6_k_token": forward_sum(rows, "Q6_K", 1),
           "w_gate_up_b1_ms": gu[1],
           "unit": "one decode token of path e1 (Q4_K): the 129 b=1 "
                   "launches, cold L2; library = bf16 torch.matmul"}
@@ -1930,7 +2017,7 @@ def time_matmul_q(dev, gen, counts):
            "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:377 (and :199, "
                        ":737)",
            "launches": counts["matmul_q_mma"],
-           **forward_sum(rows, "Q4_K", 16), "bound_by": "bytes",
+           **forward_sum(rows, "Q4_K", 16),
            "q6_k_prompt": forward_sum(rows, "Q6_K", 16),
            "w_gate_up_b16_ms": gu[16],
            "unit": "one prompt forward of path e1 (Q4_K): the 129 launches "
@@ -2007,7 +2094,6 @@ def run_format_paths(cfg, prompt, gen):
     import torch
 
     from ggmlsharp_tpu_torch import GType
-    from ggmlsharp_tpu_torch.kernels._build import KERNELS
     from ggmlsharp_tpu_torch.kernels.matmul_q import KERNEL_OF
     from ggmlsharp_tpu_torch.models import llama
 
@@ -2018,9 +2104,8 @@ def run_format_paths(cfg, prompt, gen):
         for fmt in formats:
             params = llama.synthetic_params(fcfg, GType[fmt], seed=SEED)
             kern = KERNEL_OF[GType[fmt]]
-            # the prompt's matmuls at 16 rows (Q8_0: its RB = 8 instance)
-            prompt_ = (dq_launches(kern, 4 * L + 1, 0)
-                       if f"{kern}_mma" in KERNELS else {kern: 4 * L + 1})
+            # the prompt's matmuls at 16 rows: the multi-row instance
+            prompt_ = dq_launches(kern, 4 * L + 1, 0)
             if route == "f1":
                 want = {**prompt_, "flash_attn": L}
                 want[kern] += (4 * L + 1) * F_NEW
@@ -2780,23 +2865,26 @@ def run_probe_path(dev):
     three Q4_UNPACK builds (i2f bit-equal to prmt, half2 within its bar),
     the copy ceiling at 8 MB and 1 GiB, the byte map, the K-major matvec
     (checked and timed), the f16 decode, the block maps and the bad-entry
-    map; counters reset just before, read just after."""
+    map; and kernel 4's two builds for Q8_0 activations (probes/q8_acts.py:
+    both checked and timed); counters reset just before, read just
+    after."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
-    from ggmlsharp_tpu_torch.probes import dq_variants, scale_decode, swar
+    from ggmlsharp_tpu_torch.probes import (dq_variants, q8_acts,
+                                            scale_decode, swar)
 
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     res = {"dq": dq_variants.run(dev), "swar": swar.run(dev),
-           "scale": scale_decode.run(dev)}
+           "scale": scale_decode.run(dev), "q8_acts": q8_acts.run(dev)}
     torch.cuda.synchronize()
     res["seconds"] = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     ran = ("matmul_q4_0", "matmul_q4_0_i2f", "matmul_q4_0_half2",
            "probe_copy", "probe_byte_order", "matmul_q4_0_kmajor",
-           "probe_f16_decode", "probe_block_map")
+           "probe_f16_decode", "probe_block_map", "matmul_q8_0_mma")
     emit({"tuning_probes": {"seconds": res["seconds"], "launches": counts}})
     if not all(counts[k] for k in ran):
         raise SystemExit(f"a probe kernel never launched: {counts}")
@@ -3163,18 +3251,26 @@ def attention_timing(dev):
     time_attention(dev, gen)
 
 
+MATMUL_TIMING_Q8_B = (1, 2, 3, 4, 16, 128)  # kernel 4: the crossover, paths
+
+
 def matmul_timing(dev):
     """--matmul-timing [ROOT], a development mode (no compatibility
-    promise): the Q4_0 and kernel A dequant-matmuls of the package under
-    ROOT built and timed (time_weight_rows, no plain version), nothing
-    else."""
+    promise): the dequant-matmuls and kernel 9 of the package under ROOT
+    built and timed, nothing else (no plain version): Q4_0, Q4_K, Q6_K at
+    every 7B shape and the legacy formats at w_gate_up (time_weight_rows);
+    Q8_0 at the GPT-2 shapes of time_q8_0, b in MATMUL_TIMING_Q8_B, and at
+    every 7B shape, b 16 (path f's Q8_0 prompt: Q8_0 and f32 x, the LM head
+    f32); kernel 9 at SILU_TIMING_ROWS (time_mlp_fused_silu)."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
     from ggmlsharp_tpu_torch.kernels import _build
 
-    names = [n for n in ("matmul_q4_0", "matmul_q", "matmul_q4_0_mma",
-                         "matmul_q_mma") if n in _build.KERNELS]
+    names = [n for n in ("matmul_q4_0", "matmul_q", "matmul_q8_0",
+                         "mlp_fused_silu_q4", "matmul_q4_0_mma",
+                         "matmul_q_mma", "matmul_q8_0_mma",
+                         "mlp_fused_silu_q4_mma") if n in _build.KERNELS]
     t0 = time.perf_counter()
     kernels.build(names)
     log(f"built {names} in {time.perf_counter() - t0:.1f} s")
@@ -3191,6 +3287,22 @@ def matmul_timing(dev):
         log(f"{fmt} prompt forward (129 launches, b 16): "
             f"{forward_sum(rows, fmt, 16)['ms']:.3f} ms; decode token: "
             f"{forward_sum(rows, fmt, 1)['ms']:.3f} ms")
+    q8, _, _ = time_q8_0(dev, gen, None, MATMUL_TIMING_Q8_B, plain=False)
+    for tag, _ in gpt2_configs():
+        sel = [r for r in q8 if r["config"] == tag]
+        log(f"GPT-2 {tag} prompt forward's kernel-4 launches (b 16): "
+            f"{forward_sum(sel, 'Q8_0', 16)['ms']:.4f} ms; serving decode "
+            f"step's (b 2, f32): {forward_sum(sel, 'Q8_0', 2, 'f32')['ms']:.4f}"
+            f" ms")
+    f_shapes = [(name, n, k, 1 if name == "output" else F_LAYERS)
+                for name, n, k, _ in Q4_SHAPES]
+    q8_7b = time_weight_rows(dev, gen, "Q8_0", f_shapes, (16,), plain=False)
+    emit({"matmul_timing_q8_0_7b": q8_7b})
+    log(f"path f2's Q8_0 prompt forward ({F_LAYERS} layers, b 16): "
+        f"{forward_sum(q8_7b, 'Q8_0', 16)['ms']:.4f} ms")
+    silu = time_mlp_fused_silu(dev, gen, plain=False)
+    log("kernel 9 ms: " + ", ".join(f"{r['rows']} {r['acts']} {r['ms']:.4f}"
+                                    for r in silu))
 
 
 def main(argv):
@@ -3232,15 +3344,18 @@ def main(argv):
     dev = torch.device("cuda")
 
     from ggmlsharp_tpu_torch.kernels.config import kernels_setting
+    from ggmlsharp_tpu_torch.probes import q8_acts
     from ggmlsharp_tpu_torch.probes.dq_variants import variant_defines
 
     if kernels_setting() is not None:
         raise SystemExit(f"kernels_enabled() must be auto on every path, is "
                          f"forced to {kernels_setting()}")
     t0 = time.perf_counter()
-    # every source, and the probe builds of matmul_q4_0.cu, in parallel
+    # every source, and the probe builds of matmul_q4_0.cu and
+    # matmul_q8_0.cu, in parallel
     logs = kernels.build(variants=[("matmul_q4_0", variant_defines(v))
-                                   for v in ("i2f", "half2")])
+                                   for v in ("i2f", "half2")]
+                         + [(q8_acts.ENTRY, q8_acts.variant_defines("bf16"))])
     log(f"[2/6] built {sorted(logs) or 'nothing new'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -3272,9 +3387,10 @@ def main(argv):
         f"{q4_err:.3g} at b {CHECK_B} (a row's bits equal at b {MMA_B}: "
         f"{q4_rows_ok}), flash "
         f"{fl_err:.3g}, attn_decode {ad_err:.3g} (attn lane map "
-        f"{attn_lay_err:.3g}), Q8_0 {q8_err:.3g} (rows "
-        f"independent of b), mlp_fused_q8 {mlp_err:.3g}, gpt2_layer "
-        f"{layer_err:.3g}, mlp_fused_silu_q4 {silu_err:.3g}, llama_layer "
+        f"{attn_lay_err:.3g}), Q8_0 {q8_err:.3g} at b {Q8_CHECK_B} (a "
+        f"row's bits equal at b >= 2), mlp_fused_q8 {mlp_err:.3g}, gpt2_layer "
+        f"{layer_err:.3g}, mlp_fused_silu_q4 {silu_err:.3g} at rows "
+        f"{SILU_CHECK_ROWS} and E, F {SILU_SHORT}, llama_layer "
         f"{llayer_err:.3g}; matmul_q {max(mq_errs.values()):.3g} (7 "
         f"formats, b as Q4_0's, rows as Q4_0's), matmul_int_dot "
         f"{max(ib_errs.values()):.3g} (5 formats); flash entries "
@@ -3359,16 +3475,17 @@ def main(argv):
     L = cfg.n_layer
     ftoks, fcounts = run_fused_path(
         cfg, params_d, prompt, "mlp_fused + layer_fused, flat bf16 cache",
-        N_NEW, {"llama_layer": L * N_NEW, "mlp_fused_silu_q4": L,
-                "flash_attn": L, **dq_launches("matmul_q4_0", 2 * L + 1,
-                                               N_NEW)},
+        N_NEW, {"llama_layer": L * N_NEW, "flash_attn": L,
+                # the prompt's 16 rows: kernel 9's multi-row instance
+                **dq_launches("mlp_fused_silu_q4", L, 0),
+                **dq_launches("matmul_q4_0", 2 * L + 1, N_NEW)},
         flat=True)
     # The fused MLP alone, head-major cache (path a's route with one call
     # in place of w_gate_up, silu and w_down): kernel 9 at b = 1.
     params_m = strip_routes(params_d, ("layer_fused",))
     mtoks, mcounts = run_fused_path(
         cfg, params_m, prompt, "mlp_fused, head-major bf16 cache", MLP_STEPS,
-        {"mlp_fused_silu_q4": L * (1 + MLP_STEPS), "flash_attn": L,
+        {"flash_attn": L, **dq_launches("mlp_fused_silu_q4", L, L * MLP_STEPS),
          **dq_launches("matmul_q4_0", 2 * L + 1, (2 * L + 1) * MLP_STEPS)})
     # Tolerances as for path a. The whole-block route quantizes no
     # activation, but its prompt and bf16 cache rows do round: tol 0.1 under
@@ -3527,14 +3644,14 @@ def main(argv):
     ad_row["attn_layout_max_abs_err"] = attn_lay_err
     ad_row["attn_layout_ms"] = lay[0]["attn_layout_ms"]
     ad_row["heads_layout_bf16_ms"] = lay[0]["heads_layout_ms"]
-    q8_row = time_q8_0(dev, gen)
-    q8_row["max_abs_err"] = q8_err
+    _, q8_row, q8_mma_row = time_q8_0(dev, gen, g_models["124M"][3])
+    q8_row["max_abs_err"] = q8_mma_row["max_abs_err"] = q8_err
     mlp_row = time_mlp_fused(dev, gen)
     mlp_row["max_abs_err"] = mlp_err
     layer_row = time_gpt2_layer(dev, gen)
     layer_row["max_abs_err"] = layer_err
-    silu_row = time_mlp_fused_silu(dev, gen)
-    silu_row["max_abs_err"] = silu_err
+    _, silu_row, silu_mma_row = time_mlp_fused_silu(dev, gen, mcounts)
+    silu_row["max_abs_err"] = silu_mma_row["max_abs_err"] = silu_err
     llayer_row = time_llama_layer(dev, gen)
     llayer_row["max_abs_err"] = llayer_err
     mq_row, mq_mma_row = time_matmul_q(dev, gen, kq_counts)
@@ -3547,9 +3664,9 @@ def main(argv):
     for T in (64, 2048):  # path e's shape, B = 1
         for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
             ad_row[f"b1_T{T}_{k}"] = ad[f"b1_T{T}"][k]
-    rows = (q4_row, q4_mma_row, fl_row, ad_row, q8_row, mlp_row, layer_row,
-            silu_row, llayer_row, mq_row, mq_mma_row, ib_row, unc_row,
-            *tune_rows(probes))
+    rows = (q4_row, q4_mma_row, fl_row, ad_row, q8_row, q8_mma_row, mlp_row,
+            layer_row, silu_row, silu_mma_row, llayer_row, mq_row, mq_mma_row,
+            ib_row, unc_row, *tune_rows(probes))
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
         name = row["name"]
@@ -3568,7 +3685,7 @@ def main(argv):
         row["launches_llama_13b"] = i_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
-                                                 fcounts, kq_counts,
+                                                 fcounts, mcounts, kq_counts,
                                                  fmt_counts, g_counts,
                                                  h_counts, probe_counts,
                                                  i_counts) if c[name])
@@ -3676,7 +3793,8 @@ def main(argv):
              "q6_k_token", "w_gate_up_b1_ms", "w_gate_up_ms",
              # the multi-row instances (b8/b128: a serving tick and prefill)
              "b8_forward", "b128_forward", "q6_k_prompt", "w_gate_up_b16_ms",
-             "max_abs_err_by_format",
+             "max_abs_err_by_format", "forward_774m", "b2_forward", "rows_ms",
+             "rows_library_ms",
              # kernel 2 at path g's shape: the cached entry, softcap, the
              # backward (the Function's dense recompute) against SDPA's
              "train_g_ms", "train_g_softcap_ms", "train_g_plain_ms",

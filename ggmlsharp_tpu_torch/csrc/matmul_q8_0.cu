@@ -9,8 +9,9 @@
 // element order and d f16 [N, K/32], ggml's own block bytes split in two.
 //
 // What bounds it: at b = 1 a matrix-vector product, bound by the HBM bytes
-// of the weights, N*K*34/32 a call. The f32 FMAs (2*b*N*K) overtake the
-// bytes at larger b.
+// of the weights, N*K*34/32 a call. The multi-row instance's products
+// (2*b*N*K on the int8 tensor cores for Q8_0 activations, three bf16
+// products a term for f32 x) pass the bytes near b = 310 and b = 52.
 //
 // Design, simple first (q8_dot.cuh has the inner loop):
 //  * A warp owns ROWS_PER_WARP weight rows and streams each once, 256 bytes
@@ -19,9 +20,9 @@
 //    of the warp.
 //  * int8 -> f32 by a byte permute into the mantissa of 2^23 and one
 //    subtraction, not by an int-to-float conversion.
-//  * Each activation row keeps its own f32 accumulator (RB rows a pass: 1 at
-//    decode, 8 for any larger b, so a row's sum does not depend on b); a
-//    warp-shuffle reduction ends each row.
+//  * The activation row keeps its own f32 accumulator (RB rows a pass, a
+//    template parameter launched at 1: decode); a warp-shuffle reduction
+//    ends each row.
 //  * Launch geometry: WARPS warps a block, ROWS_PER_WARP rows a warp, both
 //    template parameters, one instance for each pair of kernels/tune.py's
 //    GEOMETRIES (the C entry takes the pair). warp_dot keeps one accumulator
@@ -29,7 +30,25 @@
 //    bits.
 //  * Ragged edges are masked by row and by block: N = 50257 (the LM head)
 //    is a multiple of nothing, and neighbouring rows are not padded.
-// No tensor cores and no TMA: those designs are left to a later change.
+// No tensor cores and no TMA in this instance, which runs one activation
+// row. Two or more rows take the multi-row instance on the tensor cores
+// (dq_mma.cuh, q8_0_matmul_mma below; kernels/matmul_q.py MMA_MIN_ROWS):
+// f32 x in three bf16 planes against DecQ8's exact bf16 weights, or Q8_0
+// activations against the weight bytes on the int8 tensor cores
+// (q8_i8_kernel). GPT-2's narrow shapes are latency-bound: there both
+// routes take one launch (no split kernel: f32 x is split in the mma
+// kernel's shared memory; the K splits reduced in a thread-block cluster,
+// no merge kernel) and tiles of 64 weight rows (kernels/matmul_q.py
+// q8_mma_splits).
+//
+// Q8_ACTS, a probe's variant (probes/q8_acts.py): 0 (the default) sends
+// Q8_0 activations to q8_i8_kernel; 1 to the shared kernel's one-plane
+// route read in the kernel (the XF route with P = 1: the int8 values as
+// one bf16 plane against DecQ8), the same launch shape, to time the two.
+#ifndef Q8_ACTS
+#define Q8_ACTS 0
+#endif
+#include "dq_mma.cuh"
 #include "q8_dot.cuh"
 
 namespace {
@@ -65,18 +84,14 @@ template <int WARPS, int RPW>
 void launch(const float* x, const int8_t* qs, const __half* d, float* y,
             int B, int N, int K, cudaStream_t stream) {
   constexpr int rows = WARPS * RPW;  // weight rows a block
-  if (B == 1) {  // decode
-    dim3 grid((N + rows - 1) / rows, 1);
-    q8_0_matmul_kernel<WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
-  } else {  // prefill; ragged B masked
-    dim3 grid((N + rows - 1) / rows, (B + 7) / 8);
-    q8_0_matmul_kernel<WARPS, RPW, 8><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
-  }
+  dim3 grid((N + rows - 1) / rows, 1);  // decode: one activation row
+  q8_0_matmul_kernel<WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
 }
 
 }  // namespace
 
-// x f32 [B, K], qs int8 [N, K], d f16 [N, K/32] -> y f32 [B, N], launched
+// x f32 [1, K], qs int8 [N, K], d f16 [N, K/32] -> y f32 [1, N]: the b = 1
+// instance (any other B returns cudaErrorInvalidValue), launched
 // with `warps` warps a block and `rpw` weight rows a warp: one of
 // kernels/tune.py's GEOMETRIES (any other pair returns cudaErrorInvalidValue).
 // K must be a multiple of 32; x and qs 16-byte aligned (the wrapper checks).
@@ -84,7 +99,7 @@ void launch(const float* x, const int8_t* qs, const __half* d, float* y,
 extern "C" int q8_0_matmul(const float* x, const int8_t* qs, const __half* d,
                            float* y, int B, int N, int K, int warps, int rpw,
                            cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
+  if (B != 1 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
   switch (warps * 16 + rpw) {
     case 4 * 16 + 1: launch<4, 1>(x, qs, d, y, B, N, K, stream); break;
     case 4 * 16 + 2: launch<4, 2>(x, qs, d, y, B, N, K, stream); break;
@@ -95,4 +110,38 @@ extern "C" int q8_0_matmul(const float* x, const int8_t* qs, const __half* d,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The multi-row instance (dq_mma.cuh), for any B (the wrappers send B >= 2
+// here); qs int8 [N, K], d f16 [N, K/32] -> y f32 [B, N], K split `splits`
+// ways; `rows` and the splits from kernels/matmul_q.py (_mma_plan):
+//  * Q8_0 activations (xq int8 [B, K], 16-byte aligned, xd f16 [B, K/32],
+//    `kind` dqm::Q8_F16_32; x null): the int8 tensor cores, rows =
+//    dqm::ROWS_Q8, splits <= 8 reduced in clusters; one launch;
+//  * x f32 [B, K] (16-byte aligned), rows = dqm::ROWS_Q8: split into three
+//    bf16 planes in the mma kernel's shared memory, four warp groups a
+//    chunk, splits <= 8 reduced in clusters; one launch;
+//  * x f32, rows = dqm::ROWS (weights whose 128-row tiles alone fill the
+//    card: the LM head): the shared split, mma and merge kernels; scratch
+//    dqm::scratch_bytes of three planes (matmul_q.py _mma_scratch_bytes).
+// Returns cudaGetLastError() after the launches.
+extern "C" int q8_0_matmul_mma(const float* x, const int8_t* xq, const void* xd, int kind,
+                               const int8_t* qs, const __half* d, float* y,
+                               unsigned char* scratch, int B, int N, int K, int rows,
+                               int splits, cudaStream_t stream) {
+  const dqm::Planes pl{{qs, d, nullptr, nullptr}};
+  if ((x == nullptr) == (xq == nullptr)) return (int)cudaErrorInvalidValue;
+  if (x != nullptr && rows == dqm::ROWS)
+    return dqm::launch<dqm::DecQ8>(x, nullptr, nullptr, 0, pl, y, scratch, B, N, K, splits,
+                                   stream);
+  if (rows != dqm::ROWS_Q8) return (int)cudaErrorInvalidValue;
+  if (x != nullptr)
+    return dqm::launch_xf<dqm::DecQ8>(x, nullptr, nullptr, pl, y, B, N, K, splits, stream);
+  if (kind != dqm::Q8_F16_32) return (int)cudaErrorInvalidValue;
+#if Q8_ACTS == 1
+  return dqm::launch_xf<dqm::DecQ8>(nullptr, xq, static_cast<const __half*>(xd), pl, y, B, N, K,
+                                    splits, stream);
+#else
+  return dqm::launch_i8(xq, static_cast<const __half*>(xd), qs, d, y, B, N, K, splits, stream);
+#endif
 }

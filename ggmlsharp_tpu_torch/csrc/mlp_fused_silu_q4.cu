@@ -9,21 +9,32 @@
 // and are never re-quantized (the gated product is no tensor of the model).
 //
 // What bounds it: the HBM bytes of the two weights, 3*E*F*18/32 (76.1 MB at
-// E 4096, F 11008: 22.7 us at 3.35 TB/s) up to about 16 rows; beyond that
-// the f32 FMAs, 6*B*E*F.
+// E 4096, F 11008: 22.7 us at 3.35 TB/s); the multi-row instance's products
+// (one bf16 product a term for Q8_0 activations, three for the f32 gated
+// product: 2*B*E*F*(1 + 3) at the dense bf16 rate) pass them near B = 44.
 //
-// Design. The TPU kernel walks a sequential grid and keeps the gate/up rows
-// in on-chip scratch; here blocks run in parallel and none can hold them for
-// the others. So the kernel is a cooperative launch of a persistent grid
-// that fits the card at once:
-//  * phase 1: every warp of the grid takes (gate row n and up row F + n, 8
-//    activation rows) items in turn, so both halves of an element meet in
-//    one warp, and writes a[b, n] = silu(g) * u to a scratch a [B, F] f32
-//    (at most 64 x 11008 x 4 B = 2.8 MB: it stays in L2). The raw gate/up
-//    rows never leave registers;
+// Two instances. One activation row (decode) keeps the one-launch kernel
+// below; two or more (mlp_fused_silu_q4_mma, kernels/mlp_fused.py) run on
+// the tensor cores through dq_mma.cuh as a chain of launches: x into bf16
+// planes (three for f32 x; one, the int8 values, for Q8_0 activations),
+// the gate/up product (both halves of [Wg; Wu], K = E split
+// mma_splits(2F, E) ways), merge_gate (adds the splits, pairs gate row n
+// with up row F + n, silu(g) * u in f32, written as the down product's
+// three exact bf16 planes), the down product (K = F split mma_splits(E, F)
+// ways) and its merge. Nothing else runs between them; the gated product
+// is never re-quantized.
+//
+// Design of the b = 1 instance. The TPU kernel walks a sequential grid and
+// keeps the gate/up rows in on-chip scratch; here blocks run in parallel
+// and none can hold them for the others. So the kernel is a cooperative
+// launch of a persistent grid that fits the card at once:
+//  * phase 1: every warp of the grid takes (gate row n and up row F + n)
+//    items in turn, so both halves of an element meet in one warp, and
+//    writes a[n] = silu(g) * u to a scratch a [F] f32 (it stays in L2). The
+//    raw gate/up rows never leave registers;
 //  * one grid-wide barrier;
 //  * phase 2: W2 has few rows (E) and long ones (K = F), so a block takes an
-//    item (MLP_RW rows, 8 activation rows) and its 8 warps split K, every
+//    item (MLP_RW rows) and its 8 warps split K, every
 //    8th 512-element step each; their sums meet in shared memory in a fixed
 //    order. a is read with plain loads (L1 and L2). F/32 need not be a
 //    multiple of 16: the tail blocks are masked.
@@ -46,6 +57,7 @@
 #endif
 #include <cooperative_groups.h>
 
+#include "dq_mma.cuh"
 #include "q4_dot.cuh"
 
 namespace cg = cooperative_groups;
@@ -164,15 +176,59 @@ int launch(MlpArgs& m, cudaStream_t stream) {
 
 }  // namespace
 
-// x f32 [B, E]; qs1 uint8 [2F, E/2], d1 f16 [2F, E/32] (gate rows, then up
-// rows); qs2 uint8 [E, F/2], d2 f16 [E, F/32]; a f32 [B, F] scratch; y f32
-// [B, E]. E and F multiples of 32; x, a, qs1 and qs2 16-byte aligned (the
-// wrapper checks). Returns the CUDA error of the cooperative launch
-// (0: launched).
+// x f32 [1, E]; qs1 uint8 [2F, E/2], d1 f16 [2F, E/32] (gate rows, then up
+// rows); qs2 uint8 [E, F/2], d2 f16 [E, F/32]; a f32 [1, F] scratch; y f32
+// [1, E]: the b = 1 instance (any other B returns cudaErrorInvalidValue).
+// E and F multiples of 32; x, a, qs1 and qs2 16-byte aligned (the wrapper
+// checks). Returns the CUDA error of the cooperative launch (0: launched).
 extern "C" int mlp_fused_silu_q4(const float* x, const uint8_t* qs1, const __half* d1,
                                  const uint8_t* qs2, const __half* d2, float* a, float* y,
                                  int B, int E, int F, cudaStream_t stream) {
-  if (B <= 0 || E <= 0 || F <= 0 || E % 32 || F % 32) return (int)cudaErrorInvalidValue;
+  if (B != 1 || E <= 0 || F <= 0 || E % 32 || F % 32) return (int)cudaErrorInvalidValue;
   MlpArgs m{x, qs1, d1, qs2, d2, a, y, B, E, F};
-  return B == 1 ? launch<1>(m, stream) : launch<8>(m, stream);
+  return launch<1>(m, stream);
+}
+
+// The multi-row instance (dq_mma.cuh), for any B (the wrappers send 2..64
+// rows here): activations x f32 [B, E] (16-byte aligned), or Q8_0 (xq int8
+// [B, E], 4-byte aligned, xd f16 [B, E/32]; x null); weights as for the
+// b = 1 entry (4-byte aligned); y f32 [B, E]. The gate/up product's K
+// splits `splits1` ways, the down product's `splits2`
+// (kernels/matmul_q.py mma_splits). scratch, 16-byte aligned
+// (kernels/mlp_fused.py _mlp_scratch_bytes): the gate/up pass's planes,
+// sums and scales of x (as dqm::carve), its splits1 * B * 2F f32 sums, then
+// the down pass's three planes and sums of the gated product and its
+// splits2 * B * E f32 partial sums (splits2 > 1). Returns
+// cudaGetLastError() after the launches.
+extern "C" int mlp_fused_silu_q4_mma(const float* x, const int8_t* xq, const __half* xd,
+                                     const uint8_t* qs1, const __half* d1, const uint8_t* qs2,
+                                     const __half* d2, float* y, unsigned char* scratch, int B,
+                                     int E, int F, int splits1, int splits2,
+                                     cudaStream_t stream) {
+  using Dec = dqm::DecLegacy<32, 8, false, false>;  // Q4_0
+  const int c1 = (E + dqm::KC - 1) / dqm::KC, c2 = (F + dqm::KC - 1) / dqm::KC;
+  if (B <= 0 || E <= 0 || F <= 0 || E % 32 || F % 32 || splits1 < 1 || splits1 > c1 ||
+      splits2 < 1 || splits2 > c2 || scratch == nullptr || (x == nullptr) == (xq == nullptr) ||
+      (xq != nullptr && xd == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int P1 = x != nullptr ? 3 : 1;
+  const dqm::Scratch s1 = dqm::carve(scratch, P1, B, E);
+  unsigned char* base2 = reinterpret_cast<unsigned char*>(s1.part + (size_t)splits1 * B * 2 * F);
+  const dqm::Scratch s2 = dqm::carve(base2, 3, B, F);
+  const dqm::Planes pl1{{qs1, d1, nullptr, nullptr}}, pl2{{qs2, d2, nullptr, nullptr}};
+  int e = P1 == 3 ? dqm::split_acts<3>(x, xq, xd, dqm::Q8_F16_32, s1, B, E, stream)
+                  : dqm::split_acts<1>(x, xq, xd, dqm::Q8_F16_32, s1, B, E, stream);
+  if (e == 0)
+    e = P1 == 3 ? dqm::mma_pass<Dec, 3>(s1, pl1, s1.part, B, 2 * F, E, splits1, stream)
+                : dqm::mma_pass<Dec, 1>(s1, pl1, s1.part, B, 2 * F, E, splits1, stream);
+  if (e == 0) {
+    const size_t n4 = (size_t)B * F / 4;
+    dqm::merge_gate<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(s1.part, s2.xp, s2.xsum,
+                                                                       B, F, splits1);
+    e = (int)cudaGetLastError();
+  }
+  if (e == 0)
+    e = dqm::mma_pass<Dec, 3>(s2, pl2, splits2 > 1 ? s2.part : y, B, E, F, splits2, stream);
+  if (e == 0 && splits2 > 1) e = dqm::merge(s2.part, y, B, E, splits2, stream);
+  return e;
 }

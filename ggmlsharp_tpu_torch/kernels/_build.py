@@ -21,8 +21,9 @@ it (``reset_launches`` before the run, read after). A kernel with two
 entries counts each under its own name (``flash_attn`` for the cached entry,
 ``flash_attn_uncached`` for the uncached one, one source; ``matmul_q4_0`` and
 ``matmul_q4_0_mma`` for the b = 1 and the multi-row instance of one source,
-likewise ``matmul_q`` and ``matmul_q_mma``). The dequant-matmul
-wrappers also count each launch by shape and launch geometry in
+likewise ``matmul_q8_0`` and ``matmul_q8_0_mma``, ``matmul_q`` and
+``matmul_q_mma``, ``mlp_fused_silu_q4`` and ``mlp_fused_silu_q4_mma``). The
+dequant-matmul wrappers also count each launch by shape and launch geometry in
 ``GEOMETRY_LAUNCHES`` ((kernel, N, K, warps, rows_per_warp, B) -> launches,
 the kernel the counter's name; warps and rows_per_warp None for the
 multi-row instance, which takes no geometry), so a run can show which
@@ -65,9 +66,13 @@ KERNELS = {
     "llama_layer": ("llama_layer.cu", "llama_layer",
                     [_P] * 23 + [_I] * 5 + [_F, _I, _I, _P]),
     "matmul_q": ("matmul_q.cu", "q_matmul", [_I] + [_P] * 6 + [_I] * 5 + [_P]),
-    # the multi-row instances of the two sources above (csrc/dq_mma.cuh)
+    # the multi-row instances of the sources above (csrc/dq_mma.cuh)
     "matmul_q4_0_mma": ("matmul_q4_0.cu", "q4_0_matmul_mma",
                         [_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P]),
+    "matmul_q8_0_mma": ("matmul_q8_0.cu", "q8_0_matmul_mma",
+                        [_P] * 3 + [_I] + [_P] * 4 + [_I] * 5 + [_P]),
+    "mlp_fused_silu_q4_mma": ("mlp_fused_silu_q4.cu", "mlp_fused_silu_q4_mma",
+                              [_P] * 9 + [_I] * 5 + [_P]),
     "matmul_q_mma": ("matmul_q.cu", "q_matmul_mma",
                      [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_I] * 4 + [_P]),
     "matmul_int_dot": ("matmul_int_dot.cu", "int_dot_matmul",

@@ -16,9 +16,8 @@ name and power limit) and ``_sweep_s`` (the sweep's wall time).
 
 Every geometry gives the same bits (kernels/tune.py), so the table moves
 time only. The sweep times the sources' b = 1 instance (RB = 1) only, so
-dispatch reads the table at b = 1 only: a launch of more rows runs Q8_0's
-RB = 8 instance at ``tune.DEFAULT``, or the other formats' multi-row
-instance, which takes no geometry.
+dispatch reads the table at b = 1 only: a launch of more rows runs the
+sources' multi-row instance, which takes no geometry.
 
 Run on the card:
   python -m ggmlsharp_tpu_torch.kernels.autotune [--out PATH]

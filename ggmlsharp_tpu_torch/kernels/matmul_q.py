@@ -32,19 +32,24 @@ shape (``geometry``), else ``tune.DEFAULT``, and refuses a pair never
 compiled.
 
 From ``MMA_MIN_ROWS`` activation rows on (set by measurement: at 2 rows it
-already beats the b = 1 kernel's 8-row pass at every 7B shape), the Q4_0
-wrapper and kernel A launch their sources' multi-row instance instead
-(``csrc/dq_mma.cuh``, entries ``matmul_q4_0_mma`` and ``matmul_q_mma``,
-each with its own launch counter): bf16 mma.sync on the tensor cores,
-weights on the M side, f32 x in three bf16 planes (exact), K split
-``mma_splits`` ways where the row tiles alone leave SMs idle. With the Q8
-activation round trip, ``mul_mat_q_fused`` hands it the int8 values and
-their block scales instead (``mma_q8_matmul``): one exact plane. It takes
-no launch geometry: a pair the caller names is still checked (a pair never
-compiled raises) and otherwise ignored, and ``GEOMETRY_LAUNCHES`` records
-its launches with no pair. A row's bits are the same at
-every b that takes it; against the b = 1 instance, which sums in another
-order, they agree to f32 rounding.
+already beats the b = 1 kernel's 8-row pass at every 7B shape), every
+dequant-matmul wrapper launches its source's multi-row instance instead
+(``csrc/dq_mma.cuh``, entries ``matmul_q4_0_mma``, ``matmul_q8_0_mma`` and
+``matmul_q_mma``, each with its own launch counter): bf16 mma.sync on the
+tensor cores, weights on the M side, f32 x in three bf16 planes (exact), K
+split ``mma_splits`` ways where the row tiles alone leave SMs idle. With the
+Q8 activation round trip, ``mul_mat_q_fused`` hands it the int8 values and
+their block scales instead (``mma_q8_matmul``): one exact plane; for Q8_0
+weights the int8 tensor cores multiply those values by the weight bytes
+directly. Q8_0 takes 64-row tiles, splits K ``q8_mma_splits`` ways and
+runs one launch (its mma kernel splits f32 x into the planes itself and
+reduces the K splits in a thread-block cluster), but for f32 x at a
+weight as wide as the LM head, which takes the shared design.
+It takes no launch geometry: a pair the caller names is still checked (a
+pair never compiled raises) and otherwise ignored, and
+``GEOMETRY_LAUNCHES`` records its launches with no pair. A row's bits are
+the same at every b that takes it; against the b = 1 instance, which sums
+in another order, they agree to f32 rounding.
 
 A wrapper runs the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises (``kernels.config.use_kernel``).
@@ -86,6 +91,12 @@ MMA_ROWS = 128
 MMA_KC = 256
 _MMA_CTAS_PER_SM = 4  # mma_splits fills this many CTAs an SM,
 _MMA_MAX_SPLITS = 8  # with at most this many splits (more: slower at N 4096)
+# Q8_0's multi-row instance: weight rows a CTA, and the CTAs an SM its
+# splits fill: one (its f32 route's CTAs are 512 threads). Chosen by a sweep
+# of tiles at GPT-2's shapes (64 rows beat 128 and 32); PERF.md §6 PR 10
+# times the result at GPT-2's and path f's Llama-7B shapes
+MMA_ROWS_Q8 = 64
+_Q8_CTAS_PER_SM = 1
 # Q8 activation scales the multi-row instance reads: (format, scale dtype)
 # -> (dqm::ScaleKind, columns a scale)
 _Q8_SCALES = {(GType.Q8_0, torch.float16): (0, 32),
@@ -121,8 +132,7 @@ def geometry(kernel: str, n: int, k: int, gtype=None,
     """The launch geometry (warps a block, rows a warp) of dequant-matmul
     ``kernel`` at an [n, k] weight and b activation rows: at b = 1 the tune
     table's pair (``tune.lookup``), else ``tune.DEFAULT``. The table was
-    timed on the sources' b = 1 instance (RB = 1); more rows run Q8_0's
-    RB = 8 instance, which no sweep measured, or the other formats'
+    timed on the sources' b = 1 instance (RB = 1); more rows run the
     multi-row instance, which takes no geometry. Every pair gives the same
     bits; the choice moves time only."""
     if b != 1:
@@ -140,11 +150,26 @@ def mma_splits(n: int, k: int, sms: int = H100_SMS) -> int:
     same order whatever rows share the launch."""
     if n < 1 or k < 1 or sms < 1:
         raise ValueError(f"mma_splits: n {n}, k {k}, sms {sms}")
-    tiles = -(-n // MMA_ROWS)
+    return _even_splits(-(-n // MMA_ROWS), k, _MMA_CTAS_PER_SM * sms)
+
+
+def _even_splits(tiles: int, k: int, ctas: int) -> int:
+    """Splits of K (``MMA_KC`` chunks) that bring ``tiles`` row tiles
+    towards ``ctas`` CTAs, at most ``_MMA_MAX_SPLITS``, then as few as keep
+    the most chunks a split takes."""
     chunks = -(-k // MMA_KC)
-    want = max(1, min(_MMA_CTAS_PER_SM * sms // tiles, _MMA_MAX_SPLITS,
-                      chunks))
+    want = max(1, min(ctas // tiles, _MMA_MAX_SPLITS, chunks))
     return -(-chunks // -(-chunks // want))
+
+
+def q8_mma_splits(n: int, k: int, sms: int = H100_SMS) -> int:
+    """K splits of Q8_0's multi-row instance at ``MMA_ROWS_Q8`` rows a CTA
+    (both routes, but the LM head's f32 x): ``mma_splits``' rule towards
+    ``_Q8_CTAS_PER_SM`` CTAs an SM, at most 8 (a portable cluster). Like
+    it, a function of (n, k, sms) alone, never of b."""
+    if n < 1 or k < 1 or sms < 1:
+        raise ValueError(f"q8_mma_splits: n {n}, k {k}, sms {sms}")
+    return _even_splits(-(-n // MMA_ROWS_Q8), k, _Q8_CTAS_PER_SM * sms)
 
 
 def _mma_scratch_bytes(b: int, n: int, k: int, splits: int,
@@ -159,6 +184,23 @@ def _mma_scratch_bytes(b: int, n: int, k: int, splits: int,
         + (splits * b * n * 4 if splits > 1 else 0)
 
 
+def _mma_plan(name, q8, b, n, k, sms):
+    """(the entry's arguments before the splits, K splits, scratch bytes)
+    of the multi-row entry ``name`` for b activation rows (Q8 or f32) of an
+    [n, k] weight. Q8_0 names its tile: ``MMA_ROWS_Q8`` rows, one launch
+    with no scratch (its splits reduced in clusters), but f32 x at a weight
+    whose ``MMA_ROWS``-row tiles alone give every SM one (the LM head),
+    which takes the shared split, mma and merge kernels."""
+    if name != "matmul_q8_0_mma":
+        splits = mma_splits(n, k, sms)
+        return [], splits, _mma_scratch_bytes(b, n, k, splits,
+                                              1 if q8 else 3)
+    if not q8 and -(-n // MMA_ROWS) >= sms:
+        splits = mma_splits(n, k, sms)
+        return [MMA_ROWS], splits, _mma_scratch_bytes(b, n, k, splits, 3)
+    return [MMA_ROWS_Q8], q8_mma_splits(n, k, sms), 0
+
+
 def _launch_mma(name, fmt, acts, planes, n):
     """Launch the multi-row instance ``name`` (operands checked by the
     caller): ``acts`` f32 x [B, K], or Q8 activations (xq int8 [B, K], its
@@ -170,16 +212,17 @@ def _launch_mma(name, fmt, acts, planes, n):
     lead = xq if q8 else x
     B, K = lead.shape
     fn = _build.entry(name)
-    splits = mma_splits(n, K, device_sms(lead.device))
+    extra, splits, nbytes = _mma_plan(name, q8, B, n, K,
+                                      device_sms(lead.device))
     y = torch.empty((B, n), dtype=torch.float32, device=lead.device)
-    scratch = torch.empty(_mma_scratch_bytes(B, n, K, splits, 1 if q8 else 3),
-                          dtype=torch.uint8, device=lead.device)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=lead.device) \
+        if nbytes else None
     ptr = lambda t: None if t is None else t.data_ptr()
     head = [] if fmt is None else [int(fmt)]
     with torch.cuda.device(lead.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*head, ptr(x), ptr(xq), ptr(xd), kind, *map(ptr, planes),
-                y.data_ptr(), scratch.data_ptr(), B, n, K, splits, stream)
+                y.data_ptr(), ptr(scratch), B, n, K, *extra, splits, stream)
     _build.check(name, rc, geometry=(n, K, None, None, B))
     return y
 
@@ -245,9 +288,11 @@ def q4_0_matmul(x, qs, d, geom=None):
 
 def q8_0_matmul(x, qs, d, geom=None):
     """Launch the Q8_0 kernel. x f32 [B, K]; qs int8 [N, K]; d f16
-    [N, K/32] -> y f32 [B, N]. geom as for q4_0_matmul."""
+    [N, K/32] -> y f32 [B, N]. geom as for q4_0_matmul. From
+    ``MMA_MIN_ROWS`` rows on the multi-row instance runs (counted as
+    ``matmul_q8_0_mma``)."""
     return _launch("matmul_q8_0", x, qs, d, torch.int8, x.shape[1],
-                   GType.Q8_0, geom)
+                   GType.Q8_0, geom, mma="matmul_q8_0_mma")
 
 
 def q_matmul(x, a: QTensor, geom=None):
@@ -286,20 +331,24 @@ def q_matmul(x, a: QTensor, geom=None):
 
 def mma_q8_matmul(a: QTensor, aq: QTensor):
     """The multi-row instance on Q8 activations: ``aq`` [B, K], x quantized
-    to the weight's vec_dot type (Q8_0, Q8_1 or Q8_K), times ``a`` (Q4_0 or
-    a format of ``_PLANES``) -> y f32 [B, N], the function ``dequantize(aq)
-    @ dequantize(a, fused_scales=True).T``. The int8 values take one bf16
-    plane (exact) and each block's activation scale folds with the
-    weight's."""
-    q40 = a.gtype == GType.Q4_0
-    name = "matmul_q4_0_mma" if q40 else "matmul_q_mma"
-    if not q40 and a.gtype not in _PLANES:
+    to the weight's vec_dot type (Q8_0, Q8_1 or Q8_K), times ``a`` (Q4_0,
+    Q8_0 or a format of ``_PLANES``) -> y f32 [B, N], the function
+    ``dequantize(aq) @ dequantize(a, fused_scales=True).T``. The int8 values
+    take one bf16 plane (exact) and each block's activation scale folds with
+    the weight's; for Q8_0 weights the int8 tensor cores take the values
+    themselves (16-byte aligned) and the block's two scales fold with its
+    exact int32 sum."""
+    name = {GType.Q4_0: "matmul_q4_0_mma",
+            GType.Q8_0: "matmul_q8_0_mma"}.get(a.gtype, "matmul_q_mma")
+    own = name != "matmul_q_mma"  # a source of one format: no format id
+    if not own and a.gtype not in _PLANES:
         raise NotImplementedError(f"{name}: no decode for {a.gtype.name}")
     n, k = a.shape
     xq = aq["qs"]
+    align = 16 if a.gtype == GType.Q8_0 else 4
     if not xq.is_cuda or xq.dtype != torch.int8 or xq.dim() != 2 \
             or xq.shape[1] != k or not xq.is_contiguous() \
-            or xq.data_ptr() % 4 or len(a.shape) != 2:
+            or xq.data_ptr() % align or len(a.shape) != 2:
         raise ValueError(f"{name}: Q8 activations {tuple(xq.shape)} "
                          f"{xq.dtype} do not fit {a.shape}")
     xd = aq["d"]
@@ -309,11 +358,11 @@ def mma_q8_matmul(a: QTensor, aq: QTensor):
             or xd.data_ptr() % xd.element_size():
         raise ValueError(f"{name}: Q8 scales {tuple(xd.shape)} {xd.dtype} "
                          f"of {aq.gtype.name} do not fit")
-    keys = ("qs", "d") if q40 else _PLANES[a.gtype]
+    keys = ("qs", "d") if own else _PLANES[a.gtype]
     _check_planes(name, a, keys, xq.device)
-    planes = [a[key] for key in keys] + [None] * (4 - len(keys)) * (not q40)
-    return _launch_mma(name, None if q40 else a.gtype, (xq, xd, kind), planes,
-                       n)
+    planes = [a[key] for key in keys] + [None] * (4 - len(keys)) * (not own)
+    return _launch_mma(name, None if own else a.gtype, (xq, xd, kind),
+                       planes, n)
 
 
 def fused_supported(a: QTensor) -> bool:
@@ -414,8 +463,7 @@ def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
     takes the integer-dot route (its plain version for a CPU tensor or with
     plain=True); everything else the dequant-matmul of a's format (plain
     version: ops.matmul.mul_mat_q), with quantized activations from
-    ``MMA_MIN_ROWS`` rows on through ``mma_q8_matmul`` (but Q8_0, which
-    has no multi-row instance)."""
+    ``MMA_MIN_ROWS`` rows on through ``mma_q8_matmul``."""
     n, k = a.shape
     x = bx.to(torch.float32)
     lead = x.shape[:-1]
@@ -434,8 +482,7 @@ def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
         from ..ops.matmul import quantize_activations
 
         aq = quantize_activations(x2, a.gtype)
-        if x2.shape[0] >= MMA_MIN_ROWS and a.gtype in KERNEL_OF \
-                and a.gtype != GType.Q8_0:
+        if x2.shape[0] >= MMA_MIN_ROWS and a.gtype in KERNEL_OF:
             return mma_q8_matmul(a, aq).reshape(*lead, n)
         x2 = dequantize(aq)
     x2 = x2.contiguous()

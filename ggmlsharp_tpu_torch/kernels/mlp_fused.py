@@ -16,7 +16,17 @@ the block's one copy (the JAX planes are row permutations of the same
 payload, which the gated product makes invisible). The input gets the
 optional activation round trip outside the kernel; the gate and up rows and
 the gated product stay f32 and are never re-quantized, unlike the unfused
-route, whose ``w_down`` matmul quantizes its input.
+route, whose ``w_down`` matmul quantizes its input. One activation row
+(decode) takes the source's one-launch kernel; from
+``matmul_q.MMA_MIN_ROWS`` rows on the wrapper launches its multi-row
+instance on the tensor cores (entry ``mlp_fused_silu_q4_mma``, its own
+launch counter; ``csrc/dq_mma.cuh``): the gate/up and down products as
+``matmul_q4_0_mma``'s passes, K split ``mma_splits`` ways each (never by
+rows), and between them a kernel that adds the gate/up splits, pairs gate
+row n with up row F + n and writes silu(g)·u as the down product's exact
+bf16 planes. With the activation round trip it is handed the Q8_0 values
+and block scales themselves, as ``matmul_q.mma_q8_matmul`` is; the wrapper
+allocates its scratch (``_mlp_scratch_bytes``).
 
 The plain versions are ``_ff_ref`` and ``_ff_silu_ref``. A wrapper runs its
 plain version for a CPU tensor; for a CUDA tensor it launches the kernel or
@@ -32,7 +42,8 @@ from ..ops.matmul import mul_mat_q, quantize_activations
 from ..quant.formats import QTensor
 from ..quant.quantize import dequantize
 from . import _build
-from .config import use_kernel
+from .config import device_sms, use_kernel
+from .matmul_q import MMA_MIN_ROWS, _mma_scratch_bytes, mma_splits
 
 _MAX_FUSED_B = 64  # h is a [rows, n1] f32 scratch; prefill beyond it is unfused
 
@@ -145,29 +156,48 @@ def _ff_silu_ref(w_gate_up, w_down, x, quantize_acts: bool = True):
                      quantize_acts=False)
 
 
+def _mlp_scratch_bytes(b: int, E: int, F: int, splits1: int, splits2: int,
+                       planes1: int = 3) -> int:
+    """Bytes of the multi-row instance's scratch: the gate/up pass's
+    activations (``planes1`` planes: 3 for f32 x, 1 for Q8_0), its splits1
+    x [b, 2F] f32 sums, then the down pass's three planes and sums of the
+    gated product and its partial sums when K = F is split."""
+    return _mma_scratch_bytes(b, 2 * F, E, 1, planes1) \
+        + splits1 * b * 2 * F * 4 + _mma_scratch_bytes(b, E, F, splits2)
+
+
 def mlp_fused_silu_q4(x, w1: QTensor, w2: QTensor):
-    """Launch the kernel. x f32 [B, E] contiguous on the card, B <=
-    _MAX_FUSED_B; w1 [2F, E], w2 [E, F] Q4_0 -> y f32 [B, E]."""
-    if not mlp_silu_fuse_supported(w1, w2, x.shape[0]):
+    """Launch the kernel. x [B, E] on the card, B <= _MAX_FUSED_B: f32,
+    contiguous, or (from ``MMA_MIN_ROWS`` rows on) the Q8_0 activations
+    ``quantize_activations(x, Q4_0)``; w1 [2F, E], w2 [E, F] Q4_0 -> y f32
+    [B, E]. One row launches the b = 1 instance, more the multi-row one."""
+    q8 = isinstance(x, QTensor)
+    lead = x["qs"] if q8 else x
+    if not mlp_silu_fuse_supported(w1, w2, lead.shape[0]):
         raise ValueError(f"mlp_fused_silu_q4: unsupported pair {w1!r}, "
-                         f"{w2!r} or rows {x.shape[0]}")
-    B, E = x.shape
+                         f"{w2!r} or rows {lead.shape[0]}")
+    B, E = lead.shape
     n2, F = w2.shape
-    tensors = (x, w1["qs"], w1["d"], w2["qs"], w2["d"])
-    if not x.is_cuda or any(t.device != x.device for t in tensors):
+    tensors = (lead, w1["qs"], w1["d"], w2["qs"], w2["d"])
+    if not lead.is_cuda or any(t.device != lead.device for t in tensors):
         raise ValueError("mlp_fused_silu_q4: all inputs must be on one CUDA "
                          "device")
-    if x.dtype != torch.float32 or E != w1.shape[1] or n2 != E \
-            or not x.is_contiguous():
-        raise ValueError(f"mlp_fused_silu_q4: x {tuple(x.shape)} {x.dtype} "
-                         f"for {w1.shape}, {w2.shape}")
+    if E != w1.shape[1] or n2 != E or not lead.is_contiguous() or (
+            lead.dtype != torch.int8 if q8 else lead.dtype != torch.float32):
+        raise ValueError(f"mlp_fused_silu_q4: x {tuple(lead.shape)} "
+                         f"{lead.dtype} for {w1.shape}, {w2.shape}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mlp_fused_silu_q4: weights must be contiguous")
-    if x.data_ptr() % 16 or w1["qs"].data_ptr() % 16 \
+    if lead.data_ptr() % (4 if q8 else 16) or w1["qs"].data_ptr() % 16 \
             or w2["qs"].data_ptr() % 16:
         raise ValueError("mlp_fused_silu_q4: misaligned input")
+    y = torch.empty((B, E), dtype=torch.float32, device=lead.device)
+    if B >= MMA_MIN_ROWS:
+        return _launch_silu_mma(x, w1, w2, y)
+    if q8:
+        raise ValueError("mlp_fused_silu_q4: Q8_0 activations take "
+                         f"{MMA_MIN_ROWS} or more rows")
     a = torch.empty((B, F), dtype=torch.float32, device=x.device)
-    y = torch.empty((B, E), dtype=torch.float32, device=x.device)
     fn = _build.entry("mlp_fused_silu_q4")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -178,15 +208,52 @@ def mlp_fused_silu_q4(x, w1: QTensor, w2: QTensor):
     return y
 
 
+def _launch_silu_mma(x, w1: QTensor, w2: QTensor, y):
+    """The multi-row instance, operands checked by the caller; x f32 or a
+    Q8_0 QTensor of activations (scales f16 [B, E/32])."""
+    name = "mlp_fused_silu_q4_mma"
+    q8 = isinstance(x, QTensor)
+    lead = x["qs"] if q8 else x
+    B, E = lead.shape
+    F = w2.shape[1]
+    if q8:
+        xd = x["d"]
+        if x.gtype != GType.Q8_0 or xd.dtype != torch.float16 \
+                or tuple(xd.shape) != (B, E // 32) or not xd.is_contiguous() \
+                or xd.device != lead.device or xd.data_ptr() % 2:
+            raise ValueError(f"{name}: Q8 scales {tuple(xd.shape)} "
+                             f"{xd.dtype} of {x.gtype.name} do not fit")
+    fn = _build.entry(name)
+    sms = device_sms(lead.device)
+    s1, s2 = mma_splits(2 * F, E, sms), mma_splits(E, F, sms)
+    scratch = torch.empty(_mlp_scratch_bytes(B, E, F, s1, s2, 1 if q8 else 3),
+                          dtype=torch.uint8, device=lead.device)
+    acts = (None, lead.data_ptr(), xd.data_ptr()) if q8 \
+        else (x.data_ptr(), None, None)
+    with torch.cuda.device(lead.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*acts, w1["qs"].data_ptr(), w1["d"].data_ptr(),
+                w2["qs"].data_ptr(), w2["d"].data_ptr(), y.data_ptr(),
+                scratch.data_ptr(), B, E, F, s1, s2, stream)
+    _build.check(name, rc)
+    return y
+
+
 def flash_ff_silu_q4(w_gate_up: QTensor, w_down: QTensor, x,
                      quantize_acts: bool = True):
-    """Apply the fused SwiGLU MLP to x [..., E] -> f32 [..., E]."""
+    """Apply the fused SwiGLU MLP to x [..., E] -> f32 [..., E]. With
+    quantize_acts, one row is handed its dequantized Q8_0 round trip, more
+    rows the Q8_0 values and scales themselves."""
     if not use_kernel(x):
         return _ff_silu_ref(w_gate_up, w_down, x, quantize_acts)
     E = w_gate_up.shape[1]
     lead = x.shape[:-1]
     x2 = x.to(torch.float32).reshape(-1, E)
     if quantize_acts:
-        x2 = dequantize(quantize_activations(x2, GType.Q4_0))
-    y = mlp_fused_silu_q4(x2.contiguous(), w_gate_up, w_down)
+        aq = quantize_activations(x2, GType.Q4_0)
+        acts = aq if x2.shape[0] >= MMA_MIN_ROWS \
+            else dequantize(aq).contiguous()
+    else:
+        acts = x2.contiguous()
+    y = mlp_fused_silu_q4(acts, w_gate_up, w_down)
     return y.reshape(*lead, w_down.shape[0])

@@ -60,8 +60,10 @@ LLAMA_VARIANTS = {
 
 
 def probe_q4(cs, dev, gen):
-    """The Q4_0 kernels at Llama-7B's widths: the fused MLP at 1 and 16 rows,
-    the whole-block kernel at T 256 / npast 32 and T 2048 / npast 2047."""
+    """The Q4_0 kernels at Llama-7B's widths: the fused MLP at 1 row (its
+    -D tunables shape the b = 1 instance only; more rows take the multi-row
+    instance on the tensor cores, dq_mma.cuh), the whole-block kernel at T
+    256 / npast 32 and T 2048 / npast 2047."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels import set_defines
@@ -76,7 +78,7 @@ def probe_q4(cs, dev, gen):
     copies = 3  # a pair is 76 MB, a block 114 MB: each exceeds L2 alone
     ws = [(llama.random_q4_0(2 * F, E, gen, dev),
            llama.random_q4_0(E, F, gen, dev)) for _ in range(copies)]
-    for n_rows in (1, 16):
+    for n_rows in (1,):
         x = torch.randn((n_rows, E), generator=gen, device=dev)
         want = _ff_silu_ref(*ws[0], x, quantize_acts=False)
         for variant, defines in SILU_VARIANTS.items():

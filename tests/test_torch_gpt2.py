@@ -111,7 +111,7 @@ def _q8_pair(n, k, seed):
 
 
 @pytest.mark.parametrize("quantize_acts", [True, False])
-@pytest.mark.parametrize("rows", [1, 16])
+@pytest.mark.parametrize("rows", [1, 2, 5, 16, 64])
 @pytest.mark.parametrize("n,k", [(768, 256), (500, 1024)])
 def test_q8_0_mul_mat_matches_jax(rows, n, k, quantize_acts):
     jw, tw = _q8_pair(n, k, seed=rows + n + k)

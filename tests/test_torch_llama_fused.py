@@ -78,21 +78,32 @@ def _silu_pair(seed, e=256, f=256):
             jquantize(jnp.asarray(w2), JGType.Q4_0), rng)
 
 
-@pytest.mark.parametrize("quant_acts", [False, True])
-@pytest.mark.parametrize("lead", [(1,), (3,), (8,), (2, 3)])
-def test_mlp_silu_matches_jax(lead, quant_acts):
-    q1, q2, rng = _silu_pair(21)
+def _mlp_silu_vs_jax(lead, quant_acts, E=256, F=256):
+    q1, q2, rng = _silu_pair(21, E, F)
     assert jmf.mlp_silu_fuse_supported(q1, q2)
     w1, w2 = _cross(q1), _cross(q2)
     assert mf.mlp_silu_fuse_supported(w1, w2, int(np.prod(lead)))
-    x = rng.standard_normal((*lead, 256)).astype(np.float32)
+    x = rng.standard_normal((*lead, E)).astype(np.float32)
     want = np.asarray(jmf.flash_ff_silu_q4(
         jmf.fuse_mlp_silu_q4(q1, q2), jnp.asarray(x),
         quantize_acts=quant_acts))
     got = mf.flash_ff_silu_q4(w1, w2, torch.from_numpy(x),
                               quantize_acts=quant_acts).numpy()
-    assert got.shape == (*lead, 256) and got.dtype == np.float32
+    assert got.shape == (*lead, E) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("quant_acts", [False, True])
+@pytest.mark.parametrize("lead", [(1,), (3,), (8,), (2, 3), (16,), (64,)])
+def test_mlp_silu_matches_jax(lead, quant_acts):
+    _mlp_silu_vs_jax(lead, quant_acts)
+
+
+@pytest.mark.parametrize("quant_acts", [False, True])
+def test_mlp_silu_short_chunks_matches_jax(quant_acts):
+    """E 384, F 640: neither a multiple of the multi-row instance's
+    256-column chunk, so both of its products end in a short chunk."""
+    _mlp_silu_vs_jax((16,), quant_acts, 384, 640)
 
 
 def test_mlp_silu_product_is_not_requantized():

@@ -1,14 +1,18 @@
-"""The wrappers of the dequant-matmuls at several activation rows: the rows
-that take the multi-row instance of ``csrc/matmul_q4_0.cu`` and
-``csrc/matmul_q.cu`` (``csrc/dq_mma.cuh``: from
-``kernels.matmul_q.MMA_MIN_ROWS`` rows on). Their plain version is held
-against the TPU kernels at 3-16 rows in ``test_torch_matmul_formats.py``.
+"""The wrappers of the dequant-matmuls and of the fused SwiGLU MLP at
+several activation rows: the rows that take the multi-row instance of
+``csrc/matmul_q4_0.cu``, ``csrc/matmul_q8_0.cu``, ``csrc/matmul_q.cu`` and
+``csrc/mlp_fused_silu_q4.cu`` (``csrc/dq_mma.cuh``: from
+``kernels.matmul_q.MMA_MIN_ROWS`` rows on). Their plain versions are held
+against the TPU kernels in ``test_torch_matmul_formats.py`` (3-16 rows),
+``test_torch_gpt2.py`` (Q8_0, 1-64 rows) and ``test_torch_llama_fused.py``
+(the MLP, 1-64 rows).
 
   * The route a wrapper takes at each b, what it hands the multi-row entry
     (the K splits, the scratch for them) and the counters it bumps, with a
     stand-in for the C entry: the CUDA kernel itself runs only on the card
     (``chip_smoke.py`` holds it against the plain version there).
-  * ``mma_splits`` as a function of (N, K, SM count) alone.
+  * ``mma_splits`` and Q8_0's ``q8_mma_splits`` as functions of (N, K, SM
+    count) alone.
 """
 import contextlib
 import inspect
@@ -19,6 +23,9 @@ import torch
 from ggmlsharp_tpu_torch import GType, quantize
 from ggmlsharp_tpu_torch.kernels import _build
 from ggmlsharp_tpu_torch.kernels import matmul_q as mq
+from ggmlsharp_tpu_torch.kernels import mlp_fused as mf
+from ggmlsharp_tpu_torch.ops import quantize_activations
+from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
 
 class _OnCard(torch.Tensor):
@@ -44,6 +51,7 @@ def fake_entries(monkeypatch):
 
     monkeypatch.setattr(_build, "entry", entry)
     monkeypatch.setattr(mq, "device_sms", lambda device: mq.H100_SMS)
+    monkeypatch.setattr(mf, "device_sms", lambda device: mq.H100_SMS)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
@@ -119,9 +127,6 @@ def test_q8_activations_route(fake_entries, monkeypatch, fmt, rows):
     int8 values and their block scales as quantized (no f32 x), which
     reproduce the rounded activations exactly; one row keeps the rounded x
     on the b = 1 instance."""
-    from ggmlsharp_tpu_torch.ops import quantize_activations
-    from ggmlsharp_tpu_torch.quant.quantize import dequantize
-
     seen = []
     real = mq._launch_mma
     monkeypatch.setattr(mq, "_launch_mma",
@@ -196,3 +201,234 @@ def test_mma_splits_reads_no_rows_and_refuses_nonsense():
     for bad in ((0, 4096, 132), (4096, 0, 132), (4096, 4096, 0)):
         with pytest.raises(ValueError):
             mq.mma_splits(*bad)
+
+
+# --- Q8_0 (kernel 4): f32 x on three bf16 planes, Q8_0 activations on the
+# int8 tensor cores; 64-row tiles, q8_mma_splits ----------------------------
+
+def _q8_weight(n, k, seed):
+    return quantize(torch.randn((n, k), generator=torch.Generator()
+                                .manual_seed(seed)) * 0.1, GType.Q8_0)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5, 16, 64, 128])
+def test_q8_0_route_by_rows(fake_entries, rows):
+    """f32 x: one row takes the b = 1 instance at its geometry, more rows
+    the multi-row entry with x (no Q8 values), its 64-row tile and
+    q8_mma_splits' splits, reduced in clusters (no scratch); each its own
+    counter."""
+    n, k = 2304, 768
+    w = _q8_weight(n, k, rows)
+    x = torch.randn((rows, k)).as_subclass(_OnCard)
+    y = mq.q8_0_matmul(x, w["qs"], w["d"])
+    assert tuple(y.shape) == (rows, n)
+    (name, args), = fake_entries
+    mma = rows >= mq.MMA_MIN_ROWS
+    assert name == ("matmul_q8_0_mma" if mma else "matmul_q8_0")
+    assert _build.LAUNCHES[name] == 1 and sum(_build.LAUNCHES.values()) == 1
+    geom = (None, None) if mma else mq.geometry("matmul_q8_0", n, k,
+                                                GType.Q8_0, rows)
+    assert _build.GEOMETRY_LAUNCHES == {(name, n, k, *geom, rows): 1}
+    if not mma:
+        assert args[-3:-1] == geom
+        return
+    # x, xq, xd, kind, qs, d, y, scratch, B, N, K, rows, splits, stream
+    assert args[0] == x.data_ptr() and args[1] is None and args[2] is None
+    assert args[4:6] == (w["qs"].data_ptr(), w["d"].data_ptr())
+    assert args[7] is None
+    assert args[8:13] == (rows, n, k, mq.MMA_ROWS_Q8,
+                          mq.q8_mma_splits(n, k, mq.H100_SMS))
+    assert args[12] == 3
+
+
+@pytest.mark.parametrize("n,k", [(256, 256), (768, 768)])
+@pytest.mark.parametrize("rows", [1, 2, 5, 16, 64, 128])
+def test_q8_0_q8_activations_route(fake_entries, monkeypatch, n, k, rows):
+    """With the Q8_0 round trip, two or more rows hand the multi-row entry
+    the int8 values and f16 block scales as quantized (kind 0, no f32 x),
+    which reproduce the rounded activations exactly; the int8 route takes
+    the 64-row tile and reduces its splits in clusters (no scratch)."""
+    seen = []
+    real = mq._launch_mma
+    monkeypatch.setattr(mq, "_launch_mma",
+                        lambda *a: seen.append(a) or real(*a))
+    gen = torch.Generator().manual_seed(rows)
+    w = quantize(torch.randn((n, k), generator=gen) * 0.1, GType.Q8_0)
+    x = torch.randn((rows, k), generator=gen)
+    y = mq.mul_mat_q_fused(w, x.as_subclass(_OnCard))
+    assert tuple(y.shape) == (rows, n)
+    (name, args), = fake_entries
+    if rows == 1:
+        assert name == "matmul_q8_0" and not seen
+        return
+    assert name == "matmul_q8_0_mma" and _build.LAUNCHES[name] == 1
+    (_, fmt, (xq, xd, kind), _, _), = seen
+    assert fmt is None and kind == 0 and xd.dtype == torch.float16
+    got = (xq.float().reshape(rows, -1, 32) * xd.float()[..., None])
+    assert torch.equal(got.reshape(rows, k),
+                       dequantize(quantize_activations(x, GType.Q8_0)))
+    assert args[:4] == (None, xq.data_ptr(), xd.data_ptr(), 0)
+    splits = mq.q8_mma_splits(n, k, mq.H100_SMS)
+    assert args[8:13] == (rows, n, k, mq.MMA_ROWS_Q8, splits)
+    assert args[7] is None
+    assert mq._mma_plan("matmul_q8_0_mma", True, rows, n, k, mq.H100_SMS) \
+        == ([mq.MMA_ROWS_Q8], splits, 0)
+
+
+def test_q8_0_plan_and_alignment(fake_entries):
+    """f32 x at a narrow weight takes the 64-row tile, one launch and no
+    scratch; at a weight whose 128-row tiles alone fill the SMs (the LM
+    head) the shared tile, split kernel and scratch; the other sources name
+    no tile. The int8 route refuses Q8 values that are not 16-byte
+    aligned."""
+    from ggmlsharp_tpu_torch.quant.formats import QTensor
+
+    assert mq._mma_plan("matmul_q8_0_mma", False, 5, 768, 768, 132) == (
+        [mq.MMA_ROWS_Q8], 3, 0)
+    assert mq._mma_plan("matmul_q8_0_mma", False, 5, 50257, 768, 132) == (
+        [mq.MMA_ROWS], 1, mq._mma_scratch_bytes(5, 50257, 768, 1, 3))
+    # 132 tiles of 128 rows: wide enough; 131: not
+    assert mq._mma_plan("matmul_q8_0_mma", False, 2, 132 * 128, 768,
+                        132)[0] == [mq.MMA_ROWS]
+    assert mq._mma_plan("matmul_q8_0_mma", False, 2, 131 * 128, 768,
+                        132)[0] == [mq.MMA_ROWS_Q8]
+    assert mq._mma_plan("matmul_q4_0_mma", True, 5, 768, 768, 132) == (
+        [], 3, mq._mma_scratch_bytes(5, 768, 768, 3, 1))
+    w = _q8_weight(256, 256, 1)
+    buf = torch.zeros(2 * 256 + 16, dtype=torch.int8)
+    xq = buf[4:4 + 2 * 256].view(2, 256).as_subclass(_OnCard)
+    aq = QTensor(GType.Q8_0, (2, 256),
+                 {"qs": xq, "d": torch.ones((2, 8), dtype=torch.float16)})
+    with pytest.raises(ValueError):
+        mq.mma_q8_matmul(w, aq)
+    assert not fake_entries
+
+
+@pytest.mark.parametrize("n,k,sms,want", [
+    (2304, 768, 132, 3),      # 124M c_attn: 36 tiles of 64 rows, 3 chunks
+    (768, 768, 132, 3),       # 124M c_proj
+    (3840, 1280, 132, 2),     # 774M c_attn: 60 tiles; 5 chunks go 3 + 2
+    (1280, 1280, 132, 5),     # 774M c_proj
+    (768, 3072, 132, 6),      # 12 chunks: 8 wanted, evened to 6 x 2
+    (50257, 768, 132, 1),     # the LM head: 786 tiles
+    (4096, 4096, 132, 2),
+    (22016, 4096, 132, 1),
+    (4096, 11008, 132, 2),
+    (768, 768, 33, 2),        # 12 tiles want 2 on a quarter of the SMs
+    (2304, 768, 1, 1),
+])
+def test_q8_mma_splits(n, k, sms, want):
+    assert mq.q8_mma_splits(n, k, sms) == want
+
+
+def test_q8_mma_splits_reads_no_rows_and_refuses_nonsense():
+    assert list(inspect.signature(mq.q8_mma_splits).parameters) == [
+        "n", "k", "sms"]
+    for bad in ((0, 768, 132), (768, 0, 132), (768, 768, 0)):
+        with pytest.raises(ValueError):
+            mq.q8_mma_splits(*bad)
+
+
+# --- the fused SwiGLU MLP (kernel 9): one row on the b = 1 instance, more
+# on the multi-row one (split, gate/up mma, merge_gate, down mma, merge) ----
+
+def _silu_pair(E, F, seed):
+    gen = torch.Generator().manual_seed(seed)
+    w1 = quantize(torch.randn((2 * F, E), generator=gen) * 0.1, GType.Q4_0)
+    w2 = quantize(torch.randn((E, F), generator=gen) * 0.1, GType.Q4_0)
+    return w1, w2, gen
+
+
+@pytest.mark.parametrize("E,F", [(256, 512), (384, 640)])
+@pytest.mark.parametrize("quantize_acts", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 5, 16, 64])
+def test_mlp_route_by_rows(fake_entries, monkeypatch, E, F, quantize_acts,
+                           rows):
+    """One row: the b = 1 entry with f32 x (the dequantized round trip
+    under quantize_acts). More: the multi-row entry with f32 x, or the Q8_0
+    values and f16 scales themselves, the splits mma_splits gives each
+    product (N, K, SMs) and a scratch of _mlp_scratch_bytes; each instance
+    its own counter."""
+    sized = []
+    real = mf._mlp_scratch_bytes
+    monkeypatch.setattr(mf, "_mlp_scratch_bytes",
+                        lambda *a: sized.append(a) or real(*a))
+    w1, w2, gen = _silu_pair(E, F, rows)
+    x = torch.randn((rows, E), generator=gen)
+    y = mf.flash_ff_silu_q4(w1, w2, x.as_subclass(_OnCard),
+                            quantize_acts=quantize_acts)
+    assert tuple(y.shape) == (rows, E)
+    (name, args), = fake_entries
+    mma = rows >= mq.MMA_MIN_ROWS
+    assert name == ("mlp_fused_silu_q4_mma" if mma else "mlp_fused_silu_q4")
+    assert _build.LAUNCHES[name] == 1 and sum(_build.LAUNCHES.values()) == 1
+    weights = (w1["qs"].data_ptr(), w1["d"].data_ptr(), w2["qs"].data_ptr(),
+               w2["d"].data_ptr())
+    if not mma:
+        # x, qs1, d1, qs2, d2, a, y, B, E, F, stream
+        assert args[1:5] == weights and args[7:10] == (1, E, F)
+        assert not sized
+        return
+    # x, xq, xd, qs1, d1, qs2, d2, y, scratch, B, E, F, splits1, splits2, stream
+    assert args[3:7] == weights and args[8] is not None
+    s1 = mq.mma_splits(2 * F, E, mq.H100_SMS)
+    s2 = mq.mma_splits(E, F, mq.H100_SMS)
+    assert args[9:14] == (rows, E, F, s1, s2)
+    assert (args[0] is None) == quantize_acts
+    assert (args[1] is None) == (args[2] is None) == (not quantize_acts)
+    assert sized == [(rows, E, F, s1, s2, 1 if quantize_acts else 3)]
+
+
+@pytest.mark.parametrize("rows", [2, 16])
+def test_mlp_hands_the_q8_values(fake_entries, monkeypatch, rows):
+    """Under quantize_acts the multi-row entry gets the int8 values and f16
+    block scales of quantize_activations(x, Q4_0), which reproduce the
+    rounded activations exactly, not a dequantized f32 copy."""
+    seen = []
+    real = mf._launch_silu_mma
+    monkeypatch.setattr(mf, "_launch_silu_mma",
+                        lambda *a: seen.append(a) or real(*a))
+    w1, w2, gen = _silu_pair(256, 512, rows)
+    x = torch.randn((rows, 256), generator=gen)
+    mf.flash_ff_silu_q4(w1, w2, x.as_subclass(_OnCard))
+    (aq, _, _, _), = seen
+    (_, args), = fake_entries
+    assert aq.gtype == GType.Q8_0 and aq["d"].dtype == torch.float16
+    assert args[:3] == (None, aq["qs"].data_ptr(), aq["d"].data_ptr())
+    assert torch.equal(dequantize(aq),
+                       dequantize(quantize_activations(x, GType.Q4_0)))
+
+
+@pytest.mark.parametrize("quantize_acts", [False, True])
+def test_mlp_refuses_65_rows(fake_entries, quantize_acts):
+    """The 64-row gate (_MAX_FUSED_B) holds for both instances' wrapper."""
+    w1, w2, gen = _silu_pair(256, 512, 65)
+    x = torch.randn((65, 256), generator=gen).as_subclass(_OnCard)
+    with pytest.raises(ValueError):
+        mf.flash_ff_silu_q4(w1, w2, x, quantize_acts=quantize_acts)
+    assert not fake_entries
+
+
+def test_mlp_one_row_of_q8_values_is_refused(fake_entries):
+    """The b = 1 instance takes f32 x only."""
+    w1, w2, gen = _silu_pair(256, 512, 1)
+    aq = quantize_activations(torch.randn((1, 256), generator=gen),
+                              GType.Q4_0)
+    aq.planes["qs"] = aq["qs"].as_subclass(_OnCard)
+    with pytest.raises(ValueError):
+        mf.mlp_fused_silu_q4(aq, w1, w2)
+    assert not fake_entries
+
+
+def test_mlp_scratch_bytes():
+    """The gate/up pass's activations (one plane for Q8_0, with its scales;
+    three for f32 x) and its splits of [b, 2F] sums; then the gated
+    product's three planes and sums, and the down pass's partial sums when
+    it splits. Every part a multiple of 16 bytes."""
+    # b 2, E 256, F 512, one gate/up split, two down splits, Q8_0 x:
+    # 1024 + 128 + 64 + 8192, then 6144 + 256 + 4096
+    assert mf._mlp_scratch_bytes(2, 256, 512, 1, 2, 1) == 9408 + 10496
+    # f32 x: three planes, no scales; one down split: no partial sums
+    assert mf._mlp_scratch_bytes(2, 256, 512, 3, 1, 3) == \
+        3072 + 128 + 3 * 8192 + 6144 + 256
+    assert mf._mlp_scratch_bytes(3, 384, 640, 2, 3) % 16 == 0

@@ -26,7 +26,7 @@ import torch
 
 from ggmlsharp_tpu_torch import GType
 from ggmlsharp_tpu_torch.ops.matmul import mul_mat_q
-from ggmlsharp_tpu_torch.probes import dq_variants, scale_decode, swar
+from ggmlsharp_tpu_torch.probes import dq_variants, q8_acts, scale_decode, swar
 from ggmlsharp_tpu_torch.quant.formats import QTensor
 from ggmlsharp_tpu_torch.quant.quantize import _pack_nibbles, int_values
 
@@ -196,8 +196,29 @@ def test_probes_refuse_the_cpu_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     for main in (dq_variants.main, swar.main, scale_decode.main,
-                 autotune.main):
+                 q8_acts.main, autotune.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([])
     assert autotune.main(["--device", "cpu"]) == 0
     assert scale_decode.main(["--device", "cpu"]) == 0
+    assert q8_acts.main(["--device", "cpu"]) == 0
+
+
+def test_q8_0_plain_matches_q8_acts_block_arithmetic():
+    # the plain version within 1e-5 of sum |x||w| (the two builds' bar) of
+    # the integer sums both builds take, folded by d_w * d_x a block
+    assert q8_acts.plain_check(torch.device("cpu")) <= 1.0
+
+
+def test_q8_acts_variants_are_separate_builds():
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    assert q8_acts.variant_defines("i8") == ()
+    assert q8_acts.variant_defines("bf16") == ("Q8_ACTS=1",)
+    paths = set()
+    for v in q8_acts.VARIANTS:
+        with q8_acts.variant(v):
+            assert _build._DEFINES[q8_acts.ENTRY] == q8_acts.variant_defines(v)
+            paths.add(_build.library_path(q8_acts.ENTRY))
+    assert len(paths) == 2
+    assert _build._DEFINES.get(q8_acts.ENTRY, ()) == ()

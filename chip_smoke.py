@@ -15,9 +15,14 @@ version):
      dequant-matmuls at b 1, 2, 5, 8, 16, 128 (both instances) at every 7B
      shape and 4099 x 11008, and a row's bits equal at every b that takes
      the multi-row instance; the Q8_0 one likewise at b 1, 2, 5, 8, 16,
-     64, 128, Q8_0 and f32 x, at every GPT-2 shape and 100 x 352; the
-     fused SwiGLU MLP (both instances) at 1-64 rows at 7B and at E 384, F
-     640;
+     64, 128, Q8_0 and f32 x, at every GPT-2 shape and 100 x 352; f32 x
+     in both mm_dot modes, and kernel 3 in both, each against the plain
+     version of the same mode; the fused SwiGLU MLP (both instances) at
+     1-64 rows at 7B and at E 384, F 640; the fused GELU MLP (both
+     instances) at 1-64 rows at both GPT-2 widths and E 384, Q8_0 and f32
+     x, a row's bits equal at every row count of the multi-row instance;
+     the whole-block llama kernel at npast 0 to 2047, a ragged T, bf16 and
+     f32 caches, MHA and GQA;
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
@@ -31,8 +36,11 @@ version):
      c. GPT-2 Q8_0 greedy decode at b = 1, at the full width and depth of
         GPT-2 124M and of GPT-2 774M (random Q8_0 weights from a seed, flat
         bf16 cache): a 16-token prompt (per-matmul Q8_0 kernel, flash, the
-        fused MLP kernel) and 32 greedy tokens (one whole-block kernel call
-        a layer) through sampling.generate;
+        fused MLP kernel's multi-row instance) and 32 greedy tokens (one
+        whole-block kernel call a layer) through sampling.generate; then
+        (c2) over the head-major cache, which takes the per-op route, the
+        prompt and 8 greedy tokens (the Q8_0 kernel and the fused MLP at one
+        row);
      d. Llama-7B Q4_0 through its two fused routes, the weights of path a
         plus the whole-block route's own wo copies: with both switches on
         and a flat bf16 cache, the 16-token prompt (Q4_0 matmul, flash, the
@@ -102,6 +110,7 @@ Exits non-zero without a card or outside a checkout of the repository.
 Prints JSON lines; the one before the card line lists the kernels; the last
 is {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -158,6 +167,19 @@ def time_ms(fn, reps, warmup=3):
     return graph_time_ms(fn, reps, warmup)
 
 
+@contextlib.contextmanager
+def mm_dot(mode):
+    """The port's mm_dot set to ``mode`` for the block, then restored."""
+    from ggmlsharp_tpu_torch.kernels import config as kcfg
+
+    prev = kcfg.mm_dot_mode()
+    kcfg.set_mm_dot(mode)
+    try:
+        yield
+    finally:
+        kcfg.set_mm_dot(prev)
+
+
 def flash_bound_ms(B, Hq, Hkv, S, D, npast, kv_itemsize):
     """Bytes of q, out and the K/V rows causality keeps; f32 FMAs of the
     kept scores. npast: list of ints, one a batch entry."""
@@ -181,14 +203,17 @@ def check_weight_rows(dev, gen, fmt, tag):
     mul_mat_q at every 7B shape and the ragged 4099 x 11008, b in CHECK_B,
     with the Q8 activation round trip but at the LM head; for the legacy
     formats also at SHORT_K (K not a multiple of the multi-row instance's
-    256-column chunk), f32 and Q8 x. Tolerance: the two sum f32 terms in different orders, with the min
-    terms folded through per-block activation sums: 1e-5 of sum_k |x_k|
-    (|q d| + |m|)_nk (2^-24 is 6e-8 a rounding). Returns the largest
-    error; raises on a disagreement."""
+    256-column chunk), f32 and Q8 x; f32 x in both mm_dot modes, each
+    against the plain version of the same mode. Tolerance: the two sum f32
+    terms in different orders, with the min terms folded through per-block
+    activation sums: 1e-5 of sum_k |x_k| (|q d| + |m|)_nk, x as the call
+    rounds it (2^-24 is 6e-8 a rounding). Returns the largest error; raises
+    on a disagreement."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused
     from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
+    from ggmlsharp_tpu_torch.ops.matmul import round_bf16
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     worst, rows = 0.0, []
@@ -198,16 +223,17 @@ def check_weight_rows(dev, gen, fmt, tag):
     for name, n, k, _ in shapes:
         w = random_weight(fmt, n, k, gen, dev)
         wabs = weight_abs_terms(w)
-        # the LM head skips the Q8 round trip
-        acts = ((False, True) if name == "short_k"
-                else (name != "output",))
+        # the LM head skips the Q8 round trip; f32 x in both modes
+        acts = [(qa, mode) for qa in ((False, True) if name == "short_k"
+                                      else (name != "output",))
+                for mode in (("f32",) if qa else ("f32", "bf16"))]
         for b in CHECK_B:
             x = torch.randn((b, k), generator=gen, device=dev)
-            for qa in acts:
-                got = mul_mat_q_fused(w, x, quantize_acts=qa)
-                want = mul_mat_q(w, x, quantize_acts=qa)
+            for qa, mode in acts:
+                got = mul_mat_q_fused(w, x, quantize_acts=qa, mode=mode)
+                want = mul_mat_q(w, x, quantize_acts=qa, mode=mode)
                 xq = dequantize(quantize_activations(x, w.gtype)) if qa \
-                    else x
+                    else (round_bf16(x) if mode == "bf16" else x)
                 scale = xq.abs() @ wabs.T
                 err = (got - want).abs()
                 torch.cuda.synchronize()
@@ -217,7 +243,7 @@ def check_weight_rows(dev, gen, fmt, tag):
                 worst = max(worst, e)
                 rows.append({"format": fmt, "shape": name, "b": b, "n": n,
                              "k": k, "acts": "q8" if qa else "f32",
-                             "max_abs_err": e,
+                             "mm_dot": mode, "max_abs_err": e,
                              "max_err_over_sum_abs": float(
                                  (err / scale).max()),
                              "ok": ok})
@@ -234,7 +260,8 @@ def rows_independent_of_b(dev, gen, fmt, shapes=((4096, 4096), RAGGED[1:3]),
                           bs=MMA_B):
     """Whether a row's result is bit for bit the same at every b of ``bs``
     (the rows that take the multi-row instance: each against the last), for
-    f32 x and for Q8 activations (mma_q8_matmul), at each (n, k) of
+    f32 x in both mm_dot modes and for Q8 activations (mma_q8_matmul), at
+    each (n, k) of
     ``shapes`` (default 4096 x 4096, K split 16 ways, and the ragged 4099 x
     11008); and whether b = 1, the other instance (another order of sums by
     design), agrees with it within check_weight_rows' bar."""
@@ -251,9 +278,10 @@ def rows_independent_of_b(dev, gen, fmt, shapes=((4096, 4096), RAGGED[1:3]),
         w = random_weight(fmt, n, k, gen, dev)
         wabs = weight_abs_terms(w).T
         x = torch.randn((bs[-1], k), generator=gen, device=dev)
-        for acts in ("f32", "q8"):
-            if acts == "f32":
-                call = lambda xs: mul_mat_q_fused(w, xs, quantize_acts=False)
+        for acts in ("f32", "bf16", "q8"):
+            if acts != "q8":
+                call = lambda xs, m=acts: mul_mat_q_fused(
+                    w, xs, quantize_acts=False, mode=m)
                 xr = x
             else:
                 call = lambda xs: mma_q8_matmul(
@@ -262,8 +290,10 @@ def rows_independent_of_b(dev, gen, fmt, shapes=((4096, 4096), RAGGED[1:3]),
             y = call(x)
             same = all(torch.equal(y[:b], call(x[:b].contiguous()))
                        for b in bs[:-1])
-            err = (mul_mat_q_fused(w, x[:1], quantize_acts=acts == "q8")
-                   - y[:1]).abs()
+            # b = 1: the other instance (Q8: the dequantized round trip)
+            one = mul_mat_q_fused(w, x[:1], quantize_acts=True) \
+                if acts == "q8" else call(x[:1].contiguous())
+            err = (one - y[:1]).abs()
             res[f"{n}x{k} {acts}"] = {
                 "mma_rows_bit_equal": same,
                 "b1_vs_mma_err_over_sum_abs":
@@ -439,10 +469,38 @@ def decode_splits_on(dev, B, Hkv, T):
                          .multi_processor_count)
 
 
+def decode_flip_allowance(q, kn, kc, vc, sc, np_t, Hkv, D):
+    """2^-6 * max_t p_t * max_t |v_t| for each (slot, query head): what one
+    or two bf16 ulps of a cache row's rounded softmax weight can move an
+    output in mm_dot "bf16", where a weight on a rounding boundary may
+    round either way in the kernel and in the plain version (their scores
+    differ in f32 summation order). p: the f32 softmax weights of the cache
+    rows, v: their values."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.attn_decode import _dequant
+
+    B, Hq, _ = q.shape
+    T, n_rep = kc.shape[1], Hq // Hkv
+    k = _dequant(kc, sc.get("k_scale"), Hkv).reshape(B, T, Hkv, D)
+    v = _dequant(vc, sc.get("v_scale"), Hkv).reshape(B, T, Hkv, D)
+    qg = q.float().reshape(B, Hkv, n_rep, D) * (1.0 / D ** 0.5)
+    s = torch.einsum("bgrd,btgd->bgrt", qg, k)
+    live = torch.arange(T, device=q.device)[None] < np_t.long()[:, None]
+    s = torch.where(live[:, None, None], s, torch.full_like(s, -1e30))
+    s_new = (qg * kn.float().reshape(B, Hkv, 1, D)).sum(-1, keepdim=True)
+    p = torch.softmax(torch.cat([s, s_new], -1), -1)[..., :T]
+    vmax = v.abs().amax(-1).amax(1)  # [B, Hkv]
+    return (2.0 ** -6 * p.amax(-1) * vmax[..., None]).reshape(B, Hq, 1)
+
+
 def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
-    """Kernel vs both plain versions, the dense _decode_ref and the split
-    algorithm _decode_ref_split at the kernel's splits: rtol 2e-4 / atol
-    2e-5 (all f32; online vs dense softmax and summation order)."""
+    """Kernel vs its plain versions in each mm_dot mode. "f32": the dense
+    _decode_ref and the split algorithm _decode_ref_split at the kernel's
+    splits, rtol 2e-4 / atol 2e-5 (all f32; online vs dense softmax and
+    summation order). "bf16": the dense _decode_ref of that mode, at the
+    same bar plus decode_flip_allowance (a rounded softmax weight on a
+    rounding boundary)."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref,
@@ -456,16 +514,20 @@ def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
                                                    kind, D=D)
         np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
         splits = decode_splits_on(dev, B, Hkv, T)
-        got = flash_decode_flat(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)
+        args = (q, kn, vn, kc, vc, np_t, Hkv, D)
+        flips = decode_flip_allowance(q, kn, kc, vc, sc, np_t, Hkv, D)
         row = {"case": label, "splits": splits, "ok": True}
-        for name, want in (
-                ("dense", _decode_ref(q, kn, vn, kc, vc, np_t, Hkv, D, **sc)),
-                ("split", _decode_ref_split(q, kn, vn, kc, vc, np_t, Hkv, D,
-                                            **sc, splits=splits))):
+        for mode, name, want, extra in (
+                ("f32", "dense", _decode_ref(*args, **sc), 0.0),
+                ("f32", "split", _decode_ref_split(*args, **sc,
+                                                   splits=splits), 0.0),
+                ("bf16", "dense_bf16", _decode_ref(*args, **sc, mode="bf16"),
+                 flips)):
+            got = flash_decode_flat(*args, **sc, mode=mode)
             torch.cuda.synchronize()
             err = (got - want).abs()
             row["ok"] &= bool(torch.isfinite(got).all()) and bool(
-                (err <= 2e-5 + 2e-4 * want.abs()).all())
+                (err <= 2e-5 + 2e-4 * want.abs() + extra).all())
             row[f"max_abs_err_{name}"] = float(err.max())
             worst = max(worst, float(err.max()))
         rows.append(row)
@@ -528,35 +590,45 @@ def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
     token is the argmax of the kernel path's row, and each token is the
     plain argmax wherever the plain top-2 gap exceeds 2 * tol (logits
     within tol of each other cannot reorder such a pair). ``route`` names
-    the path in the printed row; ``cache_kw`` goes to new_cache."""
+    the path in the printed row; ``cache_kw`` goes to new_cache. Weight-only
+    (``quant_acts`` False) runs in mm_dot "f32", where the two paths differ
+    in f32 summation order alone (in "bf16" a one-ulp difference of an
+    activation can move its bf16 rounding, as it can a Q8 one); with the Q8
+    round trip, in the configured mode."""
     import functools
 
     import torch
 
+    from ggmlsharp_tpu_torch.kernels.config import mm_dot_mode
     from ggmlsharp_tpu_torch.models import sampling
 
     os.environ["GGML_TPU_QUANT_ACTS"] = "1" if quant_acts else "0"
     try:
-        if toks is None:
-            toks, _ = sampling.generate(
-                model.forward, cfg, params, prompt,
-                model.new_cache(cfg, 1, dtype=cache_dtype, **cache_kw), N_CMP)
-        out = {}
-        with torch.inference_mode():
-            for plain in (False, True):
-                prefill, step = sampling.make_decode_fns(
-                    functools.partial(model.forward, plain=plain), cfg)
-                cache = model.new_cache(cfg, 1, dtype=cache_dtype, **cache_kw)
-                cur = PROMPT_LEN
-                lg, cache = prefill(params, prompt, cache,
-                                    t_eff=sampling.length_bucket(cur, cfg.n_ctx))
-                rows = [lg[0].float()]
-                for i in range(N_CMP - 1):
-                    cur += 1
-                    lg, cache = step(params, toks[:, i:i + 1], cache,
-                                     t_eff=sampling.length_bucket(cur, cfg.n_ctx))
-                    rows.append(lg[0].float())
-                out[plain] = torch.stack(rows)
+        with mm_dot(mm_dot_mode() if quant_acts else "f32"):
+            if toks is None:
+                toks, _ = sampling.generate(
+                    model.forward, cfg, params, prompt,
+                    model.new_cache(cfg, 1, dtype=cache_dtype, **cache_kw),
+                    N_CMP)
+            out = {}
+            with torch.inference_mode():
+                for plain in (False, True):
+                    prefill, step = sampling.make_decode_fns(
+                        functools.partial(model.forward, plain=plain), cfg)
+                    cache = model.new_cache(cfg, 1, dtype=cache_dtype,
+                                            **cache_kw)
+                    cur = PROMPT_LEN
+                    lg, cache = prefill(params, prompt, cache,
+                                        t_eff=sampling.length_bucket(
+                                            cur, cfg.n_ctx))
+                    rows = [lg[0].float()]
+                    for i in range(N_CMP - 1):
+                        cur += 1
+                        lg, cache = step(params, toks[:, i:i + 1], cache,
+                                         t_eff=sampling.length_bucket(
+                                             cur, cfg.n_ctx))
+                        rows.append(lg[0].float())
+                    out[plain] = torch.stack(rows)
     finally:
         os.environ.pop("GGML_TPU_QUANT_ACTS")
     kern, ref = out[False], out[True]
@@ -823,11 +895,14 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
     through the format's Q8 activation type, the operands the path's other
     matmuls hand the kernel (the multi-row instance takes the Q8 values,
     kernels.matmul_q.mma_q8_matmul, where the package has it; else the
-    wrapper takes the rounded x in f32). Each row: the kernel, the library
-    call (bf16 torch.matmul of x against the weight dequantized to bf16)
-    and, with ``plain``, the plain version; the bound (wq_bound_ms).
-    Weights are random from the seed, rotated over copies past four L2
-    sizes."""
+    wrapper takes the rounded x in f32), and, where the package's wrappers
+    read mm_dot, "bf16": x as it comes in mm_dot "bf16" (one bf16 plane).
+    Each row: the kernel, the library call (bf16 torch.matmul of x against
+    the weight dequantized to bf16) and, with ``plain``, the plain version
+    of the same mode; the bound (wq_bound_ms). Weights are random from the
+    seed, rotated over copies past four L2 sizes."""
+    import inspect
+
     import torch
 
     from ggmlsharp_tpu_torch import GType
@@ -837,7 +912,9 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     own = {"Q4_0": mq.q4_0_matmul, "Q8_0": mq.q8_0_matmul}.get(fmt)
-    call = (lambda x, w: own(x, w["qs"], w["d"])) if own else mq.q_matmul
+    call = (lambda x, w, **kw: own(x, w["qs"], w["d"], **kw)) if own \
+        else mq.q_matmul
+    moded = "mode" in inspect.signature(mq.q4_0_matmul).parameters
     q8_call = getattr(mq, "mma_q8_matmul", None)
     if fmt == "Q8_0" and "matmul_q8_0_mma" not in _build.KERNELS:
         q8_call = None  # a package whose Q8_0 has no multi-row instance
@@ -854,11 +931,14 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
         reps = max(50, copies)
         for b in bs:
             x = torch.randn((b, k), generator=gen, device=dev)
-            for acts in ("f32",) if name in ("output", "wte") \
-                    else ("f32", "q8"):
+            for acts in (("f32",) if name in ("output", "wte")
+                         else ("f32", "q8")) + (("bf16",) if moded else ()):
                 x_bytes = b * k * 4  # f32 x
                 if acts == "f32":
                     xr, kern = x, (lambda i: call(x, ws[i % copies]))
+                elif acts == "bf16":
+                    xr, kern = x, (lambda i: call(x, ws[i % copies],
+                                                  mode="bf16"))
                 elif q8_call is not None and b >= min_rows:
                     aq = quantize_activations(x, GType[fmt])
                     xr = dequantize(aq)
@@ -872,7 +952,8 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
                 lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
                               reps)
                 bound, by = wq_bound_ms(b, n, k, wbytes, x_bytes,
-                                        acts == "q8")
+                                        acts == "q8",
+                                        1 if acts == "bf16" else 3)
                 row = {"format": fmt, "shape": name, "b": b, "acts": acts,
                        "n": n, "k": k, "weight_bytes": wbytes, "ms": ms,
                        "library_ms": lib, "bound_ms": bound, "bound_by": by,
@@ -881,7 +962,9 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
                 if plain:
                     row["plain_ms"] = time_ms(
                         lambda i: mul_mat_q(ws[i % copies], xr,
-                                            quantize_acts=False), 8)
+                                            quantize_acts=False,
+                                            mode="bf16" if acts == "bf16"
+                                            else "f32"), 8)
                 rows.append(row)
         del ws, wb
         torch.cuda.empty_cache()
@@ -891,11 +974,11 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
 def forward_sum(rows, fmt, b, acts="q8"):
     """ms, plain, library and bound of one forward's launches at b rows
     as the path runs them: each shape's time times its launches a forward,
-    the row with activations ``acts`` where the shape has one (the LM
-    head's f32 otherwise); bound_by: what bounds the rows that take the
+    the row with activations ``acts`` where the shape has one (its f32 row
+    otherwise: the LM head's); bound_by: what bounds the rows that take the
     larger share of the summed bound."""
     sel = [r for r in rows if r["format"] == fmt and r["b"] == b]
-    sel = [r for r in sel if r["acts"] == acts or not any(
+    sel = [r for r in sel if r["acts"] == acts or r["acts"] == "f32" and not any(
         o["shape"] == r["shape"] and o["acts"] == acts for o in sel)]
     out = {key: sum(r[key] * r["launches_per_forward"] for r in sel)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -1013,7 +1096,8 @@ def check_q8_0(dev, gen):
     Q8_RAGGED (a short last chunk), b in Q8_CHECK_B, and at every Llama-7B
     shape (path f's Q8_0 prompt: long runs of chunks a CTA, the LM head on
     the 128-row route for f32 x), b in Q8_7B_B, with the Q8_0 activation
-    round trip (the int8 route) and f32 x (three bf16 planes). Tolerance:
+    round trip (the int8 route) and f32 x (three bf16 planes in mm_dot
+    "f32", one in "bf16"; each against the plain version of its mode). Tolerance:
     the two sum f32 terms in different orders; allow 1e-5 of sum_k |x_k
     w_nk|, x as the call rounds it (2^-24 is 6e-8 a rounding). Then whether
     a row's result is bit for bit the same at every b >= 2
@@ -1025,6 +1109,7 @@ def check_q8_0(dev, gen):
     from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused
     from ggmlsharp_tpu_torch.models.gpt2 import random_q8_0
     from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
+    from ggmlsharp_tpu_torch.ops.matmul import round_bf16
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     worst, rows = 0.0, []
@@ -1037,11 +1122,11 @@ def check_q8_0(dev, gen):
         wabs = dequantize(w).abs()
         for b in bs:
             x = torch.randn((b, k), generator=gen, device=dev)
-            for qa in (True, False):
-                got = mul_mat_q_fused(w, x, quantize_acts=qa)
-                want = mul_mat_q(w, x, quantize_acts=qa)
+            for qa, mode in ((True, "f32"), (False, "f32"), (False, "bf16")):
+                got = mul_mat_q_fused(w, x, quantize_acts=qa, mode=mode)
+                want = mul_mat_q(w, x, quantize_acts=qa, mode=mode)
                 xr = dequantize(quantize_activations(x, GType.Q8_0)) if qa \
-                    else x
+                    else (round_bf16(x) if mode == "bf16" else x)
                 scale = xr.abs() @ wabs.T
                 err = (got - want).abs()
                 torch.cuda.synchronize()
@@ -1050,7 +1135,7 @@ def check_q8_0(dev, gen):
                 e = float(err.max())
                 worst = max(worst, e)
                 rows.append({"shape": name, "b": b, "n": n, "k": k,
-                             "acts": "q8" if qa else "f32",
+                             "acts": "q8" if qa else "f32", "mm_dot": mode,
                              "max_abs_err": e,
                              "max_err_over_sum_abs": float(
                                  (err / scale).max()),
@@ -1083,42 +1168,69 @@ def mlp_inputs(E, gen, dev, copies=1):
     return out
 
 
+MLP_CHECK_ROWS = (1, 2, 5, 16, 64)  # 1: the b = 1 instance; 5: a ragged tile
+MLP_SHORT_E = 384  # K = 384 ends W1's products in a short chunk
+
+
 def check_mlp_fused(dev, gen):
-    """Kernel 8 vs plain _ff_ref at both widths, rows in {1, 16, 64}, with
-    and without the Q8_0 round trip of the input (made by the same PyTorch
-    code on both sides). Tolerance: f32 summation order through two chained
-    products: h may differ by 1e-5 of s1 = sum |x w1| (GELU's slope is at
-    most 1.13), so y by 1e-5 of (1.13 s1 + |h|) |W2|^T."""
+    """Kernel 8 (flash_ff_q8, which picks the instance for the rows) vs
+    plain _ff_ref at both GPT-2 widths and at E MLP_SHORT_E, rows in
+    MLP_CHECK_ROWS, with the Q8_0 round trip of the input (the multi-row
+    instance takes its int8 values) and with f32 x in each mm_dot mode,
+    each against the plain version of its mode. Tolerance: f32 summation
+    order through two chained products: h may differ by 1e-5 of s1 = sum
+    |x w1| (x as the call rounds it; GELU's slope is at most 1.13), so y by
+    1e-5 of (1.13 s1 + |h|) |W2|^T. Then whether a row's result is bit for
+    bit the same at every row count that takes the multi-row instance."""
     import torch
 
+    from ggmlsharp_tpu_torch import GType
     from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, flash_ff_q8
-    from ggmlsharp_tpu_torch.ops import gelu, mul_mat_q
+    from ggmlsharp_tpu_torch.ops import gelu, mul_mat_q, quantize_activations
+    from ggmlsharp_tpu_torch.ops.matmul import round_bf16
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
-    worst, rows = 0.0, []
-    for tag, cfg in gpt2_configs():
-        E = cfg.n_embd
+    worst, rows, same = 0.0, [], {}
+    widths = [(tag, cfg.n_embd) for tag, cfg in gpt2_configs()] \
+        + [("short", MLP_SHORT_E)]
+    for tag, E in widths:
         ((w1, b1, w2, b2),) = mlp_inputs(E, gen, dev)
         w1abs, w2abs = dequantize(w1).abs(), dequantize(w2).abs()
-        for n_rows in (1, 16, 64):
-            x = torch.randn((n_rows, E), generator=gen, device=dev)
-            for qa in (False, True):
-                got = flash_ff_q8(w1, b1, w2, b2, x, quantize_acts=qa)
-                want = _ff_ref(w1, b1, w2, b2, x, quantize_acts=qa)
-                h = gelu(mul_mat_q(w1, x, quantize_acts=qa) + b1)
-                scale = (1.13 * (x.abs() @ w1abs.T) + h.abs()) @ w2abs.T
+        xs = torch.randn((max(MLP_CHECK_ROWS), E), generator=gen, device=dev)
+        for qa, mode in ((True, "f32"), (False, "f32"), (False, "bf16")):
+            acts = "q8" if qa else mode
+            ys = {}
+            for n_rows in MLP_CHECK_ROWS:
+                x = xs[:n_rows].contiguous()
+                got = flash_ff_q8(w1, b1, w2, b2, x, quantize_acts=qa,
+                                  mode=mode)
+                want = _ff_ref(w1, b1, w2, b2, x, quantize_acts=qa, mode=mode)
+                xr = dequantize(quantize_activations(x, GType.Q8_0)) if qa \
+                    else (round_bf16(x) if mode == "bf16" else x)
+                h = gelu(mul_mat_q(w1, xr, quantize_acts=False) + b1)
+                scale = (1.13 * (xr.abs() @ w1abs.T) + h.abs()) @ w2abs.T
                 err = (got - want).abs()
                 torch.cuda.synchronize()
                 ok = bool(torch.isfinite(got).all()) and bool(
                     (err <= 1e-5 * scale).all())
                 e = float(err.max())
                 worst = max(worst, e)
-                rows.append({"config": tag, "rows": n_rows,
-                             "quantize_acts": qa, "max_abs_err": e, "ok": ok})
+                ys[n_rows] = got
+                rows.append({"config": tag, "E": E, "rows": n_rows,
+                             "acts": acts, "max_abs_err": e,
+                             "max_err_over_bar": float(
+                                 (err / (1e-5 * scale)).max()), "ok": ok})
                 if not ok:
                     emit({"mlp_fused_check": rows})
                     raise SystemExit(f"mlp_fused_q8 disagrees: {rows[-1]}")
-    emit({"mlp_fused_check": rows})
+            top = ys[MLP_CHECK_ROWS[-1]]
+            same[f"{tag} {acts}"] = all(torch.equal(ys[r], top[:r])
+                                        for r in MLP_CHECK_ROWS if r >= 2)
+        del w1, w2, w1abs, w2abs
+    emit({"mlp_fused_check": rows, "mlp_fused_rows_vs_b": same})
+    if not all(same.values()):
+        raise SystemExit(f"a kernel-8 row's result depends on the rows: "
+                         f"{same}")
     return worst
 
 
@@ -1197,7 +1309,8 @@ def run_gpt2_path(tag, cfg, params, prompt):
     L = cfg.n_layer
     want = dict.fromkeys(kernels.LAUNCHES, 0) | {
         "gpt2_layer": L * N_NEW,           # one a block a decode step
-        "mlp_fused_q8": L,                 # the prefill's 16 rows
+        # the prefill's 16 rows: kernel 8's multi-row instance
+        **dq_launches("mlp_fused_q8", L, 0),
         "flash_attn": L,                   # prefill only
         # prefill: c_attn, c_proj a block + LM head at 16 rows (the
         # multi-row instance); a decode step: the LM head at one row
@@ -1216,6 +1329,40 @@ def run_gpt2_path(tag, cfg, params, prompt):
     # a single argmax to compare
     if len(set(toks[0].tolist())) < N_NEW // 2:
         raise SystemExit(f"GPT-2 {tag}: the greedy stream collapsed: {toks}")
+    return toks, counts
+
+
+def run_gpt2_per_op(tag, cfg, params, prompt, n_new=MLP_STEPS):
+    """c2. GPT-2 at b = 1 over the head-major bf16 cache, which takes the
+    per-op route (the whole-block kernel needs the flat cache): the prompt
+    (kernel 4 and kernel 8 at 16 rows, flash) and ``n_new`` greedy tokens,
+    each step kernel 4 at one row (c_attn, c_proj, the LM head) and kernel
+    8's b = 1 instance once a block; counters reset just before."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import gpt2, sampling
+
+    cache = gpt2.new_cache(cfg, 1, flat=False)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    toks, cache = sampling.generate(gpt2.forward, cfg, params, prompt, cache,
+                                    n_new)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    L = cfg.n_layer
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "flash_attn": L,
+        **dq_launches("mlp_fused_q8", L, L * n_new),
+        **dq_launches("matmul_q8_0", 2 * L + 1, (2 * L + 1) * n_new)}
+    emit({"gpt2_per_op_path": {"config": tag, "tokens": toks[0].tolist(),
+                               "launches": counts,
+                               "expected_launches": want}})
+    if counts != want:
+        raise SystemExit(f"GPT-2 {tag} per-op launch counts {counts} != "
+                         f"{want}")
+    if toks.shape != (1, n_new) or int(cache.length[0]) != PROMPT_LEN + n_new:
+        raise SystemExit(f"GPT-2 {tag} per-op path: bad tokens {toks}")
     return toks, counts
 
 
@@ -1276,27 +1423,54 @@ def time_q8_0(dev, gen, counts, bs=Q8_TIMING_B, plain=True):
     return rows, b1, mma
 
 
-def mlp_bound_ms(B, E):
-    """Bytes: both Q8_0 weights, x and y once each (h is no tensor of the
-    model). Operations: the first product is int8 x int8 after the input's
-    Q8_0 round trip, the second f32 x int8 (h is never quantized)."""
+def mlp_bound_ms(B, E, acts="f32"):
+    """Bytes: both Q8_0 weights, both bf16 biases, x as the call takes it
+    (``acts`` "q8": its Q8_0 values and block scales; "f32", "bf16": f32)
+    and y, once each (h is no tensor of the model). Operations, the least
+    any implementation needs on this card: W1's product int8 x int8 on the
+    int8 tensor cores after the Q8_0 round trip, else f32 x exactly as
+    three bf16 products a term ("f32") or one ("bf16": x rounded to bf16);
+    W2's operand, the f32 h, three bf16 products a term (it is never
+    rounded)."""
     F = 4 * E
-    bytes_ = 2 * F * E * 34 // 32 + 2 * B * E * 4 + (F + E) * 2
+    x_bytes = B * E + B * E // 32 * 2 if acts == "q8" else B * E * 4
+    bytes_ = 2 * F * E * 34 // 32 + (F + E) * 2 + x_bytes + B * E * 4
     t_bytes = bytes_ / HBM_BYTES_S
-    t_ops = 2 * B * F * E / INT8_OP_S + 2 * B * E * F / F32_FLOP_S
+    w1_ops = (2 * B * F * E / INT8_OP_S if acts == "q8"
+              else (6 if acts == "f32" else 2) * B * F * E / BF16_FLOP_S)
+    t_ops = w1_ops + 6 * B * E * F / BF16_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_mlp_fused(dev, gen):
-    """Cold-L2 kernel, plain and library times of the prefill's MLP call
-    (16 rows) at both widths. Library: two bf16 torch.matmuls around
-    F.gelu(approximate="tanh") over weights dequantized to bf16."""
+MLP_TIMING_ROWS = (1, 2, 8, 16, 64)  # decode, serving ticks, the prompt, the gate
+
+
+def time_mlp_fused(dev, gen, counts=None, plain=True,
+                   n_rows_set=MLP_TIMING_ROWS):
+    """Cold-L2 kernel, plain and library times of kernel 8 at both GPT-2
+    widths and each row count of ``n_rows_set``, in rows by activations:
+    "q8", the operands the paths hand it with the Q8_0 round trip (its
+    values and scales from MMA_MIN_ROWS rows on where the package has the
+    multi-row instance, else their dequantized f32 copy), and f32 x, in
+    mm_dot "f32" and, where the package reads the mode, "bf16" (path s:
+    weight-only). Library: two bf16 torch.matmuls around
+    F.gelu(approximate="tanh") over weights dequantized to bf16. With
+    ``counts``, also returns the kernels-line rows of the b = 1 instance
+    (1 row, f32 x in the default mode) and the multi-row instance (16 rows,
+    Q8_0 x: the prompt of path c, GPT-2 124M)."""
+    import inspect
+
     import torch
     import torch.nn.functional as F_
 
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.kernels import _build
     from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, mlp_fused_q8
+    from ggmlsharp_tpu_torch.ops import quantize_activations
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
+    multi = "mlp_fused_q8_mma" in _build.KERNELS
+    moded = "mode" in inspect.signature(mlp_fused_q8).parameters
     rows = []
     for tag, cfg in gpt2_configs():
         E = cfg.n_embd
@@ -1304,39 +1478,66 @@ def time_mlp_fused(dev, gen):
         ws = mlp_inputs(E, gen, dev, copies)
         wb = [(dequantize(w1).bfloat16(), dequantize(w2).bfloat16())
               for w1, _, w2, _ in ws]
-        x = torch.randn((PROMPT_LEN, E), generator=gen, device=dev)
-        xb = x.bfloat16()
+        for n_rows in n_rows_set:
+            x = torch.randn((n_rows, E), generator=gen, device=dev)
+            aq = quantize_activations(x, GType.Q8_0)
+            xr = dequantize(aq)
+            for acts in ("q8", "f32") + (("bf16",) if moded else ()):
+                q8 = acts == "q8" and multi and n_rows >= 2
+                xa = aq if q8 else (xr if acts == "q8" else x)
+                kw = {"mode": "f32" if acts == "q8" else acts} if moded \
+                    else {}
+                xb = (xr if acts == "q8" else x).bfloat16()
 
-        def lib(i):
-            (w1, w2), (_, b1, _, b2) = wb[i % copies], ws[i % copies]
-            return F_.gelu(xb @ w1.T + b1, approximate="tanh") @ w2.T + b2
+                def lib(i, xb=xb):
+                    (w1, w2), (_, b1, _, b2) = wb[i % copies], ws[i % copies]
+                    return F_.gelu(xb @ w1.T + b1, approximate="tanh") \
+                        @ w2.T + b2
 
-        def kern(i):
-            w1, b1, w2, b2 = ws[i % copies]
-            return mlp_fused_q8(x, w1, b1, w2, b2)
-
-        def plain(i):
-            return _ff_ref(*ws[i % copies], x, quantize_acts=False)
-
-        bound, by = mlp_bound_ms(PROMPT_LEN, E)
-        ms = time_ms(kern, 64)
-        rows.append({"config": tag, "rows": PROMPT_LEN, "ms": ms,
-                     "plain_ms": time_ms(plain, 8),
-                     "library_ms": time_ms(lib, 64), "bound_ms": bound,
-                     "bound_by": by, "roofline_share": bound / ms,
-                     "cold_copies": copies})
+                bound, by = mlp_bound_ms(n_rows, E, acts)
+                ms = time_ms(lambda i, xa=xa, kw=kw: mlp_fused_q8(
+                    xa, *ws[i % copies], **kw), 48)
+                row = {"config": tag, "rows": n_rows, "acts": acts, "ms": ms,
+                       "library_ms": time_ms(lib, 48), "bound_ms": bound,
+                       "bound_by": by, "roofline_share": bound / ms,
+                       "cold_copies": copies}
+                if plain:
+                    row["plain_ms"] = time_ms(
+                        lambda i, xv=xr if acts == "q8" else x, kw=kw: _ff_ref(
+                            *ws[i % copies], xv, quantize_acts=False, **kw), 6)
+                rows.append(row)
         del ws, wb
         torch.cuda.empty_cache()
     emit({"mlp_fused_timing": rows})
-    r = rows[0]
-    return {"name": "mlp_fused_q8", "route": "cuda",
-            "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_q8.cu",
-            "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:130",
-            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by")},
-            "unit": "one prefill MLP call of GPT-2 124M: 16 rows, E 768, "
-                    "F 3072, cold L2; library = two bf16 torch.matmuls + "
-                    "F.gelu"}
+    if counts is None:
+        return rows
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    r124 = [r for r in rows if r["config"] == "124M"]
+    r1 = next(r for r in r124 if r["rows"] == 1 and r["acts"] == "bf16")
+    r16 = next(r for r in r124 if r["rows"] == PROMPT_LEN
+               and r["acts"] == "q8")
+    by_rows = lambda sel: {f"{r['config']} {r['rows']} {r['acts']}": r[sel]
+                           for r in rows}
+    b1 = {"name": "mlp_fused_q8", "route": "cuda",
+          "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_q8.cu",
+          "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:130",
+          "launches": counts["mlp_fused_q8"],
+          **{key: r1[key] for key in keys},
+          "unit": "one GPT-2 124M MLP call at 1 row: E 768, F 3072, f32 x "
+                  "in mm_dot bf16 (the default), cold L2; library = two "
+                  "bf16 torch.matmuls + F.gelu"}
+    mma = {"name": "mlp_fused_q8_mma", "route": "cuda",
+           "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_q8.cu",
+           "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:130",
+           "launches": counts["mlp_fused_q8_mma"],
+           **{key: r16[key] for key in keys},
+           "rows_ms": by_rows("ms"), "rows_library_ms": by_rows("library_ms"),
+           "rows_bound_ms": by_rows("bound_ms"),
+           "unit": "one prefill MLP call of GPT-2 124M: 16 rows, Q8_0 x, E "
+                   "768, F 3072, cold L2 (the multi-row instance, "
+                   "csrc/dq_mma.cuh: W1 with gelu(+ b1) in its epilogue, W2 "
+                   "with + b2); library = two bf16 torch.matmuls + F.gelu"}
+    return rows, b1, mma
 
 
 def layer_bound_ms(E, npast):
@@ -1486,8 +1687,9 @@ LAYER_TOL = (5e-5, 2e-5, 2e-5)  # y, k_new, v_new: tol + tol * |want|
 def check_llama_layer(dev, gen):
     """Kernel 10 vs plain _layer_ref at Llama-7B's block (MHA, D 128), rope
     modes 0 and 2, and at one GQA shape; T 256 with npast in {0, 32, T - 1}
-    over a bf16 cache, npast 100 over an f32 cache, and T 2048 at npast
-    2047. Tolerance (all f32, values of magnitude ~4; gpt2_layer's bars): y
+    over a bf16 cache, npast 100 over an f32 cache, T 2048 at npast 2047
+    over both, and a ragged T 777 (no multiple of the attention chunks) at
+    npast 500 (bf16) and 776 (f32). Tolerance (all f32, values of magnitude ~4; gpt2_layer's bars): y
     through five chained products of K up to 14336 and an online softmax
     5e-5 + 5e-5 |want| (measured 1.7e-6); k_new, v_new (one product after
     the norm, k rotated) 2e-5 + 2e-5 |want| (measured 9.5e-7). One wrong or
@@ -1506,7 +1708,9 @@ def check_llama_layer(dev, gen):
         cfg, (blk,) = llama_blocks(cfg, 1, SEED + 1, gen, dev)
         Ekv = cfg.n_head_kv * cfg.head_dim
         cases = [(torch.bfloat16, 256, n) for n in (0, 32, 255)] \
-            + [(torch.float32, 256, 100), (torch.bfloat16, 2048, 2047)]
+            + [(torch.float32, 256, 100), (torch.bfloat16, 2048, 2047),
+               (torch.float32, 2048, 2047), (torch.bfloat16, 777, 500),
+               (torch.float32, 777, 776)]
         for dt, T, npast in cases:
             kc = torch.randn((2048, Ekv), generator=gen, device=dev).to(dt)
             vc = torch.randn((2048, Ekv), generator=gen, device=dev).to(dt)
@@ -1554,7 +1758,8 @@ def check_attn_layout(dev, gen, cases=ATTN_LAYOUT_CASES,
                       tag="attn_layout_check"):
     """Kernel 3 with the "attn" lane map vs its plain version (permute to
     element order, _decode_ref or _decode_ref_split at the kernel's splits,
-    permute back): rtol 2e-4 / atol 2e-5, as for the heads map."""
+    permute back), mm_dot "f32": rtol 2e-4 / atol 2e-5, as for the heads
+    map (whose check also holds "bf16")."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref_attn,
@@ -1567,7 +1772,7 @@ def check_attn_layout(dev, gen, cases=ATTN_LAYOUT_CASES,
         np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
         args = (q.reshape(B, Hq * 128), kn, vn, kc, vc, np_t, Hq, Hkv, 128)
         splits = decode_splits_on(dev, B, Hkv, T)
-        got = flash_decode_flat_attn(*args)
+        got = flash_decode_flat_attn(*args, mode="f32")
         row = {"case": label, "splits": splits, "ok": True}
         for name, want in (("dense", _decode_ref_attn(*args)),
                            ("split", _decode_ref_attn(*args, splits=splits))):
@@ -1761,15 +1966,22 @@ def llama_layer_bound_ms(cfg, npast):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_llama_layer(dev, gen):
+LAYER_NO_MATVEC = ("LAYER_NO_MATVEC=1",)  # kernel 10 without its products
+
+
+def time_llama_layer(dev, gen, plain=True):
     """Cold-L2 kernel and plain times of one decode step's block call at
     Llama-7B's block, bf16 cache: T 256 at npast 32 (path d's steps run 16 to
     47) and T 2048 at npast 2047; each call a different block's weights, as a
     decode step walks the layers (a block's 113.8 MB exceed L2 alone). cos
     and sin are made before timing, as forward makes them once a step. No
-    single PyTorch call computes a whole block: library_ms is null."""
+    single PyTorch call computes a whole block: library_ms is null. Also,
+    where the source has it, the build with LAYER_NO_MATVEC (no weight
+    streamed, no product: the barriers, norms, rope, attention and merge
+    alone), no_matvec_ms."""
     import torch
 
+    from ggmlsharp_tpu_torch import kernels
     from ggmlsharp_tpu_torch.kernels.llama_layer import (_layer_ref,
                                                          llama_layer_step,
                                                          rope_vectors)
@@ -1786,13 +1998,23 @@ def time_llama_layer(dev, gen):
         np_t = torch.tensor([npast], dtype=torch.int32, device=dev)
         rope = rope_vectors(np_t, cfg)
         bound, by = llama_layer_bound_ms(cfg, npast)
-        ms = time_ms(lambda i: llama_layer_step(
-            blocks[i % copies], x, kc[:T], vc[:T], np_t, cfg, rope), 24)
-        plain = time_ms(lambda i: _layer_ref(
-            blocks[i % copies], x, kc[:T], vc[:T], np_t, cfg, rope), 6)
-        rows.append({"T": T, "npast": npast, "ms": ms, "plain_ms": plain,
-                     "library_ms": None, "bound_ms": bound, "bound_by": by,
-                     "roofline_share": bound / ms, "cold_copies": copies})
+        step = lambda i: llama_layer_step(blocks[i % copies], x, kc[:T],
+                                          vc[:T], np_t, cfg, rope)
+        ms = time_ms(step, 24)
+        row = {"T": T, "npast": npast, "ms": ms, "library_ms": None,
+               "bound_ms": bound, "bound_by": by, "roofline_share": bound / ms,
+               "cold_copies": copies}
+        if plain:
+            row["plain_ms"] = time_ms(lambda i: _layer_ref(
+                blocks[i % copies], x, kc[:T], vc[:T], np_t, cfg, rope), 6)
+        if "LAYER_NO_MATVEC" in open(os.path.join(
+                kernels._build.CSRC, "llama_layer.cu")).read():
+            kernels.set_defines("llama_layer", LAYER_NO_MATVEC)
+            try:
+                row["no_matvec_ms"] = time_ms(step, 24)
+            finally:
+                kernels.set_defines("llama_layer", ())
+        rows.append(row)
     del blocks
     torch.cuda.empty_cache()
     emit({"llama_layer_timing": rows})
@@ -1801,7 +2023,9 @@ def time_llama_layer(dev, gen):
             "source": "ggmlsharp_tpu_torch/csrc/llama_layer.cu",
             "replaces": "ggmlsharp_tpu/kernels/llama_layer.py:213",
             **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by")},
+                                       "bound_ms", "bound_by") if key in r},
+            "npast_2047": rows[1],
+            "no_matvec_ms": r.get("no_matvec_ms"),
             "unit": "one block call of a Llama-7B decode step: E 4096, 32 "
                     "heads, D 128, F 11008, T 256, npast 32, bf16 KV, cold "
                     "L2; no library call computes a block"}
@@ -1973,7 +2197,7 @@ def quantizers_on_card(dev, gen):
     return res
 
 
-def wq_bound_ms(b, n, k, wbytes, x_bytes, q8_acts):
+def wq_bound_ms(b, n, k, wbytes, x_bytes, q8_acts, planes=3):
     """Bytes: the packed weight as the kernel reads it, the activations as
     the timed call takes them (``x_bytes``: f32 x, b*k*4, or the Q8 int8
     values and their block scales) and y, once each. Operations, the least
@@ -1981,10 +2205,11 @@ def wq_bound_ms(b, n, k, wbytes, x_bytes, q8_acts):
     operands are int8 x int4..int6 values, which the int8 tensor cores
     multiply exactly (2*b*n*k at INT8_OP_S); the LM head's x stays f32,
     which bf16 tensor cores multiply exactly as three products a term (x in
-    three bf16 planes: 6*b*n*k at BF16_FLOP_S)."""
+    three bf16 planes: 6*b*n*k at BF16_FLOP_S), or, ``planes`` 1 (mm_dot
+    "bf16": x rounded), one."""
     t_bytes = (wbytes + x_bytes + b * n * 4) / HBM_BYTES_S
     t_ops = (2 * b * n * k / INT8_OP_S if q8_acts
-             else 6 * b * n * k / BF16_FLOP_S)
+             else 2 * planes * b * n * k / BF16_FLOP_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2637,7 +2862,8 @@ def run_gpt2_int8_serving(gcfg, gparams):
            if outs[False][i].error or len(outs[False][i].out_tokens)
            != SERVE_G_NEW]
     if not (layout[0] and not layout[1]) or bad or not all(same) \
-            or counts["flash_attn"] == 0 or counts["attn_decode"] != 0:
+            or counts["flash_attn"] == 0 or counts["attn_decode"] != 0 \
+            or counts["mlp_fused_q8_mma"] == 0:
         raise SystemExit(f"GPT-2 INT8 serving failed: {out}")
     return out, counts
 
@@ -3261,7 +3487,11 @@ def matmul_timing(dev):
     every 7B shape and the legacy formats at w_gate_up (time_weight_rows);
     Q8_0 at the GPT-2 shapes of time_q8_0, b in MATMUL_TIMING_Q8_B, and at
     every 7B shape, b 16 (path f's Q8_0 prompt: Q8_0 and f32 x, the LM head
-    f32); kernel 9 at SILU_TIMING_ROWS (time_mlp_fused_silu)."""
+    f32); f32 x also in mm_dot "bf16" where the package reads the mode;
+    kernel 9 at SILU_TIMING_ROWS (time_mlp_fused_silu); kernel 8 at
+    MLP_TIMING_ROWS at both GPT-2 widths, Q8_0 and f32 x
+    (time_mlp_fused); kernel 10 at npast 32 and 2047, and without its
+    products (time_llama_layer)."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
@@ -3270,7 +3500,9 @@ def matmul_timing(dev):
     names = [n for n in ("matmul_q4_0", "matmul_q", "matmul_q8_0",
                          "mlp_fused_silu_q4", "matmul_q4_0_mma",
                          "matmul_q_mma", "matmul_q8_0_mma",
-                         "mlp_fused_silu_q4_mma") if n in _build.KERNELS]
+                         "mlp_fused_silu_q4_mma", "mlp_fused_q8",
+                         "mlp_fused_q8_mma", "llama_layer")
+             if n in _build.KERNELS]
     t0 = time.perf_counter()
     kernels.build(names)
     log(f"built {names} in {time.perf_counter() - t0:.1f} s")
@@ -3303,6 +3535,13 @@ def matmul_timing(dev):
     silu = time_mlp_fused_silu(dev, gen, plain=False)
     log("kernel 9 ms: " + ", ".join(f"{r['rows']} {r['acts']} {r['ms']:.4f}"
                                     for r in silu))
+    gelu = time_mlp_fused(dev, gen, plain=False)
+    log("kernel 8 ms: " + ", ".join(
+        f"{r['config']} {r['rows']} {r['acts']} {r['ms']:.4f}" for r in gelu))
+    lay = time_llama_layer(dev, gen, plain=False)
+    log(f"kernel 10 ms: npast 32 {lay['ms']:.4f}, npast 2047 "
+        f"{lay['npast_2047']['ms']:.4f}, no products "
+        f"{lay['no_matvec_ms']}")
 
 
 def main(argv):
@@ -3355,7 +3594,8 @@ def main(argv):
     # matmul_q8_0.cu, in parallel
     logs = kernels.build(variants=[("matmul_q4_0", variant_defines(v))
                                    for v in ("i2f", "half2")]
-                         + [(q8_acts.ENTRY, q8_acts.variant_defines("bf16"))])
+                         + [(q8_acts.ENTRY, q8_acts.variant_defines("bf16")),
+                            ("llama_layer", LAYER_NO_MATVEC)])
     log(f"[2/6] built {sorted(logs) or 'nothing new'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -3462,9 +3702,12 @@ def main(argv):
                            cache_dtype=torch.bfloat16, tol=0.1, toks=gtoks)
         e2 = compare_plain(gpt2, gcfg, gparams, gprompt, quant_acts=False,
                            cache_dtype=torch.float32, tol=1e-3)
+        _, c2counts = run_gpt2_per_op(tag, gcfg, gparams, gprompt)
+        gcounts = {k: v + c2counts[k] for k, v in gcounts.items()}
         g_models[tag] = (gcfg, gparams, gprompt, gcounts, gpeak)
         log(f"[4/6] c. GPT-2 {tag} Q8_0: {PROMPT_LEN}-token prompt + {N_NEW} "
-            f"greedy tokens through the kernels; launches {gcounts}; vs "
+            f"greedy tokens through the kernels, then c2 (head-major cache, "
+            f"the per-op route) + {MLP_STEPS}; launches {gcounts}; vs "
             f"plain max abs err {e1:.3g} (path settings), {e2:.3g} "
             f"(weight-only, f32 cache)")
 
@@ -3646,8 +3889,8 @@ def main(argv):
     ad_row["heads_layout_bf16_ms"] = lay[0]["heads_layout_ms"]
     _, q8_row, q8_mma_row = time_q8_0(dev, gen, g_models["124M"][3])
     q8_row["max_abs_err"] = q8_mma_row["max_abs_err"] = q8_err
-    mlp_row = time_mlp_fused(dev, gen)
-    mlp_row["max_abs_err"] = mlp_err
+    _, mlp_row, mlp_mma_row = time_mlp_fused(dev, gen, g_models["124M"][3])
+    mlp_row["max_abs_err"] = mlp_mma_row["max_abs_err"] = mlp_err
     layer_row = time_gpt2_layer(dev, gen)
     layer_row["max_abs_err"] = layer_err
     _, silu_row, silu_mma_row = time_mlp_fused_silu(dev, gen, mcounts)
@@ -3665,7 +3908,7 @@ def main(argv):
         for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
             ad_row[f"b1_T{T}_{k}"] = ad[f"b1_T{T}"][k]
     rows = (q4_row, q4_mma_row, fl_row, ad_row, q8_row, q8_mma_row, mlp_row,
-            layer_row, silu_row, silu_mma_row, llayer_row, mq_row, mq_mma_row,
+            mlp_mma_row, layer_row, silu_row, silu_mma_row, llayer_row, mq_row, mq_mma_row,
             ib_row, unc_row, *tune_rows(probes))
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
@@ -3687,8 +3930,9 @@ def main(argv):
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, mcounts, kq_counts,
                                                  fmt_counts, g_counts,
-                                                 h_counts, probe_counts,
-                                                 i_counts) if c[name])
+                                                 h_counts, gs_counts,
+                                                 probe_counts, i_counts)
+                               if c[name])
     log("[5/6] kernel times taken")
 
     llama_wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
@@ -3794,7 +4038,7 @@ def main(argv):
              # the multi-row instances (b8/b128: a serving tick and prefill)
              "b8_forward", "b128_forward", "q6_k_prompt", "w_gate_up_b16_ms",
              "max_abs_err_by_format", "forward_774m", "b2_forward", "rows_ms",
-             "rows_library_ms",
+             "rows_library_ms", "rows_bound_ms",
              # kernel 2 at path g's shape: the cached entry, softcap, the
              # backward (the Function's dense recompute) against SDPA's
              "train_g_ms", "train_g_softcap_ms", "train_g_plain_ms",
@@ -3807,7 +4051,9 @@ def main(argv):
              "i2f_bit_equal_prmt", "half2_err_over_bar", "half2_terms_t",
              "gb_s", "ms_1gib", "gb_s_1gib", "library_ms_1gib",
              "library_gb_s_1gib", "plain_ms_1gib", "bound_ms_1gib", "order",
-             "row_default_ms", "row_tuned_ms", "by_shape")
+             "row_default_ms", "row_tuned_ms", "by_shape",
+             # kernel 10 at npast 2047 and without its products
+             "npast_2047", "no_matvec_ms")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -12,7 +12,8 @@ asked for the CPU (``device="cpu"``).
 """
 
 from .device import resolve_device
-from .dtypes import GType, TYPE_TRAITS
+from .dtypes import (GType, TYPE_TRAITS, block_size, is_quantized, type_name,
+                     type_size)
 from .quant.formats import QTensor
 from .quant.quantize import dequantize, quantize
 
@@ -20,7 +21,11 @@ __all__ = [
     "GType",
     "QTensor",
     "TYPE_TRAITS",
+    "block_size",
     "dequantize",
+    "is_quantized",
     "quantize",
     "resolve_device",
+    "type_name",
+    "type_size",
 ]

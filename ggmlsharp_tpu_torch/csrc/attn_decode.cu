@@ -61,6 +61,18 @@
 // feature), writes out, and sets the counter back to 0 for the next launch. The fresh row seeds split 0's
 // first row group only. Against the dense reference only the order of the
 // f32 sums changes: rtol 2e-4 / atol 2e-5.
+//
+// mm_dot (kernels/config.py): RND = 0 ("f32") is the function above. RND =
+// 1 ("bf16", JAX's fast mode) rounds what the JAX kernel feeds its matrix
+// unit: the scaled query to bf16 for the cache rows' scores, and each cache
+// row's softmax weight (times its V scale, INT8) to bf16 before it meets
+// the row's values; the fresh row stays f32. A weight rounded relative to
+// a running maximum would round differently in every split and tile order,
+// so RND runs the softmax in base 2 against an integer maximum: u = s *
+// log2(e), m = ceil(max u), p = 2^(u - m), and every rescale between
+// states (2^(m - m'), m and m' integers) is an exact power of two, which
+// moves no bf16 rounding. The result is then the plain version's up to the
+// order of the f32 sums and the last bit of exp2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +80,22 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^e for an integer-valued e <= 0, exactly, built from its exponent bits
+// (0 below the smallest normal f32: such a weight is below every bar)
+__device__ __forceinline__ float pow2i(float e) {
+  return e < -126.f ? 0.f : __int_as_float(((int)e + 127) << 23);
+}
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// the rescale factor between softmax states of maxima m <= mm: e^(m - mm),
+// or (RND, integer maxima in base 2) 2^(m - mm)
+template <int RND>
+__device__ __forceinline__ float rescale(float m, float mm) {
+  return RND ? pow2i(m - mm) : expf(m - mm);
+}
 constexpr int WARPS = 4;
 constexpr int MAX_SPLITS = 512;
 
@@ -126,7 +154,7 @@ __device__ __forceinline__ void cp_async_wait0() {
 
 constexpr int TILE_BYTES = 8192;  // one K (or V) tile of a stage
 
-template <int D, typename KT, int QR>
+template <int D, typename KT, int QR, int RND>
 __global__ void __launch_bounds__(WARPS * 32)
 attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
                    const float* __restrict__ vn, const KT* __restrict__ kc,
@@ -232,12 +260,20 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
 #pragma unroll
         for (int off = G / 2; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
         if (gi == 0) {
-          m[r] = d;
-          l[r] = 1.f;
+          // RND: m the integer ceiling of the base-2 score, l = 2^(u - m)
+          const float u = d * LOG2E;
+          m[r] = RND ? ceilf(u) : d;
+          l[r] = RND ? exp2f(u - m[r]) : 1.f;
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[r][i] = vn[(size_t)b * E + at + i];
+          for (int i = 0; i < VEC; ++i) acc[r][i] = l[r] * vn[(size_t)b * E + at + i];
         }
       }
+    }
+    if (RND) {  // the cache rows' scores take the query rounded to bf16
+#pragma unroll
+      for (int r = 0; r < QR; ++r)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) qv[r][i] = bf16_round(qv[r][i]);
     }
 
     // the split's rows, a tile of TR at a time, the next tile loading; a
@@ -267,7 +303,7 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
           float d = (d4[0] + d4[1]) + (d4[2] + d4[3]);
 #pragma unroll
           for (int off = G / 2; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
-          p[r][u] = ok ? d * sk : NEG_INF;
+          p[r][u] = ok ? (RND ? d * sk * LOG2E : d * sk) : NEG_INF;
         }
       }
 #pragma unroll
@@ -275,13 +311,15 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
         float mx = m[r];
 #pragma unroll
         for (int u = 0; u < UT; ++u) mx = fmaxf(mx, p[r][u]);
-        const float alpha = expf(m[r] - mx);
+        if (RND) mx = ceilf(mx);
+        const float alpha = rescale<RND>(m[r], mx);
         l[r] *= alpha;
 #pragma unroll
         for (int i = 0; i < VEC; ++i) acc[r][i] *= alpha;
 #pragma unroll
         for (int u = 0; u < UT; ++u) {
-          p[r][u] = t0 + my + u * NG < t_end ? expf(p[r][u] - mx) : 0.f;
+          p[r][u] = t0 + my + u * NG < t_end
+                        ? (RND ? exp2f(p[r][u] - mx) : expf(p[r][u] - mx)) : 0.f;
           l[r] += p[r][u];
         }
         m[r] = mx;
@@ -294,7 +332,7 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
         const float sv = vsb ? scl[it & 1][1][jr] : 1.f;
 #pragma unroll
         for (int r = 0; r < QR; ++r) {
-          const float w = p[r][u] * sv;
+          const float w = RND ? bf16_round(p[r][u] * sv) : p[r][u] * sv;
 #pragma unroll
           for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(w, vf[i], acc[r][i]);
         }
@@ -311,7 +349,7 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
         const float mo = __shfl_xor_sync(FULL, m[r], off);
         const float lo = __shfl_xor_sync(FULL, l[r], off);
         const float mm = fmaxf(m[r], mo);
-        const float a = expf(m[r] - mm), c = expf(mo - mm);
+        const float a = rescale<RND>(m[r], mm), c = rescale<RND>(mo, mm);
         l[r] = l[r] * a + lo * c;
 #pragma unroll
         for (int i = 0; i < VEC; ++i)
@@ -342,7 +380,7 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
       float ll = 0.f, aa = 0.f;
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) {
-        const float e = expf(wm[w][r] - mm);
+        const float e = rescale<RND>(wm[w][r], mm);
         ll = fmaf(wl[w][r], e, ll);
         aa = fmaf(wacc[(w * QR + r) * D + f], e, aa);
       }
@@ -381,7 +419,7 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kn,
     float ll = 0.f, aa = 0.f;
 #pragma unroll 8
     for (int zz = 0; zz < splits; ++zz) {
-      const float e = expf(__ldcg(pr + zz * zs + D) - mm);
+      const float e = rescale<RND>(__ldcg(pr + zz * zs + D), mm);
       ll = fmaf(__ldcg(pr + zz * zs + D + 1), e, ll);
       aa = fmaf(__ldcg(pr + zz * zs + f), e, aa);
     }
@@ -395,9 +433,10 @@ int launch(const float* q, const float* kn, const float* vn, const void* kc,
            const void* vc, const float* ks, const float* vs, const int* npast,
            float* out, float* part, int* counter, int B, int Hkv, int n_rep,
            int T, long long kv_batch_stride, long long sc_batch_stride,
-           float scale, int attn_layout, int splits, cudaStream_t stream) {
+           float scale, int attn_layout, int splits, int rnd, cudaStream_t stream) {
   dim3 grid(Hkv, B, splits);
-  attn_decode_kernel<D, KT, QR><<<grid, WARPS * 32, 0, stream>>>(
+  auto kern = rnd ? attn_decode_kernel<D, KT, QR, 1> : attn_decode_kernel<D, KT, QR, 0>;
+  kern<<<grid, WARPS * 32, 0, stream>>>(
       q, kn, vn, static_cast<const KT*>(kc), static_cast<const KT*>(vc), ks,
       vs, npast, out, part, counter, Hkv, n_rep, T, (T + splits - 1) / splits,
       kv_batch_stride, sc_batch_stride, scale, attn_layout);
@@ -409,8 +448,8 @@ int launch_qr(const float* q, const float* kn, const float* vn, const void* kc,
               const void* vc, const float* ks, const float* vs, const int* npast,
               float* out, float* part, int* counter, int B, int Hkv, int n_rep,
               int T, long long kvs, long long scs, float scale, int attn_layout,
-              int splits, cudaStream_t stream) {
-#define DECODE_ARGS q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv, n_rep, T, kvs, scs, scale, attn_layout, splits, stream
+              int splits, int rnd, cudaStream_t stream) {
+#define DECODE_ARGS q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv, n_rep, T, kvs, scs, scale, attn_layout, splits, rnd, stream
   if (n_rep == 1) return launch<D, KT, 1>(DECODE_ARGS);
   if (n_rep == 2) return launch<D, KT, 2>(DECODE_ARGS);
   return launch<D, KT, 4>(DECODE_ARGS);
@@ -422,13 +461,13 @@ int launch_d(int D, const float* q, const float* kn, const float* vn,
              const void* kc, const void* vc, const float* ks, const float* vs,
              const int* npast, float* out, float* part, int* counter, int B,
              int Hkv, int n_rep, int T, long long kvs, long long scs,
-             float scale, int attn_layout, int splits, cudaStream_t stream) {
+             float scale, int attn_layout, int splits, int rnd, cudaStream_t stream) {
   if (D == 128)
     return launch_qr<128, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
-                              n_rep, T, kvs, scs, scale, attn_layout, splits, stream);
+                              n_rep, T, kvs, scs, scale, attn_layout, splits, rnd, stream);
   if (D == 64)
     return launch_qr<64, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
-                             n_rep, T, kvs, scs, scale, attn_layout, splits, stream);
+                             n_rep, T, kvs, scs, scale, attn_layout, splits, rnd, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -441,15 +480,15 @@ int launch_d(int D, const float* q, const float* kn, const float* vn,
 // above 1, part is an f32 scratch of B * Hkv * splits * n_rep * (D + 2)
 // floats and counter an int32 [B * Hkv], all 0 (the kernel leaves it so).
 // One launch at a time may use a counter buffer (the wrapper keeps one a
-// stream). Returns the first CUDA
-// error of the launch, or 0.
+// stream). rnd: the mm_dot "bf16" function (RND above), else "f32".
+// Returns the first CUDA error of the launch, or 0.
 extern "C" int attn_decode(const float* q, const float* kn, const float* vn,
                            const void* kc, const void* vc, const float* ks,
                            const float* vs, const int* npast, float* out,
                            float* part, int* counter, int B, int Hkv,
                            int n_rep, int T, int D, long long kv_batch_stride,
                            long long sc_batch_stride, int kv_kind,
-                           float scale, int attn_layout, int splits,
+                           float scale, int attn_layout, int splits, int rnd,
                            cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || T <= 0 || n_rep <= 0 || n_rep > 32)
     return (int)cudaErrorInvalidValue;
@@ -460,10 +499,10 @@ extern "C" int attn_decode(const float* q, const float* kn, const float* vn,
   if (kv_kind == 1)
     return launch_d<int8_t>(D, q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
                             n_rep, T, kv_batch_stride, sc_batch_stride, scale, 0, splits,
-                            stream);
+                            rnd, stream);
   if (kv_kind == 0)
     return launch_d<__nv_bfloat16>(D, q, kn, vn, kc, vc, nullptr, nullptr, npast, out, part,
                                    counter, B, Hkv, n_rep, T, kv_batch_stride, 0, scale,
-                                   attn_layout, splits, stream);
+                                   attn_layout, splits, rnd, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -82,6 +82,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "q8_dot.cuh"
 
 namespace {
 namespace dqm {
@@ -266,38 +267,43 @@ struct DecQ8 {
   }
 };
 
-// v, float4 i of an f32 [B, K] array, as its three bf16 planes into xp
-// bf16 [3][B][K], and the sum of each 16 columns into xsum f32
+// v, float4 i of an f32 [B, K] array, as its P bf16 planes into xp bf16
+// [P][B][K] (P = 3: exact; P = 1: v rounded to bf16, mm_dot "bf16"), and
+// the sum of each 16 columns of what the planes hold into xsum f32
 // [B][sum_ld(K)]. Every lane of the warp calls it (the shuffles); lanes
 // past n4 store nothing.
+template <int P = 3>
 __device__ __forceinline__ void store_planes(float4 v, size_t i, size_t n4,
                                              __nv_bfloat16* __restrict__ xp,
                                              float* __restrict__ xsum, int B, int K) {
-  uint32_t lo[3], hi[3];
-  split_pair<3>(v.x, v.y, lo);
-  split_pair<3>(v.z, v.w, hi);
+  uint32_t lo[P], hi[P];
+  split_pair<P>(v.x, v.y, lo);
+  split_pair<P>(v.z, v.w, hi);
+  if constexpr (P == 1) v = bf16_round4(v);
   float sm = (v.x + v.y) + (v.z + v.w);  // every lane takes part in the shuffles
   sm += __shfl_xor_sync(0xffffffffu, sm, 1);
   sm += __shfl_xor_sync(0xffffffffu, sm, 2);
   if (i >= n4) return;
 #pragma unroll
-  for (int p = 0; p < 3; ++p)
+  for (int p = 0; p < P; ++p)
     reinterpret_cast<uint2*>(xp + (size_t)p * B * K)[i] = make_uint2(lo[p], hi[p]);
   const size_t b = 4 * i / K;
   const int col = (int)(4 * i - b * K);
   if ((i & 3) == 0) xsum[b * sum_ld(K) + col / 16] = sm;
 }
 
-// x f32 [B, K] -> xp bf16 [3][B][K] (the three planes of each value) and
-// xsum f32 [B][sum_ld(K)] (the sum of each 16 columns). Thread i takes
-// float4 i; four neighbouring lanes hold 16 columns of one row (K % 32 == 0).
+// x f32 [B, K] -> xp bf16 [P][B][K] (the three planes of each value, or
+// with P = 1 its bf16 rounding) and xsum f32 [B][sum_ld(K)] (the sum of
+// each 16 columns). Thread i takes float4 i; four neighbouring lanes hold
+// 16 columns of one row (K % 32 == 0).
+template <int P>
 __global__ void split_x(const float* __restrict__ x, __nv_bfloat16* __restrict__ xp,
                         float* __restrict__ xsum, int B, int K) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t n4 = (size_t)B * K / 4;
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (i < n4) v = __ldg(reinterpret_cast<const float4*>(x) + i);
-  store_planes(v, i, n4, xp, xsum, B, K);
+  store_planes<P>(v, i, n4, xp, xsum, B, K);
 }
 
 // SwiGLU between the two products of the fused MLP: g = sum_s part[s][b][n],
@@ -414,6 +420,15 @@ int launch_cluster(void (*kern)(P...), dim3 grid, int threads, int smem, int cz,
   return (int)cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
+// A complete sum as it is stored: v (EPI 0), v + bias[n] (1), or
+// gelu(v + bias[n]) (2, q8_dot.cuh's tanh form), bias f32 or bf16.
+template <int EPI>
+__device__ __forceinline__ float epilogue(float v, const void* bias, int n, int bias_bf16) {
+  if constexpr (EPI == 0) return v;
+  v += q8::load_vec(bias, n, bias_bf16);
+  return EPI == 2 ? q8::gelu(v) : v;
+}
+
 constexpr int XLD8 = KC + 16;  // bytes of a staged int8 x row: 4-byte reads conflict-free
 constexpr int DW8 = KC / 64 + 1;  // words of a row's staged f16 scales (+1: a 2-byte start)
 
@@ -445,9 +460,17 @@ __device__ __forceinline__ void stage_scales(uint32_t* dst, const __half* base, 
 //  * KW = 4 warp groups share each chunk (group gi goes to warp group
 //    gi % KW) and add their sums in group order at the end;
 //  * CL: the K splits are reduced in a cluster (cluster_reduce).
-template <class Dec, int NT, int P, bool XF = false>
+//
+// R1: f32 x rounded to one bf16 plane (mm_dot "bf16"; P = 1, no activation
+// scales). EPI, the XF route only: the stored sums get + bias (1), or
+// gelu(sum + bias) (2).
+template <class Dec, int NT, int P, bool XF = false, bool R1 = false, int EPI = 0>
 struct Cfg {
   static_assert(!XF || !Dec::M, "x read in the kernel: no min");
+  static_assert(!R1 || P == 1, "a rounded x is one plane");
+  static_assert(EPI == 0 || XF, "an epilogue needs complete sums");
+  static constexpr bool SC = P == 1 && !R1;  // Q8 activations: a scale a block
+  static constexpr bool XT = XF && (P == 3 || R1);  // a stage holds an f32 x tile
   static constexpr int MT_ = XF ? 1 : MT, KW = XF ? 4 : 1;
   static constexpr bool CL = XF;
   static constexpr int THREADS = WARPS * KW * 32;
@@ -457,9 +480,9 @@ struct Cfg {
   static constexpr int WBYTES = R * Dec::rw() * 4;
   // a stage's x: the planes or, XF, f32 x (P = 3) or the int8 values and f16 scales
   static constexpr int XBYTES = !XF ? P * BR * XLD * 2
-                                : P == 3 ? BR * XLDF * 4 : BR * XLD8 + ((BR * DW8 * 4 + 15) & ~15);
+                                : XT ? BR * XLDF * 4 : BR * XLD8 + ((BR * DW8 * 4 + 15) & ~15);
   static constexpr int SBYTES = Dec::M ? BR * SUMS * 4 : 0;
-  static constexpr int DBYTES = P == 1 ? BR * (KC / 32) * 4 : 0;  // f32 scales of the x rows
+  static constexpr int DBYTES = SC ? BR * (KC / 32) * 4 : 0;  // f32 scales of the x rows
   static constexpr int STAGE = WBYTES + XBYTES + SBYTES + (XF ? 0 : DBYTES);  // each a multiple of 16
   static constexpr int PBYTES = XF ? P * BR * XLD * 2 + DBYTES : 0;
   static constexpr int NSTAGE =
@@ -472,16 +495,16 @@ struct Cfg {
 };
 
 // xp, xsum (, xs): the split kernel's output, or (XF) xf: x f32 [B, K]
-// (P = 3) or Q8_0 int8 [B, K] with its f16 scales xfd [B, K/32] (P = 1);
-// out: y [B][N], or the partial sums [splits][B][N] when splits > 1 (XF:
-// always y).
-template <class Dec, int NT, int P, bool XF>
-__global__ void __launch_bounds__(Cfg<Dec, NT, P, XF>::THREADS)
+// (P = 3, or R1) or Q8_0 int8 [B, K] with its f16 scales xfd [B, K/32]
+// (P = 1); out: y [B][N], or the partial sums [splits][B][N] when splits >
+// 1 (XF: always y); bias [N] f32 or bf16 (bias_bf16) for EPI.
+template <class Dec, int NT, int P, bool XF, bool R1 = false, int EPI = 0>
+__global__ void __launch_bounds__(Cfg<Dec, NT, P, XF, R1, EPI>::THREADS)
 dq_mma_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ xsum,
               const float* __restrict__ xs, const void* __restrict__ xf,
               const __half* __restrict__ xfd, Planes pl, float* __restrict__ out, int B, int N,
-              int K, int splits) {
-  using C = Cfg<Dec, NT, P, XF>;
+              int K, int splits, const void* __restrict__ bias, int bias_bf16) {
+  using C = Cfg<Dec, NT, P, XF, R1, EPI>;
   constexpr int BR = C::BR, MT_ = C::MT_, KW = C::KW;
   constexpr bool CL = C::CL;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -530,7 +553,7 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ xs
         }
       }
     }
-    if constexpr (XF && P == 3) {
+    if constexpr (C::XT) {
       float* XS = reinterpret_cast<float*>(base + C::WBYTES);
       const float* xv = static_cast<const float*>(xf);
       for (int i = tid; i < BR * (KC / 4); i += C::THREADS) {
@@ -575,7 +598,7 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ xs
                    ok);
       }
     }
-    if constexpr (P == 1 && !XF) {
+    if constexpr (C::SC && !XF) {
       float* D = reinterpret_cast<float*>(base + C::WBYTES + C::XBYTES + C::SBYTES);
       for (int i = tid; i < BR * (KC / 128); i += C::THREADS) {
         const int r = i / (KC / 128), q = i % (KC / 128);
@@ -635,7 +658,7 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ xs
       // this lane's two activation rows (columns 2t, 2t + 1): the scale
       // (Q8) and the block sums of the group
       float dx[2] = {1.f, 1.f};
-      if constexpr (P == 1) {
+      if constexpr (C::SC) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) dx[j] = D[(nt * 8 + 2 * t + j) * (KC / 32) + gi];
       }
@@ -670,7 +693,7 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ xs
 #pragma unroll
           for (int i = 0; i < 4; ++i) {  // (row g, g + 8) x (column 2t, 2t + 1)
             const float dw = dv[mt][f][i >> 1];
-            ac[i] = fmaf(P == 1 ? dw * dx[i & 1] : dw, cf[i], ac[i]);
+            ac[i] = fmaf(C::SC ? dw * dx[i & 1] : dw, cf[i], ac[i]);
             if constexpr (Dec::M) ac[i] = fmaf(mv[mt][f][i >> 1], xb[f][i & 1], ac[i]);
           }
         }
@@ -695,16 +718,16 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ xs
       // chunk c's x tile into the planes (chunk c - 1's products are
       // done: the barrier above)
       __nv_bfloat16* XP = reinterpret_cast<__nv_bfloat16*>(smem + C::NSTAGE * C::STAGE);
-      if constexpr (P == 3) {
+      if constexpr (C::XT) {  // three planes, or (R1) x rounded to one
         const float* XS = reinterpret_cast<const float*>(base + C::WBYTES);
         for (int j = tid; j < BR * (KC / 4); j += C::THREADS) {
           const int r = j / (KC / 4), q = j % (KC / 4);
           const float4 v = *reinterpret_cast<const float4*>(XS + r * C::XLDF + 4 * q);
-          uint32_t lo[3], hi[3];
-          split_pair<3>(v.x, v.y, lo);
-          split_pair<3>(v.z, v.w, hi);
+          uint32_t lo[P], hi[P];
+          split_pair<P>(v.x, v.y, lo);
+          split_pair<P>(v.z, v.w, hi);
 #pragma unroll
-          for (int p = 0; p < 3; ++p)
+          for (int p = 0; p < P; ++p)
             *reinterpret_cast<uint2*>(XP + (p * BR + r) * XLD + 4 * q) = make_uint2(lo[p], hi[p]);
         }
       } else {  // the int8 values (exact in bf16) and the scales as f32
@@ -786,7 +809,7 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ xs
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int b = b0 + nt * 8 + 2 * t + j;
-          if (b < B) dst[(size_t)b * N + n] = acc[mt][nt][2 * h + j];
+          if (b < B) dst[(size_t)b * N + n] = epilogue<EPI>(acc[mt][nt][2 * h + j], bias, n, bias_bf16);
         }
     }
 }
@@ -833,15 +856,16 @@ inline Scratch carve(unsigned char* base, int P, int B, int K) {
   return s;
 }
 
-// The first pass: the activations into the planes of s (split_x, or
-// split_q8 for Q8 activations of ScaleKind `kind`).
-template <int P>
+// The first pass: the activations into the planes of s (split_x: three
+// planes, or with R1 f32 x rounded to one; or split_q8 for Q8 activations
+// of ScaleKind `kind`).
+template <int P, bool R1 = false>
 int split_acts(const float* x, const int8_t* xq, const void* xd, int kind, const Scratch& s, int B,
                int K, cudaStream_t stream) {
   const size_t n4 = (size_t)B * K / 4;
   const unsigned blocks = (unsigned)((n4 + 255) / 256);
-  if constexpr (P == 3)
-    split_x<<<blocks, 256, 0, stream>>>(x, s.xp, s.xsum, B, K);
+  if constexpr (P == 3 || R1)
+    split_x<P><<<blocks, 256, 0, stream>>>(x, s.xp, s.xsum, B, K);
   else if (kind == Q8_F16_32)
     split_q8<__half, 32><<<blocks, 256, 0, stream>>>(xq, static_cast<const __half*>(xd), s.xp,
                                                      s.xsum, s.xs, B, K);
@@ -856,35 +880,41 @@ int split_acts(const float* x, const int8_t* xq, const void* xd, int kind, const
 
 // The mma pass over split activations s: out is y [B][N], or the partial
 // sums [splits][B][N] when splits > 1.
-template <class Dec, int NT, int P, bool XF>
+template <class Dec, int NT, int P, bool XF, bool R1, int EPI>
 int mma_pass_nt(const Scratch& s, const void* xf, const __half* xfd, const Planes& pl, float* out,
-                int B, int N, int K, int splits, cudaStream_t stream) {
-  using C = Cfg<Dec, NT, P, XF>;
-  auto kern = dq_mma_kernel<Dec, NT, P, XF>;
+                int B, int N, int K, int splits, cudaStream_t stream, const void* bias,
+                int bias_bf16) {
+  using C = Cfg<Dec, NT, P, XF, R1, EPI>;
+  auto kern = dq_mma_kernel<Dec, NT, P, XF, R1, EPI>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + C::BR - 1) / C::BR, (N + C::R - 1) / C::R, splits);
   if constexpr (C::CL)
     return launch_cluster(kern, grid, C::THREADS, C::SMEM, splits, stream, s.xp, s.xsum, s.xs,
-                          xf, xfd, pl, out, B, N, K, splits);
+                          xf, xfd, pl, out, B, N, K, splits, bias, bias_bf16);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(s.xp, s.xsum, s.xs, xf, xfd, pl, out, B, N, K,
-                                               splits);
+                                               splits, bias, bias_bf16);
   return (int)cudaGetLastError();
 }
 
 // The mma pass over split activations s (or, XF, over x itself: xf, xfd as
-// dq_mma_kernel takes them; the splits reduced in clusters: out is y).
-template <class Dec, int P, bool XF = false>
+// dq_mma_kernel takes them; the splits reduced in clusters: out is y, with
+// the epilogue EPI of bias).
+template <class Dec, int P, bool XF = false, bool R1 = false, int EPI = 0>
 int mma_pass(const Scratch& s, const Planes& pl, float* out, int B, int N, int K, int splits,
-             cudaStream_t stream, const void* xf = nullptr, const __half* xfd = nullptr) {
-  if (B <= 8) return mma_pass_nt<Dec, 1, P, XF>(s, xf, xfd, pl, out, B, N, K, splits, stream);
+             cudaStream_t stream, const void* xf = nullptr, const __half* xfd = nullptr,
+             const void* bias = nullptr, int bias_bf16 = 0) {
+#define DQ_PASS(NT) \
+  mma_pass_nt<Dec, NT, P, XF, R1, EPI>(s, xf, xfd, pl, out, B, N, K, splits, stream, bias, bias_bf16)
+  if (B <= 8) return DQ_PASS(1);
   // 32 rows a CTA with one plane; three planes of 32 rows leave one CTA an
   // SM in shared memory, and tiles of 16 ran 15-20% faster at 128 rows
   if constexpr (P == 1) {
-    if (B > 16) return mma_pass_nt<Dec, 4, P, XF>(s, xf, xfd, pl, out, B, N, K, splits, stream);
+    if (B > 16) return DQ_PASS(4);
   }
-  return mma_pass_nt<Dec, 2, P, XF>(s, xf, xfd, pl, out, B, N, K, splits, stream);
+  return DQ_PASS(2);
+#undef DQ_PASS
 }
 
 inline int merge(const float* part, float* y, int B, int N, int splits, cudaStream_t stream) {
@@ -893,51 +923,63 @@ inline int merge(const float* part, float* y, int B, int N, int splits, cudaStre
   return (int)cudaGetLastError();
 }
 
-template <class Dec, int P>
+template <class Dec, int P, bool R1 = false>
 int launch_p(const float* x, const int8_t* xq, const void* xd, int kind, const Planes& pl,
              float* y, unsigned char* scratch, int B, int N, int K, int splits,
              cudaStream_t stream) {
   const Scratch s = carve(scratch, P, B, K);
-  int e = split_acts<P>(x, xq, xd, kind, s, B, K, stream);
+  int e = split_acts<P, R1>(x, xq, xd, kind, s, B, K, stream);
   if (e == 0)
-    e = mma_pass<Dec, P>(s, pl, splits > 1 ? s.part : y, B, N, K, splits, stream);
+    e = mma_pass<Dec, P, false, R1>(s, pl, splits > 1 ? s.part : y, B, N, K, splits, stream);
   if (e == 0 && splits > 1) e = merge(s.part, y, B, N, splits, stream);
   return e;
 }
 
-// Activations either x f32 [B, K] (16-byte aligned), or Q8: xq int8 [B, K]
+// Activations either x f32 [B, K] (16-byte aligned; rx: rounded to one bf16
+// plane, mm_dot "bf16", else three exact ones), or Q8: xq int8 [B, K]
 // (4-byte aligned; x null) and its block scales xd of ScaleKind `kind`;
 // planes as the decoder reads them (4-byte aligned); y f32 [B, N];
 // scratch: scratch_bytes bytes, 16-byte aligned.
 template <class Dec>
 int launch(const float* x, const int8_t* xq, const void* xd, int kind, const Planes& pl,
            float* y, unsigned char* scratch, int B, int N, int K, int splits,
-           cudaStream_t stream) {
+           cudaStream_t stream, int rx = 0) {
   const int chunks = (K + KC - 1) / KC;
   if (B <= 0 || N <= 0 || K <= 0 || K % Dec::KALIGN || splits < 1 || splits > chunks ||
       scratch == nullptr || (x == nullptr) == (xq == nullptr) ||
       (xq != nullptr && (xd == nullptr || kind < 0 || kind > 2 || (kind == 2 && K % 256))))
     return (int)cudaErrorInvalidValue;
+  if (x != nullptr && rx)
+    return launch_p<Dec, 1, true>(x, xq, xd, kind, pl, y, scratch, B, N, K, splits, stream);
   if (x != nullptr)
     return launch_p<Dec, 3>(x, xq, xd, kind, pl, y, scratch, B, N, K, splits, stream);
   return launch_p<Dec, 1>(x, xq, xd, kind, pl, y, scratch, B, N, K, splits, stream);
 }
 
-// The XF route (Cfg): f32 x [B, K] or, x null, Q8_0 activations (xq int8
-// [B, K], xd f16 [B, K/32]), 16-byte aligned, read by the mma kernel
-// itself, ROWS_Q8 weight rows a CTA, the K splits reduced in clusters: one
-// launch, no scratch. Decoders without a min; splits <= 8 (a portable
-// cluster).
-template <class Dec>
+// The XF route (Cfg): f32 x [B, K] (rx: rounded to one bf16 plane, else
+// three exact ones) or, x null, Q8_0 activations (xq int8 [B, K], xd f16
+// [B, K/32]), 16-byte aligned, read by the mma kernel itself, ROWS_Q8
+// weight rows a CTA, the K splits reduced in clusters: one launch, no
+// scratch. Decoders without a min; splits <= 8 (a portable cluster). EPI
+// (f32 x only) with bias: the stored sums' epilogue.
+template <class Dec, int EPI = 0>
 int launch_xf(const float* x, const int8_t* xq, const __half* xd, const Planes& pl, float* y,
-              int B, int N, int K, int splits, cudaStream_t stream) {
+              int B, int N, int K, int splits, cudaStream_t stream, int rx = 0,
+              const void* bias = nullptr, int bias_bf16 = 0) {
   const int chunks = (K + KC - 1) / KC;
   if (B <= 0 || N <= 0 || K <= 0 || K % Dec::KALIGN || splits < 1 || splits > chunks ||
-      splits > 8 || (x == nullptr) == (xq == nullptr) || (xq != nullptr && xd == nullptr))
+      splits > 8 || (x == nullptr) == (xq == nullptr) || (xq != nullptr && xd == nullptr) ||
+      (EPI != 0 && (x == nullptr || bias == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Scratch s{nullptr, nullptr, nullptr, nullptr};
-  if (x != nullptr) return mma_pass<Dec, 3, true>(s, pl, y, B, N, K, splits, stream, x);
-  return mma_pass<Dec, 1, true>(s, pl, y, B, N, K, splits, stream, xq, xd);
+  if (x != nullptr && rx)
+    return mma_pass<Dec, 1, true, true, EPI>(s, pl, y, B, N, K, splits, stream, x, nullptr, bias,
+                                             bias_bf16);
+  if (x != nullptr)
+    return mma_pass<Dec, 3, true, false, EPI>(s, pl, y, B, N, K, splits, stream, x, nullptr,
+                                              bias, bias_bf16);
+  if constexpr (EPI == 0) return mma_pass<Dec, 1, true>(s, pl, y, B, N, K, splits, stream, xq, xd);
+  return (int)cudaErrorInvalidValue;
 }
 
 // --- Q8_0 weights x Q8_0 activations on the int8 tensor cores ------------
@@ -976,11 +1018,11 @@ struct CfgI8 {
 
 // xq int8 [B, K], xd f16 [B, K/32] (Q8_0 activations); qs int8 [N, K], d f16
 // [N, K/32] -> y [B][N], the K splits reduced in clusters (cluster_reduce).
-template <int NT>
+template <int NT, int EPI = 0>
 __global__ void __launch_bounds__(WARPS * 32)
 q8_i8_kernel(const int8_t* __restrict__ xq, const __half* __restrict__ xd,
              const int8_t* __restrict__ qs, const __half* __restrict__ d, float* __restrict__ out,
-             int B, int N, int K, int splits) {
+             int B, int N, int K, int splits, const void* __restrict__ bias, int bias_bf16) {
   using C = CfgI8<NT>;
   static_assert(C::ROWS * C::BR * 4 <= C::SMEM, "a rank's sums fit");
   constexpr int ROWS_ = C::ROWS, BR = C::BR, MT_ = C::MT_, THREADS = WARPS * 32;
@@ -1116,36 +1158,42 @@ q8_i8_kernel(const int8_t* __restrict__ xq, const __half* __restrict__ xd,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int b = bb + nt * 8 + 2 * t + j;
-          if (b < B) out[(size_t)b * N + n] = acc[mt][nt][2 * h + j];
+          if (b < B) out[(size_t)b * N + n] = epilogue<EPI>(acc[mt][nt][2 * h + j], bias, n, bias_bf16);
         }
     }
 }
 
-template <int NT>
+template <int NT, int EPI>
 int launch_i8_nt(const int8_t* xq, const __half* xd, const int8_t* qs, const __half* d, float* y,
-                 int B, int N, int K, int splits, cudaStream_t stream) {
+                 int B, int N, int K, int splits, cudaStream_t stream, const void* bias,
+                 int bias_bf16) {
   using C = CfgI8<NT>;
-  auto kern = q8_i8_kernel<NT>;
+  auto kern = q8_i8_kernel<NT, EPI>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + C::BR - 1) / C::BR, (N + C::ROWS - 1) / C::ROWS, splits);
   return launch_cluster(kern, grid, WARPS * 32, C::SMEM, splits, stream, xq, xd, qs, d, y, B, N,
-                        K, splits);
+                        K, splits, bias, bias_bf16);
 }
 
 // Q8_0 weights (qs, d) against Q8_0 activations (xq 16-byte aligned, xd)
 // -> y f32 [B, N]; ROWS_Q8 weight rows a CTA, K split `splits` ways (at
 // most 8: a portable cluster), reduced in clusters: one launch, no scratch.
-inline int launch_i8(const int8_t* xq, const __half* xd, const int8_t* qs, const __half* d,
-                     float* y, int B, int N, int K, int splits, cudaStream_t stream) {
+// EPI with bias: the stored sums' epilogue.
+template <int EPI = 0>
+int launch_i8(const int8_t* xq, const __half* xd, const int8_t* qs, const __half* d, float* y,
+              int B, int N, int K, int splits, cudaStream_t stream, const void* bias = nullptr,
+              int bias_bf16 = 0) {
   const int chunks = (K + KC - 1) / KC;
   if (B <= 0 || N <= 0 || K <= 0 || K % 32 || splits < 1 || splits > chunks || splits > 8 ||
-      xq == nullptr || xd == nullptr)
+      xq == nullptr || xd == nullptr || (EPI != 0 && bias == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (B <= 8) return launch_i8_nt<1>(xq, xd, qs, d, y, B, N, K, splits, stream);
-  if (B <= 16) return launch_i8_nt<2>(xq, xd, qs, d, y, B, N, K, splits, stream);
-  return launch_i8_nt<4>(xq, xd, qs, d, y, B, N, K, splits, stream);
+#define DQ_I8(NT) launch_i8_nt<NT, EPI>(xq, xd, qs, d, y, B, N, K, splits, stream, bias, bias_bf16)
+  if (B <= 8) return DQ_I8(1);
+  if (B <= 16) return DQ_I8(2);
+  return DQ_I8(4);
+#undef DQ_I8
 }
 
 }  // namespace dqm

@@ -103,8 +103,11 @@ __device__ __forceinline__ float f16_product(__half a, int b) {
   return __half2float(__float2half_rn(__half2float(a) * (float)b));
 }
 
+// four activations, rounded to bf16 where RX (mm_dot "bf16")
+template <bool RX>
 __device__ __forceinline__ float4 ldx(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  return RX ? bf16_round4(v) : v;
 }
 
 __device__ __forceinline__ uint32_t ldw(const uint8_t* p) {
@@ -112,7 +115,7 @@ __device__ __forceinline__ uint32_t ldw(const uint8_t* p) {
 }
 
 // ---- legacy formats: a lane takes 4 bytes of a 32-element group a step ----
-template <int F, int RB, int ROWS_PER_WARP>
+template <int F, int RB, int ROWS_PER_WARP, bool RX>
 __device__ __forceinline__ void legacy_rows(const float* __restrict__ x, const void* p0,
                                             const void* p1, const void* p2, const void* p3,
                                             int B, int N, int K, int n0, int b0, int lane,
@@ -159,8 +162,8 @@ __device__ __forceinline__ void legacy_rows(const float* __restrict__ x, const v
     for (int r = 0; r < RB; ++r) {
       if (b0 + r < B) {
         const float* xr = x + (size_t)(b0 + r) * K + c * 32;
-        const float4 xl = ldx(xr + e_lo);
-        const float4 xh = ldx(xr + e_hi);
+        const float4 xl = ldx<RX>(xr + e_lo);
+        const float4 xh = ldx<RX>(xr + e_hi);
         const float xs = T::M ? sum4(xl) + sum4(xh) : 0.f;
 #pragma unroll
         for (int w = 0; w < ROWS_PER_WARP; ++w) {
@@ -180,7 +183,7 @@ __device__ __forceinline__ void legacy_rows(const float* __restrict__ x, const v
 // ---- Q4_K: a warp takes one superblock (128 bytes of qs) a row a step ----
 // Lane L holds bytes 4L..4L+3: group g = L/8, elements 64g + 4(L%8) + t (low
 // nibbles, sub-block 2g) and 32 more (high nibbles, sub-block 2g + 1).
-template <int RB, int ROWS_PER_WARP>
+template <int RB, int ROWS_PER_WARP, bool RX>
 __device__ __forceinline__ void q4_k_rows(const float* __restrict__ x, const void* p0,
                                           const void* p1, const void* p2, const void* p3,
                                           int B, int N, int K, int n0, int b0, int lane,
@@ -231,8 +234,8 @@ __device__ __forceinline__ void q4_k_rows(const float* __restrict__ x, const voi
     for (int r = 0; r < RB; ++r) {
       if (b0 + r < B) {
         const float* xr = x + (size_t)(b0 + r) * K + s * 256;
-        const float4 xl = ldx(xr + e_lo);
-        const float4 xh = ldx(xr + e_lo + 32);
+        const float4 xl = ldx<RX>(xr + e_lo);
+        const float4 xh = ldx<RX>(xr + e_lo + 32);
         const float xsl = sum4(xl), xsh = sum4(xh);
 #pragma unroll
         for (int w = 0; w < ROWS_PER_WARP; ++w) {
@@ -251,7 +254,7 @@ __device__ __forceinline__ void q4_k_rows(const float* __restrict__ x, const voi
 // (h*64 + part*32 + l) hold elements e = 128h + 32part + l + t (low nibbles)
 // and e + 64 (high); qh bytes h*32 + l + t hold their two high bits at bit
 // pairs part (e) and part + 2 (e + 64).
-template <int RB, int ROWS_PER_WARP>
+template <int RB, int ROWS_PER_WARP, bool RX>
 __device__ __forceinline__ void q6_k_rows(const float* __restrict__ x, const void* p0,
                                           const void* p1, const void* p2, const void* p3,
                                           int B, int N, int K, int n0, int b0, int lane,
@@ -288,8 +291,8 @@ __device__ __forceinline__ void q6_k_rows(const float* __restrict__ x, const voi
     for (int r = 0; r < RB; ++r) {
       if (b0 + r < B) {
         const float* xr = x + (size_t)(b0 + r) * K + s * 256;
-        const float4 xl = ldx(xr + e_lo);
-        const float4 xh = ldx(xr + e_lo + 64);
+        const float4 xl = ldx<RX>(xr + e_lo);
+        const float4 xh = ldx<RX>(xr + e_lo + 64);
 #pragma unroll
         for (int w = 0; w < ROWS_PER_WARP; ++w) {
           const float a = fmaf(kl[w], dot4(xl, wl[w]), acc[r][w]);
@@ -300,7 +303,7 @@ __device__ __forceinline__ void q6_k_rows(const float* __restrict__ x, const voi
   }
 }
 
-template <int F, int WARPS, int ROWS_PER_WARP, int RB>
+template <int F, int WARPS, int ROWS_PER_WARP, int RB, bool RX>
 __global__ void __launch_bounds__(WARPS * 32)
 q_matmul_kernel(const float* __restrict__ x, const void* p0, const void* p1, const void* p2,
                 const void* p3, float* __restrict__ y, int B, int N, int K) {
@@ -317,11 +320,11 @@ q_matmul_kernel(const float* __restrict__ x, const void* p0, const void* p1, con
     for (int w = 0; w < ROWS_PER_WARP; ++w) acc[r][w] = 0.f;
 
   if constexpr (F == Q4_K)
-    q4_k_rows<RB, ROWS_PER_WARP>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
+    q4_k_rows<RB, ROWS_PER_WARP, RX>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
   else if constexpr (F == Q6_K)
-    q6_k_rows<RB, ROWS_PER_WARP>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
+    q6_k_rows<RB, ROWS_PER_WARP, RX>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
   else
-    legacy_rows<F, RB, ROWS_PER_WARP>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
+    legacy_rows<F, RB, ROWS_PER_WARP, RX>(x, p0, p1, p2, p3, B, N, K, n0, b0, lane, acc);
 
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
@@ -337,25 +340,29 @@ q_matmul_kernel(const float* __restrict__ x, const void* p0, const void* p1, con
 
 template <int F, int WARPS, int RPW>
 void launch_geom(const float* x, const void* p0, const void* p1, const void* p2,
-                 const void* p3, float* y, int B, int N, int K, cudaStream_t stream) {
+                 const void* p3, float* y, int B, int N, int K, int rx, cudaStream_t stream) {
   constexpr int rows = WARPS * RPW;  // weight rows a block
   dim3 grid((N + rows - 1) / rows, 1);  // decode: one activation row
-  q_matmul_kernel<F, WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3, y, B,
-                                                                     N, K);
+  if (rx)  // mm_dot "bf16": x rounded where it is loaded
+    q_matmul_kernel<F, WARPS, RPW, 1, true><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3,
+                                                                          y, B, N, K);
+  else
+    q_matmul_kernel<F, WARPS, RPW, 1, false><<<grid, WARPS * 32, 0, stream>>>(x, p0, p1, p2, p3,
+                                                                           y, B, N, K);
 }
 
 template <int F>
 int launch(const float* x, const void* p0, const void* p1, const void* p2, const void* p3,
-           float* y, int B, int N, int K, int warps, int rpw, cudaStream_t stream) {
+           float* y, int B, int N, int K, int warps, int rpw, int rx, cudaStream_t stream) {
   const bool kq = F == Q4_K || F == Q6_K;
   if (K % (kq ? 256 : 32)) return (int)cudaErrorInvalidValue;
   switch (warps * 16 + rpw) {
-    case 4 * 16 + 1: launch_geom<F, 4, 1>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
-    case 4 * 16 + 2: launch_geom<F, 4, 2>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
-    case 4 * 16 + 4: launch_geom<F, 4, 4>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
-    case 8 * 16 + 1: launch_geom<F, 8, 1>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
-    case 8 * 16 + 2: launch_geom<F, 8, 2>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
-    case 8 * 16 + 4: launch_geom<F, 8, 4>(x, p0, p1, p2, p3, y, B, N, K, stream); break;
+    case 4 * 16 + 1: launch_geom<F, 4, 1>(x, p0, p1, p2, p3, y, B, N, K, rx, stream); break;
+    case 4 * 16 + 2: launch_geom<F, 4, 2>(x, p0, p1, p2, p3, y, B, N, K, rx, stream); break;
+    case 4 * 16 + 4: launch_geom<F, 4, 4>(x, p0, p1, p2, p3, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 1: launch_geom<F, 8, 1>(x, p0, p1, p2, p3, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 2: launch_geom<F, 8, 2>(x, p0, p1, p2, p3, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 4: launch_geom<F, 8, 4>(x, p0, p1, p2, p3, y, B, N, K, rx, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -453,19 +460,20 @@ using DecOf = dqm::DecLegacy<Traits<F>::BS, Traits<F>::OFF, Traits<F>::M, Traits
 // a block and `rpw` weight rows a warp: one of kernels/tune.py's GEOMETRIES
 // (any other pair returns cudaErrorInvalidValue). K must be a multiple of 32
 // (256 for the k-quants); x 16-byte and the planes 4-byte aligned (the
-// wrapper checks). Returns cudaGetLastError() after the launch.
+// wrapper checks). rx: x rounded to bf16 where it is loaded (mm_dot
+// "bf16"). Returns cudaGetLastError() after the launch.
 extern "C" int q_matmul(int fmt, const float* x, const void* p0, const void* p1,
                         const void* p2, const void* p3, float* y, int B, int N, int K,
-                        int warps, int rpw, cudaStream_t stream) {
+                        int warps, int rpw, int rx, cudaStream_t stream) {
   if (B != 1 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   switch (fmt) {
-    case Q4_1: return launch<Q4_1>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
-    case Q4_2: return launch<Q4_2>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
-    case Q4_3: return launch<Q4_3>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
-    case Q5_0: return launch<Q5_0>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
-    case Q5_1: return launch<Q5_1>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
-    case Q4_K: return launch<Q4_K>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
-    case Q6_K: return launch<Q6_K>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, stream);
+    case Q4_1: return launch<Q4_1>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, rx, stream);
+    case Q4_2: return launch<Q4_2>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, rx, stream);
+    case Q4_3: return launch<Q4_3>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, rx, stream);
+    case Q5_0: return launch<Q5_0>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, rx, stream);
+    case Q5_1: return launch<Q5_1>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, rx, stream);
+    case Q4_K: return launch<Q4_K>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, rx, stream);
+    case Q6_K: return launch<Q6_K>(x, p0, p1, p2, p3, y, B, N, K, warps, rpw, rx, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -474,14 +482,14 @@ extern "C" int q_matmul(int fmt, const float* x, const void* p0, const void* p1,
 // activations x f32 [B, K], or Q8 (xq int8 [B, K], its block scales xd of
 // dqm::ScaleKind `kind`; x null); y f32 [B, N] for any B (the wrappers send B >= 2 here); K a
 // multiple of 32 (256 for the k-quants), split `splits` ways
-// (kernels/matmul_q.py mma_splits); scratch as for q4_0_matmul_mma.
-// Returns cudaGetLastError() after the launches.
+// (kernels/matmul_q.py mma_splits); scratch as for q4_0_matmul_mma; rx as
+// for q4_0_matmul_mma. Returns cudaGetLastError() after the launches.
 extern "C" int q_matmul_mma(int fmt, const float* x, const int8_t* xq, const void* xd, int kind,
                             const void* p0, const void* p1, const void* p2, const void* p3,
                             float* y, unsigned char* scratch, int B, int N, int K, int splits,
-                            cudaStream_t stream) {
+                            int rx, cudaStream_t stream) {
   const dqm::Planes pl{{p0, p1, p2, p3}};
-#define DQ_LAUNCH(D) dqm::launch<D>(x, xq, xd, kind, pl, y, scratch, B, N, K, splits, stream)
+#define DQ_LAUNCH(D) dqm::launch<D>(x, xq, xd, kind, pl, y, scratch, B, N, K, splits, stream, rx)
   switch (fmt) {
     case Q4_1: return DQ_LAUNCH(DecOf<Q4_1>);
     case Q4_2: return DQ_LAUNCH(DecOf<Q4_2>);

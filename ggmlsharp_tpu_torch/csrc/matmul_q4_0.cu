@@ -104,7 +104,7 @@ __device__ __forceinline__ void nibbles_half2(uint32_t u, __half2 out[4]) {
   for (int t = 0; t < 4; ++t) out[t] = __hsub2(*reinterpret_cast<const __half2*>(&w[t]), bias);
 }
 
-template <int WARPS, int RPW, int RB>
+template <int WARPS, int RPW, int RB, bool RX>
 __global__ void __launch_bounds__(WARPS * 32)
 q4_0_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
                    const __half* __restrict__ d, float* __restrict__ y,
@@ -142,8 +142,12 @@ q4_0_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
     for (int r = 0; r < RB; ++r) {
       if (b0 + r < B) {
         const float* xr = x + (size_t)(b0 + r) * K + c * 32 + j;
-        const float4 xl = __ldg(reinterpret_cast<const float4*>(xr));
-        const float4 xh = __ldg(reinterpret_cast<const float4*>(xr + 16));
+        float4 xl = __ldg(reinterpret_cast<const float4*>(xr));
+        float4 xh = __ldg(reinterpret_cast<const float4*>(xr + 16));
+        if constexpr (RX) {
+          xl = bf16_round4(xl);
+          xh = bf16_round4(xh);
+        }
         const __half2 xa = __floats2half2_rn(xl.x, xl.y), xb = __floats2half2_rn(xl.z, xl.w);
         const __half2 xc = __floats2half2_rn(xh.x, xh.y), xd = __floats2half2_rn(xh.z, xh.w);
 #pragma unroll
@@ -174,8 +178,12 @@ q4_0_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
     for (int r = 0; r < RB; ++r) {
       if (b0 + r < B) {
         const float* xr = x + (size_t)(b0 + r) * K + c * 32 + j;
-        const float4 xl = __ldg(reinterpret_cast<const float4*>(xr));
-        const float4 xh = __ldg(reinterpret_cast<const float4*>(xr + 16));
+        float4 xl = __ldg(reinterpret_cast<const float4*>(xr));
+        float4 xh = __ldg(reinterpret_cast<const float4*>(xr + 16));
+        if constexpr (RX) {  // mm_dot "bf16"
+          xl = bf16_round4(xl);
+          xh = bf16_round4(xh);
+        }
 #pragma unroll
         for (int w = 0; w < RPW; ++w) {
           float s = xl.x * wl[w][0];
@@ -207,10 +215,14 @@ q4_0_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
 
 template <int WARPS, int RPW>
 void launch(const float* x, const uint8_t* qs, const __half* d, float* y,
-            int B, int N, int K, cudaStream_t stream) {
+            int B, int N, int K, int rx, cudaStream_t stream) {
   constexpr int rows = WARPS * RPW;  // weight rows a block
   dim3 grid((N + rows - 1) / rows, 1);  // decode: one activation row
-  q4_0_matmul_kernel<WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
+  if (rx)  // mm_dot "bf16": x rounded where it is loaded
+    q4_0_matmul_kernel<WARPS, RPW, 1, true><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
+  else
+    q4_0_matmul_kernel<WARPS, RPW, 1, false><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N,
+                                                                             K);
 }
 
 }  // namespace
@@ -220,18 +232,19 @@ void launch(const float* x, const uint8_t* qs, const __half* d, float* y,
 // with `warps` warps a block and `rpw` weight rows a warp: one of
 // kernels/tune.py's GEOMETRIES (any other pair returns cudaErrorInvalidValue).
 // K must be a multiple of 32; x and qs 16-byte aligned (the wrapper checks).
-// Returns cudaGetLastError() after the launch.
+// rx: x rounded to bf16 where it is loaded (mm_dot "bf16"). Returns
+// cudaGetLastError() after the launch.
 extern "C" int q4_0_matmul(const float* x, const uint8_t* qs, const __half* d,
-                           float* y, int B, int N, int K, int warps, int rpw,
+                           float* y, int B, int N, int K, int warps, int rpw, int rx,
                            cudaStream_t stream) {
   if (B != 1 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
   switch (warps * 16 + rpw) {
-    case 4 * 16 + 1: launch<4, 1>(x, qs, d, y, B, N, K, stream); break;
-    case 4 * 16 + 2: launch<4, 2>(x, qs, d, y, B, N, K, stream); break;
-    case 4 * 16 + 4: launch<4, 4>(x, qs, d, y, B, N, K, stream); break;
-    case 8 * 16 + 1: launch<8, 1>(x, qs, d, y, B, N, K, stream); break;
-    case 8 * 16 + 2: launch<8, 2>(x, qs, d, y, B, N, K, stream); break;
-    case 8 * 16 + 4: launch<8, 4>(x, qs, d, y, B, N, K, stream); break;
+    case 4 * 16 + 1: launch<4, 1>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 4 * 16 + 2: launch<4, 2>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 4 * 16 + 4: launch<4, 4>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 1: launch<8, 1>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 2: launch<8, 2>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 4: launch<8, 4>(x, qs, d, y, B, N, K, rx, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -242,13 +255,14 @@ extern "C" int q4_0_matmul(const float* x, const uint8_t* qs, const __half* d,
 // qs uint8 [N, K/2], d f16
 // [N, K/32] -> y f32 [B, N], for any B (the wrappers send B >= 2 here), K
 // split `splits` ways (kernels/matmul_q.py mma_splits); scratch: 16-byte
-// aligned, dqm::scratch_bytes (matmul_q.py _mma_scratch_bytes). Returns
-// cudaGetLastError() after the launches.
+// aligned, dqm::scratch_bytes (matmul_q.py _mma_scratch_bytes). rx: f32 x
+// rounded to one bf16 plane (mm_dot "bf16"), else split into three exact
+// ones. Returns cudaGetLastError() after the launches.
 extern "C" int q4_0_matmul_mma(const float* x, const int8_t* xq, const void* xd, int kind,
                                const uint8_t* qs, const __half* d, float* y,
-                               unsigned char* scratch, int B, int N, int K, int splits,
+                               unsigned char* scratch, int B, int N, int K, int splits, int rx,
                                cudaStream_t stream) {
   const dqm::Planes pl{{qs, d, nullptr, nullptr}};
   return dqm::launch<dqm::DecLegacy<32, 8, false, false>>(x, xq, xd, kind, pl, y, scratch, B, N,
-                                                          K, splits, stream);
+                                                          K, splits, stream, rx);
 }

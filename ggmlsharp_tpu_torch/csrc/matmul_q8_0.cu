@@ -53,7 +53,7 @@
 
 namespace {
 
-template <int WARPS, int ROWS_PER_WARP, int RB>
+template <int WARPS, int ROWS_PER_WARP, int RB, int XL>
 __global__ void __launch_bounds__(WARPS * 32)
 q8_0_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
                    const __half* __restrict__ d, float* __restrict__ y,
@@ -68,8 +68,8 @@ q8_0_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   const __half* dd[ROWS_PER_WARP];
   q8::row_ptrs(qs, d, K, N, n0, 1, q, dd);
   float acc[RB][ROWS_PER_WARP];
-  q8::warp_dot<RB, ROWS_PER_WARP, q8::X_READONLY>(x + (size_t)b0 * K, (size_t)K, B - b0,
-                                                  q, dd, K, lane, acc);
+  q8::warp_dot<RB, ROWS_PER_WARP, XL>(x + (size_t)b0 * K, (size_t)K, B - b0, q, dd, K, lane,
+                                      acc);
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
 #pragma unroll
@@ -82,10 +82,15 @@ q8_0_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
 
 template <int WARPS, int RPW>
 void launch(const float* x, const int8_t* qs, const __half* d, float* y,
-            int B, int N, int K, cudaStream_t stream) {
+            int B, int N, int K, int rx, cudaStream_t stream) {
   constexpr int rows = WARPS * RPW;  // weight rows a block
   dim3 grid((N + rows - 1) / rows, 1);  // decode: one activation row
-  q8_0_matmul_kernel<WARPS, RPW, 1><<<grid, WARPS * 32, 0, stream>>>(x, qs, d, y, B, N, K);
+  if (rx)  // mm_dot "bf16": x rounded where it is loaded
+    q8_0_matmul_kernel<WARPS, RPW, 1, q8::X_READONLY_BF16><<<grid, WARPS * 32, 0, stream>>>(
+        x, qs, d, y, B, N, K);
+  else
+    q8_0_matmul_kernel<WARPS, RPW, 1, q8::X_READONLY><<<grid, WARPS * 32, 0, stream>>>(
+        x, qs, d, y, B, N, K);
 }
 
 }  // namespace
@@ -95,18 +100,19 @@ void launch(const float* x, const int8_t* qs, const __half* d, float* y,
 // with `warps` warps a block and `rpw` weight rows a warp: one of
 // kernels/tune.py's GEOMETRIES (any other pair returns cudaErrorInvalidValue).
 // K must be a multiple of 32; x and qs 16-byte aligned (the wrapper checks).
-// Returns cudaGetLastError() after the launch.
+// rx: x rounded to bf16 where it is loaded (mm_dot "bf16"). Returns
+// cudaGetLastError() after the launch.
 extern "C" int q8_0_matmul(const float* x, const int8_t* qs, const __half* d,
-                           float* y, int B, int N, int K, int warps, int rpw,
+                           float* y, int B, int N, int K, int warps, int rpw, int rx,
                            cudaStream_t stream) {
   if (B != 1 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
   switch (warps * 16 + rpw) {
-    case 4 * 16 + 1: launch<4, 1>(x, qs, d, y, B, N, K, stream); break;
-    case 4 * 16 + 2: launch<4, 2>(x, qs, d, y, B, N, K, stream); break;
-    case 4 * 16 + 4: launch<4, 4>(x, qs, d, y, B, N, K, stream); break;
-    case 8 * 16 + 1: launch<8, 1>(x, qs, d, y, B, N, K, stream); break;
-    case 8 * 16 + 2: launch<8, 2>(x, qs, d, y, B, N, K, stream); break;
-    case 8 * 16 + 4: launch<8, 4>(x, qs, d, y, B, N, K, stream); break;
+    case 4 * 16 + 1: launch<4, 1>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 4 * 16 + 2: launch<4, 2>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 4 * 16 + 4: launch<4, 4>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 1: launch<8, 1>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 2: launch<8, 2>(x, qs, d, y, B, N, K, rx, stream); break;
+    case 8 * 16 + 4: launch<8, 4>(x, qs, d, y, B, N, K, rx, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -124,19 +130,21 @@ extern "C" int q8_0_matmul(const float* x, const int8_t* qs, const __half* d,
 //  * x f32, rows = dqm::ROWS (weights whose 128-row tiles alone fill the
 //    card: the LM head): the shared split, mma and merge kernels; scratch
 //    dqm::scratch_bytes of three planes (matmul_q.py _mma_scratch_bytes).
-// Returns cudaGetLastError() after the launches.
+// rx: f32 x rounded to one bf16 plane (mm_dot "bf16") in place of the
+// three (the LM head's scratch then holds one plane). Returns
+// cudaGetLastError() after the launches.
 extern "C" int q8_0_matmul_mma(const float* x, const int8_t* xq, const void* xd, int kind,
                                const int8_t* qs, const __half* d, float* y,
                                unsigned char* scratch, int B, int N, int K, int rows,
-                               int splits, cudaStream_t stream) {
+                               int splits, int rx, cudaStream_t stream) {
   const dqm::Planes pl{{qs, d, nullptr, nullptr}};
   if ((x == nullptr) == (xq == nullptr)) return (int)cudaErrorInvalidValue;
   if (x != nullptr && rows == dqm::ROWS)
     return dqm::launch<dqm::DecQ8>(x, nullptr, nullptr, 0, pl, y, scratch, B, N, K, splits,
-                                   stream);
+                                   stream, rx);
   if (rows != dqm::ROWS_Q8) return (int)cudaErrorInvalidValue;
   if (x != nullptr)
-    return dqm::launch_xf<dqm::DecQ8>(x, nullptr, nullptr, pl, y, B, N, K, splits, stream);
+    return dqm::launch_xf<dqm::DecQ8>(x, nullptr, nullptr, pl, y, B, N, K, splits, stream, rx);
   if (kind != dqm::Q8_F16_32) return (int)cudaErrorInvalidValue;
 #if Q8_ACTS == 1
   return dqm::launch_xf<dqm::DecQ8>(nullptr, xq, static_cast<const __half*>(xd), pl, y, B, N, K,

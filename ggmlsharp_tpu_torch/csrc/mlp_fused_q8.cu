@@ -7,13 +7,32 @@
 // h = gelu(...) stays f32 (it is never re-quantized and is no tensor of the
 // model).
 //
-// What bounds it: the HBM bytes of the two weights (N1*K1 + N2*N1)*34/32 up
-// to about 8 rows; beyond that the f32 FMAs, 2*B*N1*(K1 + N2).
+// What bounds it: the HBM bytes of the two weights (N1*K1 + N2*N1)*34/32
+// at every row count it takes (<= 64); on the tensor cores the products
+// (2*B*N1*(K1 + N2), three bf16 products a term for an f32 operand) stay
+// below the bytes' time.
 //
-// Design. The TPU kernel walks a sequential grid and keeps h in on-chip
-// scratch; here blocks run in parallel and none can hold W1 or h for the
-// others. So the kernel is a cooperative launch of a persistent grid that
-// fits the card at once:
+// Two instances. One activation row (entry mlp_fused_q8) keeps the SIMT
+// design below; from kernels/matmul_q.py MMA_MIN_ROWS rows on the wrapper
+// launches the multi-row instance (entry mlp_fused_q8_mma) on the tensor
+// cores, two launches of matmul_q8_0.cu's single-launch routes
+// (dq_mma.cuh), each with its K splits reduced in a thread-block cluster
+// so that the complete sums meet in one CTA, where an epilogue finishes
+// them:
+//  * W1: Q8_0 activations go to the int8 tensor cores (q8_i8_kernel:
+//    m16n8k32.s8, exact int32 block sums folded by d_w * d_x); f32 x is
+//    split in shared memory into three exact bf16 planes, or rounded to one
+//    for mm_dot "bf16" (the XF route). The epilogue writes
+//    h = gelu(sum + b1), f32, to a scratch [B, N1];
+//  * W2 over h: the XF route, h split into its three exact planes (h is
+//    never rounded), epilogue y = sum + b2.
+// A row's sums run in the same order at every B that takes the instance
+// (the splits depend on the weight's shape alone).
+//
+// The b = 1 design. The TPU kernel walks a sequential grid and keeps h in
+// on-chip scratch; here blocks run in parallel and none can hold W1 or h
+// for the others. So the kernel is a cooperative launch of a persistent
+// grid that fits the card at once:
 //  * phase 1: every warp of the grid takes (a pair of W1 rows, 8 activation
 //    rows) items in turn and writes gelu(dot + b1) to a scratch h [B, N1]
 //    f32 (at most 64 x 5120 x 4 B = 1.3 MB: it stays in L2);
@@ -23,7 +42,8 @@
 //    dependent steps. Here a block takes an item and its 8 warps split K,
 //    every 8th 256-element step each; their sums meet in shared memory in a
 //    fixed order. h is read with plain loads (L1 and L2).
-// The inner loop is q8_dot.cuh's. The grid is sized inside the C entry from
+// The inner loop is q8_dot.cuh's (mm_dot "bf16": x rounded where phase 1
+// loads it). The grid is sized inside the C entry from
 // the occupancy of the kernel times the SM count; a launch the card refuses
 // comes back as its CUDA error.
 //
@@ -45,6 +65,7 @@
 #endif
 #include <cooperative_groups.h>
 
+#include "dq_mma.cuh"
 #include "q8_dot.cuh"
 
 namespace cg = cooperative_groups;
@@ -66,7 +87,7 @@ struct MlpArgs {
   const void* b2;
   float* h;
   float* y;
-  int B, K1, N1, N2, bias_bf16;
+  int B, K1, N1, N2, bias_bf16, rx;
 };
 
 // out[b, n] = act(sum_k x[b, k] W[n, k] + bias[n]) over all (row pair, 8-row
@@ -145,8 +166,12 @@ __global__ void __launch_bounds__(THREADS) mlp_fused_q8_kernel(MlpArgs a) {
   const int lane = threadIdx.x & 31;
   const int gwarp = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int nwarps = gridDim.x * WARPS;
-  phase<RB, q8::X_READONLY, true>(a.x, a.B, a.K1, a.qs1, a.d1, a.b1, a.bias_bf16, a.N1,
-                                  a.h, gwarp, nwarps, lane);
+  if (a.rx)  // mm_dot "bf16": x rounded where it is loaded
+    phase<RB, q8::X_READONLY_BF16, true>(a.x, a.B, a.K1, a.qs1, a.d1, a.b1, a.bias_bf16, a.N1,
+                                         a.h, gwarp, nwarps, lane);
+  else
+    phase<RB, q8::X_READONLY, true>(a.x, a.B, a.K1, a.qs1, a.d1, a.b1, a.bias_bf16, a.N1,
+                                    a.h, gwarp, nwarps, lane);
   grid.sync();
   if (MLP_PHASE2_KSPLIT)
     phase_ksplit<RB>(a.h, a.B, a.N1, a.qs2, a.d2, a.b2, a.bias_bf16, a.N2, a.y, red);
@@ -177,14 +202,43 @@ int launch(MlpArgs& a, cudaStream_t stream) {
 
 // x f32 [B, K1]; qs1 int8 [N1, K1], d1 f16 [N1, K1/32], b1 [N1]; qs2 int8
 // [N2, N1], d2 f16 [N2, N1/32], b2 [N2]; biases f32 or bf16 (bias_bf16);
-// h f32 [B, N1] scratch; y f32 [B, N2]. Returns the CUDA error of the
-// cooperative launch (0: launched).
+// h f32 [B, N1] scratch; y f32 [B, N2]; rx: x rounded to bf16 where it is
+// loaded (mm_dot "bf16"). The wrappers send one row here (the multi-row
+// instance takes more). Returns the CUDA error of the cooperative launch
+// (0: launched).
 extern "C" int mlp_fused_q8(const float* x, const int8_t* qs1, const __half* d1,
                             const void* b1, const int8_t* qs2, const __half* d2,
                             const void* b2, float* h, float* y, int B, int K1, int N1,
-                            int N2, int bias_bf16, cudaStream_t stream) {
+                            int N2, int bias_bf16, int rx, cudaStream_t stream) {
   if (B <= 0 || K1 <= 0 || N1 <= 0 || N2 <= 0 || K1 % 32 || N1 % 32)
     return (int)cudaErrorInvalidValue;
-  MlpArgs a{x, qs1, d1, b1, qs2, d2, b2, h, y, B, K1, N1, N2, bias_bf16};
+  MlpArgs a{x, qs1, d1, b1, qs2, d2, b2, h, y, B, K1, N1, N2, bias_bf16, rx};
   return B == 1 ? launch<1>(a, stream) : launch<8>(a, stream);
+}
+
+// The multi-row instance (dq_mma.cuh), for any B (the wrappers send 2..64
+// rows here): activations x f32 [B, K1] (rx: rounded to one bf16 plane,
+// mm_dot "bf16", else three exact ones), or Q8_0 (xq int8 [B, K1], xd f16
+// [B, K1/32]; x null), 16-byte aligned; weights and biases as for the
+// b = 1 entry; h f32 [B, N1] scratch and y f32 [B, N2], 16-byte aligned.
+// W1's K splits `splits1` ways, W2's `splits2` (kernels/matmul_q.py
+// q8_mma_splits, at most 8). Returns cudaGetLastError() after the two
+// launches.
+extern "C" int mlp_fused_q8_mma(const float* x, const int8_t* xq, const __half* xd,
+                                const int8_t* qs1, const __half* d1, const void* b1,
+                                const int8_t* qs2, const __half* d2, const void* b2, float* h,
+                                float* y, int B, int K1, int N1, int N2, int bias_bf16,
+                                int splits1, int splits2, int rx, cudaStream_t stream) {
+  if (B <= 0 || K1 <= 0 || N1 <= 0 || N2 <= 0 || K1 % 32 || N1 % 32 ||
+      (x == nullptr) == (xq == nullptr) || (xq != nullptr && xd == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dqm::Planes pl1{{qs1, d1, nullptr, nullptr}}, pl2{{qs2, d2, nullptr, nullptr}};
+  int e = xq != nullptr
+              ? dqm::launch_i8<2>(xq, xd, qs1, d1, h, B, N1, K1, splits1, stream, b1, bias_bf16)
+              : dqm::launch_xf<dqm::DecQ8, 2>(x, nullptr, nullptr, pl1, h, B, N1, K1, splits1,
+                                              stream, rx, b1, bias_bf16);
+  if (e == 0)
+    e = dqm::launch_xf<dqm::DecQ8, 1>(h, nullptr, nullptr, pl2, y, B, N2, N1, splits2, stream,
+                                      0, b2, bias_bf16);
+  return e;
 }

@@ -26,6 +26,14 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t* w) {
   }
 }
 
+// v with each element rounded to bf16 (to nearest even), back in f32: the
+// activation operand of mm_dot "bf16" (kernels/config.py)
+__device__ __forceinline__ float4 bf16_round4(float4 v) {
+  const float2 a = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+  const float2 b = __bfloat1622float2(__floats2bfloat162_rn(v.z, v.w));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros

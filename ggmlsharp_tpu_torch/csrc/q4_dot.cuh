@@ -70,7 +70,9 @@ __device__ __forceinline__ void row_ptrs(const uint8_t* qs, const __half* d, int
 // acc[r][w] is this lane's partial sum; warp_sum() completes it. Several
 // warps can split one row's K: warp i of n passes step_first = i, step_stride
 // = n and takes every n-th 512-element step; the caller adds their sums.
-template <int RB, int RW, int XL>
+// WS: the weight rows lie in shared memory (plain loads; else the
+// read-only path).
+template <int RB, int RW, int XL, bool WS = false>
 __device__ __forceinline__ void warp_dot(const float* x, size_t xs, int rows_valid,
                                          const uint8_t* const (&qs)[RW],
                                          const __half* const (&d)[RW], int K, int lane,
@@ -99,12 +101,14 @@ __device__ __forceinline__ void warp_dot(const float* x, size_t xs, int rows_val
       s1[w] = 0.f;
       if (qs[w] != nullptr) {
         if (in0) {
-          u0 = __ldg(reinterpret_cast<const uint32_t*>(qs[w] + blk0 * 16 + j));
-          s0[w] = __half2float(__ldg(d[w] + blk0));
+          const uint32_t* p = reinterpret_cast<const uint32_t*>(qs[w] + blk0 * 16 + j);
+          u0 = WS ? *p : __ldg(p);
+          s0[w] = __half2float(WS ? d[w][blk0] : __ldg(d[w] + blk0));
         }
         if (in1) {
-          u1 = __ldg(reinterpret_cast<const uint32_t*>(qs[w] + blk1 * 16 + j));
-          s1[w] = __half2float(__ldg(d[w] + blk1));
+          const uint32_t* p = reinterpret_cast<const uint32_t*>(qs[w] + blk1 * 16 + j);
+          u1 = WS ? *p : __ldg(p);
+          s1[w] = __half2float(WS ? d[w][blk1] : __ldg(d[w] + blk1));
         }
       }
       nibbles_minus_8((u0 >> sh_a) & 0x0F0F0F0Fu, wa0[w]);

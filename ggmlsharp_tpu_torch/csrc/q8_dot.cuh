@@ -21,18 +21,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace q8 {
 
 // Where the activations live: global memory that no block writes during the
 // launch (__ldg, the read-only path), or anywhere a plain load is right:
 // shared memory, or global memory that other blocks wrote earlier in the
 // launch, before a grid-wide barrier (the barrier orders those writes before
-// plain loads; the read-only path gives no such promise).
-enum XLoad { X_READONLY = 0, X_PLAIN = 1 };
+// plain loads; the read-only path gives no such promise). X_READONLY_BF16:
+// the read-only path, each value rounded to bf16 as it is loaded (mm_dot
+// "bf16").
+enum XLoad { X_READONLY = 0, X_PLAIN = 1, X_READONLY_BF16 = 2 };
 
 template <int XL>
 __device__ __forceinline__ float4 load_x4(const float* p) {
   if constexpr (XL == X_READONLY) return __ldg(reinterpret_cast<const float4*>(p));
+  else if constexpr (XL == X_READONLY_BF16)
+    return bf16_round4(__ldg(reinterpret_cast<const float4*>(p)));
   else return *reinterpret_cast<const float4*>(p);
 }
 

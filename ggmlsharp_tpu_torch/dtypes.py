@@ -50,6 +50,9 @@ TYPE_TRAITS: dict[GType, TypeTraits] = {
     GType.F32: TypeTraits("f32", 1, 4, False, torch_dtype=torch.float32),
     GType.F16: TypeTraits("f16", 1, 2, False, torch_dtype=torch.float16),
     GType.BF16: TypeTraits("bf16", 1, 2, False, torch_dtype=torch.bfloat16),
+    GType.I8: TypeTraits("i8", 1, 1, False, torch_dtype=torch.int8),
+    GType.I16: TypeTraits("i16", 1, 2, False, torch_dtype=torch.int16),
+    GType.I32: TypeTraits("i32", 1, 4, False, torch_dtype=torch.int32),
     # legacy blocks with f16 scales (modern ggml / GGUF)
     GType.Q4_0: TypeTraits("q4_0", 32, _F16 + 16, True, GType.Q8_0),
     GType.Q4_1: TypeTraits("q4_1", 32, 2 * _F16 + 16, True, GType.Q8_1),
@@ -66,6 +69,24 @@ TYPE_TRAITS: dict[GType, TypeTraits] = {
                            GType.Q8_K),
     GType.Q8_K: TypeTraits("q8_K", 256, 4 + 256 + 16 * 2, True, GType.Q8_K),
 }
+
+
+def type_name(t: GType) -> str:
+    return TYPE_TRAITS[t].name
+
+
+def block_size(t: GType) -> int:
+    return TYPE_TRAITS[t].block_size
+
+
+def type_size(t: GType):
+    """Bytes of one block (of one element for the float types), as the
+    traits table writes it."""
+    return TYPE_TRAITS[t].type_size_bytes
+
+
+def is_quantized(t: GType) -> bool:
+    return TYPE_TRAITS[t].is_quantized
 
 
 def row_size_bytes(t: GType, n: int) -> int:

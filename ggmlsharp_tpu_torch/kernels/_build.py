@@ -22,7 +22,8 @@ entries counts each under its own name (``flash_attn`` for the cached entry,
 ``flash_attn_uncached`` for the uncached one, one source; ``matmul_q4_0`` and
 ``matmul_q4_0_mma`` for the b = 1 and the multi-row instance of one source,
 likewise ``matmul_q8_0`` and ``matmul_q8_0_mma``, ``matmul_q`` and
-``matmul_q_mma``, ``mlp_fused_silu_q4`` and ``mlp_fused_silu_q4_mma``). The
+``matmul_q_mma``, ``mlp_fused_silu_q4`` and ``mlp_fused_silu_q4_mma``,
+``mlp_fused_q8`` and ``mlp_fused_q8_mma``). The
 dequant-matmul wrappers also count each launch by shape and launch geometry in
 ``GEOMETRY_LAUNCHES`` ((kernel, N, K, warps, rows_per_warp, B) -> launches,
 the kernel the counter's name; warps and rows_per_warp None for the
@@ -49,32 +50,34 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # kernel name -> (source, C entry, argtypes)
 KERNELS = {
     "matmul_q4_0": ("matmul_q4_0.cu", "q4_0_matmul",
-                    [_P, _P, _P, _P] + [_I] * 5 + [_P]),
+                    [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "flash_attn": ("flash_attn.cu", "flash_attn",
                    [_P, _P, _P, _P, _I, _P] + [_I] * 6 + [_LL, _I, _I, _I, _F,
                                                         _F, _P]),
     "attn_decode": ("attn_decode.cu", "attn_decode",
-                    [_P] * 11 + [_I] * 5 + [_LL, _LL, _I, _F, _I, _I, _P]),
+                    [_P] * 11 + [_I] * 5 + [_LL, _LL, _I, _F, _I, _I, _I, _P]),
     "matmul_q8_0": ("matmul_q8_0.cu", "q8_0_matmul",
-                    [_P, _P, _P, _P] + [_I] * 5 + [_P]),
+                    [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "mlp_fused_q8": ("mlp_fused_q8.cu", "mlp_fused_q8",
-                     [_P] * 9 + [_I] * 5 + [_P]),
+                     [_P] * 9 + [_I] * 6 + [_P]),
     "gpt2_layer": ("gpt2_layer.cu", "gpt2_layer",
                    [_P] * 25 + [_I] * 4 + [_F, _I, _I, _P]),
     "mlp_fused_silu_q4": ("mlp_fused_silu_q4.cu", "mlp_fused_silu_q4",
                           [_P] * 7 + [_I] * 3 + [_P]),
     "llama_layer": ("llama_layer.cu", "llama_layer",
-                    [_P] * 23 + [_I] * 5 + [_F, _I, _I, _P]),
-    "matmul_q": ("matmul_q.cu", "q_matmul", [_I] + [_P] * 6 + [_I] * 5 + [_P]),
+                    [_P] * 24 + [_I] * 5 + [_F, _I, _I, _P]),
+    "matmul_q": ("matmul_q.cu", "q_matmul", [_I] + [_P] * 6 + [_I] * 6 + [_P]),
     # the multi-row instances of the sources above (csrc/dq_mma.cuh)
     "matmul_q4_0_mma": ("matmul_q4_0.cu", "q4_0_matmul_mma",
-                        [_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P]),
-    "matmul_q8_0_mma": ("matmul_q8_0.cu", "q8_0_matmul_mma",
                         [_P] * 3 + [_I] + [_P] * 4 + [_I] * 5 + [_P]),
+    "matmul_q8_0_mma": ("matmul_q8_0.cu", "q8_0_matmul_mma",
+                        [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_P]),
     "mlp_fused_silu_q4_mma": ("mlp_fused_silu_q4.cu", "mlp_fused_silu_q4_mma",
                               [_P] * 9 + [_I] * 5 + [_P]),
+    "mlp_fused_q8_mma": ("mlp_fused_q8.cu", "mlp_fused_q8_mma",
+                         [_P] * 11 + [_I] * 8 + [_P]),
     "matmul_q_mma": ("matmul_q.cu", "q_matmul_mma",
-                     [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_I] * 4 + [_P]),
+                     [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 + [_P]),
     "matmul_int_dot": ("matmul_int_dot.cu", "int_dot_matmul",
                        [_I] + [_P] * 8 + [_I, _I, _P]),
     # the tuning path's probes (ggmlsharp_tpu_torch/probes/)

@@ -6,10 +6,14 @@ ggmlsharp_tpu/kernels/attn_decode.py::flash_decode_flat, layout "heads", and
 Each slot's one query attends the cache rows t < min(npast[b], T) of a
 flat [B, T, E_kv] cache (lane j belongs to KV head j // D) plus the fresh
 token's unquantized K/V row, which stands in for the stale row npast[b].
-The cache is bf16, or int8 with per-(token, head) scales [B, T, H_kv]. The arithmetic is
-f32 throughout: the JAX kernel's exact mode (GGML_TPU_MM_DOT=f32); its
-default mode rounds the softmax weights to the cache dtype for the MXU,
-which the port does not copy.
+The cache is bf16, or int8 with per-(token, head) scales [B, T, H_kv].
+``mode`` is the mm_dot function (kernels.config; default the configured
+one): "f32" runs in f32 throughout (the JAX kernel's exact mode); "bf16",
+the JAX kernel's fast mode, rounds the scaled query to bf16 for the cache
+rows' scores and each cache row's softmax weight (times its V scale, INT8)
+to bf16 for the value products, with the softmax in base 2 against an
+integer maximum so that the rounding does not depend on the order of the
+rows (csrc/attn_decode.cu says why); the fresh row stays f32.
 
 The kernel is bound by the bytes of the live rows. It splits each slot's
 rows over ``decode_splits(B * H_kv, T)`` blocks a (slot, KV head), so that a
@@ -30,26 +34,28 @@ of the port calls it; it is ported so the kernel is whole, and
 ``chip_smoke.py`` holds it against its plain version and times it.
 
 The plain versions are ``_decode_ref``: dequantize, append the fresh row
-as key T, mask the cache rows t >= npast, softmax, P.V, all dense f32
-(``_decode_ref_attn``: permute to element order, ``_decode_ref``, permute
-back), and ``_decode_ref_split``, the kernel's split algorithm (a partial
-softmax state a split, then the merge) in plain PyTorch. A wrapper runs
-``_decode_ref`` for a CPU tensor, and for a CUDA tensor it launches the
-kernel or raises.
+as key T, mask the cache rows t >= npast, softmax, P.V, dense, in either
+mode (``_decode_ref_attn``: permute to element order, ``_decode_ref``,
+permute back), and ``_decode_ref_split``, the kernel's split algorithm (a
+partial softmax state a split, then the merge) in plain f32 PyTorch. A
+wrapper runs ``_decode_ref`` for a CPU tensor, and for a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.attention import NEG_INF
+from ..ops.matmul import round_bf16
 from . import _build
-from .config import H100_SMS, device_sms, use_kernel
+from .config import H100_SMS, device_sms, mm_dot_mode, round_x, use_kernel
 
 _KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
 _BLOCKS_PER_SM = 4  # decode_splits: at most this many blocks an SM
 _SPLIT_MIN_ROWS = 64  # cache rows a split takes at least
 MAX_SPLITS = 512  # the most splits the kernel takes
 _COUNTERS: dict = {}  # (device, stream) -> int32 arrival counters, all 0
+_LOG2E = 1.4426950408889634  # log2(e), the base-2 softmax of mode "bf16"
 
 
 def decode_splits(batch_heads: int, rows: int, sms: int = H100_SMS) -> int:
@@ -95,11 +101,15 @@ def _dequant(rows, scale, n_head_kv):
 
 
 def _decode_ref(q, k_new, v_new, k_cache, v_cache, npast, n_head_kv: int,
-                head_dim: int, k_scale=None, v_scale=None):
-    """Dense f32 decode attention. q (B, Hq, D) UNscaled; k_new/v_new
+                head_dim: int, k_scale=None, v_scale=None, mode: str = "f32"):
+    """Dense decode attention. q (B, Hq, D) UNscaled; k_new/v_new
     (B, E); k_cache/v_cache (B, T, E); npast int (B,) -> f32 (B, Hq, D).
     The fresh row is key T, always attended; cache row t is attended when
-    t < npast[b] (so npast >= T attends all T rows, as the kernel does)."""
+    t < npast[b] (so npast >= T attends all T rows, as the kernel does).
+    mode: the mm_dot function, "f32" (all f32) or "bf16" (_decode_ref_bf16)."""
+    if round_x(mode):
+        return _decode_ref_bf16(q, k_new, v_new, k_cache, v_cache, npast,
+                                n_head_kv, k_scale, v_scale)
     B, Hq, D = q.shape
     T = k_cache.shape[1]
     n_rep = Hq // n_head_kv
@@ -118,6 +128,39 @@ def _decode_ref(q, k_new, v_new, k_cache, v_cache, npast, n_head_kv: int,
     s = torch.where(live[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgrt,btgd->bgrd", p, vh).reshape(B, Hq, D)
+
+
+def _decode_ref_bf16(q, k_new, v_new, k_cache, v_cache, npast,
+                     n_head_kv: int, k_scale=None, v_scale=None):
+    """The mm_dot "bf16" function of ``_decode_ref``: the cache rows' scores
+    s = (bf16(q·D^-1/2) . k) · k_scale, the fresh row's s with the f32
+    query; u = s·log2(e), M = ceil(max u) over the attended rows, p =
+    2^(u - M); out = (sum_t bf16(p_t · v_scale_t) v_t + p_new v_new) /
+    sum p (an int8 row's values unscaled; bf16 rows: scales 1)."""
+    f32 = torch.float32
+    B, Hq, D = q.shape
+    T = k_cache.shape[1]
+    n_rep = Hq // n_head_kv
+    qg = (q.to(f32) * (1.0 / D ** 0.5)).reshape(B, n_head_kv, n_rep, D)
+    kh = k_cache.to(f32).reshape(B, T, n_head_kv, D)
+    vh = v_cache.to(f32).reshape(B, T, n_head_kv, D)
+    s = torch.einsum("bgrd,btgd->bgrt", round_bf16(qg), kh)
+    if k_scale is not None:
+        s = s * k_scale.transpose(1, 2)[:, :, None, :]
+    s_new = (qg * k_new.to(f32).reshape(B, n_head_kv, 1, D)).sum(-1)
+    u = torch.cat([s * _LOG2E, (s_new * _LOG2E)[..., None]], -1)
+    t = torch.arange(T + 1, device=q.device)
+    npl = npast.to(device=q.device, dtype=torch.long)
+    live = ((t[None, :] < npl[:, None]) | (t[None, :] == T))[:, None, None]
+    u = torch.where(live, u, torch.full_like(u, NEG_INF))
+    m = torch.ceil(u.amax(-1, keepdim=True))
+    p = torch.where(live, torch.exp2(u - m), torch.zeros_like(u))
+    w = p[..., :T]
+    if v_scale is not None:
+        w = w * v_scale.transpose(1, 2)[:, :, None, :]
+    acc = torch.einsum("bgrt,btgd->bgrd", round_bf16(w), vh) \
+        + p[..., T:] * v_new.to(f32).reshape(B, n_head_kv, 1, D)
+    return (acc / p.sum(-1, keepdim=True)).reshape(B, Hq, D)
 
 
 def _decode_ref_split(q, k_new, v_new, k_cache, v_cache, npast,
@@ -233,27 +276,30 @@ def _aligned(t):
 
 def flash_decode_flat(q_heads, k_new, v_new, k_cache, v_cache, npast,
                       n_head_kv: int, head_dim: int,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, mode: str | None = None):
     """Decode attention for ONE token a slot over a flat cache.
 
     q_heads: (B, Hq, D) f32 UNscaled; k_new/v_new: (B, E_kv) element-order
     rows (unquantized floats even for INT8 caches); k_cache/v_cache:
     (B, T, E_kv) bf16 or int8 flat prefix views (row ``npast[b]`` stale);
-    npast: int (B,); k_scale/v_scale: (B, T, H_kv) f32 for INT8 caches.
-    Returns (B, Hq, D) f32."""
+    npast: int (B,); k_scale/v_scale: (B, T, H_kv) f32 for INT8 caches;
+    mode: the mm_dot function (None: the configured one). Returns
+    (B, Hq, D) f32."""
     _cache_kind(k_cache, v_cache)
+    mode = mm_dot_mode() if mode is None else mode
     if not use_kernel(q_heads):
         return _decode_ref(q_heads, k_new, v_new, k_cache, v_cache, npast,
-                           n_head_kv, head_dim, k_scale, v_scale)
+                           n_head_kv, head_dim, k_scale, v_scale, mode)
     return _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
-                   head_dim, k_scale, v_scale, attn_layout=False)
+                   head_dim, k_scale, v_scale, attn_layout=False, mode=mode)
 
 
 def _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
-            head_dim, k_scale, v_scale, attn_layout: bool):
+            head_dim, k_scale, v_scale, attn_layout: bool, mode: str):
     """Check the operands and launch the kernel. q_heads (B, Hq, D): in the
     "attn" lane map the same memory is (B, n_rep, E_kv), and so is the
     output."""
+    rnd = round_x(mode)
     kind, batch_stride = _check(q_heads, k_new, v_new, k_cache, v_cache,
                                 npast, n_head_kv, head_dim, k_scale, v_scale)
     fn = _build.entry("attn_decode")
@@ -281,7 +327,7 @@ def _launch(q_heads, k_new, v_new, k_cache, v_cache, npast, n_head_kv,
                 None if part is None else part.data_ptr(),
                 None if counter is None else counter.data_ptr(), B,
                 n_head_kv, Hq // n_head_kv, T, D, batch_stride, sc_stride,
-                kind, 1.0 / D ** 0.5, int(attn_layout), splits, stream)
+                kind, 1.0 / D ** 0.5, int(attn_layout), splits, rnd, stream)
     _build.check("attn_decode", rc)
     return out
 
@@ -299,10 +345,10 @@ def attn_to_elem(n_head_kv: int, head_dim: int, device=None) -> torch.Tensor:
 
 def _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
                      n_head: int, n_head_kv: int, head_dim: int,
-                     splits: int | None = None):
+                     splits: int | None = None, mode: str = "f32"):
     """Plain version of flash_decode_flat_attn: rows to element order,
-    _decode_ref (or, given ``splits``, _decode_ref_split), the output back
-    to the "attn" map."""
+    _decode_ref in ``mode`` (or, given ``splits``, _decode_ref_split), the
+    output back to the "attn" map."""
     B = q_att.shape[0]
     Ekv = n_head_kv * head_dim
     n_rep = n_head // n_head_kv
@@ -314,7 +360,7 @@ def _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
         .reshape(B, n_head, head_dim)
     args = (q, k_new[..., inv], v_new[..., inv], k_cache[..., inv],
             v_cache[..., inv], npast, n_head_kv, head_dim)
-    out = _decode_ref(*args) if splits is None else \
+    out = _decode_ref(*args, mode=mode) if splits is None else \
         _decode_ref_split(*args, splits=splits)
     out = out.reshape(B, n_head_kv, n_rep, head_dim).transpose(1, 2) \
         .reshape(B, n_rep, Ekv)[..., a2e]
@@ -322,12 +368,13 @@ def _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
 
 
 def flash_decode_flat_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
-                           n_head: int, n_head_kv: int, head_dim: int):
+                           n_head: int, n_head_kv: int, head_dim: int,
+                           mode: str | None = None):
     """Decode attention over a flat cache whose rows are in the "attn" lane
     map. q_att: (B, E) f32 UNscaled query rows, n_rep consecutive E_kv blocks
     in that map; k_new/v_new: (B, E_kv); k_cache/v_cache: (B, T, E_kv) bf16
-    prefix views (row ``npast[b]`` stale); npast: int (B,). Returns (B, E)
-    f32 in the query's map."""
+    prefix views (row ``npast[b]`` stale); npast: int (B,); mode as for
+    flash_decode_flat. Returns (B, E) f32 in the query's map."""
     B, E = q_att.shape
     Ekv = n_head_kv * head_dim
     if n_head % n_head_kv or E != n_head * head_dim:
@@ -335,10 +382,11 @@ def flash_decode_flat_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
                          f"{n_head}/{n_head_kv}, head_dim {head_dim}")
     if _cache_kind(k_cache, v_cache) != 0:
         raise TypeError("attn_decode: the attn lane map takes a bf16 cache")
+    mode = mm_dot_mode() if mode is None else mode
     if not use_kernel(q_att):
         return _decode_ref_attn(q_att, k_new, v_new, k_cache, v_cache, npast,
-                                n_head, n_head_kv, head_dim)
+                                n_head, n_head_kv, head_dim, mode=mode)
     out = _launch(q_att.reshape(B, n_head, head_dim), k_new, v_new, k_cache,
                   v_cache, npast, n_head_kv, head_dim, None, None,
-                  attn_layout=True)
+                  attn_layout=True, mode=mode)
     return out.reshape(B, E)

@@ -17,14 +17,32 @@ kernel has no interpreter, so the CPU tests hold each plain version against
 the JAX package and ``chip_smoke.py`` holds each kernel against its plain
 version on the card.
 
-``mm_dot_mode`` / ``set_mm_dot`` take the JAX package's two values, "bf16"
-(its default: bf16 operands into the matrix unit, f32 accumulation) and
-"f32". The port's kernels multiply f32 operands in both modes, so their
-result is the JAX "f32" function; the JAX default differs from it by bf16
-rounding of the operands, within the bf16 noise bar the tests hold
-(2^-8·|x·w|·sqrt(K)). The mode is kept and checked, and read by nothing.
-Its one source is ``config.RuntimeConfig.mm_dot`` (GGML_TPU_MM_DOT);
-``set_mm_dot`` overrides it, as ``RuntimeConfig.apply`` does.
+``mm_dot_mode`` / ``set_mm_dot`` take the JAX package's two values. Its
+kernels that take ``mode`` read it (the dequant-matmuls and decode
+attention), and so do the port's counterparts, kernel and plain version
+alike:
+
+  * "f32": today's exact function. A dequant-matmul multiplies f32
+    activations exactly (three bf16 planes on the tensor cores, f32 FMAs at
+    b = 1); decode attention runs in f32 throughout.
+  * "bf16" (the default, as in JAX): the activation operand is rounded to
+    bf16 once and the products accumulate in f32. A dequant-matmul rounds
+    f32 x where its b = 1 instance loads it and into one plane in its
+    multi-row instance (the weights' integer values are exact in bf16, so
+    only x rounds); Q8 activations are exact in both modes. Decode
+    attention over a bf16 or INT8 cache feeds the score products the
+    scaled query rounded to bf16 and the value products the softmax
+    weights rounded to bf16 (for INT8, the weight times the row's V
+    scale), as the JAX kernel's fast mode does; so that this rounding does
+    not depend on the order the cache rows are taken in, the softmax runs
+    in base 2 against an integer running maximum. The fresh row stays f32.
+  * The fused GELU MLP's f32 x follows the mode too; kernels with no mode
+    in JAX (flash, the SwiGLU MLP, the whole-block kernels) ignore it.
+
+The difference between the modes is bf16 rounding, within the noise bar
+the tests hold (2^-8·|x·w|·sqrt(K)). Its one source is
+``config.RuntimeConfig.mm_dot`` (GGML_TPU_MM_DOT); ``set_mm_dot``
+overrides it, as ``RuntimeConfig.apply`` does.
 """
 from __future__ import annotations
 
@@ -89,6 +107,15 @@ _mm_dot: str | None = None  # set_mm_dot's override; None: the config's
 
 def mm_dot_mode() -> str:
     return _mm_dot if _mm_dot is not None else config.get_config().mm_dot
+
+
+def round_x(mode: str) -> int:
+    """1 where mm_dot ``mode`` rounds the activation operand to bf16 (the
+    C entries' ``rx``), else 0; raises on an unknown mode."""
+    if mode not in _MM_DOT_MODES:
+        raise ValueError(f"mm_dot mode {mode!r} is not one of "
+                         f"{_MM_DOT_MODES}")
+    return int(mode == "bf16")
 
 
 def set_mm_dot(mode: str):

@@ -24,6 +24,13 @@ and the kernel feeds attention output element ``e`` to its column
 ``slot[e] = argsort(colperm)[e]``. ``a2e_map`` and ``q4_korder_perm`` are
 copies of the JAX package's index helpers, kept for ``colperm`` alone.
 
+The kernel is one persistent CTA an SM that streams its share of the five
+weight matrices through a ring in shared memory across the phase boundaries
+(``csrc/llama_layer.cu``); its grid barrier and per-KV-head arrival
+counters live in a small int32 buffer the wrapper keeps for each (device,
+stream) (``_sync_buffer``), zeroed once and left as found by every launch,
+so a CUDA graph that captured its address stays valid.
+
 The plain version is ``_layer_ref``. The wrapper runs it for a CPU tensor;
 for a CUDA tensor it launches the kernel or raises.
 """
@@ -43,6 +50,19 @@ from .config import use_kernel
 
 _TILE_BYTES = 9 * 1024 * 1024
 _CHUNKS = 8  # attention partials a head (csrc/llama_layer.cu CHUNKS)
+_MAX_KV_HEADS = 1024  # the KV heads a sync buffer counts for
+_SYNC: dict = {}  # (device, stream) -> int32 [2 + _MAX_KV_HEADS], the kernel's
+
+
+def _sync_buffer(device, stream: int) -> torch.Tensor:
+    """The kernel's barrier and arrival counters for launches on ``stream``
+    of ``device``: zeroed once, left so by every launch (one runs at a time
+    on a stream), never reallocated."""
+    buf = _SYNC.get((device, stream))
+    if buf is None:
+        buf = torch.zeros(2 + _MAX_KV_HEADS, dtype=torch.int32, device=device)
+        _SYNC[(device, stream)] = buf
+    return buf
 
 
 def _pick_tile(n: int, kc: int) -> int:
@@ -244,7 +264,8 @@ def llama_layer_step(blk, x, k_cache, v_cache, npast, cfg, rope=None):
         raise ValueError(f"llama_layer_step: weight shapes "
                          f"{[w.shape for w in ws]} for E {E}, E_kv {Ekv}, "
                          f"F {F}")
-    if E != H * D or H % Hkv or D % 32 or D > 128 or E % 32 or F % 32:
+    if E != H * D or H % Hkv or D % 32 or D > 128 or E % 32 or F % 32 \
+            or Hkv > _MAX_KV_HEADS:
         raise ValueError(f"llama_layer_step: E {E}, heads {H}/{Hkv}, F {F}")
     if tuple(x.shape) != (1, E) or x.dtype != torch.float32 \
             or not x.is_contiguous():
@@ -275,9 +296,10 @@ def llama_layer_step(blk, x, k_cache, v_cache, npast, cfg, rope=None):
            for t in (k_cache, v_cache, np32, slot, *vecs, *planes)):
         raise ValueError("llama_layer_step: inputs must be on one CUDA device")
     if not all(p.is_contiguous() for p in planes) \
-            or any(w["qs"].data_ptr() % 16 for w in ws):
-        raise ValueError("llama_layer_step: weights must be contiguous and "
-                         "16-byte aligned")
+            or any(w["qs"].data_ptr() % 16 or w["d"].data_ptr() % 4
+                   for w in ws):
+        raise ValueError("llama_layer_step: weights must be contiguous, qs "
+                         "16-byte and d 4-byte aligned")
     # one buffer: y [E], qkv [E + 2 E_kv] (v_new is its last E_kv), the roped
     # k_new [E_kv], then the kernel's scratch x2 [E], act [F], attention
     # partials
@@ -290,11 +312,12 @@ def llama_layer_step(blk, x, k_cache, v_cache, npast, cfg, rope=None):
     fn = _build.entry("llama_layer")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        sync = _sync_buffer(x.device, stream)
         rc = fn(x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 np32.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                 *(p.data_ptr() for p in planes),
                 fused["g1"].data_ptr(), fused["g2"].data_ptr(),
-                slot.data_ptr(), y, qkv, kn, part, x2, act,
+                slot.data_ptr(), y, qkv, kn, part, x2, act, sync.data_ptr(),
                 E, H, Hkv, F, T, float(cfg.rms_eps),
                 int(k_cache.dtype == torch.bfloat16), int(cfg.rope_mode),
                 stream)

@@ -51,6 +51,14 @@ pair never compiled raises) and otherwise ignored, and
 the same at every b that takes it; against the b = 1 instance, which sums
 in another order, they agree to f32 rounding.
 
+``mm_dot`` (kernels.config): "f32" multiplies f32 x exactly (the three
+planes; at b = 1 f32 FMAs), "bf16" rounds f32 x to bf16 once, where the
+b = 1 instance loads it and into the multi-row instance's one plane, and
+accumulates in f32. Q8 activations are exact in both. The dispatch
+``mul_mat_q_fused`` passes the configured mode to the kernel and to the
+plain version alike; the launch wrappers below take it as ``mode``
+(default "f32", the function they computed before the switch was read).
+
 A wrapper runs the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises (``kernels.config.use_kernel``).
 """
@@ -63,7 +71,7 @@ from ..dtypes import GType
 from ..quant.formats import QTensor, plane_specs
 from ..quant.quantize import dequantize, int_values, quantize
 from . import _build, tune
-from .config import H100_SMS, device_sms, use_kernel
+from .config import H100_SMS, device_sms, mm_dot_mode, round_x, use_kernel
 
 # the planes kernel A reads, in its argument order (C: ``Fmt``, GType's ids)
 _PLANES = {
@@ -184,36 +192,40 @@ def _mma_scratch_bytes(b: int, n: int, k: int, splits: int,
         + (splits * b * n * 4 if splits > 1 else 0)
 
 
-def _mma_plan(name, q8, b, n, k, sms):
+def _mma_plan(name, q8, b, n, k, sms, rx=0):
     """(the entry's arguments before the splits, K splits, scratch bytes)
-    of the multi-row entry ``name`` for b activation rows (Q8 or f32) of an
+    of the multi-row entry ``name`` for b activation rows (Q8, or f32 x:
+    rx 1 rounds it to one bf16 plane, mm_dot "bf16", else three) of an
     [n, k] weight. Q8_0 names its tile: ``MMA_ROWS_Q8`` rows, one launch
     with no scratch (its splits reduced in clusters), but f32 x at a weight
     whose ``MMA_ROWS``-row tiles alone give every SM one (the LM head),
     which takes the shared split, mma and merge kernels."""
+    planes = 1 if q8 or rx else 3
     if name != "matmul_q8_0_mma":
         splits = mma_splits(n, k, sms)
-        return [], splits, _mma_scratch_bytes(b, n, k, splits,
-                                              1 if q8 else 3)
+        return [], splits, _mma_scratch_bytes(b, n, k, splits, planes)
     if not q8 and -(-n // MMA_ROWS) >= sms:
         splits = mma_splits(n, k, sms)
-        return [MMA_ROWS], splits, _mma_scratch_bytes(b, n, k, splits, 3)
+        return [MMA_ROWS], splits, _mma_scratch_bytes(b, n, k, splits,
+                                                      planes)
     return [MMA_ROWS_Q8], q8_mma_splits(n, k, sms), 0
 
 
-def _launch_mma(name, fmt, acts, planes, n):
+def _launch_mma(name, fmt, acts, planes, n, mode="f32"):
     """Launch the multi-row instance ``name`` (operands checked by the
-    caller): ``acts`` f32 x [B, K], or Q8 activations (xq int8 [B, K], its
-    block scales xd and their ``_Q8_SCALES`` kind); ``planes`` the weight's
-    in the entry's order (None: unused), an [n, K] weight -> y f32 [B, n].
-    Recorded in ``GEOMETRY_LAUNCHES`` with no (warps, rows a warp) pair."""
+    caller): ``acts`` f32 x [B, K] (``mode`` its mm_dot function), or Q8
+    activations (xq int8 [B, K], its block scales xd and their
+    ``_Q8_SCALES`` kind); ``planes`` the weight's in the entry's order
+    (None: unused), an [n, K] weight -> y f32 [B, n]. Recorded in
+    ``GEOMETRY_LAUNCHES`` with no (warps, rows a warp) pair."""
     q8 = isinstance(acts, tuple)
     x, xq, xd, kind = (None, *acts) if q8 else (acts, None, None, 0)
     lead = xq if q8 else x
     B, K = lead.shape
+    rx = 0 if q8 else round_x(mode)
     fn = _build.entry(name)
     extra, splits, nbytes = _mma_plan(name, q8, B, n, K,
-                                      device_sms(lead.device))
+                                      device_sms(lead.device), rx)
     y = torch.empty((B, n), dtype=torch.float32, device=lead.device)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=lead.device) \
         if nbytes else None
@@ -222,7 +234,8 @@ def _launch_mma(name, fmt, acts, planes, n):
     with torch.cuda.device(lead.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*head, ptr(x), ptr(xq), ptr(xd), kind, *map(ptr, planes),
-                y.data_ptr(), ptr(scratch), B, n, K, *extra, splits, stream)
+                y.data_ptr(), ptr(scratch), B, n, K, *extra, splits, rx,
+                stream)
     _build.check(name, rc, geometry=(n, K, None, None, B))
     return y
 
@@ -238,14 +251,15 @@ def _check_geometry(name, geom):
 
 
 def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
-            counter=None, mma=None):
+            counter=None, mma=None, mode="f32"):
     """Check the operands of kernel ``name`` and launch it: x f32 [B, K], qs
     ``qs_dtype`` [N, qs_cols], d f16 [N, K/32] (all contiguous, on one card)
     -> y f32 [B, N]. geom: (warps, rows_per_warp); None: ``geometry``.
     counter: the launch counter (default ``name``; a probe's build
     of the source counts apart). mma: the source's multi-row entry, launched
     instead from ``MMA_MIN_ROWS`` rows on (an explicit geom is checked and
-    otherwise ignored there)."""
+    otherwise ignored there). mode: the mm_dot function of x."""
+    rx = round_x(mode)
     B, K = x.shape
     N = qs.shape[0]
     if not (x.is_cuda and qs.device == x.device and d.device == x.device):
@@ -264,7 +278,7 @@ def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
     if mma is not None and B >= MMA_MIN_ROWS:
         if geom is not None:
             _check_geometry(name, geom)
-        return _launch_mma(mma, None, x, (qs, d), N)
+        return _launch_mma(mma, None, x, (qs, d), N, mode)
     warps, rpw = _check_geometry(
         name, geometry(name, N, K, gtype, B) if geom is None else geom)
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
@@ -272,35 +286,37 @@ def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), qs.data_ptr(), d.data_ptr(), y.data_ptr(),
-                B, N, K, warps, rpw, stream)
+                B, N, K, warps, rpw, rx, stream)
     _build.check(name, rc, counter, geometry=(N, K, warps, rpw, B))
     return y
 
 
-def q4_0_matmul(x, qs, d, geom=None):
+def q4_0_matmul(x, qs, d, geom=None, mode="f32"):
     """Launch the Q4_0 kernel. x f32 [B, K]; qs uint8 [N, K/2]; d f16
     [N, K/32] -> y f32 [B, N]. geom: (warps, rows_per_warp), None:
     ``geometry`` (the tune table's at b = 1). From ``MMA_MIN_ROWS`` rows on
-    the multi-row instance runs (counted as ``matmul_q4_0_mma``)."""
+    the multi-row instance runs (counted as ``matmul_q4_0_mma``). mode: the
+    mm_dot function ("f32" or "bf16")."""
     return _launch("matmul_q4_0", x, qs, d, torch.uint8, x.shape[1] // 2,
-                   GType.Q4_0, geom, mma="matmul_q4_0_mma")
+                   GType.Q4_0, geom, mma="matmul_q4_0_mma", mode=mode)
 
 
-def q8_0_matmul(x, qs, d, geom=None):
+def q8_0_matmul(x, qs, d, geom=None, mode="f32"):
     """Launch the Q8_0 kernel. x f32 [B, K]; qs int8 [N, K]; d f16
-    [N, K/32] -> y f32 [B, N]. geom as for q4_0_matmul. From
+    [N, K/32] -> y f32 [B, N]. geom and mode as for q4_0_matmul. From
     ``MMA_MIN_ROWS`` rows on the multi-row instance runs (counted as
     ``matmul_q8_0_mma``)."""
     return _launch("matmul_q8_0", x, qs, d, torch.int8, x.shape[1],
-                   GType.Q8_0, geom, mma="matmul_q8_0_mma")
+                   GType.Q8_0, geom, mma="matmul_q8_0_mma", mode=mode)
 
 
-def q_matmul(x, a: QTensor, geom=None):
+def q_matmul(x, a: QTensor, geom=None, mode="f32"):
     """Launch kernel A (``csrc/matmul_q.cu``) for a weight of a format in
     ``_PLANES``: x f32 [B, K] -> y f32 [B, N]. geom as for q4_0_matmul
-    (the table's ``g<format>`` entry). From ``MMA_MIN_ROWS`` rows on the
-    multi-row instance runs (counted as ``matmul_q_mma``)."""
+    (the table's ``g<format>`` entry), mode likewise. From ``MMA_MIN_ROWS``
+    rows on the multi-row instance runs (counted as ``matmul_q_mma``)."""
     name = "matmul_q"
+    rx = round_x(mode)
     if a.gtype not in _PLANES:
         raise NotImplementedError(f"{name}: no decode for {a.gtype.name}")
     _check_x(name, x)
@@ -313,7 +329,7 @@ def q_matmul(x, a: QTensor, geom=None):
     if x.shape[0] >= MMA_MIN_ROWS:
         if geom is not None:
             _check_geometry(name, geom)
-        return _launch_mma("matmul_q_mma", a.gtype, x, planes, n)
+        return _launch_mma("matmul_q_mma", a.gtype, x, planes, n, mode)
     warps, rpw = _check_geometry(
         name, geometry(name, n, k, a.gtype, x.shape[0]) if geom is None
         else geom)
@@ -324,7 +340,7 @@ def q_matmul(x, a: QTensor, geom=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(int(a.gtype), x.data_ptr(), *ptrs, y.data_ptr(), x.shape[0],
-                n, k, warps, rpw, stream)
+                n, k, warps, rpw, rx, stream)
     _build.check(name, rc, geometry=(n, k, warps, rpw, x.shape[0]))
     return y
 
@@ -457,13 +473,16 @@ def int_dot_matmul(a: QTensor, x, plain: bool = False):
 
 
 def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
-                    plain: bool = False):
+                    plain: bool = False, mode: str | None = None):
     """Quantized mul_mat: a [n, k] QTensor, bx [..., k] -> f32 [..., n].
     One activation row with quantized activations under GGML_TPU_INT_DOT=1
     takes the integer-dot route (its plain version for a CPU tensor or with
     plain=True); everything else the dequant-matmul of a's format (plain
     version: ops.matmul.mul_mat_q), with quantized activations from
-    ``MMA_MIN_ROWS`` rows on through ``mma_q8_matmul``."""
+    ``MMA_MIN_ROWS`` rows on through ``mma_q8_matmul``. Float activations
+    take mm_dot ``mode`` (None: the configured one), in kernel and plain
+    version alike."""
+    mode = mm_dot_mode() if mode is None else mode
     n, k = a.shape
     x = bx.to(torch.float32)
     lead = x.shape[:-1]
@@ -474,7 +493,7 @@ def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
     if not use_kernel(bx, plain):
         from ..ops.matmul import mul_mat_q
 
-        return mul_mat_q(a, bx, quantize_acts=quantize_acts)
+        return mul_mat_q(a, bx, quantize_acts=quantize_acts, mode=mode)
     if not fused_supported(a):
         raise NotImplementedError(f"no CUDA kernel for {a.gtype.name} "
                                   f"weights of shape {a.shape}")
@@ -485,11 +504,13 @@ def mul_mat_q_fused(a: QTensor, bx, quantize_acts: bool = True,
         if x2.shape[0] >= MMA_MIN_ROWS and a.gtype in KERNEL_OF:
             return mma_q8_matmul(a, aq).reshape(*lead, n)
         x2 = dequantize(aq)
+    # the Q8 round trip's values are exact: rounded by neither mode
+    mode = "f32" if quantize_acts else mode
     x2 = x2.contiguous()
     if a.gtype == GType.Q4_0:
-        y = q4_0_matmul(x2, a["qs"], a["d"])
+        y = q4_0_matmul(x2, a["qs"], a["d"], mode=mode)
     elif a.gtype == GType.Q8_0:
-        y = q8_0_matmul(x2, a["qs"], a["d"])
+        y = q8_0_matmul(x2, a["qs"], a["d"], mode=mode)
     else:
-        y = q_matmul(x2, a)
+        y = q_matmul(x2, a, mode=mode)
     return y.reshape(*lead, n)

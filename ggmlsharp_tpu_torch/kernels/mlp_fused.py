@@ -3,12 +3,21 @@ kernel ``csrc/mlp_fused_q8.cu``, port of
 ggmlsharp_tpu/kernels/mlp_fused.py::flash_ff_q8) and the SwiGLU MLP over a
 Q4_0 pair (``csrc/mlp_fused_silu_q4.cu``, port of ::flash_ff_silu_q4).
 
-``y = gelu(x·W1ᵀ + b1)·W2ᵀ + b2`` in one launch. The input gets the same
-optional Q8_0 activation round trip as an unfused matmul, in plain PyTorch
-before the kernel; the intermediate h stays f32 and is never re-quantized.
-Both weights are read in the block's one Q8_0 copy (``qs`` int8 [N, K],
-``d`` f16 [N, K/32]): the JAX package's permuted, packed planes exist for the
-TPU's vector units only.
+``y = gelu(x·W1ᵀ + b1)·W2ᵀ + b2``. The input gets the same optional Q8_0
+activation round trip as an unfused matmul, in plain PyTorch before the
+kernel; the intermediate h stays f32 and is never re-quantized. f32 x
+takes the configured mm_dot function (kernels.config: "bf16" rounds it to
+bf16 once), the Q8_0 round trip's values are exact either way. Both
+weights are read in the block's one Q8_0 copy (``qs`` int8 [N, K], ``d``
+f16 [N, K/32]): the JAX package's permuted, packed planes exist for the
+TPU's vector units only. One activation row takes the source's one-launch
+kernel; from ``matmul_q.MMA_MIN_ROWS`` rows on the wrapper launches its
+multi-row instance on the tensor cores (entry ``mlp_fused_q8_mma``, its
+own launch counter; ``csrc/dq_mma.cuh``): W1 as ``matmul_q8_0_mma``'s
+single-launch routes (Q8_0 activations, handed over as values and scales,
+on the int8 tensor cores; f32 x in bf16 planes), whose epilogue writes
+gelu(sum + b1), then W2 over that f32 h in its three exact planes, with
+b2 in the epilogue: two launches.
 
 ``flash_ff_silu_q4``: ``y = (silu(x·Wgᵀ) ⊙ (x·Wuᵀ))·Wdᵀ`` with
 ``w_gate_up = [Wg; Wu]`` (2F, E) and ``w_down`` (E, F), both Q4_0, read in
@@ -28,7 +37,8 @@ bf16 planes. With the activation round trip it is handed the Q8_0 values
 and block scales themselves, as ``matmul_q.mma_q8_matmul`` is; the wrapper
 allocates its scratch (``_mlp_scratch_bytes``).
 
-The plain versions are ``_ff_ref`` and ``_ff_silu_ref``. A wrapper runs its
+The plain versions are ``_ff_ref`` (in either mm_dot mode) and
+``_ff_silu_ref``. A wrapper runs its
 plain version for a CPU tensor; for a CUDA tensor it launches the kernel or
 raises.
 """
@@ -42,8 +52,9 @@ from ..ops.matmul import mul_mat_q, quantize_activations
 from ..quant.formats import QTensor
 from ..quant.quantize import dequantize
 from . import _build
-from .config import device_sms, use_kernel
-from .matmul_q import MMA_MIN_ROWS, _mma_scratch_bytes, mma_splits
+from .config import device_sms, mm_dot_mode, round_x, use_kernel
+from .matmul_q import (MMA_MIN_ROWS, _mma_scratch_bytes, mma_splits,
+                       q8_mma_splits)
 
 _MAX_FUSED_B = 64  # h is a [rows, n1] f32 scratch; prefill beyond it is unfused
 
@@ -60,10 +71,11 @@ def mlp_fuse_supported(w1, w2, b: int | None = None) -> bool:
     return b is None or b <= _MAX_FUSED_B
 
 
-def _ff_ref(w1, b1, w2, b2, x, quantize_acts: bool = True):
-    """Plain version: two dequantized f32 matmuls around the GELU; h is not
-    re-quantized."""
-    h = gelu(mul_mat_q(w1, x, quantize_acts=quantize_acts) + b1)
+def _ff_ref(w1, b1, w2, b2, x, quantize_acts: bool = True,
+            mode: str = "f32"):
+    """Plain version: two dequantized f32 matmuls around the GELU, the first
+    in mm_dot ``mode``; h is neither re-quantized nor rounded."""
+    h = gelu(mul_mat_q(w1, x, quantize_acts=quantize_acts, mode=mode) + b1)
     return mul_mat_q(w2, h, quantize_acts=False) + b2
 
 
@@ -74,51 +86,94 @@ def _bias_pair(b1, b2):
     return b1.to(torch.float32).contiguous(), b2.to(torch.float32).contiguous()
 
 
-def mlp_fused_q8(x, w1: QTensor, b1, w2: QTensor, b2):
-    """Launch the kernel. x f32 [B, k1] contiguous on the card, B <=
-    _MAX_FUSED_B -> y f32 [B, n2]."""
-    if not mlp_fuse_supported(w1, w2, x.shape[0]):
+def mlp_fused_q8(x, w1: QTensor, b1, w2: QTensor, b2, mode: str = "f32"):
+    """Launch the kernel. x [B, k1] on the card, B <= _MAX_FUSED_B: f32,
+    contiguous, or (from ``MMA_MIN_ROWS`` rows on) the Q8_0 activations
+    ``quantize_activations(x, Q8_0)``; mode: the mm_dot function of f32 x
+    -> y f32 [B, n2]. One row launches the b = 1 instance, more the
+    multi-row one (counted as ``mlp_fused_q8_mma``)."""
+    q8 = isinstance(x, QTensor)
+    lead = x["qs"] if q8 else x
+    rx = round_x(mode)
+    if not mlp_fuse_supported(w1, w2, lead.shape[0]):
         raise ValueError(f"mlp_fused_q8: unsupported pair {w1!r}, {w2!r} "
-                         f"or rows {x.shape[0]}")
-    B, k1 = x.shape
+                         f"or rows {lead.shape[0]}")
+    B, k1 = lead.shape
     n1, n2 = w1.shape[0], w2.shape[0]
-    tensors = (x, w1["qs"], w1["d"], b1, w2["qs"], w2["d"], b2)
-    if not x.is_cuda or any(t.device != x.device for t in tensors):
+    tensors = (lead, w1["qs"], w1["d"], b1, w2["qs"], w2["d"], b2)
+    if not lead.is_cuda or any(t.device != lead.device for t in tensors):
         raise ValueError("mlp_fused_q8: all inputs must be on one CUDA device")
-    if x.dtype != torch.float32 or k1 != w1.shape[1] or not x.is_contiguous():
-        raise ValueError(f"mlp_fused_q8: x {tuple(x.shape)} {x.dtype}")
+    if lead.dtype != (torch.int8 if q8 else torch.float32) \
+            or k1 != w1.shape[1] or not lead.is_contiguous():
+        raise ValueError(f"mlp_fused_q8: x {tuple(lead.shape)} {lead.dtype}")
     if tuple(b1.shape) != (n1,) or tuple(b2.shape) != (n2,):
         raise ValueError("mlp_fused_q8: bias shapes")
     if not all(w[p].is_contiguous() for w in (w1, w2) for p in ("qs", "d")):
         raise ValueError("mlp_fused_q8: weights must be contiguous")
-    if x.data_ptr() % 16 or w1["qs"].data_ptr() % 16 \
+    if lead.data_ptr() % 16 or w1["qs"].data_ptr() % 16 \
             or w2["qs"].data_ptr() % 16:
         raise ValueError("mlp_fused_q8: misaligned input")
     b1, b2 = _bias_pair(b1, b2)
-    h = torch.empty((B, n1), dtype=torch.float32, device=x.device)
-    y = torch.empty((B, n2), dtype=torch.float32, device=x.device)
+    bias_bf16 = int(b1.dtype == torch.bfloat16)
+    h = torch.empty((B, n1), dtype=torch.float32, device=lead.device)
+    y = torch.empty((B, n2), dtype=torch.float32, device=lead.device)
+    if B >= MMA_MIN_ROWS:
+        name = "mlp_fused_q8_mma"
+        xd = None
+        if q8:
+            xd = x["d"]
+            if x.gtype != GType.Q8_0 or xd.dtype != torch.float16 \
+                    or tuple(xd.shape) != (B, k1 // 32) \
+                    or not xd.is_contiguous() or xd.device != lead.device:
+                raise ValueError(f"{name}: Q8 scales {tuple(xd.shape)} "
+                                 f"{xd.dtype} of {x.gtype.name} do not fit")
+        fn = _build.entry(name)
+        sms = device_sms(lead.device)
+        acts = (None, lead.data_ptr(), xd.data_ptr()) if q8 \
+            else (lead.data_ptr(), None, None)
+        with torch.cuda.device(lead.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(*acts, w1["qs"].data_ptr(), w1["d"].data_ptr(),
+                    b1.data_ptr(), w2["qs"].data_ptr(), w2["d"].data_ptr(),
+                    b2.data_ptr(), h.data_ptr(), y.data_ptr(), B, k1, n1, n2,
+                    bias_bf16, q8_mma_splits(n1, k1, sms),
+                    q8_mma_splits(n2, n1, sms), 0 if q8 else rx, stream)
+        _build.check(name, rc)
+        return y
+    if q8:
+        raise ValueError("mlp_fused_q8: Q8_0 activations take "
+                         f"{MMA_MIN_ROWS} or more rows")
     fn = _build.entry("mlp_fused_q8")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), w1["qs"].data_ptr(), w1["d"].data_ptr(),
                 b1.data_ptr(), w2["qs"].data_ptr(), w2["d"].data_ptr(),
                 b2.data_ptr(), h.data_ptr(), y.data_ptr(), B, k1, n1, n2,
-                int(b1.dtype == torch.bfloat16), stream)
+                bias_bf16, rx, stream)
     _build.check("mlp_fused_q8", rc)
     return y
 
 
 def flash_ff_q8(w1: QTensor, b1, w2: QTensor, b2, x,
-                quantize_acts: bool = True):
-    """Apply the fused MLP to x [..., k1] -> f32 [..., n2]."""
+                quantize_acts: bool = True, mode: str | None = None):
+    """Apply the fused MLP to x [..., k1] -> f32 [..., n2]; mode: the
+    mm_dot function of f32 x (None: the configured one). With
+    quantize_acts, one row is handed its dequantized Q8_0 round trip, more
+    rows the Q8_0 values and scales themselves."""
+    mode = mm_dot_mode() if mode is None else mode
     if not use_kernel(x):
-        return _ff_ref(w1, b1, w2, b2, x, quantize_acts)
+        return _ff_ref(w1, b1, w2, b2, x, quantize_acts, mode)
     k1 = w1.shape[1]
     lead = x.shape[:-1]
     x2 = x.to(torch.float32).reshape(-1, k1)
     if quantize_acts:
-        x2 = dequantize(quantize_activations(x2, GType.Q8_0))
-    y = mlp_fused_q8(x2.contiguous(), w1, b1, w2, b2)
+        aq = quantize_activations(x2, GType.Q8_0)
+        if x2.shape[0] >= MMA_MIN_ROWS:
+            y = mlp_fused_q8(aq, w1, b1, w2, b2)
+        else:  # the round trip's values are exact: no mode rounds them
+            y = mlp_fused_q8(dequantize(aq).contiguous(), w1, b1, w2, b2)
+    else:
+        y = mlp_fused_q8(x2.contiguous(), w1, b1, w2, b2, mode)
     return y.reshape(*lead, w2.shape[0])
 
 

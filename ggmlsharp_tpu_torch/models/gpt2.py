@@ -31,6 +31,7 @@ import torch
 from ..config import quantize_activations
 from ..device import resolve_device
 from ..dtypes import GType
+from ..kernels.config import mm_dot_mode
 from ..kernels.gpt2_layer import _layer_ref, block_fusable, gpt2_layer_step
 from ..kernels.mlp_fused import _ff_ref, flash_ff_q8, mlp_fuse_supported
 from ..ops import gelu, get_rows, mul_mat_f, norm
@@ -101,16 +102,18 @@ def init_params(cfg: GPT2Config, generator: torch.Generator | None = None,
     }
 
 
-def quantize_params(params, gtype: GType, min_cols: int = 256):
+def quantize_params(params, gtype: GType, min_cols: int = 256,
+                    search: bool = False):
     """Weight-only quantization of every matmul weight, the embedding
     included: 2-D leaves whose rows are whole 256-element groups and at
-    least ``min_cols`` wide. Biases, layer norms and ``wpe`` stay float."""
+    least ``min_cols`` wide. Biases, layer norms and ``wpe`` stay float.
+    ``search`` goes to ``quantize`` (the k-quants' scale search)."""
 
     def q(t):
         if isinstance(t, QTensor) or t.dim() != 2 or t.shape[-1] % 256 \
                 or t.shape[-1] < min_cols:
             return t
-        return quantize(t.to(torch.float32), gtype)
+        return quantize(t.to(torch.float32), gtype, search=search)
 
     def q_pair(d, wa, wb):
         return {k: (q(v) if k in (wa, wb) else v) for k, v in d.items()}
@@ -267,7 +270,8 @@ def _mlp(blk, h, out_dtype, plain):
     if mlp_fuse_supported(m["c_fc_w"], m["c_proj_w"], rows):
         ff = _ff_ref if plain else flash_ff_q8
         return ff(m["c_fc_w"], m["c_fc_b"], m["c_proj_w"], m["c_proj_b"], h,
-                  quantize_acts=quantize_activations()).to(out_dtype)
+                  quantize_acts=quantize_activations(),
+                  mode=mm_dot_mode()).to(out_dtype)
     h = gelu(linear(m["c_fc_w"], h, m["c_fc_b"], plain=plain))
     return linear(m["c_proj_w"], h, m["c_proj_b"], plain=plain)
 

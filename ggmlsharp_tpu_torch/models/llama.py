@@ -337,6 +337,7 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
         own fresh, unquantized K/V.
     Returns [B, S, Hq * D] in q's dtype."""
     from ..kernels.attn_decode import _decode_ref, flash_decode_flat
+    from ..kernels.config import mm_dot_mode
     from .common import _einsum_attention, _ring_unported, flash
 
     B, Hq, S, hd = q.shape
@@ -353,7 +354,7 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
         decode = _decode_ref if plain else flash_decode_flat
         out = decode(merge_heads(q)[:, 0].reshape(B, Hq, hd), kn[:, 0],
                      vn[:, 0], cache.k[i][:, :t], cache.v[i][:, :t],
-                     positions[:, 0], Hkv, hd, **scales)
+                     positions[:, 0], Hkv, hd, mode=mm_dot_mode(), **scales)
         return out.reshape(B, 1, Hq * hd).to(q.dtype)
     if cached_prefix if cached_prefix is not None else S <= 8:
         # a multi-token step over a possibly non-empty prefix: the rows of

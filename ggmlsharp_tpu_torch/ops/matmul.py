@@ -35,12 +35,27 @@ def quantize_activations(b, weight_gtype: GType) -> QTensor:
     return quantize(b, TYPE_TRAITS[GType(weight_gtype)].vec_dot_type)
 
 
-def mul_mat_q(a: QTensor, b, quantize_acts: bool = True):
+def round_bf16(x):
+    """x rounded to bf16 (to nearest even), back in f32: the activation
+    operand of mm_dot "bf16" (kernels.config)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mul_mat_q(a: QTensor, b, quantize_acts: bool = True, mode: str = "f32"):
     """Quantized mul_mat, plain version: dequantize, then an f32 matmul.
-    a: QTensor [n_out, k]; b: float activations [..., k] -> f32 [..., n_out]."""
+    a: QTensor [n_out, k]; b: float activations [..., k] -> f32 [..., n_out].
+    mode: the ``mm_dot`` function; "bf16" rounds float activations to bf16
+    first (the Q8 round trip's values are exact either way and are not
+    rounded). The matmul dispatch (``kernels.matmul_q.mul_mat_q_fused``)
+    passes the configured mode; callers inside other kernels' plain
+    versions keep "f32"."""
+    if mode not in ("f32", "bf16"):
+        raise ValueError(f"mul_mat_q: mm_dot mode {mode!r}")
     w = dequantize(a, fused_scales=True)
     if quantize_acts:
         b = dequantize(quantize_activations(b, a.gtype))
+    elif mode == "bf16":
+        b = round_bf16(b.to(torch.float32))
     return torch.matmul(b.to(torch.float32), w.transpose(-1, -2))
 
 

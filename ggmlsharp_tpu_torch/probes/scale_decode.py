@@ -128,7 +128,9 @@ def check_block_maps(dev, k: int = MAP_K):
 
 def bad_entry_map(dev, plain: bool = False):
     """diag_chunked10.py's part 2 through matmul_q4_0 (or its plain version):
-    the bad entries of x @ wᵀ at N 256, K 1024, B 8."""
+    the bad entries of x @ wᵀ at N 256, K 1024, B 8, in mm_dot "f32" (the
+    entries the TPU diagnosis hunted were the bf16 rounding of its default
+    mode; the exact function must have none)."""
     rng = np.random.default_rng(7)
     n, k, b = 256, 1024, 8
     w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)
@@ -137,7 +139,8 @@ def bad_entry_map(dev, plain: bool = False):
                          ).to(dev)
     qw = quantize(w, GType.Q4_0)
     want = x @ dequantize(qw).T
-    got = mul_mat_q_fused(qw, x, quantize_acts=False, plain=plain)
+    got = mul_mat_q_fused(qw, x, quantize_acts=False, plain=plain,
+                          mode="f32")
     err = (got - want).abs() / (want.abs() + 2e-1)
     bad = err > 0.1
     cols = torch.nonzero(bad.any(dim=0)).flatten().tolist()

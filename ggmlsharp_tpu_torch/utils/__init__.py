@@ -1,7 +1,10 @@
 """Observability tooling (port of ggmlsharp_tpu/utils: graph_print,
-graph_dump_dot, print_objects)."""
+graph_dump_dot, print_objects, and the checks checked, check and
+assert_all_finite)."""
 
-from .debug import graph_print, print_objects
+from .debug import (CheckError, assert_all_finite, check, checked,
+                    graph_print, print_objects)
 from .graphviz import graph_dump_dot
 
-__all__ = ["graph_dump_dot", "graph_print", "print_objects"]
+__all__ = ["CheckError", "assert_all_finite", "check", "checked",
+           "graph_dump_dot", "graph_print", "print_objects"]

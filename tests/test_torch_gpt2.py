@@ -53,6 +53,7 @@ from ggmlsharp_tpu.quant.formats import swar_unpack_values_q8, to_swar
 from ggmlsharp_tpu.quant.quantize import dequantize as jdequantize
 from ggmlsharp_tpu.quant.quantize import quantize as jquantize
 from ggmlsharp_tpu_torch import GType, ops
+from ggmlsharp_tpu_torch.kernels import config as kcfg
 from ggmlsharp_tpu_torch.kernels.gpt2_layer import (
     gpt2_layer_fuse_supported, gpt2_layer_step,
 )
@@ -63,6 +64,16 @@ from ggmlsharp_tpu_torch.models import gpt2, sampling
 from ggmlsharp_tpu_torch.ops.basic import gelu, norm
 from ggmlsharp_tpu_torch.quant.formats import QTensor, from_wire, to_wire
 from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+
+@pytest.fixture(autouse=True)
+def _port_mm_dot_f32(monkeypatch):
+    """The port in mm_dot "f32", the function these tests hold against the
+    JAX package: its matmuls multiply f32 operands exactly on the CPU in
+    either of its modes (DEFAULT precision is f32 there). The port's "bf16"
+    function is held against JAX in test_torch_mm_dot.py."""
+    monkeypatch.setattr(kcfg, "_mm_dot", "f32")
+
 
 CFG = dict(n_vocab=500, n_ctx=128, n_embd=256, n_head=4, n_layer=2)
 E, H, F, T = 256, 4, 1024, 64

@@ -175,7 +175,7 @@ def test_fused_llama_wrappers_never_fall_back(monkeypatch, name):
 
 def _matmul_calls():
     from ggmlsharp_tpu_torch import GType
-    from ggmlsharp_tpu_torch.kernels import matmul_q
+    from ggmlsharp_tpu_torch.kernels import matmul_q, mlp_fused
     from ggmlsharp_tpu_torch.ops import matmul as ops_matmul
     from ggmlsharp_tpu_torch.quant import quantize
 
@@ -184,6 +184,9 @@ def _matmul_calls():
     x = torch.randn((2, 512), generator=gen).as_subclass(_OnCard)
     qk, q5 = quantize(w, GType.Q4_K), quantize(w, GType.Q5_1)
     q40 = quantize(w, GType.Q4_0)
+    w1, w2 = quantize(w, GType.Q8_0), quantize(w.T.contiguous(), GType.Q8_0)
+    b1, b2 = torch.zeros(256), torch.zeros(512)
+    gelu_mlp = lambda xs: mlp_fused.flash_ff_q8(w1, b1, w2, b2, xs)
     fused = matmul_q.mul_mat_q_fused
     return {
         "matmul_q": (ops_matmul, "mul_mat_q", lambda: fused(qk, x[:1])),
@@ -193,16 +196,20 @@ def _matmul_calls():
         "matmul_q4_0_mma": (ops_matmul, "mul_mat_q", lambda: fused(q40, x)),
         "matmul_int_dot": (matmul_q, "_int_dot_ref",
                            lambda: matmul_q.mul_mat_q_fused(q5, x[:1])),
+        "mlp_fused_q8": (mlp_fused, "_ff_ref", lambda: gelu_mlp(x[:1])),
+        "mlp_fused_q8_mma": (mlp_fused, "_ff_ref", lambda: gelu_mlp(x)),
     }
 
 
 @pytest.mark.parametrize("name", ["matmul_q", "matmul_int_dot",
                                   "matmul_q_mma", "matmul_q4_0",
-                                  "matmul_q4_0_mma"])
+                                  "matmul_q4_0_mma", "mlp_fused_q8",
+                                  "mlp_fused_q8_mma"])
 def test_matmul_wrappers_never_fall_back(monkeypatch, name):
-    """Kernel A (Q4_K here) and the Q4_0 kernel, each instance (one row: the
-    b = 1 instance; two: the multi-row one, counted as ``<kernel>_mma``),
-    and kernel B (Q5_1, GGML_TPU_INT_DOT=1) on a tensor on the card with no
+    """Kernel A (Q4_K here), the Q4_0 kernel and the fused GELU MLP (Q8_0),
+    each instance (one row: the b = 1 instance; two: the multi-row one,
+    counted as ``<kernel>_mma``), and kernel B (Q5_1, GGML_TPU_INT_DOT=1)
+    on a tensor on the card with no
     way to build the kernel: the wrapper raises, reaches no plain version
     and counts no launch. Every instance has its counter; the sources are
     registered and free of PyTorch's headers."""
@@ -429,3 +436,42 @@ def test_probe_wrappers_never_fall_back(monkeypatch, name):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         call()
     assert _build.LAUNCHES == before
+
+
+def _c_params(src: str, sym: str) -> list[str]:
+    """The parameter list of ``extern "C" int sym(...)`` in csrc/src."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    with open(os.path.join(_build.CSRC, src)) as f:
+        text = f.read()
+    head = f'extern "C" int {sym}('
+    start = text.index(head) + len(head)
+    return [p.strip() for p in text[start:text.index(")", start)].split(",")]
+
+
+@pytest.mark.parametrize("name", sorted(
+    __import__("ggmlsharp_tpu_torch.kernels._build",
+               fromlist=["KERNELS"]).KERNELS))
+def test_entry_argtypes_match_the_c_signatures(name):
+    """Each C entry's ctypes argtypes list one type a parameter, in the
+    source's order: pointers (and the stream) as c_void_p, 64-bit integers
+    as c_longlong, floats as c_float, ints as c_int. A missing entry would
+    let ctypes pass the stream as a 32-bit int."""
+    import ctypes
+
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    src, sym, argtypes = _build.KERNELS[name]
+    params = _c_params(src, sym)
+    assert len(params) == len(argtypes), (params, argtypes)
+
+    def kind(p):
+        if "*" in p or p.startswith("cudaStream_t"):
+            return ctypes.c_void_p
+        if p.startswith("long long"):
+            return ctypes.c_longlong
+        if p.startswith("float"):
+            return ctypes.c_float
+        return ctypes.c_int
+
+    assert [kind(p) for p in params] == list(argtypes), params

@@ -38,8 +38,19 @@ from ggmlsharp_tpu.models import llama as jllama
 from ggmlsharp_tpu.quant.formats import QTensor as JQTensor
 from ggmlsharp_tpu.quant.formats import from_storage_order, unpack_nibbles
 from ggmlsharp_tpu_torch import GType, quantize
+from ggmlsharp_tpu_torch.kernels import config as kcfg
 from ggmlsharp_tpu_torch.models import llama, sampling
 from ggmlsharp_tpu_torch.quant.formats import QTensor, to_wire
+
+
+@pytest.fixture(autouse=True)
+def _port_mm_dot_f32(monkeypatch):
+    """The port in mm_dot "f32", the function these tests hold against the
+    JAX package: its matmuls multiply f32 operands exactly on the CPU in
+    either of its modes (DEFAULT precision is f32 there). The port's "bf16"
+    function is held against JAX in test_torch_mm_dot.py."""
+    monkeypatch.setattr(kcfg, "_mm_dot", "f32")
+
 
 CFG = dict(n_vocab=256, n_ctx=128, n_embd=256, n_head=4, n_head_kv=2,
            n_layer=2, n_ff=512)

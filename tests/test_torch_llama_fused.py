@@ -46,11 +46,21 @@ from ggmlsharp_tpu.quant.formats import swar_unpack_values, unpack_f16_pairs
 from ggmlsharp_tpu.quant.quantize import quantize as jquantize
 from ggmlsharp_tpu_torch import GType
 from ggmlsharp_tpu_torch.kernels import attn_decode as ad
+from ggmlsharp_tpu_torch.kernels import config as kcfg
 from ggmlsharp_tpu_torch.kernels import llama_layer as ll
 from ggmlsharp_tpu_torch.kernels import mlp_fused as mf
 from ggmlsharp_tpu_torch.models import llama, sampling
 from ggmlsharp_tpu_torch.models.common import params_from_jax
 from ggmlsharp_tpu_torch.quant.formats import QTensor, from_wire
+
+
+@pytest.fixture(autouse=True)
+def _port_mm_dot_f32(monkeypatch):
+    """The port in mm_dot "f32", the function these tests hold against the
+    JAX package: its matmuls multiply f32 operands exactly on the CPU in
+    either of its modes (DEFAULT precision is f32 there). The port's "bf16"
+    function is held against JAX in test_torch_mm_dot.py."""
+    monkeypatch.setattr(kcfg, "_mm_dot", "f32")
 
 
 @pytest.fixture(autouse=True)

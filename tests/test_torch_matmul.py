@@ -13,9 +13,19 @@ from ggmlsharp_tpu import quantize as jquantize
 from ggmlsharp_tpu.io.gguf import qtensor_to_wire
 from ggmlsharp_tpu.ops.matmul import mul_mat_q as jmul_mat_q
 from ggmlsharp_tpu_torch import GType
+from ggmlsharp_tpu_torch.kernels import config as kcfg
 from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused
 from ggmlsharp_tpu_torch.ops import mul_mat, mul_mat_f, mul_mat_q
 from ggmlsharp_tpu_torch.quant.formats import from_wire
+
+
+@pytest.fixture(autouse=True)
+def _port_mm_dot_f32(monkeypatch):
+    """The port in mm_dot "f32", the function these tests hold against the
+    JAX package: its matmuls multiply f32 operands exactly on the CPU in
+    either of its modes (DEFAULT precision is f32 there). The port's "bf16"
+    function is held against JAX in test_torch_mm_dot.py."""
+    monkeypatch.setattr(kcfg, "_mm_dot", "f32")
 
 
 def _pair(n, k, seed):

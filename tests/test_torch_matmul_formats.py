@@ -40,6 +40,7 @@ from ggmlsharp_tpu.quant.formats import (
 )
 from ggmlsharp_tpu_torch import GType, config, quantize
 from ggmlsharp_tpu_torch.kernels import matmul_q as mq
+from ggmlsharp_tpu_torch.kernels.config import mm_dot_mode
 from ggmlsharp_tpu_torch.ops import mul_mat, mul_mat_q
 from ggmlsharp_tpu_torch.quant.formats import from_wire
 
@@ -206,7 +207,8 @@ def test_int_dot_switch(monkeypatch):
                        mq.int_dot_matmul(q4, x[:1], plain=True))
     assert torch.equal(mul_mat(q4, x), mul_mat_q(q4, x))
     assert torch.equal(mul_mat(q4, x[:1], quantize_acts=False),
-                       mul_mat_q(q4, x[:1], quantize_acts=False))
+                       mul_mat_q(q4, x[:1], quantize_acts=False,
+                                 mode=mm_dot_mode()))
     assert torch.equal(mul_mat(qk, x[:1]), mul_mat_q(qk, x[:1]))
     monkeypatch.delenv("GGML_TPU_INT_DOT")
     assert torch.equal(mul_mat(q4, x[:1]), mul_mat_q(q4, x[:1]))

@@ -88,13 +88,14 @@ def test_route_by_rows(fake_entries, fmt, rows):
         else (None, None)
     assert _build.GEOMETRY_LAUNCHES == {(name, n, k, *geom, rows): 1}
     if mma:
-        # ..., y, scratch, B, N, K, splits, stream
-        scratch, (b_, n_, k_, splits) = args[-6], args[-5:-1]
+        # ..., y, scratch, B, N, K, splits, rx, stream
+        scratch, (b_, n_, k_, splits) = args[-7], args[-6:-2]
         assert (b_, n_, k_) == (rows, n, k)
         assert splits == mq.mma_splits(n, k, mq.H100_SMS) == 2
         assert scratch is not None
     else:
-        assert args[-3:-1] == geom  # warps, rows a warp
+        assert args[-4:-2] == geom  # warps, rows a warp
+    assert args[-2] == 0  # rx: the wrappers' default mm_dot "f32"
 
 
 @pytest.mark.parametrize("fmt", ["Q4_0", "Q4_K"])
@@ -112,7 +113,7 @@ def test_multi_row_ignores_a_compiled_geometry(fake_entries, fmt):
     for g in (None, *tune.GEOMETRIES):
         call(g)
     names = {name for name, _ in fake_entries}
-    args = {args[-5:-1] for _, args in fake_entries}  # B, N, K, splits
+    args = {args[-6:-2] for _, args in fake_entries}  # B, N, K, splits
     assert len(names) == 1 and names.pop().endswith("_mma")
     assert args == {(5, n, k, mq.mma_splits(n, k, mq.H100_SMS))}
     with pytest.raises(ValueError):
@@ -230,15 +231,15 @@ def test_q8_0_route_by_rows(fake_entries, rows):
                                                 GType.Q8_0, rows)
     assert _build.GEOMETRY_LAUNCHES == {(name, n, k, *geom, rows): 1}
     if not mma:
-        assert args[-3:-1] == geom
+        assert args[-4:-2] == geom and args[-2] == 0  # warps, rpw, rx
         return
-    # x, xq, xd, kind, qs, d, y, scratch, B, N, K, rows, splits, stream
+    # x, xq, xd, kind, qs, d, y, scratch, B, N, K, rows, splits, rx, stream
     assert args[0] == x.data_ptr() and args[1] is None and args[2] is None
     assert args[4:6] == (w["qs"].data_ptr(), w["d"].data_ptr())
     assert args[7] is None
     assert args[8:13] == (rows, n, k, mq.MMA_ROWS_Q8,
                           mq.q8_mma_splits(n, k, mq.H100_SMS))
-    assert args[12] == 3
+    assert args[12] == 3 and args[13] == 0
 
 
 @pytest.mark.parametrize("n,k", [(256, 256), (768, 768)])
@@ -432,3 +433,97 @@ def test_mlp_scratch_bytes():
     assert mf._mlp_scratch_bytes(2, 256, 512, 3, 1, 3) == \
         3072 + 128 + 3 * 8192 + 6144 + 256
     assert mf._mlp_scratch_bytes(3, 384, 640, 2, 3) % 16 == 0
+
+
+# --- the fused GELU MLP (kernel 8): one row on the b = 1 instance, more on
+# the multi-row one (W1 on the int8 route or f32 planes, gelu(sum + b1) in
+# its epilogue; W2 over h, + b2 in its epilogue) ------------------------------
+
+def _gelu_pair(E, seed, bias_dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    w1 = quantize(torch.randn((4 * E, E), generator=gen) * 0.1, GType.Q8_0)
+    w2 = quantize(torch.randn((E, 4 * E), generator=gen) * 0.1, GType.Q8_0)
+    b1 = (torch.randn(4 * E, generator=gen) * 0.1).to(bias_dtype)
+    b2 = (torch.randn(E, generator=gen) * 0.1).to(bias_dtype)
+    return w1, b1, w2, b2, gen
+
+
+@pytest.mark.parametrize("E", [256, 384])
+@pytest.mark.parametrize("quantize_acts", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 2, 5, 16, 64])
+def test_gelu_mlp_route_by_rows(fake_entries, monkeypatch, E, quantize_acts,
+                                mode, rows):
+    """One row: the b = 1 entry with f32 x (the dequantized round trip
+    under quantize_acts). More: the multi-row entry with f32 x, or the Q8_0
+    values and f16 scales themselves, and q8_mma_splits' splits for each
+    product (N, K, SMs alone); each instance its own counter. rx, the
+    rounding of f32 x, is set by mm_dot "bf16" and never for the round
+    trip's values."""
+    from ggmlsharp_tpu_torch.kernels import config as kcfg
+
+    monkeypatch.setattr(kcfg, "_mm_dot", mode)
+    w1, b1, w2, b2, gen = _gelu_pair(E, rows)
+    x = torch.randn((rows, E), generator=gen)
+    y = mf.flash_ff_q8(w1, b1, w2, b2, x.as_subclass(_OnCard),
+                       quantize_acts=quantize_acts)
+    assert tuple(y.shape) == (rows, E)
+    (name, args), = fake_entries
+    mma = rows >= mq.MMA_MIN_ROWS
+    assert name == ("mlp_fused_q8_mma" if mma else "mlp_fused_q8")
+    assert _build.LAUNCHES[name] == 1 and sum(_build.LAUNCHES.values()) == 1
+    rx = int(mode == "bf16" and not quantize_acts)
+    weights = (w1["qs"].data_ptr(), w1["d"].data_ptr(), b1.data_ptr(),
+               w2["qs"].data_ptr(), w2["d"].data_ptr(), b2.data_ptr())
+    if not mma:
+        # x, qs1, d1, b1, qs2, d2, b2, h, y, B, K1, N1, N2, bias_bf16, rx,
+        # stream
+        assert args[1:7] == weights
+        assert args[9:16] == (1, E, 4 * E, E, 0, rx, 0)
+        return
+    # x, xq, xd, qs1, d1, b1, qs2, d2, b2, h, y, B, K1, N1, N2, bias_bf16,
+    # splits1, splits2, rx, stream
+    assert args[3:9] == weights and args[9] is not None
+    assert args[11:16] == (rows, E, 4 * E, E, 0)
+    assert args[16:19] == (mq.q8_mma_splits(4 * E, E, mq.H100_SMS),
+                           mq.q8_mma_splits(E, 4 * E, mq.H100_SMS), rx)
+    assert (args[0] is None) == quantize_acts
+    assert (args[1] is None) == (args[2] is None) == (not quantize_acts)
+
+
+@pytest.mark.parametrize("rows", [2, 16, 64])
+def test_gelu_mlp_hands_the_q8_values(fake_entries, monkeypatch, rows):
+    """Under quantize_acts the multi-row entry gets the int8 values and f16
+    block scales of quantize_activations(x, Q8_0), which reproduce the
+    rounded activations exactly, not a dequantized f32 copy; bf16 biases
+    go as they are (bias_bf16 1)."""
+    seen = []
+    real = mf.mlp_fused_q8
+    monkeypatch.setattr(mf, "mlp_fused_q8",
+                        lambda *a, **k: seen.append(a) or real(*a, **k))
+    w1, b1, w2, b2, gen = _gelu_pair(256, rows, torch.bfloat16)
+    x = torch.randn((rows, 256), generator=gen)
+    mf.flash_ff_q8(w1, b1, w2, b2, x.as_subclass(_OnCard))
+    (aq, *_), = seen
+    (_, args), = fake_entries
+    assert aq.gtype == GType.Q8_0 and aq["d"].dtype == torch.float16
+    assert args[:3] == (None, aq["qs"].data_ptr(), aq["d"].data_ptr())
+    assert args[5] == b1.data_ptr() and args[15] == 1
+    assert torch.equal(dequantize(aq),
+                       dequantize(quantize_activations(x, GType.Q8_0)))
+
+
+@pytest.mark.parametrize("quantize_acts", [False, True])
+def test_gelu_mlp_refuses_65_rows_and_one_row_of_q8_values(fake_entries,
+                                                           quantize_acts):
+    """The 64-row gate holds for both instances; the b = 1 instance takes
+    f32 x only."""
+    w1, b1, w2, b2, gen = _gelu_pair(256, 65)
+    x = torch.randn((65, 256), generator=gen).as_subclass(_OnCard)
+    with pytest.raises(ValueError):
+        mf.flash_ff_q8(w1, b1, w2, b2, x, quantize_acts=quantize_acts)
+    aq = quantize_activations(x[:1].as_subclass(torch.Tensor), GType.Q8_0)
+    aq.planes["qs"] = aq["qs"].as_subclass(_OnCard)
+    with pytest.raises(ValueError):
+        mf.mlp_fused_q8(aq, w1, b1, w2, b2)
+    assert not fake_entries

@@ -34,10 +34,21 @@ from ggmlsharp_tpu.models import llama as jllama
 from ggmlsharp_tpu.models import sampling as jsampling
 from ggmlsharp_tpu.serving import Engine as JEngine
 from ggmlsharp_tpu.serving import Request as JRequest
+from ggmlsharp_tpu_torch.kernels import config as kcfg
 from ggmlsharp_tpu_torch.models import kv_cache as kvc
 from ggmlsharp_tpu_torch.models import llama, sampling
 from ggmlsharp_tpu_torch.serving import Engine, EngineServer, Request
 from test_torch_llama import CFG, to_port_tree
+
+
+@pytest.fixture(autouse=True)
+def _port_mm_dot_f32(monkeypatch):
+    """The port in mm_dot "f32", the function these tests hold against the
+    JAX package: its matmuls multiply f32 operands exactly on the CPU in
+    either of its modes (DEFAULT precision is f32 there). The port's "bf16"
+    function is held against JAX in test_torch_mm_dot.py."""
+    monkeypatch.setattr(kcfg, "_mm_dot", "f32")
+
 
 PROMPTS = [[5, 17, 99], [7, 1, 2, 3, 4, 5, 6, 8, 9, 10, 11], [11],
            [3, 3, 3, 3]]  # uneven, one longer than 8

@@ -494,13 +494,23 @@ def decode_flip_allowance(q, kn, kc, vc, sc, np_t, Hkv, D):
     return (2.0 ** -6 * p.amax(-1) * vmax[..., None]).reshape(B, Hq, 1)
 
 
+# kernel 3's "bf16" error over its control (check_attn_decode) must stay
+# under this: a kernel that computed the "f32" function in "bf16" reads 1;
+# sound runs read 1e-4 to 0.107 on an H100, the largest where a rounded
+# softmax weight on a boundary flips (PERF.md §6, PR 11)
+MODE_SEP = 0.5
+
+
 def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
     """Kernel vs its plain versions in each mm_dot mode. "f32": the dense
     _decode_ref and the split algorithm _decode_ref_split at the kernel's
     splits, rtol 2e-4 / atol 2e-5 (all f32; online vs dense softmax and
     summation order). "bf16": the dense _decode_ref of that mode, at the
     same bar plus decode_flip_allowance (a rounded softmax weight on a
-    rounding boundary)."""
+    rounding boundary). That allowance is ~20x the gap between the two
+    functions, so "bf16" is also held against a control, the kernel's
+    "f32" output against the "bf16" plain version: its largest error must
+    stay under MODE_SEP times the control's."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.attn_decode import (_decode_ref,
@@ -517,6 +527,7 @@ def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
         args = (q, kn, vn, kc, vc, np_t, Hkv, D)
         flips = decode_flip_allowance(q, kn, kc, vc, sc, np_t, Hkv, D)
         row = {"case": label, "splits": splits, "ok": True}
+        outs = {}
         for mode, name, want, extra in (
                 ("f32", "dense", _decode_ref(*args, **sc), 0.0),
                 ("f32", "split", _decode_ref_split(*args, **sc,
@@ -530,6 +541,13 @@ def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
                 (err <= 2e-5 + 2e-4 * want.abs() + extra).all())
             row[f"max_abs_err_{name}"] = float(err.max())
             worst = max(worst, float(err.max()))
+            outs[name] = got, want
+        want_bf16 = outs["dense_bf16"][1]
+        control = float((outs["dense"][0] - want_bf16).abs().max())
+        row["control_f32_vs_plain_bf16"] = control
+        row["bf16_over_control"] = (row["max_abs_err_dense_bf16"]
+                                    / max(control, 1e-30))
+        row["ok"] &= row["bf16_over_control"] <= MODE_SEP
         rows.append(row)
         if not row["ok"]:
             emit({tag: rows})

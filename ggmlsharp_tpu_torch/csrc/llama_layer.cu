@@ -29,7 +29,7 @@
 //    matrices (qkv, wo, gate with up, down): rows [N c / G, N (c + 1) / G)
 //    of CTA c of G, a gate row with its up row.
 //  * A producer warp walks the CTA's rows of all five in phase order, R
-//    whole rows a tile (R <= 8, the most whose qs fit LAYER_TILE_BYTES; a
+//    whole rows a tile (R <= 8, the most whose qs fit TILE = 32 KB; a
 //    gate/up tile holds R gate and R up rows), and copies each tile into a
 //    ring of stages in shared memory: its qs rows are one contiguous
 //    range, and so are its scales, each one bulk copy (TMA,
@@ -39,16 +39,15 @@
 //    never waits for an activation, so while the consumers sit at a
 //    barrier or in attention the ring fills with the next matrix's first
 //    tiles.
-//  * LAYER_CWARPS consumer warps take each tile as it lands: warp w takes
-//    row w % R of it and every (CWARPS / R)-th 512-element step of its K
+//  * CW = 16 consumer warps take each tile as it lands: warp w takes
+//    row w % R of it and every (CW / R)-th 512-element step of its K
 //    (q4_dot.cuh's inner loop, f32 FMAs, the weights and the activation
 //    vector both in shared memory), leaves its partial sum in shared
 //    memory and releases the stage. After a matrix's last tile they add
 //    each row's partials in a fixed order and write the row's result.
 //    These FMAs, with the serial steps between the products, set the
 //    time: without them the ring streams near the card's copy ceiling
-//    (PERF.md §6, where more consumer warps, other tile sizes and a
-//    tensor-core consumer of the same ring are measured too).
+//    (PERF.md §6).
 //  * Between the phases: qkv rows -> per-KV-head arrival counters (a
 //    head's attention waits only for its own q, k and v rows:
 //    red.release / ld.acquire at gpu scope), then a grid barrier before
@@ -67,19 +66,17 @@
 // generation word, then a counter a KV head) is left as the launch found
 // it: the counter 0, the head counters 0 (reset after the last wait).
 //
-// Tunables (-D overrides them; the probes time the alternatives):
-// LAYER_CHUNKS attention items a head; LAYER_CWARPS consumer warps;
-// LAYER_TILE_BYTES the most qs bytes of a tile;
+// The consumer warps (16) and the tile (32 KB of qs) are fixed at the best
+// of the alternatives measured on an H100 at 7B widths (PERF.md §6, kernel
+// 10: 102.7 us at npast 32, 196.9 at 2047): 8 warps took 115.2 us at npast
+// 32; 24 warps 109.6 there and 175.1 at 2047 (attention gets the extra
+// warps; decode runs at short npast); 16 KB tiles +7 us.
+//
+// Tunables (-D overrides them): LAYER_CHUNKS attention items a head;
 // LAYER_NO_MATVEC 1 streams no weight and skips every product, leaving the
-// barriers, norms, rope, attention and the merge.
+// barriers, norms, rope, attention and the merge (chip_smoke.py times it).
 #ifndef LAYER_CHUNKS
 #define LAYER_CHUNKS 8
-#endif
-#ifndef LAYER_CWARPS
-#define LAYER_CWARPS 16
-#endif
-#ifndef LAYER_TILE_BYTES
-#define LAYER_TILE_BYTES 32768
 #endif
 #ifndef LAYER_NO_MATVEC
 #define LAYER_NO_MATVEC 0
@@ -89,13 +86,13 @@
 
 namespace {
 
-constexpr int CW = LAYER_CWARPS;   // consumer warps
+constexpr int CW = 16;             // consumer warps
 constexpr int NC = CW * 32;        // consumer threads (the producer warp is the last)
 constexpr int THREADS = NC + 32;
 constexpr int CHUNKS = LAYER_CHUNKS;
 static_assert(CHUNKS <= 8, "the wrapper sizes the partials' scratch for 8 chunks a head");
 static_assert(CW % 8 == 0, "a tile's rows (up to 8) divide the consumer warps");
-constexpr int TILE = LAYER_TILE_BYTES;
+constexpr int TILE = 32768;  // the most qs bytes of a tile
 constexpr int MAX_D = 128;  // head width: a multiple of 32 up to this
 constexpr int MAX_STAGES = 12;
 constexpr float NEG = -1e30f;
@@ -217,7 +214,7 @@ struct Mat {
   int N, K, pair, R, P, lo, hi, second;  // second: the row offset of a pair's second row
 };
 
-// the most rows a tile (8, 4, 2 or 1) whose qs fit LAYER_TILE_BYTES
+// the most rows a tile (8, 4, 2 or 1) whose qs fit TILE
 __host__ __device__ inline int tile_rows(int K, int pair) {
   int R = 8;
   while (R > 1 && R * pair * (K / 2) > TILE) R >>= 1;

@@ -485,6 +485,55 @@ def test_flat_prefill_decode_and_generate_match_jax(models, quant_acts, tol):
             break
 
 
+def bf16_noise_bar(jlog, tol, n_layer):
+    """The bar of mm_dot "bf16" (the port's default) on logits ``jlog``
+    [..., V]: the f32 bar ``tol`` plus the bf16 noise bar carried through
+    the layers. Rounding a product's f32 operand to bf16 moves its output by
+    at most 2^-8·|x·w|·sqrt(K) (test_torch_mm_dot.py), about 2^-8 of the
+    output's RMS; norms and residuals pass a relative error on with gain
+    ~1, so the stages' shares add: five a layer (its four products and its
+    attention) and the LM head, each 2^-8 of a logit row's RMS. The JAX
+    package multiplies f32 operands exactly on the CPU in either mode."""
+    rms = np.sqrt(np.mean(np.square(jlog, dtype=np.float64), -1,
+                          keepdims=True))
+    return tol + (5 * n_layer + 1) * 2.0 ** -8 * rms
+
+
+@ACTS
+def test_default_mm_dot_bf16_matches_jax(models, monkeypatch, quant_acts,
+                                         tol):
+    """The port in its default mm_dot ("bf16": f32 activations rounded to
+    bf16 in the products and decode attention) over route 2's prefill and
+    route 1's decode steps, against JAX at bf16_noise_bar. The mode must
+    reach the model: weight-only, the logits move from the "f32" run's by
+    more than the f32 bar; with the Q8_0 round trip only the products of
+    f32 x (the LM head) and attention round, and the logits still move."""
+    jcfg, _, jq, _, tcfg, tq = models
+    prompt = _prompt()
+    jtoks, _ = jsampling.generate(jgpt2.forward, jcfg, jq,
+                                  jnp.asarray(prompt),
+                                  jgpt2.new_cache(jcfg, 1), N_NEW)
+    jtoks = np.asarray(jtoks)
+    jlog, _ = _jax_steps(jcfg, jq, prompt, jtoks[:, :-1])
+    f32_log, _ = _port_steps(tcfg, tq, prompt, jtoks[:, :-1])
+    monkeypatch.setattr(kcfg, "_mm_dot", None)
+    assert kcfg.mm_dot_mode() == "bf16"
+    plog, _ = _port_steps(tcfg, tq, prompt, jtoks[:, :-1])
+    bar = bf16_noise_bar(jlog, tol, CFG["n_layer"])
+    assert bool((np.abs(plog - jlog) <= bar).all()), \
+        float((np.abs(plog - jlog) / bar).max())
+    assert np.abs(plog - f32_log).max() > (0.0 if quant_acts else tol)
+    ptoks, _ = sampling.generate(gpt2.forward, tcfg, tq,
+                                 torch.from_numpy(prompt),
+                                 gpt2.new_cache(tcfg, 1, device="cpu"), N_NEW)
+    ptoks = ptoks.numpy()
+    for i in range(N_NEW):
+        row = jlog[i, 0]
+        assert row[ptoks[0, i]] >= row.max() - bar[i, 0, 0], f"token {i}"
+        if ptoks[0, i] != jtoks[0, i]:
+            break
+
+
 @ACTS
 def test_short_prefill_over_live_prefix_matches_jax(models, quant_acts, tol):
     """Route 2 with S <= 8: five tokens at positions 16..20 attend the rows

@@ -133,6 +133,30 @@ def test_slice_matches_jax(models, monkeypatch, quant_acts, tol):
     _check_tokens(jtoks, ptoks, jlogits, tol)
 
 
+@pytest.mark.parametrize("quant_acts,tol", [(False, 1e-4), (True, 2e-2)])
+def test_default_mm_dot_bf16_slice_matches_jax(models, monkeypatch,
+                                               quant_acts, tol):
+    """The port in its default mm_dot ("bf16") against JAX at the bf16
+    noise bar carried through the layers (test_torch_gpt2.bf16_noise_bar);
+    the mode must reach the model: its logits move from the "f32" run's
+    (weight-only, by more than the f32 bar)."""
+    from test_torch_gpt2 import bf16_noise_bar
+
+    jcfg, _, jq, tcfg, tq = models
+    monkeypatch.setattr(get_config(), "quantize_activations", quant_acts)
+    monkeypatch.setenv("GGML_TPU_QUANT_ACTS", "1" if quant_acts else "0")
+    jtoks, jlogits = _jax_run(jcfg, jq)
+    _, f32_logits = _port_run(tcfg, tq)
+    monkeypatch.setattr(kcfg, "_mm_dot", None)
+    assert kcfg.mm_dot_mode() == "bf16"
+    ptoks, plogits = _port_run(tcfg, tq)
+    bar = bf16_noise_bar(jlogits, tol, CFG["n_layer"])
+    assert bool((np.abs(plogits - jlogits[0]) <= bar[0]).all()), \
+        float((np.abs(plogits - jlogits[0]) / bar[0]).max())
+    assert np.abs(plogits - f32_logits).max() > (0.0 if quant_acts else tol)
+    _check_tokens(jtoks, ptoks, jlogits, float(bar.max()))
+
+
 def test_quantize_params_matches_jax(models):
     """The port's own quantize_params (padding, fusing) gives the JAX
     package's wire bytes for every quantized leaf."""

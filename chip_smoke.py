@@ -99,7 +99,9 @@ version):
 and time only kernels 2 and 3 at those shapes, or only the dequant-matmuls
 and the fused SwiGLU MLP (every 7B shape in Q4_0, Q4_K and Q6_K at b 1, 2,
 4, 8, 16, 128; the other formats at w_gate_up, b 1 and 16; Q8_0 at the
-GPT-2 shapes, b 1, 2, 3, 4, 16, 128; the MLP at 1, 2, 8, 16, 64 rows), from
+GPT-2 shapes, b 1, 2, 3, 4, 16, 128; the MLP at 1, 2, 8, 16, 64 rows; the
+whole-block kernels 10 and 11, each also without its products; the
+integer-dot kernel 7 in its five formats at the four 7B decode shapes), from
 the package under
 ROOT (default: this checkout), so that a parent checkout's kernels and
 this one's are timed by one script on one card. They import whatever
@@ -1262,23 +1264,37 @@ def gpt2_blocks(cfg, n, seed):
     return gpt2.synthetic_q8_0_params(small, seed)["blocks"]
 
 
+def gpt2_layer_check_configs():
+    """Kernel 11's check widths: 124M, 355M, 774M (every share of the four
+    weights fits a CTA's shared memory at once) and E 1536, H 12, F 6144 (it
+    does not: pieces in a ring), each passing gpt2_layer_fuse_supported."""
+    from ggmlsharp_tpu_torch.models import gpt2
+
+    return [("124M", gpt2.GPT2_124M), ("355M", gpt2.GPT2_355M),
+            ("774M", gpt2.GPT2_774M),
+            ("E1536", gpt2.GPT2Config(n_embd=1536, n_head=12))]
+
+
 def check_gpt2_layer(dev, gen):
-    """Kernel 11 vs plain _layer_ref at both widths, T in {256, 1024}, npast
-    in {0, 1, T/2, T - 1} over a bf16 cache, and one f32-cache case.
+    """Kernel 11 vs plain _layer_ref at gpt2_layer_check_configs' widths,
+    bf16 and f32 caches, T in {256, 1024}, npast in {0, 1, T/2, T - 1}.
     Tolerance (all f32, values of magnitude ~4): y through five chained
     products and an online softmax 5e-5 + 5e-5 |want|; k_new, v_new (one
     product after the layer norm) 2e-5 + 2e-5 |want|. One wrong or missing
     cache row would move y by ~1e-3."""
     import torch
 
-    from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import (
+        _layer_ref, gpt2_layer_fuse_supported, gpt2_layer_step)
 
     worst, rows = 0.0, []
-    for tag, cfg in gpt2_configs():
+    for tag, cfg in gpt2_layer_check_configs():
         E = cfg.n_embd
+        if not gpt2_layer_fuse_supported(E, 4 * E):
+            raise SystemExit(f"gpt2_layer check width {tag} is not fusable")
         blk = gpt2_blocks(cfg, 1, SEED + 1)[0]
-        cases = [(torch.bfloat16, T, n) for T in (256, 1024)
-                 for n in (0, 1, T // 2, T - 1)] + [(torch.float32, 256, 100)]
+        cases = [(dt, T, n) for dt in (torch.bfloat16, torch.float32)
+                 for T in (256, 1024) for n in (0, 1, T // 2, T - 1)]
         for dt, T, npast in cases:
             kc = torch.randn((1024, E), generator=gen, device=dev).to(dt)
             vc = torch.randn((1024, E), generator=gen, device=dev).to(dt)
@@ -1558,62 +1574,86 @@ def time_mlp_fused(dev, gen, counts=None, plain=True,
     return rows, b1, mma
 
 
-def layer_bound_ms(E, npast):
-    """Bytes: the four Q8_0 weights, the live bf16 K/V rows, biases and
-    gains, x, y, k_new, v_new once each. Operations: f32 FMAs of the four
-    products and of attention over the live rows."""
-    bytes_ = 12 * E * E * 34 // 32 + 2 * npast * E * 2 + 13 * E * 2 + 16 * E
+def layer_bound_ms(E, npast, kv_bytes=2):
+    """Bytes: the four Q8_0 weights, the live K/V rows (kv_bytes an
+    element), biases and gains, x, y, k_new, v_new once each. Operations:
+    f32 FMAs of the four products and of attention over the live rows."""
+    bytes_ = 12 * E * E * 34 // 32 + 2 * npast * E * kv_bytes + 13 * E * 2 \
+        + 16 * E
     flops = 2 * 12 * E * E + 4 * (npast + 1) * E
     t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_gpt2_layer(dev, gen):
+GPT2_LAYER_TIMING = [(256, 32, "bf16"), (256, 32, "f32"), (1024, 1023, "bf16"),
+                     (1024, 1023, "f32")]  # (T, npast, cache)
+LAYER_NO_MATVEC = ("LAYER_NO_MATVEC=1",)  # kernels 10, 11 without products
+
+
+def time_gpt2_layer(dev, gen, plain=True):
     """Cold-L2 kernel and plain times of one decode step's block call at both
-    widths: T 256 (the path's bucket), npast 32 (the path's steps run 16 to
-    47), bf16 cache; each call a different block's weights, as a decode step
-    walks the layers. No single PyTorch call computes a whole block:
-    library_ms is null."""
+    widths, at GPT2_LAYER_TIMING's cases: T 256 (the path's bucket) at npast
+    32 (the path's steps run 16 to 47) and T 1024 at npast 1023, bf16 and
+    f32 caches; each call a different block's weights, as a decode step
+    walks the layers. Also the build with LAYER_NO_MATVEC (no weight
+    streamed, no product: the norms, barriers, attention and merge alone)
+    at the first case, no_matvec_ms. No single PyTorch call computes a
+    whole block: library_ms is null."""
     import torch
 
+    from ggmlsharp_tpu_torch import kernels
     from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
 
-    rows, T, npast = [], 256, 32
+    rows = []
     for tag, cfg in gpt2_configs():
         E = cfg.n_embd
         copies = max(2, -(-4 * L2_BYTES // (12 * E * E * 34 // 32)))
         blocks = gpt2_blocks(cfg, copies, SEED + 2)
-        kc = torch.randn((T, E), generator=gen, device=dev).bfloat16()
-        vc = torch.randn((T, E), generator=gen, device=dev).bfloat16()
         x = torch.randn((1, E), generator=gen, device=dev)
-        np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
+        for T, npast, cache in GPT2_LAYER_TIMING:
+            dt = getattr(torch, _DT[cache])
+            kc = torch.randn((T, E), generator=gen, device=dev).to(dt)
+            vc = torch.randn((T, E), generator=gen, device=dev).to(dt)
+            np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
 
-        def kern(i):
-            return gpt2_layer_step(blocks[i % copies], x, kc, vc, np_t,
-                                   cfg.n_head, cfg.ln_eps)
+            def kern(i):
+                return gpt2_layer_step(blocks[i % copies], x, kc, vc, np_t,
+                                       cfg.n_head, cfg.ln_eps)
 
-        def plain(i):
-            return _layer_ref(blocks[i % copies], x, kc, vc, np_t,
-                              cfg.n_head, cfg.ln_eps)
-
-        bound, by = layer_bound_ms(E, npast)
-        ms = time_ms(kern, 2 * copies)
-        rows.append({"config": tag, "T": T, "npast": npast, "ms": ms,
-                     "plain_ms": time_ms(plain, 8), "library_ms": None,
-                     "bound_ms": bound, "bound_by": by,
-                     "roofline_share": bound / ms, "cold_copies": copies})
+            bound, by = layer_bound_ms(E, npast, dt.itemsize)
+            ms = time_ms(kern, 2 * copies)
+            row = {"config": tag, "T": T, "npast": npast, "cache": cache,
+                   "ms": ms, "library_ms": None, "bound_ms": bound,
+                   "bound_by": by, "roofline_share": bound / ms,
+                   "cold_copies": copies}
+            if plain:
+                row["plain_ms"] = time_ms(lambda i: _layer_ref(
+                    blocks[i % copies], x, kc, vc, np_t, cfg.n_head,
+                    cfg.ln_eps), 8)
+            if not rows or rows[-1]["config"] != tag:
+                kernels.set_defines("gpt2_layer", LAYER_NO_MATVEC)
+                try:
+                    row["no_matvec_ms"] = time_ms(kern, 2 * copies)
+                finally:
+                    kernels.set_defines("gpt2_layer", ())
+            rows.append(row)
         del blocks
         torch.cuda.empty_cache()
     emit({"gpt2_layer_timing": rows})
-    r = rows[0]
+    r, big = rows[0], rows[len(GPT2_LAYER_TIMING)]
     return {"name": "gpt2_layer", "route": "cuda",
             "source": "ggmlsharp_tpu_torch/csrc/gpt2_layer.cu",
             "replaces": "ggmlsharp_tpu/kernels/gpt2_layer.py:131",
             **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by")},
+                                       "bound_ms", "bound_by") if key in r},
+            "no_matvec_ms": r["no_matvec_ms"],
+            "gpt2_774m": {key: big[key] for key in
+                          ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "no_matvec_ms") if key in big},
+            "shapes": rows,
             "unit": "one block call of a GPT-2 124M decode step: E 768, "
-                    "12 heads, T 256, npast 32, bf16 KV, cold L2; no "
-                    "library call computes a block"}
+                    "12 heads, T 256, npast 32, bf16 KV, cold L2 (gpt2_774m: "
+                    "E 1280, 20 heads); no library call computes a block"}
 
 
 def llama_blocks(cfg, n, seed, gen, dev):
@@ -1984,9 +2024,6 @@ def llama_layer_bound_ms(cfg, npast):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-LAYER_NO_MATVEC = ("LAYER_NO_MATVEC=1",)  # kernel 10 without its products
-
-
 def time_llama_layer(dev, gen, plain=True):
     """Cold-L2 kernel and plain times of one decode step's block call at
     Llama-7B's block, bf16 cache: T 256 at npast 32 (path d's steps run 16 to
@@ -2149,10 +2186,12 @@ def check_matmul_q(dev, gen):
 
 def check_int_dot(dev, gen):
     """Kernel B vs its plain _int_dot_ref for its five formats at the 7B
-    shapes of a decode step's matmuls (b = 1), the same quantized
-    activations on both sides. The block sums are exact integers on both;
-    tolerance: f32 summation order over blocks, 1e-5 of sum_k |x_k| (|q d|
-    + |m|)_nk with x the Q8 activations."""
+    shapes of a decode step's matmuls (b = 1) and at RAGGED and SHORT_K (N
+    4099: a multiple of no CTA's rows; K/32 344 and 129: a multiple of no
+    warp step of 32 blocks), the same quantized activations on both sides.
+    The block sums are exact integers on both; tolerance: f32 summation
+    order over blocks, 1e-5 of sum_k |x_k| (|q d| + |m|)_nk with x the Q8
+    activations."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.matmul_q import (_int_dot_ref,
@@ -2161,7 +2200,7 @@ def check_int_dot(dev, gen):
 
     worst, rows = {}, []
     for fmt in B_FORMATS:
-        for name, n, k, _ in Q4_SHAPES[:4]:  # the LM head keeps f32 x
+        for name, n, k, _ in Q4_SHAPES[:4] + [RAGGED, SHORT_K]:  # the LM head keeps f32 x
             w = random_weight(fmt, n, k, gen, dev)
             wabs = weight_abs_terms(w)
             x = torch.randn(k, generator=gen, device=dev)
@@ -2270,11 +2309,23 @@ def time_matmul_q(dev, gen, counts):
     return b1, mma
 
 
-def time_int_dot(dev, gen, counts):
+def int_dot_bound_ms(n, k, wbytes, m_term):
+    """Bytes: the packed weight, the Q8 activations (int8 values, their f32
+    scales and, for Q4_1/Q5_1, the f32 s) and y, once each. Operations:
+    int8 x int8 products on the int8 tensor cores' rate (the least any
+    implementation needs on this card)."""
+    act_bytes = k + k // 32 * 4 * (2 if m_term else 1)
+    t_bytes = (wbytes + act_bytes + n * 4) / HBM_BYTES_S
+    t_ops = 2 * n * k / INT8_OP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_int_dot(dev, gen, counts, plain=True):
     """Cold-L2 kernel B, plain and library (bf16 torch.matmul against the
-    weight dequantized to bf16) times at w_gate_up (22016 x 4096), b = 1,
-    for each of its formats; the activations quantized once before
-    timing, as a call quantizes them before its launch."""
+    weight dequantized to bf16) times at the four 7B decode shapes (b = 1),
+    for each of its formats; the activations quantized once before timing,
+    as a call quantizes them before its launch. counts None: no kernels-line
+    row (--matmul-timing); plain False: no plain or library time."""
     import torch
 
     from ggmlsharp_tpu_torch.kernels.matmul_q import (_int_dot_ref,
@@ -2282,45 +2333,54 @@ def time_int_dot(dev, gen, counts):
                                                       int_dot_launch)
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
-    _, n, k, _ = Q4_SHAPES[2]
     rows = []
     for fmt in B_FORMATS:
-        w0 = random_weight(fmt, n, k, gen, dev)
-        wbytes = w0.nbytes()
-        copies = max(2, -(-4 * L2_BYTES // wbytes))
-        ws = [w0] + [random_weight(fmt, n, k, gen, dev)
-                     for _ in range(copies - 1)]
-        wb = [dequantize(w).to(torch.bfloat16) for w in ws]
-        x = torch.randn(k, generator=gen, device=dev)
-        xq, da, xs = int_dot_acts(w0, x)
-        xb = x.to(torch.bfloat16)[None]
-        kern = time_ms(lambda i: int_dot_launch(ws[i % copies], xq, da, xs),
-                       max(50, copies))
-        plain = time_ms(lambda i: _int_dot_ref(ws[i % copies], xq, da, xs), 8)
-        lib = time_ms(lambda i: torch.matmul(xb, wb[i % copies].T),
-                      max(50, copies))
-        act_bytes = k + k // 32 * 4 * (2 if xs is not None else 1)
-        t_bytes = (wbytes + act_bytes + n * 4) / HBM_BYTES_S
-        t_ops = 2 * n * k / INT8_OP_S
-        bound = max(t_bytes, t_ops) * 1e3
-        rows.append({"format": fmt, "n": n, "k": k, "weight_bytes": wbytes,
-                     "ms": kern, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound,
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "roofline_share": bound / kern, "cold_copies": copies})
-        del ws, wb
-        torch.cuda.empty_cache()
+        for shape, n, k, _ in Q4_SHAPES[:4]:
+            w0 = random_weight(fmt, n, k, gen, dev)
+            wbytes = w0.nbytes()
+            copies = max(2, -(-4 * L2_BYTES // wbytes))
+            ws = [w0] + [random_weight(fmt, n, k, gen, dev)
+                         for _ in range(copies - 1)]
+            x = torch.randn(k, generator=gen, device=dev)
+            xq, da, xs = int_dot_acts(w0, x)
+            kern = time_ms(lambda i: int_dot_launch(ws[i % copies], xq, da,
+                                                    xs), max(50, copies))
+            bound, by = int_dot_bound_ms(n, k, wbytes, xs is not None)
+            row = {"format": fmt, "shape": shape, "n": n, "k": k,
+                   "weight_bytes": wbytes, "ms": kern, "bound_ms": bound,
+                   "bound_by": by, "roofline_share": bound / kern,
+                   "cold_copies": copies}
+            if plain:
+                wb = [dequantize(w).to(torch.bfloat16) for w in ws]
+                xb = x.to(torch.bfloat16)[None]
+                row["plain_ms"] = time_ms(
+                    lambda i: _int_dot_ref(ws[i % copies], xq, da, xs), 8)
+                row["library_ms"] = time_ms(
+                    lambda i: torch.matmul(xb, wb[i % copies].T),
+                    max(50, copies))
+                del wb
+            rows.append(row)
+            del ws
+            torch.cuda.empty_cache()
     emit({"int_dot_timing": rows})
-    r = next(r for r in rows if r["format"] == "Q4_0")
+    if counts is None:
+        return rows
+    r = next(r for r in rows
+             if r["format"] == "Q4_0" and r["shape"] == "w_gate_up")
     return {"name": "matmul_int_dot", "route": "cuda",
             "source": "ggmlsharp_tpu_torch/csrc/matmul_int_dot.cu",
             "replaces": "ggmlsharp_tpu/kernels/matmul_q.py:803",
             "launches": counts["matmul_int_dot"],
             **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
                                        "bound_ms", "bound_by")},
-            "w_gate_up_ms": {r["format"]: r["ms"] for r in rows},
+            "shapes_ms": {f: {x["shape"]: x["ms"] for x in rows
+                              if x["format"] == f} for f in B_FORMATS},
+            "shapes_bound_ms": {f: {x["shape"]: x["bound_ms"] for x in rows
+                                    if x["format"] == f}
+                                for f in B_FORMATS},
             "unit": "one w_gate_up launch (22016 x 4096, b=1) of Q4_0, cold "
-                    "L2; library = bf16 torch.matmul"}
+                    "L2; library = bf16 torch.matmul; shapes_ms: every "
+                    "format at the four 7B decode shapes"}
 
 
 def run_format_paths(cfg, prompt, gen):
@@ -2903,6 +2963,19 @@ def flash2_bound_ms(B, Hq, Hkv, S, T, D, in_bytes, out_bytes, npast=0,
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def flash2_bwd_bound_ms(B, H, S, D, in_bytes, out_bytes, grad_bytes):
+    """The causal backward at S = T, npast 0: bytes of q, k, v (in_bytes an
+    element), o (out_bytes), do (grad_bytes) read once and dq, dk, dv
+    (in_bytes) written once; operations 10 D a kept (query, key) pair (S =
+    q k^T again, dv = p^T do, dp = do v^T, dq = ds k, dk = ds^T q) at the
+    bf16 tensor-core rate."""
+    elems = B * H * S * D
+    bytes_ = elems * (6 * in_bytes + out_bytes + grad_bytes)
+    flops = 10 * B * H * (S * (S + 1) // 2) * D
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / BF16_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def time_flash_train(dev, gen):
     """Path g's attention call (B 8, H 12, S = T 128, D 64, bf16 q/k/v,
     causal, npast 0): the uncached entry, the cached entry with softcap 30
@@ -2954,6 +3027,8 @@ def time_flash_train(dev, gen):
     res["uncached_bound_ms"], res["bound_by"] = flash2_bound_ms(
         B, H, H, S, S, D, 2, 2)
     res["cached_bound_ms"], _ = flash2_bound_ms(B, H, H, S, S, D, 2, 4)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = flash2_bwd_bound_ms(
+        B, H, S, D, 2, 4, 4)  # bf16 q, k, v, grads; the entry's f32 o; f32 do
     emit({"flash_train_timing": res})
     return res
 
@@ -3509,7 +3584,10 @@ def matmul_timing(dev):
     kernel 9 at SILU_TIMING_ROWS (time_mlp_fused_silu); kernel 8 at
     MLP_TIMING_ROWS at both GPT-2 widths, Q8_0 and f32 x
     (time_mlp_fused); kernel 10 at npast 32 and 2047, and without its
-    products (time_llama_layer)."""
+    products (time_llama_layer); kernel 11 at both widths and every
+    GPT2_LAYER_TIMING case, and without its products (time_gpt2_layer);
+    kernel 7 in its five formats at the four 7B decode shapes
+    (time_int_dot)."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
@@ -3519,7 +3597,8 @@ def matmul_timing(dev):
                          "mlp_fused_silu_q4", "matmul_q4_0_mma",
                          "matmul_q_mma", "matmul_q8_0_mma",
                          "mlp_fused_silu_q4_mma", "mlp_fused_q8",
-                         "mlp_fused_q8_mma", "llama_layer")
+                         "mlp_fused_q8_mma", "llama_layer", "gpt2_layer",
+                         "matmul_int_dot")
              if n in _build.KERNELS]
     t0 = time.perf_counter()
     kernels.build(names)
@@ -3560,6 +3639,15 @@ def matmul_timing(dev):
     log(f"kernel 10 ms: npast 32 {lay['ms']:.4f}, npast 2047 "
         f"{lay['npast_2047']['ms']:.4f}, no products "
         f"{lay['no_matvec_ms']}")
+    blk = time_gpt2_layer(dev, gen, plain=False)
+    log("kernel 11 ms: " + ", ".join(
+        f"{r['config']} T {r['T']} npast {r['npast']} {r['cache']} "
+        f"{r['ms']:.4f}" for r in blk["shapes"])
+        + f"; no products 124M {blk['no_matvec_ms']:.4f}, 774M "
+        f"{blk['gpt2_774m']['no_matvec_ms']:.4f}")
+    ib = time_int_dot(dev, gen, None, plain=False)
+    log("kernel 7 ms: " + ", ".join(f"{r['format']} {r['shape']} "
+                                    f"{r['ms']:.4f}" for r in ib))
 
 
 def main(argv):
@@ -3613,7 +3701,8 @@ def main(argv):
     logs = kernels.build(variants=[("matmul_q4_0", variant_defines(v))
                                    for v in ("i2f", "half2")]
                          + [(q8_acts.ENTRY, q8_acts.variant_defines("bf16")),
-                            ("llama_layer", LAYER_NO_MATVEC)])
+                            ("llama_layer", LAYER_NO_MATVEC),
+                            ("gpt2_layer", LAYER_NO_MATVEC)])
     log(f"[2/6] built {sorted(logs) or 'nothing new'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -3876,6 +3965,7 @@ def main(argv):
         "train_g_library_ms": ft["sdpa_ms"],
         "train_g_bound_ms": ft["cached_bound_ms"], "bwd_ms": ft["bwd_ms"],
         "library_bwd_ms": ft["sdpa_bwd_ms"],
+        "bwd_bound_ms": ft["bwd_bound_ms"], "bwd_bound_by": ft["bwd_bound_by"],
         "softcap_gradient_max_abs_err": max(fl2_err["cached"],
                                             fl2_err["grad"])})
     unc_row = {"name": "flash_attn_uncached", "route": "cuda",
@@ -4061,7 +4151,8 @@ def main(argv):
              # backward (the Function's dense recompute) against SDPA's
              "train_g_ms", "train_g_softcap_ms", "train_g_plain_ms",
              "train_g_library_ms", "train_g_bound_ms", "bwd_ms",
-             "library_bwd_ms", "softcap_gradient_max_abs_err",
+             "library_bwd_ms", "bwd_bound_ms", "bwd_bound_by",
+             "softcap_gradient_max_abs_err",
              # kernels 2 and 3 at every shape a path runs them; ragged edges
              "attention_shapes", "ragged_max_abs_err",
              # sites 12-17 (the tuning probes)
@@ -4070,8 +4161,10 @@ def main(argv):
              "gb_s", "ms_1gib", "gb_s_1gib", "library_ms_1gib",
              "library_gb_s_1gib", "plain_ms_1gib", "bound_ms_1gib", "order",
              "row_default_ms", "row_tuned_ms", "by_shape",
-             # kernel 10 at npast 2047 and without its products
-             "npast_2047", "no_matvec_ms")
+             # kernel 10 at npast 2047 and without its products; kernel 11
+             # at 774M and at every timed case; kernel 7 at every 7B shape
+             "npast_2047", "no_matvec_ms", "gpt2_774m", "shapes",
+             "shapes_ms", "shapes_bound_ms")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -52,8 +52,8 @@
 //    head's attention waits only for its own q, k and v rows:
 //    red.release / ld.acquire at gpu scope), then a grid barrier before
 //    wo (every CTA merges every head), before rms2 and before down; the
-//    grid barrier is the CTAs' own: one arrival counter, one generation
-//    word, 132 arrivals.
+//    grid barrier is the CTAs' own (persist.cuh, shared with gpt2_layer.cu):
+//    one word whose top bit the 132nd arrival flips.
 //  * Every CTA recomputes rms(x) g1, the attention merge into wo's column
 //    slots, rms(x2) g2 and loads the gated product itself (cheaper than a
 //    barrier each). Attention: one CTA an item (query head, chunk of the
@@ -62,9 +62,9 @@
 //    seeds chunk 0; each item leaves an unnormalised (max, sum, out[D])
 //    partial; the first query head of a KV head writes the roped k_new.
 // F/32 need not be a multiple of 16 (masked). npast is read on the device;
-// rows >= T are never read. The scratch `sync` (an arrival counter, a
-// generation word, then a counter a KV head) is left as the launch found
-// it: the counter 0, the head counters 0 (reset after the last wait).
+// rows >= T are never read. The scratch `sync` (the barrier word, an unused
+// word, then a counter a KV head) is left as the launch found it: the
+// barrier's low 31 bits 0, the head counters 0 (reset after the last wait).
 //
 // The consumer warps (16) and the tile (32 KB of qs) are fixed at the best
 // of the alternatives measured on an H100 at 7B widths (PERF.md §6, kernel
@@ -82,6 +82,7 @@
 #define LAYER_NO_MATVEC 0
 #endif
 #include "mma_bf16.cuh"
+#include "persist.cuh"
 #include "q4_dot.cuh"
 
 namespace {
@@ -108,100 +109,29 @@ struct LayerArgs {
   const float *g1, *g2;
   const int* slot;
   float *y, *qkv, *kn, *part, *x2, *act;
-  unsigned* sync;  // [0] arrivals, [1] generation, [2 + g] KV head g's qkv rows
+  unsigned* sync;  // [0] the grid barrier, [2 + g] KV head g's qkv rows
   int E, H, Hkv, F, T;
   float eps;
   int kv_bf16, rope_mode;
   int stage_bytes, stages, red_floats;
 };
 
-// ---- synchronisation -----------------------------------------------------
+// ---- synchronisation (persist.cuh) --------------------------------------
+
+using persist::bulk_copy;
+using persist::cp_async4;
+using persist::ld_acquire;
+using persist::mbar_arrive;
+using persist::mbar_arrive_cp;
+using persist::mbar_arrive_tx;
+using persist::mbar_init;
+using persist::mbar_wait;
+using persist::red_release_add;
 
 // the consumer warps only (the producer warp never joins)
-__device__ __forceinline__ void csync() { asm volatile("bar.sync 1, %0;" ::"n"(NC) : "memory"); }
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// Every consumer thread of every CTA: the CTAs' own grid barrier.
-__device__ void grid_sync(unsigned* bar) {
-  csync();
-  if (threadIdx.x == 0) {
-    const unsigned gen = ld_acquire(bar + 1);
-    __threadfence();  // this CTA's writes before its arrival
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      red_release_add(bar + 1, 1u);
-    } else {
-      while (ld_acquire(bar + 1) == gen) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  csync();
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(smem_addr(b))
-      : "memory");
-}
-// the arrival of this thread's earlier cp.asyncs, once they land
-__device__ __forceinline__ void mbar_arrive_cp(uint64_t* b) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(b))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  asm volatile(
-      "{\n"
-      " .reg .pred p;\n"
-      " WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(b)),
-      "r"(parity)
-      : "memory");
-}
-
-// this thread's arrival on b, expecting `bytes` more of asynchronous copies
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* b, unsigned bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(
-          smem_addr(b)),
-      "r"(bytes)
-      : "memory");
-}
-// one bulk copy (TMA) of `bytes` (a multiple of 16; both addresses 16-byte
-// aligned) from global src to shared dst, completing on b
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(b))
-      : "memory");
-}
-
-// cp.async of the 4-byte word at src, its first n bytes (0..4) read, the
-// rest zero-filled
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(n)
-               : "memory");
-}
+__device__ __forceinline__ void csync() { persist::csync<NC>(); }
+// every consumer thread of every CTA: the CTAs' own grid barrier
+__device__ __forceinline__ void grid_sync(unsigned* bar) { persist::grid_sync<NC>(bar); }
 
 // ---- the weight stream -----------------------------------------------------
 
@@ -631,9 +561,9 @@ __global__ void __launch_bounds__(THREADS, 1) llama_layer_kernel(LayerArgs a) {
 // f32 [E]; slot int32 [E], a permutation of 0..E-1. Outputs y f32 [E], qkv
 // f32 [E + 2 E_kv] (v_new is its last E_kv; q and k in it are unrotated)
 // and kn f32 [E_kv], the roped k_new. Scratch, f32: part [H * 8 * (D + 2)],
-// x2 [E], act [F]; sync: uint32 [2 + Hkv], all 0 but the generation word
-// (any value) before the first launch, and left so by every launch (one
-// launch at a time a buffer). E % 32 == 0, F % 32 == 0, H % Hkv == 0,
+// x2 [E], act [F]; sync: uint32 [2 + Hkv], the barrier word's low 31 bits
+// and the head counters 0 before the first launch, and left so by every
+// launch (one launch at a time a buffer). E % 32 == 0, F % 32 == 0, H % Hkv == 0,
 // D = E/H a multiple of 32 up to 128. Returns the CUDA error of the
 // cooperative launch (0: launched), cudaErrorInvalidValue for shapes it
 // does not take and cudaErrorCooperativeLaunchTooLarge when the shared

@@ -1,5 +1,5 @@
 // Warp-level Q8_0 row dot products, shared by matmul_q8_0.cu, mlp_fused_q8.cu
-// and gpt2_layer.cu.
+// and gpt2_layer.cu (smem_rows_dot: rows in shared memory).
 //
 // A Q8_0 weight row is K int8 values in element order beside K/32 f16
 // scales, one a 32-element block (quant/formats.py). A warp streams RW such
@@ -131,6 +131,90 @@ __device__ __forceinline__ void warp_dot(const float* x, size_t xs, int rows_val
         }
       }
     }
+  }
+}
+
+// The same product for RW weight rows that lie in shared memory (row
+// stride K bytes, scales K/32 halves apart) against an activation vector x
+// also in shared memory, with no branch: a row past `rows` or a block past
+// K/32 reads row 0 or block 0 and has its scale replaced by 0. The loads of
+// the next step are issued before this step's arithmetic (two register
+// sets), so a warp never waits for shared memory with work at hand. On
+// return acc[w] is this lane's partial sum of row w over the 256-element
+// steps s0, s0 + P, ...; warp_sum() completes it.
+template <int RW>
+struct SmemStep {
+  float4 a0, a1;
+  uint32_t u0[RW], u1[RW];
+  float h0[RW], h1[RW];
+  bool in0, in1;
+};
+
+template <int RW>
+__device__ __forceinline__ void smem_step_load(SmemStep<RW>& st, const float* x, const int8_t* q,
+                                               const __half* d, int K, int rows, int c0,
+                                               int lane) {
+  const int nb = K >> 5, e = (lane & 7) * 4;
+  const int b0 = c0 + (lane >> 3), b1 = b0 + 4;
+  st.in0 = b0 < nb;
+  st.in1 = b1 < nb;
+  const int k0 = st.in0 ? b0 : 0, k1 = st.in1 ? b1 : 0;
+  st.a0 = *reinterpret_cast<const float4*>(x + k0 * 32 + e);
+  st.a1 = *reinterpret_cast<const float4*>(x + k1 * 32 + e);
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    const int r = w < rows ? w : 0;
+    const int8_t* qr = q + (size_t)r * K;
+    const __half* dr = d + (size_t)r * (K >> 5);
+    st.u0[w] = *reinterpret_cast<const uint32_t*>(qr + k0 * 32 + e);
+    st.u1[w] = *reinterpret_cast<const uint32_t*>(qr + k1 * 32 + e);
+    st.h0[w] = __half2float(dr[k0]);
+    st.h1[w] = __half2float(dr[k1]);
+  }
+}
+
+template <int RW>
+__device__ __forceinline__ void smem_step_fma(const SmemStep<RW>& st, int rows,
+                                              float (&acc)[RW]) {
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    float w0[4], w1[4];
+    int8x4_to_float(st.u0[w], w0);
+    int8x4_to_float(st.u1[w], w1);
+    float t0 = st.a0.x * w0[0];
+    t0 = fmaf(st.a0.y, w0[1], t0);
+    t0 = fmaf(st.a0.z, w0[2], t0);
+    t0 = fmaf(st.a0.w, w0[3], t0);
+    float t1 = st.a1.x * w1[0];
+    t1 = fmaf(st.a1.y, w1[1], t1);
+    t1 = fmaf(st.a1.z, w1[2], t1);
+    t1 = fmaf(st.a1.w, w1[3], t1);
+    const bool live = w < rows;
+    acc[w] = fmaf(live && st.in0 ? st.h0[w] : 0.f, t0, acc[w]);
+    acc[w] = fmaf(live && st.in1 ? st.h1[w] : 0.f, t1, acc[w]);
+  }
+}
+
+template <int RW>
+__device__ __forceinline__ void smem_rows_dot(const float* x, const int8_t* q, const __half* d,
+                                              int K, int rows, int s0, int P, int lane,
+                                              float (&acc)[RW]) {
+  const int nb = K >> 5;
+#pragma unroll
+  for (int w = 0; w < RW; ++w) acc[w] = 0.f;
+  int c0 = 8 * s0;
+  if (c0 >= nb) return;
+  SmemStep<RW> A, B;
+  smem_step_load(A, x, q, d, K, rows, c0, lane);
+  while (true) {
+    c0 += 8 * P;
+    if (c0 < nb) smem_step_load(B, x, q, d, K, rows, c0, lane);
+    smem_step_fma(A, rows, acc);
+    if (c0 >= nb) break;
+    c0 += 8 * P;
+    if (c0 < nb) smem_step_load(A, x, q, d, K, rows, c0, lane);
+    smem_step_fma(B, rows, acc);
+    if (c0 >= nb) break;
   }
 }
 

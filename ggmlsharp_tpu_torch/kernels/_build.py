@@ -36,6 +36,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -61,7 +62,7 @@ KERNELS = {
     "mlp_fused_q8": ("mlp_fused_q8.cu", "mlp_fused_q8",
                      [_P] * 9 + [_I] * 6 + [_P]),
     "gpt2_layer": ("gpt2_layer.cu", "gpt2_layer",
-                   [_P] * 25 + [_I] * 4 + [_F, _I, _I, _P]),
+                   [_P] * 26 + [_I] * 4 + [_F, _I, _I, _P]),
     "mlp_fused_silu_q4": ("mlp_fused_silu_q4.cu", "mlp_fused_silu_q4",
                           [_P] * 7 + [_I] * 3 + [_P]),
     "llama_layer": ("llama_layer.cu", "llama_layer",
@@ -101,12 +102,34 @@ _ENTRIES: dict = {}
 _LOCK = threading.Lock()
 
 
+def declared_macros(name: str) -> set:
+    """The macros kernel ``name``'s source declares as tunables: each
+    ``#ifndef NAME`` of its source file (the shared headers excluded)."""
+    with open(os.path.join(CSRC, KERNELS[name][0])) as f:
+        return set(re.findall(r"^\s*#\s*ifndef\s+(\w+)", f.read(), re.M))
+
+
+def _declared(name: str, defines) -> tuple:
+    """``defines`` as a tuple; ValueError naming each macro that kernel
+    ``name``'s source does not declare."""
+    defines = tuple(defines)
+    unknown = [d.split("=", 1)[0] for d in defines
+               if d.split("=", 1)[0] not in declared_macros(name)]
+    if unknown:
+        raise ValueError(f"{name}: {KERNELS[name][0]} declares no "
+                         f"{', '.join(unknown)}")
+    return defines
+
+
 def set_defines(name: str, defines=()):
     """From now on build and load kernel ``name`` with these ``-D`` macros
     ("NAME=VALUE" strings overriding the tunables its source declares);
-    () restores the source's defaults."""
+    () restores the source's defaults. Raises ValueError for a macro the
+    source does not declare: such a build would be the default kernel under
+    another name."""
+    defines = _declared(name, defines)
     with _LOCK:
-        _DEFINES[name] = tuple(defines)
+        _DEFINES[name] = defines
         _ENTRIES.pop(name, None)
 
 
@@ -150,7 +173,7 @@ def build(names=None, variants=()) -> dict:
     defines of a variant)."""
     names = list(KERNELS) if names is None else list(names)
     jobs = [(name, _DEFINES.get(name, ())) for name in names]
-    jobs += [(name, tuple(defs)) for name, defs in variants]
+    jobs += [(name, _declared(name, defs)) for name, defs in variants]
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs, seen = {}, set()
     for name, defines in jobs:

@@ -14,10 +14,22 @@ Everything is in element order and the four weights are read in the block's
 one Q8_0 copy: the JAX package's wire order, permuted planes and one-hot head
 reduction exist for the TPU only.
 
+The kernel is one persistent CTA an SM whose producer warp copies the CTA's
+share of all four weights into shared memory (TMA bulk copies);
+``smem_plan`` cuts the shares into pieces and places them there (a ring of
+pieces where the shares do not fit at once), and the wrapper hands the plan
+to the launch. The CTAs exchange qkv, the attention output, x2 and h as
+(value, launch generation) words in ``_sync.exchange_buffer``; the
+generation and per-head counters live in ``_sync.sync_buffer`` (one each
+for a (device, stream)).
+
 The plain version is ``_layer_ref``. The wrapper runs it for a CPU tensor;
 for a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -27,10 +39,170 @@ from ..ops.basic import gelu, norm
 from ..ops.matmul import mul_mat_q
 from ..quant.formats import QTensor
 from . import _build
+from ._sync import MAX_HEADS, exchange_buffer, sync_buffer
 from .config import use_kernel
 
 _TILE_BYTES = 9 * 1024 * 1024
 _CHUNKS = 8  # attention partials a head (csrc/gpt2_layer.cu CHUNKS)
+_CONSUMER_WARPS = 16  # csrc/gpt2_layer.cu CW
+_MAX_PIECES = 64  # csrc/gpt2_layer.cu MAX_PIECES
+_MAX_E = 2560  # csrc/gpt2_layer.cu LNP * NC
+_RING_PIECE = 32768  # the most qs bytes a piece of a ring
+_PLANS: dict = {}  # (E, F, H, ctas, smem) -> (SmemPlan, its ctypes ints)
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@dataclass(frozen=True)
+class SmemPlan:
+    """Where the kernel keeps what in its dynamic shared memory (byte
+    offsets): the activation vector at 0, then ``red`` (the products'
+    partial sums), ``att`` (attention and norm scratch, ln2's gain and
+    bias), ``bar`` (a full
+    and an empty mbarrier a piece) and ``ring``. ``pieces``: (weight, first
+    row of the CTA's share, rows, byte offset in the ring, the piece whose
+    release it waits for or -1, rows a unit and splits: ``unit_plan``),
+    weights in phase order (c_attn, attn
+    c_proj, c_fc, mlp c_proj); a piece holds its rows' qs, then their
+    scales from the 16-byte bound below the first. ``rows``: the most rows
+    of each weight a CTA owns. ``smem``: the bytes a CTA takes."""
+    ctas: int
+    rows: tuple
+    red: int
+    att: int
+    bar: int
+    ring: int
+    smem: int
+    first: tuple
+    pieces: tuple
+
+    @property
+    def reuses(self) -> bool:
+        return any(p[4] >= 0 for p in self.pieces)
+
+    def ints(self) -> list:
+        """The plan as the C entry takes it: n, red, att, bar, ring, smem,
+        ctas, first[5], then seven ints a piece."""
+        head = [len(self.pieces), self.red, self.att, self.bar, self.ring,
+                self.smem, self.ctas, *self.first]
+        return head + [v for p in self.pieces for v in p]
+
+
+def unit_plan(rows: int, k: int) -> tuple:
+    """(rows a unit, splits P) for a piece of ``rows`` rows of length k:
+    the consumer warps take units of 1 or 2 rows and every P-th of the
+    row's 256-element steps; the choice with the fewest rounds of the
+    longest unit (a step of a row 1, a row's reduction 1/2, a unit 1)."""
+    steps = -(-k // 256)
+    best = None
+    for rw in (2, 1):
+        groups = -(-rows // rw)
+        for p in range(1, min(steps, _CONSUMER_WARPS) + 1):
+            rounds = -(-groups * p // _CONSUMER_WARPS)
+            cost = rounds * (-(-steps // p) * rw + 0.5 * rw + 1.0)
+            if best is None or cost < best[0] - 1e-9:
+                best = (cost, rw, p)
+    return best[1], best[2]
+
+
+def piece_bytes(rows: int, k: int) -> int:
+    """Shared-memory bytes of a piece of ``rows`` Q8_0 rows of length k: the
+    qs, then the scales widened to 16-byte bounds (at most 16 bytes more
+    than their 16-byte round-up)."""
+    return rows * k + _up16(rows * k // 16) + 16
+
+
+def smem_plan(E: int, F: int, H: int, ctas: int, smem: int) -> SmemPlan:
+    """The kernel's shared-memory plan for a block of widths (E, F) with H
+    heads on ``ctas`` CTAs of at most ``smem`` bytes of shared memory each.
+    Every CTA's share of all four weights at once if it fits (one piece a
+    weight, none waits); else pieces of at most _RING_PIECE qs bytes placed
+    in a ring in phase order, a piece waiting for the release of the last
+    earlier piece whose bytes it overwrites."""
+    if E % 128 or F % 128 or E % H or (E // H) % 32 or E // H > 128 \
+            or E > _MAX_E:
+        raise ValueError(f"smem_plan: E {E}, F {F}, heads {H}")
+    mats = ((3 * E, E), (E, E), (F, E), (E, F))
+    rows = tuple(-(-n // ctas) for n, _ in mats)
+    if max(rows) > 32 * _CONSUMER_WARPS:
+        raise ValueError(f"smem_plan: {max(rows)} rows a CTA exceed a "
+                         f"consumer thread a row")
+    red = _up16(max(rows) * _CONSUMER_WARPS * 4)
+    att = _up16((3 * _CONSUMER_WARPS + (_CONSUMER_WARPS + 3) * (E // H)
+                 + 2 * E) * 4)
+    off_red = _up16(max(E, F) * 4)
+    off_att = off_red + red
+    off_bar = off_att + att
+
+    def cut(most_qs):
+        out = []
+        for w, (r_all, (_, k)) in enumerate(zip(rows, mats)):
+            step = r_all if most_qs is None else max(1, most_qs // k)
+            out += [(w, i, min(step, r_all - i)) for i in range(0, r_all, step)]
+        return out
+
+    whole = cut(None)
+    ring = off_bar + 16 * len(whole)
+    need = sum(piece_bytes(r, mats[w][1]) for w, _, r in whole)
+    if ring + need <= smem:
+        placed, pos = [], 0
+        for w, i, r in whole:
+            placed.append((w, i, r, pos, -1, *unit_plan(r, mats[w][1])))
+            pos += piece_bytes(r, mats[w][1])
+        return _plan(ctas, rows, off_red, off_att, off_bar, ring, ring + pos,
+                     placed)
+    most = _RING_PIECE
+    while True:
+        pieces = cut(most)
+        ring = off_bar + 16 * len(pieces)
+        if len(pieces) <= _MAX_PIECES:
+            break
+        most *= 2
+    room = smem - ring
+    placed, live, pos = [], [], 0
+    for j, (w, i, r) in enumerate(pieces):
+        size = piece_bytes(r, mats[w][1])
+        if size > room:
+            raise ValueError(f"smem_plan: a piece of {size} bytes exceeds "
+                             f"the {room} bytes left for the ring")
+        if pos + size > room:
+            pos = 0
+        hit = [p for p in live if p[0] < pos + size and pos < p[1]]
+        live = [p for p in live if p not in hit] + [(pos, pos + size, j)]
+        placed.append((w, i, r, pos, max((p[2] for p in hit), default=-1),
+                       *unit_plan(r, mats[w][1])))
+        pos += size
+    end = max(p[3] + piece_bytes(p[2], mats[p[0]][1]) for p in placed)
+    return _plan(ctas, rows, off_red, off_att, off_bar, ring, ring + end,
+                 placed)
+
+
+def _plan(ctas, rows, red, att, bar, ring, total, placed) -> SmemPlan:
+    first = [0] * 5
+    for w in range(4):
+        first[w + 1] = first[w] + sum(1 for p in placed if p[0] == w)
+    return SmemPlan(ctas, rows, red, att, bar, ring, total, tuple(first),
+                    tuple(placed))
+
+
+def _device_plan(E: int, F: int, H: int, device):
+    """smem_plan for ``device`` (its SMs, and the shared memory a CTA may
+    opt into), made once and kept with its ctypes copy."""
+    props = torch.cuda.get_device_properties(device)
+    # where the attribute is missing: an SM's shared memory less the 1 KB
+    # the runtime reserves for each CTA
+    smem = getattr(props, "shared_memory_per_block_optin", None) \
+        or props.shared_memory_per_multiprocessor - 1024
+    key = (E, F, H, props.multi_processor_count, smem)
+    got = _PLANS.get(key)
+    if got is None:
+        plan = smem_plan(E, F, H, props.multi_processor_count, smem)
+        ints = plan.ints()
+        got = (plan, (ctypes.c_int * len(ints))(*ints))
+        _PLANS[key] = got
+    return got
 
 
 def _pick_tile(n: int, k: int) -> int:
@@ -121,7 +293,8 @@ def gpt2_layer_step(blk, x, k_cache, v_cache, npast, n_head: int,
     if [w.shape for w in ws] != [(3 * E, E), (E, E), (F, E), (E, F)]:
         raise ValueError(f"gpt2_layer_step: weight shapes "
                          f"{[w.shape for w in ws]} for E {E}")
-    if E % n_head or (E // n_head) % 32 or E // n_head > 128 or F % 32:
+    if E % 128 or F % 128 or E % n_head or (E // n_head) % 32 \
+            or E // n_head > 128 or n_head > MAX_HEADS:
         raise ValueError(f"gpt2_layer_step: E {E}, heads {n_head}, F {F}")
     if tuple(x.shape) != (1, E) or x.dtype != torch.float32 \
             or not x.is_contiguous() or x.data_ptr() % 16:
@@ -148,28 +321,29 @@ def gpt2_layer_step(blk, x, k_cache, v_cache, npast, n_head: int,
     if any(t.device != x.device
            for t in (k_cache, v_cache, np32, *vecs, *planes)):
         raise ValueError("gpt2_layer_step: inputs must be on one CUDA device")
-    if not all(p.is_contiguous() for p in planes) \
-            or any(w["qs"].data_ptr() % 16 for w in ws):
+    if not all(p.is_contiguous() and p.data_ptr() % 16 == 0
+               for p in planes):
         raise ValueError("gpt2_layer_step: weights must be contiguous and "
                          "16-byte aligned")
     # one buffer: y [E], qkv [3E] (k_new, v_new are its thirds), then the
-    # kernel's scratch x2 [E], h [F], attention partials
+    # kernel's attention partials
     n_part = n_head * _CHUNKS * (E // n_head + 2)
-    buf = torch.empty(5 * E + F + n_part, dtype=torch.float32,
-                      device=x.device)
+    buf = torch.empty(4 * E + n_part, dtype=torch.float32, device=x.device)
     base = buf.data_ptr()
-    y, qkv = base, base + 4 * E
-    x2, h, part = base + 16 * E, base + 20 * E, base + 20 * E + 4 * F
+    y, qkv, part = base, base + 4 * E, base + 16 * E
     (qa, da), (qp, dp), (qf, df), (qc, dc) = (
         (w["qs"].data_ptr(), w["d"].data_ptr()) for w in ws)
     ba, bp, bf, bc, g1, b1, g2, b2 = (v.data_ptr() for v in vecs)
     fn = _build.entry("gpt2_layer")
+    _, plan = _device_plan(E, F, n_head, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        sync = sync_buffer(x.device, stream)
+        xch = exchange_buffer(x.device, stream, 5 * E + F)
         rc = fn(x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 np32.data_ptr(), qa, da, ba, qp, dp, bp, qf, df, bf,
-                qc, dc, bc, g1, b1, g2, b2, y, qkv, part, x2, h,
-                E, n_head, F, T, float(ln_eps),
+                qc, dc, bc, g1, b1, g2, b2, y, qkv, part, xch.data_ptr(),
+                sync.data_ptr(), plan, E, n_head, F, T, float(ln_eps),
                 int(k_cache.dtype == torch.bfloat16),
                 int(vecs[0].dtype == torch.bfloat16), stream)
     _build.check("gpt2_layer", rc)

@@ -27,9 +27,10 @@ copies of the JAX package's index helpers, kept for ``colperm`` alone.
 The kernel is one persistent CTA an SM that streams its share of the five
 weight matrices through a ring in shared memory across the phase boundaries
 (``csrc/llama_layer.cu``); its grid barrier and per-KV-head arrival
-counters live in a small int32 buffer the wrapper keeps for each (device,
-stream) (``_sync_buffer``), zeroed once and left as found by every launch,
-so a CUDA graph that captured its address stays valid.
+counters live in a small int32 buffer kept for each (device, stream)
+(``_sync.sync_buffer``, shared with the GPT-2 block kernel), zeroed once and
+left as found by every launch, so a CUDA graph that captured its address
+stays valid.
 
 The plain version is ``_layer_ref``. The wrapper runs it for a CPU tensor;
 for a CUDA tensor it launches the kernel or raises.
@@ -46,23 +47,11 @@ from ..ops.matmul import mul_mat_q
 from ..quant.formats import QTensor, concat_qtensors
 from ..quant.quantize import dequantize, quantize
 from . import _build
+from ._sync import MAX_HEADS, sync_buffer
 from .config import use_kernel
 
 _TILE_BYTES = 9 * 1024 * 1024
 _CHUNKS = 8  # attention partials a head (csrc/llama_layer.cu CHUNKS)
-_MAX_KV_HEADS = 1024  # the KV heads a sync buffer counts for
-_SYNC: dict = {}  # (device, stream) -> int32 [2 + _MAX_KV_HEADS], the kernel's
-
-
-def _sync_buffer(device, stream: int) -> torch.Tensor:
-    """The kernel's barrier and arrival counters for launches on ``stream``
-    of ``device``: zeroed once, left so by every launch (one runs at a time
-    on a stream), never reallocated."""
-    buf = _SYNC.get((device, stream))
-    if buf is None:
-        buf = torch.zeros(2 + _MAX_KV_HEADS, dtype=torch.int32, device=device)
-        _SYNC[(device, stream)] = buf
-    return buf
 
 
 def _pick_tile(n: int, kc: int) -> int:
@@ -265,7 +254,7 @@ def llama_layer_step(blk, x, k_cache, v_cache, npast, cfg, rope=None):
                          f"{[w.shape for w in ws]} for E {E}, E_kv {Ekv}, "
                          f"F {F}")
     if E != H * D or H % Hkv or D % 32 or D > 128 or E % 32 or F % 32 \
-            or Hkv > _MAX_KV_HEADS:
+            or Hkv > MAX_HEADS:
         raise ValueError(f"llama_layer_step: E {E}, heads {H}/{Hkv}, F {F}")
     if tuple(x.shape) != (1, E) or x.dtype != torch.float32 \
             or not x.is_contiguous():
@@ -312,7 +301,7 @@ def llama_layer_step(blk, x, k_cache, v_cache, npast, cfg, rope=None):
     fn = _build.entry("llama_layer")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        sync = _sync_buffer(x.device, stream)
+        sync = sync_buffer(x.device, stream)
         rc = fn(x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 np32.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                 *(p.data_ptr() for p in planes),

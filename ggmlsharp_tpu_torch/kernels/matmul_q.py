@@ -447,6 +447,8 @@ def int_dot_launch(a: QTensor, xq, da, xs):
         raise ValueError(f"{name}: activations must be contiguous, aligned")
     _check_planes(name, a, [k for k in _INT_DOT_PLANES if k in a.planes],
                   dev)
+    if xq.data_ptr() % 16 or a["qs"].data_ptr() % 16:
+        raise ValueError(f"{name}: xq and qs must be 16-byte aligned")
     planes = [a[k].data_ptr() if k in a.planes else None
               for k in _INT_DOT_PLANES]
     y = torch.empty((n,), dtype=torch.float32, device=dev)

@@ -2,14 +2,21 @@
 """H100 probe of the port's cooperative kernels: the two Q8_0 ones
 (mlp_fused_q8, gpt2_layer) and the two Q4_0 ones (mlp_fused_silu_q4,
 llama_layer). Build each with one of its tunables changed (the -D macros its
-source declares), check it against the plain version, and time it as
-chip_smoke.py does (CUDA-graph replay, a different weight copy a launch so
-L2 is cold).
+source declares: kernels.set_defines refuses any other), check it against
+the plain version, and time it as chip_smoke.py does (CUDA-graph replay, a
+different weight copy a launch so L2 is cold).
+
+The two fused MLPs run at one activation row (MLP_ROWS): their -D tunables
+shape the b = 1 instance only, and two rows or more take the multi-row
+instance on the tensor cores (dq_mma.cuh), which none of them changes.
 
 Run from the repository root on a machine with the card:
     python3 scripts/probe_q8_kernels.py          # both families
     python3 scripts/probe_q8_kernels.py q4       # or q8: one family
-Prints one JSON line a variant: {"kernel", "variant", "config", "ms", "err"}.
+    python3 scripts/probe_q8_kernels.py trace    # kernel 11's phase times
+Prints one JSON line a variant: {"kernel", "variant", "config", "ms", "err"};
+trace one a width: each phase boundary of kernel 11 (its LAYER_TRACE build)
+in us after the first CTA's entry, min / median / max over the CTAs.
 """
 import os
 import subprocess
@@ -18,6 +25,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+MLP_ROWS = 1  # the fused MLPs' activation rows: their b = 1 instance
 MLP_VARIANTS = {
     "baseline": (),
     "blocks_sm_1": ("MLP_MAX_BLOCKS_SM=1",),
@@ -28,14 +36,8 @@ MLP_VARIANTS = {
 }
 LAYER_VARIANTS = {
     "baseline": (),
-    "blocks_sm_1": ("LAYER_MAX_BLOCKS_SM=1",),
-    "blocks_sm_4": ("LAYER_MAX_BLOCKS_SM=4",),
-    "no_prefetch": ("LAYER_L2_PREFETCH=0",),
-    "rw_4": ("LAYER_RW=4",),
     "chunks_4": ("LAYER_CHUNKS=4",),
-    # cproj as the other products: a warp a row, no split of K
-    "cproj_warp_rows": ("LAYER_CPROJ_KSPLIT=0",),
-    # no product at all: barriers, layer norms, attention, merge
+    # no weight streamed, no product: norms, barriers, attention, merge
     "no_matvec": ("LAYER_NO_MATVEC=1",),
 }
 SILU_VARIANTS = {
@@ -48,15 +50,18 @@ SILU_VARIANTS = {
 }
 LLAMA_VARIANTS = {
     "baseline": (),
-    "blocks_sm_1": ("LAYER_MAX_BLOCKS_SM=1",),
-    "blocks_sm_2": ("LAYER_MAX_BLOCKS_SM=2",),
-    "blocks_sm_3": ("LAYER_MAX_BLOCKS_SM=3",),
-    "rw_1": ("LAYER_RW=1",),
-    "rw_4": ("LAYER_RW=4",),
     "chunks_4": ("LAYER_CHUNKS=4",),
-    # no product at all: barriers, norms, rope, attention, merge
+    # no weight streamed, no product: barriers, norms, rope, attention, merge
     "no_matvec": ("LAYER_NO_MATVEC=1",),
 }
+# the phase boundaries csrc/gpt2_layer.cu's LAYER_TRACE build stamps, in
+# its STAMP order, then the qkv piece's wait and its products' end (warp 0)
+TRACE_PHASES = ("entry", "ln1", "qkv_prod", "qkv_put", "attn", "att_in",
+                "proj_prod", "x2_put", "x2_in", "ln2", "fc_prod", "h_put",
+                "h_in", "cproj_prod", "y_put", "end", "qkv_wait", "qkv_done")
+# kernel name -> its variant table
+TABLES = {"mlp_fused_q8": MLP_VARIANTS, "gpt2_layer": LAYER_VARIANTS,
+          "mlp_fused_silu_q4": SILU_VARIANTS, "llama_layer": LLAMA_VARIANTS}
 
 
 def probe_q4(cs, dev, gen):
@@ -78,7 +83,7 @@ def probe_q4(cs, dev, gen):
     copies = 3  # a pair is 76 MB, a block 114 MB: each exceeds L2 alone
     ws = [(llama.random_q4_0(2 * F, E, gen, dev),
            llama.random_q4_0(E, F, gen, dev)) for _ in range(copies)]
-    for n_rows in (1,):
+    for n_rows in (MLP_ROWS,):
         x = torch.randn((n_rows, E), generator=gen, device=dev)
         want = _ff_silu_ref(*ws[0], x, quantize_acts=False)
         for variant, defines in SILU_VARIANTS.items():
@@ -117,8 +122,8 @@ def main():
     import chip_smoke as cs
 
     family = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if family not in ("all", "q4", "q8"):
-        print("usage: probe_q8_kernels.py [q4|q8]", file=sys.stderr)
+    if family not in ("all", "q4", "q8", "trace"):
+        print("usage: probe_q8_kernels.py [q4|q8|trace]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("probe_q8_kernels: no CUDA device", file=sys.stderr)
@@ -133,30 +138,52 @@ def main():
         probe_q4(cs, dev, gen)
     if family in ("all", "q8"):
         probe_q8(cs, dev, gen)
+    if family == "trace":
+        trace_gpt2_layer(cs, dev, gen)
     return 0
 
 
 def probe_q8(cs, dev, gen):
     """The Q8_0 kernels at GPT-2 124M's and 774M's widths."""
+    probe_mlp_q8(cs, dev, gen)
+    probe_layer_q8(cs, dev, gen)
+
+
+def probe_mlp_q8(cs, dev, gen):
+    """Kernel 8 at MLP_ROWS activation rows, each variant of its b = 1
+    instance."""
     import torch
 
-    from ggmlsharp_tpu_torch.kernels import set_defines
-    from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
-    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, mlp_fused_q8
+    from ggmlsharp_tpu_torch.kernels import mlp_fused, set_defines
 
     for tag, cfg in cs.gpt2_configs():
         E = cfg.n_embd
         copies = max(2, -(-4 * cs.L2_BYTES // (8 * E * E * 34 // 32)))
         ws = cs.mlp_inputs(E, gen, dev, copies)
-        x = torch.randn((16, E), generator=gen, device=dev)
-        want = _ff_ref(*ws[0], x, quantize_acts=False)
+        x = torch.randn((MLP_ROWS, E), generator=gen, device=dev)
+        want = mlp_fused._ff_ref(*ws[0], x, quantize_acts=False)
         for variant, defines in MLP_VARIANTS.items():
             set_defines("mlp_fused_q8", defines)
-            err = float((mlp_fused_q8(x, *ws[0]) - want).abs().max())
-            ms = cs.time_ms(lambda i: mlp_fused_q8(x, *ws[i % copies]), 64)
+            err = float((mlp_fused.mlp_fused_q8(x, *ws[0]) - want)
+                        .abs().max())
+            ms = cs.time_ms(lambda i: mlp_fused.mlp_fused_q8(
+                x, *ws[i % copies]), 64)
             cs.emit({"kernel": "mlp_fused_q8", "variant": variant,
-                     "config": tag, "ms": ms, "err": err})
+                     "config": f"{tag} rows {MLP_ROWS}", "ms": ms,
+                     "err": err})
+        set_defines("mlp_fused_q8", ())
         del ws
+
+
+def probe_layer_q8(cs, dev, gen):
+    """Kernel 11 at T 256, npast 32, bf16 cache."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import set_defines
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import _layer_ref, gpt2_layer_step
+
+    for tag, cfg in cs.gpt2_configs():
+        E = cfg.n_embd
         copies = max(2, -(-4 * cs.L2_BYTES // (12 * E * E * 34 // 32)))
         blocks = cs.gpt2_blocks(cfg, copies, 2)
         kc = torch.randn((256, E), generator=gen, device=dev).bfloat16()
@@ -172,8 +199,54 @@ def probe_q8(cs, dev, gen):
                                                       *args), 2 * copies)
             cs.emit({"kernel": "gpt2_layer", "variant": variant,
                      "config": tag, "ms": ms, "err": err})
+        set_defines("gpt2_layer", ())
         del blocks
         torch.cuda.empty_cache()
+
+
+def trace_gpt2_layer(cs, dev, gen, calls=4):
+    """Kernel 11 built with LAYER_TRACE=1 at both GPT-2 widths, T 256, npast
+    32, bf16 cache, ``calls`` calls over as many blocks' weights; the last
+    call's stamps (each CTA's clock at TRACE_PHASES, scaled to ns by the
+    global timer over its run and offset by its entry's global time), read
+    back from the partials' scratch that the trace build writes over."""
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import set_defines
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import gpt2_layer_step
+
+    G = torch.cuda.get_device_properties(dev).multi_processor_count
+    set_defines("gpt2_layer", ("LAYER_TRACE=1",))
+    try:
+        for tag, cfg in cs.gpt2_configs():
+            E = cfg.n_embd
+            blocks = cs.gpt2_blocks(cfg, calls, 2)
+            kc = torch.randn((256, E), generator=gen, device=dev).bfloat16()
+            x = torch.randn((1, E), generator=gen, device=dev)
+            np_t = torch.tensor(32, dtype=torch.int32, device=dev)
+            for blk in blocks:
+                y = gpt2_layer_step(blk, x, kc, kc, np_t, cfg.n_head,
+                                    cfg.ln_eps)[0]
+            torch.cuda.synchronize()
+            # y [E], qkv [3E], then the partials' scratch: 20 words a CTA
+            w = y._base[4 * E:4 * E + 20 * G].view(torch.int32).view(G, 20)
+            w = w.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+            ns_clk = w[:, 19] / np.maximum(w[:, 15], 1)
+            at = (w[:, 18] - w[:, 18].min())[:, None] + w[:, :18] * ns_clk[:, None]
+            phases = {}
+            for i, name in enumerate(TRACE_PHASES):
+                v = at[:, i] if i < 16 else at[w[:, i] > 0, i]
+                if len(v):
+                    phases[name] = [round(float(f(v)) / 1e3, 3)
+                                    for f in (np.min, np.median, np.max)]
+            cs.emit({"kernel": "gpt2_layer", "trace": tag,
+                     "ns_per_clock": float(np.median(ns_clk)),
+                     "phases_us": phases})
+            del blocks
+            torch.cuda.empty_cache()
+    finally:
+        set_defines("gpt2_layer", ())
 
 
 if __name__ == "__main__":

@@ -765,7 +765,7 @@ def test_set_defines_names_another_library():
     base = _build.library_path("gpt2_layer")
     other = _build.library_path("mlp_fused_q8")
     try:
-        set_defines("gpt2_layer", ("LAYER_RW=4",))
+        set_defines("gpt2_layer", ("LAYER_CHUNKS=4",))
         assert _build.library_path("gpt2_layer") != base
         assert _build.library_path("mlp_fused_q8") == other
     finally:

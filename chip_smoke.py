@@ -197,16 +197,20 @@ CHECK_B = (1, 2, 5, 8, 16, 128)  # both instances; 5 and 128: ragged tiles
 MMA_B = (2, 5, 8, 16, 128)       # the rows that take the multi-row instance
 RAGGED = ("ragged", 4099, 11008, 0)  # N a multiple of no tile, K 43 superblocks
 SHORT_K = ("short_k", 4099, 4128, 0)  # legacy formats: K % 256 = 32, a short last chunk
+SHORT_KQ = ("short_k", 4099, 768, 0)  # k-quants: 3 superblocks, 24 of a b = 1 step's 32 units
+LONG_K = ("long_k", 300, 106496, 0)  # b = 1: x past a CTA's shared memory, three chunks
 
 
 def check_weight_rows(dev, gen, fmt, tag):
     """The dequant-matmul of weight format ``fmt`` (through
     mul_mat_q_fused, which picks the instance for b) vs the plain
     mul_mat_q at every 7B shape and the ragged 4099 x 11008, b in CHECK_B,
-    with the Q8 activation round trip but at the LM head; for the legacy
-    formats also at SHORT_K (K not a multiple of the multi-row instance's
-    256-column chunk), f32 and Q8 x; f32 x in both mm_dot modes, each
-    against the plain version of the same mode. Tolerance: the two sum f32
+    with the Q8 activation round trip but at the LM head; also at a short
+    K, f32 and Q8 x: SHORT_K for the legacy formats (K not a multiple of the
+    multi-row instance's 256-column chunk), SHORT_KQ for the k-quants (a
+    b = 1 step short of a warp's 32 units); at b = 1 also at LONG_K (the
+    b = 1 instance takes x in three chunks), f32 and Q8 x; f32 x in both
+    mm_dot modes, each against the plain version of the same mode. Tolerance: the two sum f32
     terms in different orders, with the min terms folded through per-block
     activation sums: 1e-5 of sum_k |x_k| (|q d| + |m|)_nk, x as the call
     rounds it (2^-24 is 6e-8 a rounding). Returns the largest error; raises
@@ -220,16 +224,18 @@ def check_weight_rows(dev, gen, fmt, tag):
 
     worst, rows = 0.0, []
     shapes = [*Q4_SHAPES, RAGGED]
-    if fmt not in ("Q4_K", "Q6_K"):  # the k-quants need K % 256 == 0
-        shapes.append(SHORT_K)
+    # the k-quants need K % 256 == 0
+    shapes.append(SHORT_KQ if fmt in ("Q4_K", "Q6_K") else SHORT_K)
+    shapes.append(LONG_K)
     for name, n, k, _ in shapes:
         w = random_weight(fmt, n, k, gen, dev)
         wabs = weight_abs_terms(w)
         # the LM head skips the Q8 round trip; f32 x in both modes
-        acts = [(qa, mode) for qa in ((False, True) if name == "short_k"
+        acts = [(qa, mode) for qa in ((False, True) if name in ("short_k",
+                                                                "long_k")
                                       else (name != "output",))
                 for mode in (("f32",) if qa else ("f32", "bf16"))]
-        for b in CHECK_B:
+        for b in (1,) if name == "long_k" else CHECK_B:
             x = torch.randn((b, k), generator=gen, device=dev)
             for qa, mode in acts:
                 got = mul_mat_q_fused(w, x, quantize_acts=qa, mode=mode)
@@ -918,8 +924,9 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
     wrapper takes the rounded x in f32), and, where the package's wrappers
     read mm_dot, "bf16": x as it comes in mm_dot "bf16" (one bf16 plane).
     Each row: the kernel, the library call (bf16 torch.matmul of x against
-    the weight dequantized to bf16) and, with ``plain``, the plain version
-    of the same mode; the bound (wq_bound_ms). Weights are random from the
+    the weight dequantized to bf16) and, with ``plain`` (True, or the b's
+    to take it at), the plain version of the same mode; the bound
+    (wq_bound_ms). Weights are random from the
     seed, rotated over copies past four L2 sizes."""
     import inspect
 
@@ -979,7 +986,7 @@ def time_weight_rows(dev, gen, fmt, shapes, bs, plain=True):
                        "library_ms": lib, "bound_ms": bound, "bound_by": by,
                        "roofline_share": bound / ms, "cold_copies": copies,
                        "launches_per_forward": per_fwd}
-                if plain:
+                if plain is True or (plain and b in plain):
                     row["plain_ms"] = time_ms(
                         lambda i: mul_mat_q(ws[i % copies], xr,
                                             quantize_acts=False,
@@ -1535,7 +1542,7 @@ def time_mlp_fused(dev, gen, counts=None, plain=True,
                        "library_ms": time_ms(lib, 48), "bound_ms": bound,
                        "bound_by": by, "roofline_share": bound / ms,
                        "cold_copies": copies}
-                if plain:
+                if plain is True or (plain and b in plain):
                     row["plain_ms"] = time_ms(
                         lambda i, xv=xr if acts == "q8" else x, kw=kw: _ff_ref(
                             *ws[i % copies], xv, quantize_acts=False, **kw), 6)
@@ -3144,7 +3151,8 @@ GEOM_B = (1, 5)
 
 
 def check_geometries(dev, gen):
-    """Every compiled launch geometry of the three dequant-matmul sources
+    """Every launch geometry compiled into the three dequant-matmul sources
+    (tune.GEOMETRIES_OF: the b = 1 streaming instance also at 16 warps)
     gives the default's bits, at a 7B shape and at a ragged one (N a
     multiple of no block's rows, K = 11008), b 1 and 5 (ragged b), for each
     format the source decodes."""
@@ -3159,13 +3167,15 @@ def check_geometries(dev, gen):
     calls.update({f: (lambda x, w, g: q_matmul(x, w, g)) for f in A_FORMATS})
     rows = []
     for fmt, fn in calls.items():
+        kern = {"Q4_0": "matmul_q4_0", "Q8_0": "matmul_q8_0"}.get(fmt,
+                                                                "matmul_q")
         for label, n, k in GEOM_SHAPES:
             w = random_weight(fmt, n, k, gen, dev)
             for b in GEOM_B:
                 x = torch.randn((b, k), generator=gen, device=dev)
                 ref = fn(x, w, tune.DEFAULT)
                 same = {f"{g[0]}x{g[1]}": bool(torch.equal(fn(x, w, g), ref))
-                        for g in tune.GEOMETRIES}
+                        for g in tune.GEOMETRIES_OF[kern]}
                 rows.append({"format": fmt, "shape": label, "n": n, "k": k,
                              "b": b, "bit_equal_default": same,
                              "finite": bool(torch.isfinite(ref).all())})
@@ -3173,9 +3183,9 @@ def check_geometries(dev, gen):
                     emit({"geometry_check": rows})
                     raise SystemExit(f"a launch geometry changes the bits: "
                                      f"{rows[-1]}")
-    emit({"geometry_check": {"cases": len(rows), "geometries":
-                             [list(g) for g in tune.GEOMETRIES],
-                             "all_bit_equal": True}})
+    emit({"geometry_check": {"cases": len(rows), "geometries": {
+        kern: [list(g) for g in gs] for kern, gs in tune.GEOMETRIES_OF.items()},
+        "all_bit_equal": True}})
     return len(rows)
 
 
@@ -3326,10 +3336,10 @@ def check_tune_table(dev, gen, smi):
     for key, ent in sorted(table.items()):
         if key.startswith("_"):
             continue
-        geom = tune.legal(ent)
+        kern, g = kinds.get(key, (None, None))
+        geom = tune.legal(ent, kern)
         if geom is None or key not in kinds:
             raise SystemExit(f"tune table entry {key}: {ent} is not legal")
-        kern, g = kinds[key]
         n, k = (int(v) for v in key.split(":")[1].split("x"))
         ws = autotune.random_copies(g, n, k, gen, dev)
         fn = autotune.launcher(kern)
@@ -3576,8 +3586,9 @@ MATMUL_TIMING_Q8_B = (1, 2, 3, 4, 16, 128)  # kernel 4: the crossover, paths
 def matmul_timing(dev):
     """--matmul-timing [ROOT], a development mode (no compatibility
     promise): the dequant-matmuls and kernel 9 of the package under ROOT
-    built and timed, nothing else (no plain version): Q4_0, Q4_K, Q6_K at
-    every 7B shape and the legacy formats at w_gate_up (time_weight_rows);
+    built and timed, nothing else (the plain version at b = 1 only): Q4_0,
+    Q4_K, Q6_K at every 7B shape and the legacy formats at w_gate_up
+    (time_weight_rows);
     Q8_0 at the GPT-2 shapes of time_q8_0, b in MATMUL_TIMING_Q8_B, and at
     every 7B shape, b 16 (path f's Q8_0 prompt: Q8_0 and f32 x, the LM head
     f32); f32 x also in mm_dot "bf16" where the package reads the mode;
@@ -3607,10 +3618,10 @@ def matmul_timing(dev):
     rows = []
     for fmt in ("Q4_0", *E_FORMATS):
         rows += time_weight_rows(dev, gen, fmt, Q4_SHAPES, TIMING_B,
-                                 plain=False)
+                                 plain=(1,))
     for fmt in A_FORMATS[:5]:
         rows += time_weight_rows(dev, gen, fmt, Q4_SHAPES[2:3], (1, 16),
-                                 plain=False)
+                                 plain=(1,))
     emit({"matmul_timing": rows})
     for fmt in ("Q4_0", *E_FORMATS):
         log(f"{fmt} prompt forward (129 launches, b 16): "

@@ -5,14 +5,16 @@ scripts/autotune_swar.py).
 For each (key, N, K) of the benchmark models' shapes: Q4_0 and Q8_0
 (``matmul_q4_0:NxK``, ``matmul_q8_0:NxK``) at the 7B, GPT-2 124M and 13B
 shapes, with the port's real LM heads (32000 and 50257 rows, not the TPU's
-padded 32256 / 51200); Q6_K, Q5_0, Q5_1 and Q4_K (``g<int>:NxK``, kernel A)
-at the 7B shapes. Each geometry of ``tune.GEOMETRIES`` is timed at b = 1 as
-``probes.common.time_ms`` does (CUDA-graph replay, a different weight copy a
-launch so the L2 is cold), ROUNDS times in turns. The run-to-run spread of a
-shape is the larger range of the default's and the winner's samples; only
-a winner whose median beats the default's by more than that spread goes into
-the table, else the default stays. The table gets ``_card`` (nvidia-smi's
-name and power limit) and ``_sweep_s`` (the sweep's wall time).
+padded 32256 / 51200); every format of kernel A (``g<int>:NxK``) at the 7B
+shapes. Each geometry the kernel is compiled for (``tune.GEOMETRIES_OF``) is
+timed at b = 1 as ``probes.common.time_ms`` does (CUDA-graph replay, a
+different weight copy a launch so the L2 is cold), ROUNDS times in turns.
+The run-to-run spread of a shape is the larger range of the default's and
+the winner's samples; only a winner whose median beats the default's by
+more than that spread goes into the table, else the default stays. The
+table gets ``_card`` (nvidia-smi's name and power limit) and ``_sweep_s``
+(the sweep's wall time); each shape's record gives every pair's median and
+range.
 
 Every geometry gives the same bits (kernels/tune.py), so the table moves
 time only. The sweep times the sources' b = 1 instance (RB = 1) only, so
@@ -48,7 +50,8 @@ SHAPES_13B = [(15360, 5120), (5120, 5120), (27648, 5120), (5120, 13824),
               (32000, 5120)]
 SHAPES = SHAPES_7B + SHAPES_GPT2 + SHAPES_13B
 KERNEL_FORMATS = {"matmul_q4_0": GType.Q4_0, "matmul_q8_0": GType.Q8_0}
-GTYPE_TARGETS = [GType.Q6_K, GType.Q5_0, GType.Q5_1, GType.Q4_K]
+GTYPE_TARGETS = [GType.Q6_K, GType.Q5_0, GType.Q5_1, GType.Q4_K, GType.Q4_1,
+                 GType.Q4_2, GType.Q4_3]
 ROUNDS = 5
 TARGET_MS = 2.0  # device time of one timed replay
 
@@ -114,9 +117,9 @@ def sweep_one(kernel, gtype, n, k, gen, dev, rounds=ROUNDS):
     fn = launcher(kernel)
     wbytes = ws[0].nbytes()
     reps = int(min(400, max(20, TARGET_MS * 1e-3 * 2.5e12 / wbytes)))
-    samples = {g: [] for g in tune.GEOMETRIES}
+    samples = {g: [] for g in tune.GEOMETRIES_OF[kernel]}
     for _ in range(rounds):
-        for g in tune.GEOMETRIES:
+        for g in samples:
             samples[g].append(time_ms(lambda i: fn(x, ws[i % copies], g),
                                       reps))
     del ws
@@ -150,6 +153,8 @@ def run(out_path: str, dev):
         row = {"key": key, "reps": reps, "weight_bytes": wbytes,
                "median_ms": {f"{w}x{r}": statistics.median(v)
                              for (w, r), v in samples.items()},
+               "range_ms": {f"{w}x{r}": max(v) - min(v)
+                            for (w, r), v in samples.items()},
                "default_ms": dmed, "best": list(best), "best_ms": bmed,
                "spread_ms": spread, "entered": enter}
         rows.append(row)
@@ -180,7 +185,8 @@ def main(argv=None):
     if dev.type == "cpu":
         print(json.dumps({"autotune_plan": {
             "keys": [t[0] for t in targets()],
-            "geometries": [list(g) for g in tune.GEOMETRIES],
+            "geometries": {k: [list(g) for g in tune.GEOMETRIES_OF[k]]
+                           for k in tune.KERNELS},
             "rounds": ROUNDS, "times": "not measured"}}), flush=True)
         return 0
     run(args.out, dev)

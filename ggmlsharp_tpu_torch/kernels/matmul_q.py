@@ -25,8 +25,12 @@ version is ``_int_dot_ref``. In the JAX package the switch takes effect only
 with ``GGML_TPU_SWAR=0`` (its SWAR kernel comes first); the port has one
 layout, so the switch alone selects the route.
 
-The three dequant-matmul sources are compiled for every launch geometry
-of ``tune.GEOMETRIES`` (warps a block x weight rows a warp; all give the same
+At one activation row, ``csrc/matmul_q4_0.cu`` and ``csrc/matmul_q.cu``
+run one streaming matrix-vector product (``csrc/dq_vec.cuh``: a lane a
+whole 32-weight unit by a 16-byte load, x in shared memory, a persistent
+grid over row groups); ``csrc/matmul_q8_0.cu`` its own. Each source is
+compiled for every launch geometry of its kernel's ``tune.GEOMETRIES_OF``
+(warps a block x weight rows a warp or a warp's group; all give the same
 bits); a wrapper launches, at b = 1, the tune table's pair for the weight's
 shape (``geometry``), else ``tune.DEFAULT``, and refuses a pair never
 compiled.
@@ -88,6 +92,9 @@ KERNEL_OF = {GType.Q4_0: "matmul_q4_0", GType.Q8_0: "matmul_q8_0",
              **dict.fromkeys(_PLANES, "matmul_q")}
 INT_DOT_FORMATS = (GType.Q8_0, GType.Q4_0, GType.Q4_1, GType.Q5_0,
                    GType.Q5_1)
+# the planes the b = 1 instance (csrc/dq_vec.cuh) reads by 16-byte loads,
+# where they are not ("qs",)
+_VEC_WIDE = {GType.Q6_K: ("ql", "qh")}
 _INT_DOT_PLANES = ("qs", "qh", "d", "m")  # kernel B's order; absent: null
 _INT_DOT_OFF = {GType.Q4_0: 8.0, GType.Q5_0: 16.0}  # value offsets
 _INT_DOT_M = (GType.Q4_1, GType.Q5_1)  # Q8_1 activations, + sum m·s
@@ -240,13 +247,25 @@ def _launch_mma(name, fmt, acts, planes, n, mode="f32"):
     return y
 
 
+def _check_vec(name, wide, n, k):
+    """The b = 1 instance's own limits (csrc/dq_vec.cuh): its 16-byte
+    quant planes ``wide`` 16-byte aligned, row offsets of every plane below
+    2^31 bytes."""
+    if any(p.data_ptr() % 16 for p in wide):
+        raise ValueError(f"{name}: the quant planes must be 16-byte aligned")
+    if n * (k // 2) >= 2 ** 31:
+        raise ValueError(f"{name}: {n} x {k} is past the b = 1 instance's "
+                         f"32-bit row offsets")
+
+
 def _check_geometry(name, geom):
     """The pair as ints if ``name`` was compiled for it; raises otherwise,
     so no table entry reaches a launch with a geometry never built."""
     pair = tuple(int(v) for v in geom)
-    if pair not in tune.GEOMETRIES:
+    pairs = tune.GEOMETRIES_OF[name]
+    if pair not in pairs:
         raise ValueError(f"{name}: geometry {tuple(geom)} is not compiled; "
-                         f"the sources hold {tune.GEOMETRIES}")
+                         f"its source holds {pairs}")
     return pair
 
 
@@ -281,6 +300,8 @@ def _launch(name, x, qs, d, qs_dtype, qs_cols, gtype, geom=None,
         return _launch_mma(mma, None, x, (qs, d), N, mode)
     warps, rpw = _check_geometry(
         name, geometry(name, N, K, gtype, B) if geom is None else geom)
+    if gtype != GType.Q8_0:
+        _check_vec(name, [qs], N, K)
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     fn = _build.entry(name)
     with torch.cuda.device(x.device):
@@ -333,6 +354,8 @@ def q_matmul(x, a: QTensor, geom=None, mode="f32"):
     warps, rpw = _check_geometry(
         name, geometry(name, n, k, a.gtype, x.shape[0]) if geom is None
         else geom)
+    _check_vec(name, [a[key] for key in _VEC_WIDE.get(a.gtype, ("qs",))],
+               n, k)
     ptrs = [p.data_ptr() for p in planes[:len(keys)]] \
         + [None] * (4 - len(keys))
     y = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)

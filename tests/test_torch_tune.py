@@ -103,9 +103,9 @@ def test_tune_env_names_the_table(tmp_path, monkeypatch):
 
 
 def test_packaged_table_is_legal():
-    """Every entry of tune_h100.json names a compiled geometry of a
-    dequant-matmul kernel (or a format of kernel A) at a shape; the table
-    says on which card it was measured."""
+    """Every entry of tune_h100.json names a geometry compiled into its
+    dequant-matmul kernel (a format's entry: that format's kernel) at a
+    shape; the table says on which card it was measured."""
     with open(tune.PACKAGED) as f:
         table = json.load(f)
     assert isinstance(table.get("_card"), str) and table["_card"]
@@ -118,13 +118,18 @@ def test_packaged_table_is_legal():
         assert n > 0 and k > 0 and k % 32 == 0, key
         assert kind in tune.KERNELS or (kind[0] == "g"
                                         and int(kind[1:]) in formats), key
-        assert tune.legal(ent) is not None, key
+        kern = kind if kind in tune.KERNELS \
+            else matmul_q.KERNEL_OF[GType(int(kind[1:]))]
+        assert tune.legal(ent, kern) is not None, key
     for pair in tune.GEOMETRIES:  # each pair is an instance of every source
         assert pair[0] in (4, 8) and pair[1] in (1, 2, 4)
-    for src in ("matmul_q4_0.cu", "matmul_q8_0.cu", "matmul_q.cu"):
+    assert set(tune.GEOMETRIES) <= set(tune.VEC_GEOMETRIES)
+    for src, kern in (("matmul_q4_0.cu", "matmul_q4_0"),
+                      ("matmul_q8_0.cu", "matmul_q8_0"),
+                      ("matmul_q.cu", "matmul_q")):
         with open(os.path.join(_build.CSRC, src)) as f:
             text = f.read()
-        for warps, rpw in tune.GEOMETRIES:
+        for warps, rpw in tune.GEOMETRIES_OF[kern]:
             assert f"case {warps} * 16 + {rpw}:" in text, (src, warps, rpw)
 
 
@@ -133,7 +138,7 @@ class _OnCard(torch.Tensor):
     is_cuda = property(lambda self: True)
 
 
-@pytest.mark.parametrize("geom", [(3, 2), (4, 3), (16, 1)])
+@pytest.mark.parametrize("geom", [(3, 2), (4, 3), (16, 3)])
 def test_launch_refuses_a_geometry_never_compiled(monkeypatch, geom):
     """An unknown pair from a hand-edited table or GGML_TPU_TUNE file is
     refused before any build or launch."""

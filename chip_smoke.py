@@ -18,9 +18,13 @@ version):
      64, 128, Q8_0 and f32 x, at every GPT-2 shape and 100 x 352; f32 x
      in both mm_dot modes, and kernel 3 in both, each against the plain
      version of the same mode; the fused SwiGLU MLP (both instances) at
-     1-64 rows at 7B and at E 384, F 640; the fused GELU MLP (both
-     instances) at 1-64 rows at both GPT-2 widths and E 384, Q8_0 and f32
-     x, a row's bits equal at every row count of the multi-row instance;
+     1-64 rows at 7B and at E 384, F 640, one row at 13B; the fused GELU MLP
+     (both instances) at 1-64 rows at both GPT-2 widths and E 384 and one
+     row at E 2048 (its shares in a ring), Q8_0 and f32 x, a row's bits
+     equal at every row count of the multi-row instance; the one-row
+     instances of both, with the GPT-2 block kernel between them on one
+     stream, three times back to back and in a CUDA graph replayed twice,
+     every launch's bits equal to the first's;
      the whole-block llama kernel at npast 0 to 2047, a ragged T, bf16 and
      f32 caches, MHA and GQA;
   4. the paths, each with the launch counters reset just before and
@@ -99,10 +103,13 @@ version):
 and time only kernels 2 and 3 at those shapes, or only the dequant-matmuls
 and the fused SwiGLU MLP (every 7B shape in Q4_0, Q4_K and Q6_K at b 1, 2,
 4, 8, 16, 128; the other formats at w_gate_up, b 1 and 16; Q8_0 at the
-GPT-2 shapes, b 1, 2, 3, 4, 16, 128; the MLP at 1, 2, 8, 16, 64 rows; the
+GPT-2 shapes, b 1, 2, 3, 4, 16, 128; the MLP at 1, 2, 8, 16, 64 rows, and
+one row at E 384, F 640 and at 13B, with the unfused route beside one row;
+the GELU MLP at the same rows, its unfused route beside one row; the
 whole-block kernels 10 and 11, each also without its products; the
-integer-dot kernel 7 in its five formats at the four 7B decode shapes), from
-the package under
+integer-dot kernel 7 in its five formats at the four 7B decode shapes;
+first a digest of the b = 1 Q4_0 matvec's and kernels 10 and 11's output
+bits on fixed inputs), from the package under
 ROOT (default: this checkout), so that a parent checkout's kernels and
 this one's are timed by one script on one card. They import whatever
 package ROOT holds, and work only while ROOT's wrappers take this file's
@@ -1197,12 +1204,14 @@ def mlp_inputs(E, gen, dev, copies=1):
 
 MLP_CHECK_ROWS = (1, 2, 5, 16, 64)  # 1: the b = 1 instance; 5: a ragged tile
 MLP_SHORT_E = 384  # K = 384 ends W1's products in a short chunk
+MLP_RING_E = 2048  # the b = 1 instance: shares past a CTA, a ring of pieces
 
 
 def check_mlp_fused(dev, gen):
     """Kernel 8 (flash_ff_q8, which picks the instance for the rows) vs
     plain _ff_ref at both GPT-2 widths and at E MLP_SHORT_E, rows in
-    MLP_CHECK_ROWS, with the Q8_0 round trip of the input (the multi-row
+    MLP_CHECK_ROWS, and at E MLP_RING_E at one row (the b = 1 instance's
+    weight shares in a ring of pieces), with the Q8_0 round trip of the input (the multi-row
     instance takes its int8 values) and with f32 x in each mm_dot mode,
     each against the plain version of its mode. Tolerance: f32 summation
     order through two chained products: h may differ by 1e-5 of s1 = sum
@@ -1218,16 +1227,17 @@ def check_mlp_fused(dev, gen):
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     worst, rows, same = 0.0, [], {}
-    widths = [(tag, cfg.n_embd) for tag, cfg in gpt2_configs()] \
-        + [("short", MLP_SHORT_E)]
-    for tag, E in widths:
+    widths = [(tag, cfg.n_embd, MLP_CHECK_ROWS)
+              for tag, cfg in gpt2_configs()] \
+        + [("short", MLP_SHORT_E, MLP_CHECK_ROWS), ("ring", MLP_RING_E, (1,))]
+    for tag, E, row_set in widths:
         ((w1, b1, w2, b2),) = mlp_inputs(E, gen, dev)
         w1abs, w2abs = dequantize(w1).abs(), dequantize(w2).abs()
-        xs = torch.randn((max(MLP_CHECK_ROWS), E), generator=gen, device=dev)
+        xs = torch.randn((max(row_set), E), generator=gen, device=dev)
         for qa, mode in ((True, "f32"), (False, "f32"), (False, "bf16")):
             acts = "q8" if qa else mode
             ys = {}
-            for n_rows in MLP_CHECK_ROWS:
+            for n_rows in row_set:
                 x = xs[:n_rows].contiguous()
                 got = flash_ff_q8(w1, b1, w2, b2, x, quantize_acts=qa,
                                   mode=mode)
@@ -1250,9 +1260,9 @@ def check_mlp_fused(dev, gen):
                 if not ok:
                     emit({"mlp_fused_check": rows})
                     raise SystemExit(f"mlp_fused_q8 disagrees: {rows[-1]}")
-            top = ys[MLP_CHECK_ROWS[-1]]
+            top = ys[row_set[-1]]
             same[f"{tag} {acts}"] = all(torch.equal(ys[r], top[:r])
-                                        for r in MLP_CHECK_ROWS if r >= 2)
+                                        for r in row_set if r >= 2)
         del w1, w2, w1abs, w2abs
     emit({"mlp_fused_check": rows, "mlp_fused_rows_vs_b": same})
     if not all(same.values()):
@@ -1495,10 +1505,14 @@ def time_mlp_fused(dev, gen, counts=None, plain=True,
     multi-row instance, else their dequantized f32 copy), and f32 x, in
     mm_dot "f32" and, where the package reads the mode, "bf16" (path s:
     weight-only). Library: two bf16 torch.matmuls around
-    F.gelu(approximate="tanh") over weights dequantized to bf16. With
-    ``counts``, also returns the kernels-line rows of the b = 1 instance
-    (1 row, f32 x in the default mode) and the multi-row instance (16 rows,
-    Q8_0 x: the prompt of path c, GPT-2 124M)."""
+    F.gelu(approximate="tanh") over weights dequantized to bf16. At one row
+    also the two routes models/gpt2.py can take, in each activation kind
+    ("q8": with the Q8_0 round trip; else weight-only in that mm_dot mode):
+    the fused one (flash_ff_q8), fused_route_ms, and the unfused one
+    (linear over c_fc, gelu, linear over c_proj: kernel 4 twice),
+    unfused_ms. With ``counts``, also returns the kernels-line rows of the
+    b = 1 instance (1 row, f32 x in the default mode) and the multi-row
+    instance (16 rows, Q8_0 x: the prompt of path c, GPT-2 124M)."""
     import inspect
 
     import torch
@@ -1506,8 +1520,10 @@ def time_mlp_fused(dev, gen, counts=None, plain=True,
 
     from ggmlsharp_tpu_torch import GType
     from ggmlsharp_tpu_torch.kernels import _build
-    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_ref, mlp_fused_q8
-    from ggmlsharp_tpu_torch.ops import quantize_activations
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import (_ff_ref, flash_ff_q8,
+                                                       mlp_fused_q8)
+    from ggmlsharp_tpu_torch.models.common import linear
+    from ggmlsharp_tpu_torch.ops import gelu, quantize_activations
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     multi = "mlp_fused_q8_mma" in _build.KERNELS
@@ -1542,7 +1558,21 @@ def time_mlp_fused(dev, gen, counts=None, plain=True,
                        "library_ms": time_ms(lib, 48), "bound_ms": bound,
                        "bound_by": by, "roofline_share": bound / ms,
                        "cold_copies": copies}
-                if plain is True or (plain and b in plain):
+                if n_rows == 1:
+                    qa = acts == "q8"
+
+                    def unfused(i, qa=qa):
+                        w1, b1, w2, b2 = ws[i % copies]
+                        h = gelu(linear(w1, x, b1, quantize_acts=qa))
+                        return linear(w2, h, b2, quantize_acts=qa)
+
+                    with mm_dot("f32" if qa or not moded else acts):
+                        row["fused_route_ms"] = time_ms(
+                            lambda i, qa=qa, kw=kw: flash_ff_q8(
+                                *ws[i % copies], x, quantize_acts=qa, **kw),
+                            48)
+                        row["unfused_ms"] = time_ms(unfused, 48)
+                if plain:
                     row["plain_ms"] = time_ms(
                         lambda i, xv=xr if acts == "q8" else x, kw=kw: _ff_ref(
                             *ws[i % copies], xv, quantize_acts=False, **kw), 6)
@@ -1564,9 +1594,14 @@ def time_mlp_fused(dev, gen, counts=None, plain=True,
           "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:130",
           "launches": counts["mlp_fused_q8"],
           **{key: r1[key] for key in keys},
+          "fused_route_ms": r1["fused_route_ms"],
+          "unfused_ms": r1["unfused_ms"],
+          "one_row_ms": {f"{r['config']} {r['acts']}": r["ms"] for r in rows
+                         if r["rows"] == 1},
           "unit": "one GPT-2 124M MLP call at 1 row: E 768, F 3072, f32 x "
                   "in mm_dot bf16 (the default), cold L2; library = two "
-                  "bf16 torch.matmuls + F.gelu"}
+                  "bf16 torch.matmuls + F.gelu; fused_route_ms / unfused_ms: "
+                  "flash_ff_q8 and kernel 4 + gelu + kernel 4, weight-only"}
     mma = {"name": "mlp_fused_q8_mma", "route": "cuda",
            "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_q8.cu",
            "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:130",
@@ -1684,15 +1719,16 @@ def llama_blocks(cfg, n, seed, gen, dev):
 
 SILU_CHECK_ROWS = (1, 2, 5, 8, 16, 33, 64)  # 1: the b = 1 instance
 SILU_SHORT = (384, 640)  # (E, F): both products end in a short chunk
+SILU_13B = (5120, 13824)  # LLAMA_13B's (E, F), at one row
 
 
 def check_mlp_fused_silu(dev, gen):
     """Kernel 9's two instances vs plain _ff_silu_ref at Llama-7B's E and F,
-    rows in SILU_CHECK_ROWS, and at SILU_SHORT (E and F not multiples of the
-    multi-row instance's 256-column chunk), with and without the Q8_0 round
-    trip of the input (made by the same PyTorch code on both sides).
-    Tolerance: f32 summation order through two
-    chained products. g and u may each differ by 1e-5 of their s = sum |x w|;
+    rows in SILU_CHECK_ROWS, at SILU_SHORT (E and F not multiples of the
+    multi-row instance's 256-column chunk) and, one row, at SILU_13B, with
+    and without the Q8_0 round trip of the input (made by the same PyTorch
+    code on both sides). Tolerance: f32 summation order through two chained
+    products. g and u may each differ by 1e-5 of their s = sum |x w|;
     silu's slope is at most 1.1 and |silu(g)| <= |g|, so the gated product a
     by 1e-5 of (1.1 |u| s_g + |g| s_u), and y by 1e-5 of that plus |a|,
     through |W2|^T. That bound sums 15000 magnitudes and is far above what
@@ -1709,7 +1745,7 @@ def check_mlp_fused_silu(dev, gen):
     cfg = llama.LLAMA_7B
     worst, rows = 0.0, []
     for (E, F), row_set in (((cfg.n_embd, cfg.n_ff), SILU_CHECK_ROWS),
-                            (SILU_SHORT, (1, 2, 5, 16, 64))):
+                            (SILU_SHORT, (1, 2, 5, 16, 64)), (SILU_13B, (1,))):
         w1 = llama.random_q4_0(2 * F, E, gen, dev)
         w2 = llama.random_q4_0(E, F, gen, dev)
         w1abs, w2abs = dequantize(w1).abs(), dequantize(w2).abs()
@@ -1739,6 +1775,64 @@ def check_mlp_fused_silu(dev, gen):
         del w1, w2, w1abs, w2abs
     emit({"mlp_fused_silu_check": rows})
     return worst
+
+
+def check_one_row_repeats(dev, gen):
+    """The one-row instances of kernels 8 (GPT-2 124M, mm_dot "bf16") and 9
+    (Llama-7B), with kernel 11 (124M, T 256, npast 32) between them, three
+    times over on one side stream: kernels 8 and 11 take turns on the
+    stream's tag word, kernel 9 reads it too. Then the same nine launches
+    captured in a CUDA graph on that stream (its sync and exchange buffers
+    made before the capture, so no replay starts them afresh) and replayed
+    twice. Every launch's bits must equal the first launch's of its kernel:
+    a stale tag or counter would read an earlier launch's values or hang.
+    Returns the launches compared."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import gpt2_layer_step
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import (mlp_fused_q8,
+                                                       mlp_fused_silu_q4)
+    from ggmlsharp_tpu_torch.models import gpt2, llama
+
+    gcfg, lcfg = gpt2.GPT2_124M, llama.LLAMA_7B
+    E = gcfg.n_embd
+    ((w1, b1, w2, b2),) = mlp_inputs(E, gen, dev)
+    blk = gpt2_blocks(gcfg, 1, SEED + 3)[0]
+    kc = torch.randn((256, E), generator=gen, device=dev).bfloat16()
+    np_t = torch.tensor(32, dtype=torch.int32, device=dev)
+    x8 = torch.randn((1, E), generator=gen, device=dev)
+    wg = llama.random_q4_0(2 * lcfg.n_ff, lcfg.n_embd, gen, dev)
+    wd = llama.random_q4_0(lcfg.n_embd, lcfg.n_ff, gen, dev)
+    x9 = torch.randn((1, lcfg.n_embd), generator=gen, device=dev)
+
+    def seq():
+        out = []
+        for _ in range(3):
+            out.append(mlp_fused_q8(x8, w1, b1, w2, b2, mode="bf16"))
+            out.append(gpt2_layer_step(blk, x8, kc, kc, np_t, gcfg.n_head,
+                                       gcfg.ln_eps)[0])
+            out.append(mlp_fused_silu_q4(x9, wg, wd))
+        return out
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        eager = seq()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = seq()
+    torch.cuda.synchronize()
+    bad = [i for i in range(3, 9) if not torch.equal(eager[i], eager[i % 3])]
+    for rep in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        bad += [f"replay {rep} launch {i}" for i in range(9)
+                if not torch.equal(captured[i], eager[i % 3])]
+    emit({"one_row_repeats": {"launches": 9 * 3, "differ": bad}})
+    if bad:
+        raise SystemExit(f"a one-row launch's bits differ from its first: "
+                         f"{bad}")
+    return 9 * 3
 
 
 # whole-block check shapes: (label, n_head_kv, n_ff, rope mode)
@@ -1928,88 +2022,121 @@ def mlp_silu_bound_ms(B, E, F, q8_acts=False):
 SILU_TIMING_ROWS = (1, 2, 8, 16, 64)  # decode, serving ticks, a prompt, the gate
 
 
+SILU_TIMING_ONE_ROW = (("short", SILU_SHORT), ("13B", SILU_13B))  # 1 row only
+
+
 def time_mlp_fused_silu(dev, gen, counts=None, plain=True,
                         n_rows_set=SILU_TIMING_ROWS):
     """Cold-L2 kernel, plain and library times of one Llama-7B MLP call at
-    each row count of ``n_rows_set``, in two rows where the package has the
-    multi-row instance: "f32", x as it comes, and "q8", the operands the
-    path hands it (the Q8_0 activations of quantize_activations(x, Q4_0)
-    from MMA_MIN_ROWS rows on; one row, and a package without the instance,
+    each row count of ``n_rows_set`` (and of one row at each shape of
+    SILU_TIMING_ONE_ROW), in two rows where the package has the multi-row
+    instance: "f32", x as it comes, and "q8", the operands the path hands
+    it (the Q8_0 activations of quantize_activations(x, Q4_0) from
+    MMA_MIN_ROWS rows on; one row, and a package without the instance,
     takes their dequantized f32 copy). Library: two bf16 torch.matmuls
-    around F.silu over weights dequantized to bf16. With ``counts``, also
-    returns the kernels-line rows of the b = 1 instance (1 row) and the
-    multi-row instance (16 rows, the prompt of paths d1 and d2, Q8_0
-    activations)."""
+    around F.silu over weights dequantized to bf16. At one row also the two
+    routes models/llama.py takes with the Q8_0 round trip: the fused one
+    (flash_ff_silu_q4: the round trip, then the kernel), fused_route_ms, and
+    the unfused one (linear over w_gate_up, silu(g) * u, linear over w_down:
+    matmul_q4_0 twice, each after its round trip), unfused_ms. With
+    ``counts``, also returns the kernels-line rows of the b = 1 instance (1
+    row) and the multi-row instance (16 rows, the prompt of paths d1 and
+    d2, Q8_0 activations)."""
     import torch
     import torch.nn.functional as F_
 
     from ggmlsharp_tpu_torch import GType
     from ggmlsharp_tpu_torch.kernels import _build
-    from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_silu_ref, mlp_fused_silu_q4
+    from ggmlsharp_tpu_torch.kernels.mlp_fused import (_ff_silu_ref,
+                                                       flash_ff_silu_q4,
+                                                       mlp_fused_silu_q4)
     from ggmlsharp_tpu_torch.models import llama
-    from ggmlsharp_tpu_torch.ops import quantize_activations
+    from ggmlsharp_tpu_torch.models.common import linear
+    from ggmlsharp_tpu_torch.ops import quantize_activations, silu
     from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     multi = "mlp_fused_silu_q4_mma" in _build.KERNELS
     cfg = llama.LLAMA_7B
-    E, F = cfg.n_embd, cfg.n_ff
-    copies = max(2, -(-4 * L2_BYTES // (3 * E * F * 18 // 32)))
-    ws = [(llama.random_q4_0(2 * F, E, gen, dev),
-           llama.random_q4_0(E, F, gen, dev)) for _ in range(copies)]
-    wb = [(dequantize(w1).bfloat16(), dequantize(w2).bfloat16())
-          for w1, w2 in ws]
     rows = []
-    for n_rows in n_rows_set:
-        x = torch.randn((n_rows, E), generator=gen, device=dev)
-        aq = quantize_activations(x, GType.Q4_0)
-        xr = dequantize(aq)
-        for acts in ("f32", "q8"):
-            q8 = acts == "q8" and multi and n_rows >= 2
-            xa = aq if q8 else (x if acts == "f32" else xr)
-            xb = xa.bfloat16() if not q8 else xr.bfloat16()
+    shapes = [("7B", (cfg.n_embd, cfg.n_ff), n_rows_set)] \
+        + [(tag, ef, (1,)) for tag, ef in SILU_TIMING_ONE_ROW]
+    for tag, (E, F), row_set in shapes:
+        copies = max(2, -(-4 * L2_BYTES // (3 * E * F * 18 // 32)))
+        ws = [(llama.random_q4_0(2 * F, E, gen, dev),
+               llama.random_q4_0(E, F, gen, dev)) for _ in range(copies)]
+        wb = [(dequantize(w1).bfloat16(), dequantize(w2).bfloat16())
+              for w1, w2 in ws]
+        for n_rows in row_set:
+            x = torch.randn((n_rows, E), generator=gen, device=dev)
+            aq = quantize_activations(x, GType.Q4_0)
+            xr = dequantize(aq)
+            for acts in ("f32", "q8"):
+                q8 = acts == "q8" and multi and n_rows >= 2
+                xa = aq if q8 else (x if acts == "f32" else xr)
+                xb = xa.bfloat16() if not q8 else xr.bfloat16()
 
-            def lib(i, xb=xb):
-                w1, w2 = wb[i % copies]
-                gu = xb @ w1.T
-                return (F_.silu(gu[:, :F]) * gu[:, F:]) @ w2.T
+                def lib(i, xb=xb, F=F):
+                    w1, w2 = wb[i % copies]
+                    gu = xb @ w1.T
+                    return (F_.silu(gu[:, :F]) * gu[:, F:]) @ w2.T
 
-            bound, by = mlp_silu_bound_ms(n_rows, E, F, q8)
-            ms = time_ms(lambda i, xa=xa: mlp_fused_silu_q4(
-                xa, *ws[i % copies]), 48)
-            row = {"rows": n_rows, "acts": acts, "ms": ms,
-                   "library_ms": time_ms(lib, 48), "bound_ms": bound,
-                   "bound_by": by, "roofline_share": bound / ms,
-                   "cold_copies": copies}
-            if plain:
-                row["plain_ms"] = time_ms(lambda i, xv=x if acts == "f32"
-                                          else xr: _ff_silu_ref(
-                                              *ws[i % copies], xv,
-                                              quantize_acts=False), 6)
-            rows.append(row)
-    del ws, wb
-    torch.cuda.empty_cache()
+                bound, by = mlp_silu_bound_ms(n_rows, E, F, q8)
+                ms = time_ms(lambda i, xa=xa: mlp_fused_silu_q4(
+                    xa, *ws[i % copies]), 48)
+                row = {"config": tag, "rows": n_rows, "acts": acts, "ms": ms,
+                       "library_ms": time_ms(lib, 48), "bound_ms": bound,
+                       "bound_by": by, "roofline_share": bound / ms,
+                       "cold_copies": copies}
+                if n_rows == 1 and acts == "q8":
+
+                    def unfused(i, F=F):
+                        w1, w2 = ws[i % copies]
+                        gu = linear(w1, x, quantize_acts=True)
+                        return linear(w2, silu(gu[..., :F]) * gu[..., F:],
+                                      quantize_acts=True)
+
+                    row["fused_route_ms"] = time_ms(
+                        lambda i: flash_ff_silu_q4(*ws[i % copies], x,
+                                                   quantize_acts=True), 48)
+                    row["unfused_ms"] = time_ms(unfused, 48)
+                if plain:
+                    row["plain_ms"] = time_ms(lambda i, xv=x if acts == "f32"
+                                              else xr: _ff_silu_ref(
+                                                  *ws[i % copies], xv,
+                                                  quantize_acts=False), 6)
+                rows.append(row)
+        del ws, wb
+        torch.cuda.empty_cache()
     emit({"mlp_fused_silu_timing": rows})
     if counts is None:
         return rows
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    r1 = next(r for r in rows if r["rows"] == 1 and r["acts"] == "f32")
-    r16 = next(r for r in rows if r["rows"] == PROMPT_LEN and r["acts"] == "q8")
+    r7 = [r for r in rows if r["config"] == "7B"]
+    r1 = next(r for r in r7 if r["rows"] == 1 and r["acts"] == "f32")
+    rq = next(r for r in r7 if r["rows"] == 1 and r["acts"] == "q8")
+    r16 = next(r for r in r7 if r["rows"] == PROMPT_LEN and r["acts"] == "q8")
     b1 = {"name": "mlp_fused_silu_q4", "route": "cuda",
           "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_silu_q4.cu",
           "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:268",
           "launches": counts["mlp_fused_silu_q4"],
           **{key: r1[key] for key in keys},
+          "fused_route_ms": rq["fused_route_ms"],
+          "unfused_ms": rq["unfused_ms"],
+          "one_row_ms": {r["config"]: r["ms"] for r in rows
+                         if r["rows"] == 1 and r["acts"] == "f32"},
           "unit": "one Llama-7B MLP call at 1 row (a decode step): E 4096, "
                   "F 11008, cold L2; library = two bf16 torch.matmuls + "
-                  "F.silu"}
+                  "F.silu; fused_route_ms / unfused_ms: path d2's fused "
+                  "call and path a's unfused matmul_q4_0 + silu * u + "
+                  "matmul_q4_0, each with its Q8_0 round trip"}
     mma = {"name": "mlp_fused_silu_q4_mma", "route": "cuda",
            "source": "ggmlsharp_tpu_torch/csrc/mlp_fused_silu_q4.cu",
            "replaces": "ggmlsharp_tpu/kernels/mlp_fused.py:268",
            "launches": counts["mlp_fused_silu_q4_mma"],
            **{key: r16[key] for key in keys},
-           "rows_ms": {f"{r['rows']} {r['acts']}": r["ms"] for r in rows},
+           "rows_ms": {f"{r['rows']} {r['acts']}": r["ms"] for r in r7},
            "rows_library_ms": {f"{r['rows']} {r['acts']}": r["library_ms"]
-                               for r in rows},
+                               for r in r7},
            "unit": "one Llama-7B MLP call at 16 rows (the prompt of paths d1, "
                    "d2), Q8_0 activations, cold L2 (the multi-row instance, "
                    "csrc/dq_mma.cuh: split, gate/up, merge_gate, down, "
@@ -3583,6 +3710,55 @@ def attention_timing(dev):
 MATMUL_TIMING_Q8_B = (1, 2, 3, 4, 16, 128)  # kernel 4: the crossover, paths
 
 
+def bits_digests(dev):
+    """A digest (sha256, 16 hex digits) of the output of the b = 1 Q4_0
+    matvec at every 7B shape (f32 x in both mm_dot modes), of kernel 10
+    (Llama-7B block, T 256, npast 32) and of kernel 11 (GPT-2 124M and 774M
+    blocks, T 256, npast 32), each on inputs made from a fixed seed: two
+    trees whose digests agree give those kernels the same bits."""
+    import hashlib
+
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.gpt2_layer import gpt2_layer_step
+    from ggmlsharp_tpu_torch.kernels.llama_layer import (llama_layer_step,
+                                                         rope_vectors)
+    from ggmlsharp_tpu_torch.kernels.matmul_q import q4_0_matmul
+    from ggmlsharp_tpu_torch.models import llama
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()) \
+            .hexdigest()[:16]
+
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    out = {}
+    for name, n, k, _ in Q4_SHAPES:
+        w = llama.random_q4_0(n, k, gen, dev)
+        x = torch.randn((1, k), generator=gen, device=dev)
+        for mode in ("f32", "bf16"):
+            out[f"matmul_q4_0 {name} {mode}"] = digest(
+                q4_0_matmul(x, w["qs"], w["d"], mode=mode))
+    cfg, blocks = llama_blocks(llama.LLAMA_7B, 1, SEED + 14, gen, dev)
+    Ekv = cfg.n_head_kv * cfg.head_dim
+    kc = torch.randn((256, Ekv), generator=gen, device=dev).bfloat16()
+    np_t = torch.tensor([32], dtype=torch.int32, device=dev)
+    x = torch.randn((1, cfg.n_embd), generator=gen, device=dev)
+    out["llama_layer 7B"] = digest(llama_layer_step(
+        blocks[0], x, kc, kc, np_t, cfg, rope_vectors(np_t, cfg))[0])
+    del blocks
+    for tag, gcfg in gpt2_configs():
+        blk = gpt2_blocks(gcfg, 1, SEED + 14)[0]
+        E = gcfg.n_embd
+        kc = torch.randn((256, E), generator=gen, device=dev).bfloat16()
+        x = torch.randn((1, E), generator=gen, device=dev)
+        np1 = torch.tensor(32, dtype=torch.int32, device=dev)
+        out[f"gpt2_layer {tag}"] = digest(gpt2_layer_step(
+            blk, x, kc, kc, np1, gcfg.n_head, gcfg.ln_eps)[0])
+    torch.cuda.empty_cache()
+    emit({"bits": out})
+    return out
+
+
 def matmul_timing(dev):
     """--matmul-timing [ROOT], a development mode (no compatibility
     promise): the dequant-matmuls and kernel 9 of the package under ROOT
@@ -3614,6 +3790,7 @@ def matmul_timing(dev):
     t0 = time.perf_counter()
     kernels.build(names)
     log(f"built {names} in {time.perf_counter() - t0:.1f} s")
+    bits_digests(dev)
     gen = torch.Generator(dev).manual_seed(SEED)
     rows = []
     for fmt in ("Q4_0", *E_FORMATS):
@@ -3641,11 +3818,19 @@ def matmul_timing(dev):
     log(f"path f2's Q8_0 prompt forward ({F_LAYERS} layers, b 16): "
         f"{forward_sum(q8_7b, 'Q8_0', 16)['ms']:.4f} ms")
     silu = time_mlp_fused_silu(dev, gen, plain=False)
-    log("kernel 9 ms: " + ", ".join(f"{r['rows']} {r['acts']} {r['ms']:.4f}"
-                                    for r in silu))
+    log("kernel 9 ms: " + ", ".join(
+        f"{r['config']} {r['rows']} {r['acts']} {r['ms']:.4f}" for r in silu))
+    log("kernel 9 one row, routes with the Q8_0 round trip (ms): " + ", ".join(
+        f"{r['config']} fused {r['fused_route_ms']:.4f} unfused "
+        f"{r['unfused_ms']:.4f} library {r['library_ms']:.4f}"
+        for r in silu if "unfused_ms" in r))
     gelu = time_mlp_fused(dev, gen, plain=False)
     log("kernel 8 ms: " + ", ".join(
         f"{r['config']} {r['rows']} {r['acts']} {r['ms']:.4f}" for r in gelu))
+    log("kernel 8 one row, routes (ms): " + ", ".join(
+        f"{r['config']} {r['acts']} fused {r['fused_route_ms']:.4f} unfused "
+        f"{r['unfused_ms']:.4f} library {r['library_ms']:.4f}"
+        for r in gelu if "unfused_ms" in r))
     lay = time_llama_layer(dev, gen, plain=False)
     log(f"kernel 10 ms: npast 32 {lay['ms']:.4f}, npast 2047 "
         f"{lay['npast_2047']['ms']:.4f}, no products "
@@ -3732,6 +3917,7 @@ def main(argv):
     mlp_err = check_mlp_fused(dev, gen)
     layer_err = check_gpt2_layer(dev, gen)
     silu_err = check_mlp_fused_silu(dev, gen)
+    repeats = check_one_row_repeats(dev, gen)
     llayer_err = check_llama_layer(dev, gen)
     attn_lay_err = check_attn_layout(dev, gen)
     ragged_err = check_ragged(dev, gen)
@@ -3748,7 +3934,9 @@ def main(argv):
         f"{attn_lay_err:.3g}), Q8_0 {q8_err:.3g} at b {Q8_CHECK_B} (a "
         f"row's bits equal at b >= 2), mlp_fused_q8 {mlp_err:.3g}, gpt2_layer "
         f"{layer_err:.3g}, mlp_fused_silu_q4 {silu_err:.3g} at rows "
-        f"{SILU_CHECK_ROWS} and E, F {SILU_SHORT}, llama_layer "
+        f"{SILU_CHECK_ROWS} and E, F {SILU_SHORT}, {SILU_13B} (one row); "
+        f"kernels 8, 11, 9 back to back and in a graph replay, {repeats} "
+        f"launches bit-equal to their first; llama_layer "
         f"{llayer_err:.3g}; matmul_q {max(mq_errs.values()):.3g} (7 "
         f"formats, b as Q4_0's, rows as Q4_0's), matmul_int_dot "
         f"{max(ib_errs.values()):.3g} (5 formats); flash entries "
@@ -4175,7 +4363,9 @@ def main(argv):
              # kernel 10 at npast 2047 and without its products; kernel 11
              # at 774M and at every timed case; kernel 7 at every 7B shape
              "npast_2047", "no_matvec_ms", "gpt2_774m", "shapes",
-             "shapes_ms", "shapes_bound_ms")
+             "shapes_ms", "shapes_bound_ms",
+             # kernels 8 and 9 at one row: their routes, their other shapes
+             "fused_route_ms", "unfused_ms", "one_row_ms")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

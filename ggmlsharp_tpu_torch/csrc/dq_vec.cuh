@@ -377,26 +377,28 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ x, float* xs, 
   __syncthreads();
 }
 
-// One chunk of K: units u0 .. u0 + units - 1 of every row (u0 a multiple
-// of 8, x already advanced to unit u0); add: y += the chunk's sums.
-template <class D, int WARPS, int RW, bool RX>
-__global__ void __launch_bounds__(WARPS * 32)
-vec_kernel(const float* __restrict__ x, const Planes pl, float* __restrict__ y, int N, int K,
-           int u0, int units, int add) {
-  extern __shared__ __align__(16) float xs[];
+// The streaming walk over row groups, shared by vec_kernel and the fused
+// SwiGLU MLP (mlp_fused_silu_q4.cu): this warp takes groups g, g + gstride,
+// ... below `groups`, RW weight rows each (row r of group lg: row(lg, r),
+// a row of the planes), units 0 .. units - 1 of each (unit u0 + u of the
+// row). The warp's steps run in order, (group, first unit), the loads one
+// step ahead of the products; the first step's loads are issued before
+// stage() (which fills xs, x in the lanes' order from unit u0 on). Unit
+// lc + lane: a lane past the last unit loads nothing and adds 0.
+// ready(c0) runs before a step reads xs's units c0 .. c0 + 31; out(lg, v)
+// gets the group's RW sums once the warp has reduced them (every lane holds
+// them).
+template <class D, int RW, class Row, class Stage, class Ready, class Out>
+__device__ __forceinline__ void walk(const Planes& pl, const float* xs, int K, int u0, int units,
+                                     int groups, int g, int gstride, Row row, Stage stage,
+                                     Ready ready, Out out) {
   using W = typename D::W;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int groups = (N + RW - 1) / RW, gstride = gridDim.x * WARPS;
-  int g = blockIdx.x * WARPS + warp;  // this warp's row group: rows g RW ..
-  // the warp's steps in order, (group, first unit); the loads one step
-  // ahead of the products. Unit lc + lane of group lg's rows: rows past N
-  // read row N - 1 and write nothing, a lane past the last unit loads
-  // nothing and adds 0
+  const int lane = threadIdx.x & 31;
   int lg = g, lc = 0;
   auto load = [&](W (&k)[RW]) {
     if (lg < groups && lc + lane < units) {
 #pragma unroll
-      for (int r = 0; r < RW; ++r) D::load(k[r], pl, min(lg * RW + r, N - 1), u0 + lc + lane, K);
+      for (int r = 0; r < RW; ++r) D::load(k[r], pl, row(lg, r), u0 + lc + lane, K);
     }
     lc += STEP;
     if (lc >= units) {
@@ -406,13 +408,14 @@ vec_kernel(const float* __restrict__ x, const Planes pl, float* __restrict__ y, 
   };
   W b0[RW], b1[RW];
   load(b0);  // weight bytes in flight before the copy
-  stage_x<D, RX>(x, xs, units);
+  stage();
 
   // One step: the next step's loads into `fill`, then cur's products
   auto step = [&](W (&cur)[RW], W (&fill)[RW], int c0, float (&acc)[RW]) {
     load(fill);
 #pragma unroll
     for (int r = 0; r < RW; ++r) D::prep(cur[r], lane);
+    ready(c0);
     const int u = c0 + lane;
     if (u < units) {
       const float* xu = xs + XU * u;
@@ -455,13 +458,32 @@ vec_kernel(const float* __restrict__ x, const Planes pl, float* __restrict__ y, 
     // the group's reduction, the next group's first loads in flight
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
-      float v = acc[r];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && g * RW + r < N) y[g * RW + r] = add ? y[g * RW + r] + v : v;
+      for (int off = 16; off > 0; off >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
     }
+    out(g, acc);
     g += gstride;
   }
+}
+
+// One chunk of K: units u0 .. u0 + units - 1 of every row (u0 a multiple
+// of 8, x already advanced to unit u0); add: y += the chunk's sums. Rows
+// past N read row N - 1 and write nothing.
+template <class D, int WARPS, int RW, bool RX>
+__global__ void __launch_bounds__(WARPS * 32)
+vec_kernel(const float* __restrict__ x, const Planes pl, float* __restrict__ y, int N, int K,
+           int u0, int units, int add) {
+  extern __shared__ __align__(16) float xs[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  walk<D, RW>(
+      pl, xs, K, u0, units, (N + RW - 1) / RW, blockIdx.x * WARPS + warp, gridDim.x * WARPS,
+      [&](int lg, int r) { return min(lg * RW + r, N - 1); },
+      [&] { stage_x<D, RX>(x, xs, units); }, [](int) {},
+      [&](int g, const float (&v)[RW]) {
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+          if (lane == 0 && g * RW + r < N) y[g * RW + r] = add ? y[g * RW + r] + v[r] : v[r];
+      });
 }
 
 // One launch at (WARPS, RW) a chunk of K (CHUNK units at most; where K

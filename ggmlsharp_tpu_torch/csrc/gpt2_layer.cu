@@ -25,8 +25,9 @@
 //  * CTA c of G owns rows [N c / G, N (c + 1) / G) of each of the four
 //    weights. Its qs rows are one contiguous range and so are its scales.
 //  * The wrapper (kernels/gpt2_layer.py::smem_plan) cuts the CTA's shares
-//    into pieces and places them in shared memory; each piece has its own
-//    `full` mbarrier. At 124M, 355M and 774M every share fits at once (57,
+//    into pieces and places them in shared memory (shares.cuh, shared with
+//    mlp_fused_q8.cu's one-row instance); each piece has its own `full`
+//    mbarrier. At 124M, 355M and 774M every share fits at once (57,
 //    101, 158 KB): one piece a weight. A producer warp issues qkv's TMA bulk
 //    copies (cp.async.bulk) at entry and each other weight's a phase or two
 //    before it is needed (proj's once ln1's inputs are in, c_fc's once
@@ -80,6 +81,7 @@
 #endif
 #include "persist.cuh"
 #include "q8_dot.cuh"
+#include "shares.cuh"
 
 namespace {
 
@@ -93,20 +95,19 @@ constexpr int MAX_D = 128;  // head width: a multiple of 32 up to this
 constexpr int LNP = 5;      // elements of an E vector a consumer thread takes: E <= LNP * NC
 constexpr float NEG = -1e30f;
 
-// The shared-memory plan the wrapper computes (kernels/gpt2_layer.py
-// smem_plan), as it hands it over: a header, then PIECE_INTS a piece.
-constexpr int MAX_PIECES = 64;
-constexpr int COPY_BYTES = 8192;  // the most bytes of one bulk copy (a multiple of 16)
-// a piece: weight, first row of the share, rows, byte offset in the ring,
-// the piece whose release it waits for (or -1), rows a unit (1 or 2), splits
-// of the row's steps (P)
-constexpr int PIECE_INTS = 7;
-enum PlanHdr : int { H_N = 0, H_RED, H_ATT, H_BAR, H_RING, H_SMEM, H_G, H_FIRST, H_LEN = H_FIRST + 5 };
-
-struct Plan {
-  int hdr[H_LEN];
-  int piece[MAX_PIECES][PIECE_INTS];
-};
+using shares::H_ATT;
+using shares::H_BAR;
+using shares::H_FIRST;
+using shares::H_G;
+using shares::H_LEN;
+using shares::H_N;
+using shares::H_RED;
+using shares::H_RING;
+using shares::H_SMEM;
+using shares::MAX_PIECES;
+using shares::Mat;
+using shares::PIECE_INTS;
+using shares::Plan;
 
 struct LayerArgs {
   const float* x;
@@ -127,122 +128,25 @@ struct LayerArgs {
   Plan plan;
 };
 
+using persist::await;
 using persist::mbar_arrive;
 using persist::mbar_wait;
+using persist::peek;
+using persist::put;
 
 __device__ __forceinline__ void csync() { persist::csync<NC>(); }
 
-// ---- the exchange ----------------------------------------------------------
-
-// Element v of an exchanged vector, stored with the launch's tag in one
-// 64-bit word: a reader that sees the tag sees the value. No fence, no
-// barrier: a CTA waits for exactly the elements it reads.
-__device__ __forceinline__ void put(unsigned long long* p, float v, unsigned tag) {
-  const unsigned long long w = ((unsigned long long)tag << 32) | __float_as_uint(v);
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
-}
-__device__ __forceinline__ unsigned long long peek(const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
-  return w;
-}
-__device__ __forceinline__ float await(const unsigned long long* p, unsigned long long w,
-                                       unsigned tag) {
-  while ((unsigned)(w >> 32) != tag) {
-    __nanosleep(20);
-    w = peek(p);
-  }
-  return __uint_as_float((unsigned)w);
-}
-
-// vec[i] = src[i] for i < n, each once it carries this launch's tag: a
-// thread's elements i = t + j NC, GB at a time, all read in one pass and
-// the ones not yet written read again together in the next.
-constexpr int GB = 8;
-__device__ void gather(const unsigned long long* src, int n, unsigned tag, float* vec) {
-  for (int i0 = threadIdx.x; i0 < n; i0 += GB * NC) {
-    unsigned long long w[GB];
-#pragma unroll
-    for (int j = 0; j < GB; ++j) w[j] = i0 + j * NC < n ? peek(src + i0 + j * NC) : 0ull;
-    while (true) {
-      bool all = true;
-#pragma unroll
-      for (int j = 0; j < GB; ++j)
-        all = all && (i0 + j * NC >= n || (unsigned)(w[j] >> 32) == tag);
-      if (all) break;
-      __nanosleep(20);
-#pragma unroll
-      for (int j = 0; j < GB; ++j)
-        if (i0 + j * NC < n && (unsigned)(w[j] >> 32) != tag) w[j] = peek(src + i0 + j * NC);
-    }
-#pragma unroll
-    for (int j = 0; j < GB; ++j)
-      if (i0 + j * NC < n) vec[i0 + j * NC] = __uint_as_float((unsigned)w[j]);
-  }
-  csync();
-}
-
 // ---- the weights -----------------------------------------------------------
 
-// One weight as this CTA sees it: rows [lo, hi) of N, K columns.
-struct Mat {
-  const int8_t* qs;
-  const __half* d;
-  int N, K, lo, hi;
-};
-
 __device__ __forceinline__ Mat mat_of(const LayerArgs& a, int w) {
-  Mat m;
-  m.qs = a.qs[w];
-  m.d = a.d[w];
-  m.N = w == 0 ? 3 * a.E : w == 2 ? a.F : a.E;
-  m.K = w == 3 ? a.F : a.E;
-  // 32-bit: N G < 2^31 (the entry checks); a 64-bit division is a long
-  // software sequence
-  m.lo = (int)((unsigned)m.N * blockIdx.x / gridDim.x);
-  m.hi = (int)((unsigned)m.N * (blockIdx.x + 1) / gridDim.x);
-  return m;
+  return shares::share(a.qs[w], a.d[w], w == 0 ? 3 * a.E : w == 2 ? a.F : a.E,
+                       w == 3 ? a.F : a.E);
 }
 
-// rows of piece p that this CTA owns (its share may be a row short of the
-// most the plan was made for)
-__device__ __forceinline__ int piece_rows(const LayerArgs& a, const Mat& m, int p) {
-  const int* pc = a.plan.piece[p];
-  return max(0, min(pc[2], m.hi - m.lo - pc[1]));
-}
-
-// Pieces [p0, p1) by the producer warp's lane 0: each piece's qs rows (bulk
-// copies (TMA) of at most COPY_BYTES, so that several are in flight) and
-// scales (one bulk copy), completing on the piece's `full` mbarrier, in plan
-// order; a piece that reuses earlier pieces' bytes first waits for their
-// release. The scale range is widened to 16-byte bounds
-// (the plane's size is a multiple of 16 bytes, so the widened range stays
-// inside it).
-__device__ void issue(const LayerArgs& a, int p0, int p1, unsigned char* ring, uint64_t* full,
-                      uint64_t* empty) {
-  for (int p = p0; p < p1; ++p) {
-    const int* pc = a.plan.piece[p];
-    const Mat m = mat_of(a, pc[0]);
-    if (pc[4] >= 0) mbar_wait(&empty[pc[4]], 0);
-    const int r = piece_rows(a, m, p);
-    if (r == 0) {
-      mbar_arrive(&full[p]);
-      continue;
-    }
-    const size_t row0 = (size_t)m.lo + pc[1];
-    const size_t qbytes = (size_t)r * m.K;
-    const size_t start = row0 * (m.K / 16), end = start + (size_t)r * (m.K / 16);
-    const size_t d0 = start & ~(size_t)15, d1 = (end + 15) & ~(size_t)15;
-    persist::mbar_arrive_tx(&full[p], (unsigned)(qbytes + (d1 - d0)));
-    unsigned char* dst = ring + pc[3];
-    const int8_t* src = m.qs + row0 * m.K;
-    for (size_t off = 0; off < qbytes; off += COPY_BYTES)  // several copies in flight
-      persist::bulk_copy(dst + off, src + off, (unsigned)min((size_t)COPY_BYTES, qbytes - off),
-                         &full[p]);
-    persist::bulk_copy(dst + (size_t)pc[2] * m.K,
-                       reinterpret_cast<const unsigned char*>(m.d) + d0, (unsigned)(d1 - d0),
-                       &full[p]);
-  }
+// The pieces of the producer warp's lane 0, in plan order.
+__device__ __forceinline__ void issue(const LayerArgs& a, int p0, int p1, unsigned char* ring,
+                                      uint64_t* full, uint64_t* empty) {
+  shares::issue(a.plan, [&](int w) { return mat_of(a, w); }, p0, p1, ring, full, empty);
 }
 
 // The consumers' go-ahead to the producer for weight w's pieces (named
@@ -271,61 +175,18 @@ __device__ void produce(const LayerArgs& a, unsigned char* ring, uint64_t* full,
   if (lead) issue(a, a.plan.hdr[H_FIRST + 3], a.plan.hdr[H_N], ring, full, empty);
 }
 
-// The consumers' pass over weight w's pieces: each piece once its bytes
-// land; unit (row group g of RW rows, split s of P) goes to warp g + s
-// groups mod CW, which leaves its partial sums in red[i * CW + s] (i: the
-// row's index in the CTA's share) and, after the piece, releases it.
-template <int RW>
-__device__ __forceinline__ void consume_piece(const Mat& m, const int* pc, int r, const float* vec,
-                                              const unsigned char* ring, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int groups = (r + RW - 1) / RW, P = pc[6];
-  const int8_t* q0 = reinterpret_cast<const int8_t*>(ring + pc[3]);
-  const size_t start = ((size_t)m.lo + pc[1]) * (m.K / 16);
-  const __half* d0 =
-      reinterpret_cast<const __half*>(ring + pc[3] + (size_t)pc[2] * m.K + (start & 15));
-  int g = groups > 0 ? warp % groups : 0, s = groups > 0 ? warp / groups : 0;
-  for (int u = warp; u < groups * P; u += CW) {  // unit u: group g = u % groups, split s
-    float acc[RW];
-    q8::smem_rows_dot<RW>(vec, q0 + (size_t)g * RW * m.K, d0 + (size_t)g * RW * (m.K / 32),
-                          m.K, min(RW, r - g * RW), s, P, lane, acc);
-#pragma unroll
-    for (int j = 0; j < RW; ++j) {
-      const float v = q8::warp_sum(acc[j]);
-      if (lane == j && g * RW + j < r) red[(size_t)(pc[1] + g * RW + j) * CW + s] = v;
-    }
-    for (g += CW; g >= groups && groups > 0; g -= groups) ++s;
-  }
-}
-
+// The consumers' pass over weight w's pieces (shares.cuh).
 __device__ __forceinline__ void consume(const LayerArgs& a, int w, const Mat& m, const float* vec,
-                        const unsigned char* ring, uint64_t* full, uint64_t* empty, float* red,
-                        long long* tr = nullptr) {
+                                        const unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, float* red, long long* tr = nullptr) {
   if (LAYER_NO_MATVEC) return;
-  for (int p = a.plan.hdr[H_FIRST + w]; p < a.plan.hdr[H_FIRST + w + 1]; ++p) {
-    const int* pc = a.plan.piece[p];
-    const int r = piece_rows(a, m, p);
-    mbar_wait(&full[p], 0);
-    if (LAYER_TRACE && tr != nullptr && threadIdx.x == 0) tr[0] = clock64();
-    if (pc[5] == 1)
-      consume_piece<1>(m, pc, r, vec, ring, red);
-    else
-      consume_piece<2>(m, pc, r, vec, ring, red);
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[p]);
-    if (LAYER_TRACE && tr != nullptr && threadIdx.x == 0) tr[1] = clock64();
-  }
+  shares::consume<CW>(a.plan, w, m, vec, ring, full, empty, red, LAYER_TRACE ? tr : nullptr);
 }
 
 // Row i of the CTA's share of weight w: its partials added in split order.
 __device__ __forceinline__ float row_total(const LayerArgs& a, int w, int i, const float* red) {
   if (LAYER_NO_MATVEC) return 0.f;
-  int p = a.plan.hdr[H_FIRST + w];
-  while (i >= a.plan.piece[p][1] + a.plan.piece[p][2]) ++p;
-  const int P = a.plan.piece[p][6];
-  float v = 0.f;
-  for (int s = 0; s < P; ++s) v += red[(size_t)i * CW + s];
-  return v;
+  return shares::row_total<CW>(a.plan, w, i, red);
 }
 
 // ---- the block's other steps (consumer threads) ------------------------
@@ -558,13 +419,7 @@ __global__ void __launch_bounds__(THREADS, 1) gpt2_layer_kernel(const __grid_con
   uint64_t* full = reinterpret_cast<uint64_t*>(dyn + a.plan.hdr[H_BAR]);
   uint64_t* empty = full + np;
   unsigned char* ring = dyn + a.plan.hdr[H_RING];
-  if (threadIdx.x == 0) {
-    for (int p = 0; p < np; ++p) {
-      persist::mbar_init(&full[p], 1);   // the producer's arrival
-      persist::mbar_init(&empty[p], CW);  // one a consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  shares::init_barriers<CW>(a.plan, full, empty);
   __syncthreads();
   if (threadIdx.x >= NC) {  // the producer warp
     produce(a, ring, full, empty);
@@ -578,9 +433,7 @@ __global__ void __launch_bounds__(THREADS, 1) gpt2_layer_kernel(const __grid_con
 
   // this launch's tag: one more than the last launch's (CTA 0 stores it
   // once it has seen every CTA's h, each written after its CTA read this)
-  unsigned tag;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(tag) : "l"(a.sync + 1) : "memory");
-  ++tag;
+  const unsigned tag = persist::launch_tag(a.sync);
   // ln1's gain and bias (thread t takes elements t + j NC)
   const int t = threadIdx.x;
   float g1[LNP], b1[LNP];
@@ -642,7 +495,7 @@ __global__ void __launch_bounds__(THREADS, 1) gpt2_layer_kernel(const __grid_con
   }
 
   // 3. x2 = x + attention Wp^T + bp
-  gather(xa, E, tag, vec);
+  persist::gather<NC>(xa, E, tag, vec);
   release_weight(2);
   STAMP(5);
   consume(a, 1, m1, vec, ring, full, empty, red);
@@ -653,7 +506,7 @@ __global__ void __launch_bounds__(THREADS, 1) gpt2_layer_kernel(const __grid_con
   STAMP(7);
 
   // 4. h = gelu(ln2(x2) Wf^T + bf)
-  gather(xx, E, tag, vec);
+  persist::gather<NC>(xx, E, tag, vec);
   release_weight(3);
   STAMP(8);
   layer_norm<true>(vec, g2s, b2s, E, a.eps, vec, bred, sm_ml);
@@ -665,9 +518,9 @@ __global__ void __launch_bounds__(THREADS, 1) gpt2_layer_kernel(const __grid_con
   STAMP(11);
 
   // 5. y = x2 + h Wc^T + bc (cproj's rows are proj's: this thread's x2)
-  gather(xh, F, tag, vec);
+  persist::gather<NC>(xh, F, tag, vec);
   if (blockIdx.x == 0 && t == 0)  // every CTA has read the generation
-    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(a.sync + 1), "r"(tag) : "memory");
+    persist::store_tag(a.sync, tag);
   STAMP(12);
   consume(a, 3, m3, vec, ring, full, empty, red);
   csync();

@@ -12,8 +12,8 @@
 // (2*B*N1*(K1 + N2), three bf16 products a term for an f32 operand) stay
 // below the bytes' time.
 //
-// Two instances. One activation row (entry mlp_fused_q8) runs the SIMT
-// design below; from kernels/matmul_q.py MMA_MIN_ROWS (2) rows on the
+// Two instances. One activation row (entry mlp_fused_q8) runs the
+// persistent design below; from kernels/matmul_q.py MMA_MIN_ROWS (2) rows on the
 // wrapper launches the multi-row instance (entry mlp_fused_q8_mma) on the tensor
 // cores, two launches of matmul_q8_0.cu's single-launch routes
 // (dq_mma.cuh), each with its K splits reduced in a thread-block cluster
@@ -29,175 +29,212 @@
 // A row's sums run in the same order at every B that takes the instance
 // (the splits depend on the weight's shape alone).
 //
-// The b = 1 design. The TPU kernel walks a sequential grid and keeps h in
-// on-chip scratch; here blocks run in parallel and none can hold W1 or h
-// for the others. So the kernel is a cooperative launch of a persistent
-// grid that fits the card at once:
-//  * phase 1: every warp of the grid takes a pair of W1 rows in turn and
-//    writes gelu(dot + b1) to a scratch h [1, N1] f32 (it stays in L2);
-//  * one grid-wide barrier;
-//  * phase 2: W2 has few rows (N2 = E) and long ones (K = N1 = 4E), so a
-//    warp a row pair would leave most of the grid idle behind 12 to 20
-//    dependent steps. Here a block takes a row pair and its 8 warps split K,
-//    every 8th 256-element step each; their sums meet in shared memory in a
-//    fixed order. h is read with plain loads (L1 and L2).
-// The inner loop is q8_dot.cuh's (mm_dot "bf16": x rounded where phase 1
-// loads it). The grid is sized inside the C entry from
-// the occupancy of the kernel times the SM count; a launch the card refuses
-// comes back as its CUDA error.
+// The b = 1 design (gpt2_layer.cu's, cut down to its MLP). What keeps one
+// activation row from the bytes' bound (5.0 MB at 124M: 1.5 us) is the
+// chain of dependent steps: the launch, the first weight bytes, W1's
+// products, the point where every CTA needs every other CTA's h, W2's
+// products. So the kernel is a persistent grid of one CTA an SM (a
+// cooperative launch: every CTA resident) with no grid barrier:
+//  * CTA c of G owns rows [N c / G, N (c + 1) / G) of each weight; its
+//    producer warp copies its W1 share into shared memory by TMA bulk
+//    copies at entry and its W2 share once W1's has landed (W2's bytes
+//    land during W1's products and the exchange instead of slowing W1's:
+//    -1.2 us at 774M); the pieces and their offsets come from
+//    kernels/mlp_fused.py::mlp_smem_plan (shares.cuh; one piece a share
+//    where both fit, 19 + 19 KB at 124M and 53 + 53 KB at 774M, else a
+//    ring of pieces);
+//  * the CW consumer warps copy x into shared memory (requested before the
+//    weights; rounded to bf16 under mm_dot "bf16") and the plan beside it (read there, not through
+//    the constant cache, whose misses wait behind the weights' copies),
+//    take W1's rows (q8_dot.cuh's smem_rows_dot) and write their rows of
+//    h = gelu(x W1^T + b1) to an exchange buffer as (value, launch tag)
+//    words (persist.cuh: a reader waits for exactly the words it reads, no
+//    fence, no barrier);
+//  * every CTA gathers all of h into shared memory as its words come in,
+//    then takes W2's rows and writes y = h W2^T + b2.
+// The products, not the bytes, set the time once W1 has landed: CW is 12
+// or 20, which the wrapper picks for the shares' rows (mlp_smem_plan).
+// The launch tag is one more than word 1 of the sync buffer (kernels/
+// _sync.py), which CTA 0 stores once it has gathered h (every CTA wrote h
+// after reading the tag): it comes from the device, so a CUDA graph's
+// replays each take a new one, and the launches of this kernel and
+// gpt2_layer.cu on one stream take turns on the same word. A launch the
+// card refuses comes back as its CUDA error.
 //
 // Tunables of the b = 1 instance (-D overrides them; scripts/
-// probe_q8_kernels.py calls the wrapper at 16 rows, which the multi-row
-// instance takes, so its MLP variants no longer time them): MLP_RW weight
-// rows a warp item; MLP_MAX_BLOCKS_SM resident
-// blocks an SM (more only cost barrier time); MLP_PHASE2_KSPLIT 0 runs phase 2
-// as phase 1, a warp an item; MLP_NO_WORK 1 leaves the launch and the barrier.
+// probe_q8_kernels.py times them at one row): MLP_RW rows a consumer unit
+// (0: the plan's, 1 or 2 a piece; 1, 2 or 4 forces it); MLP_W2_LATE 0
+// issues W2's copies at entry with W1's; MLP_NO_WORK 1 copies no weight
+// and skips the products, leaving the launch, x and the exchange.
 #ifndef MLP_RW
-#define MLP_RW 2
+#define MLP_RW 0
 #endif
-#ifndef MLP_MAX_BLOCKS_SM
-#define MLP_MAX_BLOCKS_SM 4
-#endif
-#ifndef MLP_PHASE2_KSPLIT
-#define MLP_PHASE2_KSPLIT 1
+#ifndef MLP_W2_LATE
+#define MLP_W2_LATE 1
 #endif
 #ifndef MLP_NO_WORK
 #define MLP_NO_WORK 0
 #endif
-#include <cooperative_groups.h>
 
 #include "dq_mma.cuh"
+#include "persist.cuh"
 #include "q8_dot.cuh"
-
-namespace cg = cooperative_groups;
+#include "shares.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RW = MLP_RW;
-constexpr int MAX_BLOCKS_SM = MLP_MAX_BLOCKS_SM;
+static_assert(MLP_RW == 0 || MLP_RW == 1 || MLP_RW == 2 || MLP_RW == 4, "rows a unit");
+// The consumer warps an instance takes (kernels/mlp_fused.py _CONSUMER_WARPS)
+constexpr int CW_FEW = 12, CW_MANY = 20;
 
-struct MlpArgs {
+struct OneRow {
   const float* x;
-  const int8_t* qs1;
-  const __half* d1;
-  const void* b1;
-  const int8_t* qs2;
-  const __half* d2;
-  const void* b2;
-  float* h;
+  const int8_t* qs[2];  // W1 [N1, K1], W2 [N2, N1]
+  const __half* d[2];
+  const void* bias[2];
   float* y;
-  int K1, N1, N2, bias_bf16, rx;
+  unsigned long long* xh;  // h [N1], each element with this launch's tag
+  unsigned* sync;          // [1] the last launch's tag
+  int K1, N1, N2, rx;
+  shares::Plan plan;
 };
 
-// out[n] = act(sum_k x[k] W[n, k] + bias[n]) over all row-pair items, one a
-// warp at a time across the whole grid.
-template <int XL, bool GELU>
-__device__ __forceinline__ void phase(const float* x, int K, const int8_t* qs,
-                                      const __half* d, const void* bias, int bias_bf16,
-                                      int N, float* out, int gwarp, int nwarps, int lane) {
-  const int items = MLP_NO_WORK ? 0 : (N + RW - 1) / RW;
-  for (int item = gwarp; item < items; item += nwarps) {
-    const int n0 = item * RW;
-    const int8_t* q[RW];
-    const __half* dd[RW];
-    q8::row_ptrs(qs, d, K, N, n0, 1, q, dd);
-    float acc[1][RW];
-    q8::warp_dot<1, RW, XL>(x, (size_t)K, 1, q, dd, K, lane, acc);
-#pragma unroll
-    for (int w = 0; w < RW; ++w) {
-      float v = q8::warp_sum(acc[0][w]);  // every lane holds the sum
-      if (lane == w && n0 + w < N) {
-        v += q8::load_vec(bias, n0 + w, bias_bf16);
-        out[n0 + w] = GELU ? q8::gelu(v) : v;
-      }
+template <bool VB>
+__device__ __forceinline__ float bias_at(const void* p, int i) {
+  return VB ? __uint_as_float((uint32_t)__ldg(reinterpret_cast<const uint16_t*>(p) + i) << 16)
+            : __ldg(reinterpret_cast<const float*>(p) + i);
+}
+
+// CW consumer warps and a producer warp; VB: the biases are bf16 (else f32).
+template <int CW, bool VB>
+__global__ void __launch_bounds__(CW * 32 + 32, 1)
+    mlp_one_row(const __grid_constant__ OneRow a) {
+  constexpr int NC = CW * 32;  // consumer threads (the producer warp is the last)
+  extern __shared__ __align__(16) unsigned char dyn[];
+  using namespace shares;
+  const int np = a.plan.hdr[H_N];
+  float* vec = reinterpret_cast<float*>(dyn);
+  float* red = reinterpret_cast<float*>(dyn + a.plan.hdr[H_RED]);
+  Plan* sp = reinterpret_cast<Plan*>(dyn + a.plan.hdr[H_ATT]);  // the plan's copy
+  uint64_t* full = reinterpret_cast<uint64_t*>(dyn + a.plan.hdr[H_BAR]);
+  uint64_t* empty = full + np;
+  unsigned char* ring = dyn + a.plan.hdr[H_RING];
+  const Mat m1 = share(a.qs[0], a.d[0], a.N1, a.K1), m2 = share(a.qs[1], a.d[1], a.N2, a.N1);
+  // x's first NC float4s requested before the producer's copies, which
+  // they would otherwise queue behind (-0.2 us at 124M)
+  float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x < NC && 4 * threadIdx.x < a.K1)
+    x0 = __ldg(reinterpret_cast<const float4*>(a.x + 4 * threadIdx.x));
+  init_barriers<CW>(a.plan, full, empty);
+  __syncthreads();
+  if (threadIdx.x >= NC) {  // the producer warp: W1's share, then W2's
+    if (!MLP_NO_WORK && (threadIdx.x & 31) == 0) {
+      const auto mat_of = [&](int w) { return w == 0 ? m1 : m2; };
+      const int p1 = a.plan.hdr[H_FIRST + 1];
+      issue(a.plan, mat_of, 0, p1, ring, full, empty);
+      if (MLP_W2_LATE) persist::mbar_wait(&full[p1 - 1], 0);  // W1's last piece is in
+      issue(a.plan, mat_of, p1, np, ring, full, empty);
     }
+    return;
   }
-}
-
-// The same items, one a block at a time, the block's warps splitting K.
-__device__ __forceinline__ void phase_ksplit(const float* x, int K, const int8_t* qs,
-                                             const __half* d, const void* bias,
-                                             int bias_bf16, int N, float* out, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int items = MLP_NO_WORK ? 0 : (N + RW - 1) / RW;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int n0 = item * RW;
-    const int8_t* q[RW];
-    const __half* dd[RW];
-    q8::row_ptrs(qs, d, K, N, n0, 1, q, dd);
-    float acc[1][RW];
-    q8::warp_dot<1, RW, q8::X_PLAIN>(x, (size_t)K, 1, q, dd, K, lane, acc, warp, WARPS);
-#pragma unroll
-    for (int w = 0; w < RW; ++w) {
-      const float v = q8::warp_sum(acc[0][w]);
-      if (lane == w) red[warp * RW + lane] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < RW && n0 + threadIdx.x < N) {
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < WARPS; ++i) v += red[i * RW + threadIdx.x];
-      out[n0 + threadIdx.x] = v + q8::load_vec(bias, n0 + threadIdx.x, bias_bf16);
-    }
-    __syncthreads();
+  const unsigned tag = persist::launch_tag(a.sync);
+  const int t = threadIdx.x;
+  for (int i = t; i < H_LEN + np * PIECE_INTS; i += NC)
+    reinterpret_cast<int*>(sp)[i] = reinterpret_cast<const int*>(&a.plan)[i];
+  const bool r1 = t < m1.hi - m1.lo, r2 = t < m2.hi - m2.lo;
+  // this CTA's rows of the biases, landing during the products
+  const float bias1 = r1 ? bias_at<VB>(a.bias[0], m1.lo + t) : 0.f;
+  const float bias2 = r2 ? bias_at<VB>(a.bias[1], m2.lo + t) : 0.f;
+  for (int i = 4 * t; i < a.K1; i += 4 * NC) {
+    float4 v = i == 4 * t ? x0 : __ldg(reinterpret_cast<const float4*>(a.x + i));
+    if (a.rx) v = bf16_round4(v);  // mm_dot "bf16": x rounded where it is loaded
+    *reinterpret_cast<float4*>(vec + i) = v;
   }
-}
+  persist::csync<NC>();
 
-__global__ void __launch_bounds__(THREADS) mlp_fused_q8_kernel(MlpArgs a) {
-  __shared__ float red[WARPS * RW];
-  cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x & 31;
-  const int gwarp = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int nwarps = gridDim.x * WARPS;
-  if (a.rx)  // mm_dot "bf16": x rounded where it is loaded
-    phase<q8::X_READONLY_BF16, true>(a.x, a.K1, a.qs1, a.d1, a.b1, a.bias_bf16, a.N1, a.h,
-                                     gwarp, nwarps, lane);
-  else
-    phase<q8::X_READONLY, true>(a.x, a.K1, a.qs1, a.d1, a.b1, a.bias_bf16, a.N1, a.h, gwarp,
-                                nwarps, lane);
-  grid.sync();
-  if (MLP_PHASE2_KSPLIT)
-    phase_ksplit(a.h, a.N1, a.qs2, a.d2, a.b2, a.bias_bf16, a.N2, a.y, red);
-  else
-    phase<q8::X_PLAIN, false>(a.h, a.N1, a.qs2, a.d2, a.b2, a.bias_bf16, a.N2, a.y, gwarp,
-                              nwarps, lane);
-}
+  // h = gelu(x W1^T + b1): this CTA's rows, to the exchange
+  if (!MLP_NO_WORK) consume<CW, MLP_RW>(*sp, 0, m1, vec, ring, full, empty, red);
+  persist::csync<NC>();
+  if (r1)
+    persist::put(a.xh + m1.lo + t,
+                 q8::gelu((MLP_NO_WORK ? 0.f : row_total<CW>(*sp, 0, t, red)) + bias1), tag);
 
-int launch(MlpArgs& a, cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_fused_q8_kernel,
-                                                        THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  if (per_sm > MAX_BLOCKS_SM) per_sm = MAX_BLOCKS_SM;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(mlp_fused_q8_kernel),
-                                    dim3(per_sm * sms), dim3(THREADS), params, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  // y = h W2^T + b2, once every CTA's h is in
+  persist::gather<NC>(a.xh, a.N1, tag, vec);
+  if (blockIdx.x == 0 && t == 0) persist::store_tag(a.sync, tag);  // every CTA has read it
+  if (!MLP_NO_WORK) consume<CW, MLP_RW>(*sp, 1, m2, vec, ring, full, empty, red);
+  persist::csync<NC>();
+  if (r2) a.y[m2.lo + t] = (MLP_NO_WORK ? 0.f : row_total<CW>(*sp, 1, t, red)) + bias2;
 }
 
 }  // namespace
 
-// x f32 [1, K1]; qs1 int8 [N1, K1], d1 f16 [N1, K1/32], b1 [N1]; qs2 int8
-// [N2, N1], d2 f16 [N2, N1/32], b2 [N2]; biases f32 or bf16 (bias_bf16);
-// h f32 [1, N1] scratch; y f32 [1, N2]; rx: x rounded to bf16 where it is
-// loaded (mm_dot "bf16"): the b = 1 instance (any other B returns
-// cudaErrorInvalidValue). Returns the CUDA error of the cooperative launch
-// (0: launched).
+// x f32 [1, K1], 16-byte aligned; qs1 int8 [N1, K1], d1 f16 [N1, K1/32],
+// b1 [N1]; qs2 int8 [N2, N1], d2 f16 [N2, N1/32], b2 [N2]; the four weight
+// planes 16-byte aligned, N1 K1 and N2 N1 multiples of 256; biases f32 or
+// bf16 (bias_bf16); y f32 [1, N2]; rx: x rounded to bf16 where it is loaded
+// (mm_dot "bf16"): the b = 1 instance (any other B returns
+// cudaErrorInvalidValue). xh uint64 [N1], all 0 before the first launch
+// (each word a value and the tag of the launch that wrote it); sync uint32
+// (kernels/_sync.py sync_buffer), its word 1 the last launch's tag, one more
+// after this one (one launch at a time a pair of buffers). plan: host
+// int32, kernels/mlp_fused.py::mlp_smem_plan for these widths, this card
+// and `cw` consumer warps (CW_FEW or CW_MANY; gpt2_layer.cu's layout: its
+// header, then 7 ints a piece; two weights). Returns the CUDA error of the
+// cooperative launch (0: launched), cudaErrorInvalidValue for shapes or a
+// plan it does not take.
 extern "C" int mlp_fused_q8(const float* x, const int8_t* qs1, const __half* d1,
                             const void* b1, const int8_t* qs2, const __half* d2,
-                            const void* b2, float* h, float* y, int B, int K1, int N1,
-                            int N2, int bias_bf16, int rx, cudaStream_t stream) {
-  if (B != 1 || K1 <= 0 || N1 <= 0 || N2 <= 0 || K1 % 32 || N1 % 32)
+                            const void* b2, unsigned long long* xh, float* y, int B, int K1,
+                            int N1, int N2, int bias_bf16, int rx, unsigned* sync,
+                            const int* plan, int cw, cudaStream_t stream) {
+  using namespace shares;
+  if (B != 1 || K1 <= 0 || N1 <= 0 || N2 <= 0 || K1 % 32 || N1 % 32 || xh == nullptr ||
+      sync == nullptr || plan == nullptr || (cw != CW_FEW && cw != CW_MANY))
     return (int)cudaErrorInvalidValue;
-  MlpArgs a{x, qs1, d1, b1, qs2, d2, b2, h, y, K1, N1, N2, bias_bf16, rx};
-  return launch(a, stream);
+  OneRow a{};
+  a.x = x;
+  a.qs[0] = qs1;
+  a.qs[1] = qs2;
+  a.d[0] = d1;
+  a.d[1] = d2;
+  a.bias[0] = b1;
+  a.bias[1] = b2;
+  a.y = y;
+  a.xh = xh;
+  a.sync = sync;
+  a.K1 = K1;
+  a.N1 = N1;
+  a.N2 = N2;
+  a.rx = rx;
+  for (int i = 0; i < H_LEN; ++i) a.plan.hdr[i] = plan[i];
+  const int np = a.plan.hdr[H_N];
+  if (np < 2 || np > MAX_PIECES || a.plan.hdr[H_FIRST] != 0 || a.plan.hdr[H_FIRST + 2] != np ||
+      a.plan.hdr[H_BAR] - a.plan.hdr[H_ATT] < (int)sizeof(Plan))
+    return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < np; ++p)
+    for (int k = 0; k < PIECE_INTS; ++k) a.plan.piece[p][k] = plan[H_LEN + p * PIECE_INTS + k];
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int G = a.plan.hdr[H_G];
+  if (G < 1 || G > sms || G > N1 || (N1 + G - 1) / G > 32 * cw || (N2 + G - 1) / G > 32 * cw ||
+      (long long)(N1 > N2 ? N1 : N2) * G >= (1ll << 31) || (long long)N1 * K1 % 256 ||
+      (long long)N2 * N1 % 256)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)a.plan.hdr[H_SMEM];
+  const void* fn = cw == CW_FEW
+                       ? (bias_bf16 ? (const void*)mlp_one_row<CW_FEW, true>
+                                    : (const void*)mlp_one_row<CW_FEW, false>)
+                       : (bias_bf16 ? (const void*)mlp_one_row<CW_MANY, true>
+                                    : (const void*)mlp_one_row<CW_MANY, false>);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3(G), dim3(cw * 32 + 32), params, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The multi-row instance (dq_mma.cuh), for any B (the wrappers send 2..64

@@ -26,150 +26,252 @@
 //
 // Design of the b = 1 instance. The TPU kernel walks a sequential grid and
 // keeps the gate/up rows in on-chip scratch; here blocks run in parallel
-// and none can hold them for the others. So the kernel is a cooperative
-// launch of a persistent grid that fits the card at once:
-//  * phase 1: every warp of the grid takes (gate row n and up row F + n)
-//    items in turn, so both halves of an element meet in one warp, and
-//    writes a[n] = silu(g) * u to a scratch a [F] f32 (it stays in L2). The
-//    raw gate/up rows never leave registers;
-//  * one grid-wide barrier;
-//  * phase 2: W2 has few rows (E) and long ones (K = F), so a block takes an
-//    item (MLP_RW rows) and its 8 warps split K, every
-//    8th 512-element step each; their sums meet in shared memory in a fixed
-//    order. a is read with plain loads (L1 and L2). F/32 need not be a
-//    multiple of 16: the tail blocks are masked.
-// The inner loop is q4_dot.cuh's. Both weights are read in the block's one
-// Q4_0 copy. The grid is sized inside the C entry from the occupancy of the
-// kernel times the SM count; a launch the card refuses comes back as its
-// CUDA error.
+// and none can hold them for the others. What bounds one row is the bytes
+// of the weights, so both passes are dq_vec.cuh's streaming matvec (the
+// Q4_0 matvec's decoder, staging and walk: a lane a 16-byte Q4_0 block,
+// the activation vector copied into shared memory once a CTA at 144 bytes
+// a block, a persistent grid whose warps have each step's loads issued
+// before the previous step's products), in one cooperative launch (every
+// CTA resident; grid from the occupancy query with its shared memory, and
+// no larger than the groups of either phase fill), and the hand-off
+// between the passes leaves HBM no idle stretch:
+//  * phase 1: a warp group takes MLP_RW gate rows n.. and the up rows
+//    F + n.. beside them (one pair: 2.7 us faster than two on an H100), so
+//    silu(g) * u forms in registers. The gated product a goes to global
+//    memory (L2) in the layout dq_vec.cuh's staging gives an activation
+//    vector in shared memory, so that a chunk of it (1024 elements) reaches
+//    a CTA as one bulk copy (TMA);
+//  * no grid barrier: each chunk of a has an arrival counter in the sync
+//    buffer. A warp counts its elements on a count of its CTA's in shared
+//    memory (a CTA-scope release: cheap while its next loads are in
+//    flight; a gpu-scope release there waits for them, 2.5 us a launch); a
+//    publishing warp a CTA adds the CTA's count of a chunk to the chunk's
+//    counter once it is whole, after a gpu-scope fence; a staging warp a
+//    CTA requests a chunk's bulk copy once its counter is full and the
+//    copy completes the chunk's mbarrier; the last CTA to see a counter
+//    full sets it back to 0;
+//  * phase 2: w_down's rows, MLP_RW2 a warp group, K = F, each step once
+//    its chunk's mbarrier completes. Its groups go to the warps in reverse
+//    order, so that the warps with fewer phase-1 groups take them and
+//    start while phase 1 still streams; only the CTAs that hold them copy
+//    a.
+// A row's sums run in dq_vec.cuh's fixed order, so a launch's bits depend
+// on no timing. A shape whose shared memory does not fit a CTA is refused
+// (cudaErrorInvalidValue; the wrapper refuses it first); a launch the card
+// refuses comes back as its CUDA error. (A grid barrier in place of the
+// counters, with w_down's first rows prefetched into L2 before it, was 3-5
+// us slower: PERF.md §6.)
 //
-// Tunables (-D overrides them): MLP_RW weight rows a phase-2 item;
-// MLP_MAX_BLOCKS_SM resident blocks an SM (more only cost barrier time);
-// MLP_NO_WORK 1 leaves the launch and the barrier.
-#ifndef MLP_RW
-#define MLP_RW 2
+// Tunables (-D overrides them): MLP_WARPS phase warps a CTA (registers
+// allow 20 on an SM); MLP_RW (gate, up) row pairs a phase-1 group; MLP_RW2
+// w_down rows a phase-2 group; MLP_NO_WORK 1 loads and multiplies no
+// weight, leaving the launch, the copy of x, a's hand-off (zeros) and its
+// copies.
+#ifndef MLP_WARPS
+#define MLP_WARPS 20
 #endif
-#ifndef MLP_MAX_BLOCKS_SM
-#define MLP_MAX_BLOCKS_SM 4
+#ifndef MLP_RW
+#define MLP_RW 1
+#endif
+#ifndef MLP_RW2
+#define MLP_RW2 2
 #endif
 #ifndef MLP_NO_WORK
 #define MLP_NO_WORK 0
 #endif
-#include <cooperative_groups.h>
 
 #include "dq_mma.cuh"
+#include "dq_vec.cuh"
+#include "persist.cuh"
 #include "q4_dot.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RW = MLP_RW;
-constexpr int MAX_BLOCKS_SM = MLP_MAX_BLOCKS_SM;
+constexpr int WARPS = MLP_WARPS;
+constexpr int PAIRS = MLP_RW;
+constexpr int RW2 = MLP_RW2;
+constexpr int THREADS = WARPS * 32 + 64;  // and a publishing and a staging warp
+constexpr int CHUNK = 32 * dqv::STEP;     // elements of a chunk of a: a phase-2 step's
+constexpr int UNIT_BYTES = dqv::XU * 4;   // a 32-element block as staged
+constexpr int MAX_COUNTERS = 1024;        // the sync buffer's counter words (kernels/_sync.py)
+static_assert(WARPS % 4 == 0 && WARPS <= 30, "phase warps a CTA");
+static_assert(CHUNK % PAIRS == 0, "a phase-1 group's elements in one chunk");
+using Dec = dqv::DecLeg<32, 8, false, false>;  // Q4_0, as matmul_q4_0.cu's default
+static_assert(Dec::HI16 && !Dec::M, "a is written as this decoder's staging leaves x");
 
-struct MlpArgs {
+struct OneRow {
   const float* x;
-  const uint8_t* qs1;
-  const __half* d1;
-  const uint8_t* qs2;
-  const __half* d2;
-  float* a;
+  dqv::Planes w1, w2;
+  float* a;        // the gated product, as staged: F / 32 blocks of XU floats
+  unsigned* sync;  // from [2]: a's chunk counters, then their readers' counts
   float* y;
-  int B, E, F;
+  int E, F;
 };
 
-// a[b, n] = silu(x[b] . Wg[n]) * (x[b] . Wu[n]) over all (n, 8-row chunk)
-// items, one a warp at a time across the whole grid.
-template <int RB>
-__device__ __forceinline__ void phase_gate_up(const MlpArgs& m, int gwarp, int nwarps,
-                                              int lane) {
-  const int nbc = (m.B + RB - 1) / RB;
-  const int items = MLP_NO_WORK ? 0 : m.F * nbc;
-  for (int item = gwarp; item < items; item += nwarps) {
-    const int n = item / nbc;
-    const int b0 = (item % nbc) * RB;
-    const uint8_t* q[2];
-    const __half* dd[2];
-    q4::row_ptrs(m.qs1, m.d1, m.E, 2 * m.F, n, m.F, q, dd);  // rows n, F + n
-    float acc[RB][2];
-    q4::warp_dot<RB, 2, q4::X_READONLY>(m.x + (size_t)b0 * m.E, (size_t)m.E, m.B - b0, q, dd,
-                                        m.E, lane, acc);
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const float g = q4::warp_sum(acc[r][0]);  // every lane holds the sums
-      const float u = q4::warp_sum(acc[r][1]);
-      if (lane == r && b0 + r < m.B) m.a[(size_t)(b0 + r) * m.F + n] = q4::swiglu(g, u);
+__host__ __device__ constexpr int chunks_of(int F) { return (F + CHUNK - 1) / CHUNK; }
+
+// Shared-memory bytes of a launch: x's blocks, a's blocks, then for each
+// of a's chunks its mbarrier and this CTA's count of its elements.
+__host__ __device__ constexpr int smem_bytes(int E, int F) {
+  return (E / 32 + F / 32) * UNIT_BYTES + chunks_of(F) * 16;
+}
+
+__device__ __forceinline__ void red_release_cta(unsigned* p, unsigned v) {
+  asm volatile("red.release.cta.shared::cta.add.u32 [%0], %1;" ::"r"(persist::smem_addr(p)),
+               "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned ld_acquire_cta(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(persist::smem_addr(p))
+               : "memory");
+  return v;
+}
+
+// Element n of the gated product where dq_vec.cuh's staging of the Q4_0
+// decoder would leave it: block n / 32's 32 elements in order, XU floats a
+// block, the high 16 (the high nibbles' activations) / 16 (exact).
+__device__ __forceinline__ void put_staged(float* a, int n, float v) {
+  const int e = n & 31;
+  a[dqv::XU * (n >> 5) + e] = e < 16 ? v : v * 0.0625f;
+}
+
+// The publishing warp's lane 0: each chunk of a that this CTA's warps
+// write some of, once their count in shared memory holds all of them,
+// added to the chunk's counter after a gpu-scope fence (which orders the
+// warps' writes, seen through that count, before it).
+__device__ void publish(const OneRow& m, const unsigned* mine, int groups1, int nwarps) {
+  unsigned* done = m.sync + 2;
+  for (int c = 0; c < chunks_of(m.F); ++c) {
+    unsigned want = 0;  // this CTA's elements of chunk c, its groups round by round
+    for (int g0 = blockIdx.x * WARPS; g0 < groups1; g0 += nwarps) {
+      const int lo = max(g0 * PAIRS, c * CHUNK);
+      const int hi = min(min(g0 + WARPS, groups1) * PAIRS, min(m.F, (c + 1) * CHUNK));
+      if (hi > lo) want += (unsigned)(hi - lo);
+    }
+    if (want == 0) continue;
+    while (ld_acquire_cta(mine + c) != want) __nanosleep(20);
+    __threadfence();
+    atomicAdd(done + c, want);
+  }
+}
+
+// The staging warp's lane 0, in each of the `readers` CTAs that take
+// phase-2 rows: each chunk of a once its counter is full, then its bulk
+// copy into shared memory, completing on full[c] (a fence first: the
+// copy's reads, in the async proxy, after the writes seen through the
+// counter). The last of them to see a counter full sets it and its
+// readers' count back to 0, as the launch found them.
+__device__ void stage(const OneRow& m, float* as, uint64_t* full, unsigned readers) {
+  const int chunks = chunks_of(m.F);
+  unsigned* done = m.sync + 2;
+  unsigned* seen = m.sync + 2 + chunks;
+  for (int c = 0; c < chunks; ++c) {
+    while (persist::ld_acquire(done + c) != (unsigned)min(CHUNK, m.F - CHUNK * c))
+      __nanosleep(20);
+    const int u0 = 32 * c, bytes = min(32, m.F / 32 - u0) * UNIT_BYTES;
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    persist::mbar_arrive_tx(&full[c], (unsigned)bytes);
+    persist::bulk_copy(as + dqv::XU * u0, m.a + dqv::XU * u0, (unsigned)bytes, &full[c]);
+    if (atomicAdd(seen + c, 1u) == readers - 1) {  // nobody reads either again
+      done[c] = 0u;
+      seen[c] = 0u;
     }
   }
 }
 
-// y[b, n] = sum_k a[b, k] W2[n, k] over (RW rows, 8-row chunk) items, one a
-// block at a time, the block's warps splitting K.
-template <int RB>
-__device__ __forceinline__ void phase_down(const MlpArgs& m, float* red) {
+__global__ void __launch_bounds__(THREADS) silu_one_row(const __grid_constant__ OneRow m) {
+  extern __shared__ __align__(16) float dyn[];
+  const int ue = m.E / 32, uf = m.F / 32, chunks = chunks_of(m.F);
+  float* xs = dyn;
+  float* as = dyn + dqv::XU * ue;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dyn + dqv::XU * (ue + uf));
+  unsigned* mine = reinterpret_cast<unsigned*>(full + chunks);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nbc = (m.B + RB - 1) / RB;
-  const int items = MLP_NO_WORK ? 0 : ((m.E + RW - 1) / RW) * nbc;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int n0 = (item / nbc) * RW;
-    const int b0 = (item % nbc) * RB;
-    const uint8_t* q[RW];
-    const __half* dd[RW];
-    q4::row_ptrs(m.qs2, m.d2, m.F, m.E, n0, 1, q, dd);
-    float acc[RB][RW];
-    q4::warp_dot<RB, RW, q4::X_PLAIN>(m.a + (size_t)b0 * m.F, (size_t)m.F, m.B - b0, q, dd,
-                                      m.F, lane, acc, warp, WARPS);
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-#pragma unroll
-      for (int w = 0; w < RW; ++w) {
-        const float v = q4::warp_sum(acc[r][w]);
-        if (lane == r * RW + w) red[warp * (RB * RW) + lane] = v;
-      }
+  const int nwarps = gridDim.x * WARPS, gw = blockIdx.x * WARPS + warp;
+  const int groups1 = (m.F + PAIRS - 1) / PAIRS, groups2 = (m.E + RW2 - 1) / RW2;
+  // phase 2's groups go to the warps in reverse order: the last `readers`
+  // CTAs take them and need a
+  const int readers = min((int)gridDim.x, (groups2 + WARPS - 1) / WARPS);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < chunks; ++c) {
+      persist::mbar_init(&full[c], 1);
+      mine[c] = 0u;
     }
-    __syncthreads();
-    if (threadIdx.x < RB * RW) {
-      const int r = threadIdx.x / RW, w = threadIdx.x % RW;
-      if (b0 + r < m.B && n0 + w < m.E) {
-        float v = 0.f;
-#pragma unroll
-        for (int i = 0; i < WARPS; ++i) v += red[i * (RB * RW) + threadIdx.x];
-        m.y[(size_t)(b0 + r) * m.E + n0 + w] = v;
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if (warp >= WARPS) {  // x with the others, then a's chunks: published, staged
+    dqv::stage_x<Dec, false>(m.x, xs, ue);
+    if (warp == WARPS && lane == 0) publish(m, mine, groups1, nwarps);
+    if (warp == WARPS + 1 && lane == 0 && (int)(gridDim.x - 1 - blockIdx.x) < readers)
+      stage(m, as, full, (unsigned)readers);
+    return;
+  }
+
+  // phase 1: a[n] = silu(x . Wg[n]) * (x . Wu[n]), PAIRS rows n a group
+  // (rows past F read row F - 1 and write nothing), each group's elements
+  // counted on its chunk once written
+  dqv::walk<Dec, 2 * PAIRS>(
+      m.w1, xs, m.E, 0, ue, MLP_NO_WORK ? 0 : groups1, gw, nwarps,
+      [&](int g, int r) {
+        const int n = min(g * PAIRS + r % PAIRS, m.F - 1);
+        return r < PAIRS ? n : m.F + n;
+      },
+      [&] { dqv::stage_x<Dec, false>(m.x, xs, ue); }, [](int) {},
+      [&](int g, const float (&v)[2 * PAIRS]) {
+#pragma unroll
+        for (int p = 0; p < PAIRS; ++p) {
+          const int n = g * PAIRS + p;
+          if (lane == p && n < m.F) put_staged(m.a, n, q4::swiglu(v[p], v[PAIRS + p]));
+        }
+        __syncwarp();
+        if (lane == 0)
+          red_release_cta(mine + g * PAIRS / CHUNK, (unsigned)min(PAIRS, m.F - g * PAIRS));
+      });
+  if (MLP_NO_WORK) {  // the groups' elements, zero, counted as phase 1 counts them
+    for (int g = gw; g < groups1; g += nwarps) {
+      if (lane < PAIRS && g * PAIRS + lane < m.F) put_staged(m.a, g * PAIRS + lane, 0.f);
+      __syncwarp();
+      if (lane == 0)
+        red_release_cta(mine + g * PAIRS / CHUNK, (unsigned)min(PAIRS, m.F - g * PAIRS));
+    }
+  }
+
+  // phase 2: y[n] = a . Wd[n], groups in reverse warp order, each step once
+  // its chunk of a is in shared memory
+  dqv::walk<Dec, RW2>(
+      m.w2, as, m.F, 0, uf, MLP_NO_WORK ? 0 : groups2, nwarps - 1 - gw, nwarps,
+      [&](int g, int r) { return min(g * RW2 + r, m.E - 1); }, [] {},
+      [&](int c0) { persist::mbar_wait(&full[c0 / dqv::STEP], 0); },
+      [&](int g, const float (&v)[RW2]) {
+#pragma unroll
+        for (int r = 0; r < RW2; ++r)
+          if (lane == r && g * RW2 + r < m.E) m.y[g * RW2 + r] = v[r];
+      });
+  if (threadIdx.x == 0 && (int)(gridDim.x - 1 - blockIdx.x) < readers)
+    for (int c = 0; c < chunks; ++c)  // no copy into this CTA in flight at its exit
+      persist::mbar_wait(&full[c], 0);
 }
 
-template <int RB>
-__global__ void __launch_bounds__(THREADS) mlp_fused_silu_q4_kernel(MlpArgs m) {
-  static_assert(RB * RW <= 32, "a lane a (row, weight row) sum");
-  __shared__ float red[WARPS * RB * RW];
-  cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x & 31;
-  const int gwarp = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int nwarps = gridDim.x * WARPS;
-  phase_gate_up<RB>(m, gwarp, nwarps, lane);
-  grid.sync();
-  phase_down<RB>(m, red);
-}
-
-template <int RB>
-int launch(MlpArgs& m, cudaStream_t stream) {
+int launch_one_row(OneRow& m, cudaStream_t stream) {
+  const int smem = smem_bytes(m.E, m.F);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(silu_one_row, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_fused_silu_q4_kernel<RB>,
-                                                        THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, silu_one_row, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  if (per_sm > MAX_BLOCKS_SM) per_sm = MAX_BLOCKS_SM;
+  // no CTA without a group of either phase (a narrow shape's launch)
+  const int groups = max((m.F + PAIRS - 1) / PAIRS, (m.E + RW2 - 1) / RW2);
   void* params[] = {&m};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(mlp_fused_silu_q4_kernel<RB>),
-                                    dim3(per_sm * sms), dim3(THREADS), params, 0, stream);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(silu_one_row),
+                                    dim3(min(per_sm * sms, (groups + WARPS - 1) / WARPS)),
+                                    dim3(THREADS), params, (size_t)smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -177,16 +279,23 @@ int launch(MlpArgs& m, cudaStream_t stream) {
 }  // namespace
 
 // x f32 [1, E]; qs1 uint8 [2F, E/2], d1 f16 [2F, E/32] (gate rows, then up
-// rows); qs2 uint8 [E, F/2], d2 f16 [E, F/32]; a f32 [1, F] scratch; y f32
-// [1, E]: the b = 1 instance (any other B returns cudaErrorInvalidValue).
-// E and F multiples of 32; x, a, qs1 and qs2 16-byte aligned (the wrapper
-// checks). Returns the CUDA error of the cooperative launch (0: launched).
+// rows); qs2 uint8 [E, F/2], d2 f16 [E, F/32]; a f32 [F / 32 * 36] scratch
+// (the gated product as staged), 16-byte aligned; y f32 [1, E]: the b = 1
+// instance (any other B returns cudaErrorInvalidValue). sync uint32
+// (kernels/_sync.py sync_buffer: words from 2 on counters, 0 before a
+// launch and left so by it; one launch at a time a buffer). E and F
+// multiples of 32, 2F E / 2 below 2^31, x, qs1 and qs2 16-byte aligned, and
+// smem_bytes(E, F) within a CTA's shared memory (the wrapper checks).
+// Returns the CUDA error of the cooperative launch (0: launched).
 extern "C" int mlp_fused_silu_q4(const float* x, const uint8_t* qs1, const __half* d1,
                                  const uint8_t* qs2, const __half* d2, float* a, float* y,
-                                 int B, int E, int F, cudaStream_t stream) {
-  if (B != 1 || E <= 0 || F <= 0 || E % 32 || F % 32) return (int)cudaErrorInvalidValue;
-  MlpArgs m{x, qs1, d1, qs2, d2, a, y, B, E, F};
-  return launch<1>(m, stream);
+                                 int B, int E, int F, unsigned* sync, cudaStream_t stream) {
+  if (B != 1 || E <= 0 || F <= 0 || E % 32 || F % 32 || a == nullptr || sync == nullptr ||
+      (long long)2 * F * (E / 2) >= (1ll << 31) || smem_bytes(E, F) > dqv::SMEM_MAX ||
+      2 * chunks_of(F) > MAX_COUNTERS)
+    return (int)cudaErrorInvalidValue;
+  OneRow m{x, {{qs1, d1, nullptr, nullptr}}, {{qs2, d2, nullptr, nullptr}}, a, sync, y, E, F};
+  return launch_one_row(m, stream);
 }
 
 // The multi-row instance (dq_mma.cuh), for any B (the wrappers send 2..64

@@ -1,5 +1,6 @@
-// Warp-level Q8_0 row dot products, shared by matmul_q8_0.cu, mlp_fused_q8.cu
-// and gpt2_layer.cu (smem_rows_dot: rows in shared memory).
+// Warp-level Q8_0 row dot products, shared by matmul_q8_0.cu (warp_dot) and
+// the kernels whose rows lie in shared memory, gpt2_layer.cu and
+// mlp_fused_q8.cu's one-row instance (smem_rows_dot, through shares.cuh).
 //
 // A Q8_0 weight row is K int8 values in element order beside K/32 f16
 // scales, one a 32-element block (quant/formats.py). A warp streams RW such
@@ -25,21 +26,16 @@
 
 namespace q8 {
 
-// Where the activations live: global memory that no block writes during the
-// launch (__ldg, the read-only path), or anywhere a plain load is right:
-// shared memory, or global memory that other blocks wrote earlier in the
-// launch, before a grid-wide barrier (the barrier orders those writes before
-// plain loads; the read-only path gives no such promise). X_READONLY_BF16:
-// the read-only path, each value rounded to bf16 as it is loaded (mm_dot
-// "bf16").
-enum XLoad { X_READONLY = 0, X_PLAIN = 1, X_READONLY_BF16 = 2 };
+// The activations are global memory that no block writes during the launch,
+// read by the read-only path (__ldg); X_READONLY_BF16: each value rounded to
+// bf16 as it is loaded (mm_dot "bf16").
+enum XLoad { X_READONLY = 0, X_READONLY_BF16 = 2 };
 
 template <int XL>
 __device__ __forceinline__ float4 load_x4(const float* p) {
-  if constexpr (XL == X_READONLY) return __ldg(reinterpret_cast<const float4*>(p));
-  else if constexpr (XL == X_READONLY_BF16)
+  if constexpr (XL == X_READONLY_BF16)
     return bf16_round4(__ldg(reinterpret_cast<const float4*>(p)));
-  else return *reinterpret_cast<const float4*>(p);
+  else return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 __device__ __forceinline__ void int8x4_to_float(uint32_t u, float out[4]) {
@@ -70,15 +66,12 @@ __device__ __forceinline__ void row_ptrs(const int8_t* qs, const __half* d, int 
 
 // x: the first of RB activation rows, xs floats apart; rows r >= rows_valid
 // are skipped. qs[w] / d[w]: weight row w (nullptr: masked). On return
-// acc[r][w] is this lane's partial sum; warp_sum() completes it. Several
-// warps can split one row's K: warp i of n passes step_first = i, step_stride
-// = n and takes every n-th 256-element step; the caller adds their sums.
+// acc[r][w] is this lane's partial sum; warp_sum() completes it.
 template <int RB, int RW, int XL>
 __device__ __forceinline__ void warp_dot(const float* x, size_t xs, int rows_valid,
                                          const int8_t* const (&qs)[RW],
                                          const __half* const (&d)[RW], int K, int lane,
-                                         float (&acc)[RB][RW], int step_first = 0,
-                                         int step_stride = 1) {
+                                         float (&acc)[RB][RW]) {
   const int nb = K >> 5;
   const int e = (lane & 7) * 4;
 #pragma unroll
@@ -87,7 +80,7 @@ __device__ __forceinline__ void warp_dot(const float* x, size_t xs, int rows_val
     for (int w = 0; w < RW; ++w) acc[r][w] = 0.f;
 
 #pragma unroll 2
-  for (int c0 = 8 * step_first; c0 < nb; c0 += 8 * step_stride) {
+  for (int c0 = 0; c0 < nb; c0 += 8) {
     const int blk0 = c0 + (lane >> 3), blk1 = blk0 + 4;
     const bool in0 = blk0 < nb, in1 = blk1 < nb;
     float w0[RW][4], w1[RW][4], s0[RW], s1[RW];

@@ -60,11 +60,11 @@ KERNELS = {
     "matmul_q8_0": ("matmul_q8_0.cu", "q8_0_matmul",
                     [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "mlp_fused_q8": ("mlp_fused_q8.cu", "mlp_fused_q8",
-                     [_P] * 9 + [_I] * 6 + [_P]),
+                     [_P] * 9 + [_I] * 6 + [_P, _P, _I, _P]),
     "gpt2_layer": ("gpt2_layer.cu", "gpt2_layer",
                    [_P] * 26 + [_I] * 4 + [_F, _I, _I, _P]),
     "mlp_fused_silu_q4": ("mlp_fused_silu_q4.cu", "mlp_fused_silu_q4",
-                          [_P] * 7 + [_I] * 3 + [_P]),
+                          [_P] * 7 + [_I] * 3 + [_P] * 2),
     "llama_layer": ("llama_layer.cu", "llama_layer",
                     [_P] * 24 + [_I] * 5 + [_F, _I, _I, _P]),
     "matmul_q": ("matmul_q.cu", "q_matmul", [_I] + [_P] * 6 + [_I] * 6 + [_P]),

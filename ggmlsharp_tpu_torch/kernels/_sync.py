@@ -1,14 +1,16 @@
-"""The synchronisation buffers of the persistent whole-block kernels
-(``csrc/persist.cuh``; ``llama_layer.cu`` and ``gpt2_layer.cu``).
+"""The synchronisation buffers of the persistent kernels
+(``csrc/persist.cuh``; ``llama_layer.cu``, ``gpt2_layer.cu`` and the
+one-row instances of ``mlp_fused_q8.cu`` and ``mlp_fused_silu_q4.cu``).
 
-A launch of either kernel takes an int32 buffer: the grid barrier's word
-(its top bit flips at each barrier; ``llama_layer.cu``), the launch
-generation (``gpt2_layer.cu``: one more a launch), then one counter a head.
+A launch of any of them takes an int32 buffer: the grid barrier's word
+(its top bit flips at each barrier), the last launch's tag (the kernels
+that exchange tagged words: one more a launch), then one counter a head.
 Every launch leaves it as it found it (the barrier word's low 31 bits and
-the counters 0), so one buffer serves
-every launch on a stream, of both kernels (launches on one stream run one at
-a time), and a CUDA graph that captured its address stays valid: the buffer
-is made once for each (device, stream) and never reallocated.
+the counters 0; the tag one more), so one buffer serves every launch on a
+stream, of every kernel (launches on one stream run one at a time, so no
+tag is used twice), and a CUDA graph that captured its address stays
+valid: the buffer is made once for each (device, stream) and never
+reallocated.
 """
 from __future__ import annotations
 
@@ -22,10 +24,11 @@ _XCH: dict = {}  # (device, stream, words) -> int64 [words]
 
 
 def exchange_buffer(device, stream: int, words: int) -> torch.Tensor:
-    """The GPT-2 block kernel's exchanged vectors for launches on ``stream``
-    of ``device``: ``words`` 64-bit words, each a value and the generation
-    of the launch that wrote it; zeroed once (no launch's generation is 0),
-    never reallocated, one a size."""
+    """The vectors the CTAs of a launch exchange, for launches on ``stream``
+    of ``device``: ``words`` 64-bit words, each a value and the tag of the
+    launch that wrote it; zeroed once (no launch's tag is 0), never
+    reallocated, one a size (the kernels that tag share it: their tags come
+    from one sync buffer, so a word of another launch never matches)."""
     buf = _XCH.get((device, stream, words))
     if buf is None:
         buf = torch.zeros(words, dtype=torch.int64, device=device)

@@ -17,8 +17,9 @@ reduction exist for the TPU only.
 The kernel is one persistent CTA an SM whose producer warp copies the CTA's
 share of all four weights into shared memory (TMA bulk copies);
 ``smem_plan`` cuts the shares into pieces and places them there (a ring of
-pieces where the shares do not fit at once), and the wrapper hands the plan
-to the launch. The CTAs exchange qkv, the attention output, x2 and h as
+pieces where the shares do not fit at once; ``place``, which the fused GELU
+MLP's one-row instance shares, ``csrc/shares.cuh``), and the wrapper hands
+the plan to the launch. The CTAs exchange qkv, the attention output, x2 and h as
 (value, launch generation) words in ``_sync.exchange_buffer``; the
 generation and per-head counters live in ``_sync.sync_buffer`` (one each
 for a (device, stream)).
@@ -45,7 +46,7 @@ from .config import use_kernel
 _TILE_BYTES = 9 * 1024 * 1024
 _CHUNKS = 8  # attention partials a head (csrc/gpt2_layer.cu CHUNKS)
 _CONSUMER_WARPS = 16  # csrc/gpt2_layer.cu CW
-_MAX_PIECES = 64  # csrc/gpt2_layer.cu MAX_PIECES
+_MAX_PIECES = 64  # csrc/shares.cuh MAX_PIECES
 _MAX_E = 2560  # csrc/gpt2_layer.cu LNP * NC
 _RING_PIECE = 32768  # the most qs bytes a piece of a ring
 _PLANS: dict = {}  # (E, F, H, ctas, smem) -> (SmemPlan, its ctypes ints)
@@ -90,17 +91,17 @@ class SmemPlan:
         return head + [v for p in self.pieces for v in p]
 
 
-def unit_plan(rows: int, k: int) -> tuple:
+def unit_plan(rows: int, k: int, cw: int = _CONSUMER_WARPS) -> tuple:
     """(rows a unit, splits P) for a piece of ``rows`` rows of length k:
-    the consumer warps take units of 1 or 2 rows and every P-th of the
+    the ``cw`` consumer warps take units of 1 or 2 rows and every P-th of the
     row's 256-element steps; the choice with the fewest rounds of the
     longest unit (a step of a row 1, a row's reduction 1/2, a unit 1)."""
     steps = -(-k // 256)
     best = None
     for rw in (2, 1):
         groups = -(-rows // rw)
-        for p in range(1, min(steps, _CONSUMER_WARPS) + 1):
-            rounds = -(-groups * p // _CONSUMER_WARPS)
+        for p in range(1, min(steps, cw) + 1):
+            rounds = -(-groups * p // cw)
             cost = rounds * (-(-steps // p) * rw + 0.5 * rw + 1.0)
             if best is None or cost < best[0] - 1e-9:
                 best = (cost, rw, p)
@@ -116,23 +117,36 @@ def piece_bytes(rows: int, k: int) -> int:
 
 def smem_plan(E: int, F: int, H: int, ctas: int, smem: int) -> SmemPlan:
     """The kernel's shared-memory plan for a block of widths (E, F) with H
-    heads on ``ctas`` CTAs of at most ``smem`` bytes of shared memory each.
-    Every CTA's share of all four weights at once if it fits (one piece a
-    weight, none waits); else pieces of at most _RING_PIECE qs bytes placed
-    in a ring in phase order, a piece waiting for the release of the last
-    earlier piece whose bytes it overwrites."""
+    heads on ``ctas`` CTAs of at most ``smem`` bytes of shared memory each
+    (``place`` with the block's four weights, the activation vector and
+    the attention and norm scratch)."""
     if E % 128 or F % 128 or E % H or (E // H) % 32 or E // H > 128 \
             or E > _MAX_E:
         raise ValueError(f"smem_plan: E {E}, F {F}, heads {H}")
-    mats = ((3 * E, E), (E, E), (F, E), (E, F))
-    rows = tuple(-(-n // ctas) for n, _ in mats)
-    if max(rows) > 32 * _CONSUMER_WARPS:
-        raise ValueError(f"smem_plan: {max(rows)} rows a CTA exceed a "
-                         f"consumer thread a row")
-    red = _up16(max(rows) * _CONSUMER_WARPS * 4)
     att = _up16((3 * _CONSUMER_WARPS + (_CONSUMER_WARPS + 3) * (E // H)
                  + 2 * E) * 4)
-    off_red = _up16(max(E, F) * 4)
+    return place(((3 * E, E), (E, E), (F, E), (E, F)), ctas, smem,
+                 max(E, F) * 4, att)
+
+
+def place(mats, ctas: int, smem: int, vec_bytes: int, att: int,
+          cw: int = _CONSUMER_WARPS) -> SmemPlan:
+    """The shared-memory plan of up to four Q8_0 weights ``mats`` ((N, K)
+    each, in phase order) on ``ctas`` CTAs of at most ``smem`` bytes: the
+    activation vector (``vec_bytes``) at 0, then the partial sums, the
+    kernel's own scratch (``att`` bytes), the mbarriers and the ring (csrc/
+    shares.cuh). Every CTA's share of every weight at once if it fits (one
+    piece a weight, none waits); else pieces of at most _RING_PIECE qs bytes
+    placed in a ring in phase order, a piece waiting for the release of the
+    last earlier piece whose bytes it overwrites; ``cw`` consumer warps
+    take each piece (unit_plan). ValueError where a CTA's share passes a
+    consumer thread a row or a piece cannot fit."""
+    rows = tuple(-(-n // ctas) for n, _ in mats)
+    if max(rows) > 32 * cw:
+        raise ValueError(f"smem_plan: {max(rows)} rows a CTA exceed a "
+                         f"consumer thread a row")
+    red = _up16(max(rows) * cw * 4)
+    off_red = _up16(vec_bytes)
     off_att = off_red + red
     off_bar = off_att + att
 
@@ -149,7 +163,7 @@ def smem_plan(E: int, F: int, H: int, ctas: int, smem: int) -> SmemPlan:
     if ring + need <= smem:
         placed, pos = [], 0
         for w, i, r in whole:
-            placed.append((w, i, r, pos, -1, *unit_plan(r, mats[w][1])))
+            placed.append((w, i, r, pos, -1, *unit_plan(r, mats[w][1], cw)))
             pos += piece_bytes(r, mats[w][1])
         return _plan(ctas, rows, off_red, off_att, off_bar, ring, ring + pos,
                      placed)
@@ -172,7 +186,7 @@ def smem_plan(E: int, F: int, H: int, ctas: int, smem: int) -> SmemPlan:
         hit = [p for p in live if p[0] < pos + size and pos < p[1]]
         live = [p for p in live if p not in hit] + [(pos, pos + size, j)]
         placed.append((w, i, r, pos, max((p[2] for p in hit), default=-1),
-                       *unit_plan(r, mats[w][1])))
+                       *unit_plan(r, mats[w][1], cw)))
         pos += size
     end = max(p[3] + piece_bytes(p[2], mats[p[0]][1]) for p in placed)
     return _plan(ctas, rows, off_red, off_att, off_bar, ring, ring + end,
@@ -180,25 +194,31 @@ def smem_plan(E: int, F: int, H: int, ctas: int, smem: int) -> SmemPlan:
 
 
 def _plan(ctas, rows, red, att, bar, ring, total, placed) -> SmemPlan:
-    first = [0] * 5
+    first = [0] * 5  # four weights' first pieces, then the piece count
     for w in range(4):
         first[w + 1] = first[w] + sum(1 for p in placed if p[0] == w)
     return SmemPlan(ctas, rows, red, att, bar, ring, total, tuple(first),
                     tuple(placed))
 
 
+def device_smem(device) -> tuple:
+    """(SMs, the shared memory a CTA may opt into) of ``device``: where the
+    attribute is missing, an SM's shared memory less the 1 KB the runtime
+    reserves for each CTA."""
+    props = torch.cuda.get_device_properties(device)
+    smem = getattr(props, "shared_memory_per_block_optin", None) \
+        or props.shared_memory_per_multiprocessor - 1024
+    return props.multi_processor_count, smem
+
+
 def _device_plan(E: int, F: int, H: int, device):
     """smem_plan for ``device`` (its SMs, and the shared memory a CTA may
     opt into), made once and kept with its ctypes copy."""
-    props = torch.cuda.get_device_properties(device)
-    # where the attribute is missing: an SM's shared memory less the 1 KB
-    # the runtime reserves for each CTA
-    smem = getattr(props, "shared_memory_per_block_optin", None) \
-        or props.shared_memory_per_multiprocessor - 1024
-    key = (E, F, H, props.multi_processor_count, smem)
+    sms, smem = device_smem(device)
+    key = (E, F, H, sms, smem)
     got = _PLANS.get(key)
     if got is None:
-        plan = smem_plan(E, F, H, props.multi_processor_count, smem)
+        plan = smem_plan(E, F, H, sms, smem)
         ints = plan.ints()
         got = (plan, (ctypes.c_int * len(ints))(*ints))
         _PLANS[key] = got

@@ -11,7 +11,12 @@ bf16 once), the Q8_0 round trip's values are exact either way. Both
 weights are read in the block's one Q8_0 copy (``qs`` int8 [N, K], ``d``
 f16 [N, K/32]): the JAX package's permuted, packed planes exist for the
 TPU's vector units only. One activation row takes the source's one-launch
-kernel; from ``matmul_q.MMA_MIN_ROWS`` rows on the wrapper launches its
+kernel, one persistent CTA an SM that copies its shares of both weights
+into shared memory at entry and exchanges h between CTAs as tagged words
+(``gpt2_layer.cu``'s design: ``mlp_smem_plan`` places the shares,
+``gpt2_layer.place``; the tags and the exchange live in
+``_sync.sync_buffer`` and ``_sync.exchange_buffer``); from
+``matmul_q.MMA_MIN_ROWS`` rows on the wrapper launches its
 multi-row instance on the tensor cores (entry ``mlp_fused_q8_mma``, its
 own launch counter; ``csrc/dq_mma.cuh``): W1 as ``matmul_q8_0_mma``'s
 single-launch routes (Q8_0 activations, handed over as values and scales,
@@ -26,7 +31,9 @@ payload, which the gated product makes invisible). The input gets the
 optional activation round trip outside the kernel; the gate and up rows and
 the gated product stay f32 and are never re-quantized, unlike the unfused
 route, whose ``w_down`` matmul quantizes its input. One activation row
-(decode) takes the source's one-launch kernel; from
+(decode) takes the source's one-launch kernel (both products on the
+streaming matvec of ``csrc/dq_vec.cuh``, the gated product handed between
+them in the launch; ``silu_one_row_smem`` the shared memory it needs); from
 ``matmul_q.MMA_MIN_ROWS`` rows on the wrapper launches its multi-row
 instance on the tensor cores (entry ``mlp_fused_silu_q4_mma``, its own
 launch counter; ``csrc/dq_mma.cuh``): the gate/up and down products as
@@ -51,12 +58,24 @@ from ..ops.basic import gelu, silu
 from ..ops.matmul import mul_mat_q, quantize_activations
 from ..quant.formats import QTensor
 from ..quant.quantize import dequantize
+import ctypes
+
 from . import _build
+from ._sync import exchange_buffer, sync_buffer
 from .config import device_sms, mm_dot_mode, round_x, use_kernel
+from .gpt2_layer import device_smem, place
 from .matmul_q import (MMA_MIN_ROWS, _mma_scratch_bytes, mma_splits,
                        q8_mma_splits)
 
 _MAX_FUSED_B = 64  # h is a [rows, n1] f32 scratch; prefill beyond it is unfused
+_SMEM_MAX = 232448  # the shared memory an H100 CTA may opt into (csrc/dq_vec.cuh SMEM_MAX)
+_PLANS: dict = {}  # (k1, n1, n2, ctas, smem) -> (SmemPlan, its ctypes ints, cw)
+# the one-row instance's consumer warps (csrc/mlp_fused_q8.cu CW_FEW,
+# CW_MANY): the many where a CTA's share of W1 passes _FEW_ROWS rows
+_CONSUMER_WARPS = (12, 20)
+_FEW_ROWS = 32
+# the plan as the kernel copies it into shared memory (csrc/shares.cuh Plan)
+_PLAN_BYTES = (12 + 7 * 64) * 4
 
 
 def mlp_fuse_supported(w1, w2, b: int | None = None) -> bool:
@@ -84,6 +103,49 @@ def _bias_pair(b1, b2):
     if b1.dtype == b2.dtype and b1.dtype in (torch.float32, torch.bfloat16):
         return b1.contiguous(), b2.contiguous()
     return b1.to(torch.float32).contiguous(), b2.to(torch.float32).contiguous()
+
+
+def consumer_warps(n1: int, ctas: int) -> int:
+    """The one-row instance's consumer warps for W1 of n1 rows on ``ctas``
+    CTAs: 12 where a CTA's share of W1 has at most _FEW_ROWS rows (16
+    two-row units or fewer), else 20 (on an H100, 124M 7.2-7.4 µs with 12
+    against 7.6-7.8 with 20; 774M 11.6 with 20 against 12.6 with 16:
+    PERF.md §6)."""
+    few, many = _CONSUMER_WARPS
+    return few if -(-n1 // ctas) <= _FEW_ROWS else many
+
+
+def mlp_smem_plan(k1: int, n1: int, n2: int, ctas: int, smem: int):
+    """The one-row instance's shared-memory plan (``gpt2_layer.place``) for
+    W1 [n1, k1] and W2 [n2, n1] on ``ctas`` CTAs of at most ``smem`` bytes
+    and ``consumer_warps(n1, ctas)`` consumer warps: the activation vector
+    (x, then h), the partial sums, the plan's own copy, and the CTA's
+    shares of both weights, W1's first, a ring of pieces where they do not
+    fit at once. ValueError for widths the kernel does not take: a
+    scale plane whose bytes are no multiple of 16 (a share's scales are
+    copied in 16-byte bounds), more CTAs than rows of W1 (each CTA writes
+    some of h), or shares that no ring of pieces fits."""
+    if k1 % 32 or n1 % 32 or n1 * k1 % 256 or n2 * n1 % 256 or ctas > n1:
+        raise ValueError(f"mlp_smem_plan: W1 [{n1}, {k1}], W2 [{n2}, {n1}] "
+                         f"on {ctas} CTAs")
+    return place(((n1, k1), (n2, n1)), ctas, smem, max(k1, n1) * 4,
+                 _PLAN_BYTES, cw=consumer_warps(n1, ctas))
+
+
+def _device_plan(k1: int, n1: int, n2: int, device):
+    """(mlp_smem_plan for ``device``, at most one CTA an SM, its ctypes
+    copy, its consumer warps), made once and kept."""
+    sms, smem = device_smem(device)
+    ctas = min(sms, n1)
+    key = (k1, n1, n2, ctas, smem)
+    got = _PLANS.get(key)
+    if got is None:
+        plan = mlp_smem_plan(k1, n1, n2, ctas, smem)
+        ints = plan.ints()
+        got = (plan, (ctypes.c_int * len(ints))(*ints),
+               consumer_warps(n1, ctas))
+        _PLANS[key] = got
+    return got
 
 
 def mlp_fused_q8(x, w1: QTensor, b1, w2: QTensor, b2, mode: str = "f32"):
@@ -115,7 +177,6 @@ def mlp_fused_q8(x, w1: QTensor, b1, w2: QTensor, b2, mode: str = "f32"):
         raise ValueError("mlp_fused_q8: misaligned input")
     b1, b2 = _bias_pair(b1, b2)
     bias_bf16 = int(b1.dtype == torch.bfloat16)
-    h = torch.empty((B, n1), dtype=torch.float32, device=lead.device)
     y = torch.empty((B, n2), dtype=torch.float32, device=lead.device)
     if B >= MMA_MIN_ROWS:
         name = "mlp_fused_q8_mma"
@@ -127,6 +188,7 @@ def mlp_fused_q8(x, w1: QTensor, b1, w2: QTensor, b2, mode: str = "f32"):
                     or not xd.is_contiguous() or xd.device != lead.device:
                 raise ValueError(f"{name}: Q8 scales {tuple(xd.shape)} "
                                  f"{xd.dtype} of {x.gtype.name} do not fit")
+        h = torch.empty((B, n1), dtype=torch.float32, device=lead.device)
         fn = _build.entry(name)
         sms = device_sms(lead.device)
         acts = (None, lead.data_ptr(), xd.data_ptr()) if q8 \
@@ -143,13 +205,18 @@ def mlp_fused_q8(x, w1: QTensor, b1, w2: QTensor, b2, mode: str = "f32"):
     if q8:
         raise ValueError("mlp_fused_q8: Q8_0 activations take "
                          f"{MMA_MIN_ROWS} or more rows")
+    if w1["d"].data_ptr() % 16 or w2["d"].data_ptr() % 16:
+        raise ValueError("mlp_fused_q8: misaligned scales")
     fn = _build.entry("mlp_fused_q8")
+    _, plan, cw = _device_plan(k1, n1, n2, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        sync = sync_buffer(x.device, stream)
+        xh = exchange_buffer(x.device, stream, n1)
         rc = fn(x.data_ptr(), w1["qs"].data_ptr(), w1["d"].data_ptr(),
                 b1.data_ptr(), w2["qs"].data_ptr(), w2["d"].data_ptr(),
-                b2.data_ptr(), h.data_ptr(), y.data_ptr(), B, k1, n1, n2,
-                bias_bf16, rx, stream)
+                b2.data_ptr(), xh.data_ptr(), y.data_ptr(), B, k1, n1, n2,
+                bias_bf16, rx, sync.data_ptr(), plan, cw, stream)
     _build.check("mlp_fused_q8", rc)
     return y
 
@@ -221,6 +288,14 @@ def _mlp_scratch_bytes(b: int, E: int, F: int, splits1: int, splits2: int,
         + splits1 * b * 2 * F * 4 + _mma_scratch_bytes(b, E, F, splits2)
 
 
+def silu_one_row_smem(E: int, F: int) -> int:
+    """Shared-memory bytes of the b = 1 instance's CTA
+    (``csrc/mlp_fused_silu_q4.cu`` smem_bytes): x's and the gated
+    product's 32-element blocks, 144 bytes each, and 16 bytes (an mbarrier
+    and a count) for each of the gated product's chunks of 32 blocks."""
+    return (E // 32 + F // 32) * 144 + -(-F // 1024) * 16
+
+
 def mlp_fused_silu_q4(x, w1: QTensor, w2: QTensor):
     """Launch the kernel. x [B, E] on the card, B <= _MAX_FUSED_B: f32,
     contiguous, or (from ``MMA_MIN_ROWS`` rows on) the Q8_0 activations
@@ -252,13 +327,17 @@ def mlp_fused_silu_q4(x, w1: QTensor, w2: QTensor):
     if q8:
         raise ValueError("mlp_fused_silu_q4: Q8_0 activations take "
                          f"{MMA_MIN_ROWS} or more rows")
-    a = torch.empty((B, F), dtype=torch.float32, device=x.device)
+    if silu_one_row_smem(E, F) > _SMEM_MAX or 2 * F * (E // 2) >= 2 ** 31:
+        raise ValueError(f"mlp_fused_silu_q4: E {E}, F {F} exceed a CTA's "
+                         f"shared memory or 32-bit row offsets at one row")
+    a = torch.empty(F // 32 * 36, dtype=torch.float32, device=x.device)
     fn = _build.entry("mlp_fused_silu_q4")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        sync = sync_buffer(x.device, stream)
         rc = fn(x.data_ptr(), w1["qs"].data_ptr(), w1["d"].data_ptr(),
                 w2["qs"].data_ptr(), w2["d"].data_ptr(), a.data_ptr(),
-                y.data_ptr(), B, E, F, stream)
+                y.data_ptr(), B, E, F, sync.data_ptr(), stream)
     _build.check("mlp_fused_silu_q4", rc)
     return y
 

@@ -14,7 +14,11 @@ Run from the repository root on a machine with the card:
     python3 scripts/probe_q8_kernels.py          # both families
     python3 scripts/probe_q8_kernels.py q4       # or q8: one family
     python3 scripts/probe_q8_kernels.py trace    # kernel 11's phase times
-Prints one JSON line a variant: {"kernel", "variant", "config", "ms", "err"};
+    python3 scripts/probe_q8_kernels.py q4 ROOT  # the package under ROOT
+With ROOT (another checkout, e.g. a parent commit's) the kernels of that
+package run, and a variant whose macros its source does not declare is
+reported as skipped. Prints one JSON line a variant: {"kernel", "variant",
+"config", "ms", "err"};
 trace one a width: each phase boundary of kernel 11 (its LAYER_TRACE build)
 in us after the first CTA's entry, min / median / max over the CTAs.
 """
@@ -27,12 +31,13 @@ sys.path.insert(0, REPO)
 
 MLP_ROWS = 1  # the fused MLPs' activation rows: their b = 1 instance
 MLP_VARIANTS = {
-    "baseline": (),
-    "blocks_sm_1": ("MLP_MAX_BLOCKS_SM=1",),
+    "baseline": (),  # rows a consumer unit: the plan's (1 or 2 a piece)
+    "rw_1": ("MLP_RW=1",),
+    "rw_2": ("MLP_RW=2",),
     "rw_4": ("MLP_RW=4",),
-    # phase 2 as phase 1 does it: a warp an item, no split of K
-    "phase2_warp_items": ("MLP_PHASE2_KSPLIT=0",),
-    "no_work": ("MLP_NO_WORK=1",),  # the launch and the barrier alone
+    "w2_at_entry": ("MLP_W2_LATE=0",),  # W2's copies issued with W1's
+    # no weight copied, no product: the launch, x and the exchange of h
+    "no_work": ("MLP_NO_WORK=1",),
 }
 LAYER_VARIANTS = {
     "baseline": (),
@@ -42,11 +47,12 @@ LAYER_VARIANTS = {
 }
 SILU_VARIANTS = {
     "baseline": (),
-    "blocks_sm_2": ("MLP_MAX_BLOCKS_SM=2",),
-    "blocks_sm_8": ("MLP_MAX_BLOCKS_SM=8",),
-    "rw_1": ("MLP_RW=1",),
-    "rw_4": ("MLP_RW=4",),
-    "no_work": ("MLP_NO_WORK=1",),  # the launch and the barrier alone
+    "warps_16": ("MLP_WARPS=16",),
+    "warps_12": ("MLP_WARPS=12",),
+    "rw_2": ("MLP_RW=2",),  # two (gate, up) pairs a phase-1 group
+    "rw2_1": ("MLP_RW2=1",),  # one w_down row a phase-2 group
+    # no weight loaded, no product: the launch, the copies and the hand-off
+    "no_work": ("MLP_NO_WORK=1",),
 }
 LLAMA_VARIANTS = {
     "baseline": (),
@@ -64,6 +70,24 @@ TABLES = {"mlp_fused_q8": MLP_VARIANTS, "gpt2_layer": LAYER_VARIANTS,
           "mlp_fused_silu_q4": SILU_VARIANTS, "llama_layer": LLAMA_VARIANTS}
 
 
+def declared(kernel, defines) -> bool:
+    """Whether the kernel's source declares every macro of ``defines`` (a
+    checkout of another commit may declare other tunables)."""
+    from ggmlsharp_tpu_torch.kernels import _build
+
+    names = _build.declared_macros(kernel)
+    return all(d.split("=", 1)[0] in names for d in defines)
+
+
+def prebuild(tables):
+    """Build every declared variant of ``tables`` ({kernel: variant table})
+    at once, one nvcc process a library, before any of them is timed."""
+    from ggmlsharp_tpu_torch import kernels
+
+    kernels.build([], variants=[(k, d) for k, table in tables.items()
+                                for d in table.values() if declared(k, d)])
+
+
 def probe_q4(cs, dev, gen):
     """The Q4_0 kernels at Llama-7B's widths: the fused MLP at 1 row (its
     -D tunables shape the b = 1 instance only; more rows take the multi-row
@@ -78,6 +102,8 @@ def probe_q4(cs, dev, gen):
     from ggmlsharp_tpu_torch.kernels.mlp_fused import _ff_silu_ref, mlp_fused_silu_q4
     from ggmlsharp_tpu_torch.models import llama
 
+    prebuild({"mlp_fused_silu_q4": SILU_VARIANTS,
+              "llama_layer": LLAMA_VARIANTS})
     cfg = llama.LLAMA_7B
     E, F = cfg.n_embd, cfg.n_ff
     copies = 3  # a pair is 76 MB, a block 114 MB: each exceeds L2 alone
@@ -87,6 +113,10 @@ def probe_q4(cs, dev, gen):
         x = torch.randn((n_rows, E), generator=gen, device=dev)
         want = _ff_silu_ref(*ws[0], x, quantize_acts=False)
         for variant, defines in SILU_VARIANTS.items():
+            if not declared("mlp_fused_silu_q4", defines):
+                cs.emit({"kernel": "mlp_fused_silu_q4", "variant": variant,
+                         "skipped": "undeclared"})
+                continue
             set_defines("mlp_fused_silu_q4", defines)
             err = float((mlp_fused_silu_q4(x, *ws[0]) - want).abs().max())
             ms = cs.time_ms(lambda i: mlp_fused_silu_q4(x, *ws[i % copies]),
@@ -122,9 +152,12 @@ def main():
     import chip_smoke as cs
 
     family = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if family not in ("all", "q4", "q8", "trace"):
-        print("usage: probe_q8_kernels.py [q4|q8|trace]", file=sys.stderr)
+    if family not in ("all", "q4", "q8", "trace") or len(sys.argv) > 3:
+        print("usage: probe_q8_kernels.py [q4|q8|trace] [ROOT]",
+              file=sys.stderr)
         return 2
+    if len(sys.argv) > 2:  # the package of another checkout
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
     if not torch.cuda.is_available():
         print("probe_q8_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -145,6 +178,7 @@ def main():
 
 def probe_q8(cs, dev, gen):
     """The Q8_0 kernels at GPT-2 124M's and 774M's widths."""
+    prebuild({"mlp_fused_q8": MLP_VARIANTS, "gpt2_layer": LAYER_VARIANTS})
     probe_mlp_q8(cs, dev, gen)
     probe_layer_q8(cs, dev, gen)
 
@@ -163,6 +197,10 @@ def probe_mlp_q8(cs, dev, gen):
         x = torch.randn((MLP_ROWS, E), generator=gen, device=dev)
         want = mlp_fused._ff_ref(*ws[0], x, quantize_acts=False)
         for variant, defines in MLP_VARIANTS.items():
+            if not declared("mlp_fused_q8", defines):
+                cs.emit({"kernel": "mlp_fused_q8", "variant": variant,
+                         "skipped": "undeclared"})
+                continue
             set_defines("mlp_fused_q8", defines)
             err = float((mlp_fused.mlp_fused_q8(x, *ws[0]) - want)
                         .abs().max())

@@ -11,7 +11,8 @@ the shared memory a CTA may opt into).
     every row once;
   * 124M to 774M fit without reuse; E 1536 reuses ring bytes, and a piece
     that overwrites another's waits for a release no earlier than its;
-  * the plan's constants are the kernel's.
+  * the plan's constants are the kernel's (``csrc/gpt2_layer.cu`` and the
+    weight-share code it includes, ``csrc/shares.cuh``).
 """
 import os
 import re
@@ -133,8 +134,11 @@ def test_plan_ints_are_what_the_kernel_reads():
                         plan.ring, plan.smem, CTAS]
     assert ints[7:12] == list(plan.first) and plan.first[4] == len(plan.pieces)
     assert len(ints) == 12 + 7 * len(plan.pieces)
-    with open(os.path.join(_build.CSRC, "gpt2_layer.cu")) as f:
-        src = f.read()
+    # the kernel's constants, and those of the header its plan code lives in
+    src = ""
+    for name in ("gpt2_layer.cu", "shares.cuh"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            src += f.read()
     assert int(re.search(r"constexpr int CW = (\d+);", src)[1]) \
         == gpt2_layer._CONSUMER_WARPS
     assert int(re.search(r"constexpr int MAX_PIECES = (\d+);", src)[1]) \

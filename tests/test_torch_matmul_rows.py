@@ -52,6 +52,8 @@ def fake_entries(monkeypatch):
     monkeypatch.setattr(_build, "entry", entry)
     monkeypatch.setattr(mq, "device_sms", lambda device: mq.H100_SMS)
     monkeypatch.setattr(mf, "device_sms", lambda device: mq.H100_SMS)
+    monkeypatch.setattr(mf, "device_smem",
+                        lambda device: (mq.H100_SMS, 232448))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
@@ -366,7 +368,7 @@ def test_mlp_route_by_rows(fake_entries, monkeypatch, E, F, quantize_acts,
     weights = (w1["qs"].data_ptr(), w1["d"].data_ptr(), w2["qs"].data_ptr(),
                w2["d"].data_ptr())
     if not mma:
-        # x, qs1, d1, qs2, d2, a, y, B, E, F, stream
+        # x, qs1, d1, qs2, d2, a, y, B, E, F, xa, sync, stream
         assert args[1:5] == weights and args[7:10] == (1, E, F)
         assert not sized
         return
@@ -476,10 +478,10 @@ def test_gelu_mlp_route_by_rows(fake_entries, monkeypatch, E, quantize_acts,
     weights = (w1["qs"].data_ptr(), w1["d"].data_ptr(), b1.data_ptr(),
                w2["qs"].data_ptr(), w2["d"].data_ptr(), b2.data_ptr())
     if not mma:
-        # x, qs1, d1, b1, qs2, d2, b2, h, y, B, K1, N1, N2, bias_bf16, rx,
-        # stream
+        # x, qs1, d1, b1, qs2, d2, b2, xh, y, B, K1, N1, N2, bias_bf16, rx,
+        # sync, plan, stream
         assert args[1:7] == weights
-        assert args[9:16] == (1, E, 4 * E, E, 0, rx, 0)
+        assert args[9:15] == (1, E, 4 * E, E, 0, rx)
         return
     # x, xq, xd, qs1, d1, b1, qs2, d2, b2, h, y, B, K1, N1, N2, bias_bf16,
     # splits1, splits2, rx, stream

@@ -84,6 +84,19 @@ version):
         b = 1 matmul through matmul_q4_0 at the tune table's geometry for
         its shape (the prompt's at the default); held against the plain
         route; tok/s and roofline share;
+     j. a model from files, each removed afterwards: j1 path a's tree
+        (unfused, unpadded) and a vocabulary trained on
+        tests/data/tiny_corpus.txt (padded to 32000 pieces) written to a
+        GGUF by io.save_gguf_llama (~3.8 GB, streamed), loaded onto the
+        card with io.load_gguf_llama: wire digests, both encoders on a
+        sentence, path a's prompt logits bit for bit and its 32 greedy
+        tokens, decoded; perplexity over two 256-token windows of the
+        corpus (matmul_q4_0's multi-row instance and flash, against the
+        plain route), and a "text" request through EngineServer; j2 path
+        c's GPT-2 124M weights written as HF safetensors (F32 matrices,
+        BF16 vectors), io.load_hf_gpt2, Q8_0 on the card, path c's route
+        (kernels 4, 8, 11); j3 path g's trained parameters and a Q4_0 tree
+        through io.save_checkpoint / load_checkpoint, bit for bit;
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound; kernel 2 also
      at path g's shape, both entries, softcap, and its backward against
@@ -578,6 +591,19 @@ def dq_launches(kern, multi, single):
     return {f"{kern}_mma": multi, kern: single}
 
 
+def llama_b1_launches(cfg):
+    """Expected launches of path a's generate (a 16-token prompt and N_NEW
+    tokens over the bf16 head-major cache)."""
+    from ggmlsharp_tpu_torch import kernels
+
+    n = 4 * cfg.n_layer + 1
+    return dict.fromkeys(kernels.LAUNCHES, 0) | {
+        # 4 a block + LM head: the prompt's at 16 rows, each token's at 1
+        **dq_launches("matmul_q4_0", n, n * N_NEW),
+        "flash_attn": cfg.n_layer}         # one a layer, prefill only
+    # attn_decode 0: a head-major cache decodes through einsum
+
+
 def run_main_path(cfg, params, prompt):
     """sampling.generate through the kernels, counters reset just before."""
     import torch
@@ -594,11 +620,7 @@ def run_main_path(cfg, params, prompt):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
-    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
-        # 4 a block x 32 + LM head: the prompt's at 16 rows, each token's at 1
-        **dq_launches("matmul_q4_0", 129, 129 * N_NEW),
-        "flash_attn": cfg.n_layer}         # one a layer, prefill only
-    # attn_decode 0: a head-major cache decodes through einsum
+    want = llama_b1_launches(cfg)
     emit({"main_path": {"tokens": toks[0].tolist(), "seconds": seconds,
                         "launches": counts, "expected_launches": want}})
     if counts != want:
@@ -1338,6 +1360,21 @@ def check_gpt2_layer(dev, gen):
     return worst
 
 
+def gpt2_b1_launches(cfg):
+    """Expected launches of path c's generate over the flat bf16 cache."""
+    from ggmlsharp_tpu_torch import kernels
+
+    L = cfg.n_layer
+    return dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "gpt2_layer": L * N_NEW,           # one a block a decode step
+        # the prefill's 16 rows: kernel 8's multi-row instance
+        **dq_launches("mlp_fused_q8", L, 0),
+        "flash_attn": L,                   # prefill only
+        # prefill: c_attn, c_proj a block + LM head at 16 rows (the
+        # multi-row instance); a decode step: the LM head at one row
+        **dq_launches("matmul_q8_0", 2 * L + 1, N_NEW)}
+
+
 def run_gpt2_path(tag, cfg, params, prompt):
     """sampling.generate of GPT-2 through the kernels, counters reset just
     before and read just after."""
@@ -1357,15 +1394,7 @@ def run_gpt2_path(tag, cfg, params, prompt):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
-    L = cfg.n_layer
-    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
-        "gpt2_layer": L * N_NEW,           # one a block a decode step
-        # the prefill's 16 rows: kernel 8's multi-row instance
-        **dq_launches("mlp_fused_q8", L, 0),
-        "flash_attn": L,                   # prefill only
-        # prefill: c_attn, c_proj a block + LM head at 16 rows (the
-        # multi-row instance); a decode step: the LM head at one row
-        **dq_launches("matmul_q8_0", 2 * L + 1, N_NEW)}
+    want = gpt2_b1_launches(cfg)
     emit({"gpt2_path": {"config": tag, "tokens": toks[0].tolist(),
                         "seconds": seconds, "launches": counts,
                         "expected_launches": want}})
@@ -2137,6 +2166,8 @@ def time_mlp_fused_silu(dev, gen, counts=None, plain=True,
            "rows_ms": {f"{r['rows']} {r['acts']}": r["ms"] for r in r7},
            "rows_library_ms": {f"{r['rows']} {r['acts']}": r["library_ms"]
                                for r in r7},
+           "rows_bound_ms": {f"{r['rows']} {r['acts']}": r["bound_ms"]
+                             for r in r7},
            "unit": "one Llama-7B MLP call at 16 rows (the prompt of paths d1, "
                    "d2), Q8_0 activations, cold L2 (the multi-row instance, "
                    "csrc/dq_mma.cuh: split, gate/up, merge_gate, down, "
@@ -2829,7 +2860,7 @@ def run_train_path(dev, smi, cfg):
         raise SystemExit(f"path g launch counts {counts} != {want}")
     if iters != TRAIN_STEPS or not f_end < losses[0] or f_end != f_end:
         raise SystemExit(f"path g: the loss did not fall: {out}")
-    return out, counts
+    return out, counts, (x, loss, cfg.n_layer)
 
 
 def test3_data(np_, nf):
@@ -3846,6 +3877,560 @@ def matmul_timing(dev):
                                     f"{r['ms']:.4f}" for r in ib))
 
 
+# path j (a model from files: GGUF, safetensors, a checkpoint) ---------------
+J_CHUNK, J_CHUNKS = 256, 2  # j1's perplexity: two windows of 256 tokens
+J_TRAINED = 512             # pieces train_spm_vocab learns before the filler
+J_NEW_HTTP = 8              # new tokens of j1's HTTP requests
+
+
+def corpus_text(repo):
+    with open(os.path.join(repo, "tests", "data", "tiny_corpus.txt"),
+              encoding="utf-8") as f:
+        return f.read()
+
+
+def scratch_dir(need_bytes):
+    """A fresh directory for path j's files where need_bytes and 1 GiB more
+    are free: the temporary directory, else the package's gitignored
+    _build/. Raises if neither has the room."""
+    import shutil
+    import tempfile
+
+    from ggmlsharp_tpu_torch.kernels._build import BUILD_DIR
+
+    tried = []
+    for base in (tempfile.gettempdir(), BUILD_DIR):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        tried.append((base, free))
+        if free >= need_bytes + 2**30:
+            return tempfile.mkdtemp(prefix="chip_smoke_j_", dir=base)
+    raise SystemExit(f"path j: no room for {need_bytes / 1e9:.2f} GB of "
+                     f"files (free bytes: {tried})")
+
+
+def expect_launches(part, counts, want):
+    if counts != want:
+        raise SystemExit(f"path {part}: launch counts {counts} != {want}")
+
+
+def require_launches(part, counts, names):
+    """Each kernel of ``names`` launched at least once (a part whose counts
+    depend on the engine's scheduling)."""
+    if not all(counts[n] for n in names):
+        raise SystemExit(f"path {part}: launches {counts} miss one of "
+                         f"{names}")
+
+
+def bit_diffs(a, b, path=""):
+    """Paths at which two trees (dicts, lists, tensors, QTensors, None)
+    differ in structure, dtype or bits."""
+    import torch
+
+    from ggmlsharp_tpu_torch.quant.formats import QTensor
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) \
+                or set(a) != set(b):
+            return [path]
+        return [d for k in a for d in bit_diffs(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        if not isinstance(b, type(a)) or len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in bit_diffs(x, y, f"{path}/{i}")]
+    if a is None or b is None:
+        return [] if a is b else [path]
+    if isinstance(a, QTensor) or isinstance(b, QTensor):
+        if not (isinstance(a, QTensor) and isinstance(b, QTensor)) \
+                or (a.gtype, a.shape) != (b.gtype, b.shape):
+            return [path]
+        return [d for k in a.planes
+                for d in bit_diffs(a[k], b.planes.get(k), f"{path}/{k}")]
+    if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
+        return [] if a == b else [path]
+    same = a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(a.detach(), b.detach())
+    return [] if same else [path]
+
+
+def prompt_logits(model, cfg, params, prompt, **cache_kw):
+    """The prefill's logits of ``prompt`` (generate's first forward)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import sampling
+
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        lg, _ = model.forward(
+            params, cfg, prompt, model.new_cache(cfg, 1, **cache_kw),
+            torch.arange(S, dtype=torch.int32, device=prompt.device)[None],
+            prefix_bound=sampling.length_bucket(S, cfg.n_ctx))
+    return lg
+
+
+def first_differing_launch(model, cfg, a, b, prompt):
+    """The first matmul of the prefill whose output differs between trees
+    a and b: its index in launch order, the weight's shape and the largest
+    difference. None if every matmul output is equal."""
+    import torch
+
+    rec, orig = [], model.linear
+
+    def spy(w, x, *args, **kw):
+        y = orig(w, x, *args, **kw)
+        rec[-1].append((tuple(w.shape), y.detach().clone()))
+        return y
+
+    model.linear = spy
+    try:
+        for tree in (a, b):
+            rec.append([])
+            prompt_logits(model, cfg, tree, prompt)
+    finally:
+        model.linear = orig
+    for i, ((sa, ya), (_, yb)) in enumerate(zip(*rec)):
+        if not torch.equal(ya, yb):
+            return {"launch": i, "weight_shape": sa,
+                    "max_abs_diff": float((ya - yb).abs().max())}
+    return None
+
+
+def padded_vocab(text, n_vocab):
+    """train_spm_vocab over the corpus (J_TRAINED pieces), then unique
+    filler pieces up to n_vocab. No merge can form a filler: neither half
+    of one is a piece."""
+    from ggmlsharp_tpu_torch.io import train_spm_vocab
+
+    toks, scores = train_spm_vocab(text, size=J_TRAINED)
+    n = len(toks)
+    return (toks + [f"<fill{i:05d}>" for i in range(n_vocab - n)],
+            scores + [-1e9] * (n_vocab - n), n)
+
+
+def with_norms(params, dtype):
+    """The tree with its norm gains cast to ``dtype`` (a GGUF stores them as
+    F32, as llama.cpp writes them; path a's tree holds them in bf16, so the
+    cast of ones is exact)."""
+    out = {**params, "norm": params["norm"].to(dtype)}
+    out["blocks"] = [{**b, "attn_norm": b["attn_norm"].to(dtype),
+                      "ffn_norm": b["ffn_norm"].to(dtype)}
+                     for b in params["blocks"]]
+    return out
+
+
+def post_json(port, body, timeout=300):
+    import urllib.request
+
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/generate",
+            data=json.dumps(body).encode()), timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def run_gguf_path(smi, repo, cfg, params, prompt, toks_a):
+    """Path j1: path a's Llama-7B Q4_0 tree (unfused, unpadded) and a
+    vocabulary trained on the corpus, padded to n_vocab, written with
+    save_gguf_llama; loaded back onto the card with load_gguf_llama and
+    tokenizer_from_gguf. Each tensor's wire bytes against the writer's
+    digests; both encoders on a corpus sentence; a 16-token prompt and N_NEW
+    greedy tokens through sampling.generate on the fused loaded tree (path
+    a's tokens, prompt logits bit for bit); the tokens decoded; perplexity
+    over J_CHUNKS windows of J_CHUNK tokens of the corpus (weight-only and
+    mm_dot "f32": kernels against the plain route, per-token NLL within
+    2e-3, twice path a's weight-only 1e-3 on logits, as a log-softmax moves
+    by at most twice its logits' largest difference; then timed in the
+    default settings); a "text" request through EngineServer with the
+    file's tokenizer. Counters reset before each part and read after."""
+    import functools
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.eval import nll_chunk, perplexity
+    from ggmlsharp_tpu_torch.io import (GGUFReader, SPMTokenizer,
+                                        load_gguf_llama, save_gguf_llama,
+                                        tokenizer_from_gguf)
+    from ggmlsharp_tpu_torch.io.gguf import (llama_tensor_names,
+                                             qtensor_to_wire, wire_nbytes)
+    from ggmlsharp_tpu_torch.models import llama, sampling
+    from ggmlsharp_tpu_torch.quant.formats import QTensor
+    from ggmlsharp_tpu_torch.serving import EngineServer
+
+    text = corpus_text(repo)
+    t0 = time.perf_counter()
+    vocab, scores, n_trained = padded_vocab(text, cfg.n_vocab)
+    res = {"card": smi, "vocab_trained": n_trained, "n_vocab": len(vocab),
+           "vocab_s": time.perf_counter() - t0}
+    parts = {}
+    unf = llama.unfuse_params(params, cfg)
+    need = sum(wire_nbytes(t.gtype, t.shape) if isinstance(t, QTensor)
+               else 4 * t.numel() for _, t in llama_tensor_names(unf))
+    d = scratch_dir(need)
+    path = os.path.join(d, "llama-7b-q4_0.gguf")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        digests = save_gguf_llama(path, cfg, unf,
+                                  tokenizer=SPMTokenizer(vocab, scores))
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        cfg2, loaded = load_gguf_llama(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        reader = GGUFReader(path)
+        tk, tk_nat = tokenizer_from_gguf(reader), \
+            tokenizer_from_gguf(reader, native=True)
+        t0 = time.perf_counter()
+        bad = [n for n, t in llama_tensor_names(loaded)
+               if hashlib.sha256(qtensor_to_wire(t)[1]).hexdigest()
+               != digests.pop(n)]
+        digest_s = time.perf_counter() - t0
+        if bad or digests or set(reader.tensors) != {
+                n for n, _ in llama_tensor_names(loaded)}:
+            raise SystemExit(f"path j1: wire digests differ for {bad}, "
+                             f"unread {sorted(digests)}")
+        del reader
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if cfg2 != cfg:
+        raise SystemExit(f"path j1: loaded config {cfg2} != {cfg}")
+    res.update(file_bytes=size, dir=os.path.dirname(d), write_s=write_s,
+               write_gb_s=size / write_s / 1e9, load_s=load_s,
+               load_gb_s=size / load_s / 1e9, digest_s=digest_s,
+               tensors=len(llama_tensor_names(loaded)),
+               page_cache="warm: the load reads the file just written")
+
+    sentence = text.split(".")[0].strip() + "."
+    ids = tk.encode(sentence)
+    if tk_nat.encode(sentence) != ids or tk.decode(ids) != sentence:
+        raise SystemExit(f"path j1: the encoders differ on {sentence!r}")
+    res["sentence_tokens"] = len(ids)
+
+    fused = with_norms(llama.fuse_params(loaded), params["norm"].dtype)
+    del loaded
+    diffs = bit_diffs(fused, params)
+    if diffs:
+        raise SystemExit(f"path j1: the loaded tree differs from path a's at "
+                         f"{diffs[:8]}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks, cache = sampling.generate(llama.forward, cfg, fused, prompt,
+                                    llama.new_cache(cfg, 1), N_NEW)
+    torch.cuda.synchronize()
+    res["generate_s"] = time.perf_counter() - t0
+    parts["generate"] = dict(kernels.LAUNCHES)
+    expect_launches("j1 generate", parts["generate"], llama_b1_launches(cfg))
+    la = prompt_logits(llama, cfg, params, prompt)
+    lb = prompt_logits(llama, cfg, fused, prompt)
+    res["prompt_logits_bit_equal"] = bool(torch.equal(la, lb))
+    if not res["prompt_logits_bit_equal"]:
+        res["first_differing_launch"] = first_differing_launch(
+            llama, cfg, params, fused, prompt)
+        raise SystemExit(f"path j1: prompt logits differ from path a's: "
+                         f"{res['first_differing_launch']}")
+    if not torch.equal(toks, toks_a):
+        raise SystemExit(f"path j1: tokens {toks.tolist()} != path a's "
+                         f"{toks_a.tolist()}")
+    res["tokens"] = toks[0].tolist()
+    res["text"] = tk.decode(res["tokens"])
+
+    stream = np.asarray(tk_nat.encode(text[:8000]), np.int32)
+    n = J_CHUNK * J_CHUNKS + 1
+    if len(stream) < n:
+        raise SystemExit(f"path j1: the corpus gave {len(stream)} tokens")
+    stream = stream[:n]
+    os.environ["GGML_TPU_QUANT_ACTS"] = "0"
+    t0 = time.perf_counter()
+    try:
+        with mm_dot("f32"):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            ppl_k = perplexity(llama.forward, cfg, fused, stream, J_CHUNK)
+            torch.cuda.synchronize()
+            parts["perplexity"] = dict(kernels.LAUNCHES)
+            plain = functools.partial(llama.forward, plain=True)
+            ppl_p = perplexity(plain, cfg, fused, stream, J_CHUNK)
+            err = 0.0
+            for i in range(J_CHUNKS):
+                c = torch.from_numpy(stream[i * J_CHUNK:(i + 1) * J_CHUNK][
+                    None]).to(prompt.device)
+                err = max(err, float((nll_chunk(llama.forward, cfg, fused, c)
+                                      - nll_chunk(plain, cfg, fused, c))
+                                     .abs().max()))
+    finally:
+        os.environ.pop("GGML_TPU_QUANT_ACTS")
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | {
+        **dq_launches("matmul_q4_0", (4 * cfg.n_layer + 1) * J_CHUNKS, 0),
+        "flash_attn": cfg.n_layer * J_CHUNKS}
+    expect_launches("j1 perplexity", parts["perplexity"], want)
+    res["perplexity_weight_only"] = {
+        "ppl": ppl_k[0], "mean_nll": ppl_k[1], "scored": ppl_k[2],
+        "plain_ppl": ppl_p[0], "plain_mean_nll": ppl_p[1],
+        "max_abs_nll_err": err, "tol": 2e-3,
+        "seconds": time.perf_counter() - t0}
+    if not (err <= 2e-3 and abs(ppl_k[1] - ppl_p[1]) <= 2e-3
+            and ppl_k[2] == ppl_p[2] == J_CHUNKS * (J_CHUNK - 1 - J_CHUNK // 2)
+            and np.isfinite(ppl_k[0])):
+        raise SystemExit(f"path j1: perplexity kernels vs plain: "
+                         f"{res['perplexity_weight_only']}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ppl_d = perplexity(llama.forward, cfg, fused, stream, J_CHUNK)
+    torch.cuda.synchronize()
+    res["perplexity_default"] = {
+        "ppl": ppl_d[0], "mean_nll": ppl_d[1],
+        "chunk_ms": (time.perf_counter() - t0) * 1e3 / J_CHUNKS,
+        "rows_a_chunk": J_CHUNK - 1, "clock": "host, after a sync"}
+    parts["perplexity_default"] = dict(kernels.LAUNCHES)
+    expect_launches("j1 perplexity (default settings)",
+                    parts["perplexity_default"], want)
+
+    t0 = time.perf_counter()
+    eng = new_engine(cfg, fused)
+    srv = EngineServer(eng, port=0, tokenizer=tk).start()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        by_text = post_json(srv.port, {"text": sentence,
+                                       "max_new_tokens": J_NEW_HTTP})
+        by_ids = post_json(srv.port, {"prompt": ids, "eos_id": tk.eos_id,
+                                      "max_new_tokens": J_NEW_HTTP})
+        torch.cuda.synchronize()
+        parts["http"] = dict(kernels.LAUNCHES)
+    finally:
+        srv.stop()
+    del eng
+    res["http"] = {"tokens": by_text.get("tokens"),
+                   "text": by_text.get("text"),
+                   "seconds": time.perf_counter() - t0}
+    if by_text.get("error") is not None or not by_text.get("tokens") \
+            or by_text["tokens"] != by_ids.get("tokens") \
+            or by_text.get("text") != tk.decode(by_text["tokens"]):
+        raise SystemExit(f"path j1: the text request failed: {by_text}, "
+                         f"ids: {by_ids}")
+    require_launches("j1 HTTP", parts["http"],
+                     ("matmul_q4_0_mma", "flash_attn", "attn_decode"))
+    counts = {k: sum(p[k] for p in parts.values()) for k in kernels.LAUNCHES}
+    res["launches"] = {p: {k: v for k, v in c.items() if v}
+                       for p, c in parts.items()}
+    emit({"io_gguf_path": res})
+    return res, counts
+
+
+def hf_gpt2_tensors(params):
+    """A GPT-2 tree in HF's safetensors layout: QTensors dequantized to F32
+    (Conv1D weights transposed to [in, out]), the other leaves as they are
+    (bf16 for path c's tree)."""
+    from ggmlsharp_tpu_torch import dequantize
+    from ggmlsharp_tpu_torch.quant.formats import QTensor
+
+    def dense(t):
+        return dequantize(t) if isinstance(t, QTensor) else t
+
+    t = {"wte.weight": dense(params["wte"]), "wpe.weight": params["wpe"],
+         "ln_f.weight": params["ln_f"]["g"], "ln_f.bias": params["ln_f"]["b"]}
+    for i, b in enumerate(params["blocks"]):
+        p = f"h.{i}."
+        for part in ("ln_1", "ln_2"):
+            t[f"{p}{part}.weight"] = b[part]["g"]
+            t[f"{p}{part}.bias"] = b[part]["b"]
+        for mod, w, hf in (("attn", "c_attn", "attn.c_attn"),
+                           ("attn", "c_proj", "attn.c_proj"),
+                           ("mlp", "c_fc", "mlp.c_fc"),
+                           ("mlp", "c_proj", "mlp.c_proj")):
+            t[f"{p}{hf}.weight"] = dense(b[mod][f"{w}_w"]).t().contiguous()
+            t[f"{p}{hf}.bias"] = b[mod][f"{w}_b"]
+    return t
+
+
+def write_safetensors(path, tensors):
+    """The safetensors format, written without the safetensors package: an
+    8-byte little-endian header length, a JSON header padded with spaces to
+    8 bytes, each tensor's bytes in turn. Returns the file's size."""
+    import struct
+
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for t in tensors.values():
+            t = t.detach().contiguous().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            f.write(t.numpy().tobytes())
+    return 8 + len(hb) + off
+
+
+def dense_gpt2_tree(params):
+    """The GPT-2 tree with every QTensor dequantized to f32 (the port's
+    [out, in] layout)."""
+    from ggmlsharp_tpu_torch import dequantize
+    from ggmlsharp_tpu_torch.quant.formats import QTensor
+
+    def walk(x):
+        if isinstance(x, QTensor):
+            return dequantize(x)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        return x
+
+    return walk(params)
+
+
+def run_hf_path(smi, cfg, params, prompt):
+    """Path j2: path c's GPT-2 124M weights (its Q8_0 matrices dequantized
+    to F32, its bf16 norms, biases and wpe as BF16) written in HF's layout
+    by write_safetensors, loaded onto the card by load_hf_gpt2 and
+    quantized to Q8_0 there. The result must be, bit for bit, the Q8_0 tree
+    quantize_params makes of the same f32 weights in memory, and give its
+    tokens and prompt logits through path c's route (its launches of
+    kernels 4, 8 and 11). Requantizing dequantized Q8_0 moves a block's
+    scale unless the block holds a ±127, so path c's own tokens are reported
+    beside them, not required."""
+    import shutil
+
+    import torch
+
+    from ggmlsharp_tpu_torch import GType, kernels
+    from ggmlsharp_tpu_torch.io import load_hf_gpt2
+    from ggmlsharp_tpu_torch.models import gpt2, sampling
+
+    tensors = hf_gpt2_tensors(params)
+    need = sum(t.numel() * t.element_size() for t in tensors.values())
+    d = scratch_dir(need)
+    path = os.path.join(d, "model.safetensors")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        size = write_safetensors(path, tensors)
+        write_s = time.perf_counter() - t0
+        del tensors
+        t0 = time.perf_counter()
+        hcfg, loaded = load_hf_gpt2(path, config={"n_head": cfg.n_head})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if hcfg != cfg:
+        raise SystemExit(f"path j2: loaded config {hcfg} != {cfg}")
+    t0 = time.perf_counter()
+    q = gpt2.quantize_params(loaded, GType.Q8_0)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del loaded
+    ref = gpt2.quantize_params(dense_gpt2_tree(params), GType.Q8_0)
+    diffs = bit_diffs(q, ref)
+    if diffs:
+        raise SystemExit(f"path j2: the loaded tree differs at {diffs[:8]}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks, _ = sampling.generate(gpt2.forward, cfg, q, prompt,
+                                gpt2.new_cache(cfg, 1), N_NEW)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    expect_launches("j2 generate", counts, gpt2_b1_launches(cfg))
+    ref_toks, _ = sampling.generate(gpt2.forward, cfg, ref, prompt,
+                                    gpt2.new_cache(cfg, 1), N_NEW)
+    logits_equal = bool(torch.equal(prompt_logits(gpt2, cfg, q, prompt),
+                                    prompt_logits(gpt2, cfg, ref, prompt)))
+    res = {"card": smi, "file_bytes": size, "write_s": write_s,
+           "write_gb_s": size / write_s / 1e9, "load_s": load_s,
+           "load_gb_s": size / load_s / 1e9, "quantize_s": quant_s,
+           "generate_s": generate_s,
+           "page_cache": "warm: the load reads the file just written",
+           "tokens": toks[0].tolist(),
+           "tokens_equal_in_memory_route": bool(torch.equal(toks, ref_toks)),
+           "prompt_logits_bit_equal": logits_equal,
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit({"io_hf_path": res})
+    if not (res["tokens_equal_in_memory_route"] and logits_equal):
+        raise SystemExit(f"path j2: the loaded model differs: {res}")
+    if len(set(res["tokens"])) < N_NEW // 2:
+        raise SystemExit(f"path j2: the greedy stream collapsed: {res}")
+    return res, counts
+
+
+def run_checkpoint_path(smi, dev, train_state):
+    """Path j3: path g's parameters after its Adam steps through
+    save_checkpoint and load_checkpoint: every leaf bit for bit (bf16 kept)
+    and the training loss on the loaded tree equal to the loss on the
+    original; then a small tree of a Q4_0 QTensor, a bf16 vector, a list
+    and None, the loaded QTensor's one-row matmul through matmul_q4_0 equal
+    to the original's."""
+    import shutil
+
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels, ops
+    from ggmlsharp_tpu_torch.io import load_checkpoint, save_checkpoint
+    from ggmlsharp_tpu_torch.models.llama import random_q4_0
+    from ggmlsharp_tpu_torch.optim.tree import tree_leaves
+
+    x, loss, n_layer = train_state
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    need = sum(t.numel() * t.element_size() for t in tree_leaves(x))
+    small = {"q": random_q4_0(4096, 4096, gen, dev),
+             "g": torch.randn(4096, generator=gen, device=dev).to(
+                 torch.bfloat16),
+             "lst": [torch.arange(5, device=dev), None], "none": None}
+    d = scratch_dir(need + small["q"].nbytes())
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(d, "g"), x, step=TRAIN_STEPS)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, step = load_checkpoint(os.path.join(d, "g"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        save_checkpoint(os.path.join(d, "s"), small, step=0)
+        sback, _ = load_checkpoint(os.path.join(d, "s"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    diffs = bit_diffs(x, back) + bit_diffs(small, sback)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.no_grad():
+        f0, f1 = float(loss(x)), float(loss(back))
+    xr = torch.randn((1, 4096), generator=gen, device=dev)
+    y0 = ops.mul_mat(small["q"], xr)
+    y1 = ops.mul_mat(sback["q"], xr)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    res = {"card": smi, "leaves": len(tree_leaves(x)), "bytes": need,
+           "save_s": save_s, "load_s": load_s, "step": step,
+           "loss": f0, "loss_loaded": f1, "bit_diffs": diffs,
+           "matmul_equal": bool(torch.equal(y0, y1)),
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit({"io_checkpoint_path": res})
+    if diffs or f0 != f1 or step != TRAIN_STEPS or not res["matmul_equal"]:
+        raise SystemExit(f"path j3: the checkpoint did not round-trip: {res}")
+    expect_launches("j3", counts, dict.fromkeys(kernels.LAUNCHES, 0) | {
+        "flash_attn": 2 * n_layer, "matmul_q4_0": 2})
+    return res, counts
+
+
 def main(argv):
     import torch
 
@@ -4099,7 +4684,7 @@ def main(argv):
 
     # g. training: GPT-2 124M, bf16, TRAIN_STEPS Adam steps through
     # optim.opt_fn, the cached flash entry's Function in every layer
-    train, g_counts = run_train_path(dev, smi, gpt2.GPT2_124M)
+    train, g_counts, g_state = run_train_path(dev, smi, gpt2.GPT2_124M)
     log(f"[4/6] g. GPT-2 124M training, B {TRAIN_B} x S {TRAIN_S}: losses "
         f"{[round(x, 4) for x in train['losses']]} -> "
         f"{train['loss_after']:.4f}; flash launches a step "
@@ -4143,6 +4728,32 @@ def main(argv):
         f"; {i_dec['window_tok_s']:.2f} tok/s, {i_dec['roofline_share']:.4f} "
         f"of the HBM roofline, device idle share "
         f"{i_dec['device_idle_share']}")
+
+    # j. a model from files: path a's tree through a GGUF with a vocabulary
+    # (j1), path c's 124M weights through HF safetensors (j2), path g's
+    # trained parameters through a checkpoint (j3)
+    t0 = time.perf_counter()
+    j1, j1_counts = run_gguf_path(smi, repo, cfg, params, prompt, toks)
+    j2, j2_counts = run_hf_path(smi, *g_models["124M"][:3])
+    j3, j3_counts = run_checkpoint_path(smi, dev, g_state)
+    del g_state
+    j_counts = {k: j1_counts[k] + j2_counts[k] + j3_counts[k] for k in counts}
+    log(f"[4/6] j. from files in {time.perf_counter() - t0:.1f} s: j1 "
+        f"Llama-7B Q4_0 GGUF {j1['file_bytes'] / 1e9:.3f} GB written at "
+        f"{j1['write_gb_s']:.2f} GB/s, loaded at {j1['load_gb_s']:.2f} GB/s "
+        f"(warm), {j1['tensors']} wire digests equal, path a's {N_NEW} "
+        f"tokens and prompt logits bit for bit, text "
+        f"{j1['text'][:60]!r}; perplexity {J_CHUNKS} x {J_CHUNK} tokens "
+        f"{j1['perplexity_default']['ppl']:.4g} "
+        f"({j1['perplexity_default']['chunk_ms']:.1f} ms a chunk), "
+        f"weight-only vs plain NLL err "
+        f"{j1['perplexity_weight_only']['max_abs_nll_err']:.3g}; HTTP text "
+        f"{j1['http']['text'][:40]!r}; j2 GPT-2 124M safetensors "
+        f"{j2['file_bytes'] / 1e9:.3f} GB at {j2['write_gb_s']:.2f} / "
+        f"{j2['load_gb_s']:.2f} GB/s, Q8_0 on the card, tokens equal: "
+        f"{j2['tokens_equal_in_memory_route']}; j3 checkpoint of "
+        f"{j3['leaves']} leaves bit-equal, loss {j3['loss']:.6f}; launches "
+        f"{ {k: v for k, v in j_counts.items() if v} } ({smi})")
 
     q4_row, q4_mma_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_mma_row["max_abs_err"] = q4_err
@@ -4233,12 +4844,14 @@ def main(argv):
         row["launches_gpt2_int8_serving"] = gs_counts[name]
         row["launches_tuning_probes"] = probe_counts[name]
         row["launches_llama_13b"] = i_counts[name]
+        row["launches_io_j"] = j_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, mcounts, kq_counts,
                                                  fmt_counts, g_counts,
                                                  h_counts, gs_counts,
-                                                 probe_counts, i_counts)
+                                                 probe_counts, i_counts,
+                                                 j_counts)
                                if c[name])
     log("[5/6] kernel times taken")
 
@@ -4335,7 +4948,7 @@ def main(argv):
             "launches_llama_mlp_fused", "launches_llama_kquant",
             "launches_llama_formats", "launches_train_g", "launches_graph_h",
             "launches_gpt2_int8_serving", "launches_tuning_probes",
-            "launches_llama_13b")
+            "launches_llama_13b", "launches_io_j")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
              "heads_layout_bf16_ms",  # kernel 3's second lane map
              "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",

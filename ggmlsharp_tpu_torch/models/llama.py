@@ -36,7 +36,7 @@ from .. import config
 from ..device import resolve_device
 from ..dtypes import GType
 from ..ops import get_rows, rms_norm, rope, silu
-from ..quant.formats import QTensor, concat_qtensors
+from ..quant.formats import QTensor, concat_qtensors, split_rows
 from ..kernels.llama_layer import (_layer_ref, fuse_llama_layer,
                                    llama_layer_fuse_supported,
                                    llama_layer_step, rope_vectors, wo_colperm)
@@ -128,6 +128,35 @@ def fuse_params(params):
         nb["wqkv"] = concat_qtensors([b["wq"], b["wk"], b["wv"]])
         nb["w_gate_up"] = concat_qtensors([b["w_gate"], b["w_up"]])
         out["blocks"].append(nb)
+    return out
+
+
+def unfuse_params(params, cfg: LlamaConfig):
+    """The inverse of fuse_params, less the padding: wqkv and w_gate_up split
+    back into their rows (views, no copy), the embedding and LM-head rows
+    past n_vocab dropped and the fused routes' markers left out. The
+    unfused tree is the one GGUF files hold (io.gguf.save_gguf_llama)."""
+    nq = cfg.n_head * cfg.head_dim
+    nkv = cfg.n_head_kv * cfg.head_dim
+
+    def vocab_rows(t):
+        if t is None or t.shape[0] == cfg.n_vocab:
+            return t
+        return split_rows(t, (cfg.n_vocab, t.shape[0] - cfg.n_vocab))[0]
+
+    out = {"tok_embd": vocab_rows(params["tok_embd"]), "norm": params["norm"],
+           "output": vocab_rows(params["output"]), "blocks": []}
+    for b in params["blocks"]:
+        if "wqkv" in b:
+            wq, wk, wv = split_rows(b["wqkv"], (nq, nkv, nkv))
+            w_gate, w_up = split_rows(b["w_gate_up"], (cfg.n_ff, cfg.n_ff))
+        else:
+            wq, wk, wv, w_gate, w_up = (b[k] for k in (
+                "wq", "wk", "wv", "w_gate", "w_up"))
+        out["blocks"].append({
+            "attn_norm": b["attn_norm"], "wq": wq, "wk": wk, "wv": wv,
+            "wo": b["wo"], "ffn_norm": b["ffn_norm"], "w_gate": w_gate,
+            "w_up": w_up, "w_down": b["w_down"]})
     return out
 
 

@@ -1,5 +1,5 @@
-from .formats import QTensor, concat_qtensors, from_wire, to_wire
+from .formats import QTensor, concat_qtensors, from_wire, split_rows, to_wire
 from .quantize import dequantize, quantize
 
 __all__ = ["QTensor", "concat_qtensors", "dequantize", "from_wire",
-           "quantize", "to_wire"]
+           "quantize", "split_rows", "to_wire"]

@@ -64,6 +64,8 @@ _WIRE = {
                                                 np.int16)]),
 }
 FORMATS = tuple(_WIRE)
+_TORCH = {np.dtype(t): torch.from_numpy(np.zeros(0, t)).dtype
+          for t in (_U8, _I8, _F16, np.int16, np.int32, np.float32)}
 
 
 class QTensor:
@@ -109,14 +111,15 @@ def wire_block_bytes(gtype) -> tuple:
 def plane_specs(gtype, k: int) -> dict:
     """{plane: (torch dtype, columns a row of k elements)} of ``gtype``."""
     bs, fields = _WIRE[GType(gtype)]
-    return {name: (torch.from_numpy(np.zeros(0, pdt)).dtype,
+    return {name: (_TORCH[np.dtype(pdt)],
                    k // bs * nbytes // np.dtype(wdt).itemsize)
             for name, nbytes, wdt, pdt in fields}
 
 
 def from_wire(gtype, wire, shape, device=None) -> QTensor:
     """ggml wire blocks (bytes or a uint8 array) -> QTensor on ``device``
-    (the card unless the caller asks for another)."""
+    (the card unless the caller asks for another). The bytes go to the
+    device in one copy; the fields are split there."""
     device = resolve_device(device)
     gtype = GType(gtype)
     _check_format(gtype)
@@ -132,27 +135,30 @@ def from_wire(gtype, wire, shape, device=None) -> QTensor:
         else np.asarray(wire, np.uint8)
     if raw.size != rows * nb * bb:
         raise ValueError(f"wire size {raw.size} does not match {shape}")
-    blocks = raw.reshape(rows, nb, bb)
+    # copied once on the host: the planes own their memory, and a
+    # read-only buffer (bytes, a mapped file) cannot back a tensor
+    blocks = torch.from_numpy(raw.copy()).to(device).reshape(rows, nb, bb)
     planes, off = {}, 0
     for name, nbytes, wdt, pdt in fields:
-        v = np.ascontiguousarray(blocks[:, :, off:off + nbytes]).view(wdt)
-        planes[name] = torch.from_numpy(
-            v.astype(pdt).reshape(*lead, -1))
+        v = blocks[:, :, off:off + nbytes].contiguous()
+        planes[name] = v.view(_TORCH[np.dtype(wdt)]).to(
+            _TORCH[np.dtype(pdt)]).reshape(*lead, -1)
         off += nbytes
-    return QTensor(gtype, shape, planes).to(device)
+    return QTensor(gtype, shape, planes)
 
 
 def to_wire(qt: QTensor) -> bytes:
-    """QTensor -> ggml wire blocks."""
+    """QTensor -> ggml wire blocks. The blocks are interleaved on the
+    tensor's device and copied to the host once."""
     _check_format(qt.gtype)
     rows = int(np.prod(qt.shape[:-1]))
     bs, fields = _WIRE[qt.gtype]
     nb = qt.shape[-1] // bs
     parts = []
-    for name, _, wdt, _ in fields:
-        v = qt[name].detach().cpu().numpy().astype(wdt)
-        parts.append(v.reshape(rows, nb, -1).view(np.uint8))
-    return np.concatenate(parts, axis=-1).tobytes()
+    for name, nbytes, wdt, _ in fields:
+        v = qt[name].detach().to(_TORCH[np.dtype(wdt)]).contiguous()
+        parts.append(v.view(torch.uint8).reshape(rows, nb, nbytes))
+    return torch.cat(parts, dim=-1).cpu().numpy().tobytes()
 
 
 def concat_qtensors(qts: list):
@@ -169,3 +175,18 @@ def concat_qtensors(qts: list):
     planes = {key: torch.cat([t.planes[key] for t in qts], dim=0)
               for key in qts[0].planes}
     return QTensor(g, (sum(t.shape[0] for t in qts), k), planes)
+
+
+def split_rows(t, sizes):
+    """Split a 2-D QTensor or tensor into row blocks of ``sizes`` (the
+    inverse of ``concat_qtensors``). The pieces are views of ``t``."""
+    if sum(sizes) != t.shape[0]:
+        raise ValueError(f"row sizes {sizes} do not add up to {t.shape[0]}")
+    if not isinstance(t, QTensor):
+        return list(torch.split(t, list(sizes), dim=0))
+    out, lo = [], 0
+    for n in sizes:
+        out.append(QTensor(t.gtype, (n, t.shape[1]),
+                           {k: v[lo:lo + n] for k, v in t.planes.items()}))
+        lo += n
+    return out

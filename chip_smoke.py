@@ -97,11 +97,30 @@ version):
         BF16 vectors), io.load_hf_gpt2, Q8_0 on the card, path c's route
         (kernels 4, 8, 11); j3 path g's trained parameters and a Q4_0 tree
         through io.save_checkpoint / load_checkpoint, bit for bit;
+     k. speculative decoding (models.speculative, k = SPEC_K): k1 Llama-7B
+        Q4_0 with itself as the draft at b = 1 (bf16 head-major caches; the
+        16-token prompt, 32 tokens), held to path a's tokens on decided
+        positions, k + 1 tokens on every round whose drafts are all
+        decided; k2 GPT-2 774M Q8_0 with a GPT-2 124M Q8_0 draft (flat float
+        caches: the draft's steps through the whole-block kernel, the 5-row
+        verify through kernels 4 and 8), held to the 774M's per-op greedy
+        decode (GGML_TPU_LAYER_FUSED=0) on decided positions, then one
+        rejection-sampled run; k3 the speculative engine over path b's
+        config (draft = target, INT8 flat caches, 8 slots; 24 greedy
+        requests, one through a registered prefix, and two at temperature
+        0.8), held to the same engine on plain forwards on decided tokens,
+        then an HTTP check;
+     l. GPT-J 6B Q4_0 (full width and depth, random weights quantized on
+        the card) at b = 1: the 16-token prompt (kernel 1's multi-row
+        instance, flash at D 256) and 32 greedy tokens, held against the
+        plain route, then the whole tree through a GGUF (leaves bit for bit,
+        the same tokens);
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound; kernel 2 also
      at path g's shape, both entries, softcap, and its backward against
      SDPA's; kernels 2 and 3 at every shape a path runs them
-     (FLASH_TIMING, ATTN_DECODE_TIMING);
+     (FLASH_TIMING, ATTN_DECODE_TIMING); kernel 1 at GPT-J 6B's four
+     shapes at 1 and 5 rows (a token, a verify);
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
      time, peak device memory, and a torch.profiler window of decode steps
      (device time, launches and host operator calls a step, idle share);
@@ -109,7 +128,8 @@ version):
      and the share of the batched roofline; the same decode measurements
      for GPT-2 124M and 774M, for Llama-7B on its whole-block route and
      for path e in Q4_K and Q6_K; path g's step time, tokens/s, share of
-     the bf16 dense peak and peak memory.
+     the bf16 dense peak and peak memory (paths k and l print their rates,
+     tokens a round, device ms a round and roofline share in phase 4).
 
 ``python3 chip_smoke.py --attention-timing [ROOT]`` and ``--matmul-timing
 [ROOT]`` are development modes with no compatibility promise: they build
@@ -781,7 +801,7 @@ def run_serving(cfg, params):
            or not all(0 <= t < cfg.n_vocab for t in r.out_tokens)]
     if len(results) != SERVE_REQS or bad:
         raise SystemExit(f"serving answered {len(results)} requests, bad {bad}")
-    return eng, res
+    return eng, res, [r.out_tokens for r in results]
 
 
 def replay_serving(cfg, params, tol):
@@ -3890,9 +3910,9 @@ def corpus_text(repo):
 
 
 def scratch_dir(need_bytes):
-    """A fresh directory for path j's files where need_bytes and 1 GiB more
-    are free: the temporary directory, else the package's gitignored
-    _build/. Raises if neither has the room."""
+    """A fresh directory for a path's files (j, l) where need_bytes and 1
+    GiB more are free: the temporary directory, else the package's
+    gitignored _build/. Raises if neither has the room."""
     import shutil
     import tempfile
 
@@ -3905,7 +3925,7 @@ def scratch_dir(need_bytes):
         tried.append((base, free))
         if free >= need_bytes + 2**30:
             return tempfile.mkdtemp(prefix="chip_smoke_j_", dir=base)
-    raise SystemExit(f"path j: no room for {need_bytes / 1e9:.2f} GB of "
+    raise SystemExit(f"no room for {need_bytes / 1e9:.2f} GB of a path's "
                      f"files (free bytes: {tried})")
 
 
@@ -4431,6 +4451,564 @@ def run_checkpoint_path(smi, dev, train_state):
     return res, counts
 
 
+# --- speculative decoding and GPT-J (paths k1, k2, k3, l) -------------------
+
+SPEC_K = 4                  # drafts a round on paths k1-k3
+K3_SAMPLED = 2              # k3's requests at temperature 0.8
+# GPT-J 6B's Q4_0 matmuls: (name, N, K, launches a forward); the LM head
+# takes Q8_0 activations (ops.linear's default), as the blocks' do
+GPTJ_SHAPES = [("wq_wk_wv_wo", 4096, 4096, 4 * 28), ("fc_in", 16384, 4096, 28),
+               ("fc_out", 4096, 16384, 28), ("lm_head", 50400, 4096, 1)]
+GPTJ_B = (1, SPEC_K + 1)   # a decode token; a verify's rows
+
+
+@contextlib.contextmanager
+def record_rounds(rounds):
+    """models.speculative's make_spec_round(_sampled) wrapped for the block:
+    every round made inside it appends (emitted, n_emit) as host arrays to
+    ``rounds`` (speculative_generate looks both up in its module when it
+    makes its round, and fetches each round's tokens anyway; the engine
+    binds them at import and is wrapped per instance in run_spec_engine)."""
+    from ggmlsharp_tpu_torch.models import speculative as sp
+
+    orig = sp.make_spec_round, sp.make_spec_round_sampled
+
+    def wrap(make):
+        def recording_make(*args, **kw):
+            rnd = make(*args, **kw)
+
+            def recorded(*a, **k):
+                out = rnd(*a, **k)
+                rounds.append((out[0].cpu().numpy(), out[1].cpu().numpy()))
+                return out
+            return recorded
+        return recording_make
+
+    sp.make_spec_round, sp.make_spec_round_sampled = (wrap(f) for f in orig)
+    try:
+        yield
+    finally:
+        sp.make_spec_round, sp.make_spec_round_sampled = orig
+
+
+def plain_gaps(model, cfg, params, prompt, toks, **cache_kw):
+    """Top-2 gaps [n] of the plain route's logits that choose toks[0, :n]:
+    ONE plain forward over prompt + toks (the same per-row function a
+    prefill and its decode steps compute, in another summation order)."""
+    import functools
+
+    import torch
+
+    seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+    S = seq.shape[1]
+    with torch.inference_mode():
+        lg, _ = functools.partial(model.forward, plain=True)(
+            params, cfg, seq, model.new_cache(cfg, 1, **cache_kw),
+            torch.arange(S, dtype=torch.int32, device=seq.device)[None],
+            prefix_bound=S)
+    top2 = lg[0, prompt.shape[1] - 1:].float().topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).cpu()
+
+
+def held_to_reference(got, want, gaps, tol):
+    """got vs want token lists where gaps (the plain top-2 gap at each of
+    want's positions) exceeds 2 * tol: the index of the first parting (None
+    if none), and whether it fell on a decided position."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return j, bool(gaps[j] > 2 * tol)
+    return None, False
+
+
+def spec_launches(cfg, kind, rounds, d_cfg=None):
+    """Expected launches of speculative_generate at b = 1 (k1: Llama Q4_0,
+    draft = target; k2: GPT-2 Q8_0 with a GPT-2 draft) for ``rounds``
+    rounds after a 16-token prompt."""
+    from ggmlsharp_tpu_torch import kernels
+
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    if kind == "llama":
+        n = 4 * cfg.n_layer + 1  # the matmuls of a forward
+        # target and draft prefill (16 and 15 rows), each round the draft's
+        # 2-row seed prefill and 5-row verify (multi-row), k - 1 draft steps
+        return want | dq_launches("matmul_q4_0", n * (2 + 2 * rounds),
+                                  n * (SPEC_K - 1) * rounds) | {
+            "flash_attn": 2 * cfg.n_layer}
+    Lt, Ld = cfg.n_layer, d_cfg.n_layer
+    return want | {
+        # c_attn, c_proj a block and the LM head: both prefills, each
+        # round's 2-row draft seed and 5-row verify; draft steps: the LM
+        # head at one row after the whole-block kernel
+        **dq_launches("matmul_q8_0", (2 * Lt + 1 + 2 * Ld + 1) * (1 + rounds),
+                      (SPEC_K - 1) * rounds),
+        **dq_launches("mlp_fused_q8", (Lt + Ld) * (1 + rounds), 0),
+        "gpt2_layer": Ld * (SPEC_K - 1) * rounds,
+        "flash_attn": Lt + Ld}
+
+
+def run_spec_k1(smi, cfg, params, prompt, toks_a):
+    """Path k1: Llama-7B Q4_0 speculative decode at b = 1, draft = target,
+    bf16 head-major caches, k = SPEC_K: the 16-token prompt and N_NEW tokens.
+    The tokens must equal path a's greedy tokens on every decided position
+    up to the first undecided one (decided: the plain top-2 gap above 2 *
+    0.1, path a's tol), every round whose k drafts are all decided must emit
+    k + 1, and the launches must be the rounds' (multi-row and b = 1 Q4_0
+    instances). Then the device ms a round (profiler) over a fresh run."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.models.speculative import (
+        make_spec_round, speculative_generate)
+    from ggmlsharp_tpu_torch.models.sampling import length_bucket
+
+    tol = 0.1
+    rounds = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with record_rounds(rounds):
+        toks, rate = speculative_generate(
+            llama.forward, cfg, params, llama.forward, cfg, params, prompt,
+            llama.new_cache(cfg, 1), llama.new_cache(cfg, 1), N_NEW,
+            k=SPEC_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    want = spec_launches(cfg, "llama", len(rounds))
+    gaps = plain_gaps(llama, cfg, params, prompt, toks_a)
+    got, ref = toks[0].tolist(), toks_a[0].tolist()
+    part, part_decided = held_to_reference(got, ref, gaps, tol)
+    end = N_NEW if part is None else part
+    # round r's drafts predict positions e .. e + k - 1 (a0 is position 0)
+    full_ok, checked, e = True, 0, 1
+    for _, ne in rounds:
+        pos = range(e, e + SPEC_K)
+        if pos[-1] < end and all(gaps[p] > 2 * tol for p in pos):
+            checked += 1
+            full_ok &= int(ne[0]) == SPEC_K + 1
+        e += int(ne[0])
+    # device time a round: a fresh prefill, then profiled rounds
+    tc, dc = llama.new_cache(cfg, 1), llama.new_cache(cfg, 1)
+    rnd = make_spec_round(llama.forward, cfg, llama.forward, cfg, SPEC_K)
+    with torch.no_grad():
+        lg, tc = llama.forward(params, cfg, prompt, tc, torch.arange(
+            PROMPT_LEN, dtype=torch.int32, device=prompt.device)[None],
+            prefix_bound=length_bucket(PROMPT_LEN, cfg.n_ctx))
+        _, dc = llama.forward(params, cfg, prompt[:, :-1], dc, torch.arange(
+            PROMPT_LEN - 1, dtype=torch.int32, device=prompt.device)[None],
+            prefix_bound=length_bucket(PROMPT_LEN, cfg.n_ctx))
+    a0 = torch.argmax(lg[:, -1], -1, keepdim=True).to(torch.int32)
+    state = {"tc": tc, "dc": dc,
+             "seed": torch.cat([prompt[:, -1:], a0], 1), "h": PROMPT_LEN}
+
+    def one_round():
+        t_eff = length_bucket(state["h"] + SPEC_K + 2, cfg.n_ctx)
+        _, ne, state["tc"], state["dc"], state["seed"] = rnd(
+            params, params, state["tc"], state["dc"], state["seed"],
+            t_eff=t_eff, d_eff=t_eff)
+        state["h"] += SPEC_K + 1
+
+    lat = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        if i:
+            lat.append(time.perf_counter() - t1)
+    prof = profile_steps(one_round, 1)  # ~27k kernels a round
+    res = {"card": smi, "k": SPEC_K, "tokens": got, "rounds": len(rounds),
+           "n_emit": [int(ne[0]) for _, ne in rounds],
+           "mean_tokens_a_round": rate, "seconds": seconds,
+           "tok_s": N_NEW / seconds,
+           "round_ms_median": statistics.median(lat) * 1e3,
+           "device_ms_per_round": prof["device_ms_per_step"],
+           "kernels_per_round": prof["kernels_per_step"],
+           "tokens_equal_path_a": sum(a == b for a, b in zip(got, ref)),
+           "first_parting": part, "parting_decided": part_decided,
+           "tokens_decided": int((gaps > 2 * tol).sum()),
+           "all_decided_rounds": checked, "all_decided_rounds_emit_k1": full_ok,
+           "launches": counts, "expected_launches": want}
+    emit({"spec_llama_k1": res})
+    expect_launches("k1", counts, want)
+    require_launches("k1", counts, ("matmul_q4_0", "matmul_q4_0_mma"))
+    if part_decided or not full_ok or toks.shape != (1, N_NEW):
+        raise SystemExit(f"path k1: speculative tokens disagree: {res}")
+    return res, counts
+
+
+def run_spec_k2(smi, t_cfg, t_params, d_cfg, d_params, prompt):
+    """Path k2: GPT-2 774M Q8_0 target, GPT-2 124M Q8_0 draft, b = 1, flat
+    float caches: greedy, held on decided positions to the 774M target's own
+    per-op greedy decode (GGML_TPU_LAYER_FUSED=0 for that reference only:
+    the whole-block kernel quantizes no activation, the verify's per-op
+    route does, so path c computes another function); then one
+    rejection-sampled run (temperature 0.8, top-p 0.95, a seeded
+    generator)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import gpt2, sampling
+    from ggmlsharp_tpu_torch.models.speculative import speculative_generate
+
+    tol = 0.1  # path c's, under the same settings
+    dev = prompt.device
+
+    def caches():
+        t, d = gpt2.new_cache(t_cfg, 1), gpt2.new_cache(d_cfg, 1)
+        if not (t.is_flat and d.is_flat):
+            raise SystemExit("path k2 must run over flat float caches")
+        return t, d
+
+    rounds = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with record_rounds(rounds):
+        toks, rate = speculative_generate(
+            gpt2.forward, t_cfg, t_params, gpt2.forward, d_cfg, d_params,
+            prompt, *caches(), N_NEW, k=SPEC_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    want = spec_launches(t_cfg, "gpt2", len(rounds), d_cfg)
+    os.environ["GGML_TPU_LAYER_FUSED"] = "0"
+    try:
+        cache = gpt2.new_cache(t_cfg, 1)
+        if cache.is_flat:
+            raise SystemExit("GGML_TPU_LAYER_FUSED=0 left the cache flat")
+        ref, _ = sampling.generate(gpt2.forward, t_cfg, t_params, prompt,
+                                   cache, N_NEW)
+        gaps = plain_gaps(gpt2, t_cfg, t_params, prompt, ref)
+    finally:
+        os.environ.pop("GGML_TPU_LAYER_FUSED")
+    got, want_toks = toks[0].tolist(), ref[0].tolist()
+    part, part_decided = held_to_reference(got, want_toks, gaps, tol)
+    s_rounds = []
+    with record_rounds(s_rounds):
+        s_toks, s_rate = speculative_generate(
+            gpt2.forward, t_cfg, t_params, gpt2.forward, d_cfg, d_params,
+            prompt, *caches(), N_NEW, k=SPEC_K, temperature=0.8, top_p=0.95,
+            rng=torch.Generator(dev).manual_seed(SEED))
+    s_emit = [int(ne[0]) for _, ne in s_rounds]
+    res = {"card": smi, "k": SPEC_K, "target": "GPT-2 774M", "draft":
+           "GPT-2 124M", "tokens": got, "rounds": len(rounds),
+           "n_emit": [int(ne[0]) for _, ne in rounds],
+           "mean_tokens_a_round": rate, "seconds": seconds,
+           "tok_s": N_NEW / seconds,
+           "reference_per_op_tokens": want_toks,
+           "tokens_equal_reference": sum(a == b for a, b in
+                                         zip(got, want_toks)),
+           "first_parting": part, "parting_decided": part_decided,
+           "tokens_decided": int((gaps > 2 * tol).sum()),
+           "sampled": {"tokens": s_toks[0].tolist(), "n_emit": s_emit,
+                       "mean_tokens_a_round": s_rate},
+           "launches": counts, "expected_launches": want}
+    emit({"spec_gpt2_k2": res})
+    expect_launches("k2", counts, want)
+    require_launches("k2", counts, ("gpt2_layer", "matmul_q8_0_mma",
+                                    "mlp_fused_q8_mma"))
+    if part_decided or toks.shape != (1, N_NEW):
+        raise SystemExit(f"path k2: speculative tokens disagree: {res}")
+    if s_toks.shape != (1, N_NEW) or not all(1 <= n <= SPEC_K + 1
+                                              for n in s_emit) \
+            or int(s_toks.min()) < 0 or int(s_toks.max()) >= t_cfg.n_vocab:
+        raise SystemExit(f"path k2: the sampled run is malformed: {res}")
+    return res, counts
+
+
+def k3_requests(cfg):
+    """k3's traffic: path b's 24 greedy prompts (the first carrying a
+    registered prefix of its first 8 tokens) and K3_SAMPLED requests at
+    temperature 0.8."""
+    import numpy as np
+
+    from ggmlsharp_tpu_torch.serving import Request
+
+    prompts = serving_prompts(cfg)
+    rng = np.random.default_rng(13)
+    extra = [rng.integers(0, cfg.n_vocab, size=SERVE_PLEN).tolist()
+             for _ in range(K3_SAMPLED)]
+    prefix = prompts[0][:8]
+
+    def reqs(pid):
+        out = [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW,
+                       prefix_id=pid if i == 0 else None)
+               for i, p in enumerate(prompts)]
+        return out + [Request(id=len(prompts) + j, prompt=p,
+                              max_new_tokens=SERVE_NEW, temperature=0.8)
+                      for j, p in enumerate(extra)]
+    return prefix, reqs
+
+
+def run_spec_engine(cfg, params, forward, prefix, reqs, record=False):
+    """A speculative engine (draft = target, INT8 flat caches, SLOTS slots)
+    over k3's traffic with ``forward`` for both models. record: keep, for
+    every emitted greedy token, the top-2 gap of the logits that chose it
+    (the verify's row, or the slot's last logits for a0)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.serving import Engine
+
+    gaps: dict = {}
+    slot_rounds = []  # (live slot-rounds, tokens they emitted)
+    last = {}
+
+    def gap_of(lg):
+        top2 = lg.float().topk(2, dim=-1).values
+        return (top2[..., 0] - top2[..., 1]).cpu()
+
+    def rec_forward(p, c, toks, cache, pos, **kw):
+        out = forward(p, c, toks, cache, pos, **kw)
+        if kw.get("cached_prefix") and toks.shape[1] == SPEC_K + 1:
+            last["verify"] = out[0]  # the target's verify: drafts never
+        return out                   # call with k + 1 tokens
+
+    def wrap_round(rnd):
+        def recorded(*a, **kw):
+            out = rnd(*a, **kw)
+            ne = out[1].cpu().numpy()
+            live = [(i, r) for i, r in enumerate(eng.slots)
+                    if r is not None and i not in eng._spec_chunking]
+            slot_rounds.append((len(live), sum(int(ne[i]) for i, _ in live)))
+            if record:
+                g = gap_of(last["verify"])
+                for i, r in live:
+                    n0 = len(r.out_tokens)
+                    for j in range(int(ne[i])):
+                        gaps.setdefault(r.id, {})[n0 + j] = float(g[i, j])
+            return out
+        return recorded
+
+    # the target's forward records its verify logits; the draft's does not
+    eng = Engine(rec_forward if record else forward, cfg, params,
+                 batch_slots=SLOTS, max_len=SERVE_MAX_LEN, int8_kv=True,
+                 cache_dtype=torch.bfloat16, draft_forward=forward,
+                 draft_cfg=cfg, draft_params=params, spec_k=SPEC_K)
+    if not (eng.cache.is_flat and eng.d_cache.int8 and eng.d_cache.is_flat):
+        raise SystemExit("path k3 must run over INT8 flat caches")
+    eng._spec_round = wrap_round(eng._spec_round)
+    eng._spec_round_sampled = wrap_round(eng._spec_round_sampled)
+    if record:
+        emit_ = eng._emit
+
+        def first_gap(req, tok):
+            if not req.out_tokens and req.temperature <= 0:
+                i = eng.slots.index(req)
+                gaps.setdefault(req.id, {})[0] = float(
+                    gap_of(eng._last_logits[i]))
+            emit_(req, tok)
+        eng._emit = first_gap
+    pid = eng.register_prefix(prefix)
+    for r in reqs(pid):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    return eng, results, time.perf_counter() - t0, gaps, slot_rounds
+
+
+def run_spec_serving_k3(smi, cfg, params, path_b_tokens):
+    """Path k3: speculative serving over path b's config (Llama-7B Q4_0,
+    INT8 flat caches, SLOTS slots, draft = target, k = SPEC_K): 24 greedy
+    requests of 16 + 24 tokens (one through a registered prefix) and
+    K3_SAMPLED at temperature 0.8, the counters reset just before. The gate:
+    the engine with kernels equals the same engine with plain forwards on
+    decided tokens (each greedy request up to its first parting, which must
+    fall where the plain top-2 gap is at most 2 * 0.1, the replay's tol).
+    Reported, not gated: the share of greedy tokens equal to path b's (over
+    an INT8 flat cache a single-token step attends its fresh row
+    unquantized, the verify its rows quantized: other functions), the mean
+    tokens a round. Then an HTTP check over EngineServer on the engine."""
+    import functools
+
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import llama
+
+    tol = 0.1
+    prefix, reqs = k3_requests(cfg)
+    kernels.reset_launches()
+    eng, got, seconds, _, rounds = run_spec_engine(cfg, params, llama.forward,
+                                                   prefix, reqs)
+    counts = dict(kernels.LAUNCHES)
+    st = eng.stats()
+    _, ref, _, gaps, _ = run_spec_engine(
+        cfg, params, functools.partial(llama.forward, plain=True), prefix,
+        reqs, record=True)
+    n_greedy = len(path_b_tokens)
+    partings, bad = {}, []
+    for g, r in zip(got[:n_greedy], ref[:n_greedy]):
+        if g.error is not None or len(g.out_tokens) != SERVE_NEW:
+            bad.append(g.id)
+            continue
+        for j, (a, b) in enumerate(zip(g.out_tokens, r.out_tokens)):
+            if a != b:
+                decided = gaps[r.id][j] > 2 * tol
+                partings[g.id] = {"at": j, "plain_gap": gaps[r.id][j]}
+                if decided:
+                    bad.append(g.id)
+                break
+    sampled = got[n_greedy:]
+    if any(s.error is not None or len(s.out_tokens) != SERVE_NEW
+           or not all(0 <= t < cfg.n_vocab for t in s.out_tokens)
+           for s in sampled):
+        bad += [s.id for s in sampled]
+    same_b = sum(a == b for g, bt in zip(got, path_b_tokens)
+                 for a, b in zip(g.out_tokens, bt))
+    live, emitted = map(sum, zip(*rounds)) if rounds else (0, 0)
+    res = {"card": smi, "slots": SLOTS, "k": SPEC_K,
+           "requests": len(got), "seconds": seconds,
+           "tokens_per_s": sum(len(r.out_tokens) for r in got) / seconds,
+           "stats": st, "rounds": len(rounds),
+           "mean_tokens_a_round": emitted / max(1, live),
+           "partings_from_plain_engine": partings,
+           "tokens_equal_plain_engine": sum(
+               a == b for g, r in zip(got, ref)
+               for a, b in zip(g.out_tokens, r.out_tokens)),
+           "greedy_tokens": n_greedy * SERVE_NEW,
+           "share_equal_path_b": same_b / (n_greedy * SERVE_NEW),
+           "launches": counts}
+    emit({"spec_serving_k3": res})
+    require_launches("k3", counts, ("matmul_q4_0_mma", "flash_attn",
+                                    "attn_decode"))
+    if bad or len(got) != n_greedy + K3_SAMPLED:
+        raise SystemExit(f"path k3: requests {bad} disagree or failed: {res}")
+    http = http_check(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    return res, counts, http
+
+
+def gptj_weight_bytes(params):
+    """Q4_0 bytes a GPT-J decode token reads once: six matrices a block and
+    the LM head (wte serves one row a token)."""
+    return params["lm_head"]["w"].nbytes() + sum(
+        blk[g][k].nbytes() for blk in params["blocks"]
+        for g, k in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                     ("attn", "wo"), ("mlp", "fc_in_w"), ("mlp", "fc_out_w")))
+
+
+def dense_as(tree, dtype):
+    """The tree with every dense tensor leaf cast to ``dtype`` (a GGUF
+    stores them as F32; the synthetic tree holds them in bf16, so the cast
+    back is exact)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: dense_as(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dense_as(v, dtype) for v in tree]
+    return tree.to(dtype) if isinstance(tree, torch.Tensor) else tree
+
+
+def run_gptj_path(smi, dev, gen):
+    """Path l: GPT-J 6B (full width and depth) Q4_0 at b = 1, random weights
+    quantized on the card from the seed, bf16 head-major cache: the 16-token
+    prompt (kernel 1's multi-row instance, flash at D 256) and N_NEW greedy
+    tokens (kernel 1 at one row, einsum attention), counters reset just
+    before; held against its plain route; then a GGUF round trip of the
+    whole tree (leaves bit for bit, the same tokens); tok/s and the share of
+    the HBM roofline."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch import GType, kernels
+    from ggmlsharp_tpu_torch.io import load_gguf_gptj, save_gguf_gptj
+    from ggmlsharp_tpu_torch.models import gptj, sampling
+
+    cfg = gptj.GPTJ_6B
+    t0 = time.perf_counter()
+    params = gptj.synthetic_params(cfg, GType.Q4_0, seed=SEED)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.n_vocab, (1, PROMPT_LEN), generator=gen,
+                           device=dev, dtype=torch.int32)
+    n = 6 * cfg.n_layer + 1
+    want = dict.fromkeys(kernels.LAUNCHES, 0) | dq_launches(
+        "matmul_q4_0", n, n * N_NEW) | {"flash_attn": cfg.n_layer}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks, cache = sampling.generate(gptj.forward, cfg, params, prompt,
+                                    gptj.new_cache(cfg, 1), N_NEW)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"gptj_path": {"tokens": toks[0].tolist(), "seconds": seconds,
+                        "distinct_tokens": len(set(toks[0].tolist())),
+                        "launches": counts, "expected_launches": want}})
+    expect_launches("l", counts, want)
+    if toks.shape != (1, N_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.n_vocab \
+            or int(cache.length[0]) != PROMPT_LEN + N_NEW:
+        raise SystemExit(f"path l: bad tokens {toks}")
+    # path a's tolerances. The path's own settings (Q8_0 activations, bf16
+    # cache rows, and a bf16 stream: the forward casts each block's two
+    # branches to the stream's dtype, as JAX's does) round a one-ulp
+    # difference by a whole step (measured 0.071 on logits up to 4.5): tol
+    # 0.1. Weight-only over an f32 cache with the dense leaves in f32 (an
+    # f32 stream) the routes differ in f32 summation order alone: tol 1e-3
+    # (with bf16 leaves the stream's rounding alone came to 0.043)
+    errs = [compare_plain(gptj, cfg, params, prompt, quant_acts=True,
+                          cache_dtype=torch.bfloat16, tol=0.1, toks=toks,
+                          route="l"),
+            compare_plain(gptj, cfg, dense_as(params, torch.float32), prompt,
+                          quant_acts=False, cache_dtype=torch.float32,
+                          tol=1e-3, route="l, f32 stream")]
+    # the GGUF round trip
+    wbytes = gptj_weight_bytes(params)
+    d = scratch_dir(wbytes + params["wte"].nbytes() + 2**28)
+    path = os.path.join(d, "gptj-6b-q4_0.gguf")
+    try:
+        t0 = time.perf_counter()
+        save_gguf_gptj(path, cfg, params)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        cfg2, loaded = load_gguf_gptj(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        for f in (path,):
+            if os.path.exists(f):
+                os.remove(f)
+        os.rmdir(d)
+    eps32 = float(np.float32(cfg.ln_eps))  # the file holds an f32
+    if cfg2.ln_eps != eps32 or dataclasses.replace(
+            cfg2, ln_eps=cfg.ln_eps) != cfg:
+        raise SystemExit(f"path l: the GGUF config {cfg2} != {cfg}")
+    loaded = dense_as(loaded, torch.bfloat16)
+    diffs = bit_diffs(params, loaded)
+    toks2, _ = sampling.generate(gptj.forward, cfg, loaded, prompt,
+                                 gptj.new_cache(cfg, 1), N_NEW)
+    del loaded
+    dec = measure_decode(gptj, cfg, params, prompt, wbytes, cfg.n_embd,
+                         n_lat=16, n_win=32, n_prof=4)
+    res = {"card": smi, "config": "GPTJ_6B", "format": "Q4_0",
+           "synthetic_s": make_s, "peak_mem_gb": peak / 1e9,
+           "vs_plain_max_abs_err": errs, "gguf_bytes": size,
+           "gguf_write_gb_s": size / write_s / 1e9,
+           "gguf_load_gb_s": size / load_s / 1e9,
+           "gguf_leaf_diffs": diffs[:8],
+           "gguf_tokens_equal": bool(torch.equal(toks, toks2)),
+           "decode": dec}
+    emit({"gptj_decode": res})
+    if diffs or not res["gguf_tokens_equal"]:
+        raise SystemExit(f"path l: the GGUF round trip changed the model: "
+                         f"{res}")
+    del params
+    torch.cuda.empty_cache()
+    return res, counts
+
+
 def main(argv):
     import torch
 
@@ -4558,7 +5136,7 @@ def main(argv):
                   cache_dtype=torch.float32, tol=1e-3)
     log(f"[4/6] a. Llama-7B Q4_0: {PROMPT_LEN}-token prompt + {N_NEW} "
         f"greedy tokens through the kernels; launches {counts}")
-    eng, serve = run_serving(cfg, params)
+    eng, serve, serve_toks = run_serving(cfg, params)
     serve_counts = serve["launches"]
     # the main settings again (Q8_0 activations), an INT8 cache whose
     # rounding a one-ulp difference can move a whole step, like a Q8 one:
@@ -4755,8 +5333,49 @@ def main(argv):
         f"{j3['leaves']} leaves bit-equal, loss {j3['loss']:.6f}; launches "
         f"{ {k: v for k, v in j_counts.items() if v} } ({smi})")
 
+    # k. speculative decoding: k1 Llama-7B draft = target at b = 1, k2 GPT-2
+    # 774M with a 124M draft, k3 the speculative engine over path b's config;
+    # l. GPT-J 6B Q4_0 at b = 1 and through a GGUF
+    t0 = time.perf_counter()
+    k1, k1_counts = run_spec_k1(smi, cfg, params, prompt, toks)
+    (_, g774p, g774prompt, *_), (_, g124p, *_) = (g_models["774M"],
+                                                   g_models["124M"])
+    k2, k2_counts = run_spec_k2(smi, g_models["774M"][0], g774p,
+                                g_models["124M"][0], g124p, g774prompt)
+    k3, k3_counts, k3_http = run_spec_serving_k3(smi, cfg, params, serve_toks)
+    k_counts = {k: k1_counts[k] + k2_counts[k] + k3_counts[k] for k in counts}
+    log(f"[4/6] k. speculative decoding in {time.perf_counter() - t0:.1f} "
+        f"s, k = {SPEC_K}: k1 Llama-7B draft = target {k1['rounds']} rounds, "
+        f"{k1['mean_tokens_a_round']:.2f} tokens a round, "
+        f"{k1['tok_s']:.2f} tok/s, device {k1['device_ms_per_round']} ms a "
+        f"round, path a's tokens {k1['tokens_equal_path_a']}/{N_NEW} "
+        f"(first parting {k1['first_parting']}); k2 GPT-2 774M + 124M draft "
+        f"{k2['mean_tokens_a_round']:.2f} tokens a round, "
+        f"{k2['tok_s']:.2f} tok/s, the per-op reference's tokens "
+        f"{k2['tokens_equal_reference']}/{N_NEW}, sampled n_emit "
+        f"{k2['sampled']['n_emit']}; k3 serving {k3['requests']} requests "
+        f"{k3['tokens_per_s']:.1f} tok/s, {k3['mean_tokens_a_round']:.2f} "
+        f"tokens a round, partings from the plain engine "
+        f"{len(k3['partings_from_plain_engine'])}, share equal to path b "
+        f"{k3['share_equal_path_b']:.3f}, HTTP {k3_http['requests']} "
+        f"answered; launches {({k: v for k, v in k_counts.items() if v})} "
+        f"({smi})")
+    t0 = time.perf_counter()
+    l_res, l_counts = run_gptj_path(smi, dev, gen)
+    log(f"[4/6] l. GPT-J 6B Q4_0 in {time.perf_counter() - t0:.1f} s: "
+        f"{PROMPT_LEN}-token prompt + {N_NEW} greedy tokens, vs plain max "
+        f"abs err {l_res['vs_plain_max_abs_err']}, GGUF "
+        f"{l_res['gguf_bytes'] / 1e9:.3f} GB round trip bit-equal, tokens "
+        f"equal; {l_res['decode']['window_tok_s']:.2f} tok/s, "
+        f"{l_res['decode']['roofline_share']:.4f} of the HBM roofline; "
+        f"launches {({k: v for k, v in l_counts.items() if v})} ({smi})")
+
     q4_row, q4_mma_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_mma_row["max_abs_err"] = q4_err
+    gj_rows = time_weight_rows(dev, gen, "Q4_0", GPTJ_SHAPES, GPTJ_B)
+    emit({"gptj_q4_0_timing": gj_rows})
+    q4_row["gptj_b1_forward"] = forward_sum(gj_rows, "Q4_0", 1)
+    q4_mma_row["gptj_b5_forward"] = forward_sum(gj_rows, "Q4_0", SPEC_K + 1)
     shapes = time_attention(dev, gen)
     fl = shapes["flash_attn"]["7b_prefill"]
     fl_row = {"name": "flash_attn", "route": "cuda",
@@ -4845,13 +5464,19 @@ def main(argv):
         row["launches_tuning_probes"] = probe_counts[name]
         row["launches_llama_13b"] = i_counts[name]
         row["launches_io_j"] = j_counts[name]
+        row["launches_spec_k1"] = k1_counts[name]
+        row["launches_spec_k2"] = k2_counts[name]
+        row["launches_spec_k3"] = k3_counts[name]
+        row["launches_gptj_l"] = l_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, mcounts, kq_counts,
                                                  fmt_counts, g_counts,
                                                  h_counts, gs_counts,
                                                  probe_counts, i_counts,
-                                                 j_counts)
+                                                 j_counts, k1_counts,
+                                                 k2_counts, k3_counts,
+                                                 l_counts)
                                if c[name])
     log("[5/6] kernel times taken")
 
@@ -4948,7 +5573,8 @@ def main(argv):
             "launches_llama_mlp_fused", "launches_llama_kquant",
             "launches_llama_formats", "launches_train_g", "launches_graph_h",
             "launches_gpt2_int8_serving", "launches_tuning_probes",
-            "launches_llama_13b", "launches_io_j")
+            "launches_llama_13b", "launches_io_j", "launches_spec_k1",
+            "launches_spec_k2", "launches_spec_k3", "launches_gptj_l")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
              "heads_layout_bf16_ms",  # kernel 3's second lane map
              "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",
@@ -4978,7 +5604,9 @@ def main(argv):
              "npast_2047", "no_matvec_ms", "gpt2_774m", "shapes",
              "shapes_ms", "shapes_bound_ms",
              # kernels 8 and 9 at one row: their routes, their other shapes
-             "fused_route_ms", "unfused_ms", "one_row_ms")
+             "fused_route_ms", "unfused_ms", "one_row_ms",
+             # kernel 1 at GPT-J 6B's shapes: a token (b = 1), a verify (5)
+             "gptj_b1_forward", "gptj_b5_forward")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

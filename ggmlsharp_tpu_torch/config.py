@@ -111,6 +111,15 @@ def llama_fused() -> bool:
     return os.environ.get("GGML_TPU_LLAMA_FUSED", "0") == "1"
 
 
+def layer_fused() -> bool:
+    """GGML_TPU_LAYER_FUSED (default on): GPT-2's whole-block route. On, a
+    b = 1 float cache from gpt2.new_cache is flat and each single-token step
+    over a flat float cache runs one kernels.gpt2_layer call a block; any
+    value but "1" gives the head-major cache and the per-op route, as in the
+    JAX package."""
+    return os.environ.get("GGML_TPU_LAYER_FUSED", "1") == "1"
+
+
 def int_dot() -> bool:
     """GGML_TPU_INT_DOT (default off): a matmul of one activation row, with
     the activations quantized and Q8_0, Q4_0, Q4_1, Q5_0 or Q5_1 weights,

@@ -1,5 +1,5 @@
-"""GGUF reader and writer, and the llama.cpp name mapping for Llama (port of
-ggmlsharp_tpu/io/gguf.py).
+"""GGUF reader and writer, and the llama.cpp name mappings for Llama and
+GPT-J (port of ggmlsharp_tpu/io/gguf.py).
 
 GGUF is llama.cpp's model container (magic ``GGUF``, little-endian, v2/v3):
 a header of typed key/value metadata and tensor infos, then each tensor's
@@ -376,3 +376,103 @@ def llama_tensor_names(params) -> list:
     for i, b in enumerate(params["blocks"]):
         names += [(f"blk.{i}.{nm}.weight", b[key]) for nm, key in _BLOCK_NAMES]
     return names
+
+
+# --- GPT-J (llama.cpp's gptj names) ---------------------------------------
+
+def gptj_tensor_names(params) -> list:
+    """[(llama.cpp gptj tensor name, leaf)] of a GPT-J tree, in the order
+    save_gguf_gptj writes them."""
+    names = [("token_embd.weight", params["wte"]),
+             ("output_norm.weight", params["ln_f"]["g"]),
+             ("output_norm.bias", params["ln_f"]["b"]),
+             ("output.weight", params["lm_head"]["w"]),
+             ("output.bias", params["lm_head"]["b"])]
+    for i, b in enumerate(params["blocks"]):
+        p = f"blk.{i}."
+        names += [(p + "attn_norm.weight", b["ln_1"]["g"]),
+                  (p + "attn_norm.bias", b["ln_1"]["b"]),
+                  (p + "attn_q.weight", b["attn"]["wq"]),
+                  (p + "attn_k.weight", b["attn"]["wk"]),
+                  (p + "attn_v.weight", b["attn"]["wv"]),
+                  (p + "attn_output.weight", b["attn"]["wo"]),
+                  (p + "ffn_up.weight", b["mlp"]["fc_in_w"]),
+                  (p + "ffn_up.bias", b["mlp"]["fc_in_b"]),
+                  (p + "ffn_down.weight", b["mlp"]["fc_out_w"]),
+                  (p + "ffn_down.bias", b["mlp"]["fc_out_b"])]
+    return names
+
+
+def save_gguf_gptj(path: str, cfg, params) -> dict:
+    """Write a gptj-arch GGUF (llama.cpp's gptj tensor names), the JAX
+    package's file byte for byte for the same tree. Dense leaves are written
+    as F32. Streams tensor by tensor; returns each tensor's sha256 of its
+    wire bytes."""
+    w = GGUFWriter()
+    w.add_meta("general.architecture", _T_STR, "gptj")
+    for key, v in [("block_count", cfg.n_layer),
+                   ("context_length", cfg.n_ctx),
+                   ("embedding_length", cfg.n_embd),
+                   ("attention.head_count", cfg.n_head),
+                   ("rope.dimension_count", cfg.rotary_dim)]:
+        w.add_meta(f"gptj.{key}", _T_U32, v)
+    w.add_meta("gptj.attention.layer_norm_epsilon", _T_F32, float(cfg.ln_eps))
+    for name, t in gptj_tensor_names(params):
+        w.add_tensor(name, _dense_f32(t))
+    return w.write(path)
+
+
+def load_gguf_gptj(path: str, device=None):
+    """A gptj-arch GGUF -> (GPTJConfig, parameter tree) on ``device`` (the
+    card unless the caller asks for another). Tensors keep the file's types;
+    a file without ``output.weight`` ties the LM head to the embedding, one
+    without ``output.bias`` gets a zero f32 bias, as in the JAX package."""
+    from ..models.gptj import GPTJConfig
+
+    dev = resolve_device(device)
+    r = GGUFReader(path)
+    md = r.metadata
+
+    def g(k, d=None):
+        return md.get(f"gptj.{k}", d)
+
+    n_layer = g("block_count")
+    cfg = GPTJConfig(
+        n_vocab=r.tensors["token_embd.weight"].shape[0],
+        n_ctx=g("context_length", 2048),
+        n_embd=g("embedding_length"),
+        n_head=g("attention.head_count"),
+        n_layer=n_layer,
+        rotary_dim=g("rope.dimension_count", 64),
+        ln_eps=g("attention.layer_norm_epsilon", 1e-5),
+    )
+
+    def ld(name):
+        return r.load(name, dev)
+
+    emb = ld("token_embd.weight")
+    params = {
+        "wte": emb,
+        "ln_f": {"g": ld("output_norm.weight"), "b": ld("output_norm.bias")},
+        "lm_head": {
+            "w": ld("output.weight") if "output.weight" in r.tensors else emb,
+            "b": ld("output.bias") if "output.bias" in r.tensors
+            else torch.zeros(cfg.n_vocab, dtype=torch.float32, device=dev),
+        },
+        "blocks": [],
+    }
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        params["blocks"].append({
+            "ln_1": {"g": ld(p + "attn_norm.weight"),
+                     "b": ld(p + "attn_norm.bias")},
+            "attn": {"wq": ld(p + "attn_q.weight"),
+                     "wk": ld(p + "attn_k.weight"),
+                     "wv": ld(p + "attn_v.weight"),
+                     "wo": ld(p + "attn_output.weight")},
+            "mlp": {"fc_in_w": ld(p + "ffn_up.weight"),
+                    "fc_in_b": ld(p + "ffn_up.bias"),
+                    "fc_out_w": ld(p + "ffn_down.weight"),
+                    "fc_out_b": ld(p + "ffn_down.bias")},
+        })
+    return cfg, params

@@ -1,5 +1,5 @@
 """HuggingFace safetensors import -> model parameter trees (port of
-ggmlsharp_tpu/io/hf.py, GPT-2 and Llama).
+ggmlsharp_tpu/io/hf.py: GPT-2, Llama and GPT-J).
 
 The safetensors format is read here without the ``safetensors`` package: an
 8-byte little-endian header length, a JSON header ({name: {dtype, shape,
@@ -180,5 +180,61 @@ def load_hf_llama(path: str, config: dict | None = None, device=None):
             "w_gate": g(p + "mlp.gate_proj.weight"),
             "w_up": g(p + "mlp.up_proj.weight"),
             "w_down": g(p + "mlp.down_proj.weight"),
+        })
+    return cfg, params
+
+
+def load_hf_gptj(path: str, config: dict | None = None, device=None):
+    """GPTJForCausalLM safetensors -> (GPTJConfig, params) on ``device``. HF
+    GPT-J's rotate_every_two rotary (interleaved pairs over rotary_dim dims)
+    is models.gptj's mode-0 partial rope, so the weights map one to one. No
+    lm_head: the embedding is the head, with a zero bias of its dtype."""
+    from ..models.gptj import GPTJConfig
+
+    t = _load_safetensors(path, device)
+    config = _config(path, config)
+
+    def g(name):
+        for k in (name, "transformer." + name):
+            if k in t:
+                return t[k]
+        raise KeyError(name)
+
+    emb = g("wte.weight")
+    n_layer = config.get("n_layer") or max(
+        int(k.split("h.")[1].split(".")[0]) for k in t
+        if ".h." in k or k.startswith("h.")) + 1
+    cfg = GPTJConfig(
+        n_vocab=emb.shape[0],
+        n_ctx=config.get("n_positions", 2048),
+        n_embd=emb.shape[1],
+        n_head=config.get("n_head", 16),
+        n_layer=n_layer,
+        rotary_dim=config.get("rotary_dim", 64),
+        ln_eps=config.get("layer_norm_epsilon", 1e-5),
+    )
+    params = {
+        "wte": emb,
+        "ln_f": {"g": g("ln_f.weight"), "b": g("ln_f.bias")},
+        "lm_head": {
+            "w": t.get("lm_head.weight", emb),
+            "b": t.get("lm_head.bias",
+                       torch.zeros(emb.shape[0], dtype=emb.dtype,
+                                   device=emb.device)),
+        },
+        "blocks": [],
+    }
+    for i in range(cfg.n_layer):
+        p = f"h.{i}."
+        params["blocks"].append({
+            "ln_1": {"g": g(p + "ln_1.weight"), "b": g(p + "ln_1.bias")},
+            "attn": {"wq": g(p + "attn.q_proj.weight"),
+                     "wk": g(p + "attn.k_proj.weight"),
+                     "wv": g(p + "attn.v_proj.weight"),
+                     "wo": g(p + "attn.out_proj.weight")},
+            "mlp": {"fc_in_w": g(p + "mlp.fc_in.weight"),
+                    "fc_in_b": g(p + "mlp.fc_in.bias"),
+                    "fc_out_w": g(p + "mlp.fc_out.weight"),
+                    "fc_out_b": g(p + "mlp.fc_out.bias")},
         })
     return cfg, params

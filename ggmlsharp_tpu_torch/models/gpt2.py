@@ -9,7 +9,8 @@ bytes, and every kernel reads that copy. ``wte`` serves both ``get_rows`` and
 the LM head (the Q8_0 kernel masks the ragged row edge, so nothing is padded).
 
 ``forward`` has the JAX package's three routes, chosen by the same rules:
-  1. batch 1, one token, flat float cache, every block Q8_0 and within
+  1. batch 1, one token, flat float cache, GGML_TPU_LAYER_FUSED on (the
+     default; JAX reads it when it quantizes), every block Q8_0 and within
      ``gpt2_layer_fuse_supported``: one ``gpt2_layer_step`` a block (the
      whole-block kernel), the caller writing the block's K/V row; f32
      stream, no Q8_0 activation round trip;
@@ -28,7 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..config import quantize_activations
+from ..config import layer_fused, quantize_activations
 from ..device import resolve_device
 from ..dtypes import GType
 from ..kernels.config import mm_dot_mode
@@ -288,6 +289,7 @@ def forward(params, cfg: GPT2Config, tokens, cache: kvc.KVCache, positions,
     plain: run the kernels' plain PyTorch versions (a card run's reference)."""
     B, S = tokens.shape
     if (cache.is_flat and not cache.int8 and S == 1 and B == 1
+            and layer_fused()
             and all(block_fusable(b) for b in params["blocks"])):
         return _forward_layer_decode(params, cfg, tokens, cache, positions,
                                      prefix_bound, plain)
@@ -319,9 +321,10 @@ def new_cache(cfg: GPT2Config, batch: int, dtype=torch.bfloat16,
               flat: bool | None = None, device=None) -> kvc.KVCache:
     """A cache of T = max_len or n_ctx rows. flat=None: the flat [B, T, E]
     layout (decode through the whole-block kernel) for single-slot float
-    decode, head-major [B, H, T, D] otherwise: the JAX package's rule."""
+    decode while GGML_TPU_LAYER_FUSED is on (config.layer_fused), head-major
+    [B, H, T, D] otherwise: the JAX package's rule."""
     if flat is None:
-        flat = batch == 1 and not int8
+        flat = batch == 1 and not int8 and layer_fused()
     return kvc.init_cache(cfg.n_layer, batch, cfg.n_head,
                           max_len or cfg.n_ctx, cfg.head_dim, dtype=dtype,
                           int8=int8, flat=flat,

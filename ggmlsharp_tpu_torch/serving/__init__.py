@@ -1,5 +1,5 @@
 """Continuous-batching serving over the port's models (port of
-ggmlsharp_tpu/serving without speculative mode and without a mesh)."""
+ggmlsharp_tpu/serving, speculative mode included, without a device mesh)."""
 from .engine import Engine, Request
 from .server import EngineServer
 

@@ -1,6 +1,5 @@
 """Continuous-batching inference engine (port of
-ggmlsharp_tpu/serving/engine.py without speculative mode and without a
-device mesh).
+ggmlsharp_tpu/serving/engine.py without a device mesh).
 
 Slot-based design:
   * B fixed slots share one batched KV cache; per-slot lengths live in
@@ -17,6 +16,9 @@ Slot-based design:
     device and ONE fetch at the end; requests whose budget ends inside the
     window free their slot at dispatch, and the next admission's prefill
     is queued behind the window.
+  * speculative mode (``draft_forward=``, serving.spec): each tick is one
+    draft-propose / target-verify round over all slots instead, 1..k+1
+    tokens a slot; it runs no decode windows.
 The host never reads a device tensor a slot a step: the live-prefix bound
 and ``active`` come from host-side request lengths, and one fetch a tick
 (or a window) brings the tokens back.
@@ -41,22 +43,45 @@ from ..config import int8_kv as _int8_kv_default
 from ..device import resolve_device
 from ..models import kv_cache as kvc
 from ..models.sampling import _recent_window, length_bucket, sample_token
+from ..models.speculative import make_spec_round, make_spec_round_sampled
 from .admission import AdmissionMixin
 from .prefix import PrefixCacheMixin
 from .request import Request, _stopped
+from .spec import SpecServingMixin
 
 __all__ = ["Engine", "Request"]
 
 
-class Engine(AdmissionMixin, PrefixCacheMixin):
+def _flat_layout(cfg, int8_kv: bool) -> bool:
+    """The JAX engine's layout rule under its default switch: an INT8 cache
+    of a model that handles the flat layout, with E_kv a multiple of 128,
+    is flat (decode through attn_decode); every other cache is head-major
+    (decode through cached_attention over read_layer)."""
+    n_head_kv = getattr(cfg, "n_head_kv", cfg.n_head)
+    return bool(int8_kv and (n_head_kv * cfg.head_dim) % 128 == 0
+                and getattr(cfg, "supports_flat_kv", False))
+
+
+class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
     def __init__(self, forward, cfg, params, batch_slots: int | None = None,
                  max_len: int | None = None, cache_dtype=torch.float32,
                  int8_kv: bool | None = None, rng_seed: int = 0,
-                 prefill_chunk: int | None = None,
+                 draft_forward=None, draft_cfg=None, draft_params=None,
+                 spec_k: int = 4, prefill_chunk: int | None = None,
                  multi_step: int | None = None, device=None):
         """forward(params, cfg, tokens, cache, positions, prefix_bound=,
         cached_prefix=) is the model (llama.forward); params live on
         ``device`` (the card unless the caller asks for the CPU).
+
+        draft_forward / draft_cfg / draft_params: speculative continuous
+        batching (serving.spec). Every tick runs one draft-propose /
+        target-verify round across all live slots (models.speculative),
+        1..k+1 tokens a slot a target forward, spec_k drafts a round.
+        Greedy slots get the target's own greedy tokens; slots with
+        temperature > 0 take the rejection-sampled round; repeat_penalty
+        and want_logprobs are refused. The draft's cache follows the same
+        layout rule as the target's; draft_cfg defaults to cfg and must
+        share its vocabulary.
 
         batch_slots: None reads GGML_TPU_BATCH_SLOTS (config.batch_slots,
         default 4). int8_kv: None reads GGML_TPU_INT8_KV. An INT8 cache takes the flat
@@ -86,16 +111,10 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
         if int8_kv is None:
             int8_kv = _int8_kv_default()
         self.int8_kv = int8_kv
-        # the JAX engine's layout rule under its default switch: an INT8
-        # cache of a model that handles the flat layout, with E_kv a multiple
-        # of 128, is flat (decode through attn_decode); every other cache is
-        # head-major (decode through cached_attention over read_layer)
-        flat = (int8_kv and (self._n_head_kv * cfg.head_dim) % 128 == 0
-                and getattr(cfg, "supports_flat_kv", False))
         self.cache = kvc.init_cache(
             cfg.n_layer, batch_slots, self._n_head_kv, self.max_len,
-            cfg.head_dim, dtype=cache_dtype, int8=int8_kv, flat=flat,
-            device=self.device)
+            cfg.head_dim, dtype=cache_dtype, int8=int8_kv,
+            flat=_flat_layout(cfg, int8_kv), device=self.device)
         self.slots: list[Request | None] = [None] * batch_slots
         self.pending: list[Request] = []
         self.finished: list[Request] = []
@@ -119,6 +138,28 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
         self.multi_step = (multi_step if multi_step is not None
                            else int(os.environ.get(
                                "GGML_TPU_SERVE_MULTISTEP", "32")))
+
+        # speculative mode
+        self.spec = draft_forward is not None
+        if self.spec:
+            self.d_forward = draft_forward
+            self.d_cfg = draft_cfg or cfg
+            self.d_params = draft_params
+            self.spec_k = spec_k
+            self.d_cache = kvc.init_cache(
+                self.d_cfg.n_layer, batch_slots,
+                getattr(self.d_cfg, "n_head_kv", self.d_cfg.n_head),
+                self.max_len, self.d_cfg.head_dim, dtype=cache_dtype,
+                int8=int8_kv, flat=_flat_layout(self.d_cfg, int8_kv),
+                device=self.device)
+            self._spec_round = make_spec_round(
+                forward, cfg, draft_forward, self.d_cfg, spec_k)
+            self._spec_round_sampled = make_spec_round_sampled(
+                forward, cfg, draft_forward, self.d_cfg, spec_k)
+            self._seed = np.zeros((batch_slots, 2), np.int32)
+            # spec chunking: slot -> (phase "t" | "d", next offset); the
+            # target's chunks, then the draft's of prompt[:-1], then a0
+            self._spec_chunking: dict[int, tuple] = {}
 
     # --- device pieces ---------------------------------------------------
     def _upload(self, x):
@@ -243,6 +284,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
     # --- request bookkeeping ----------------------------------------------
     def _free_slot(self, i: int):
         self.cache.length[i] = 0
+        if self.spec:
+            self.d_cache.length[i] = 0
 
     def submit(self, req: Request):
         req.t_submit = time.perf_counter()
@@ -329,11 +372,14 @@ class Engine(AdmissionMixin, PrefixCacheMixin):
     def step_once(self):
         """One engine tick: admit, then a decode window or one batched
         decode step (greedy slots sample in one fused argmax fetch; a slot
-        with sampling parameters samples its own logits row)."""
+        with sampling parameters samples its own logits row). Speculative
+        mode: one draft/verify round instead (1..k+1 tokens a slot)."""
         if self._t_first is None:
             self._t_first = time.perf_counter()
         self._n_ticks += 1
         self._admit()
+        if self.spec:
+            return self._spec_tick()
         if self._chunking:
             self._advance_chunks()
         if all(s is None for s in self.slots):

@@ -669,6 +669,57 @@ def test_new_cache_layout_rule_matches_jax(batch, int8, flat):
     assert c.int8 == int8 == jc.int8
 
 
+@pytest.mark.parametrize("switch,flat", [("1", None), ("0", None),
+                                         ("0", True)],
+                         ids=["on", "off", "off-flat-passed"])
+def test_layer_fused_switch_matches_jax(models, monkeypatch, switch, flat):
+    """GGML_TPU_LAYER_FUSED read as the JAX package reads it: at 1 a b = 1
+    float cache is flat and each decode step takes the whole-block route;
+    at 0 new_cache gives the head-major cache, and a flat cache passed in
+    takes the per-op flat route (JAX quantizes the blocks without their
+    layer_fused entry then). Cache layout, the route forward calls and the
+    logits (weight-only, the flat test's bar) against JAX's."""
+    monkeypatch.setattr(get_config(), "quantize_activations", False)
+    monkeypatch.setenv("GGML_TPU_QUANT_ACTS", "0")
+    monkeypatch.setenv("GGML_TPU_LAYER_FUSED", switch)
+    jcfg, _, jq, jq_plain, tcfg, tq = models
+    # the JAX package reads the switch when it quantizes
+    jtree = jq if switch == "1" else jq_plain
+    kw = {} if flat is None else {"flat": flat}
+    want_flat = switch == "1" or bool(flat)
+    jc = jgpt2.new_cache(jcfg, 1, **kw)
+    tc = gpt2.new_cache(tcfg, 1, device="cpu", **kw)
+    assert tc.is_flat == (jc.k[0].ndim == 3) == want_flat
+    assert tuple(tc.k[0].shape) == tuple(jc.k[0].shape)
+
+    calls = {"jax": 0, "port": 0}
+
+    def spy(name, mod, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, fn.__name__, wrapped)
+
+    spy("jax", jgpt2, jgpt2._forward_wire_decode)
+    spy("port", gpt2, gpt2._forward_layer_decode)
+    tok, pos = np.array([[7]], np.int32), np.array([[0]], np.int32)
+    jax.eval_shape(lambda p, t, c, ps: jgpt2.forward(p, jcfg, t, c, ps,
+                                                     prefix_bound=64),
+                   jtree, jnp.asarray(tok), jc, jnp.asarray(pos))
+    with torch.inference_mode():
+        gpt2.forward(tq, tcfg, torch.from_numpy(tok), tc,
+                     torch.from_numpy(pos), prefix_bound=64)
+    fused = switch == "1"
+    assert calls == {"jax": int(fused), "port": int(fused)}, calls
+
+    prompt = _prompt()
+    toks = _prompt(n=3, seed=9)
+    jlog, _ = _jax_steps(jcfg, jtree, prompt, toks, **kw)
+    plog, pc = _port_steps(tcfg, tq, prompt, toks, **kw)
+    assert pc.is_flat == want_flat
+    np.testing.assert_allclose(plog, jlog, rtol=0, atol=2e-4)
+
+
 def test_dense_and_int8_trees_take_the_unfused_routes():
     """A float tree (nothing quantized) and an INT8 cache run without the
     Q8_0 kernels' routes and agree with themselves across cache layouts."""

@@ -112,6 +112,47 @@ def test_import_scan_covers_the_fused_llama_slice():
         assert "cublas" not in text.lower() and "torch" not in text.lower()
 
 
+def test_import_scan_covers_the_speculative_slice():
+    """The speculative and GPT-J modules are scanned, and the examples of
+    the port (examples/*_torch.py) import no JAX either."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"models/speculative.py", "serving/spec.py", "models/gptj.py",
+            "serving/engine.py", "serving/admission.py", "serving/prefix.py",
+            "io/gguf.py", "io/hf.py"} <= rel
+    ex = os.path.join(ROOT, "examples")
+    files = sorted(os.path.join(ex, n) for n in os.listdir(ex)
+                   if n.endswith("_torch.py"))
+    assert os.path.join(ex, "speculative_torch.py") in files
+    for path in files:
+        test_port_imports_no_jax(path)
+
+
+def test_speculative_entry_points_default_to_the_card():
+    """GPT-J's entry points and a speculative engine raise without a card
+    and without a device argument."""
+    from ggmlsharp_tpu_torch import GType
+    from ggmlsharp_tpu_torch.io import load_gguf_gptj, load_hf_gptj
+    from ggmlsharp_tpu_torch.models import gptj, llama
+    from ggmlsharp_tpu_torch.serving import Engine
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = gptj.TINY_GPTJ
+    for call in (lambda: gptj.init_params(cfg),
+                 lambda: gptj.new_cache(cfg, 1),
+                 lambda: gptj.synthetic_params(cfg, GType.Q4_0),
+                 lambda: gptj.params_from_jax({}),
+                 lambda: load_gguf_gptj("missing.gguf"),
+                 lambda: load_hf_gptj("missing.safetensors"),
+                 lambda: Engine(llama.forward, llama.TINY_LLAMA, {},
+                                draft_forward=llama.forward,
+                                draft_params={})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    c = gptj.new_cache(cfg, 1, device="cpu")
+    assert c.k[0].device.type == "cpu" and not c.is_flat
+
+
 class _OnCard(torch.Tensor):
     """A CPU tensor that says it lies on the card: what a wrapper sees of a
     CUDA tensor before it builds and launches its kernel."""

@@ -26,7 +26,10 @@ version):
      stream, three times back to back and in a CUDA graph replayed twice,
      every launch's bits equal to the first's;
      the whole-block llama kernel at npast 0 to 2047, a ragged T, bf16 and
-     f32 caches, MHA and GQA;
+     f32 caches, MHA and GQA; decode attention at head dims 32 and 256
+     (path m2's step: B 96, 6 KV heads of 32) and n_rep 40; flash at D 32
+     (path m1's training forward and prefill); path m1's w_down (192 x 512)
+     in Q4_0, Q4_K, Q6_K and Q8_0 at 127 and 128 rows;
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
@@ -115,6 +118,22 @@ version):
         instance, flash at D 256) and 32 greedy tokens, held against the
         plain route, then the whole tree through a GGUF (leaves bit for bit,
         the same tokens);
+     m. the perplexity chain (eval.chain, scripts/ppl_chain_torch.py's
+        defaults for seed 0 on a corpus of 1500 sentences in place of 3000):
+        m1 a 4L/192E Llama trained by 300 full-batch Adam steps on the
+        corpus's first third (flash at D 32 under
+        autograd, its first step held against the plain route), written with
+        its vocabulary to a GGUF, reloaded and re-tokenized exactly, and
+        scored on the held-out ids at fp32 and in four formats (w_down
+        through the dequant-matmuls' multi-row instances), fp32 and Q4_0
+        held against the plain route; m2 the decode-path KV scoring over
+        m1's GGUF (eval.kv_quality: 96 chunks x 127 steps; attn_decode at
+        D 32 over bf16 and int8 flat caches), held against the plain route;
+     n. the user examples in-process on the card (serve_torch at GPT-2 124M
+        three ways, http_server_torch, quantize_model_torch's round trip,
+        train_graph_torch, graph_transformer_torch), OpProfiler over path
+        h2's decoder graph against Graph.compute, and GgmlAdam through
+        opt_torch against opt_adam on Test2's objectives;
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound; kernel 2 also
      at path g's shape, both entries, softcap, and its backward against
@@ -155,6 +174,7 @@ is {"ok": true, "device": {...}}.
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -171,6 +191,23 @@ MLP_STEPS = 8  # decode steps of path d's fused-MLP-alone run
 # the serving path: bench.py's serve defaults at 8 slots, INT8 KV cache
 SLOTS, SERVE_MAX_LEN, SERVE_REQS, SERVE_PLEN, SERVE_NEW = 8, 256, 24, 16, 24
 REPLAY_STEPS = 8  # decode steps of the serving replay
+# paths m1, m2 and n: the eval chain, KV quality and the examples
+# m1 at the script's defaults but for the corpus, cut from 3000 sentences
+# to 1500 (120 train chunks, ~31k held-out ids): at 3000, m1 took 69 s of
+# m + n's 120 s budget, most of it the nine held-out evaluations
+CHAIN_SENT, CHAIN_STEPS, CHAIN_VOCAB = 1500, 300, 512
+KVQ_CHUNKS = 96         # m2: the script's default chunks (slots)
+# m1's kernel route against its plain route over the same trained weights:
+# fp32 differs in flash's f32 summation order alone; with activation
+# rounding a one-ulp difference can move a Q8 rounding by a step (a logit by
+# ~1e-2 at worst), which the mean over ~15k scored tokens shrinks
+# (measured 1.0e-6 at 3000 sentences): 1e-3 relative on the perplexity
+CHAIN_PPL_RTOL = 1e-3
+# m2's kernel route against its plain route, decode ppl: the same rows in
+# both; mm_dot "bf16" may round a softmax weight to the neighbouring bf16
+# value (decode_flip_allowance): 1e-3 relative
+KVQ_PPL_RTOL = 1e-3
+SERVE_EX_ARGS = ["--requests", "8", "--slots", "4"]  # n: serve_torch's runs
 # Llama-7B matmuls a decode token runs: (name, N, K, launches a token)
 Q4_SHAPES = [("wqkv", 12288, 4096, 32), ("wo", 4096, 4096, 32),
              ("w_gate_up", 22016, 4096, 32), ("w_down", 4096, 11008, 32),
@@ -241,6 +278,29 @@ SHORT_KQ = ("short_k", 4099, 768, 0)  # k-quants: 3 superblocks, 24 of a b = 1 s
 LONG_K = ("long_k", 300, 106496, 0)  # b = 1: x past a CTA's shared memory, three chunks
 
 
+def hold_rows(w, wabs, x, qa, mode):
+    """mul_mat_q_fused (the kernel for a CUDA tensor) against the plain
+    mul_mat_q on one weight and one x, Q8 activations (qa) or f32 x in
+    ``mode``: (max abs err, max err over sum_k |x_k| (|q d| + |m|)_nk, ok at
+    1e-5 of that sum), x as the call rounds it."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused
+    from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
+    from ggmlsharp_tpu_torch.ops.matmul import round_bf16
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    got = mul_mat_q_fused(w, x, quantize_acts=qa, mode=mode)
+    want = mul_mat_q(w, x, quantize_acts=qa, mode=mode)
+    xq = dequantize(quantize_activations(x, w.gtype)) if qa \
+        else (round_bf16(x) if mode == "bf16" else x)
+    scale = xq.abs() @ wabs.T
+    err = (got - want).abs()
+    torch.cuda.synchronize()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= 1e-5 * scale).all())
+    return float(err.max()), float((err / scale).max()), ok
+
+
 def check_weight_rows(dev, gen, fmt, tag):
     """The dequant-matmul of weight format ``fmt`` (through
     mul_mat_q_fused, which picks the instance for b) vs the plain
@@ -256,11 +316,6 @@ def check_weight_rows(dev, gen, fmt, tag):
     rounds it (2^-24 is 6e-8 a rounding). Returns the largest error; raises
     on a disagreement."""
     import torch
-
-    from ggmlsharp_tpu_torch.kernels.matmul_q import mul_mat_q_fused
-    from ggmlsharp_tpu_torch.ops import mul_mat_q, quantize_activations
-    from ggmlsharp_tpu_torch.ops.matmul import round_bf16
-    from ggmlsharp_tpu_torch.quant.quantize import dequantize
 
     worst, rows = 0.0, []
     shapes = [*Q4_SHAPES, RAGGED]
@@ -278,23 +333,12 @@ def check_weight_rows(dev, gen, fmt, tag):
         for b in (1,) if name == "long_k" else CHECK_B:
             x = torch.randn((b, k), generator=gen, device=dev)
             for qa, mode in acts:
-                got = mul_mat_q_fused(w, x, quantize_acts=qa, mode=mode)
-                want = mul_mat_q(w, x, quantize_acts=qa, mode=mode)
-                xq = dequantize(quantize_activations(x, w.gtype)) if qa \
-                    else (round_bf16(x) if mode == "bf16" else x)
-                scale = xq.abs() @ wabs.T
-                err = (got - want).abs()
-                torch.cuda.synchronize()
-                ok = bool(torch.isfinite(got).all()) and bool(
-                    (err <= 1e-5 * scale).all())
-                e = float(err.max())
+                e, over, ok = hold_rows(w, wabs, x, qa, mode)
                 worst = max(worst, e)
                 rows.append({"format": fmt, "shape": name, "b": b, "n": n,
                              "k": k, "acts": "q8" if qa else "f32",
                              "mm_dot": mode, "max_abs_err": e,
-                             "max_err_over_sum_abs": float(
-                                 (err / scale).max()),
-                             "ok": ok})
+                             "max_err_over_sum_abs": over, "ok": ok})
                 if not ok:
                     emit({tag: rows})
                     raise SystemExit(f"{fmt} dequant-matmul disagrees: "
@@ -406,6 +450,10 @@ FLASH_CASES = [  # (label, B, Hq, Hkv, S, T used, T allocated, D, npast, kv dtyp
     # the GPT-2 paths' prefill: the call's own fresh f32 K/V, D 64
     ("gpt2_124m_prefill", 1, 12, 12, 16, 16, 16, 64, [0], "f32"),
     ("gpt2_774m_prefill", 1, 20, 20, 16, 16, 16, 64, [0], "f32"),
+    # path m1 (D 32): the training forward over every chunk of the train
+    # third, and a perplexity window's prefill (127 rows)
+    ("chain_train_d32", 240, 6, 6, 128, 128, 128, 32, [0] * 240, "f32"),
+    ("chain_ppl_prefill_d32", 1, 6, 6, 127, 127, 127, 32, [0], "f32"),
 ]
 
 
@@ -464,6 +512,14 @@ ATTN_CASES = [  # (label, B, Hq, Hkv, T, npast a slot, cache)
      [0, 2047, 100, 1000, 1500, 7, 2046, 512], "int8"),
     # D = 64, GQA n_rep 4, npast past the prefix view for one slot
     ("gqa4_bf16_d64_T300", 4, 8, 2, 300, [0, 299, 150, 400], "bf16"),
+    # path m2's step: D 32, E_kv 192 (6 heads), 96 slots, T 128
+    ("m2_int8_d32_T128", 96, 6, 6, 128, [(7 * i) % 129 for i in range(96)],
+     "int8"),
+    ("m2_bf16_d32_T128", 96, 6, 6, 128, [(7 * i) % 129 for i in range(96)],
+     "bf16"),
+    # D = 256 (GPT-J's head dim), GQA n_rep 2
+    ("gqa2_bf16_d256_T300", 2, 8, 4, 300, [299, 40], "bf16"),
+    ("gqa2_int8_d256_T300", 2, 8, 4, 300, [150, 299], "int8"),
 ]
 
 
@@ -503,6 +559,9 @@ ATTN_RAGGED = [
     ("ragged_bf16_d64_nrep8_T777", 2, 16, 2, 777, [776, 900], "bf16"),
     ("ragged_int8_d64_nrep3_T130", 2, 6, 2, 130, [129, 64], "int8"),
     ("ragged_mqa_int8_nrep32_T4100", 1, 32, 1, 4100, [4100], "int8"),
+    # n_rep past the old cap of 32; D 32 and D 256 at ragged T
+    ("ragged_mqa_bf16_d32_nrep40_T150", 1, 40, 1, 150, [149], "bf16"),
+    ("ragged_int8_d256_nrep3_T333", 2, 6, 2, 333, [332, 100], "int8"),
 ]
 
 
@@ -567,7 +626,8 @@ def check_attn_decode(dev, gen, cases=ATTN_CASES, tag="attn_decode_check"):
 
     worst, rows = 0.0, []
     for label, B, Hq, Hkv, T, npast, kind in cases:
-        D = 64 if "d64" in label else 128
+        d = re.search(r"_d(\d+)_", label)
+        D = int(d.group(1)) if d else 128
         q, kn, vn, ((kc, vc, sc),) = decode_inputs(dev, gen, B, Hq, Hkv, T,
                                                    kind, D=D)
         np_t = torch.tensor(npast, dtype=torch.int32, device=dev)
@@ -3238,6 +3298,11 @@ FLASH_TIMING = [
      TRAIN_S, 64, 0, "bf16", "bf16", 0.0, True),
     ("graph_h2_uncached", "uncached", 1, GRAPH_H, GRAPH_H, GRAPH_S, GRAPH_S,
      GRAPH_S, GRAPH_E // GRAPH_H, 0, "f32", "f32", 0.0, True),
+    # path m1 (D 32): the training forward, a perplexity window's prefill
+    ("chain_train_d32", "cached", 240, 6, 6, 128, 128, 128, 32, 0, "f32",
+     "f32", 0.0, True),
+    ("chain_ppl_prefill_d32", "cached", 1, 6, 6, 127, 127, 127, 32, 0, "f32",
+     "f32", 0.0, True),
 ]
 # kernel 3 beyond the serving and path e shapes: (label, B, Hq, Hkv, T, D,
 # cache), npast = T - 1
@@ -3249,6 +3314,9 @@ ATTN_DECODE_TIMING = [
     ("b1_T2048", 1, 32, 32, 2048, 128, "int8"),
     ("gqa8_int8_T2048", SLOTS, 32, 8, 2048, 128, "int8"),
     ("gqa4_bf16_d64_T300", 4, 8, 2, 300, 64, "bf16"),
+    # path m2's step (D 32, E_kv 192, 96 slots)
+    ("m2_int8_d32_T128", KVQ_CHUNKS, 6, 6, 128, 32, "int8"),
+    ("m2_bf16_d32_T128", KVQ_CHUNKS, 6, 6, 128, 32, "bf16"),
 ]
 
 
@@ -5009,6 +5077,411 @@ def run_gptj_path(smi, dev, gen):
     return res, counts
 
 
+# --- the eval chain, KV quality, the examples and the last two modules
+# (paths m1, m2, n) -----------------------------------------------------------
+
+
+def check_chain_matmuls(dev, gen):
+    """Path m1's quantized matmul: w_down of the chain model (N 192, K 512)
+    in Q4_0, Q4_K, Q6_K and Q8_0 through mul_mat_q_fused at 127 rows (a
+    perplexity window) and 128, Q8 activations and f32 x in both mm_dot
+    modes, against the plain mul_mat_q at check_weight_rows' bar (1e-5 of
+    sum_k |x_k| |w|_nk, x as the call rounds it: hold_rows). Returns the
+    largest error; raises on a disagreement."""
+    import torch
+
+    worst, rows = 0.0, []
+    for fmt in ("Q4_0", "Q4_K", "Q6_K", "Q8_0"):
+        w = random_weight(fmt, 192, 512, gen, dev)
+        wabs = weight_abs_terms(w)
+        for b in (127, 128):
+            x = torch.randn((b, 512), generator=gen, device=dev)
+            for qa, mode in ((True, "f32"), (False, "f32"), (False, "bf16")):
+                e, over, ok = hold_rows(w, wabs, x, qa, mode)
+                worst = max(worst, e)
+                rows.append({"format": fmt, "b": b, "acts": "q8" if qa
+                             else "f32", "mm_dot": mode, "max_abs_err": e,
+                             "max_err_over_sum_abs": over, "ok": ok})
+                if not ok:
+                    emit({"chain_matmul_check": rows})
+                    raise SystemExit(f"m1 matmul disagrees: {rows[-1]}")
+    emit({"chain_matmul_check": rows})
+    return worst
+
+
+def chain_train_check(cfg, toks, dev):
+    """m1's training step held against its plain route: the loss and the
+    gradient at the seed-0 initial parameters, kernel route (flash at D 32
+    under autograd) vs set_kernels(False). f32 throughout: the loss to 1e-5
+    relative, each gradient to 1e-3 relative L2 (the flash Function's
+    backward is the dense recompute on both routes; the forward's sums
+    differ in order)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels.config import set_kernels
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.models.common import lm_loss
+    from ggmlsharp_tpu_torch.optim import value_and_grad
+    from ggmlsharp_tpu_torch.optim.tree import tree_leaves
+
+    p0 = llama.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev, dtype=torch.float32)
+    vg = value_and_grad(lambda p: lm_loss(llama.forward, cfg, p, toks))
+    fk, gk = vg(p0)
+    set_kernels(False)
+    try:
+        fp, gp = vg(p0)
+    finally:
+        set_kernels(None)
+    loss_err = abs(float(fk) - float(fp)) / abs(float(fp))
+    grad_err = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                   for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    if not (loss_err <= 1e-5 and grad_err <= 1e-3):
+        raise SystemExit(f"m1: training step vs plain: loss rel err "
+                         f"{loss_err:.3g}, grad rel L2 {grad_err:.3g}")
+    return {"loss_rel_err": loss_err, "grad_rel_l2_max": grad_err}
+
+
+def run_chain_m1(smi, repo, dev, workdir):
+    """Path m1: scripts/ppl_chain_torch.py's chain for seed 0 at its
+    defaults but for the corpus (4L/192E/6 heads/512F, a 512-piece
+    vocabulary on make_text(CHAIN_SENT), 300 full-batch Adam iterations
+    over every 128-token chunk of the train third), through eval.chain on
+    the card: training
+    (flash at D 32 under autograd), the GGUF round trip, held-out perplexity
+    at fp32 and in Q8_0, Q4_0, Q4_K and Q6_K (w_down, the one quantized
+    matrix, through the dequant-matmuls' multi-row instances at 127 rows),
+    Q4_0 and Q4_K also without activation rounding. Checks: the training
+    step against its plain route (chain_train_check); the final loss below
+    the first; the vocabulary round trip (save_and_reload raises); fp32 and
+    Q4_0 perplexity on the plain route over the same file within
+    CHAIN_PPL_RTOL; |Q8_0 dppl| < 0.05 ppl_fp (tests/test_eval.py:117);
+    kernels 1, 2, 4 and 6 launched."""
+    import torch
+
+    from ggmlsharp_tpu_torch import GType, kernels
+    from ggmlsharp_tpu_torch.eval import chain
+    from ggmlsharp_tpu_torch.eval.perplexity import perplexity
+    from ggmlsharp_tpu_torch.io import load_gguf_llama
+    from ggmlsharp_tpu_torch.kernels.config import set_kernels
+    from ggmlsharp_tpu_torch.models import llama
+
+    sys.path.insert(0, os.path.join(repo, "scripts"))
+    from gen_corpus import make_text
+
+    t_all = time.perf_counter()
+    text = make_text(CHAIN_SENT, seed=chain.CORPUS_SEED)
+    tk, ids = chain.tokenize(text, CHAIN_VOCAB)
+    toks, half = chain.split(ids)
+    cfg = chain.model_config(len(tk.tokens), "small")
+    toks_t = torch.as_tensor(toks, device=dev)
+    step_check = chain_train_check(cfg, toks_t, dev)
+    path = os.path.join(workdir, "ppl_chain_torch_s0.gguf")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = chain.run_seed(0, cfg, toks, CHAIN_STEPS, tk, text, ids, path, dev)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    require_launches("m1", counts, ("matmul_q4_0_mma", "matmul_q_mma",
+                                    "matmul_q8_0_mma", "flash_attn"))
+    sc = res["scores"]
+    ppl_fp = sc["fp32"][0]
+    if not res["nll"] < res["nll_start"]:
+        raise SystemExit(f"m1: training did not lower the loss: {res}")
+    if not abs(sc["Q8_0"] - ppl_fp) < 0.05 * ppl_fp:
+        raise SystemExit(f"m1: Q8_0 dppl {sc['Q8_0'] - ppl_fp} past 0.05 of "
+                         f"{ppl_fp}")
+    # the plain route over the same file
+    cfg2, p2 = load_gguf_llama(path, device=dev)
+    heldout = ids[half:]
+    set_kernels(False)
+    try:
+        plain_fp, _, _ = perplexity(llama.forward, cfg2, p2, heldout,
+                                    chunk_len=chain.S)
+        plain_q4, _, _ = perplexity(llama.forward, cfg2,
+                                    llama.quantize_params(p2, GType.Q4_0,
+                                                          cfg=cfg2),
+                                    heldout, chunk_len=chain.S)
+    finally:
+        set_kernels(None)
+    errs = {"fp32": abs(ppl_fp - plain_fp) / plain_fp,
+            "Q4_0": abs(sc["Q4_0"] - plain_q4) / plain_q4}
+    if max(errs.values()) > CHAIN_PPL_RTOL:
+        raise SystemExit(f"m1: perplexity kernel vs plain route {errs}")
+    out = {"card": smi, "vocab": len(tk.tokens), "corpus_tokens": len(ids),
+           "train_chunks": int(toks.shape[0]), "steps": res["iters"],
+           "nll_start": res["nll_start"], "nll": res["nll"],
+           "train_s": res["train_s"],
+           "step_ms": res["train_s"] / res["iters"] * 1e3,
+           "ppl_fp32": ppl_fp, "scored": sc["fp32"][1],
+           "dppl": {k: v - ppl_fp for k, v in sc.items() if k != "fp32"},
+           "plain_ppl": {"fp32": plain_fp, "Q4_0": plain_q4},
+           "ppl_rel_err_vs_plain": errs, "train_step_vs_plain": step_check,
+           "seconds": time.perf_counter() - t_all}
+    emit({"chain_m1": out})
+    return out, counts, (path, text)
+
+
+def run_kvq_m2(smi, dev, path, text):
+    """Path m2: scripts/kv_quality_torch.py over m1's GGUF: 96 chunks of the
+    held-out ids, 127 teacher-forced steps each through an f32 head-major
+    cache, a bf16 flat one and an int8 flat one (attn_decode at D 32, B 96,
+    E_kv 192), then the two flat caches on the plain route (set_kernels
+    (False)), each decode ppl within KVQ_PPL_RTOL of its kernel route's;
+    kernel 3 launched on the kernel route."""
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.eval import chain, kv_quality
+    from ggmlsharp_tpu_torch.io import (GGUFReader, load_gguf_llama,
+                                        tokenizer_from_gguf)
+    from ggmlsharp_tpu_torch.kernels.config import set_kernels
+
+    t0 = time.perf_counter()
+    cfg, params = load_gguf_llama(path, device=dev)
+    tk = tokenizer_from_gguf(GGUFReader(path), native=True)
+    ids = np.asarray(tk.encode(text), np.int32)
+    X, Y = kv_quality.chunks(ids[len(ids) // 3:], KVQ_CHUNKS)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rows = kv_quality.run(cfg, params, X, Y)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    want = cfg.n_layer * (X.shape[1] - 1) * 2  # two flat caches
+    if counts["attn_decode"] != want:
+        raise SystemExit(f"m2: attn_decode launches {counts['attn_decode']}"
+                         f" != {want}")
+    set_kernels(False)
+    try:
+        plain = kv_quality.run(cfg, params, X, Y,
+                               caches=kv_quality.CACHES[1:])
+    finally:
+        set_kernels(None)
+    errs = {r[0]: abs(r[1] - p[1]) / p[1] for r, p in zip(rows[1:], plain)}
+    if max(errs.values()) > KVQ_PPL_RTOL:
+        raise SystemExit(f"m2: decode ppl kernel vs plain route {errs}")
+    out = {"card": smi, "chunks": int(X.shape[0]), "steps": X.shape[1] - 1,
+           "head_dim": cfg.head_dim, "e_kv": cfg.n_head_kv * cfg.head_dim,
+           "rows": [{"cache": n, "ppl": p, "dppl": d, "argmax_agree": a}
+                    for n, p, d, a in rows],
+           "plain_ppl": {n: p for n, p, _, _ in plain},
+           "ppl_rel_err_vs_plain": errs,
+           "seconds": time.perf_counter() - t0}
+    emit({"kvq_m2": out})
+    return out, counts
+
+
+def load_example(repo, name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(repo, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test2_objectives():
+    """The reference's Test2 objectives (tests/test_optim.py:38-90): the
+    least-squares and L1 line fits, a convex quadratic and Booth's
+    function, each (fun of a (t0, t1) pair, start)."""
+    import torch
+
+    def xy(p):
+        xi = torch.arange(1, 11, dtype=torch.float32, device=p[0].device)
+        return xi, 10 * xi + 5
+
+    def ls(p):
+        x, y = xy(p)
+        return torch.sum((p[0] + p[1] * x - y) ** 2) / 20
+
+    def l1(p):
+        x, y = xy(p)
+        return 0.5 * torch.sum(torch.abs(p[0] + p[1] * x - y)) / 10
+
+    return {"least_squares": (ls, (0.0, 0.0)), "l1": (l1, (-1.0, 9.0)),
+            "quadratic": (lambda p: (5 * p[0] + p[1] - 35.0) ** 2
+                          + (p[0] + 8 * p[1] - 42.0) ** 2, (1.0, 1.0)),
+            "booth": (lambda p: (p[0] + 2 * p[1] - 7.0) ** 2
+                      + (2 * p[0] + p[1] - 5.0) ** 2, (0.0, 0.0))}
+
+
+def run_optax_compat_check(dev, n_iter=200):
+    """optim.optax_compat on the card: opt_torch over GgmlAdam (alpha 0.01,
+    Test2's setting, the default stopping rules, the first ``n_iter``
+    iterations: thousands to convergence, each a host round trip) against
+    opt_adam on each Test2 objective: the same losses at every iteration,
+    the same iterations, result and final point (the same f32 operations on
+    the same card: bit for bit)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.optim import (GgmlAdam, OptParams, opt_adam,
+                                           opt_torch, value_and_grad)
+
+    res = {}
+    for name, (fun, start) in test2_objectives().items():
+        p = OptParams()
+        p.adam.alpha, p.adam.n_iter = 0.01, n_iter
+        x0 = tuple(torch.tensor(v, device=dev) for v in start)
+        vg = value_and_grad(fun)
+        la, lt = [], []
+        xa, fa, ra, ia = opt_adam(vg, x0, p, lambda i, f: la.append(f))
+        xt, ft, rt, it = opt_torch(vg, x0, lambda ps: GgmlAdam(ps, p.adam), p,
+                                   lambda i, f: lt.append(f))
+        same = la == lt and ia == it and ra == rt and all(
+            torch.equal(a, b) for a, b in zip(xa, xt))
+        res[name] = {"iters": it, "result": rt.name, "x": [float(v) for v in
+                                                           xt],
+                     "trajectory_equal": same}
+        if not same:
+            raise SystemExit(f"n: GgmlAdam vs opt_adam on {name}: {res}")
+    return res
+
+
+def run_profiler_check(dev, gen):
+    """utils.OpProfiler over path h2's decoder graph (E 768, 12 heads, S 128,
+    2 layers, flash_attn): every node's profiled value against
+    Graph.compute's (the same op on the same inputs: 1e-6 relative, the
+    card's matmuls may pick another algorithm between calls); the per-op
+    rollup."""
+    import torch
+
+    from ggmlsharp_tpu_torch.graph import (build_forward, builders as B, leaf,
+                                           set_data)
+    from ggmlsharp_tpu_torch.utils import OpProfiler
+
+    V, E, H, S = GRAPH_V, GRAPH_E, GRAPH_H, GRAPH_S
+    shapes = [(V, E)] + ([(E, E)] * 4 + [(4 * E, E), (E, 4 * E)]) \
+        * GRAPH_LAYERS
+    weights = [torch.randn(s, generator=gen, device=dev) * 0.02
+               for s in shapes]
+    tok, logits, _ = graph_decoder(B, leaf, weights, S, H, plain=False)
+    set_data(tok, torch.randint(0, V, (S,), generator=gen, device=dev,
+                                dtype=torch.int32))
+    graph = build_forward(logits)
+    prof = OpProfiler(iters=3)
+    prof.compute(graph)
+    vals = {n.uid: n.data for n in graph.nodes if n.op != "none"}
+    graph.compute()
+    worst = max(float((vals[n.uid] - n.data).abs().max()
+                      / n.data.abs().max().clamp_min(1e-30))
+                for n in graph.nodes if n.op != "none")
+    if worst > 1e-6:
+        raise SystemExit(f"n: OpProfiler's values vs Graph.compute: {worst}")
+    rollup = {k: round(v, 1) for k, v in sorted(
+        prof.rollup().items(), key=lambda kv: -kv[1])}
+    return {"nodes": len(prof.per_node), "rel_err_vs_compute": worst,
+            "rollup_us": rollup, "perf_runs": graph.perf_runs}
+
+
+def run_examples_n(smi, repo, dev, gen, workdir):
+    """Path n: each example's entry in-process on the card, then the two
+    modules. serve_torch (GPT-2 124M Q8_0) three times: plain, --int8-kv
+    --prefix --stream, --draft, SERVE_EX_ARGS, every request its tokens;
+    http_server_torch on port 0, one request, stop; quantize_model_torch's
+    tiny random Llama to a GGUF and back, leaves bit for bit;
+    train_graph_torch and graph_transformer_torch (main, then the
+    graph's logits against the same graph on the CPU, 1e-4: f32 with TF32
+    off); OpProfiler over path h2's decoder; GgmlAdam against opt_adam on
+    Test2's objectives. Examples' printing goes to a buffer."""
+    import io
+
+    import torch
+
+    from ggmlsharp_tpu_torch import GType, kernels
+    from ggmlsharp_tpu_torch.io import load_gguf_llama
+    from ggmlsharp_tpu_torch.models import llama
+
+    t_all = time.perf_counter()
+    out, buf = {"card": smi}, io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    serve = load_example(repo, "serve_torch")
+    for tag, flags in (("plain", []),
+                       ("int8_prefix_stream", ["--int8-kv", "--prefix",
+                                               "--stream"]),
+                       ("draft", ["--draft"])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eng, _, results, secs = serve.serve(serve.parse(SERVE_EX_ARGS
+                                                            + flags))
+        bad = [r.id for r in results
+               if r.error is not None or len(r.out_tokens) != r.max_new_tokens]
+        if len(results) != int(SERVE_EX_ARGS[1]) or bad:
+            raise SystemExit(f"n: serve_torch {tag}: requests {bad} short")
+        out[f"serve_{tag}"] = {
+            "requests": len(results),
+            "tokens": sum(len(r.out_tokens) for r in results),
+            "seconds": secs, "wall_s": time.perf_counter() - t0,
+            "stats": {k: eng.stats()[k] for k in ("ticks", "decode_forwards",
+                                                  "prefill_dispatches")}}
+        del eng
+    http = load_example(repo, "http_server_torch")
+    srv = http.start(http.parse(["--port", "0", "--slots", "2"]))
+    try:
+        ans = post_json(srv.port, {"prompt": [1, 2, 3], "max_new_tokens": 8})
+    finally:
+        srv.stop()
+    if ans.get("error") is not None or len(ans["tokens"]) != 8:
+        raise SystemExit(f"n: http_server_torch answered {ans}")
+    out["http"] = {"tokens": ans["tokens"]}
+    quant = load_example(repo, "quantize_model_torch")
+    qpath = os.path.join(workdir, "tiny_q4_0.gguf")
+    with contextlib.redirect_stdout(buf):
+        quant.main(["--out", qpath, "--format", "q4_0"])
+    qcfg, loaded = load_gguf_llama(qpath, device=dev)
+    raw = llama.init_params(qcfg, torch.Generator(dev).manual_seed(0),
+                            device=dev, dtype=torch.float32)
+    want = llama.unfuse_params(llama.quantize_params(raw, GType.Q4_0), qcfg)
+    diffs = bit_diffs(want, loaded)
+    if diffs:
+        raise SystemExit(f"n: quantize_model_torch round trip: {diffs[:5]}")
+    out["quantize_model"] = {"bytes": os.path.getsize(qpath)}
+    os.remove(qpath)
+    tg = load_example(repo, "train_graph_torch")
+    tbuf = io.StringIO()
+    with contextlib.redirect_stdout(tbuf):
+        tg.main([])
+    num = r"(-?[\d.]+(?:e[-+]\d+)?)"
+    fit = [float(v) for v in re.search(f"t0={num} t1={num}",
+                                       tbuf.getvalue()).groups()]
+    rb = re.search(rf"\({num}, {num}\) f={num} in (\d+) iters \((\w+)\)",
+                   tbuf.getvalue()).groups()
+    # Test2's bar on the fit (tests/test_optim.py:52), L-BFGS to (1, 1)
+    if abs(fit[0] - 5) > 1e-3 or abs(fit[1] - 10) > 1e-3 or rb[4] != "OK" \
+            or abs(float(rb[0]) - 1) > 1e-3 or abs(float(rb[1]) - 1) > 1e-3:
+        raise SystemExit(f"n: train_graph_torch printed {tbuf.getvalue()}")
+    out["train_graph"] = {"t0": fit[0], "t1": fit[1],
+                          "rosenbrock": [float(rb[0]), float(rb[1])],
+                          "f": float(rb[2]), "iters": int(rb[3]),
+                          "result": rb[4]}
+    gt = load_example(repo, "graph_transformer_torch")
+    with contextlib.redirect_stdout(buf):
+        gt.main([])
+    lg = []
+    for d in (dev, torch.device("cpu")):
+        g = torch.Generator().manual_seed(0)
+        tok, graph, logits = gt.build_model(
+            lambda s: torch.randn(s, generator=g) * 0.08, d)
+        toks = gt.greedy(tok, graph, logits, [5, 17, 33], 8)
+        lg.append((toks, logits.data.cpu()))
+    gerr = float((lg[0][1] - lg[1][1]).abs().max())
+    if gerr > 1e-4:
+        raise SystemExit(f"n: graph_transformer_torch card vs CPU {gerr}")
+    out["graph_transformer"] = {"tokens": lg[0][0],
+                                "tokens_equal_cpu": lg[0][0] == lg[1][0],
+                                "logits_max_abs_err_vs_cpu": gerr}
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    require_launches("n", counts, ("matmul_q8_0_mma", "flash_attn"))
+    out["profiler"] = run_profiler_check(dev, gen)
+    out["optax_compat"] = run_optax_compat_check(dev)
+    out["seconds"] = time.perf_counter() - t_all
+    emit({"examples_n": out})
+    return out, counts
+
+
 def main(argv):
     import torch
 
@@ -5088,6 +5561,7 @@ def main(argv):
     ib_errs = check_int_dot(dev, gen)
     q_card = quantizers_on_card(dev, gen)
     geom_cases = check_geometries(dev, gen)
+    chain_mm_err = check_chain_matmuls(dev, gen)
     if not q4_rows_ok:
         raise SystemExit("a Q4_0 row's result depends on b")
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
@@ -5108,7 +5582,9 @@ def main(argv):
         f"edges {ragged_err:.3g}; quantizers on the card "
         f"vs the CPU, share of blocks differing: "
         f"{max(q_card.values()):.3g}; launch geometries bit-equal to the "
-        f"default in {geom_cases} cases; rms rows differing alone "
+        f"default in {geom_cases} cases; path m1's w_down (192 x 512, 127 "
+        f"and 128 rows, Q4_0 Q4_K Q6_K Q8_0) {chain_mm_err:.3g}; rms rows "
+        f"differing alone "
         f"vs in a batch of {SLOTS}: "
         f"{ {k: v['rms_rows_differ'] for k, v in rms_rows.items()} }")
 
@@ -5370,6 +5846,45 @@ def main(argv):
         f"{l_res['decode']['roofline_share']:.4f} of the HBM roofline; "
         f"launches {({k: v for k, v in l_counts.items() if v})} ({smi})")
 
+    # m. the perplexity chain (m1) and KV quality over its model (m2); n. the
+    # user examples, OpProfiler and optax_compat
+    import shutil
+
+    t0 = time.perf_counter()
+    mdir = scratch_dir(2**27)
+    try:
+        m1, m1_counts, (m_path, m_text) = run_chain_m1(smi, repo, dev, mdir)
+        t_m1 = time.perf_counter() - t0
+        m2, m2_counts = run_kvq_m2(smi, dev, m_path, m_text)
+        t_m = time.perf_counter() - t0
+        n_res, n_counts = run_examples_n(smi, repo, dev, gen, mdir)
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
+    t_mn = time.perf_counter() - t0
+    log(f"[4/6] m1. ppl chain (seed 0, {m1['steps']} Adam steps over "
+        f"{m1['train_chunks']} chunks, {m1['scored']} scored) in {t_m1:.1f} "
+        f"s: ppl_fp {m1['ppl_fp32']:.4f}, dppl "
+        f"{ {k: round(v, 4) for k, v in m1['dppl'].items()} }, train "
+        f"{m1['train_s']:.1f} s ({m1['step_ms']:.1f} ms a step), nll "
+        f"{m1['nll_start']:.3f} -> {m1['nll']:.3f}; vs plain "
+        f"{ {k: float(f'{v:.3g}') for k, v in m1['ppl_rel_err_vs_plain'].items()} }"
+        f"; launches {({k: v for k, v in m1_counts.items() if v})} ({smi})")
+    log(f"[4/6] m2. KV quality ({m2['chunks']} x {m2['steps']} steps): "
+        + "; ".join(f"{r['cache']} ppl {r['ppl']:.4f} dppl {r['dppl']:+.4f} "
+                    f"agree {r['argmax_agree']:.4f}" for r in m2["rows"])
+        + f"; vs plain {m2['ppl_rel_err_vs_plain']}; launches "
+        f"{({k: v for k, v in m2_counts.items() if v})}")
+    log(f"[4/6] n. examples and modules in {t_mn - t_m:.1f} s: serve "
+        f"{ {k: (v['tokens'], round(v['seconds'], 2)) for k, v in n_res.items() if k.startswith('serve_')} }"
+        f", http {len(n_res['http']['tokens'])} tokens, train_graph "
+        f"{n_res['train_graph']}, graph_transformer "
+        f"{n_res['graph_transformer']['tokens']}; OpProfiler "
+        f"{n_res['profiler']['nodes']} nodes, rollup "
+        f"{n_res['profiler']['rollup_us']}; GgmlAdam = opt_adam on "
+        f"{list(n_res['optax_compat'])}; launches "
+        f"{({k: v for k, v in n_counts.items() if v})}; m + n {t_mn:.1f} s "
+        f"({smi})")
+
     q4_row, q4_mma_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_mma_row["max_abs_err"] = q4_err
     gj_rows = time_weight_rows(dev, gen, "Q4_0", GPTJ_SHAPES, GPTJ_B)
@@ -5444,6 +5959,9 @@ def main(argv):
     for T in (64, 2048):  # path e's shape, B = 1
         for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
             ad_row[f"b1_T{T}_{k}"] = ad[f"b1_T{T}"][k]
+    for kind in ("int8", "bf16"):  # path m2's step, the D 32 instance
+        for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            ad_row[f"m2_{kind}_d32_{k}"] = ad[f"m2_{kind}_d32_T128"][k]
     rows = (q4_row, q4_mma_row, fl_row, ad_row, q8_row, q8_mma_row, mlp_row,
             mlp_mma_row, layer_row, silu_row, silu_mma_row, llayer_row, mq_row, mq_mma_row,
             ib_row, unc_row, *tune_rows(probes))
@@ -5468,6 +5986,9 @@ def main(argv):
         row["launches_spec_k2"] = k2_counts[name]
         row["launches_spec_k3"] = k3_counts[name]
         row["launches_gptj_l"] = l_counts[name]
+        row["launches_chain_m1"] = m1_counts[name]
+        row["launches_kvq_m2"] = m2_counts[name]
+        row["launches_examples_n"] = n_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, mcounts, kq_counts,
@@ -5476,7 +5997,8 @@ def main(argv):
                                                  probe_counts, i_counts,
                                                  j_counts, k1_counts,
                                                  k2_counts, k3_counts,
-                                                 l_counts)
+                                                 l_counts, m1_counts,
+                                                 m2_counts, n_counts)
                                if c[name])
     log("[5/6] kernel times taken")
 
@@ -5574,12 +6096,16 @@ def main(argv):
             "launches_llama_formats", "launches_train_g", "launches_graph_h",
             "launches_gpt2_int8_serving", "launches_tuning_probes",
             "launches_llama_13b", "launches_io_j", "launches_spec_k1",
-            "launches_spec_k2", "launches_spec_k3", "launches_gptj_l")
+            "launches_spec_k2", "launches_spec_k3", "launches_gptj_l",
+            "launches_chain_m1", "launches_kvq_m2", "launches_examples_n")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
              "heads_layout_bf16_ms",  # kernel 3's second lane map
              "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",
              "b1_T64_library_ms", "b1_T2048_ms", "b1_T2048_bound_ms",
              "b1_T2048_plain_ms", "b1_T2048_library_ms",  # kernel 3, B = 1
+             # kernel 3's D 32 instance at path m2's step
+             *(f"m2_{kind}_d32_{k}" for kind in ("int8", "bf16")
+               for k in ("ms", "bound_ms", "plain_ms", "library_ms")),
              "q6_k_token", "w_gate_up_b1_ms", "w_gate_up_ms",
              # the multi-row instances (b8/b128: a serving tick and prefill)
              "b8_forward", "b128_forward", "q6_k_prompt", "w_gate_up_b16_ms",

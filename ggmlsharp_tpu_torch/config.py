@@ -11,6 +11,7 @@ call, so a caller may flip ``GGML_TPU_QUANT_ACTS`` between runs.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, field
 
@@ -79,6 +80,31 @@ def quantize_activations() -> bool:
     if _config is not None:
         return _config.quantize_activations
     return _env_bool("GGML_TPU_QUANT_ACTS", True)
+
+
+@contextlib.contextmanager
+def activation_rounding(on: bool):
+    """Run the block with GGML_TPU_QUANT_ACTS set to ``on`` (the JAX
+    package's scripts set ``get_config().quantize_activations``): the
+    installed RuntimeConfig's field when there is one, else the
+    environment, as ``quantize_activations`` reads them; restored after."""
+    if _config is not None:
+        prev = _config.quantize_activations
+        _config.quantize_activations = on
+        try:
+            yield
+        finally:
+            _config.quantize_activations = prev
+        return
+    prev = os.environ.get("GGML_TPU_QUANT_ACTS")
+    os.environ["GGML_TPU_QUANT_ACTS"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["GGML_TPU_QUANT_ACTS"]
+        else:
+            os.environ["GGML_TPU_QUANT_ACTS"] = prev
 
 
 def int8_kv() -> bool:

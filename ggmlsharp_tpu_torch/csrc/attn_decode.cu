@@ -43,7 +43,13 @@
 // against 13.3).
 // A row of one head is D * sizeof(KT) bytes: G lanes hold it, 16 bytes
 // each (G = 8 for int8 at D 128, 16 for bf16), so a warp takes R = 32 / G
-// rows at once and a row group takes 4 rows of a tile. A lane dequantizes
+// rows at once and a row group takes 4 rows of a tile. D is 32, 64, 128 or
+// 256 (an instance each): from G = 2 (int8 at D 32: R = 16 rows a warp,
+// TR = 256 rows a tile, a run of 16 lanes a head in the "attn" map is one
+// 16-byte chunk) to G = 32 (bf16 at D 256: a warp a row, TR = 16); the
+// 16-byte chunks of a row are never split, and a group always takes
+// TR / NG = 4 rows of a tile. E_kv need only be a multiple of D (192 at D
+// 32 or 64: every offset is a row times E plus a chunk, 16-byte aligned). A lane dequantizes
 // its 16 bytes in registers (an int8 score or weight is scaled once, by the
 // row's scale; an int8 value becomes a float by a byte permute and one
 // subtraction, not the conversion unit) and holds, for up to QR query heads
@@ -468,14 +474,21 @@ int launch_d(int D, const float* q, const float* kn, const float* vn,
   if (D == 64)
     return launch_qr<64, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
                              n_rep, T, kvs, scs, scale, attn_layout, splits, rnd, stream);
+  if (D == 32)
+    return launch_qr<32, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
+                             n_rep, T, kvs, scs, scale, attn_layout, splits, rnd, stream);
+  if (D == 256)
+    return launch_qr<256, KT>(q, kn, vn, kc, vc, ks, vs, npast, out, part, counter, B, Hkv,
+                              n_rep, T, kvs, scs, scale, attn_layout, splits, rnd, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // kv_kind: 0 bf16, 1 int8 (then ks/vs are required). attn_layout: 0 the
-// "heads" lane map, 1 the "attn" one (float caches only). D must be 64 or
-// 128 and n_rep in 1..32. Pointers 16-byte aligned and batch strides
+// "heads" lane map, 1 the "attn" one (float caches only). D must be 32, 64,
+// 128 or 256, n_rep any count from 1 (query rows in passes of QR <= 4).
+// Pointers 16-byte aligned and batch strides
 // multiples of 16 bytes (the wrapper checks). splits in 1..min(T, 512);
 // above 1, part is an f32 scratch of B * Hkv * splits * n_rep * (D + 2)
 // floats and counter an int32 [B * Hkv], all 0 (the kernel leaves it so).
@@ -490,7 +503,7 @@ extern "C" int attn_decode(const float* q, const float* kn, const float* vn,
                            long long sc_batch_stride, int kv_kind,
                            float scale, int attn_layout, int splits, int rnd,
                            cudaStream_t stream) {
-  if (B <= 0 || Hkv <= 0 || T <= 0 || n_rep <= 0 || n_rep > 32)
+  if (B <= 0 || Hkv <= 0 || T <= 0 || n_rep <= 0)
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > MAX_SPLITS || splits > T) return (int)cudaErrorInvalidValue;
   if (splits > 1 && (part == nullptr || counter == nullptr)) return (int)cudaErrorInvalidValue;

@@ -15,6 +15,10 @@ to bf16 for the value products, with the softmax in base 2 against an
 integer maximum so that the rounding does not depend on the order of the
 rows (csrc/attn_decode.cu says why); the fresh row stays f32.
 
+Head dims 32, 64, 128 and 256 have kernel instances (the JAX kernel takes
+any; another D raises ValueError on the card), with any n_rep and any E_kv
+that D divides (192 at D 32 or 64 included).
+
 The kernel is bound by the bytes of the live rows. It splits each slot's
 rows over ``decode_splits(B * H_kv, T)`` blocks a (slot, KV head), so that a
 small batch or a long cache still fills the card; each block copies its
@@ -54,6 +58,7 @@ _KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
 _BLOCKS_PER_SM = 4  # decode_splits: at most this many blocks an SM
 _SPLIT_MIN_ROWS = 64  # cache rows a split takes at least
 MAX_SPLITS = 512  # the most splits the kernel takes
+HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instances
 _COUNTERS: dict = {}  # (device, stream) -> int32 arrival counters, all 0
 _LOG2E = 1.4426950408889634  # log2(e), the base-2 softmax of mode "bf16"
 
@@ -224,15 +229,22 @@ def _cache_kind(k_cache, v_cache):
 
 def _check(q, k_new, v_new, k_cache, v_cache, npast, n_head_kv, head_dim,
            k_scale, v_scale):
-    """q: (B, Hq, D) in either lane map (only its first two dims' product
-    and its last dim are looked at)."""
+    """The kernel's domain, checked before a launch: D one of HEAD_DIMS
+    (ValueError naming any other), Hq a multiple of n_head_kv (any n_rep:
+    the kernel takes the query rows in passes of four), any E_kv that D
+    divides, the shapes, dtypes, strides and 16-byte alignment the kernel
+    reads. Returns (cache kind, the cache's batch stride). q: (B, Hq, D) in
+    either lane map (only its first two dims' product and its last dim are
+    looked at)."""
     B, Hq, D = q.shape
     E = n_head_kv * head_dim
     T = k_cache.shape[1]
-    if D != head_dim or D not in (64, 128) or Hq % n_head_kv \
-            or Hq // n_head_kv > 32:
+    if D != head_dim or Hq % n_head_kv:
         raise ValueError(f"attn_decode: q {tuple(q.shape)}, "
                          f"n_head_kv {n_head_kv}, head_dim {head_dim}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"attn_decode: head_dim {D}: the kernel has "
+                         f"instances for {HEAD_DIMS}")
     kind = _cache_kind(k_cache, v_cache)
     if (kind == 1) != (k_scale is not None) or \
             (k_scale is None) != (v_scale is None):

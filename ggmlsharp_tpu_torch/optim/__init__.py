@@ -1,5 +1,6 @@
 """Optimizers: Adam and L-BFGS with backtracking line search (port of
-ggmlsharp_tpu/optim, ggml_opt)."""
+ggmlsharp_tpu/optim, ggml_opt), and their torch.optim interop
+(optax_compat: GgmlAdam for JAX's as_optax, opt_torch for opt_optax)."""
 
 from .params import (
     AdamParams,
@@ -13,9 +14,11 @@ from .params import (
 from .adam import opt_adam
 from .lbfgs import opt_lbfgs
 from .facade import opt, opt_fn, value_and_grad
+from .optax_compat import GgmlAdam, opt_torch
 
 __all__ = [
     "AdamParams",
+    "GgmlAdam",
     "LBFGSParams",
     "LineSearch",
     "OptParams",
@@ -26,5 +29,6 @@ __all__ = [
     "opt_default_params",
     "opt_fn",
     "opt_lbfgs",
+    "opt_torch",
     "value_and_grad",
 ]

@@ -15,6 +15,10 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for d in ("examples", "scripts"):  # the port's user entry points
+        files += [os.path.join(ROOT, d, n)
+                  for n in os.listdir(os.path.join(ROOT, d))
+                  if n.endswith("_torch.py")]
     return sorted(files)
 
 
@@ -82,6 +86,50 @@ def test_entry_points_default_to_the_card():
     assert resolve_device("cpu").type == "cpu"
     assert gpt2.new_cache(gpt2.GPT2_TINY, 1, device="cpu").k[0].device.type \
         == "cpu"
+    # the eval chain, the KV-quality scoring, the user examples and scripts
+    from ggmlsharp_tpu_torch.eval import chain
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chain.run_seed(0, cfg, None, 1, None, "", [], "x.gguf")
+    for d, name, argv in (
+            ("examples", "quantize_model_torch", ["--out", "x.gguf"]),
+            ("examples", "serve_torch", []),
+            ("examples", "train_graph_torch", []),
+            ("examples", "graph_transformer_torch", []),
+            ("examples", "generate_torch", []),
+            ("examples", "speculative_torch", []),
+            ("scripts", "ppl_chain_torch", []),
+            ("scripts", "kv_quality_torch", [])):
+        mod = _load_entry(d, name)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(argv)
+    http = _load_entry("examples", "http_server_torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        http.start(http.parse(["--port", "0"]))
+
+
+def _load_entry(d, name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, d, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_import_scan_covers_the_eval_and_examples_slice():
+    """The chain, the KV-quality scoring, the optimizer interop and the
+    profiler are scanned, and so are the port's examples and scripts."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"ggmlsharp_tpu_torch/eval/chain.py",
+            "ggmlsharp_tpu_torch/eval/kv_quality.py",
+            "ggmlsharp_tpu_torch/optim/optax_compat.py",
+            "ggmlsharp_tpu_torch/utils/profiling.py",
+            "scripts/ppl_chain_torch.py", "scripts/kv_quality_torch.py",
+            "examples/quantize_model_torch.py", "examples/serve_torch.py",
+            "examples/http_server_torch.py", "examples/train_graph_torch.py",
+            "examples/graph_transformer_torch.py"} <= rel
 
 
 def test_import_scan_covers_the_gpt2_slice():

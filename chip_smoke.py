@@ -82,8 +82,9 @@ version):
      timed against the default geometry at b = 1, where dispatch reads
      them (its card checked against this one), and the host cost of the
      table's lookup, and
-     i. LLAMA_13B Q4_0 (full width and depth, random weights quantized on
-        the card) at b = 1: a 16-token prompt and 8 greedy tokens, every
+     i. LLAMA_13B Q4_0 (full width, depth cut to 20 of 40 layers for the
+        script's time limit, random weights quantized on the card) at
+        b = 1: a 16-token prompt and 8 greedy tokens, every
         b = 1 matmul through matmul_q4_0 at the tune table's geometry for
         its shape (the prompt's at the default); held against the plain
         route; tok/s and roofline share;
@@ -113,8 +114,9 @@ version):
         requests, one through a registered prefix, and two at temperature
         0.8), held to the same engine on plain forwards on decided tokens,
         then an HTTP check;
-     l. GPT-J 6B Q4_0 (full width and depth, random weights quantized on
-        the card) at b = 1: the 16-token prompt (kernel 1's multi-row
+     l. GPT-J 6B Q4_0 (full width, depth cut to 8 of 28 layers for the
+        script's time limit, random weights quantized on the card) at
+        b = 1: the 16-token prompt (kernel 1's multi-row
         instance, flash at D 256) and 32 greedy tokens, held against the
         plain route, then the whole tree through a GGUF (leaves bit for bit,
         the same tokens);
@@ -134,6 +136,29 @@ version):
         train_graph_torch, graph_transformer_torch), OpProfiler over path
         h2's decoder graph against Graph.compute, and GgmlAdam through
         opt_torch against opt_adam on Test2's objectives;
+     p. the parallel layer, its ranks spawned by torch.multiprocessing
+        (a failed rank or a collective past its timeout fails the script):
+        p0 a world of one on NCCL, tiny Llama Q4_0 and GPT-2 Q8_0 through
+        the TP forward, the TP engine, forward_pp, the ring route, the
+        overlapped matmul and the sharded checkpoint pair, bit for bit
+        against the unsharded port where the route is the same function;
+        p1 a world of two on gloo, both ranks on this card, path a's
+        Llama-7B Q4_0: (a) Engine(mesh=) at model 2 (bf16 head-major cache
+        of the rank's 16 KV heads, 4 slots, 8 requests of 16 + 16 greedy
+        tokens), both ranks' tokens equal and held to the single-device
+        engine's on decided tokens, (b) llama.forward_pp over 2 stages of
+        16 blocks (B 4, S 128, 2 microbatches) against the single-device
+        forward, (c) a 256-token prefill under GGML_TPU_ATTN=ring over a
+        2-rank sequence mesh against the legacy route, (d) the overlapped
+        row-parallel matmul at w_down's shape against mul_mat on one
+        device; each part's launches on each rank, host and device ms a
+        step and the bytes gloo staged; p2 worlds of four on gloo (data 2
+        x model 2): parallel.dryrun.run(4) beside
+        examples/train_distributed_torch.py for 20 steps (two worlds at
+        once), then the example resumed from its sharded checkpoint for 5
+        by a new world started as the dry run ends (p0 beside it), which
+        waits for the first run's end; p1's single-device reference runs
+        while p1's ranks start;
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound; kernel 2 also
      at path g's shape, both entries, softcap, and its backward against
@@ -149,6 +174,9 @@ version):
      for path e in Q4_K and Q6_K; path g's step time, tokens/s, share of
      the bf16 dense peak and peak memory (paths k and l print their rates,
      tokens a round, device ms a round and roofline share in phase 4).
+
+``python3 chip_smoke.py --parallel`` builds the kernels and runs phase p
+alone (a development mode).
 
 ``python3 chip_smoke.py --attention-timing [ROOT]`` and ``--matmul-timing
 [ROOT]`` are development modes with no compatibility promise: they build
@@ -229,8 +257,12 @@ def gpt2_configs():
     return [("124M", gpt2.GPT2_124M), ("774M", gpt2.GPT2_774M)]
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A progress line, with the seconds since the script started."""
+    print(f"{msg} [t {time.perf_counter() - _T0:.0f} s]", flush=True)
 
 
 def emit(obj):
@@ -3392,6 +3424,7 @@ def time_attention(dev, gen):
 # three dequant-matmul sources and the tune table that dispatch reads, and
 # path i (LLAMA_13B Q4_0 decode through the tuned dispatch) ------------------
 I_NEW = 8  # path i: greedy tokens after the 16-token prompt
+I_LAYERS = 20  # path i's depth (of 40): cut for the script's time limit
 GEOM_SHAPES = [("7b_wo", 4096, 4096), ("ragged", 4099, 11008)]
 GEOM_B = (1, 5)
 
@@ -3630,13 +3663,15 @@ def q4_0_weight_bytes(cfg):
 
 
 def run_13b_path(dev, gen, smi):
-    """Path i: LLAMA_13B (full width and depth) Q4_0 at b = 1, random N(0,
-    1/k) weights quantized on the card one tensor at a time, a bf16
-    head-major cache of n_ctx rows: a 16-token prompt and I_NEW greedy
-    tokens, counters reset just before; every matmul through matmul_q4_0
-    at the tune table's geometry for its shape (else the default), flash
-    for the prompt; held against the plain route; then tok/s and the share
-    of the HBM roofline."""
+    """Path i: LLAMA_13B (full width, depth cut to I_LAYERS of its 40
+    layers) Q4_0 at b = 1, random N(0, 1/k) weights quantized on the card
+    one tensor at a time, a bf16 head-major cache of n_ctx rows: a 16-token
+    prompt and I_NEW greedy tokens, counters reset just before; every
+    matmul through matmul_q4_0 at the tune table's geometry for its shape
+    (else the default), flash for the prompt; held against the plain
+    route; then tok/s and the share of the HBM roofline."""
+    import dataclasses
+
     import torch
 
     from ggmlsharp_tpu_torch import GType, kernels
@@ -3644,7 +3679,7 @@ def run_13b_path(dev, gen, smi):
     from ggmlsharp_tpu_torch.kernels.matmul_q import geometry
     from ggmlsharp_tpu_torch.models import llama
 
-    cfg = llama.LLAMA_13B
+    cfg = dataclasses.replace(llama.LLAMA_13B, n_layer=I_LAYERS)
     t0 = time.perf_counter()
     params = llama.synthetic_params(cfg, GType.Q4_0, seed=SEED)
     torch.cuda.synchronize()
@@ -3678,7 +3713,8 @@ def run_13b_path(dev, gen, smi):
     dec = measure_decode(llama, cfg, params, prompt, wbytes,
                          cfg.n_head_kv * cfg.head_dim, n_warm=4, n_lat=16,
                          n_win=16, n_prof=4)
-    dec.update(config="LLAMA_13B Q4_0", card=smi, load_s=load_s,
+    dec.update(config=f"LLAMA_13B Q4_0, {I_LAYERS} layers", card=smi,
+               load_s=load_s,
                geometry_by_shape=shapes, vs_plain_max_abs_err=errs)
     emit({"llama_13b_decode": dec})
     del params
@@ -4528,6 +4564,7 @@ K3_SAMPLED = 2              # k3's requests at temperature 0.8
 GPTJ_SHAPES = [("wq_wk_wv_wo", 4096, 4096, 4 * 28), ("fc_in", 16384, 4096, 28),
                ("fc_out", 4096, 16384, 28), ("lm_head", 50400, 4096, 1)]
 GPTJ_B = (1, SPEC_K + 1)   # a decode token; a verify's rows
+GPTJ_LAYERS = 8  # path l's depth (of 28): cut for the script's time limit
 
 
 @contextlib.contextmanager
@@ -4974,7 +5011,8 @@ def dense_as(tree, dtype):
 
 
 def run_gptj_path(smi, dev, gen):
-    """Path l: GPT-J 6B (full width and depth) Q4_0 at b = 1, random weights
+    """Path l: GPT-J 6B (full width, depth cut to GPTJ_LAYERS of its 28
+    layers: the script's time limit) Q4_0 at b = 1, random weights
     quantized on the card from the seed, bf16 head-major cache: the 16-token
     prompt (kernel 1's multi-row instance, flash at D 256) and N_NEW greedy
     tokens (kernel 1 at one row, einsum attention), counters reset just
@@ -4990,7 +5028,7 @@ def run_gptj_path(smi, dev, gen):
     from ggmlsharp_tpu_torch.io import load_gguf_gptj, save_gguf_gptj
     from ggmlsharp_tpu_torch.models import gptj, sampling
 
-    cfg = gptj.GPTJ_6B
+    cfg = dataclasses.replace(gptj.GPTJ_6B, n_layer=GPTJ_LAYERS)
     t0 = time.perf_counter()
     params = gptj.synthetic_params(cfg, GType.Q4_0, seed=SEED)
     torch.cuda.synchronize()
@@ -5060,7 +5098,8 @@ def run_gptj_path(smi, dev, gen):
     del loaded
     dec = measure_decode(gptj, cfg, params, prompt, wbytes, cfg.n_embd,
                          n_lat=16, n_win=32, n_prof=4)
-    res = {"card": smi, "config": "GPTJ_6B", "format": "Q4_0",
+    res = {"card": smi, "config": f"GPTJ_6B, {GPTJ_LAYERS} layers",
+           "format": "Q4_0",
            "synthetic_s": make_s, "peak_mem_gb": peak / 1e9,
            "vs_plain_max_abs_err": errs, "gguf_bytes": size,
            "gguf_write_gb_s": size / write_s / 1e9,
@@ -5482,6 +5521,576 @@ def run_examples_n(smi, repo, dev, gen, workdir):
     return out, counts
 
 
+# --- the parallel layer (phase p): p0 a world of 1 on NCCL, p1 a world of 2
+# on gloo (both ranks on cuda:0) at Llama-7B's full width, p2 a world of 4
+# on gloo (data 2 x model 2) -------------------------------------------------
+
+P_SLOTS, P_REQS, P_PLEN, P_NEW = 4, 8, 16, 16  # p1(a)'s engine
+P_PP_B, P_PP_S, P_PP_MICRO = 4, 128, 2         # p1(b)'s forward_pp
+P_RING_S = 256                                 # p1(c)'s prefill
+P_OV_N, P_OV_K, P_OV_B = 4096, 11008, 2        # p1(d): w_down's shape
+P_TOL = 0.1  # path a's bar under the path's settings (Q8_0 activations)
+P_WO_TOL = 1e-3  # weight-only, f32 cache: f32 summation order alone
+P_TINY_LLAMA = dict(n_vocab=256, n_ctx=128, n_embd=256, n_head=4,
+                    n_head_kv=2, n_layer=2, n_ff=512)
+P_TINY_GPT2 = dict(n_vocab=512, n_ctx=128, n_embd=256, n_head=4, n_layer=2)
+
+
+def p_prompts(cfg, n, plen, seed=11):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.n_vocab, size=plen).tolist()
+            for _ in range(n)]
+
+
+def p_serve(cfg, params, prompts, n_new, slots, mesh=None, model=None,
+            cache_dtype=None):
+    """The engine over ``prompts`` (greedy, n_new tokens each): tokens by
+    request, seconds, the engine's stats and its cache's KV heads."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.serving import Engine, Request
+
+    model = model or llama
+    eng = Engine(model.forward, cfg, params, batch_slots=slots, max_len=64,
+                 cache_dtype=cache_dtype or torch.bfloat16, int8_kv=False,
+                 mesh=mesh)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(id=i, prompt=p, max_new_tokens=n_new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    return ([r.out_tokens for r in res], time.perf_counter() - t0,
+            eng.stats(), eng.cache.k[0].shape[1])
+
+
+def p_time(fn, n):
+    """Host ms a call of fn over n calls, the card synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def p_part(name, fn, steps, prof_step=None, n_prof=2):
+    """Run a part of p1 once, the ranks met at a barrier and the launch
+    counters and gloo's staged bytes reset just before: its result, and the
+    part's launches, host ms a step, staged bytes; then the device ms a
+    step from a torch.profiler window of prof_step (every rank profiles at
+    once)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.parallel import comm
+
+    torch.cuda.synchronize()
+    torch.distributed.barrier()  # no rank's wait for another is timed
+    comm.reset_staged()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rec = {"launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+           "host_ms_per_step": host_ms, "steps": steps,
+           "staged_bytes": comm.STAGED["bytes"]}
+    if prof_step is not None:
+        with torch.no_grad():
+            prof = profile_steps(prof_step, n_prof)
+        rec["device_ms_per_step"] = prof["device_ms_per_step"]
+        rec["traced_step_ms"] = prof["traced_step_ms"]
+    return out, rec
+
+
+def p_rows_err(y, y0, w, x):
+    """max |y - y0| over sum_k |x_k| |w_nk| (the b = 1 vs multi-row bar,
+    ROADMAP §3: at most 1e-5)."""
+    from ggmlsharp_tpu_torch.quant.quantize import dequantize
+
+    scale = x.abs() @ dequantize(w).abs().T
+    return float(((y - y0).abs() / scale).max())
+
+
+def p_env(name, value):
+    @contextlib.contextmanager
+    def ctx():
+        old = os.environ.get(name)
+        os.environ[name] = value
+        try:
+            yield
+        finally:
+            os.environ.pop(name, None)
+            if old is not None:
+                os.environ[name] = old
+    return ctx()
+
+
+def p_tree_equal(a, b):
+    """Leaves of two trees bit for bit (QTensor planes, tensors, None)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.quant.formats import QTensor
+
+    if isinstance(a, dict):
+        keys = set(a) - {"tp"}
+        return keys == set(b) - {"tp"} and all(p_tree_equal(a[k], b[k])
+                                               for k in keys)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(p_tree_equal, a, b))
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, QTensor):
+        return isinstance(b, QTensor) and a.shape == b.shape and all(
+            torch.equal(a.planes[k], b.planes[k]) for k in a.planes)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def p_save(wd, name, rank, obj):
+    import torch
+
+    torch.save(obj, os.path.join(wd, f"{name}_{rank}.pt"))
+
+
+def _p0_rank(rank, wd):
+    """p0: a world of one on NCCL. Tiny Llama Q4_0 and GPT-2 Q8_0 through
+    every entry point, each against the unsharded port: bit for bit where
+    the route is the same function (one rank's sum is an identity)."""
+    import shutil
+
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels, ops
+    from ggmlsharp_tpu_torch.io import checkpoint as ck
+    from ggmlsharp_tpu_torch.models import gpt2, llama
+    from ggmlsharp_tpu_torch.models.llama import random_q4_0
+    from ggmlsharp_tpu_torch.parallel import (gpt2_param_specs, kv_cache_spec,
+                                              llama_param_specs, make_mesh,
+                                              set_sequence_mesh, shard_cache,
+                                              shard_params)
+    from ggmlsharp_tpu_torch.parallel.mesh import make_axis_mesh
+    from ggmlsharp_tpu_torch.parallel.overlap import \
+        row_parallel_mul_mat_overlapped
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kernels.reset_launches()
+    res = {"backend": torch.distributed.get_backend()}
+    mesh = make_mesh(model=1)
+    cfg = llama.LlamaConfig(**P_TINY_LLAMA)
+    params = llama.synthetic_q4_0_params(cfg, seed=1, mlp_fused=False,
+                                         layer_fused=False)
+    sp = shard_params(params, llama_param_specs(), mesh)
+    gen = torch.Generator(dev).manual_seed(2)
+    toks = torch.randint(0, cfg.n_vocab, (2, 16), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pos = torch.arange(16, dtype=torch.int32, device=dev)[None].expand(2, 16)
+    with torch.no_grad():
+        want, _ = llama.forward(params, cfg, toks, llama.new_cache(cfg, 2),
+                                pos)
+        got, _ = llama.forward(sp, cfg, toks, shard_cache(
+            llama.new_cache(cfg, 2), kv_cache_spec(), mesh), pos)
+    res["llama_forward_bit_equal"] = bool(torch.equal(got, want))
+    prompts = p_prompts(cfg, 4, 8)
+    a = p_serve(cfg, params, prompts, 6, 2)[0]
+    b = p_serve(cfg, sp, prompts, 6, 2, mesh=mesh)[0]
+    res["llama_engine_tokens_equal"] = a == b
+    pipe = make_axis_mesh("pipe", 1)
+    with torch.no_grad():
+        # one microbatch: the stage's calls have the sequential loop's shapes
+        got = llama.forward_pp(params, cfg, toks, pipe, n_micro=1)
+        x = ops.get_rows(params["tok_embd"], toks).to(params["norm"].dtype)
+        for blk in params["blocks"]:
+            x = llama._apply_block(blk, x, cfg).to(torch.float32)
+        x = llama._rms(x, params["norm"], cfg.rms_eps)
+        want = ops.mul_mat(params["output"], x.to(torch.float32),
+                           quantize_acts=False)[..., :cfg.n_vocab]
+    res["forward_pp_bit_equal"] = bool(torch.equal(got, want))
+    seq = make_axis_mesh("seq", 1)
+    with p_env("GGML_TPU_QUANT_ACTS", "0"), torch.no_grad():
+        with p_env("GGML_TPU_ATTN", "legacy"):
+            want, _ = llama.forward(params, cfg, toks, llama.new_cache(
+                cfg, 2, dtype=torch.float32), pos)
+        set_sequence_mesh(seq, "seq")
+        try:
+            with p_env("GGML_TPU_ATTN", "ring"):
+                got, _ = llama.forward(params, cfg, toks, llama.new_cache(
+                    cfg, 2, dtype=torch.float32), pos)
+        finally:
+            set_sequence_mesh(None)
+    res["ring_vs_legacy_max_abs_err"] = float((got - want).abs().max())
+    w = random_q4_0(256, 1024, gen, dev)
+    xo = torch.randn((2, 1024), generator=gen, device=dev)
+    res["overlap_bit_equal"] = bool(torch.equal(
+        row_parallel_mul_mat_overlapped(w, xo, mesh),
+        ops.mul_mat(w, xo, quantize_acts=False)))
+    path = os.path.join(wd, "p0_ck")
+    ck.save_checkpoint_sharded(path, sp, step=3)
+    like, step = ck.load_checkpoint_sharded(path, like=sp)
+    whole, _ = ck.load_checkpoint_sharded(path)
+    res["checkpoint_bit_equal"] = (step == 3 and p_tree_equal(like, sp)
+                                   and p_tree_equal(whole, params))
+    shutil.rmtree(path, ignore_errors=True)
+    gcfg = gpt2.GPT2Config(**P_TINY_GPT2)
+    gp = gpt2.synthetic_q8_0_params(gcfg, seed=1)
+    sg = shard_params(gp, gpt2_param_specs(), mesh)
+    gt = toks % gcfg.n_vocab
+    with torch.no_grad():
+        want, _ = gpt2.forward(gp, gcfg, gt, gpt2.new_cache(gcfg, 2), pos)
+        got, _ = gpt2.forward(sg, gcfg, gt, shard_cache(
+            gpt2.new_cache(gcfg, 2), kv_cache_spec(), mesh), pos)
+    # the sharded route takes the matmul pair where the whole model takes
+    # the fused GELU MLP kernel: path c's bar
+    res["gpt2_forward_max_abs_err"] = float((got - want).abs().max())
+    res["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    p_save(wd, "p0", rank, res)
+
+
+def _p1_rank(rank, wd):
+    """p1: a world of 2 on gloo, both ranks on cuda:0, Llama-7B Q4_0 at full
+    width and depth (synthetic_q4_0_params, seed 0, path a's weights):
+    (a) TP serving, (b) forward_pp, (c) the ring prefill, (d) the
+    overlapped matmul at w_down's shape."""
+    import torch
+
+    from ggmlsharp_tpu_torch import ops
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.models.llama import random_q4_0
+    from ggmlsharp_tpu_torch.parallel import (kv_cache_spec,
+                                              llama_param_specs, make_mesh,
+                                              set_sequence_mesh, shard_cache,
+                                              shard_params)
+    from ggmlsharp_tpu_torch.parallel.mesh import make_axis_mesh
+    from ggmlsharp_tpu_torch.parallel.overlap import \
+        row_parallel_mul_mat_overlapped
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    marks = {}  # seconds from the rank's start to the end of each stage
+    cfg = llama.LLAMA_7B
+    full = llama.synthetic_q4_0_params(cfg, seed=SEED, mlp_fused=False,
+                                       layer_fused=False)
+    mesh = make_mesh(model=2)
+    res = {"backend": torch.distributed.get_backend(), "marks": marks}
+    marks["params"] = time.perf_counter() - t0
+
+    # (a) TP serving: P_REQS requests of P_PLEN + P_NEW greedy tokens
+    sp = shard_params(full, llama_param_specs(), mesh)
+    torch.cuda.synchronize()
+    marks["sharded"] = time.perf_counter() - t0
+    (toks, secs, st, heads), rec = p_part(
+        "a", lambda: p_serve(cfg, sp, p_prompts(cfg, P_REQS, P_PLEN), P_NEW,
+                             P_SLOTS, mesh=mesh), 1)
+    marks["a_served"] = time.perf_counter() - t0
+    cache = shard_cache(llama.new_cache(cfg, P_SLOTS, max_len=64),
+                        kv_cache_spec(), mesh)
+    tok = torch.zeros((P_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((P_SLOTS, 1), 20, dtype=torch.int32, device=dev)
+    prof = profile_steps(lambda: llama.forward(sp, cfg, tok, cache, pos,
+                                               prefix_bound=64), 2)
+    steps = st["decode_forwards"] + st["prefill_dispatches"]
+    rec.update(host_ms_per_step=rec["host_ms_per_step"] / steps,
+               steps=steps, seconds=secs, tokens_per_s=sum(map(len, toks))
+               / secs, device_ms_per_decode_step=prof["device_ms_per_step"],
+               decode_step_traced_ms=prof["traced_step_ms"],
+               cache_heads=heads, tokens=toks, stats=st)
+    res["a"] = rec
+    del sp, cache
+    marks["a"] = time.perf_counter() - t0
+
+    # (b) forward_pp: 2 stages of 16 blocks, B 4, S 128, 2 microbatches,
+    # against the single-device fresh-cache forward (rank 0)
+    pipe = make_axis_mesh("pipe", 2)
+    g = torch.Generator(dev).manual_seed(21)
+    ptoks = torch.randint(0, cfg.n_vocab, (P_PP_B, P_PP_S), generator=g,
+                          device=dev, dtype=torch.int32)
+    ppos = torch.arange(P_PP_S, dtype=torch.int32,
+                        device=dev)[None].expand(P_PP_B, P_PP_S)
+    own = dict(full, blocks=[b if i // (cfg.n_layer // 2) == rank else None
+                             for i, b in enumerate(full["blocks"])])
+    errs = {}
+    # weight-only in mm_dot "f32" (compare_plain's rule): the f32 function
+    for acts, tol, mode in (("1", P_TOL, "bf16"), ("0", P_WO_TOL, "f32")):
+        with p_env("GGML_TPU_QUANT_ACTS", acts), mm_dot(mode), \
+                torch.no_grad():
+            lg, rec = p_part("b", lambda: llama.forward_pp(
+                own, cfg, ptoks, pipe, n_micro=P_PP_MICRO), 1,
+                prof_step=(lambda: llama.forward_pp(
+                    own, cfg, ptoks, pipe, n_micro=P_PP_MICRO))
+                if acts == "1" else None, n_prof=1)
+            if rank == 0:
+                want, _ = llama.forward(full, cfg, ptoks, llama.new_cache(
+                    cfg, P_PP_B, dtype=torch.float32, max_len=P_PP_S), ppos)
+                errs[acts] = float((lg - want).abs().max())
+                if not errs[acts] <= tol:
+                    raise SystemExit(f"p1 (b): forward_pp vs the single-device "
+                                     f"forward {errs[acts]} > {tol} "
+                                     f"(activations {acts})")
+        if acts == "1":
+            res["b"] = rec
+    res["b"]["max_abs_err"] = errs
+    marks["b"] = time.perf_counter() - t0
+
+    # (c) a P_RING_S-token prefill under GGML_TPU_ATTN=ring over a 2-rank
+    # sequence mesh, against the legacy route (rank 0), f32 caches
+    seq = make_axis_mesh("seq", 2)
+    rtoks = torch.randint(0, cfg.n_vocab, (1, P_RING_S), generator=g,
+                          device=dev, dtype=torch.int32)
+    rpos = torch.arange(P_RING_S, dtype=torch.int32, device=dev)[None]
+
+    def prefill():
+        return llama.forward(full, cfg, rtoks, llama.new_cache(
+            cfg, 1, dtype=torch.float32, max_len=P_RING_S), rpos)[0]
+
+    errs = {}
+    for acts, tol, mode in (("1", P_TOL, "bf16"), ("0", P_WO_TOL, "f32")):
+        with p_env("GGML_TPU_QUANT_ACTS", acts), mm_dot(mode), \
+                torch.no_grad():
+            set_sequence_mesh(seq, "seq")
+            try:
+                with p_env("GGML_TPU_ATTN", "ring"):
+                    lg, rec = p_part("c", prefill, 1, n_prof=1,
+                                     prof_step=prefill if acts == "1"
+                                     else None)
+            finally:
+                set_sequence_mesh(None)
+            if rank == 0:
+                with p_env("GGML_TPU_ATTN", "legacy"):
+                    want = prefill()
+                errs[acts] = float((lg - want).abs().max())
+                if not errs[acts] <= tol:
+                    raise SystemExit(f"p1 (c): ring vs legacy {errs[acts]} > "
+                                     f"{tol} (activations {acts})")
+        if acts == "1":
+            res["c"] = rec
+    res["c"]["max_abs_err"] = errs
+    del full, own
+    marks["c"] = time.perf_counter() - t0
+
+    # (d) the overlapped row-parallel matmul at w_down's shape against
+    # mul_mat on one device
+    w = random_q4_0(P_OV_N, P_OV_K, g, dev)
+    x = torch.randn((P_OV_B, P_OV_K), generator=g, device=dev)
+
+    def ov():
+        return row_parallel_mul_mat_overlapped(w, x, mesh)
+
+    with torch.no_grad():
+        y, rec = p_part("d", ov, 1, prof_step=ov, n_prof=3)
+        rec["host_ms_per_step_warm"] = p_time(ov, 5)
+        y0 = ops.mul_mat(w, x, quantize_acts=False)
+    rec["rows_err_over_sum"] = p_rows_err(y, y0, w, x)
+    if not rec["rows_err_over_sum"] <= 1e-5:
+        raise SystemExit(f"p1 (d): overlapped matmul {rec}")
+    res["d"] = rec
+    marks["d"] = time.perf_counter() - t0
+    p_save(wd, "p1", rank, res)
+
+
+def _p1_reference(cfg, params):
+    """p1(a)'s reference: the single-device engine's tokens (kernels) over
+    the requests the ranks serve."""
+    prompts = p_prompts(cfg, P_REQS, P_PLEN)
+    toks, secs, st, _ = p_serve(cfg, params, prompts, P_NEW, P_SLOTS)
+    return prompts, toks, secs
+
+
+def _p2_resume_rank(rank, wd, repo, argv):
+    """p2's restart: a new world of four, started while the first run
+    trains (its start-up hidden behind it), that waits for the first run
+    to end and then resumes the example from its newest sharded
+    checkpoint (the example's train(), as its main runs it on each
+    rank)."""
+    import torch
+
+    marker = os.path.join(wd, "p2_first_done")
+    deadline = time.monotonic() + 900
+    while not os.path.exists(marker):
+        if time.monotonic() > deadline:
+            raise SystemExit("p2: the first run did not end")
+        time.sleep(0.05)
+    with open(marker) as f:
+        status = f.read()
+    if status != "ok":
+        raise SystemExit(f"p2: the first run failed ({status}); no resume")
+    ex = load_example(repo, "train_distributed_torch")
+    ex.train(ex.parse(argv), torch.device("cuda", 0))
+
+
+def run_parallel_phase(smi, repo, cfg, params):
+    """Phase p: p1, then p2 with p0 beside it, the ranks spawned with
+    torch.multiprocessing (the kernels built in this process first). A
+    failed rank, or a collective past the process group's timeout, fails
+    the script. What overlaps reports no rate: p1's single-device
+    reference runs here while p1's ranks start; p0 (checks only) runs
+    once the dry run has ended, beside the example's first run, as the
+    restart's ranks start."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.parallel import dryrun
+    from ggmlsharp_tpu_torch.parallel.distributed import spawn
+
+    def timed(fn, *a, **kw):
+        t = time.perf_counter()
+        fn(*a, **kw)
+        return time.perf_counter() - t
+
+    t_all = time.perf_counter()
+    wd = tempfile.mkdtemp(prefix="chip_smoke_p_")
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            ranks = pool.submit(
+                timed, spawn, _p1_rank, 2, args=(wd,), backend="gloo",
+                device="cuda:0", init_file=os.path.join(wd, "p1_store"),
+                timeout_s=600)
+            prompts, want, ref_secs = _p1_reference(cfg, params)
+            ranks_secs = ranks.result()
+        p1 = [torch.load(os.path.join(wd, f"p1_{r}.pt"), weights_only=False)
+              for r in range(2)]
+        got = [r["a"]["tokens"] for r in p1]
+        if got[0] != got[1]:
+            raise SystemExit(f"p1 (a): the ranks' tokens differ: {got}")
+        partings = {}
+        dev = torch.device("cuda")
+        for i, (g, w, pr) in enumerate(zip(got[0], want, prompts)):
+            if len(g) != P_NEW:
+                raise SystemExit(f"p1 (a): request {i} gave {g}")
+            if g == w:
+                continue
+            # the plain route's top-2 gaps along the reference's tokens
+            gp = plain_gaps(llama, cfg, params,
+                            torch.tensor([pr], dtype=torch.int32, device=dev),
+                            torch.tensor([w], dtype=torch.int32,
+                                         device=dev)).tolist()
+            j, decided = held_to_reference(g, w, gp, P_TOL)
+            if decided:
+                raise SystemExit(f"p1 (a): request {i} parts from the "
+                                 f"single-device engine at {j} (decided)")
+            partings[i] = {"at": j, "plain_gap": gp[j]}
+        for r in p1:
+            if r["backend"] != "gloo" or not r["a"]["launches"].get(
+                    "matmul_q4_0_mma") or not r["a"]["launches"].get(
+                    "flash_attn"):
+                raise SystemExit(f"p1: launches {r}")
+        secs = time.perf_counter() - t0
+        summary = {"card": smi, "seconds": secs, "ranks_seconds": ranks_secs,
+                   "reference_engine_seconds": ref_secs,
+                   "tokens_equal_across_ranks": True,
+                   "partings_from_single_device": partings,
+                   "tokens_equal_single_device": sum(
+                       a == b for g, w in zip(got[0], want)
+                       for a, b in zip(g, w)),
+                   "tokens": P_REQS * P_NEW,
+                   "rank_marks_s": [r["marks"] for r in p1],
+                   "ranks": [{k: {kk: vv for kk, vv in r[k].items()
+                                  if kk not in ("tokens", "stats")}
+                              for k in "abcd"} for r in p1]}
+        emit({"parallel_p1": summary})
+        for part in "abcd":
+            log(f"[4/6] p1 ({part}) " + "; ".join(
+                f"rank {i}: launches {r[part]['launches']}, host "
+                f"{r[part]['host_ms_per_step']:.2f} ms a step, device "
+                f"{r[part].get('device_ms_per_step', r[part].get('device_ms_per_decode_step'))}"
+                f" ms a step, gloo staged {r[part]['staged_bytes']} B"
+                for i, r in enumerate(p1)) + f" ({smi})")
+        log(f"[4/6] p1. world of 2 on gloo (cuda:0) in {secs:.1f} s (the "
+            f"ranks {ranks_secs:.1f} s, rank 0's stages end at "
+            f"{ {k: round(v, 1) for k, v in p1[0]['marks'].items()} } s): TP "
+            f"serving {P_REQS} x {P_PLEN}+{P_NEW} tokens equal on both ranks, "
+            f"{summary['tokens_equal_single_device']}/{P_REQS * P_NEW} equal "
+            f"to the single-device engine (partings {partings}); forward_pp "
+            f"err {p1[0]['b']['max_abs_err']}; ring err "
+            f"{p1[0]['c']['max_abs_err']}; overlap rows err over sum "
+            f"{p1[0]['d']['rows_err_over_sum']:.3g}")
+
+        ex = load_example(repo, "train_distributed_torch")
+        ckd = os.path.join(wd, "train_ck")
+        argv = ["--world", "4", "--data", "2", "--ckpt", ckd]
+        marker = os.path.join(wd, "p2_first_done")
+
+        def first_run():
+            status = "failed"
+            try:
+                ex.main(argv + ["--steps", "20"])
+                status = "ok"
+            finally:  # the restart's ranks wait for this either way
+                with open(marker, "w") as f:
+                    f.write(status)
+
+        def p0_world():
+            spawn(_p0_rank, 1, args=(wd,), backend="nccl", device="cuda:0",
+                  init_file=os.path.join(wd, "p0_store"), timeout_s=600)
+
+        # the dry run's world and the example's beside it (two worlds of
+        # four ranks on the card at once); once the dry run ends, p0 and
+        # the restart's world start, the restart waiting for the first run
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            first = pool.submit(timed, first_run)
+            t_dry = pool.submit(timed, dryrun.run, 4).result()
+            resumed = pool.submit(
+                timed, spawn, _p2_resume_rank, 4,
+                args=(wd, repo, argv + ["--steps", "5"]), backend="gloo",
+                device="cuda:0", init_file=os.path.join(wd, "p2r_store"))
+            t_p0 = timed(p0_world)
+            t_ex = first.result()
+            t_res = resumed.result()
+        p0 = torch.load(os.path.join(wd, "p0_0.pt"), weights_only=False)
+        p0["seconds"] = t_p0
+        emit({"parallel_p0": p0})
+        bad = [k for k in ("llama_forward_bit_equal",
+                           "llama_engine_tokens_equal",
+                           "forward_pp_bit_equal", "overlap_bit_equal",
+                           "checkpoint_bit_equal") if not p0[k]]
+        if bad or p0["backend"] != "nccl" \
+                or not p0["ring_vs_legacy_max_abs_err"] <= P_WO_TOL \
+                or not p0["gpt2_forward_max_abs_err"] <= P_TOL:
+            raise SystemExit(f"p0: {bad or p0}")
+        log(f"[4/6] p0. world of 1 on NCCL in {t_p0:.1f} s: TP "
+            f"forward, TP engine, forward_pp, overlap and the sharded "
+            f"checkpoint bit-equal to the unsharded port; ring vs legacy "
+            f"{p0['ring_vs_legacy_max_abs_err']:.3g}; GPT-2 TP route vs "
+            f"whole {p0['gpt2_forward_max_abs_err']:.3g}; launches "
+            f"{p0['launches']}")
+        ck_dirs = sorted(os.listdir(ckd))
+        if ck_dirs != ["step_00000010", "step_00000020", "step_00000025"]:
+            raise SystemExit(f"p2: checkpoints {ck_dirs}")
+        p2 = {"dryrun_seconds": t_dry, "example_seconds": t_ex,
+              "resume_world_seconds": t_res,
+              "seconds": time.perf_counter() - t0, "checkpoints": ck_dirs}
+        emit({"parallel_p2": p2})
+        log(f"[4/6] p2. worlds of 4 on gloo (data 2 x model 2): "
+            f"dryrun.run(4) in {t_dry:.1f} s beside "
+            f"train_distributed_torch --steps 20 in {t_ex:.1f} s, then "
+            f"resumed from its sharded checkpoint for 5 by a new world "
+            f"({t_res:.1f} s from its spawn, p0's beside it); p2 "
+            f"{p2['seconds']:.1f} s: {ck_dirs}; phase p "
+            f"{time.perf_counter() - t_all:.1f} s")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    counts = dict.fromkeys(__import__(
+        "ggmlsharp_tpu_torch.kernels", fromlist=["LAUNCHES"]).LAUNCHES, 0)
+    for part in "abcd":
+        for k, v in p1[0][part]["launches"].items():
+            counts[k] += v
+    for k, v in p0["launches"].items():
+        counts[k] += v
+    return {"p0": p0, "p1": summary, "p2": p2}, counts
+
+
 def main(argv):
     import torch
 
@@ -5537,6 +6146,16 @@ def main(argv):
                             ("gpt2_layer", LAYER_NO_MATVEC)])
     log(f"[2/6] built {sorted(logs) or 'nothing new'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if argv[:1] == ["--parallel"]:  # phase p alone (development mode)
+        cfg = llama.LLAMA_7B
+        params = llama.synthetic_q4_0_params(cfg, seed=SEED, mlp_fused=False,
+                                             layer_fused=False)
+        run_parallel_phase(smi, repo, cfg, params)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -5776,7 +6395,8 @@ def main(argv):
         f"gain {tcheck['gain_b1_median']:.3f} at b = 1; lookup "
         f"{tcheck['lookup_us_per_launch']:.2f} us a launch")
     i_dec, i_counts = run_13b_path(dev, gen, smi)
-    log(f"[4/6] i. LLAMA_13B Q4_0: {PROMPT_LEN}-token prompt + {I_NEW} "
+    log(f"[4/6] i. LLAMA_13B Q4_0 ({I_LAYERS} layers): {PROMPT_LEN}-token "
+        f"prompt + {I_NEW} "
         f"greedy tokens, launches {i_counts}; geometry by shape "
         f"{ {k: v['geometry'] for k, v in i_dec['geometry_by_shape'].items()} }"
         f"; {i_dec['window_tok_s']:.2f} tok/s, {i_dec['roofline_share']:.4f} "
@@ -5838,7 +6458,8 @@ def main(argv):
         f"({smi})")
     t0 = time.perf_counter()
     l_res, l_counts = run_gptj_path(smi, dev, gen)
-    log(f"[4/6] l. GPT-J 6B Q4_0 in {time.perf_counter() - t0:.1f} s: "
+    log(f"[4/6] l. GPT-J 6B Q4_0 ({GPTJ_LAYERS} layers) in "
+        f"{time.perf_counter() - t0:.1f} s: "
         f"{PROMPT_LEN}-token prompt + {N_NEW} greedy tokens, vs plain max "
         f"abs err {l_res['vs_plain_max_abs_err']}, GGUF "
         f"{l_res['gguf_bytes'] / 1e9:.3f} GB round trip bit-equal, tokens "
@@ -5884,6 +6505,12 @@ def main(argv):
         f"{list(n_res['optax_compat'])}; launches "
         f"{({k: v for k, v in n_counts.items() if v})}; m + n {t_mn:.1f} s "
         f"({smi})")
+
+    # p. the parallel layer: p0 (NCCL, one rank), p1 (gloo, two ranks on
+    # this card, Llama-7B Q4_0: TP serving, forward_pp, the ring prefill,
+    # the overlapped matmul), p2 (gloo, four ranks: the dry run, the
+    # distributed training example and its resume)
+    p_res, p_counts = run_parallel_phase(smi, repo, cfg, params)
 
     q4_row, q4_mma_row = time_q4_0(dev, gen, counts)
     q4_row["max_abs_err"] = q4_mma_row["max_abs_err"] = q4_err
@@ -5989,6 +6616,7 @@ def main(argv):
         row["launches_chain_m1"] = m1_counts[name]
         row["launches_kvq_m2"] = m2_counts[name]
         row["launches_examples_n"] = n_counts[name]
+        row["launches_parallel_p"] = p_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, mcounts, kq_counts,
@@ -5998,7 +6626,8 @@ def main(argv):
                                                  j_counts, k1_counts,
                                                  k2_counts, k3_counts,
                                                  l_counts, m1_counts,
-                                                 m2_counts, n_counts)
+                                                 m2_counts, n_counts,
+                                                 p_counts)
                                if c[name])
     log("[5/6] kernel times taken")
 
@@ -6097,7 +6726,8 @@ def main(argv):
             "launches_gpt2_int8_serving", "launches_tuning_probes",
             "launches_llama_13b", "launches_io_j", "launches_spec_k1",
             "launches_spec_k2", "launches_spec_k3", "launches_gptj_l",
-            "launches_chain_m1", "launches_kvq_m2", "launches_examples_n")
+            "launches_chain_m1", "launches_kvq_m2", "launches_examples_n",
+            "launches_parallel_p")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
              "heads_layout_bf16_ms",  # kernel 3's second lane map
              "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",

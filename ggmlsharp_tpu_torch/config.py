@@ -33,7 +33,8 @@ class RuntimeConfig:
     use_kernels: bool | None = None
     mm_dot: str = field(
         default_factory=lambda: os.environ.get("GGML_TPU_MM_DOT", "bf16"))
-    # parallelism defaults (carried as values; the parallel layer comes later)
+    # parallelism defaults: the mesh dims make_mesh takes (carried as
+    # values, as in the JAX package)
     mesh_data: int | None = field(
         default_factory=lambda: _opt_int("GGML_TPU_MESH_DATA"))
     mesh_model: int | None = field(
@@ -159,6 +160,7 @@ def attn_impl() -> str:
     models.common.cached_attention. auto: flash for more than 8 queries,
     grouped einsum otherwise; einsum: grouped einsum always; flash: the
     flash kernel always, decode included; legacy: materialised scores over
-    the whole cache with K/V repeated to the query heads; ring (sequence-
-    parallel prefill) waits for the parallel layer and raises."""
+    the whole cache with K/V repeated to the query heads; ring: a prefill
+    from an empty cache through parallel.ring_attention over the sequence
+    mesh set_sequence_mesh installed (einsum without one)."""
     return os.environ.get("GGML_TPU_ATTN", "auto")

@@ -24,6 +24,7 @@ import torch
 
 from ..models import kv_cache as kvc
 from ..models import sampling
+from ..models.common import cache_heads
 from ..quant.formats import QTensor
 
 
@@ -47,8 +48,7 @@ def _chunk_logits(forward, cfg, params, inp):
     """Log-softmax of the logits of inp [B, S] over a fresh head-major f32
     cache of S rows, positions 0..S-1."""
     B, S = inp.shape
-    cache = kvc.init_cache(cfg.n_layer, B,
-                           getattr(cfg, "n_head_kv", cfg.n_head), S,
+    cache = kvc.init_cache(cfg.n_layer, B, cache_heads(cfg, params), S,
                            cfg.head_dim, dtype=torch.float32,
                            device=inp.device)
     positions = torch.arange(S, dtype=torch.int32,

@@ -133,11 +133,83 @@ def flash(q, k, v, npast, plain: bool = False, softcap: float = 0.0):
     return flash_attention_cached(q, k, v, npast, softcap=softcap)
 
 
-def _ring_unported():
-    raise NotImplementedError(
-        "GGML_TPU_ATTN=ring (sequence-parallel prefill over a device mesh) "
-        "waits for the port's parallel layer; use auto, einsum, flash or "
-        "legacy")
+def ring_prefill(q, k, v, n_rep: int):
+    """GGML_TPU_ATTN=ring's prefill from an empty prefix: attention of q
+    over the S fresh rows k, v through ``parallel.ring_attention`` over the
+    installed sequence mesh, or None when no mesh is installed or its size
+    does not divide S (the caller's route runs then, as in the JAX
+    package)."""
+    from ..parallel.ring_attention import ring_attention, sequence_mesh
+
+    mesh, seq_axis = sequence_mesh()
+    if mesh is None or q.shape[2] % mesh.size(
+            mesh.mesh_dim_names.index(seq_axis)):
+        return None
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=1)
+        v = v.repeat_interleave(n_rep, dim=1)
+    return ring_attention(q, k, v, mesh, seq_axis=seq_axis, causal=True)
+
+
+def tp_sharding(params):
+    """The Sharding a sharded tree carries (parallel.sharding.shard_params),
+    None for a whole tree."""
+    return params.get("tp") if isinstance(params, dict) else None
+
+
+def tp_axis(params):
+    """The tensor-parallel Axis a sharded tree carries, None for a whole
+    tree."""
+    s = tp_sharding(params)
+    return s.axis if s is not None else None
+
+
+def local_count(n: int, tp, what: str) -> int:
+    """n over the model axis (heads, n_ff); a ValueError names the count
+    when the axis does not divide it."""
+    if tp is None:
+        return n
+    if n % tp.size:
+        raise ValueError(f"{what} = {n} is not divisible by the model axis "
+                         f"of {tp.size}")
+    return n // tp.size
+
+
+def cache_heads(cfg, params) -> int:
+    """The KV heads a cache for ``params`` holds: the local ones of a
+    sharded tree."""
+    return local_count(getattr(cfg, "n_head_kv", cfg.n_head),
+                       tp_axis(params), "n_head_kv")
+
+
+def embed_rows(table, tokens, tp):
+    """get_rows of a vocabulary table; for a vocab-sharded table, the rows
+    this rank holds (zero elsewhere) summed over the model axis, which
+    gives every rank the whole rows exactly."""
+    if tp is None:
+        return ops.get_rows(table, tokens)
+    from ..parallel import comm
+
+    n = table.shape[0]
+    loc = tokens.long() - tp.rank * n
+    inside = (loc >= 0) & (loc < n)
+    rows = ops.get_rows(table, loc.clamp(0, n - 1))
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return comm.reduce_from(rows.to(torch.float32), tp).to(rows.dtype)
+
+
+def vocab_logits(w, x, n_vocab: int, tp, plain: bool = False):
+    """x·wᵀ through a vocabulary table (a QTensor with no activation
+    rounding, or a tensor), gathered over the model axis for a vocab-sharded
+    table and cut to n_vocab (the padding rows), as f32."""
+    from ..parallel import comm
+
+    x = comm.copy_to(x, tp)
+    if isinstance(w, QTensor):
+        y = linear(w, x, quantize_acts=False, plain=plain)
+    else:
+        y = ops.mul_mat_f(w, x)
+    return comm.gather_from(y, tp, -1)[..., :n_vocab].to(torch.float32)
 
 
 def cached_attention(q, k_new, v_new, cache, layer, positions,
@@ -153,21 +225,26 @@ def cached_attention(q, k_new, v_new, cache, layer, positions,
     JAX package: auto (default) runs the flash kernel for S > 8 and grouped
     einsum for S <= 8; einsum always grouped einsum; flash always the flash
     kernel, decode included; legacy materialised scores over the whole
-    cache with K/V repeated to the query heads; ring raises (it waits for
-    the parallel layer). attn_softcap caps the scores of every route.
+    cache with K/V repeated to the query heads; ring: a prefill (S > 1)
+    through ``parallel.ring_attention`` over the fresh rows when a sequence
+    mesh is installed (from an empty cache, as in the JAX package), the
+    einsum route otherwise. attn_softcap caps the scores of every route
+    but ring's.
     Differentiable in q, k_new and v_new on a float cache (the rows reach
     the attention through the in-place write). Returns ([B, Hq, S, D] in
     q's dtype, cache)."""
     impl = attn_impl()
-    if impl == "ring":
-        _ring_unported()
-    if impl not in ("auto", "einsum", "flash", "legacy"):
+    if impl not in ("auto", "einsum", "flash", "legacy", "ring"):
         raise ValueError(f"GGML_TPU_ATTN={impl!r}: auto, einsum, flash, "
                          f"legacy or ring")
     cache = kvc.update_layer(cache, layer, k_new, v_new, positions)
     softcap = attn_softcap or 0.0
     S = q.shape[2]
     T = cache.max_len
+    if impl == "ring" and S > 1:
+        out = ring_prefill(q, k_new, v_new, n_rep)
+        if out is not None:
+            return out.to(q.dtype), cache
     if impl == "legacy":
         k_all, v_all = kvc.read_layer(cache, layer, q.dtype)
         if n_rep > 1:
@@ -203,12 +280,12 @@ def lm_loss(forward, cfg, params, toks, plain: bool = False):
     run over a fresh head-major cache of S rows in the parameters' dtype
     (``wpe`` or ``norm``), positions 0..S-1 and ``prefix_bound=S``.
     forward: gpt2.forward or llama.forward with float parameters.
-    Differentiable in every parameter."""
+    Differentiable in every parameter; a sharded tree (parallel.sharding)
+    gives every rank the whole loss and the gradients of its shards."""
     inp, tgt = toks[:, :-1], toks[:, 1:]
     B, S = inp.shape
     dtype = (params["wpe"] if "wpe" in params else params["norm"]).dtype
-    cache = kvc.init_cache(cfg.n_layer, B,
-                           getattr(cfg, "n_head_kv", cfg.n_head), S,
+    cache = kvc.init_cache(cfg.n_layer, B, cache_heads(cfg, params), S,
                            cfg.head_dim, dtype=dtype, device=toks.device)
     positions = torch.arange(S, dtype=torch.int32,
                              device=toks.device)[None].expand(B, S)

@@ -39,8 +39,9 @@ from ..ops import gelu, get_rows, mul_mat_f, norm
 from ..quant.formats import QTensor
 from ..quant.quantize import quantize
 from . import kv_cache as kvc
-from .common import (_einsum_attention, cached_attention, flash, linear,
-                     merge_heads, split_heads)
+from .common import (_einsum_attention, cached_attention, embed_rows, flash,
+                     linear, local_count, merge_heads, split_heads, tp_axis,
+                     vocab_logits)
 from .common import params_from_jax  # noqa: F401  (gpt2.params_from_jax)
 
 
@@ -203,19 +204,15 @@ def _layer_norm(x, p, eps):
     return norm(x.to(torch.float32), eps=eps).to(x.dtype) * p["g"] + p["b"]
 
 
-def _embed(params, cfg: GPT2Config, tokens, positions):
+def _embed(params, cfg: GPT2Config, tokens, positions, tp=None):
     pos = positions.long().clamp(0, cfg.n_ctx - 1)
-    return get_rows(params["wte"], tokens) + params["wpe"][pos]
+    return embed_rows(params["wte"], tokens, tp) + params["wpe"][pos]
 
 
-def _lm_head(params, cfg: GPT2Config, x, plain):
+def _lm_head(params, cfg: GPT2Config, x, plain, tp=None):
     wte = params["wte"]
-    if isinstance(wte, QTensor):
-        logits = linear(wte, x.to(torch.float32), quantize_acts=False,
-                        plain=plain)
-    else:
-        logits = mul_mat_f(wte, x.to(wte.dtype))
-    return logits[..., :cfg.n_vocab].to(torch.float32)
+    x = x.to(torch.float32 if isinstance(wte, QTensor) else wte.dtype)
+    return vocab_logits(wte, x, cfg.n_vocab, tp, plain)
 
 
 def _forward_layer_decode(params, cfg: GPT2Config, tokens, cache, positions,
@@ -263,11 +260,20 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: GPT2Config,
     return merge_heads(a).to(q.dtype), cache
 
 
-def _mlp(blk, h, out_dtype, plain):
+def _mlp(blk, h, out_dtype, plain, tp=None):
     """gelu(h·fcᵀ + b)·projᵀ + b: the fused kernel up to 64 rows of a Q8_0
-    pair (cast to the stream's dtype), two linears otherwise."""
+    pair (cast to the stream's dtype), two linears otherwise; with a
+    sharded tree (never the fused kernel) the projection is summed over the
+    model axis before its bias."""
+    from ..parallel import comm
+
     m = blk["mlp"]
     rows = h.numel() // h.shape[-1]
+    if tp is not None:
+        h = gelu(linear(m["c_fc_w"], comm.copy_to(h, tp), m["c_fc_b"],
+                        plain=plain))
+        return comm.reduce_from(linear(m["c_proj_w"], h, plain=plain),
+                                tp) + m["c_proj_b"]
     if mlp_fuse_supported(m["c_fc_w"], m["c_proj_w"], rows):
         ff = _ff_ref if plain else flash_ff_q8
         return ff(m["c_fc_w"], m["c_fc_b"], m["c_proj_w"], m["c_proj_b"], h,
@@ -286,34 +292,55 @@ def forward(params, cfg: GPT2Config, tokens, cache: kvc.KVCache, positions,
     cached_prefix: whether a multi-token call over a flat cache attends the
     cache's live prefix (needed when positions do not start at 0) or flash
     over its own fresh K/V; None means the former for S <= 8.
-    plain: run the kernels' plain PyTorch versions (a card run's reference)."""
+    plain: run the kernels' plain PyTorch versions (a card run's reference).
+
+    A tree sharded by ``parallel.shard_params`` runs tensor-parallel with
+    the global ``cfg`` over a head-major cache of the local heads: the
+    vocab-sharded ``wte`` (embedding rows summed over ``model``, the
+    logits gathered), each rank's heads of c_attn, and c_proj (attention
+    and MLP) summed over ``model`` before its bias; the fused kernels are
+    not taken."""
+    from ..parallel import comm
+
     B, S = tokens.shape
-    if (cache.is_flat and not cache.int8 and S == 1 and B == 1
-            and layer_fused()
+    tp = tp_axis(params)
+    if tp is not None and cache.is_flat:
+        raise ValueError("a sharded tree runs over a head-major cache "
+                         "(parallel.shard_cache); the flat layout is "
+                         "single-device")
+    if (tp is None and cache.is_flat and not cache.int8 and S == 1
+            and B == 1 and layer_fused()
             and all(block_fusable(b) for b in params["blocks"])):
         return _forward_layer_decode(params, cfg, tokens, cache, positions,
                                      prefix_bound, plain)
-    x = _embed(params, cfg, tokens, positions).to(params["wpe"].dtype)
+    H = local_count(cfg.n_head, tp, "n_head")
+    E = H * cfg.head_dim
+    x = _embed(params, cfg, tokens, positions, tp).to(params["wpe"].dtype)
     widx = kvc.flat_index(cache, positions) if cache.is_flat else None
     for i, blk in enumerate(params["blocks"]):
         attn = blk["attn"]
-        h = _layer_norm(x, blk["ln_1"], cfg.ln_eps)
+        h = comm.copy_to(_layer_norm(x, blk["ln_1"], cfg.ln_eps), tp)
         qkv = linear(attn["c_attn_w"], h, attn["c_attn_b"], plain=plain)
-        q, k, v = qkv.split(cfg.n_embd, dim=-1)
+        q, k, v = qkv.split(E, dim=-1)
         if cache.is_flat:
             a, cache = _flat_attention(q, k, v, cache, i, positions, widx,
                                        cfg, prefix_bound, cached_prefix, plain)
         else:
             a, cache = cached_attention(
-                split_heads(q, cfg.n_head), split_heads(k, cfg.n_head),
-                split_heads(v, cfg.n_head), cache, i, positions,
-                prefix_bound=prefix_bound, plain=plain)
+                split_heads(q, H), split_heads(k, H), split_heads(v, H),
+                cache, i, positions, prefix_bound=prefix_bound, plain=plain)
             a = merge_heads(a)
-        x = x + linear(attn["c_proj_w"], a, attn["c_proj_b"], plain=plain)
+        if tp is None:
+            x = x + linear(attn["c_proj_w"], a, attn["c_proj_b"],
+                           plain=plain)
+        else:
+            x = x + (comm.reduce_from(linear(attn["c_proj_w"], a,
+                                             plain=plain), tp)
+                     + attn["c_proj_b"])
         h = _layer_norm(x, blk["ln_2"], cfg.ln_eps)
-        x = x + _mlp(blk, h, x.dtype, plain)
+        x = x + _mlp(blk, h, x.dtype, plain, tp)
     x = _layer_norm(x, params["ln_f"], cfg.ln_eps)
-    return _lm_head(params, cfg, x, plain), kvc.advance(cache, S)
+    return _lm_head(params, cfg, x, plain, tp), kvc.advance(cache, S)
 
 
 def new_cache(cfg: GPT2Config, batch: int, dtype=torch.bfloat16,

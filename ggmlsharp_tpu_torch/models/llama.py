@@ -44,7 +44,9 @@ from ..kernels.mlp_fused import (_MAX_FUSED_B, _ff_silu_ref, flash_ff_silu_q4,
                                  mlp_silu_fuse_supported)
 from ..quant.quantize import quantize
 from . import kv_cache as kvc
-from .common import cached_attention, linear, merge_heads, split_heads
+from .common import (_einsum_attention, cached_attention, embed_rows,
+                     linear, local_count, merge_heads, ring_prefill,
+                     split_heads, tp_axis, vocab_logits)
 from .common import params_from_jax  # noqa: F401  (llama.params_from_jax)
 
 
@@ -367,10 +369,10 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
     Returns [B, S, Hq * D] in q's dtype."""
     from ..kernels.attn_decode import _decode_ref, flash_decode_flat
     from ..kernels.config import mm_dot_mode
-    from .common import _einsum_attention, _ring_unported, flash
+    from .common import flash
 
     B, Hq, S, hd = q.shape
-    Hkv = cfg.n_head_kv
+    Hkv = k.shape[1]
     kn, vn = merge_heads(k), merge_heads(v)
     cache = kvc.update_layer_flat(cache, i, kn, vn, positions, widx)
     t = cache.max_len if prefix_bound is None else \
@@ -398,11 +400,15 @@ def _flat_attention(q, k, v, cache, i, positions, widx, cfg: LlamaConfig,
         else:
             a = _einsum_attention(q, k_all, v_all, positions, Hq // Hkv)
     else:
-        # prefill from the empty prefix over this call's fresh K/V (the JAX
-        # package's GGML_TPU_ATTN=ring would shard it over a sequence mesh)
+        # prefill from the empty prefix over this call's fresh K/V: the
+        # sequence-parallel ring when GGML_TPU_ATTN=ring and a sequence
+        # mesh is installed, flash otherwise
+        a = None
         if config.attn_impl() == "ring":
-            _ring_unported()
-        a = flash(q, k.contiguous(), v.contiguous(), positions[:, 0], plain)
+            a = ring_prefill(q, k, v, Hq // Hkv)
+        if a is None:
+            a = flash(q, k.contiguous(), v.contiguous(), positions[:, 0],
+                      plain)
     return merge_heads(a).to(q.dtype)
 
 
@@ -444,30 +450,47 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
     cache's live prefix (True: needed when positions do not start at 0, as
     in prefix-cached or chunked prefill) or flash over its own fresh K/V
     only (False); None means True for S <= 8.
-    plain: run the kernels' plain PyTorch versions (a card run's reference)."""
-    if (cache.is_flat and tokens.shape == (1, 1) and not cache.int8
-            and all("layer_fused" in b for b in params["blocks"])):
+    plain: run the kernels' plain PyTorch versions (a card run's reference).
+
+    A tree sharded by ``parallel.shard_params`` runs tensor-parallel with
+    the global ``cfg``: local heads and n_ff, the vocab-sharded embedding
+    (the rows a rank holds, summed over ``model``), one sum over ``model``
+    after wo and one after w_down, and the logits gathered over ``model``.
+    Its cache is head-major with the local KV heads (shard_cache)."""
+    from ..parallel import comm
+
+    tp = tp_axis(params)
+    if tp is None and cache.is_flat and tokens.shape == (1, 1) \
+            and not cache.int8 \
+            and all("layer_fused" in b for b in params["blocks"]):
         return _forward_llama_fused(params, cfg, tokens, cache, positions,
                                     prefix_bound, plain)
-    x = get_rows(params["tok_embd"], tokens)
+    if tp is not None and cache.is_flat:
+        raise ValueError("a sharded tree runs over a head-major cache "
+                         "(parallel.shard_cache); the flat layout is "
+                         "single-device")
+    Hq = local_count(cfg.n_head, tp, "n_head")
+    Hkv = local_count(cfg.n_head_kv, tp, "n_head_kv")
+    F = local_count(cfg.n_ff, tp, "n_ff")
+    x = embed_rows(params["tok_embd"], tokens, tp)
     x = x.to(params["norm"].dtype)
-    n_rep = cfg.n_head // cfg.n_head_kv
+    n_rep = Hq // Hkv
     B, S = tokens.shape
     hd = cfg.head_dim
-    nq = cfg.n_head * hd
-    nkv = cfg.n_head_kv * hd
+    nq = Hq * hd
+    nkv = Hkv * hd
     widx = kvc.flat_index(cache, positions) if cache.is_flat else None
     for i, blk in enumerate(params["blocks"]):
-        h = _rms(x, blk["attn_norm"], cfg.rms_eps)
+        h = comm.copy_to(_rms(x, blk["attn_norm"], cfg.rms_eps), tp)
         if "wqkv" in blk:  # the fused layout (fuse_params)
             qkv = linear(blk["wqkv"], h, plain=plain)
-            q = split_heads(qkv[..., :nq], cfg.n_head)
-            k = split_heads(qkv[..., nq:nq + nkv], cfg.n_head_kv)
-            v = split_heads(qkv[..., nq + nkv:], cfg.n_head_kv)
+            q = split_heads(qkv[..., :nq], Hq)
+            k = split_heads(qkv[..., nq:nq + nkv], Hkv)
+            v = split_heads(qkv[..., nq + nkv:], Hkv)
         else:  # init_params' separate weights (the training layout)
-            q = split_heads(linear(blk["wq"], h, plain=plain), cfg.n_head)
-            k = split_heads(linear(blk["wk"], h, plain=plain), cfg.n_head_kv)
-            v = split_heads(linear(blk["wv"], h, plain=plain), cfg.n_head_kv)
+            q = split_heads(linear(blk["wq"], h, plain=plain), Hq)
+            k = split_heads(linear(blk["wk"], h, plain=plain), Hkv)
+            v = split_heads(linear(blk["wv"], h, plain=plain), Hkv)
         q = rope(q, positions, mode=cfg.rope_mode, base=cfg.rope_base)
         k = rope(k, positions, mode=cfg.rope_mode, base=cfg.rope_base)
         if cache.is_flat:
@@ -479,31 +502,36 @@ def forward(params, cfg: LlamaConfig, tokens, cache: kvc.KVCache, positions,
                                         prefix_bound=prefix_bound,
                                         plain=plain)
             a = merge_heads(a)
-        x = x + linear(blk["wo"], a, plain=plain)
-
+        x = x + comm.reduce_from(linear(blk["wo"], a, plain=plain), tp)
         h = _rms(x, blk["ffn_norm"], cfg.rms_eps)
-        if "mlp_fused" in blk and B * S <= _MAX_FUSED_B:
-            ff = _ff_silu_ref if plain else flash_ff_silu_q4
-            x = x + ff(blk["w_gate_up"], blk["w_down"], h,
-                       quantize_acts=config.quantize_activations()
-                       ).to(x.dtype)
-        elif "w_gate_up" in blk:
-            gu = linear(blk["w_gate_up"], h, plain=plain)
-            gate, up = gu[..., :cfg.n_ff], gu[..., cfg.n_ff:]
-            x = x + linear(blk["w_down"], silu(gate) * up, plain=plain)
-        else:
-            gate = silu(linear(blk["w_gate"], h, plain=plain))
-            x = x + linear(blk["w_down"],
-                           gate * linear(blk["w_up"], h, plain=plain),
-                           plain=plain)
-
+        x = x + _mlp(blk, comm.copy_to(h, tp), F, x.dtype, plain, tp)
     x = _rms(x, params["norm"], cfg.rms_eps)
     w_out = params["output"] if params["output"] is not None \
         else params["tok_embd"]
-    logits = linear(w_out, x.to(torch.float32), quantize_acts=False,
-                    plain=plain)
-    logits = logits[..., :cfg.n_vocab]  # drop the padding rows
-    return logits.to(torch.float32), kvc.advance(cache, S)
+    logits = vocab_logits(w_out, x.to(torch.float32), cfg.n_vocab, tp, plain)
+    return logits, kvc.advance(cache, S)
+
+
+def _mlp(blk, h, F, out_dtype, plain, tp=None, fused=True):
+    """The SwiGLU MLP of a block (its output summed over the model axis of
+    a sharded tree): the fused kernel for a marked block of up to 64 rows
+    (never a shard: shard_params drops the mark), else the matmuls."""
+    from ..parallel import comm
+
+    if fused and "mlp_fused" in blk \
+            and h.numel() // h.shape[-1] <= _MAX_FUSED_B:
+        ff = _ff_silu_ref if plain else flash_ff_silu_q4
+        return ff(blk["w_gate_up"], blk["w_down"], h,
+                  quantize_acts=config.quantize_activations()).to(out_dtype)
+    if "w_gate_up" in blk:
+        gu = linear(blk["w_gate_up"], h, plain=plain)
+        y = linear(blk["w_down"], silu(gu[..., :F]) * gu[..., F:],
+                   plain=plain)
+    else:
+        gate = silu(linear(blk["w_gate"], h, plain=plain))
+        y = linear(blk["w_down"], gate * linear(blk["w_up"], h, plain=plain),
+                   plain=plain)
+    return comm.reduce_from(y, tp)
 
 
 def new_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
@@ -519,3 +547,55 @@ def new_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
                           max_len or cfg.n_ctx, cfg.head_dim, dtype=dtype,
                           int8=int8, flat=flat,
                           device=resolve_device(device))
+
+
+def _apply_block(blk, h_in, cfg: LlamaConfig, plain: bool = False):
+    """One llama block over a fresh sequence (positions 0..S-1, no cache):
+    the stage function of pipeline-parallel scoring. The cached forward's
+    math (rms, qkv, rope, causal attention, wo residual, rms, SwiGLU
+    residual) with einsum attention and no fused MLP, as in the JAX
+    package."""
+    B, S = h_in.shape[0], h_in.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h_in.device)[None].expand(B, S)
+    hd = cfg.head_dim
+    nq, nkv = cfg.n_head * hd, cfg.n_head_kv * hd
+    h = _rms(h_in, blk["attn_norm"], cfg.rms_eps)
+    if "wqkv" in blk:
+        qkv = linear(blk["wqkv"], h, plain=plain)
+        q = split_heads(qkv[..., :nq], cfg.n_head)
+        k = split_heads(qkv[..., nq:nq + nkv], cfg.n_head_kv)
+        v = split_heads(qkv[..., nq + nkv:], cfg.n_head_kv)
+    else:
+        q = split_heads(linear(blk["wq"], h, plain=plain), cfg.n_head)
+        k = split_heads(linear(blk["wk"], h, plain=plain), cfg.n_head_kv)
+        v = split_heads(linear(blk["wv"], h, plain=plain), cfg.n_head_kv)
+    q = rope(q, positions, mode=cfg.rope_mode, base=cfg.rope_base)
+    k = rope(k, positions, mode=cfg.rope_mode, base=cfg.rope_base)
+    a = _einsum_attention(q, k, v, positions, cfg.n_head // cfg.n_head_kv)
+    x = h_in + linear(blk["wo"], merge_heads(a).to(q.dtype), plain=plain)
+    h = _rms(x, blk["ffn_norm"], cfg.rms_eps)
+    return x + _mlp(blk, h, cfg.n_ff, x.dtype, plain, fused=False)
+
+
+def forward_pp(params, cfg: LlamaConfig, tokens, mesh, axis: str = "pipe",
+               n_micro: int | None = None, plain: bool = False):
+    """Pipeline-parallel scoring forward: the L blocks split into
+    contiguous stages over the mesh dim ``axis`` (one a rank), the batch
+    into microbatches, activations sent stage to stage
+    (parallel.pipeline.pipeline_forward, GPipe). No KV cache: every row
+    attends its own fresh sequence from position 0. Each rank runs only
+    its stage's blocks, kept as they are in the list (entries of other
+    stages may be None); nothing is stacked. Returns logits f32
+    [B, S, n_vocab] on every rank, the sequential forward's. cfg.n_layer
+    must divide by the stage count, B by n_micro."""
+    from ..parallel.pipeline import pipeline_forward
+
+    x = get_rows(params["tok_embd"], tokens).to(params["norm"].dtype)
+    x = pipeline_forward(lambda blk, h: _apply_block(blk, h, cfg, plain),
+                         params["blocks"], x, mesh, axis=axis,
+                         n_micro=n_micro)
+    x = _rms(x, params["norm"], cfg.rms_eps)
+    w_out = params["output"] if params["output"] is not None \
+        else params["tok_embd"]
+    return vocab_logits(w_out, x.to(torch.float32), cfg.n_vocab, None, plain)

@@ -1,5 +1,6 @@
 """Continuous-batching serving over the port's models (port of
-ggmlsharp_tpu/serving, speculative mode included, without a device mesh)."""
+ggmlsharp_tpu/serving: speculative mode, and tensor-parallel serving over a
+mesh, included)."""
 from .engine import Engine, Request
 from .server import EngineServer
 

@@ -18,6 +18,7 @@ from collections import defaultdict
 import torch
 
 from ..models import kv_cache as kvc
+from ..models.common import cache_heads
 from .common import _bucket
 
 
@@ -77,8 +78,7 @@ class AdmissionMixin:
             n_real[j] = len(t)
         slots = self._upload(torch.tensor([s for _, s in grp]))
         n_real = self._upload(n_real)
-        sub = kvc.init_cache(cfg.n_layer, G,
-                             getattr(cfg, "n_head_kv", cfg.n_head), bucket,
+        sub = kvc.init_cache(cfg.n_layer, G, cache_heads(cfg, params), bucket,
                              cfg.head_dim, dtype=c.k[0].dtype,
                              int8=c.int8, flat=c.is_flat, device=self.device)
         positions = torch.arange(bucket, dtype=torch.int32,

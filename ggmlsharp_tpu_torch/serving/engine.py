@@ -1,5 +1,5 @@
 """Continuous-batching inference engine (port of
-ggmlsharp_tpu/serving/engine.py without a device mesh).
+ggmlsharp_tpu/serving/engine.py; ``mesh=`` serves tensor-parallel).
 
 Slot-based design:
   * B fixed slots share one batched KV cache; per-slot lengths live in
@@ -29,6 +29,12 @@ n_head_kv * head_dim is a multiple of 128; otherwise (every GPT-2, narrow
 llamas) it is head-major, as in the JAX engine. A plain engine (the
 kernels' plain versions on any device) is
 ``Engine(functools.partial(llama.forward, plain=True), ...)``.
+
+Under a mesh (``Engine(..., mesh=)``, params from ``parallel.shard_params``)
+every rank of the mesh runs this engine with the same requests: the same
+schedule, the same seed, the same tokens. The cache is head-major with the
+rank's own KV heads (the draft's too), as the JAX engine forces; the
+``data`` dim replicates.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from ..config import batch_slots as _batch_slots_default
 from ..config import int8_kv as _int8_kv_default
 from ..device import resolve_device
 from ..models import kv_cache as kvc
+from ..models.common import cache_heads, tp_axis, tp_sharding
 from ..models.sampling import _recent_window, length_bucket, sample_token
 from ..models.speculative import make_spec_round, make_spec_round_sampled
 from .admission import AdmissionMixin
@@ -68,7 +75,7 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
                  int8_kv: bool | None = None, rng_seed: int = 0,
                  draft_forward=None, draft_cfg=None, draft_params=None,
                  spec_k: int = 4, prefill_chunk: int | None = None,
-                 multi_step: int | None = None, device=None):
+                 multi_step: int | None = None, device=None, mesh=None):
         """forward(params, cfg, tokens, cache, positions, prefix_bound=,
         cached_prefix=) is the model (llama.forward); params live on
         ``device`` (the card unless the caller asks for the CPU).
@@ -98,7 +105,26 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         eos still cut a request inside a window (the extra rows in its
         freed slot are dead). A slot with an on_token callback (a
         streaming client) forces single steps, for per-token latency and
-        cancel()."""
+        cancel().
+
+        A tree sharded by parallel.shard_params serves tensor-parallel:
+        every rank of its mesh builds this engine, submits the same
+        requests and runs it; the cache holds the rank's KV heads,
+        head-major. mesh: the JAX API's spelling, optional; when given, it
+        must be the mesh the params (and draft_params) were sharded on."""
+        if mesh is not None:
+            for name, tree in (("params", params), ("draft_params",
+                                                    draft_params)):
+                if tree is None:
+                    continue
+                s = tp_sharding(tree)
+                if s is None:
+                    raise ValueError(
+                        f"Engine(mesh=): {name} must be sharded on the mesh "
+                        "(parallel.shard_params)")
+                if s.mesh != mesh:
+                    raise ValueError(f"Engine(mesh=): {name} were sharded "
+                                     f"on another mesh ({s.mesh})")
         self.forward = forward
         self.cfg = cfg
         self.params = params
@@ -106,7 +132,7 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         if batch_slots is None:
             batch_slots = _batch_slots_default()
         self.B = batch_slots
-        self._n_head_kv = getattr(cfg, "n_head_kv", cfg.n_head)
+        self._n_head_kv = cache_heads(cfg, params)
         self.max_len = max_len or cfg.n_ctx
         if int8_kv is None:
             int8_kv = _int8_kv_default()
@@ -114,7 +140,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         self.cache = kvc.init_cache(
             cfg.n_layer, batch_slots, self._n_head_kv, self.max_len,
             cfg.head_dim, dtype=cache_dtype, int8=int8_kv,
-            flat=_flat_layout(cfg, int8_kv), device=self.device)
+            flat=tp_axis(params) is None and _flat_layout(cfg, int8_kv),
+            device=self.device)
         self.slots: list[Request | None] = [None] * batch_slots
         self.pending: list[Request] = []
         self.finished: list[Request] = []
@@ -148,9 +175,11 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
             self.spec_k = spec_k
             self.d_cache = kvc.init_cache(
                 self.d_cfg.n_layer, batch_slots,
-                getattr(self.d_cfg, "n_head_kv", self.d_cfg.n_head),
+                cache_heads(self.d_cfg, draft_params),
                 self.max_len, self.d_cfg.head_dim, dtype=cache_dtype,
-                int8=int8_kv, flat=_flat_layout(self.d_cfg, int8_kv),
+                int8=int8_kv,
+                flat=(tp_axis(draft_params) is None
+                      and _flat_layout(self.d_cfg, int8_kv)),
                 device=self.device)
             self._spec_round = make_spec_round(
                 forward, cfg, draft_forward, self.d_cfg, spec_k)

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..models import kv_cache as kvc
+from ..models.common import cache_heads
 from .common import _bucket
 
 
@@ -19,7 +20,7 @@ class PrefixCacheMixin:
         fwd, cfg, params, proto = self._model(draft)
         bucket = min(_bucket(plen), self.max_len)
         cache = kvc.init_cache(
-            cfg.n_layer, 1, getattr(cfg, "n_head_kv", cfg.n_head), bucket,
+            cfg.n_layer, 1, cache_heads(cfg, params), bucket,
             cfg.head_dim,
             dtype=proto.k[0].dtype if not proto.int8 else torch.bfloat16,
             int8=proto.int8, flat=proto.is_flat, device=self.device)

@@ -224,10 +224,16 @@ def test_attn_impl_matches_jax(attn_models, monkeypatch, mode):
 
 
 def test_attn_ring_raises(attn_models, monkeypatch):
-    _, _, tcfg, tp = attn_models
+    """GGML_TPU_ATTN=ring runs since the parallel layer is ported: with no
+    sequence mesh installed its prefill takes the other routes, as in the
+    JAX package (tests/test_torch_parallel_models.py holds it over a mesh);
+    a value that names no route still raises."""
+    jcfg, raw, tcfg, tp = attn_models
     monkeypatch.setenv("GGML_TPU_ATTN", "ring")
-    with pytest.raises(NotImplementedError, match="parallel layer"):
-        _port_logits(tcfg, tp)
+    jpre, jstep = _jax_logits(jcfg, raw)
+    ppre, pstep = _port_logits(tcfg, tp)
+    np.testing.assert_allclose(ppre, jpre, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(pstep, jstep, rtol=0, atol=1e-4)
     monkeypatch.setenv("GGML_TPU_ATTN", "sliding")
     with pytest.raises(ValueError, match="GGML_TPU_ATTN"):
         _port_logits(tcfg, tp)

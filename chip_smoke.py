@@ -70,9 +70,14 @@ version):
         through optim.opt_fn (the cached flash entry's Function in every
         layer, its backward a dense recompute);
      h. the graph layer: the reference's Test3 (4096 x 256 L-BFGS fit) by
-        ggml_opt on the card, then a graph-API decoder (E 768, 12 heads, S
-        128, 2 layers) with flash_attn: forward, backward graph against the
-        plain route, and 4 Adam steps of opt() (the uncached flash entry);
+        ggml_opt on the card (opt_lbfgs_jit: one probe captured into a CUDA
+        graph, replayed in batches) and by the host loop (opt_lbfgs_host)
+        on the same data, the two held to each other; Rosenbrock by
+        opt_lbfgs_jit on the card against its CPU run under each line
+        search; a fun_vg with a host sync, whose capture must raise; then a
+        graph-API decoder (E 768, 12 heads, S 128, 2 layers) with
+        flash_attn: forward, backward graph against the plain route, and 4
+        Adam steps of opt() (the uncached flash entry);
      and GPT-2 124M behind serving.Engine with an INT8 (head-major) cache,
      against the same engine's plain run; then the tuning path:
      the TPU probes' counterparts (probes/: the three Q4_UNPACK builds of
@@ -3022,16 +3027,44 @@ def graph_decoder(B, leaf, weights, S, H, plain):
     return tok, B.mul_mat(wte, B.rms_norm(x)), ws
 
 
-def run_graph_test3(dev, smi):
-    """Path h1, Test3, the reference's largest workload: the 4096 x 256
-    L2-regularised linear classifier through the ggml_* API (a context on
-    the card) and ggml_opt with L-BFGS; every weight within 1e-2 of +-1."""
+@contextlib.contextmanager
+def spy(mod, name, out, sync=False):
+    """mod.name wrapped for the block: each call appends (its return value,
+    its seconds) to ``out``; sync=True brackets the call with
+    torch.cuda.synchronize() so that the seconds hold its device work."""
+    import torch
+
+    orig = getattr(mod, name)
+
+    def wrapped(*a, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(*a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        out.append((r, time.perf_counter() - t0))
+        return r
+
+    setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def test3_fit(form, F, lab, smi):
+    """Test3 built through the ggml_* API (a context on the card) and fitted
+    by L-BFGS: form "jit" through ggml_opt, which takes opt_lbfgs_jit (one
+    probe captured into a CUDA graph, replayed in batches) by opt_lbfgs's
+    dispatch; form "host" through opt() with a per-iteration callback,
+    which takes opt_lbfgs_host. Returns (the fitted weights, a record)."""
     import torch
 
     from ggmlsharp_tpu_torch import GType, compat
     from ggmlsharp_tpu_torch.graph import builders as B, set_data
+    from ggmlsharp_tpu_torch.optim import lbfgs, opt
 
-    F, lab = test3_data(TEST3_NP, TEST3_NF)
     ctx = compat.ggml_init()
     Fl = set_data(compat.ggml_new_tensor_2d(ctx, GType.F32, TEST3_NF,
                                             TEST3_NP), F)
@@ -3044,21 +3077,159 @@ def run_graph_test3(dev, smi):
                            1.0 / TEST3_NP),
         B.scale_const(compat.ggml_sum(ctx, compat.ggml_sqr(ctx, w)), 1e-5))
     prm = compat.ggml_opt_default_params(compat.GGML_OPT_LBFGS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = compat.ggml_opt(ctx, prm, f)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    w_true = torch.where(torch.arange(TEST3_NF, device=dev) < TEST3_NF // 2,
-                         1.0, -1.0)
-    w_err = float((w.data - w_true).abs().max())
+    calls, caps = [], []
+    lbfgs.reset_counts()
+    with spy(lbfgs, f"opt_lbfgs_{form}", calls), \
+            spy(lbfgs, "_capture", caps, sync=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if form == "jit":
+            res = compat.ggml_opt(ctx, prm, f)
+        else:
+            res, _ = opt(f, prm, callback=lambda it, fx: None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if len(calls) != 1:
+        raise SystemExit(f"path h1: the {form} fit did not go through "
+                         f"opt_lbfgs_{form} once ({len(calls)} calls)")
+    w_true = torch.where(torch.arange(TEST3_NF, device=w.data.device)
+                         < TEST3_NF // 2, 1.0, -1.0)
+    cap_s = sum(t for _, t in caps)
+    return w.data, {
+        "form": f"opt_lbfgs_{form}", "card": smi, "result": res.name,
+        "iterations": calls[0][0][3], **lbfgs.COUNTS,
+        "fit_seconds": secs - cap_s, "capture_seconds": cap_s,
+        "max_abs_weight_err": float((w.data - w_true).abs().max()),
+        "device": str(w.data.device)}
+
+
+def rosen(p):
+    return (1 - p[0]) ** 2 + 100.0 * (p[1] - p[0] * p[0]) ** 2
+
+
+def lbfgs_rosenbrock(dev):
+    """Rosenbrock from (-1.2, 1) under each line search: opt_lbfgs_jit on
+    the card (captured) held against the same function's eager run on the
+    CPU: the same result code and iterations, x within 1e-4. Each card run
+    is timed (capture apart) beside opt_lbfgs_host's on the card."""
+    import torch
+
+    from ggmlsharp_tpu_torch.optim import (LineSearch, OptType, lbfgs,
+                                           opt_default_params,
+                                           value_and_grad)
+
+    out = {}
+    for ls in ("ARMIJO", "WOLFE", "STRONG_WOLFE"):
+        prm = opt_default_params(OptType.LBFGS)
+        prm.lbfgs.n_iter = 200
+        prm.lbfgs.linesearch = LineSearch[ls]
+        runs = {}
+        for where, fit in ((dev, lbfgs.opt_lbfgs_jit),
+                           (torch.device("cpu"), lbfgs.opt_lbfgs_jit),
+                           (dev, lbfgs.opt_lbfgs_host)):
+            lbfgs.reset_counts()
+            caps = []
+            with spy(lbfgs, "_capture", caps, sync=where.type == "cuda"):
+                if where.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, _, res, it = fit(value_and_grad(rosen),
+                                    torch.tensor([-1.2, 1.0], device=where),
+                                    prm)
+                secs = time.perf_counter() - t0
+            cap_s = sum(t for _, t in caps)
+            runs[where.type, fit.__name__] = (
+                x.cpu(), res.name, it,
+                {**lbfgs.COUNTS, "fit_seconds": secs - cap_s,
+                 "capture_seconds": cap_s})
+        (xc, rc, ic, cc), (xh, rh, ih, _), (_, rd, ihc, hc) = runs.values()
+        out[ls] = {"result": rc, "iterations": ic, **cc,
+                   "cpu_result": rh, "cpu_iterations": ih,
+                   "max_abs_x_diff": float((xc - xh).abs().max()),
+                   "host_form_on_card": {"result": rd, "iterations": ihc,
+                                         **hc}}
+        if rc != rh or ic != ih or out[ls]["max_abs_x_diff"] > 1e-4 \
+                or cc["captures"] != 1:
+            raise SystemExit(f"path h1: Rosenbrock {ls} on the card differs "
+                             f"from the CPU run: {out[ls]}")
+    return out
+
+
+def lbfgs_capture_failure(dev):
+    """A fun_vg that reads f back to the host cannot be captured:
+    opt_lbfgs_jit raises RuntimeError naming the cause, and the host loop is
+    never called in its place."""
+    import torch
+
+    from ggmlsharp_tpu_torch.optim import (OptType, lbfgs,
+                                           opt_default_params,
+                                           value_and_grad)
+
+    def synced(v):
+        f = ((v - 1.0) ** 2).sum()
+        return f * 2.0 if float(f.detach()) < 0 else f
+
+    host_calls = []
+    with spy(lbfgs, "opt_lbfgs_host", host_calls):
+        try:
+            lbfgs.opt_lbfgs_jit(value_and_grad(synced),
+                                torch.zeros(8, device=dev),
+                                opt_default_params(OptType.LBFGS))
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise SystemExit("path h1: a fun_vg with a host sync was "
+                             "captured without error")
+    if "could not be captured" not in msg or host_calls:
+        raise SystemExit(f"path h1: the capture failure was not reported as "
+                         f"one, or fell back to the host loop: {msg}")
+    return msg.split("Cause: ", 1)[-1]
+
+
+def run_graph_test3(dev, smi):
+    """Path h1, Test3, the reference's largest workload: the 4096 x 256
+    L2-regularised linear classifier through the ggml_* API, fitted by
+    L-BFGS in both forms (test3_fit) on the same data. Each form: every
+    weight within 1e-2 of +-1, result OK or DID_NOT_CONVERGE; the two forms:
+    the same result, weights within 1e-3; the jit form replayed its graph
+    and read back at most ceil(evaluations / K) + 2 times. Then Rosenbrock
+    on the card against the CPU, and a capture that must fail."""
+    import math
+
+    from ggmlsharp_tpu_torch.optim import lbfgs
+
+    F, lab = test3_data(TEST3_NP, TEST3_NF)
+    wj, jit = test3_fit("jit", F, lab, smi)
+    wh, host = test3_fit("host", F, lab, smi)
+    k = lbfgs.PROBES_PER_READBACK
     h1 = {"workload": "Test3 4096 x 256 L-BFGS via ggml_opt", "card": smi,
-          "result": res.name, "max_abs_weight_err": w_err, "bar": 1e-2,
-          "seconds": secs, "device": str(w.data.device)}
+          "jit": jit, "host": host, "probes_per_readback": k,
+          "readback_bar": math.ceil(jit["evaluations"] / k) + 2,
+          "max_abs_weight_diff_jit_host": float((wj - wh).abs().max()),
+          "bar": 1e-2}
+    for form in (jit, host):
+        if form["max_abs_weight_err"] > 1e-2 \
+                or not form["device"].startswith(dev.type) \
+                or form["result"] not in ("OK", "DID_NOT_CONVERGE"):
+            raise SystemExit(f"path h1: Test3 missed its criterion: {h1}")
+    if jit["result"] != host["result"] \
+            or h1["max_abs_weight_diff_jit_host"] > 1e-3:
+        raise SystemExit(f"path h1: the two L-BFGS forms disagree: {h1}")
+    if jit["replays"] < 1 or jit["captures"] != 1 \
+            or jit["readbacks"] > h1["readback_bar"]:
+        raise SystemExit(f"path h1: the jit form did not run as one captured "
+                         f"graph within its readbacks: {h1}")
+    h1["rosenbrock"] = lbfgs_rosenbrock(dev)
+    h1["capture_failure"] = lbfgs_capture_failure(dev)
     emit({"graph_test3": h1})
-    if w_err > 1e-2 or res.name not in ("OK", "DID_NOT_CONVERGE") \
-            or w.data.device.type != dev.type:
-        raise SystemExit(f"path h1: Test3 missed its criterion: {h1}")
+    for form in (jit, host):
+        log(f"[4/6] h1. Test3 {form['form']} ({smi}): {form['result']} in "
+            f"{form['iterations']} iterations, {form['evaluations']} "
+            f"evaluations, {form['readbacks']} host readbacks, "
+            f"{form['replays']} graph replays; fit "
+            f"{form['fit_seconds']:.3f} s, capture "
+            f"{form['capture_seconds']:.3f} s; max weight err "
+            f"{form['max_abs_weight_err']:.3g}")
     return h1
 
 
@@ -6366,8 +6537,11 @@ def main(argv):
     # forward, backward and opt() (the uncached entry)
     h1 = run_graph_test3(dev, smi)
     h2cmp, h2, h_counts = run_graph_decoder(dev, gen, smi)
-    log(f"[4/6] h. graph layer: Test3 {h1['result']}, max weight err "
-        f"{h1['max_abs_weight_err']:.3g} in {h1['seconds']:.2f} s; decoder "
+    log(f"[4/6] h. graph layer: Test3 {h1['jit']['result']} (both forms), "
+        f"weights within {h1['max_abs_weight_diff_jit_host']:.3g} of each "
+        f"other; Rosenbrock on the card as on the CPU "
+        f"{ {k: v['iterations'] for k, v in h1['rosenbrock'].items()} }; "
+        f"capture failure raised; decoder "
         f"kernel vs plain loss err {h2cmp['loss_rel_err']:.3g}, grad rel L2 "
         f"{h2cmp['grad_rel_l2_max']:.3g}; opt() losses "
         f"{[round(x, 5) for x in h2['losses']]}; launches {h_counts}")

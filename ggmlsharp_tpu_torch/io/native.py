@@ -96,6 +96,16 @@ def load():
     return _LIB
 
 
+def tokenizer_available() -> bool:
+    """Whether the tokenizer library builds and loads here; never raises
+    for a missing compiler or a library that fails to load."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _blob(strings):
     """UTF-8 bytes of ``strings`` joined, and their uint64 offsets."""
     bs = [s.encode("utf-8") for s in strings]

@@ -82,6 +82,12 @@ def init_cache(n_layer, batch, n_head_kv, n_ctx, head_dim,
                    torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+def is_flat(cache: KVCache) -> bool:
+    """Whether ``cache`` is the flat [B, T, E_kv] layout (the JAX package's
+    kv_cache.is_flat; the property ``cache.is_flat`` reads the same)."""
+    return cache.is_flat
+
+
 def _quant_rows(x):
     """[..., D] -> int8 values and an f32 scale a row (absmax / 127, round
     half to even, clip to +-127; a zero row gets scale 0 and values 0)."""

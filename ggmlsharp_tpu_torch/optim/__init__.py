@@ -12,7 +12,7 @@ from .params import (
     opt_default_params,
 )
 from .adam import opt_adam
-from .lbfgs import opt_lbfgs
+from .lbfgs import opt_lbfgs, opt_lbfgs_host, opt_lbfgs_jit
 from .facade import opt, opt_fn, value_and_grad
 from .optax_compat import GgmlAdam, opt_torch
 
@@ -29,6 +29,8 @@ __all__ = [
     "opt_default_params",
     "opt_fn",
     "opt_lbfgs",
+    "opt_lbfgs_host",
+    "opt_lbfgs_jit",
     "opt_torch",
     "value_and_grad",
 ]

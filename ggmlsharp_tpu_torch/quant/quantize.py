@@ -118,6 +118,22 @@ def _dequantize_q4_sym(qt, bs):
     return (v * qt["d"].to(F32)[..., None]).reshape(qt.shape)
 
 
+def quantize_row_q4_0(x) -> QTensor:
+    return _quantize_q4_sym(GType.Q4_0, x, 32)
+
+
+def dequantize_row_q4_0(qt: QTensor):
+    return _dequantize_q4_sym(qt, 32)
+
+
+def quantize_row_q4_2(x) -> QTensor:
+    return _quantize_q4_sym(GType.Q4_2, x, 16)
+
+
+def dequantize_row_q4_2(qt: QTensor):
+    return _dequantize_q4_sym(qt, 16)
+
+
 # --- Q4_1 / Q4_3 (affine min/max nibbles) --------------------------------
 
 def _quantize_q4_aff(gtype, x, bs):
@@ -135,6 +151,22 @@ def _dequantize_q4_aff(qt, bs):
     v = _unpack_nibbles(qt["qs"], bs).to(F32)
     return (v * qt["d"].to(F32)[..., None]
             + qt["m"].to(F32)[..., None]).reshape(qt.shape)
+
+
+def quantize_row_q4_1(x) -> QTensor:
+    return _quantize_q4_aff(GType.Q4_1, x, 32)
+
+
+def dequantize_row_q4_1(qt: QTensor):
+    return _dequantize_q4_aff(qt, 32)
+
+
+def quantize_row_q4_3(x) -> QTensor:
+    return _quantize_q4_aff(GType.Q4_3, x, 16)
+
+
+def dequantize_row_q4_3(qt: QTensor):
+    return _dequantize_q4_aff(qt, 16)
 
 
 # --- Q5_0 / Q5_1 (nibbles + per-block high-bit mask) ---------------------
@@ -211,6 +243,18 @@ def quantize_row_q8_k(x) -> QTensor:
 def _dequantize_q8(qt, bs):
     qs = qt["qs"].reshape(*qt.shape[:-1], qt.shape[-1] // bs, bs).to(F32)
     return (qs * qt["d"].to(F32)[..., None]).reshape(qt.shape)
+
+
+def dequantize_row_q8_0(qt: QTensor):
+    return _dequantize_q8(qt, 32)
+
+
+def dequantize_row_q8_1(qt: QTensor):
+    return _dequantize_q8(qt, 32)
+
+
+def dequantize_row_q8_k(qt: QTensor):
+    return _dequantize_q8(qt, 256)
 
 
 # --- k-quant superblocks -------------------------------------------------
@@ -466,10 +510,10 @@ def int_values(qt: QTensor):
 
 
 _QUANTIZE = {
-    GType.Q4_0: lambda x: _quantize_q4_sym(GType.Q4_0, x, 32),
-    GType.Q4_1: lambda x: _quantize_q4_aff(GType.Q4_1, x, 32),
-    GType.Q4_2: lambda x: _quantize_q4_sym(GType.Q4_2, x, 16),
-    GType.Q4_3: lambda x: _quantize_q4_aff(GType.Q4_3, x, 16),
+    GType.Q4_0: quantize_row_q4_0,
+    GType.Q4_1: quantize_row_q4_1,
+    GType.Q4_2: quantize_row_q4_2,
+    GType.Q4_3: quantize_row_q4_3,
     GType.Q5_0: quantize_row_q5_0,
     GType.Q5_1: quantize_row_q5_1,
     GType.Q8_0: quantize_row_q8_0,
@@ -480,17 +524,17 @@ _QUANTIZE = {
 }
 
 _DEQUANTIZE = {
-    GType.Q4_0: lambda qt: _dequantize_q4_sym(qt, 32),
-    GType.Q4_1: lambda qt: _dequantize_q4_aff(qt, 32),
-    GType.Q4_2: lambda qt: _dequantize_q4_sym(qt, 16),
-    GType.Q4_3: lambda qt: _dequantize_q4_aff(qt, 16),
+    GType.Q4_0: dequantize_row_q4_0,
+    GType.Q4_1: dequantize_row_q4_1,
+    GType.Q4_2: dequantize_row_q4_2,
+    GType.Q4_3: dequantize_row_q4_3,
     GType.Q5_0: dequantize_row_q5_0,
     GType.Q5_1: dequantize_row_q5_1,
-    GType.Q8_0: lambda qt: _dequantize_q8(qt, 32),
-    GType.Q8_1: lambda qt: _dequantize_q8(qt, 32),
+    GType.Q8_0: dequantize_row_q8_0,
+    GType.Q8_1: dequantize_row_q8_1,
     GType.Q4_K: dequantize_row_q4_k,
     GType.Q6_K: dequantize_row_q6_k,
-    GType.Q8_K: lambda qt: _dequantize_q8(qt, 256),
+    GType.Q8_K: dequantize_row_q8_k,
 }
 
 

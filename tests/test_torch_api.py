@@ -54,6 +54,20 @@ def test_models_reexport_kv_cache():
     assert {"KVCache", "init_cache"} <= set(models.__all__)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("flat", [False, True])
+def test_kv_cache_is_flat_matches_jax(flat, int8):
+    """kv_cache.is_flat(cache), the JAX module function the models call,
+    on both layouts and both storage types."""
+    from ggmlsharp_tpu.models import kv_cache as jkvc
+    from ggmlsharp_tpu_torch.models import kv_cache as kvc
+
+    jc = jkvc.init_cache(2, 1, 2, 16, 64, int8=int8, flat=flat)
+    tc = kvc.init_cache(2, 1, 2, 16, 64, int8=int8, flat=flat, device="cpu")
+    assert kvc.is_flat(tc) is jkvc.is_flat(jc) is flat
+    assert tc.is_flat is flat
+
+
 def _fn(check, lib):
     """The same function written against either package: two checks, the
     first formatted with two values."""

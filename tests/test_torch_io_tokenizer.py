@@ -205,6 +205,22 @@ def test_native_never_falls_back(monkeypatch):
         J_SPM.encode("hello")
 
 
+def test_tokenizer_available_matches_jax():
+    """io.native.tokenizer_available(): the library builds and loads here,
+    in both packages."""
+    from ggmlsharp_tpu.io import native as jnative
+
+    assert native.tokenizer_available() is jnative.tokenizer_available() \
+        is True
+
+
+def test_tokenizer_available_is_false_without_a_library(monkeypatch):
+    """No source to build from: False, not an exception."""
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "SOURCE", "/nonexistent/tokenize.cpp")
+    assert native.tokenizer_available() is False
+
+
 def test_native_library_is_built_not_loaded_prebuilt():
     path = native.build()
     assert os.path.dirname(path) == native.BUILD_DIR

@@ -10,6 +10,7 @@ f32 scale is kept unrounded (Q8_1, Q8_K) or a search keeps an argmin;
 functions and ggml's C code divide, and sum 32 or 16 elements from left to
 right, as the port does. Q4_2 and Q4_3 have no GGUF type: their wire bytes
 are built here from the JAX planes (``jax_wire``)."""
+import importlib
 import os
 import struct
 
@@ -98,6 +99,25 @@ def test_quantize_matches_jax_bit_exact(fmt, kind):
     assert to_wire(qt) == jax_wire(jqt)
     np.testing.assert_array_equal(dequantize(qt).numpy(),
                                   np.asarray(jdequantize(jqt)))
+
+
+@pytest.mark.parametrize("fmt", ["Q4_0", "Q4_1", "Q4_2", "Q4_3", "Q8_0",
+                                 "Q8_1", "Q8_K"])
+def test_row_functions_match_jax(fmt):
+    """The per-format names quantize_row_<fmt> and dequantize_row_<fmt>
+    (the JAX module's public functions): equal wire bytes and equal
+    dequantised values."""
+    jq = importlib.import_module("ggmlsharp_tpu.quant.quantize")
+    tq = importlib.import_module("ggmlsharp_tpu_torch.quant.quantize")
+    x = _inputs("zeros", (4, 512), seed=len(fmt))
+    name = fmt.lower()
+    jqt = getattr(jq, f"quantize_row_{name}")(jnp.asarray(x))
+    qt = getattr(tq, f"quantize_row_{name}")(torch.from_numpy(x))
+    assert qt.gtype == GType[fmt]
+    assert to_wire(qt) == jax_wire(jqt)
+    np.testing.assert_array_equal(
+        getattr(tq, f"dequantize_row_{name}")(qt).numpy(),
+        np.asarray(getattr(jq, f"dequantize_row_{name}")(jqt)))
 
 
 @pytest.mark.parametrize("fmt", ["Q4_K", "Q6_K"])

@@ -31,7 +31,15 @@ version):
      (path m1's training forward and prefill); path m1's w_down (192 x 512)
      in Q4_0, Q4_K, Q6_K and Q8_0 at 127 and 128 rows;
   4. the paths, each with the launch counters reset just before and
-     read just after, and each held against its plain path:
+     read just after, and each held against its plain path. The decode
+     step runs captured (models.captured: one CUDA graph a length bucket,
+     the launches counted through the replay accounting); every greedy
+     sampling.generate of paths a-l is run first in the eager form
+     (captured.disabled(), on a copy of its cache, its launches not
+     counted), and the captured call must give its tokens bit for bit and
+     its launches kernel by kernel (eager_twins); b and s serve their
+     requests in both forms likewise; a step with a host sync, and a
+     per-stream buffer made inside a capture, must raise:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
         from a seed), a 16-token prompt and 32 greedy tokens through
         sampling.generate;
@@ -172,7 +180,10 @@ version):
      shapes at 1 and 5 rows (a token, a verify);
   6. decode tokens/s at batch 1, its share of the HBM roofline, prefill
      time, peak device memory, and a torch.profiler window of decode steps
-     (device time, launches and host operator calls a step, idle share);
+     (device time, launches and host operator calls a step, idle share),
+     in both forms (eager, then captured: host ms a step and its p84,
+     window tok/s, launches a step, captures, replays and capture seconds)
+     for a, c 124M, d1 and b's engine and decode step;
      serving tokens/s, time to first token, latency, ticks, peak memory
      and the share of the batched roofline; the same decode measurements
      for GPT-2 124M and 774M, for Llama-7B on its whole-block route and
@@ -294,6 +305,117 @@ def mm_dot(mode):
         yield
     finally:
         kcfg.set_mm_dot(prev)
+
+
+TWINS: list = []  # phase 4: each greedy generate beside its eager twin
+
+
+def clone_cache(cache):
+    """A copy of every buffer of a KV cache."""
+    from ggmlsharp_tpu_torch.models import kv_cache as kvc
+
+    def cp(bufs):
+        return None if bufs is None else [x.clone() for x in bufs]
+
+    return kvc.KVCache(cp(cache.k), cp(cache.v), cp(cache.k_scale),
+                       cp(cache.v_scale), cache.length.clone())
+
+
+@contextlib.contextmanager
+def eager_twins():
+    """sampling.generate wrapped for the paths run inside: each greedy call
+    on the card first runs in the eager form (captured.disabled(), on a
+    copy of its cache; its launches taken out of the counters again), then
+    as called, through the captured step. The two must give the same
+    tokens bit for bit and the same launches kernel by kernel (the captured
+    ones through the replay accounting); each pair is kept in TWINS with
+    the captures, replays and capture seconds of the captured call. The
+    peak-memory statistics are reset between the two, so a caller's peak
+    is the captured call's."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import _build
+    from ggmlsharp_tpu_torch.models import captured, sampling
+
+    orig = sampling.generate
+
+    def twin(forward, cfg, params, prompt, cache, n_tokens, *args, **kw):
+        temperature = args[0] if args else kw.get("temperature", 0.0)
+        if captured.is_disabled() or not prompt.is_cuda or temperature > 0:
+            return orig(forward, cfg, params, prompt, cache, n_tokens, *args,
+                        **kw)
+        c0 = _build.launch_counts()
+        with captured.disabled():
+            eager, _ = orig(forward, cfg, params, prompt, clone_cache(cache),
+                            n_tokens, *args, **kw)
+        c1 = _build.launch_counts()
+        _build.set_launch_counts(c0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = dict(captured.COUNTS)
+        toks, out = orig(forward, cfg, params, prompt, cache, n_tokens, *args,
+                         **kw)
+        c2 = _build.launch_counts()
+        got, want = _build.launch_delta(c0, c2), _build.launch_delta(c0, c1)
+        rec = {"n_tokens": n_tokens, "tokens_equal": bool(torch.equal(
+                   toks, eager)),
+               "launches_equal": got == want,
+               **{k: captured.COUNTS[k] - k0[k] for k in k0}}
+        TWINS.append(rec)
+        if not (rec["tokens_equal"] and rec["launches_equal"]):
+            raise SystemExit(f"a captured generate differs from its eager "
+                             f"twin: tokens {toks.tolist()} vs "
+                             f"{eager.tolist()}, launches {got[0]} vs "
+                             f"{want[0]}")
+        return toks, out
+
+    sampling.generate = twin
+    try:
+        yield
+    finally:
+        sampling.generate = orig
+
+
+def captured_checks(dev):
+    """A step with a host sync must not capture: CapturedStep raises, naming
+    the CUDA error, and never returns an eager result; a per-stream buffer
+    made inside a capture raises too (kernels/_sync.py); the card works
+    after both."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import _sync
+    from ggmlsharp_tpu_torch.models import captured
+
+    calls = []
+
+    def synced(x):
+        calls.append(1)
+        return x * float(x.sum())  # a host read inside the step
+
+    x = torch.ones(4, device=dev)
+    res = {}
+    try:
+        captured.CapturedStep(synced)(x)
+        res["host_sync"] = "captured"
+    except RuntimeError as e:
+        res["host_sync"] = str(e)[:200]
+    side = torch.cuda.Stream(dev)
+    graph = torch.cuda.CUDAGraph()
+    res["sync_buffer_refused"] = False
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            _sync.sync_buffer(dev, side.cuda_stream)
+    except RuntimeError as e:
+        res["sync_buffer_refused"] = "inside a CUDA graph capture" in str(e)
+        res["sync_buffer"] = str(e)[:200]
+    res["card_after"] = float((x * 2).sum())
+    res["calls"] = len(calls)  # the warm-up and the capture, no eager run
+    emit({"captured_checks": res})
+    if not ("could not be captured" in res["host_sync"]
+            and res["sync_buffer_refused"]
+            and res["card_after"] == 8.0 and res["calls"] == 2):
+        raise SystemExit(f"captured checks failed: {res}")
+    return res
 
 
 def flash_bound_ms(B, Hq, Hkv, S, D, npast, kv_itemsize):
@@ -849,14 +971,20 @@ def new_engine(cfg, params, forward=None, slots=SLOTS):
 
 
 def run_serving(cfg, params):
-    """The serving path: a warm-up engine answers one admission wave of 2
-    tokens each; a fresh engine then answers the SERVE_REQS requests, with
-    the launch counters reset just before its run and read just after.
-    Every admission prefill here is a 16-row bucket (S > 8: flash), every
-    decode forward a batched single-token step (attn_decode)."""
+    """The serving path in both forms: a warm-up engine answers one admission
+    wave of 2 tokens each; then for the captured form (the default: one CUDA
+    graph a length bucket) and the eager form (captured.disabled()), a fresh
+    engine answers the SERVE_REQS requests, with the launch counters, the
+    capture counts and the peak-memory statistics reset just before its run
+    and read just after. Every admission prefill here is a 16-row bucket
+    (S > 8: flash), every decode forward a batched single-token step
+    (attn_decode). The two forms must give the same tokens and launches.
+    Returns the captured form's engine, its record (the eager form's under
+    "eager") and its tokens."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured
     from ggmlsharp_tpu_torch.serving import Request
 
     prompts = serving_prompts(cfg)
@@ -865,20 +993,37 @@ def run_serving(cfg, params):
         warm.submit(Request(id=i, prompt=prompts[i], max_new_tokens=2))
     warm.run()
     del warm
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    eng = new_engine(cfg, params)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(id=i, prompt=p, max_new_tokens=SERVE_NEW))
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    results = eng.run()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = dict(kernels.LAUNCHES)
-    st = eng.stats()
+    forms, engines = {}, {}
+    for form in ("captured", "eager"):
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng = new_engine(cfg, params)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(id=i, prompt=p, max_new_tokens=SERVE_NEW))
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            captured.reset_counts()
+            t0 = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        engines[form] = eng
+        forms[form] = {
+            "requests": len(results), "seconds": seconds,
+            "tokens_per_s": SERVE_REQS * SERVE_NEW / seconds,
+            "stats": eng.stats(), "launches": dict(kernels.LAUNCHES),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **{k: v for k, v in captured.COUNTS.items()},
+            "out": [r.out_tokens for r in results],
+            "bad": [r.id for r in results
+                    if r.error is not None or len(r.out_tokens) != SERVE_NEW
+                    or not all(0 <= t < cfg.n_vocab for t in r.out_tokens)]}
+    del engines["eager"]
+    res, eager = forms["captured"], forms["eager"]
+    st = res["stats"]
     n_dec, n_pre = st["decode_forwards"], st["prefill_dispatches"]
     want = dict.fromkeys(kernels.LAUNCHES, 0) | {
         # every forward batches 8 slots (decode) or 8 prompts (prefill)
@@ -886,19 +1031,22 @@ def run_serving(cfg, params):
                       0),
         "flash_attn": cfg.n_layer * n_pre,
         "attn_decode": cfg.n_layer * n_dec}
-    res = {"requests": len(results), "seconds": seconds, "stats": st,
-           "launches": counts, "expected_launches": want,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "first_tokens": [r.out_tokens[:4] for r in results[:3]]}
+    res.update(expected_launches=want,
+               first_tokens=[o[:4] for o in res["out"][:3]],
+               tokens_equal_eager=res["out"] == eager["out"],
+               eager={k: v for k, v in eager.items() if k != "out"})
+    out_toks = res.pop("out")
     emit({"serving_path": res})
-    if counts != want or n_dec == 0:
-        raise SystemExit(f"serving launch counts {counts} != expected {want}")
-    bad = [r.id for r in results
-           if r.error is not None or len(r.out_tokens) != SERVE_NEW
-           or not all(0 <= t < cfg.n_vocab for t in r.out_tokens)]
-    if len(results) != SERVE_REQS or bad:
-        raise SystemExit(f"serving answered {len(results)} requests, bad {bad}")
-    return eng, res, [r.out_tokens for r in results]
+    if res["launches"] != want or eager["launches"] != want or n_dec == 0:
+        raise SystemExit(f"serving launch counts {res['launches']} (eager "
+                         f"{eager['launches']}) != expected {want}")
+    if not res["tokens_equal_eager"]:
+        raise SystemExit("serving: the captured form's tokens differ from "
+                         "the eager form's")
+    if res["requests"] != SERVE_REQS or res["bad"] or eager["bad"]:
+        raise SystemExit(f"serving answered {res['requests']} requests, bad "
+                         f"{res['bad']} (eager {eager['bad']})")
+    return engines["captured"], res, out_toks
 
 
 def replay_serving(cfg, params, tol):
@@ -939,7 +1087,8 @@ def replay_serving(cfg, params, tol):
             for j in range(REPLAY_STEPS):
                 t_eff = length_bucket(max(lens) + j + 1, SERVE_MAX_LEN,
                                       base=64)
-                rows.append(eng._step(toks[j][:slots], active, t_eff).clone())
+                rows.append(eng._step(toks[j][:slots], active,
+                                      t_eff)[0].clone())
                 if len(toks) <= j + 1:
                     toks.append(rows[-1].argmax(-1, keepdim=True)
                                 .to(torch.int32))
@@ -971,8 +1120,11 @@ def replay_serving(cfg, params, tol):
     if not (row["finite"] and err <= tol and row["decided_tokens_agree"]):
         raise SystemExit(f"serving kernel path disagrees with plain: {row}")
 
-    # batched decode steps of the kernel engine (8 live slots): untraced
-    # step time, then a profiled window
+    # batched decode steps of the kernel engine (8 live slots), in each
+    # form: untraced step time and launches a step, then a profiled window
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured
+
     state = {"logits": kern[-1], "j": 0}
     active = torch.ones(SLOTS, dtype=torch.bool, device=eng.device)
 
@@ -982,25 +1134,62 @@ def replay_serving(cfg, params, tol):
         t_eff = length_bucket(max(lens) + REPLAY_STEPS + state["j"],
                               SERVE_MAX_LEN, base=64)
         with torch.no_grad():
-            state["logits"] = eng._step(tok, active, t_eff)
+            state["logits"] = eng._step(tok, active, t_eff)[0]
 
-    lat = []
-    for i in range(12):  # 4 warm-up steps
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        if i >= 4:
-            lat.append(time.perf_counter() - t0)
-    prof = profile_steps(one_step, 4)
-    step_ms = statistics.median(lat) * 1e3
-    dev_ms = prof["device_ms_per_step"]
-    prof["untraced_step_ms_median"] = step_ms
-    prof["device_idle_share"] = (1.0 - dev_ms / step_ms
-                                 if isinstance(dev_ms, float)
-                                 else "not measured")
+    profs = {}
+    for form in ("eager", "captured"):
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            captured.reset_counts()
+            lat = []
+            for i in range(12):  # 4 warm-up steps
+                if i == 4:
+                    kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_step()
+                torch.cuda.synchronize()
+                if i >= 4:
+                    lat.append(time.perf_counter() - t0)
+            n_launch = sum(kernels.LAUNCHES.values()) / len(lat)
+            prof = profile_steps(one_step, 2 if form == "eager" else 4)
+        lat_ms = sorted(x * 1e3 for x in lat)
+        prof.update(untraced_step_ms_median=statistics.median(lat_ms),
+                    untraced_step_ms_p84=lat_ms[int(0.84 * len(lat_ms))],
+                    window_tok_s=SLOTS * 1e3 / statistics.median(lat_ms),
+                    launches_per_step=n_launch,
+                    **{k: v for k, v in captured.COUNTS.items()})
+        profs[form] = prof
+    prof = profs["captured"]
+    check_trace(prof, profs["eager"])
+    for p in profs.values():
+        dev_ms = p["device_ms_per_step"]
+        p["device_idle_share"] = (1.0 - dev_ms / p["untraced_step_ms_median"]
+                                  if isinstance(dev_ms, float)
+                                  else "not measured")
+    prof["eager"] = profs["eager"]
     emit({"serving_decode_profile": prof})
     return err, prof
+
+
+def check_trace(prof, eager):
+    """A trace of captured steps must see the kernels the graph replays
+    run: at least 0.9 of the eager form's kernels a step (``eager``, its
+    profile_steps over the same steps) and half its device time. Else the
+    device time reads "not measured", and the eager trace's device time (the
+    same kernels) is kept beside it under its own name."""
+    dev, ref = prof["device_ms_per_step"], eager["device_ms_per_step"]
+    seen = (prof["kernels_per_step"] >= 0.9 * eager["kernels_per_step"]
+            and isinstance(dev, float) and isinstance(ref, float)
+            and dev >= 0.5 * ref)
+    prof["trace_sees_graph_kernels"] = seen
+    prof["eager_trace_device_ms_per_step"] = ref
+    prof["eager_trace_kernels_per_step"] = eager["kernels_per_step"]
+    if not seen:
+        prof["device_ms_per_step"] = (
+            f"not measured (the trace saw {prof['kernels_per_step']:.1f} "
+            f"kernels and {dev} ms a step, the eager form's "
+            f"{eager['kernels_per_step']:.1f} and {ref})")
 
 
 def http_check(eng, cfg):
@@ -3034,6 +3223,8 @@ def spy(mod, name, out, sync=False):
     torch.cuda.synchronize() so that the seconds hold its device work."""
     import torch
 
+    from ggmlsharp_tpu_torch.models import captured
+
     orig = getattr(mod, name)
 
     def wrapped(*a, **kw):
@@ -3048,7 +3239,8 @@ def spy(mod, name, out, sync=False):
 
     setattr(mod, name, wrapped)
     try:
-        yield
+        with captured.disabled():  # a replay would not call the spy
+            yield
     finally:
         setattr(mod, name, orig)
 
@@ -3333,7 +3525,8 @@ def run_gpt2_int8_serving(gcfg, gparams):
     """GPT-2 124M (path c's Q8_0 weights) behind serving.Engine with an INT8
     cache, which for GPT-2 is head-major: SERVE_G_SLOTS slots, SERVE_G_REQS
     requests of SERVE_G_PLEN + SERVE_G_NEW tokens, the counters reset just
-    before; then the same engine with plain=True. Weight-only
+    before (captured, then eager: the two must give the same tokens and
+    launches); then the same engine with plain=True. Weight-only
     (GGML_TPU_QUANT_ACTS=0), so the two differ in f32 summation order alone
     (the INT8 rows round the same values); each request's tokens must be the
     plain engine's."""
@@ -3343,16 +3536,17 @@ def run_gpt2_int8_serving(gcfg, gparams):
     import torch
 
     from ggmlsharp_tpu_torch import kernels
-    from ggmlsharp_tpu_torch.models import gpt2
+    from ggmlsharp_tpu_torch.models import captured, gpt2
     from ggmlsharp_tpu_torch.serving import Engine, Request
 
     rng = np.random.default_rng(13)
     prompts = [rng.integers(0, gcfg.n_vocab, size=SERVE_G_PLEN).tolist()
                for _ in range(SERVE_G_REQS)]
-    outs, counts, layout = {}, None, None
+    outs, counts, layout = {}, {}, None
     os.environ["GGML_TPU_QUANT_ACTS"] = "0"
     try:
-        for plain in (False, True):
+        # the kernel engine captured (the default), then eager; the plain one
+        for plain, eager in ((False, False), (False, True), (True, False)):
             fwd = functools.partial(gpt2.forward, plain=True) if plain \
                 else gpt2.forward
             eng = Engine(fwd, gcfg, gparams, batch_slots=SERVE_G_SLOTS,
@@ -3365,16 +3559,24 @@ def run_gpt2_int8_serving(gcfg, gparams):
             torch.cuda.synchronize()
             kernels.reset_launches()
             t0 = time.perf_counter()
-            res = {r.id: r for r in eng.run()}
+            with captured.disabled() if eager else contextlib.nullcontext():
+                res = {r.id: r for r in eng.run()}
             torch.cuda.synchronize()
             if not plain:
-                counts = dict(kernels.LAUNCHES)
+                counts[eager] = dict(kernels.LAUNCHES)
+            if not (plain or eager):
                 secs = time.perf_counter() - t0
                 st = eng.stats()
-            outs[plain] = res
+            outs[plain, eager] = res
             del eng
     finally:
         os.environ.pop("GGML_TPU_QUANT_ACTS")
+    eager_same = all(outs[False, False][i].out_tokens
+                     == outs[False, True][i].out_tokens
+                     for i in range(SERVE_G_REQS)) and counts[False] \
+        == counts[True]
+    outs = {plain: outs[plain, False] for plain in (False, True)}
+    counts = counts[False]
     same = [outs[False][i].out_tokens == outs[True][i].out_tokens
             for i in range(SERVE_G_REQS)]
     out = {"model": "GPT2_124M Q8_0", "slots": SERVE_G_SLOTS,
@@ -3382,12 +3584,14 @@ def run_gpt2_int8_serving(gcfg, gparams):
            "seconds": secs, "tokens_per_s": SERVE_G_REQS * SERVE_G_NEW / secs,
            "ticks": st["ticks"], "launches": counts,
            "tokens_equal_plain": same,
+           "tokens_and_launches_equal_eager_form": eager_same,
            "first_tokens": [outs[False][i].out_tokens[:4] for i in range(2)]}
     emit({"gpt2_int8_serving": out})
     bad = [i for i in range(SERVE_G_REQS)
            if outs[False][i].error or len(outs[False][i].out_tokens)
            != SERVE_G_NEW]
     if not (layout[0] and not layout[1]) or bad or not all(same) \
+            or not eager_same \
             or counts["flash_attn"] == 0 or counts["attn_decode"] != 0 \
             or counts["mlp_fused_q8_mma"] == 0:
         raise SystemExit(f"GPT-2 INT8 serving failed: {out}")
@@ -3935,22 +4139,31 @@ def profile_steps(one_step, n_steps):
 
 def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
                    kv_row_bytes=None, n_warm=8, n_lat=64, n_win=64, n_prof=8,
-                   **cache_kw):
+                   eager=False, eager_ref=None, **cache_kw):
     """Prefill time, then per-token decode latency at b = 1 (host clock,
     synchronised each step; n_lat steps after n_warm), an n_win-token
-    window without per-step sync, and a traced n_prof-step window
-    (profile_steps). ``model``: models.llama or models.gpt2; weight_bytes:
-    the matmul weights a token reads once; kv_width: elements of one cached
-    K (or V) row; kv_row_bytes: its bytes (default bf16: 2 * kv_width);
-    cache_kw goes to new_cache."""
+    window without per-step sync (and its launches a step), and a traced
+    n_prof-step window (profile_steps). The step is make_decode_fns' step:
+    captured (one graph a length bucket; captured during the warm-up
+    steps), or with ``eager`` its eager form (captured.disabled()); the
+    captures, replays and capture seconds are counted; the captured
+    form's trace is checked against ``eager_ref`` (an eager profile_steps
+    of this step), else against 2 eager steps traced here. ``model``:
+    models.llama or models.gpt2; weight_bytes: the matmul weights a token
+    reads once; kv_width: elements of one cached K (or V) row;
+    kv_row_bytes: its bytes (default bf16: 2 * kv_width); cache_kw goes to
+    new_cache."""
     import torch
 
-    from ggmlsharp_tpu_torch.models import sampling
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured, sampling
 
     prefill, step = sampling.make_decode_fns(model.forward, cfg)
     T = cfg.n_ctx
-    res = {}
-    with torch.inference_mode():
+    res = {"form": "eager" if eager else "captured"}
+    captured.reset_counts()
+    with torch.inference_mode(), \
+            captured.disabled() if eager else contextlib.nullcontext():
         pre = []
         for _ in range(3):
             cache = model.new_cache(cfg, 1, **cache_kw)
@@ -3979,24 +4192,27 @@ def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
             if i >= n_warm:
                 lat.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         for _ in range(n_win):
             one_step()
         torch.cuda.synchronize()
         win = time.perf_counter() - t0
+        res["launches_per_step"] = sum(kernels.LAUNCHES.values()) / n_win
         cur = state["cur"]
         res["profile"] = profile_steps(one_step, n_prof)
+        if not eager and eager_ref is None:  # to check this trace by
+            with captured.disabled():
+                eager_ref = profile_steps(one_step, 2)
+    if not eager:
+        check_trace(res["profile"], eager_ref)
+    res.update(captured.COUNTS)
     lat_ms = sorted(x * 1e3 for x in lat)
     res["step_ms_median"] = statistics.median(lat_ms)
     res["step_ms_p84"] = lat_ms[int(0.84 * len(lat_ms))]
     res["step_samples"] = len(lat_ms)
     res["window_tok_s"] = n_win / win
-    dev_ms = res["profile"]["device_ms_per_step"]
-    # idle share of an untraced step: the trace's device time a step over
-    # the untraced median step (tracing slows the host, not the kernels)
-    res["device_idle_share"] = (1.0 - dev_ms / res["step_ms_median"]
-                                if isinstance(dev_ms, float)
-                                else "not measured")
+    set_idle_share(res)
     # bytes a token must move: every matmul weight once plus the live K/V
     live = cur - n_win // 2
     kv_bytes = 2 * cfg.n_layer * live * (kv_row_bytes or 2 * kv_width)
@@ -4005,6 +4221,42 @@ def measure_decode(model, cfg, params, prompt, weight_bytes, kv_width,
     res["roofline_tok_s"] = HBM_BYTES_S / (weight_bytes + kv_bytes)
     res["roofline_share"] = res["window_tok_s"] / res["roofline_tok_s"]
     return res
+
+
+def set_idle_share(res):
+    """The idle share of an untraced step: the trace's device time a step
+    over the untraced median step (tracing slows the host, not the
+    kernels)."""
+    prof = res["profile"]
+    dev_ms = prof["device_ms_per_step"]
+    res["device_idle_share"] = (1.0 - dev_ms / res["step_ms_median"]
+                                if isinstance(dev_ms, float)
+                                else "not measured")
+    ref = prof.get("eager_trace_device_ms_per_step")
+    if isinstance(ref, float):  # the same kernels, traced in the eager form
+        res["idle_share_by_eager_trace"] = 1.0 - ref / res["step_ms_median"]
+
+
+def decode_forms(*args, **kw):
+    """measure_decode in the eager form (32 + 32 steps and 4 traced: its
+    steps take ~10x the captured ones'), then the captured one (the
+    default), on one card in one call: the captured record, the eager one
+    under "eager", and the step ms and tok/s ratios. The launches a step
+    must be equal."""
+    eager = measure_decode(*args, eager=True, **{
+        **kw, "n_lat": 32, "n_win": 32, "n_prof": 4})
+    dec = measure_decode(*args, eager_ref=eager["profile"], **kw)
+    if dec["launches_per_step"] != eager["launches_per_step"]:
+        raise SystemExit(f"decode launches a step: captured "
+                         f"{dec['launches_per_step']}, eager "
+                         f"{eager['launches_per_step']}")
+    dec["eager"] = {k: v for k, v in eager.items()
+                    if k not in ("weight_bytes", "bytes_per_token",
+                                 "roofline_tok_s")}
+    dec["speedup_window_tok_s"] = dec["window_tok_s"] / eager["window_tok_s"]
+    dec["speedup_step_ms_median"] = (eager["step_ms_median"]
+                                     / dec["step_ms_median"])
+    return dec
 
 
 def gpt2_weight_bytes(params):
@@ -4270,6 +4522,8 @@ def first_differing_launch(model, cfg, a, b, prompt):
     difference. None if every matmul output is equal."""
     import torch
 
+    from ggmlsharp_tpu_torch.models import captured
+
     rec, orig = [], model.linear
 
     def spy(w, x, *args, **kw):
@@ -4279,9 +4533,10 @@ def first_differing_launch(model, cfg, a, b, prompt):
 
     model.linear = spy
     try:
-        for tree in (a, b):
-            rec.append([])
-            prompt_logits(model, cfg, tree, prompt)
+        with captured.disabled():  # a replay would not call the spy
+            for tree in (a, b):
+                rec.append([])
+                prompt_logits(model, cfg, tree, prompt)
     finally:
         model.linear = orig
     for i, ((sa, ya), (_, yb)) in enumerate(zip(*rec)):
@@ -6387,6 +6642,10 @@ def main(argv):
     params = strip_routes(params_d, ("mlp_fused", "layer_fused"))
     prompt = torch.randint(0, cfg.n_vocab, (1, PROMPT_LEN), generator=gen,
                            device=dev, dtype=torch.int32)
+    # phase 4's greedy generate calls, each beside its eager twin (through
+    # path l)
+    twins = contextlib.ExitStack()
+    twins.enter_context(eager_twins())
     torch.cuda.reset_peak_memory_stats()
     toks, counts = run_main_path(cfg, params, prompt)
     peak = torch.cuda.max_memory_allocated()
@@ -6401,7 +6660,12 @@ def main(argv):
     compare_plain(llama, cfg, params, prompt, quant_acts=False,
                   cache_dtype=torch.float32, tol=1e-3)
     log(f"[4/6] a. Llama-7B Q4_0: {PROMPT_LEN}-token prompt + {N_NEW} "
-        f"greedy tokens through the kernels; launches {counts}")
+        f"greedy tokens through the kernels, captured; launches {counts}; "
+        f"eager twin equal: {TWINS[0]}")
+    cap_checks = captured_checks(dev)
+    log(f"[4/6] a host sync in a captured step raised "
+        f"({cap_checks['host_sync'][:70]!r}); a sync buffer made in a "
+        f"capture raised; the card works after both")
     eng, serve, serve_toks = run_serving(cfg, params)
     serve_counts = serve["launches"]
     # the main settings again (Q8_0 activations), an INT8 cache whose
@@ -6412,8 +6676,11 @@ def main(argv):
     del eng
     torch.cuda.empty_cache()
     log(f"[4/6] b. serving: {serve['requests']} requests through "
-        f"{SLOTS} slots, launches {serve_counts}; replay vs plain max abs "
-        f"err {replay_err:.3g}; HTTP: {http['requests']} requests answered")
+        f"{SLOTS} slots, launches {serve_counts} (the eager form's tokens "
+        f"and launches equal: {serve['tokens_equal_eager']}; "
+        f"{serve['captures']} captures, {serve['capture_s']:.3f} s); replay "
+        f"vs plain max abs err {replay_err:.3g}; HTTP: {http['requests']} "
+        f"requests answered")
 
     # GPT-2 Q8_0 at b = 1, 124M and 774M. Tolerances as for llama: under the
     # path's own settings (the prefill's Q8_0 activations, bf16 cache rows) a
@@ -6632,6 +6899,7 @@ def main(argv):
         f"({smi})")
     t0 = time.perf_counter()
     l_res, l_counts = run_gptj_path(smi, dev, gen)
+    twins.close()
     log(f"[4/6] l. GPT-J 6B Q4_0 ({GPTJ_LAYERS} layers) in "
         f"{time.perf_counter() - t0:.1f} s: "
         f"{PROMPT_LEN}-token prompt + {N_NEW} greedy tokens, vs plain max "
@@ -6640,6 +6908,18 @@ def main(argv):
         f"equal; {l_res['decode']['window_tok_s']:.2f} tok/s, "
         f"{l_res['decode']['roofline_share']:.4f} of the HBM roofline; "
         f"launches {({k: v for k, v in l_counts.items() if v})} ({smi})")
+
+    tw = {"calls": len(TWINS), "tokens": sum(t["n_tokens"] for t in TWINS),
+          "all_equal": all(t["tokens_equal"] and t["launches_equal"]
+                           for t in TWINS),
+          "captures": sum(t["captures"] for t in TWINS),
+          "replays": sum(t["replays"] for t in TWINS),
+          "capture_s": sum(t["capture_s"] for t in TWINS)}
+    emit({"captured_twins": tw, "calls": TWINS})
+    log(f"[4/6] captured generate: {tw['calls']} greedy calls of paths a-l "
+        f"({tw['tokens']} tokens) equal to their eager twins in tokens and "
+        f"launches: {tw['all_equal']}; {tw['captures']} captures "
+        f"({tw['capture_s']:.2f} s), {tw['replays']} replays")
 
     # m. the perplexity chain (m1) and KV quality over its model (m2); n. the
     # user examples, OpProfiler and optax_compat
@@ -6808,8 +7088,8 @@ def main(argv):
     llama_wbytes = sum(v.nbytes() for blk in params["blocks"] for key, v in
                        blk.items() if key.startswith("w")) \
         + params["output"].nbytes()
-    dec = measure_decode(llama, cfg, params, prompt, llama_wbytes,
-                         cfg.n_head_kv * cfg.head_dim)
+    dec = decode_forms(llama, cfg, params, prompt, llama_wbytes,
+                       cfg.n_head_kv * cfg.head_dim)
     dec["peak_mem_gb"] = peak / 1e9
     dec["q4_0_share_of_step"] = q4_row["ms"] / dec["step_ms_median"]
     dec["card"] = smi
@@ -6827,28 +7107,40 @@ def main(argv):
            "decode_forwards": st["decode_forwards"],
            "prefill_dispatches": st["prefill_dispatches"],
            "peak_mem_gb": serve["peak_mem_gb"],
+           "captures": serve["captures"], "replays": serve["replays"],
+           "capture_s": serve["capture_s"],
            "roofline_tok_s": serve_roof,
            "roofline_share": tok_s / serve_roof,
-           "decode_step": serve_prof}
+           "decode_step": serve_prof, "eager": serve["eager"]}
     emit({"serving": srv})
-    log(f"[6/6] decode b=1: {dec['window_tok_s']:.1f} tok/s, "
+    ed, es = dec["eager"], serve["eager"]
+    log(f"[6/6] decode b=1, captured (eager): {dec['window_tok_s']:.1f} "
+        f"({ed['window_tok_s']:.1f}) tok/s, step median "
+        f"{dec['step_ms_median']:.3f} ({ed['step_ms_median']:.3f}) ms, "
         f"{dec['roofline_share']:.3f} of the HBM roofline, device idle "
-        f"share {dec['device_idle_share']}; serving {SLOTS} slots: "
-        f"{tok_s:.1f} tok/s, {srv['roofline_share']:.4f} of the batched "
-        f"roofline, mean TTFT {st['mean_ttft_s']:.2f} s, mean latency "
-        f"{st['mean_latency_s']:.2f} s ({smi})")
-    fdec = measure_decode(llama, cfg, params_d, prompt, llama_wbytes,
-                          cfg.n_head_kv * cfg.head_dim, flat=True)
+        f"share {dec['device_idle_share']} ({ed['device_idle_share']}); "
+        f"serving {SLOTS} slots: {tok_s:.1f} ({es['tokens_per_s']:.1f}) "
+        f"tok/s, {srv['roofline_share']:.4f} of the batched roofline, mean "
+        f"TTFT {st['mean_ttft_s']:.2f} s, mean latency "
+        f"{st['mean_latency_s']:.2f} s, peak {serve['peak_mem_gb']:.2f} "
+        f"({es['peak_mem_gb']:.2f}) GB; its decode step "
+        f"{serve_prof['untraced_step_ms_median']:.3f} "
+        f"({serve_prof['eager']['untraced_step_ms_median']:.3f}) ms ({smi})")
+    fdec = decode_forms(llama, cfg, params_d, prompt, llama_wbytes,
+                        cfg.n_head_kv * cfg.head_dim, flat=True)
     fdec.update(route="mlp_fused + layer_fused, flat bf16 cache", card=smi,
                 llama_layer_share_of_step=llayer_row["ms"] * cfg.n_layer
                 / fdec["step_ms_median"],
                 unfused_window_tok_s=dec["window_tok_s"])
     emit({"llama_fused_decode": fdec})
-    log(f"[6/6] Llama-7B whole-block route b=1: "
-        f"{fdec['window_tok_s']:.1f} tok/s ({dec['window_tok_s']:.1f} "
-        f"unfused), {fdec['roofline_share']:.4f} of the HBM roofline, step "
-        f"median {fdec['step_ms_median']:.3f} ms, device idle share "
-        f"{fdec['device_idle_share']}")
+    log(f"[6/6] Llama-7B whole-block route b=1, captured (eager): "
+        f"{fdec['window_tok_s']:.1f} ({fdec['eager']['window_tok_s']:.1f}) "
+        f"tok/s ({dec['window_tok_s']:.1f} unfused), "
+        f"{fdec['roofline_share']:.4f} of the HBM roofline, step median "
+        f"{fdec['step_ms_median']:.3f} "
+        f"({fdec['eager']['step_ms_median']:.3f}) ms, device idle share "
+        f"{fdec['device_idle_share']} "
+        f"({fdec['eager']['device_idle_share']})")
     del params, params_d, params_m
     torch.cuda.empty_cache()
     ekv = cfg.n_head_kv * cfg.head_dim
@@ -6872,15 +7164,21 @@ def main(argv):
     del e_models, eparams
     torch.cuda.empty_cache()
     for tag, (gcfg, gparams, gprompt, _, gpeak) in g_models.items():
-        gdec = measure_decode(gpt2, gcfg, gparams, gprompt,
-                              gpt2_weight_bytes(gparams), gcfg.n_embd)
+        gdec = (decode_forms if tag == "124M" else measure_decode)(
+            gpt2, gcfg, gparams, gprompt, gpt2_weight_bytes(gparams),
+            gcfg.n_embd)
         gdec.update(config=tag, peak_mem_gb=gpeak / 1e9, card=smi)
         emit({"gpt2_decode": gdec})
+        ge = gdec.get("eager")
         log(f"[6/6] GPT-2 {tag} decode b=1: {gdec['window_tok_s']:.1f} "
-            f"tok/s, {gdec['roofline_share']:.4f} of the HBM roofline "
+            f"tok/s"
+            + (f" (eager {ge['window_tok_s']:.1f})" if ge else "")
+            + f", {gdec['roofline_share']:.4f} of the HBM roofline "
             f"({gdec['roofline_tok_s']:.0f} tok/s), step median "
-            f"{gdec['step_ms_median']:.3f} ms, device idle share "
-            f"{gdec['device_idle_share']}")
+            f"{gdec['step_ms_median']:.3f} ms"
+            + (f" (eager {ge['step_ms_median']:.3f})" if ge else "")
+            + f", device idle share {gdec['device_idle_share']}"
+            + (f" (eager {ge['device_idle_share']})" if ge else ""))
     train["flash_share_of_step"] = ft["fwd_bwd_ms"] * gpt2.GPT2_124M.n_layer / (
         train["step_ms_median_2_4"])
     emit({"train": train})

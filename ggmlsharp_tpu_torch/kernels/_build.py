@@ -139,6 +139,41 @@ def reset_launches():
     GEOMETRY_LAUNCHES.clear()
 
 
+def launch_counts() -> tuple:
+    """A copy of both counters, (LAUNCHES, GEOMETRY_LAUNCHES). The counters
+    are Python integers that ``check`` adds to, so the replay of a CUDA
+    graph counts nothing by itself: ``models.captured`` takes the counts
+    before and after a capture (``launch_delta``), puts the earlier ones
+    back (``set_launch_counts``: a capture launches nothing) and adds the
+    difference at every replay (``add_launches``)."""
+    return dict(LAUNCHES), dict(GEOMETRY_LAUNCHES)
+
+
+def set_launch_counts(counts: tuple):
+    """Both counters as ``launch_counts`` gave them, in place."""
+    launches, geometry = counts
+    LAUNCHES.update(launches)
+    GEOMETRY_LAUNCHES.clear()
+    GEOMETRY_LAUNCHES.update(geometry)
+
+
+def launch_delta(before: tuple, after: tuple) -> tuple:
+    """The launches counted between two ``launch_counts``, as
+    ({name: n}, {geometry key: n}) with the keys that moved."""
+    return tuple({k: n - old.get(k, 0) for k, n in new.items()
+                  if n != old.get(k, 0)}
+                 for old, new in zip(before, after))
+
+
+def add_launches(delta: tuple):
+    """Count a ``launch_delta`` once more (one replay of what it counted)."""
+    launches, geometry = delta
+    for k, n in launches.items():
+        LAUNCHES[k] += n
+    for k, n in geometry.items():
+        GEOMETRY_LAUNCHES[k] = GEOMETRY_LAUNCHES.get(k, 0) + n
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

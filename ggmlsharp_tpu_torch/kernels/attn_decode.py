@@ -52,6 +52,7 @@ import torch
 from ..ops.attention import NEG_INF
 from ..ops.matmul import round_bf16
 from . import _build
+from ._sync import refuse_in_capture
 from .config import H100_SMS, device_sms, mm_dot_mode, round_x, use_kernel
 
 _KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
@@ -80,12 +81,14 @@ def decode_splits(batch_heads: int, rows: int, sms: int = H100_SMS) -> int:
 def _counter(device, stream: int, n: int) -> torch.Tensor:
     """The int32 arrival counters of launches on ``stream`` of ``device``:
     zeroed once, left at 0 by every launch, and never reallocated, so a
-    CUDA graph that captured their address stays valid. Launches on one
-    stream run one at a time; another stream gets its own counters. They
+    CUDA graph that captured their address stays valid (made inside a
+    capture they would be zeroed at every replay: RuntimeError). Launches
+    on one stream run one at a time; another stream gets its own counters. They
     are as many as the blocks of one wave (``decode_splits`` splits only
     where B * H_kv is at most half that)."""
     buf = _COUNTERS.get((device, stream))
     if buf is None:
+        refuse_in_capture("attn_decode's arrival counters", device, stream)
         buf = torch.zeros(_BLOCKS_PER_SM * device_sms(device),
                           dtype=torch.int32, device=device)
         _COUNTERS[(device, stream)] = buf

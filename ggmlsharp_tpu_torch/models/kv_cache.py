@@ -19,6 +19,11 @@ writes under buffer donation, this port writes rows IN PLACE (one
 ``index_put_`` a head-major buffer, one ``index_copy_`` a flat one): a cache handed to ``update_layer`` or
 ``update_layer_flat`` is modified, and the returned cache shares its
 buffers. The TPU write formulations (``_unroll_writes``) are not ported.
+A forward returns its new ``length`` as a new tensor (``advance``); the
+decode steps (``sampling``, the serving engine) write it into the cache's
+own ``length`` with ``copy_``, so that the ``KVCache`` object and every
+buffer address stay fixed for the CUDA graph that captures the step, as
+admission, prefix installs and a freed slot write theirs in place.
 """
 from __future__ import annotations
 

@@ -3,9 +3,18 @@ greedy or llama.cpp-style sampling (port of
 ggmlsharp_tpu/models/sampling.py:16-164).
 
 Works with any model module exposing
-forward(params, cfg, tokens, cache, positions, prefix_bound=...). PyTorch
-runs eagerly, so the JAX package's jitted prefill/step become plain
-functions; the live-prefix bound is tracked on the host as there. A
+forward(params, cfg, tokens, cache, positions, prefix_bound=...). The JAX
+package jits the decode step with ``t_eff`` static; here, on the card, the
+step is a ``captured.CapturedStep``: one CUDA graph a length bucket, for
+each parameter tree and cache (a graph reads both at the addresses they had
+at capture, so a new cache, as each ``generate`` call is given, is captured
+anew). The step writes the cache's new length in place (``copy_``), so the
+``KVCache`` object and every buffer address stay fixed. On the CPU, inside
+``captured.disabled()`` and for a tensor-parallel tree (whose collectives
+go through the host) the step runs eagerly. The prefill stays eager (one
+call a request; its shapes vary). The live-prefix bound is tracked on the
+host as in the JAX package. Sampling (``torch.multinomial``) and the
+repeat-penalty window stay outside the graph and read its logits. A
 ``torch.Generator`` takes the place of a JAX key: the two draw different
 numbers from one seed, so sampled (temperature > 0) tokens are compared
 by distribution, not value. ``generate_scan``, the TPU ``while_loop``
@@ -17,7 +26,8 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF
-from .common import _chunk_buckets
+from .captured import CapturedStep
+from .common import _chunk_buckets, tp_axis
 
 
 def length_bucket(n: int, max_len: int, base: int = 256) -> int:
@@ -29,12 +39,69 @@ def length_bucket(n: int, max_len: int, base: int = 256) -> int:
     return max_len
 
 
+def _addresses(cache) -> tuple:
+    """The addresses of every buffer of ``cache``: what a captured step
+    reads and writes."""
+    bufs = (cache.length, *cache.k, *cache.v, *(cache.k_scale or ()),
+            *(cache.v_scale or ()))
+    return tuple(t.data_ptr() for t in bufs)
+
+
+class _StepGraphs:
+    """The decode step of one model as a CapturedStep for the (parameter
+    tree, cache) pair it was last called with, held with both (so that
+    neither identity is reused while its graphs live) and the cache's
+    buffer addresses; another pair gets a new one. A tensor-parallel tree
+    gets the step itself: it runs eagerly."""
+
+    def __init__(self, forward, cfg, greedy: bool):
+        self.forward, self.cfg, self.greedy = forward, cfg, greedy
+        self._held = None  # (params, cache, addresses, step)
+
+    def _body(self, params, cache):
+        forward, cfg, greedy = self.forward, self.cfg, self.greedy
+
+        def step(token, t_eff):
+            positions = cache.length[:, None]
+            logits, out = forward(params, cfg, token, cache, positions,
+                                  prefix_bound=t_eff)
+            cache.length.copy_(out.length)
+            logits = logits[:, -1, :]
+            if greedy:
+                return torch.argmax(logits, dim=-1,
+                                    keepdim=True).to(torch.int32)
+            return logits
+
+        return step
+
+    def __call__(self, params, cache):
+        held, addrs = self._held, _addresses(cache)
+        if held is None or held[0] is not params or held[1] is not cache \
+                or held[2] != addrs:
+            run = self._body(params, cache)
+            if tp_axis(params) is None:
+                run = CapturedStep(run, state=(cache.length,))
+            self._held = held = (params, cache, addrs, run)
+        return held[3]
+
+
+def _bound(cache, t_eff):
+    """t_eff, or (None) the bucket of the longest live prefix after this
+    step, which the forward would compute from the device (read here,
+    outside the graph)."""
+    if t_eff is not None:
+        return t_eff
+    return length_bucket(int(cache.length.max()) + 1, cache.max_len)
+
+
 def make_decode_fns(forward, cfg):
     """Returns (prefill, step).
 
     prefill(params, tokens [B, S], cache, t_eff=None) -> (last logits [B, V], cache)
     step(params, token [B, 1], cache, t_eff=None) -> (logits [B, V], cache)
-    """
+
+    step updates ``cache`` in place (its rows and its length) and returns
+    it; on the card it replays one captured graph a ``t_eff``."""
 
     def prefill(params, tokens, cache, t_eff=None):
         S = tokens.shape[1]
@@ -44,25 +111,25 @@ def make_decode_fns(forward, cfg):
                                 prefix_bound=t_eff)
         return logits[:, -1, :], cache
 
+    graphs = _StepGraphs(forward, cfg, greedy=False)
+
     def step(params, token, cache, t_eff=None):
-        positions = cache.length[:, None]
-        logits, cache = forward(params, cfg, token, cache, positions,
-                                prefix_bound=t_eff)
-        return logits[:, -1, :], cache
+        # a clone: the graph's logits buffer is rewritten by its next replay
+        return graphs(params, cache)(token,
+                                     t_eff=_bound(cache, t_eff)).clone(), cache
 
     return prefill, step
 
 
 def make_greedy_step(forward, cfg):
     """A decode step that also takes the argmax: (params, token [B, 1],
-    cache, t_eff=None) -> (next token int32 [B, 1], cache)."""
+    cache, t_eff=None) -> (next token int32 [B, 1], cache), the cache
+    updated in place; on the card one captured graph a ``t_eff``."""
+    graphs = _StepGraphs(forward, cfg, greedy=True)
 
     def greedy_step(params, token, cache, t_eff=None):
-        positions = cache.length[:, None]
-        logits, cache = forward(params, cfg, token, cache, positions,
-                                prefix_bound=t_eff)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
-        return nxt.to(torch.int32), cache
+        return graphs(params, cache)(token,
+                                     t_eff=_bound(cache, t_eff)).clone(), cache
 
     return greedy_step
 
@@ -144,11 +211,14 @@ def generate(forward, cfg, params, prompt, cache, n_tokens: int,
     prompt: int [B, S] on the cache's device; rng: a torch.Generator on
     that device for temperature > 0. Returns (tokens int32 [B, n_tokens],
     cache)."""
-    prefill, step = make_decode_fns(forward, cfg)
+    prefill, _ = make_decode_fns(forward, cfg)
     T = cache.max_len
     # host-tracked upper bound on the live prefix (one small fetch up front)
     cur = prompt.shape[1] + int(cache.length.max())
     logits, cache = prefill(params, prompt, cache, t_eff=length_bucket(cur, T))
+    # the captured step of this tree and cache: its logits are the graph's
+    # buffer, sampled from before the next replay rewrites it
+    step = _StepGraphs(forward, cfg, greedy=False)(params, cache)
     penalize = repeat_penalty != 1.0 and repeat_last_n > 0
     history = prompt.cpu().numpy().astype(np.int32) if penalize else None
     out = []
@@ -161,5 +231,5 @@ def generate(forward, cfg, params, prompt, cache, n_tokens: int,
         if penalize:
             history = np.concatenate([history, tok.cpu().numpy()], axis=1)
         cur += 1
-        logits, cache = step(params, tok, cache, t_eff=length_bucket(cur, T))
+        logits = step(tok, t_eff=length_bucket(cur, T))
     return torch.cat(out, dim=1), cache

@@ -11,11 +11,28 @@ Slot-based design:
     decode never attends them before overwriting them.
   * decode = ONE batched single-token step for all B slots a tick; empty
     and finished slots run with pad tokens and do not advance.
+  * the decode step (argmax, and the chosen token's logprob when a slot
+    wants logprobs, after the forward and the ``active`` length update) is
+    one captured CUDA graph a (``t_eff``, ``want_lps``) on the card, the
+    counterpart of the JAX engine's ``_make_step`` / ``_make_chain_step``
+    (``models.captured``; the graphs share one memory pool). Its inputs
+    are tokens [B, 1] and ``active`` [B], copied into static buffers; it
+    writes the cache's length in place, so ``self.cache`` and every buffer
+    address stay fixed. ``Engine(mesh=)`` and speculative mode run it
+    eagerly (a route fixed at construction), as does
+    ``captured.disabled()``.
   * decode windows: when every live slot is greedy, up to W steps run back
     to back with every carried value (logits, cache, token columns) on the
-    device and ONE fetch at the end; requests whose budget ends inside the
-    window free their slot at dispatch, and the next admission's prefill
-    is queued behind the window.
+    device and ONE fetch at the end: W replays of the step's graph, each
+    feeding its argmax to the next, the token columns copied out on the
+    device (JAX's chained form; a graph cannot take the traced trip count
+    of JAX's while_loop window, so a whole window is not captured).
+    Requests whose budget ends inside the window free their slot at
+    dispatch, and the next admission's prefill is queued behind the
+    window. When a window provably drains every live slot and the admitted
+    wave can window again, up to GGML_TPU_SERVE_PIPELINE windows (default
+    4) are dispatched before the first fetch (JAX's ``_multi_tick``): the
+    device runs window, prefill, window with no host round trip between.
   * speculative mode (``draft_forward=``, serving.spec): each tick is one
     draft-propose / target-verify round over all slots instead, 1..k+1
     tokens a slot; it runs no decode windows.
@@ -48,6 +65,7 @@ from ..config import batch_slots as _batch_slots_default
 from ..config import int8_kv as _int8_kv_default
 from ..device import resolve_device
 from ..models import kv_cache as kvc
+from ..models.captured import CapturedStep
 from ..models.common import cache_heads, tp_axis, tp_sharding
 from ..models.sampling import _recent_window, length_bucket, sample_token
 from ..models.speculative import make_spec_round, make_spec_round_sampled
@@ -165,6 +183,12 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         self.multi_step = (multi_step if multi_step is not None
                            else int(os.environ.get(
                                "GGML_TPU_SERVE_MULTISTEP", "32")))
+        # the decode step: captured a (t_eff, want_lps) unless the engine is
+        # tensor-parallel or speculative (eager routes)
+        self._decode = self._decode_body if (
+            mesh is not None or draft_forward is not None
+            or tp_axis(params) is not None) else CapturedStep(
+                self._decode_body, state=(self.cache.length,))
 
         # speculative mode
         self.spec = draft_forward is not None
@@ -199,19 +223,31 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
             return x
         return x.pin_memory().to(self.device, non_blocking=True)
 
-    @torch.no_grad()
-    def _step(self, tokens, active, t_eff: int):
-        """One batched decode forward; only ``active`` slots advance.
-        Returns the next logits [B, V]."""
-        positions = self.cache.length[:, None]
+    def _decode_body(self, tokens, active, t_eff: int, want_lps: bool):
+        """One batched decode forward over the engine's cache; only
+        ``active`` slots advance (the length written in place). Returns
+        (logits [B, V], their argmax int32 [B, 1], and with ``want_lps``
+        the argmax's logprob [B, 1])."""
+        length = self.cache.length
         logits, cache = self.forward(self.params, self.cfg, tokens,
-                                     self.cache, positions,
+                                     self.cache, length[:, None],
                                      prefix_bound=t_eff)
-        self.cache = kvc.KVCache(
-            cache.k, cache.v, cache.k_scale, cache.v_scale,
-            torch.where(active, cache.length, cache.length - 1))
+        length.copy_(torch.where(active, cache.length, cache.length - 1))
+        logits = logits[:, -1, :]
+        nxt = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        if not want_lps:
+            return logits, nxt
+        return logits, nxt, torch.gather(torch.log_softmax(logits, dim=-1),
+                                         1, nxt.long())
+
+    @torch.no_grad()
+    def _step(self, tokens, active, t_eff: int, want_lps: bool = False):
+        """One decode step (a graph replay on the card): (logits [B, V],
+        argmax [B, 1], its logprob [B, 1] or None). On the card the results
+        are the graph's buffers, rewritten by its next replay."""
+        out = self._decode(tokens, active, t_eff=t_eff, want_lps=want_lps)
         self._n_forwards += 1
-        return logits[:, -1, :]
+        return out if want_lps else (*out, None)
 
     def _active(self):
         return self._upload(torch.tensor(
@@ -253,17 +289,27 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
                               self.max_len, base=64)
         want_lps = any(s is not None and s.want_logprobs
                        for s in window_reqs)
+        # the window's first token from the last logits (admission may have
+        # written rows of them), each later one the previous step's argmax
         logits = self._last_logits
-        tcols, lcols = [], []
-        for _ in range(k):
-            tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
-            if want_lps:
-                lcols.append(torch.gather(
-                    torch.log_softmax(logits, dim=-1), 1, tok.long()))
-            tcols.append(tok)
-            logits = self._step(tok, active, t_eff)
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        toks = torch.empty((self.B, k), dtype=torch.int32, device=self.device)
+        toks[:, :1] = tok
+        lps = None
+        if want_lps:
+            lps = torch.empty((self.B, k), dtype=torch.float32,
+                              device=self.device)
+            lps[:, :1] = torch.gather(torch.log_softmax(logits, dim=-1), 1,
+                                      tok.long())
+        for j in range(k):
+            logits, tok, lp = self._step(tok, active, t_eff, want_lps)
+            if j + 1 < k:
+                toks[:, j + 1:j + 2] = tok
+                if want_lps:
+                    lps[:, j + 1:j + 2] = lp
         self._last_logits = logits
         pre: dict[int, Request] = {}
+        n_live = sum(s is not None and not s.done for s in self.slots)
         if self.pending and not self._chunking:
             # a slot whose budget ends inside the window is free after it:
             # admit behind the window
@@ -277,8 +323,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
                     self._inflight_pre[r.id] = r
                 self._n_preadmits += len(pre)
                 self._admit()
-        return {"k": k, "reqs": window_reqs, "toks": torch.cat(tcols, 1),
-                "lps": torch.cat(lcols, 1) if lcols else None, "pre": pre}
+        return {"k": k, "reqs": window_reqs, "toks": toks, "lps": lps,
+                "pre": pre, "drained_all": len(pre) == n_live and n_live > 0}
 
     def _drain_window(self, rec: dict):
         """Fetch one window's tokens and do the host-side emit, stop and
@@ -309,6 +355,36 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         for i, req in enumerate(self.slots):
             if req is not None and i not in pre and req.done:
                 self._finish_slot(req, i)
+
+    def _multi_tick(self, k: int) -> bool:
+        """A decode-window tick: up to GGML_TPU_SERVE_PIPELINE windows
+        (default 4) dispatched back to back before the first fetch, then
+        drained in order. A later window is dispatched only while the last
+        one provably drains every live slot (each slot's remaining budget
+        fits it, so all are free after it and the next wave was admitted
+        behind it) and the new wave's budgets fit a window again; each such
+        window counts as a tick, as in the JAX engine. Early stop inside a
+        pipelined window wastes at most that wave's remaining steps."""
+        depth = max(1, int(os.environ.get("GGML_TPU_SERVE_PIPELINE", "4")))
+        records = [self._dispatch_window(k)]
+        while len(records) < depth and records[-1]["drained_all"]:
+            ready = [s is not None and not s.done and i not in self._chunking
+                     for i, s in enumerate(self.slots)]
+            if not any(ready):
+                break
+            greedy = [r and s.temperature <= 0.0 and s.repeat_penalty == 1.0
+                      for r, s in zip(ready, self.slots)]
+            k2 = self._window_k(ready, greedy)
+            if k2 <= 1:
+                break
+            if not all(s is None or s.max_new_tokens - len(s.out_tokens) <= k2
+                       for s in self.slots):
+                break  # the new wave would not drain in one window
+            self._n_ticks += 1
+            records.append(self._dispatch_window(k2))
+        for rec in records:
+            self._drain_window(rec)
+        return True
 
     # --- request bookkeeping ----------------------------------------------
     def _free_slot(self, i: int):
@@ -422,9 +498,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         greedy = [r and s.temperature <= 0.0 and s.repeat_penalty == 1.0
                   for r, s in zip(ready, self.slots)]
         k = self._window_k(ready, greedy)
-        if k > 1:  # all-greedy k-token window: k steps, one fetch
-            self._drain_window(self._dispatch_window(k))
-            return True
+        if k > 1:  # all-greedy k-token windows: k steps, one fetch each
+            return self._multi_tick(k)
         toks = np.zeros((self.B, 1), np.int32)
         gtoks = torch.argmax(self._last_logits, dim=-1).cpu().numpy() \
             if any(greedy) else None
@@ -462,7 +537,7 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         t_eff = length_bucket(min(max(live, default=1), self.max_len),
                               self.max_len, base=64)
         self._last_logits = self._step(self._upload(torch.from_numpy(toks)),
-                                       self._active(), t_eff)
+                                       self._active(), t_eff)[0]
         for i, req in enumerate(self.slots):
             if req is not None and req.done:
                 self._finish_slot(req, i)

@@ -114,7 +114,10 @@ version):
         BF16 vectors), io.load_hf_gpt2, Q8_0 on the card, path c's route
         (kernels 4, 8, 11); j3 path g's trained parameters and a Q4_0 tree
         through io.save_checkpoint / load_checkpoint, bit for bit;
-     k. speculative decoding (models.speculative, k = SPEC_K): k1 Llama-7B
+     k. speculative decoding (models.speculative, k = SPEC_K), each run
+        in both forms (eager, then its rounds captured: one CUDA graph a
+        length bucket; the engine's admissions too), the captured form's
+        tokens and launches equal to the eager form's: k1 Llama-7B
         Q4_0 with itself as the draft at b = 1 (bf16 head-major caches; the
         16-token prompt, 32 tokens), held to path a's tokens on decided
         positions, k + 1 tokens on every round whose drafts are all
@@ -122,11 +125,12 @@ version):
         caches: the draft's steps through the whole-block kernel, the 5-row
         verify through kernels 4 and 8), held to the 774M's per-op greedy
         decode (GGML_TPU_LAYER_FUSED=0) on decided positions, then one
-        rejection-sampled run; k3 the speculative engine over path b's
-        config (draft = target, INT8 flat caches, 8 slots; 24 greedy
+        rejection-sampled run (its generator registered with the graph, the
+        stream equal to the eager one); k3 the speculative engine over path
+        b's config (draft = target, INT8 flat caches, 8 slots; 24 greedy
         requests, one through a registered prefix, and two at temperature
         0.8), held to the same engine on plain forwards on decided tokens,
-        then an HTTP check;
+        then an HTTP check; the phase's captured.COUNTS;
      l. GPT-J 6B Q4_0 (full width, depth cut to 8 of 28 layers for the
         script's time limit, random weights quantized on the card) at
         b = 1: the 16-token prompt (kernel 1's multi-row
@@ -188,8 +192,13 @@ version):
      and the share of the batched roofline; the same decode measurements
      for GPT-2 124M and 774M, for Llama-7B on its whole-block route and
      for path e in Q4_K and Q6_K; path g's step time, tokens/s, share of
-     the bf16 dense peak and peak memory (paths k and l print their rates,
-     tokens a round, device ms a round and roofline share in phase 4).
+     the bf16 dense peak and peak memory; k1's round in both forms (host
+     ms and p84, device ms, idle share, tokens a round, steady tok/s,
+     capture seconds apart); path b's traffic twice on one engine, captured
+     (TTFT, latency and tok/s a wave, its captures); the admission
+     prefill's host ms a bucket, single and grouped, in both forms (paths
+     k and l print their rates, tokens a round and roofline share in
+     phase 4).
 
 ``python3 chip_smoke.py --parallel`` builds the kernels and runs phase p
 alone (a development mode).
@@ -5077,35 +5086,68 @@ def spec_launches(cfg, kind, rounds, d_cfg=None):
         "flash_attn": Lt + Ld}
 
 
-def run_spec_k1(smi, cfg, params, prompt, toks_a):
-    """Path k1: Llama-7B Q4_0 speculative decode at b = 1, draft = target,
-    bf16 head-major caches, k = SPEC_K: the 16-token prompt and N_NEW tokens.
-    The tokens must equal path a's greedy tokens on every decided position
-    up to the first undecided one (decided: the plain top-2 gap above 2 *
-    0.1, path a's tol), every round whose k drafts are all decided must emit
-    k + 1, and the launches must be the rounds' (multi-row and b = 1 Q4_0
-    instances). Then the device ms a round (profiler) over a fresh run."""
+def spec_forms(run):
+    """run() in the eager form (captured.disabled()), then as the port runs
+    it (its rounds captured), the launch counters and capture counts reset
+    just before each and read just after: {form: (run()'s result,
+    launches, captured.COUNTS, seconds)}."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured
+
+    out = {}
+    for form in ("eager", "captured"):
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            captured.reset_counts()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            out[form] = (res, dict(kernels.LAUNCHES), dict(captured.COUNTS),
+                         time.perf_counter() - t0)
+    return out
+
+
+def form_record(forms, n_tokens):
+    """The per-form figures of spec_forms' output: seconds, tok/s and the
+    captured form's captures, replays and capture seconds."""
+    return {form: {"seconds": secs, "tok_s": n_tokens / secs, **counts}
+            for form, (_, _, counts, secs) in forms.items()}
+
+
+def run_spec_k1(smi, cfg, params, prompt, toks_a):
+    """Path k1: Llama-7B Q4_0 speculative decode at b = 1, draft = target,
+    bf16 head-major caches, k = SPEC_K: the 16-token prompt and N_NEW tokens,
+    in both forms (eager, then the rounds captured: one graph a length
+    bucket). The captured form's tokens and launches must equal the eager
+    form's; its tokens must equal path a's greedy tokens on every decided
+    position up to the first undecided one (decided: the plain top-2 gap
+    above 2 * 0.1, path a's tol), every round whose k drafts are all
+    decided must emit k + 1, and the launches must be the rounds'
+    (multi-row and b = 1 Q4_0 instances). Phase 6 times the round
+    (spec_round_forms)."""
+    import torch
+
     from ggmlsharp_tpu_torch.models import llama
-    from ggmlsharp_tpu_torch.models.speculative import (
-        make_spec_round, speculative_generate)
-    from ggmlsharp_tpu_torch.models.sampling import length_bucket
+    from ggmlsharp_tpu_torch.models.speculative import speculative_generate
 
     tol = 0.1
-    rounds = []
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    with record_rounds(rounds):
-        toks, rate = speculative_generate(
-            llama.forward, cfg, params, llama.forward, cfg, params, prompt,
-            llama.new_cache(cfg, 1), llama.new_cache(cfg, 1), N_NEW,
-            k=SPEC_K)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = dict(kernels.LAUNCHES)
+
+    def run():
+        rounds = []
+        with record_rounds(rounds):
+            toks, rate = speculative_generate(
+                llama.forward, cfg, params, llama.forward, cfg, params,
+                prompt, llama.new_cache(cfg, 1), llama.new_cache(cfg, 1),
+                N_NEW, k=SPEC_K)
+        return toks, rate, rounds
+
+    forms = spec_forms(run)
+    (toks, rate, rounds), counts, _, seconds = forms["captured"]
+    (e_toks, _, _), e_counts, _, _ = forms["eager"]
     want = spec_launches(cfg, "llama", len(rounds))
     gaps = plain_gaps(llama, cfg, params, prompt, toks_a)
     got, ref = toks[0].tolist(), toks_a[0].tolist()
@@ -5119,43 +5161,12 @@ def run_spec_k1(smi, cfg, params, prompt, toks_a):
             checked += 1
             full_ok &= int(ne[0]) == SPEC_K + 1
         e += int(ne[0])
-    # device time a round: a fresh prefill, then profiled rounds
-    tc, dc = llama.new_cache(cfg, 1), llama.new_cache(cfg, 1)
-    rnd = make_spec_round(llama.forward, cfg, llama.forward, cfg, SPEC_K)
-    with torch.no_grad():
-        lg, tc = llama.forward(params, cfg, prompt, tc, torch.arange(
-            PROMPT_LEN, dtype=torch.int32, device=prompt.device)[None],
-            prefix_bound=length_bucket(PROMPT_LEN, cfg.n_ctx))
-        _, dc = llama.forward(params, cfg, prompt[:, :-1], dc, torch.arange(
-            PROMPT_LEN - 1, dtype=torch.int32, device=prompt.device)[None],
-            prefix_bound=length_bucket(PROMPT_LEN, cfg.n_ctx))
-    a0 = torch.argmax(lg[:, -1], -1, keepdim=True).to(torch.int32)
-    state = {"tc": tc, "dc": dc,
-             "seed": torch.cat([prompt[:, -1:], a0], 1), "h": PROMPT_LEN}
-
-    def one_round():
-        t_eff = length_bucket(state["h"] + SPEC_K + 2, cfg.n_ctx)
-        _, ne, state["tc"], state["dc"], state["seed"] = rnd(
-            params, params, state["tc"], state["dc"], state["seed"],
-            t_eff=t_eff, d_eff=t_eff)
-        state["h"] += SPEC_K + 1
-
-    lat = []
-    for i in range(4):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        one_round()
-        torch.cuda.synchronize()
-        if i:
-            lat.append(time.perf_counter() - t1)
-    prof = profile_steps(one_round, 1)  # ~27k kernels a round
     res = {"card": smi, "k": SPEC_K, "tokens": got, "rounds": len(rounds),
            "n_emit": [int(ne[0]) for _, ne in rounds],
            "mean_tokens_a_round": rate, "seconds": seconds,
-           "tok_s": N_NEW / seconds,
-           "round_ms_median": statistics.median(lat) * 1e3,
-           "device_ms_per_round": prof["device_ms_per_step"],
-           "kernels_per_round": prof["kernels_per_step"],
+           "tok_s": N_NEW / seconds, "forms": form_record(forms, N_NEW),
+           "eager_tokens_equal": bool(torch.equal(toks, e_toks)),
+           "eager_launches_equal": counts == e_counts,
            "tokens_equal_path_a": sum(a == b for a, b in zip(got, ref)),
            "first_parting": part, "parting_decided": part_decided,
            "tokens_decided": int((gaps > 2 * tol).sum()),
@@ -5164,6 +5175,10 @@ def run_spec_k1(smi, cfg, params, prompt, toks_a):
     emit({"spec_llama_k1": res})
     expect_launches("k1", counts, want)
     require_launches("k1", counts, ("matmul_q4_0", "matmul_q4_0_mma"))
+    if not (res["eager_tokens_equal"] and res["eager_launches_equal"]):
+        raise SystemExit(f"path k1: the captured rounds differ from their "
+                         f"eager twin: {e_toks.tolist()} vs {got}, launches "
+                         f"{e_counts} vs {counts}")
     if part_decided or not full_ok or toks.shape != (1, N_NEW):
         raise SystemExit(f"path k1: speculative tokens disagree: {res}")
     return res, counts
@@ -5171,15 +5186,16 @@ def run_spec_k1(smi, cfg, params, prompt, toks_a):
 
 def run_spec_k2(smi, t_cfg, t_params, d_cfg, d_params, prompt):
     """Path k2: GPT-2 774M Q8_0 target, GPT-2 124M Q8_0 draft, b = 1, flat
-    float caches: greedy, held on decided positions to the 774M target's own
-    per-op greedy decode (GGML_TPU_LAYER_FUSED=0 for that reference only:
-    the whole-block kernel quantizes no activation, the verify's per-op
-    route does, so path c computes another function); then one
-    rejection-sampled run (temperature 0.8, top-p 0.95, a seeded
-    generator)."""
+    float caches, each run in both forms (eager, then captured), tokens and
+    launches equal: greedy, held on decided positions to the 774M target's
+    own per-op greedy decode (GGML_TPU_LAYER_FUSED=0 for that reference
+    only: the whole-block kernel quantizes no activation, the verify's
+    per-op route does, so path c computes another function); then one
+    rejection-sampled run (temperature 0.8, top-p 0.95, a generator seeded
+    alike in both forms: the captured round registers it with its graph,
+    and the captured stream must equal the eager one token for token)."""
     import torch
 
-    from ggmlsharp_tpu_torch import kernels
     from ggmlsharp_tpu_torch.models import gpt2, sampling
     from ggmlsharp_tpu_torch.models.speculative import speculative_generate
 
@@ -5192,17 +5208,17 @@ def run_spec_k2(smi, t_cfg, t_params, d_cfg, d_params, prompt):
             raise SystemExit("path k2 must run over flat float caches")
         return t, d
 
-    rounds = []
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    with record_rounds(rounds):
-        toks, rate = speculative_generate(
-            gpt2.forward, t_cfg, t_params, gpt2.forward, d_cfg, d_params,
-            prompt, *caches(), N_NEW, k=SPEC_K)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = dict(kernels.LAUNCHES)
+    def run(**kw):
+        rounds = []
+        with record_rounds(rounds):
+            toks, rate = speculative_generate(
+                gpt2.forward, t_cfg, t_params, gpt2.forward, d_cfg, d_params,
+                prompt, *caches(), N_NEW, k=SPEC_K, **kw)
+        return toks, rate, rounds
+
+    forms = spec_forms(run)
+    (toks, rate, rounds), counts, _, seconds = forms["captured"]
+    (e_toks, _, _), e_counts, _, _ = forms["eager"]
     want = spec_launches(t_cfg, "gpt2", len(rounds), d_cfg)
     os.environ["GGML_TPU_LAYER_FUSED"] = "0"
     try:
@@ -5216,36 +5232,50 @@ def run_spec_k2(smi, t_cfg, t_params, d_cfg, d_params, prompt):
         os.environ.pop("GGML_TPU_LAYER_FUSED")
     got, want_toks = toks[0].tolist(), ref[0].tolist()
     part, part_decided = held_to_reference(got, want_toks, gaps, tol)
-    s_rounds = []
-    with record_rounds(s_rounds):
-        s_toks, s_rate = speculative_generate(
-            gpt2.forward, t_cfg, t_params, gpt2.forward, d_cfg, d_params,
-            prompt, *caches(), N_NEW, k=SPEC_K, temperature=0.8, top_p=0.95,
-            rng=torch.Generator(dev).manual_seed(SEED))
+    s_forms = spec_forms(lambda: run(
+        temperature=0.8, top_p=0.95,
+        rng=torch.Generator(dev).manual_seed(SEED)))
+    (s_toks, s_rate, s_rounds), s_counts, _, _ = s_forms["captured"]
+    (se_toks, _, _), se_counts, _, _ = s_forms["eager"]
     s_emit = [int(ne[0]) for _, ne in s_rounds]
     res = {"card": smi, "k": SPEC_K, "target": "GPT-2 774M", "draft":
            "GPT-2 124M", "tokens": got, "rounds": len(rounds),
            "n_emit": [int(ne[0]) for _, ne in rounds],
            "mean_tokens_a_round": rate, "seconds": seconds,
-           "tok_s": N_NEW / seconds,
+           "tok_s": N_NEW / seconds, "forms": form_record(forms, N_NEW),
+           "eager_tokens_equal": bool(torch.equal(toks, e_toks)),
+           "eager_launches_equal": counts == e_counts,
            "reference_per_op_tokens": want_toks,
            "tokens_equal_reference": sum(a == b for a, b in
                                          zip(got, want_toks)),
            "first_parting": part, "parting_decided": part_decided,
            "tokens_decided": int((gaps > 2 * tol).sum()),
            "sampled": {"tokens": s_toks[0].tolist(), "n_emit": s_emit,
-                       "mean_tokens_a_round": s_rate},
+                       "mean_tokens_a_round": s_rate,
+                       "forms": form_record(s_forms, N_NEW),
+                       "eager_tokens": se_toks[0].tolist(),
+                       "eager_tokens_equal": bool(torch.equal(s_toks,
+                                                              se_toks)),
+                       "eager_launches_equal": s_counts == se_counts},
            "launches": counts, "expected_launches": want}
     emit({"spec_gpt2_k2": res})
     expect_launches("k2", counts, want)
     require_launches("k2", counts, ("gpt2_layer", "matmul_q8_0_mma",
                                     "mlp_fused_q8_mma"))
+    if not (res["eager_tokens_equal"] and res["eager_launches_equal"]):
+        raise SystemExit(f"path k2: the captured rounds differ from their "
+                         f"eager twin: {res}")
     if part_decided or toks.shape != (1, N_NEW):
         raise SystemExit(f"path k2: speculative tokens disagree: {res}")
     if s_toks.shape != (1, N_NEW) or not all(1 <= n <= SPEC_K + 1
                                               for n in s_emit) \
             or int(s_toks.min()) < 0 or int(s_toks.max()) >= t_cfg.n_vocab:
         raise SystemExit(f"path k2: the sampled run is malformed: {res}")
+    if s_forms["captured"][2]["captures"] < 1 \
+            or not res["sampled"]["eager_tokens_equal"]:
+        raise SystemExit(f"path k2: the sampled rounds were not captured, "
+                         f"or their stream differs from the eager one: "
+                         f"{res['sampled']}")
     return res, counts
 
 
@@ -5349,27 +5379,30 @@ def run_spec_serving_k3(smi, cfg, params, path_b_tokens):
     the engine with kernels equals the same engine with plain forwards on
     decided tokens (each greedy request up to its first parting, which must
     fall where the plain top-2 gap is at most 2 * 0.1, the replay's tol).
-    Reported, not gated: the share of greedy tokens equal to path b's (over
-    an INT8 flat cache a single-token step attends its fresh row
+    The engine runs in both forms (eager, then captured: its rounds and
+    admissions one graph a key), every request's tokens and the launches
+    equal. Reported, not gated: the share of greedy tokens equal to path
+    b's (over an INT8 flat cache a single-token step attends its fresh row
     unquantized, the verify its rows quantized: other functions), the mean
     tokens a round. Then an HTTP check over EngineServer on the engine."""
     import functools
 
     import torch
 
-    from ggmlsharp_tpu_torch import kernels
-    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.models import captured, llama
 
     tol = 0.1
     prefix, reqs = k3_requests(cfg)
-    kernels.reset_launches()
-    eng, got, seconds, _, rounds = run_spec_engine(cfg, params, llama.forward,
-                                                   prefix, reqs)
-    counts = dict(kernels.LAUNCHES)
+    forms = spec_forms(lambda: run_spec_engine(cfg, params, llama.forward,
+                                               prefix, reqs))
+    (eng, got, seconds, _, rounds), counts, _, _ = forms["captured"]
+    (e_eng, e_got, _, _, _), e_counts, _, _ = forms["eager"]
+    del e_eng
     st = eng.stats()
-    _, ref, _, gaps, _ = run_spec_engine(
-        cfg, params, functools.partial(llama.forward, plain=True), prefix,
-        reqs, record=True)
+    with captured.disabled():  # the reference: plain forwards, eager
+        _, ref, _, gaps, _ = run_spec_engine(
+            cfg, params, functools.partial(llama.forward, plain=True),
+            prefix, reqs, record=True)
     n_greedy = len(path_b_tokens)
     partings, bad = {}, []
     for g, r in zip(got[:n_greedy], ref[:n_greedy]):
@@ -5391,9 +5424,14 @@ def run_spec_serving_k3(smi, cfg, params, path_b_tokens):
     same_b = sum(a == b for g, bt in zip(got, path_b_tokens)
                  for a, b in zip(g.out_tokens, bt))
     live, emitted = map(sum, zip(*rounds)) if rounds else (0, 0)
+    n_out = sum(len(r.out_tokens) for r in got)
     res = {"card": smi, "slots": SLOTS, "k": SPEC_K,
            "requests": len(got), "seconds": seconds,
-           "tokens_per_s": sum(len(r.out_tokens) for r in got) / seconds,
+           "tokens_per_s": n_out / seconds,
+           "forms": form_record(forms, n_out),
+           "eager_tokens_equal": [r.out_tokens for r in got]
+           == [r.out_tokens for r in e_got],
+           "eager_launches_equal": counts == e_counts,
            "stats": st, "rounds": len(rounds),
            "mean_tokens_a_round": emitted / max(1, live),
            "partings_from_plain_engine": partings,
@@ -5406,12 +5444,209 @@ def run_spec_serving_k3(smi, cfg, params, path_b_tokens):
     emit({"spec_serving_k3": res})
     require_launches("k3", counts, ("matmul_q4_0_mma", "flash_attn",
                                     "attn_decode"))
+    if not (res["eager_tokens_equal"] and res["eager_launches_equal"]):
+        raise SystemExit(f"path k3: the captured engine differs from its "
+                         f"eager twin: {res}")
     if bad or len(got) != n_greedy + K3_SAMPLED:
         raise SystemExit(f"path k3: requests {bad} disagree or failed: {res}")
     http = http_check(eng, cfg)
     del eng
     torch.cuda.empty_cache()
     return res, counts, http
+
+
+def spec_round_forms(smi, cfg, params, prompt, n_warm=2, n_lat=12):
+    """Path k1's round (Llama-7B Q4_0, draft = target, k = SPEC_K, bf16
+    head-major caches after the 16-token prompt) in both forms, each from
+    the same prefilled caches: host ms a round (synced; median and p84 of
+    n_lat rounds after n_warm, which hold the captured form's capture; the
+    eager form, ~13x slower, half as many of each),
+    device ms and kernels a round (profile_steps over one round), the idle
+    share, tokens a round (the timed rounds' mean) and steady tok/s (tokens
+    a round over the median round ms); captures and capture seconds apart.
+    Both forms must emit the same tokens."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import captured, llama
+    from ggmlsharp_tpu_torch.models.sampling import length_bucket
+    from ggmlsharp_tpu_torch.models.speculative import make_spec_round
+
+    res, streams = {}, {}
+    for form in ("eager", "captured"):
+        tc, dc = llama.new_cache(cfg, 1), llama.new_cache(cfg, 1)
+        pos = torch.arange(PROMPT_LEN, dtype=torch.int32,
+                           device=prompt.device)[None]
+        bound = length_bucket(PROMPT_LEN, cfg.n_ctx)
+        with torch.no_grad():
+            lg, out = llama.forward(params, cfg, prompt, tc, pos,
+                                    prefix_bound=bound)
+            tc.length.copy_(out.length)
+            _, out = llama.forward(params, cfg, prompt[:, :-1], dc,
+                                   pos[:, :-1], prefix_bound=bound)
+            dc.length.copy_(out.length)
+        a0 = torch.argmax(lg[:, -1], -1, keepdim=True).to(torch.int32)
+        rnd = make_spec_round(llama.forward, cfg, llama.forward, cfg, SPEC_K)
+        state = {"seed": torch.cat([prompt[:, -1:], a0], 1),
+                 "h": PROMPT_LEN, "out": []}
+
+        def one_round():
+            t_eff = length_bucket(state["h"] + SPEC_K + 2, cfg.n_ctx)
+            em, ne, _, _, seed = rnd(params, params, tc, dc, state["seed"],
+                                     t_eff=t_eff, d_eff=t_eff)
+            state["seed"] = seed.clone()
+            state["out"].append(torch.cat([em, ne[:, None]], 1).clone())
+            state["h"] += SPEC_K + 1
+
+        captured.reset_counts()
+        warm, timed = (max(1, n_warm // 2), max(2, n_lat // 2)) \
+            if form == "eager" else (n_warm, n_lat)
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            lat = []
+            for i in range(warm + timed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_round()
+                torch.cuda.synchronize()
+                if i >= warm:
+                    lat.append(time.perf_counter() - t0)
+            counts = dict(captured.COUNTS)
+            prof = profile_steps(one_round, 1)  # ~27k kernels a round
+        rows = torch.cat(state["out"]).cpu()
+        streams[form] = rows
+        lat_ms = sorted(x * 1e3 for x in lat)
+        med = statistics.median(lat_ms)
+        per_round = float(rows[warm:warm + timed, -1].float().mean())
+        dev_ms = prof["device_ms_per_step"]
+        res[form] = {"round_ms_median": med,
+                     "round_ms_p84": lat_ms[int(0.84 * len(lat_ms))],
+                     "rounds_timed": len(lat_ms),
+                     "device_ms_per_round": dev_ms,
+                     "kernels_per_round": prof["kernels_per_step"],
+                     "aten_calls_per_round": prof["aten_calls_per_step"],
+                     "device_idle_share": (1.0 - dev_ms / med
+                                           if isinstance(dev_ms, float)
+                                           else "not measured"),
+                     "tokens_a_round": per_round,
+                     "steady_tok_s": per_round * 1e3 / med, **counts}
+    res["card"] = smi
+    n = min(len(r) for r in streams.values())  # the rounds both forms ran
+    res["tokens_equal"] = bool(torch.equal(streams["eager"][:n],
+                                           streams["captured"][:n]))
+    res["speedup_round_ms"] = (res["eager"]["round_ms_median"]
+                               / res["captured"]["round_ms_median"])
+    emit({"spec_round_k1": res})
+    if not res["tokens_equal"]:
+        raise SystemExit("k1's captured rounds emit other tokens than its "
+                         "eager rounds")
+    return res
+
+
+def serving_waves(smi, cfg, params, want):
+    """Path b's traffic (SERVE_REQS requests of SERVE_PLEN + SERVE_NEW
+    tokens, SLOTS slots, INT8 flat cache) twice on one engine, captured:
+    each wave's mean and median TTFT (first token - submit), mean latency,
+    seconds and tok/s, and the captures and capture seconds it made (the
+    first wave captures its admissions and decode steps; the second finds
+    them made). The eager form's wave is phase 4 b's. Both waves must give
+    ``want``, phase 4 b's tokens (equal in both forms)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import captured
+    from ggmlsharp_tpu_torch.serving import Request
+
+    prompts = serving_prompts(cfg)
+    waves, outs = [], []
+    eng = new_engine(cfg, params)
+    for _ in range(2):
+        captured.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(id=i, prompt=p, max_new_tokens=SERVE_NEW))
+        got = eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ttft = [r.t_first_token - r.t_submit for r in got]
+        outs.append([r.out_tokens for r in got])
+        waves.append({"mean_ttft_s": statistics.mean(ttft),
+                      "median_ttft_s": statistics.median(ttft),
+                      "mean_latency_s": statistics.mean(
+                          [r.t_done - r.t_submit for r in got]),
+                      "seconds": secs,
+                      "tokens_per_s": SERVE_REQS * SERVE_NEW / secs,
+                      **dict(captured.COUNTS)})
+    del eng
+    torch.cuda.empty_cache()
+    res = {"card": smi, "captured": waves,
+           "tokens_equal": all(o == want for o in outs)}
+    emit({"serving_waves": res})
+    if not res["tokens_equal"]:
+        raise SystemExit("serving waves: a wave's tokens differ from phase "
+                         "4 b's")
+    return res
+
+
+ADMIT_BUCKETS = (16, 64, 256)  # single admissions (256: a 200-token prompt)
+ADMIT_GROUPS = ((16, SLOTS), (64, SLOTS), (16, 3))  # (bucket, requests)
+
+
+def admission_ms(smi, cfg, params, reps=5):
+    """The engine's admission prefill on path b's engine, in each form:
+    a single admission into slot 0 at each of ADMIT_BUCKETS (a prompt of
+    the bucket's length, 200 tokens for 256), and a grouped admission of
+    each of ADMIT_GROUPS (3 requests pad to a group of 4): the first call
+    (the captured form's capture) apart, then the median and p84 host ms
+    of ``reps`` synced calls; captures and capture seconds."""
+    import numpy as np
+    import torch
+
+    from ggmlsharp_tpu_torch.models import captured
+    from ggmlsharp_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(5)
+    res = {}
+    for form in ("eager", "captured"):
+        rows = []
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            eng = new_engine(cfg, params)
+            cases = [("single", b, 1) for b in ADMIT_BUCKETS] + \
+                [("group", b, n) for b, n in ADMIT_GROUPS]
+            for kind, bucket, n in cases:
+                plen = min(bucket, 200)
+                reqs = [Request(id=i, prompt=rng.integers(
+                    0, cfg.n_vocab, plen).tolist(), max_new_tokens=1)
+                    for i in range(n)]
+
+                def call():
+                    if kind == "single":
+                        eng._prefill_slot(reqs[0], 0)
+                    else:
+                        eng._prefill_many(bucket, [(r, i) for i, r in
+                                                   enumerate(reqs)],
+                                          lambda r: r.prompt)
+
+                captured.reset_counts()
+                ms = []
+                for _ in range(1 + reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                steady = sorted(ms[1:])
+                rows.append({"kind": kind, "bucket": bucket, "requests": n,
+                             "first_ms": ms[0],
+                             "ms_median": statistics.median(steady),
+                             "ms_p84": steady[int(0.84 * len(steady))],
+                             **dict(captured.COUNTS)})
+            del eng
+            torch.cuda.empty_cache()
+        res[form] = rows
+    res["card"] = smi
+    emit({"admission_prefill": res})
+    return res
 
 
 def gptj_weight_bytes(params):
@@ -6881,22 +7116,33 @@ def main(argv):
                                 g_models["124M"][0], g124p, g774prompt)
     k3, k3_counts, k3_http = run_spec_serving_k3(smi, cfg, params, serve_toks)
     k_counts = {k: k1_counts[k] + k2_counts[k] + k3_counts[k] for k in counts}
+    # captured.COUNTS of the phase's captured runs (k2 greedy and sampled)
+    k_cap = {key: sum(r["forms"]["captured"][key] for r in
+                      (k1, k2, k2["sampled"], k3))
+             for key in ("captures", "replays", "capture_s")}
+    emit({"spec_captured_counts": k_cap})
+
+    def rate(r):  # captured [eager] tok/s
+        return (f"{r['forms']['captured']['tok_s']:.2f} "
+                f"[{r['forms']['eager']['tok_s']:.2f}]")
+
     log(f"[4/6] k. speculative decoding in {time.perf_counter() - t0:.1f} "
-        f"s, k = {SPEC_K}: k1 Llama-7B draft = target {k1['rounds']} rounds, "
-        f"{k1['mean_tokens_a_round']:.2f} tokens a round, "
-        f"{k1['tok_s']:.2f} tok/s, device {k1['device_ms_per_round']} ms a "
-        f"round, path a's tokens {k1['tokens_equal_path_a']}/{N_NEW} "
+        f"s, k = {SPEC_K}, each run captured [eager], tokens and launches "
+        f"equal: k1 Llama-7B draft = target {k1['rounds']} rounds, "
+        f"{k1['mean_tokens_a_round']:.2f} tokens a round, {rate(k1)} tok/s, "
+        f"path a's tokens {k1['tokens_equal_path_a']}/{N_NEW} "
         f"(first parting {k1['first_parting']}); k2 GPT-2 774M + 124M draft "
-        f"{k2['mean_tokens_a_round']:.2f} tokens a round, "
-        f"{k2['tok_s']:.2f} tok/s, the per-op reference's tokens "
+        f"{k2['mean_tokens_a_round']:.2f} tokens a round, {rate(k2)} tok/s, "
+        f"the per-op reference's tokens "
         f"{k2['tokens_equal_reference']}/{N_NEW}, sampled n_emit "
-        f"{k2['sampled']['n_emit']}; k3 serving {k3['requests']} requests "
-        f"{k3['tokens_per_s']:.1f} tok/s, {k3['mean_tokens_a_round']:.2f} "
-        f"tokens a round, partings from the plain engine "
-        f"{len(k3['partings_from_plain_engine'])}, share equal to path b "
-        f"{k3['share_equal_path_b']:.3f}, HTTP {k3_http['requests']} "
-        f"answered; launches {({k: v for k, v in k_counts.items() if v})} "
-        f"({smi})")
+        f"{k2['sampled']['n_emit']} {rate(k2['sampled'])} tok/s (captured "
+        f"stream = eager: {k2['sampled']['eager_tokens_equal']}); k3 "
+        f"serving {k3['requests']} requests {rate(k3)} tok/s, "
+        f"{k3['mean_tokens_a_round']:.2f} tokens a round, partings from the "
+        f"plain engine {len(k3['partings_from_plain_engine'])}, share equal "
+        f"to path b {k3['share_equal_path_b']:.3f}, HTTP "
+        f"{k3_http['requests']} answered; captured.COUNTS {k_cap}; launches "
+        f"{({k: v for k, v in k_counts.items() if v})} ({smi})")
     t0 = time.perf_counter()
     l_res, l_counts = run_gptj_path(smi, dev, gen)
     twins.close()
@@ -7126,6 +7372,31 @@ def main(argv):
         f"({es['peak_mem_gb']:.2f}) GB; its decode step "
         f"{serve_prof['untraced_step_ms_median']:.3f} "
         f"({serve_prof['eager']['untraced_step_ms_median']:.3f}) ms ({smi})")
+    kr = spec_round_forms(smi, cfg, params, prompt)
+    kc, ke = kr["captured"], kr["eager"]
+    log(f"[6/6] k1 round, captured [eager]: host {kc['round_ms_median']:.2f} "
+        f"(p84 {kc['round_ms_p84']:.2f}) [{ke['round_ms_median']:.1f} (p84 "
+        f"{ke['round_ms_p84']:.1f})] ms, device {kc['device_ms_per_round']} "
+        f"[{ke['device_ms_per_round']}] ms, idle {kc['device_idle_share']} "
+        f"[{ke['device_idle_share']}], {kc['tokens_a_round']:.2f} tokens a "
+        f"round, steady {kc['steady_tok_s']:.1f} [{ke['steady_tok_s']:.2f}] "
+        f"tok/s; capture {kc['captures']} graph(s) in "
+        f"{kc['capture_s']:.2f} s ({smi})")
+    waves = serving_waves(smi, cfg, params, serve_toks)
+    log("[6/6] b over two waves on one engine, captured: " + "; ".join(
+        f"wave {w + 1} TTFT mean {c['mean_ttft_s']:.3f} s, median "
+        f"{c['median_ttft_s']:.3f}, {c['tokens_per_s']:.1f} tok/s, "
+        f"{c['captures']} captures in {c['capture_s']:.3f} s"
+        for w, c in enumerate(waves["captured"]))
+        + f" (the eager form's one wave, phase 4 b: TTFT "
+        f"{es['stats']['mean_ttft_s']:.2f} s) ({smi})")
+    adm = admission_ms(smi, cfg, params)
+    log("[6/6] admission prefill ms, captured [eager] (first call): "
+        + "; ".join(f"{c['kind']} {c['requests']} x bucket {c['bucket']} "
+                    f"{c['ms_median']:.2f} [{e['ms_median']:.1f}] "
+                    f"({c['first_ms']:.0f} [{e['first_ms']:.0f}])"
+                    for c, e in zip(adm["captured"], adm["eager"]))
+        + f" ({smi})")
     fdec = decode_forms(llama, cfg, params_d, prompt, llama_wbytes,
                         cfg.n_head_kv * cfg.head_dim, flat=True)
     fdec.update(route="mlp_fused + layer_fused, flat bf16 cache", card=smi,

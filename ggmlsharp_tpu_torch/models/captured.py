@@ -1,7 +1,10 @@
-"""The port's counterpart of ``jax.jit`` for a decode step: one captured
-CUDA graph a static key (JAX compiles ``make_decode_fns``' step,
+"""The port's counterpart of ``jax.jit`` for a step: one captured CUDA
+graph a static key (JAX compiles ``make_decode_fns``' step,
 ``make_greedy_step`` and the engine's ``_make_step`` / ``_make_chain_step``
-with ``t_eff`` (and ``want_lps``) static: one executable a length bucket).
+with ``t_eff`` (and ``want_lps``) static: one executable a length bucket;
+the speculative rounds with ``t_eff`` / ``d_eff`` static; the engine's
+admission prefill a (bucket, total, cached, draft) and its grouped
+admission a (bucket, padded group)).
 
 A ``CapturedStep`` wraps ``fn(*inputs, **key)``, which returns a tensor or a
 tuple of tensors: the inputs are tensors of fixed shape, the keywords are
@@ -24,6 +27,15 @@ captures ``fn`` into a ``torch.cuda.CUDAGraph``, and every call replays it:
     every replay). The ``state`` tensors that ``fn`` updates are put back
     after this warm-up, so the first call, too, is a replay. The graphs of
     one CapturedStep share one memory pool;
+  * the generators (``torch.Generator``) that ``fn`` draws from are
+    registered with each graph (a replay then draws anew and advances the
+    generator, as an eager call does), and their states are put back after
+    the warm-up, so that the first replay draws what an eager first call
+    would draw;
+  * Python's cyclic garbage collector is off during a capture: a dead
+    graph (an engine dropped in a reference cycle, with its CapturedSteps)
+    destroyed by a collection inside a capture would invalidate it (CUDA
+    refuses to destroy a graph while a stream captures);
   * a capture that fails raises RuntimeError naming the first CUDA error;
     nothing runs eagerly in its place.
 
@@ -42,6 +54,7 @@ capturing (warm-up included) since ``reset_counts()``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 
 import torch
@@ -93,12 +106,14 @@ class _Graph:
 
 
 class CapturedStep:
-    def __init__(self, fn, state=()):
+    def __init__(self, fn, state=(), generators=()):
         """fn(*inputs, **key) -> tensor or tuple of tensors, capturable (no
         host sync). state: the tensors fn updates in place, restored after
-        the warm-up before a capture."""
+        the warm-up before a capture. generators: the torch.Generators fn
+        draws from, registered with every graph."""
         self.fn = fn
         self.state = tuple(state)
+        self.generators = tuple(generators)
         self._graphs: dict = {}
         self._pool = None
 
@@ -136,15 +151,27 @@ class CapturedStep:
         stream = capture_stream(dev)
         counts = _build.launch_counts()
         saved = [t.clone() for t in self.state]
+        rng_saved = [gen.get_state() for gen in self.generators]
         try:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 self.fn(*g.inputs, **key)  # the warm-up
                 for t, s in zip(self.state, saved):
                     t.copy_(s)
+            for gen, s in zip(self.generators, rng_saved):
+                gen.set_state(s)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
+            for gen in self.generators:
+                if not hasattr(graph, "register_generator_state"):
+                    raise RuntimeError(
+                        "CapturedStep: this torch cannot register a "
+                        "generator with a CUDA graph "
+                        "(CUDAGraph.register_generator_state)")
+                graph.register_generator_state(gen)
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, pool=self._pool, stream=stream):
                     before = _build.launch_counts()
@@ -160,6 +187,9 @@ class CapturedStep:
                     ".cpu() of a tensor, boolean-mask indexing; and use only "
                     f"capturable ops). Cause: {str(cause).splitlines()[0]}"
                 ) from e
+            finally:
+                if collecting:
+                    gc.enable()
         finally:
             _build.set_launch_counts(counts)
         torch.cuda.current_stream(dev).wait_stream(stream)
@@ -174,3 +204,23 @@ class CapturedStep:
         g.graph.replay()
         _build.add_launches(g.launches)
         COUNTS["replays"] += 1
+
+
+class PerObjects:
+    """One value (a CapturedStep, or a step run eagerly) made by
+    ``make(*objects)`` for the objects it was last asked for: the parameter
+    trees, caches and generator that a step's graphs read at the addresses
+    they had at capture. It is held with them, so that no identity is
+    reused while its graphs live, and with the addresses of their buffers;
+    other objects, or moved buffers, make a new one."""
+
+    def __init__(self, make):
+        self.make = make
+        self._held = None  # (objects, addresses, value)
+
+    def __call__(self, objects: tuple, addresses: tuple):
+        held = self._held
+        if held is None or held[1] != addresses or any(
+                a is not b for a, b in zip(held[0], objects)):
+            self._held = held = (objects, addresses, self.make(*objects))
+        return held[2]

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF
-from .captured import CapturedStep
+from .captured import CapturedStep, PerObjects
 from .common import _chunk_buckets, tp_axis
 
 
@@ -49,16 +49,15 @@ def _addresses(cache) -> tuple:
 
 class _StepGraphs:
     """The decode step of one model as a CapturedStep for the (parameter
-    tree, cache) pair it was last called with, held with both (so that
-    neither identity is reused while its graphs live) and the cache's
-    buffer addresses; another pair gets a new one. A tensor-parallel tree
-    gets the step itself: it runs eagerly."""
+    tree, cache) pair it was last called with (captured.PerObjects);
+    another pair gets a new one. A tensor-parallel tree gets the step
+    itself: it runs eagerly."""
 
     def __init__(self, forward, cfg, greedy: bool):
         self.forward, self.cfg, self.greedy = forward, cfg, greedy
-        self._held = None  # (params, cache, addresses, step)
+        self._held = PerObjects(self._make)
 
-    def _body(self, params, cache):
+    def _make(self, params, cache):
         forward, cfg, greedy = self.forward, self.cfg, self.greedy
 
         def step(token, t_eff):
@@ -72,17 +71,12 @@ class _StepGraphs:
                                     keepdim=True).to(torch.int32)
             return logits
 
-        return step
+        if tp_axis(params) is not None:
+            return step
+        return CapturedStep(step, state=(cache.length,))
 
     def __call__(self, params, cache):
-        held, addrs = self._held, _addresses(cache)
-        if held is None or held[0] is not params or held[1] is not cache \
-                or held[2] != addrs:
-            run = self._body(params, cache)
-            if tp_axis(params) is None:
-                run = CapturedStep(run, state=(cache.length,))
-            self._held = held = (params, cache, addrs, run)
-        return held[3]
+        return self._held((params, cache), _addresses(cache))
 
 
 def _bound(cache, t_eff):

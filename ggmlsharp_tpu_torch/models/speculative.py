@@ -6,13 +6,21 @@ greedy decode's on the target wherever the target's verify route computes
 the function of its single-token route; each target forward reads the
 weights once for up to k+1 tokens.
 
-The JAX package jits a round into one executable with its caches donated;
-here a round runs eagerly, a forward at a time, and the caches are written in
-place (kv_cache). Rollback is O(1): attention masks by per-slot position, so
-rejecting drafts only resets ``length``, and the stale rows past it are
-overwritten by the next round's writes at those positions. Every reader
-bounds itself by positions (einsum mask, flash and attn_decode npast, the
-whole-block kernels' npast), never by what the buffer holds.
+The JAX package jits a round into one executable with ``t_eff`` / ``d_eff``
+static and its caches donated; here a round is a ``captured.CapturedStep``:
+on the card one CUDA graph a (``t_eff``, ``d_eff``) for each (target
+tree, draft tree, target cache, draft cache[, generator]), replayed each
+round. The round writes both caches in place: the K/V rows (kv_cache) and
+each ``length`` with ``copy_``, so it returns its input cache objects and
+every buffer address stays fixed; its tokens, ``n_emit`` and next seed are
+the graph's buffers, which the next round overwrites (read or clone them
+first). On the CPU, inside ``captured.disabled()`` and for a
+tensor-parallel tree the same round runs eagerly. Rollback is O(1):
+attention masks by per-slot position, so rejecting drafts only resets
+``length``, and the stale rows past it are overwritten by the next round's
+writes at those positions. Every reader bounds itself by positions (einsum
+mask, flash and attn_decode npast, the whole-block kernels' npast), never
+by what the buffer holds.
 
 Invariants at a round's start (h = index of the newest emitted token a):
   * the target cache holds the K/V of history[0:h]      (length == h)
@@ -24,10 +32,12 @@ token.
 
 Sampling: ``torch.Generator`` draws in place of the JAX package's
 ``fold_in`` keys, so a sampled stream equals the JAX one in distribution,
-not token for token. A sampled round draws, in this order: one
-``multinomial`` a draft token (k of them, all slots at once), one
-``rand((B, k))`` for the acceptance tests, one ``multinomial`` of the
+not token for token. A sampled round draws, in this order: one categorical
+draw a draft token (k of them, all slots at once; ``_draw``), one
+``rand((B, k))`` for the acceptance tests, one categorical draw of the
 residual; ``speculative_generate`` first samples a0 with ``sample_token``.
+On the card the generator is registered with the round's graphs, so each
+replay draws what the eager round would draw from the same state.
 """
 from __future__ import annotations
 
@@ -35,15 +45,18 @@ import numpy as np
 import torch
 
 from . import kv_cache as kvc
-from .sampling import length_bucket, make_decode_fns, sample_token
+from .captured import CapturedStep, PerObjects
+from .common import tp_axis
+from .sampling import _addresses, length_bucket, make_decode_fns, sample_token
 
 
 def set_length(cache: kvc.KVCache, length) -> kvc.KVCache:
-    """A cache over the same buffers with per-slot ``length`` (speculative
-    rollback). Rows past it stay in the buffers, masked out of attention,
-    until writes at those positions overwrite them."""
-    return kvc.KVCache(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                       length.to(torch.int32))
+    """Write per-slot ``length`` into the cache's own length buffer
+    (speculative rollback, in place) and return the cache. Rows past it
+    stay in the buffers, masked out of attention, until writes at those
+    positions overwrite them."""
+    cache.length.copy_(length)
+    return cache
 
 
 def _check_vocab(t_cfg, d_cfg):
@@ -73,11 +86,58 @@ def _accept(x, d, gm, m, t_cache, d_cache, k):
     n_emit = (m + 1).to(torch.int32)
     top = t_cache.max_len - (k + 1)
     h_new = (t_cache.length - (k + 1) + n_emit).clamp(0, top)
-    t_cache = set_length(t_cache, h_new)
-    d_cache = set_length(d_cache, (h_new - 1).clamp(min=0))
+    set_length(t_cache, h_new)
+    set_length(d_cache, (h_new - 1).clamp(min=0))
     seed_next = torch.cat([torch.take_along_dim(x, m[:, None], dim=1), gm], 1)
-    return emitted.to(torch.int32), n_emit, t_cache, d_cache, \
-        seed_next.to(torch.int32)
+    return emitted.to(torch.int32), n_emit, seed_next.to(torch.int32)
+
+
+def _forward_in_place(forward, params, cfg, tokens, cache, positions,
+                      **kw):
+    """forward over ``cache``, its new length copied into the cache's own
+    buffer: the logits [B, S, V]."""
+    logits, out = forward(params, cfg, tokens, cache, positions, **kw)
+    cache.length.copy_(out.length)
+    return logits
+
+
+def _bounds(t_cache, d_cache, k, t_eff, d_eff):
+    """t_eff and d_eff, each None resolved on the host (outside any graph):
+    the bucket of the round's longest live prefix, the bound the round's
+    last forward of that model would compute from the device."""
+    if t_eff is None:
+        t_eff = length_bucket(int(t_cache.length.max()) + k + 1,
+                              t_cache.max_len)
+    if d_eff is None:
+        d_eff = length_bucket(int(d_cache.length.max()) + k + 1,
+                              d_cache.max_len)
+    return t_eff, d_eff
+
+
+def _round_graphs(body, sampled):
+    """The round ``body(t_params, d_params, t_cache, d_cache, rng, *inputs,
+    t_eff=, d_eff=)`` as a CapturedStep for the objects it was last called
+    with (captured.PerObjects): both lengths its state, the generator (for
+    the sampled round) registered. A tensor-parallel tree gets the body
+    itself: it runs eagerly."""
+
+    def make(tp, dp, tc, dc, rng):
+        def run(*inputs, t_eff, d_eff):
+            return body(tp, dp, tc, dc, rng, *inputs, t_eff=t_eff,
+                        d_eff=d_eff)
+
+        if tp_axis(tp) is not None or tp_axis(dp) is not None:
+            return run
+        return CapturedStep(run, state=(tc.length, dc.length),
+                            generators=(rng,) if sampled else ())
+
+    held = PerObjects(make)
+
+    def graphs(tp, dp, tc, dc, rng=None):
+        return held((tp, dp, tc, dc, rng),
+                    _addresses(tc) + _addresses(dc))
+
+    return graphs
 
 
 def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
@@ -90,26 +150,28 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
 
     Emits between 1 (no draft accepted: the target's own next token) and
     k+1 (all accepted and the bonus token) tokens a slot a round. Both
-    forwards must take ``cached_prefix=`` (gpt2, llama and gptj do): the
-    verify and the seed prefill run at positions > 0, so a flat cache's
-    attention must read the cache's live prefix."""
+    caches are written in place and returned; emitted, n_emit and seed' are
+    the round's buffers, rewritten by its next call. On the card one
+    captured graph a (t_eff, d_eff) (a None bound is read on the host
+    first). Both forwards must take ``cached_prefix=`` (gpt2, llama and
+    gptj do): the verify and the seed prefill run at positions > 0, so a
+    flat cache's attention must read the cache's live prefix."""
     _check_vocab(t_cfg, d_cfg)
 
-    @torch.no_grad()
-    def spec_round(t_params, d_params, t_cache, d_cache, seed,
-                   t_eff=None, d_eff=None):
+    def body(t_params, d_params, t_cache, d_cache, _rng, seed, t_eff,
+             d_eff):
         dev = seed.device
         # draft chain: the 2-token seed prefill, then k - 1 greedy steps
         pos = d_cache.length[:, None] + torch.arange(
             2, dtype=torch.int32, device=dev)[None]
-        lg, d_cache = d_forward(d_params, d_cfg, seed, d_cache, pos,
-                                prefix_bound=d_eff, cached_prefix=True)
+        lg = _forward_in_place(d_forward, d_params, d_cfg, seed, d_cache,
+                               pos, prefix_bound=d_eff, cached_prefix=True)
         tok = torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32)
         drafts = [tok]
         for _ in range(k - 1):
-            lg, d_cache = d_forward(d_params, d_cfg, tok, d_cache,
-                                    d_cache.length[:, None],
-                                    prefix_bound=d_eff)
+            lg = _forward_in_place(d_forward, d_params, d_cfg, tok, d_cache,
+                                   d_cache.length[:, None],
+                                   prefix_bound=d_eff)
             tok = torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32)
             drafts.append(tok)
         d = torch.cat(drafts, dim=1)  # [B, k]
@@ -118,8 +180,9 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
         x = torch.cat([seed[:, 1:2], d], dim=1)  # [B, k+1]
         pos = t_cache.length[:, None] + torch.arange(
             k + 1, dtype=torch.int32, device=dev)[None]
-        logits, t_cache = t_forward(t_params, t_cfg, x, t_cache, pos,
-                                    prefix_bound=t_eff, cached_prefix=True)
+        logits = _forward_in_place(t_forward, t_params, t_cfg, x, t_cache,
+                                   pos, prefix_bound=t_eff,
+                                   cached_prefix=True)
         g = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, k+1]
 
         # accept the longest matching prefix, then correct or add the bonus
@@ -127,6 +190,17 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
         m = torch.cumprod(match, dim=1).sum(dim=1).long()  # [B] in 0..k
         return _accept(x, d, torch.take_along_dim(g, m[:, None], dim=1), m,
                        t_cache, d_cache, k)
+
+    graphs = _round_graphs(body, sampled=False)
+
+    @torch.no_grad()
+    def spec_round(t_params, d_params, t_cache, d_cache, seed,
+                   t_eff=None, d_eff=None):
+        t_eff, d_eff = _bounds(t_cache, d_cache, k, t_eff, d_eff)
+        emitted, n_emit, seed_next = graphs(
+            t_params, d_params, t_cache, d_cache)(seed, t_eff=t_eff,
+                                                  d_eff=d_eff)
+        return emitted, n_emit, t_cache, d_cache, seed_next
 
     return spec_round
 
@@ -196,7 +270,9 @@ def speculative_generate(t_forward, t_cfg, t_params,
         emitted, n_emit, t_cache, d_cache, seed = spec_round(
             t_params, d_params, t_cache, d_cache, seed,
             t_eff=t_eff, d_eff=d_eff)
-        em, ne = emitted.cpu().numpy(), n_emit.cpu().numpy()
+        # ONE fetch a round: the tokens and their count side by side
+        both = torch.cat([emitted, n_emit[:, None]], dim=1).cpu().numpy()
+        em, ne = both[:, :-1], both[:, -1]
         for b in range(B):
             out[b].extend(int(t) for t in em[b, :ne[b]])
         h_max += int(ne.max())
@@ -218,22 +294,29 @@ def _mod_probs(logits, temp, top_k, top_p):
     sl = torch.take_along_dim(l, order, dim=-1)
     keff = torch.clamp(torch.where(top_k > 0, top_k, V), 1, V)[:, None]
     kth = torch.take_along_dim(sl, (keff - 1).long(), dim=-1)  # [B, 1]
-    ninf = torch.tensor(float("-inf"), dtype=l.dtype, device=l.device)
-    sl = torch.where(sl < kth, ninf, sl)
+    sl = sl.masked_fill(sl < kth, float("-inf"))
     # nucleus: the smallest prefix of the sorted probabilities reaching top_p
     ps = torch.softmax(sl, dim=-1)
     keep_sorted = (torch.cumsum(ps, dim=-1) - ps) < top_p[:, None]
     inv = torch.argsort(order, dim=-1)
     keep = torch.take_along_dim(keep_sorted, inv, dim=-1)
-    l = torch.where(keep & (l >= kth), l, ninf)
+    l = l.masked_fill(~(keep & (l >= kth)), float("-inf"))
     p = torch.softmax(l, dim=-1)
-    g = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1), V).to(p.dtype)
+    # the argmax's one-hot row (a scatter: one_hot checks its classes on
+    # the host on the CPU)
+    g = torch.zeros_like(p).scatter_(
+        -1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
     return torch.where(greedy[:, None], g, p)
 
 
 def _draw(probs, rng):
-    """One categorical draw a row of a [B, V] weight batch: int32 [B]."""
-    return torch.multinomial(probs, 1, generator=rng)[:, 0].to(torch.int32)
+    """One categorical draw a row of a [B, V] weight batch: int32 [B]. The
+    draw ``torch.multinomial(probs, 1, generator=rng)`` makes (ATen's
+    one-sample route: exponential noise q, then the argmax of probs / q;
+    the same numbers from the same generator state), without the host-side
+    checks of the weights that it makes first, which a graph cannot."""
+    q = torch.empty_like(probs).exponential_(1.0, generator=rng)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int):
@@ -255,23 +338,22 @@ def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int):
     docstring gives."""
     _check_vocab(t_cfg, d_cfg)
 
-    @torch.no_grad()
-    def spec_round(t_params, d_params, t_cache, d_cache, seed, rng,
-                   temp, top_k, top_p, t_eff=None, d_eff=None):
+    def body(t_params, d_params, t_cache, d_cache, rng, seed, temp, top_k,
+             top_p, t_eff, d_eff):
         B = seed.shape[0]
         dev = seed.device
         # draft chain: sample each proposal, keep its q_i
         pos = d_cache.length[:, None] + torch.arange(
             2, dtype=torch.int32, device=dev)[None]
-        lg, d_cache = d_forward(d_params, d_cfg, seed, d_cache, pos,
-                                prefix_bound=d_eff, cached_prefix=True)
+        lg = _forward_in_place(d_forward, d_params, d_cfg, seed, d_cache,
+                               pos, prefix_bound=d_eff, cached_prefix=True)
         qs, drafts = [], []
         tok = None
         for i in range(k):
             if i > 0:
-                lg, d_cache = d_forward(d_params, d_cfg, tok, d_cache,
-                                        d_cache.length[:, None],
-                                        prefix_bound=d_eff)
+                lg = _forward_in_place(d_forward, d_params, d_cfg, tok,
+                                       d_cache, d_cache.length[:, None],
+                                       prefix_bound=d_eff)
             q = _mod_probs(lg[:, -1, :].to(torch.float32), temp, top_k,
                            top_p)
             tok = _draw(q, rng)[:, None]
@@ -284,13 +366,18 @@ def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int):
         x = torch.cat([seed[:, 1:2], d], dim=1)
         pos = t_cache.length[:, None] + torch.arange(
             k + 1, dtype=torch.int32, device=dev)[None]
-        logits, t_cache = t_forward(t_params, t_cfg, x, t_cache, pos,
-                                    prefix_bound=t_eff, cached_prefix=True)
+        logits = _forward_in_place(t_forward, t_params, t_cfg, x, t_cache,
+                                   pos, prefix_bound=t_eff,
+                                   cached_prefix=True)
         V = logits.shape[-1]
+
+        def per_row(v):  # [B] -> [B * (k+1)], each slot's value k+1 times
+            return v[:, None].expand(B, k + 1).reshape(-1)
+
         p_all = _mod_probs(
             logits.to(torch.float32).reshape(B * (k + 1), V),
-            temp.repeat_interleave(k + 1), top_k.repeat_interleave(k + 1),
-            top_p.repeat_interleave(k + 1)).reshape(B, k + 1, V)
+            per_row(temp), per_row(top_k), per_row(top_p)
+        ).reshape(B, k + 1, V)
 
         # rejection-sampling accept and correct
         dl = d.long()[..., None]
@@ -310,5 +397,16 @@ def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int):
         res = torch.where(res.sum(-1, keepdim=True) > 0, res, p_m)
         return _accept(x, d, _draw(res, rng)[:, None], m, t_cache, d_cache,
                        k)
+
+    graphs = _round_graphs(body, sampled=True)
+
+    @torch.no_grad()
+    def spec_round(t_params, d_params, t_cache, d_cache, seed, rng,
+                   temp, top_k, top_p, t_eff=None, d_eff=None):
+        t_eff, d_eff = _bounds(t_cache, d_cache, k, t_eff, d_eff)
+        emitted, n_emit, seed_next = graphs(
+            t_params, d_params, t_cache, d_cache, rng)(
+                seed, temp, top_k, top_p, t_eff=t_eff, d_eff=d_eff)
+        return emitted, n_emit, t_cache, d_cache, seed_next
 
     return spec_round

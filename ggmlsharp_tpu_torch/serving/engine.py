@@ -8,7 +8,9 @@ Slot-based design:
   * admission = bucketed prefill (serving.admission): same-bucket
     admissions batch into ONE forward; prompts are padded up to the
     bucket, and the pad rows land at positions >= the prompt length, where
-    decode never attends them before overwriting them.
+    decode never attends them before overwriting them. On the card a
+    single admission is one captured CUDA graph a (bucket, total, cached,
+    draft), a group one a (bucket, padded group size, draft).
   * decode = ONE batched single-token step for all B slots a tick; empty
     and finished slots run with pad tokens and do not advance.
   * the decode step (argmax, and the chosen token's logprob when a slot
@@ -18,9 +20,8 @@ Slot-based design:
     (``models.captured``; the graphs share one memory pool). Its inputs
     are tokens [B, 1] and ``active`` [B], copied into static buffers; it
     writes the cache's length in place, so ``self.cache`` and every buffer
-    address stay fixed. ``Engine(mesh=)`` and speculative mode run it
-    eagerly (a route fixed at construction), as does
-    ``captured.disabled()``.
+    address stay fixed. ``Engine(mesh=)`` runs it eagerly (a route fixed
+    at construction), as does ``captured.disabled()``.
   * decode windows: when every live slot is greedy, up to W steps run back
     to back with every carried value (logits, cache, token columns) on the
     device and ONE fetch at the end: W replays of the step's graph, each
@@ -35,7 +36,10 @@ Slot-based design:
     device runs window, prefill, window with no host round trip between.
   * speculative mode (``draft_forward=``, serving.spec): each tick is one
     draft-propose / target-verify round over all slots instead, 1..k+1
-    tokens a slot; it runs no decode windows.
+    tokens a slot; it runs no decode windows. On the card the round is one
+    captured CUDA graph a (``t_eff``, greedy or sampled round), the
+    engine's generator registered with the sampled one; one fetch a tick
+    brings its tokens, counts and seeds back.
 The host never reads a device tensor a slot a step: the live-prefix bound
 and ``active`` come from host-side request lengths, and one fetch a tick
 (or a window) brings the tokens back.
@@ -101,7 +105,9 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         draft_forward / draft_cfg / draft_params: speculative continuous
         batching (serving.spec). Every tick runs one draft-propose /
         target-verify round across all live slots (models.speculative),
-        1..k+1 tokens a slot a target forward, spec_k drafts a round.
+        1..k+1 tokens a slot a target forward, spec_k drafts a round; on
+        the card one captured graph a round's length bucket (eager inside
+        ``captured.disabled()`` and for a tensor-parallel tree).
         Greedy slots get the target's own greedy tokens; slots with
         temperature > 0 take the rejection-sampled round; repeat_penalty
         and want_logprobs are refused. The draft's cache follows the same
@@ -183,12 +189,19 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         self.multi_step = (multi_step if multi_step is not None
                            else int(os.environ.get(
                                "GGML_TPU_SERVE_MULTISTEP", "32")))
-        # the decode step: captured a (t_eff, want_lps) unless the engine is
-        # tensor-parallel or speculative (eager routes)
-        self._decode = self._decode_body if (
-            mesh is not None or draft_forward is not None
-            or tp_axis(params) is not None) else CapturedStep(
-                self._decode_body, state=(self.cache.length,))
+        # the decode step (a (t_eff, want_lps) key) and the admission
+        # prefills (a (bucket, total, cached, draft) and a (bucket, G,
+        # draft) key) are captured unless the engine is tensor-parallel
+        capture = mesh is None and tp_axis(params) is None and \
+            tp_axis(draft_params) is None
+        self._decode = CapturedStep(
+            self._decode_body, state=(self.cache.length,)) if capture \
+            else self._decode_body
+        self._prefill_one = CapturedStep(self._prefill_one_body) \
+            if capture else self._prefill_one_body
+        self._prefill_rows = CapturedStep(self._prefill_rows_body) \
+            if capture else self._prefill_rows_body
+        self._scratches: dict = {}  # the admissions' scratch caches
 
         # speculative mode
         self.spec = draft_forward is not None

@@ -9,6 +9,10 @@ Both caches are written in place. Every slot runs the round, idle and
 chunking slots included; their lengths drift by 1..k+1 a round and are
 clamped by the round (models.speculative._accept), freed slots are reset to
 0 and a chunked admission's lengths are re-pinned when its last chunk lands.
+The engine's caches are fixed, so on the card its greedy round and its
+sampled round (the engine's generator registered) each keep one captured
+graph a ``t_eff``; a tick reads the round's tokens, counts and next seeds
+in one fetch, before the next round rewrites them.
 """
 from __future__ import annotations
 
@@ -172,8 +176,11 @@ class SpecServingMixin:
                                  self.d_cache, seed, t_eff=t_eff,
                                  d_eff=t_eff)
         self._n_forwards += 1
-        em, ne = emitted.cpu().numpy(), n_emit.cpu().numpy()
-        self._seed = seed.cpu().numpy().copy()  # writable: admits set rows
+        # ONE fetch a tick: tokens, their counts and the next seeds
+        both = torch.cat([emitted, n_emit[:, None], seed], dim=1).cpu()
+        k1 = self.spec_k + 1
+        em, ne = both[:, :k1].numpy(), both[:, k1].numpy()
+        self._seed = both[:, k1 + 1:].numpy().copy()  # writable: admits set
         for i, req in enumerate(self.slots):
             if req is None or i in self._spec_chunking:
                 continue

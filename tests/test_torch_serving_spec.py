@@ -160,8 +160,9 @@ def test_spec_engine_rejects_prompts_without_headroom(models):
 def test_spec_batched_admission_prefills_both_models(models):
     """A speculative admission burst rides ONE grouped prefill for each
     model (the target's prompts, the draft's prompts[:-1]) and stays
-    greedy-exact. The JAX test counts compiled executables; eager PyTorch
-    compiles none, so the grouped prefills themselves are counted."""
+    greedy-exact. The JAX test counts compiled executables; here the
+    grouped prefills themselves are counted (on the card each is a replay
+    of its (bucket, G) graph)."""
     _, _, params, draft = models
     prompts = [[5, 17, 99], [7, 1, 2], [11, 4], [3, 3, 3, 3]]
     eng = _engine(params, draft, batch_slots=4, spec_k=3)

@@ -33,7 +33,9 @@ version):
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path. The decode
      step runs captured (models.captured: one CUDA graph a length bucket,
-     the launches counted through the replay accounting); every greedy
+     the launches counted through the replay accounting; generate's
+     prefill and steps, and speculative_generate's prefills and rounds,
+     from the graph cache, kept across calls); every greedy
      sampling.generate of paths a-l is run first in the eager form
      (captured.disabled(), on a copy of its cache, its launches not
      counted), and the captured call must give its tokens bit for bit and
@@ -43,6 +45,14 @@ version):
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
         from a seed), a 16-token prompt and 32 greedy tokens through
         sampling.generate;
+     a2. the graph cache (models.captured.entry) on path a: generate 4
+        times with fresh caches of one spec from an empty cache, calls 2-4
+        making no capture, each call's tokens, launches and live cache rows
+        equal to the eager form's, host seconds a call; the prefill's ms in
+        both forms; two calls on two caches with different prompts, each
+        cache holding its own prompt's rows; memory reserved after each
+        call (no creep). Every progress line prints the memory reserved and
+        the graph cache's trees, entries and home caches;
      b. serving: serving.Engine over the same model with an INT8 flat KV
         cache, 8 slots, 24 requests of 16 prompt tokens and 24 new tokens
         each; then a replay of its admission prefill and decode steps
@@ -286,7 +296,18 @@ _T0 = time.perf_counter()
 
 
 def log(msg):
-    """A progress line, with the seconds since the script started."""
+    """A progress line, with the memory reserved on the card and the graph
+    cache's size once the card is in use, and the seconds since the script
+    started."""
+    torch = sys.modules.get("torch")
+    cap = sys.modules.get("ggmlsharp_tpu_torch.models.captured")
+    if torch is not None and torch.cuda.is_initialized():
+        msg += f" | reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB"
+        if cap is not None:
+            info = cap.cache_info()
+            msg += (f", graph cache {info['trees']} trees, "
+                    f"{info['entries']} entries, "
+                    f"{info['home_bytes'] / 1e9:.2f} GB of home caches")
     print(f"{msg} [t {time.perf_counter() - _T0:.0f} s]", flush=True)
 
 
@@ -317,6 +338,7 @@ def mm_dot(mode):
 
 
 TWINS: list = []  # phase 4: each greedy generate beside its eager twin
+GRAPH_CACHE_CALLS = 4  # phase 4 a2: generate calls with fresh caches
 
 
 def clone_cache(cache):
@@ -378,6 +400,7 @@ def eager_twins():
                              f"{want[0]}")
         return toks, out
 
+    twin.orig = orig  # the unwrapped generate
     sampling.generate = twin
     try:
         yield
@@ -879,6 +902,129 @@ def run_main_path(cfg, params, prompt):
     if int(cache.length[0]) != PROMPT_LEN + N_NEW:
         raise SystemExit("cache length is wrong")
     return toks, counts
+
+
+def release_graphs():
+    """What a user does on dropping a model: the graph cache cleared (its
+    entries hold their trees, home caches and graphs), the freed memory
+    returned to the card."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import captured
+
+    captured.clear()
+    torch.cuda.empty_cache()
+
+
+def same_rows(a, b):
+    """Whether two KV caches hold the same lengths and, below the longest,
+    the same rows of every buffer, bit for bit."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import captured
+
+    n = int(a.length.max())
+    dim = 1 if a.is_flat else 2
+    return torch.equal(a.length, b.length) and all(
+        torch.equal(x.narrow(dim, 0, n), y.narrow(dim, 0, n))
+        for x, y in zip(captured.buffers(a)[1:], captured.buffers(b)[1:]))
+
+
+def graph_cache_phase(smi, cfg, params, prompt, toks_a, reps=5):
+    """Phase 4 a2: the graph cache on path a (Llama-7B Q4_0, b = 1, 16 +
+    N_NEW, bf16 head-major cache). From an empty graph cache, generate
+    GRAPH_CACHE_CALLS times with a fresh cache each: calls 2-4 must make no
+    capture, every call must give the eager form's tokens (path a's),
+    launches and live cache rows, bit for bit, and the memory reserved
+    after calls 3 and 4 must equal call 2's. Then the prefill's ms in both
+    forms (a synced call's median of ``reps``, the cache's length reset
+    between calls), and two calls on two caches with different prompts:
+    each cache must hold its own prompt's rows (the eager prefill's)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured, llama, sampling
+
+    gen = getattr(sampling.generate, "orig", sampling.generate)  # no twin
+    T = cfg.n_ctx
+
+    def call(pr, eager=False):
+        cache = llama.new_cache(cfg, 1)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        k0 = dict(captured.COUNTS)
+        t0 = time.perf_counter()
+        with captured.disabled() if eager else contextlib.nullcontext():
+            toks, out = gen(llama.forward, cfg, params, pr, cache, N_NEW)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return toks, out, dict(kernels.LAUNCHES), \
+            {k: captured.COUNTS[k] - k0[k] for k in k0}, secs
+
+    release_graphs()  # from an empty graph cache
+    e_toks, e_cache, e_launches, _, e_secs = call(prompt, eager=True)
+    calls = []
+    for i in range(GRAPH_CACHE_CALLS):
+        toks, cache, launches, counts, secs = call(prompt)
+        calls.append({"host_s": secs, **counts,
+                      "tokens_equal_eager": bool(torch.equal(toks, e_toks)),
+                      "launches_equal_eager": launches == e_launches,
+                      "rows_equal_eager": same_rows(cache, e_cache),
+                      "reserved_gb": torch.cuda.memory_reserved() / 1e9})
+        del cache
+    res = {"card": smi, "calls": calls, "eager_host_s": e_secs,
+           "tokens_equal_path_a": bool(torch.equal(e_toks, toks_a)),
+           "cache_info": captured.cache_info()}
+
+    prefill, _ = sampling.make_decode_fns(llama.forward, cfg)
+    t_eff = sampling.length_bucket(PROMPT_LEN, T)
+    for form in ("eager", "captured"):
+        cache = llama.new_cache(cfg, 1)
+        ms = []
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            for _ in range(reps):
+                cache.length.zero_()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(params, prompt, cache, t_eff=t_eff)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        res[f"prefill_ms_{form}"] = statistics.median(ms)
+        res[f"prefill_ms_{form}_all"] = ms
+        del cache
+
+    # two caches of one spec, two prompts, one call after the other: each
+    # returned cache holds its own prompt's rows (home and caller apart)
+    g = torch.Generator(prompt.device).manual_seed(SEED + 22)
+    prompt_b = torch.randint(0, cfg.n_vocab, prompt.shape, generator=g,
+                             device=prompt.device, dtype=prompt.dtype)
+    ca, cb = llama.new_cache(cfg, 1), llama.new_cache(cfg, 1)
+    gen(llama.forward, cfg, params, prompt, ca, N_NEW)
+    gen(llama.forward, cfg, params, prompt_b, cb, N_NEW)
+    with captured.disabled():
+        eb = llama.new_cache(cfg, 1)
+        prefill(params, prompt_b, eb, t_eff=t_eff)
+    rows = slice(0, PROMPT_LEN)
+    res["no_alias"] = {
+        "a_rows_equal_eager": same_rows(ca, e_cache),
+        "b_prompt_rows_equal_eager": all(
+            torch.equal(x[:, :, rows], y[:, :, rows])
+            for x, y in zip((*cb.k, *cb.v), (*eb.k, *eb.v))),
+        "a_b_prompt_rows_differ": not torch.equal(ca.k[0][:, :, rows],
+                                                  cb.k[0][:, :, rows])}
+    del ca, cb, eb, e_cache
+    emit({"graph_cache": res})
+    again_mem = calls[1]["reserved_gb"]  # no creep over repeated calls
+    if not (all(c["tokens_equal_eager"] and c["launches_equal_eager"]
+                and c["rows_equal_eager"] for c in calls)
+            and res["tokens_equal_path_a"]
+            and calls[0]["captures"] > 0
+            and all(c["captures"] == 0 for c in calls[1:])
+            and all(c["reserved_gb"] == again_mem for c in calls[2:])
+            and all(res["no_alias"].values())):
+        raise SystemExit(f"graph cache on path a failed: {res}")
+    return res
 
 
 def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
@@ -2137,6 +2283,7 @@ def check_one_row_repeats(dev, gen):
     from ggmlsharp_tpu_torch.kernels.mlp_fused import (mlp_fused_q8,
                                                        mlp_fused_silu_q4)
     from ggmlsharp_tpu_torch.models import gpt2, llama
+    from ggmlsharp_tpu_torch.models.captured import collector_off
 
     gcfg, lcfg = gpt2.GPT2_124M, llama.LLAMA_7B
     E = gcfg.n_embd
@@ -2163,7 +2310,7 @@ def check_one_row_repeats(dev, gen):
     with torch.cuda.stream(side):
         eager = seq()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        with collector_off(), torch.cuda.graph(graph, stream=side):
             captured = seq()
     torch.cuda.synchronize()
     bad = [i for i in range(3, 9) if not torch.equal(eager[i], eager[i % 3])]
@@ -5086,7 +5233,7 @@ def spec_launches(cfg, kind, rounds, d_cfg=None):
         "flash_attn": Lt + Ld}
 
 
-def spec_forms(run):
+def spec_forms(run, forms=("eager", "captured")):
     """run() in the eager form (captured.disabled()), then as the port runs
     it (its rounds captured), the launch counters and capture counts reset
     just before each and read just after: {form: (run()'s result,
@@ -5097,7 +5244,7 @@ def spec_forms(run):
     from ggmlsharp_tpu_torch.models import captured
 
     out = {}
-    for form in ("eager", "captured"):
+    for form in forms:
         with captured.disabled() if form == "eager" \
                 else contextlib.nullcontext():
             torch.cuda.synchronize()
@@ -5148,6 +5295,9 @@ def run_spec_k1(smi, cfg, params, prompt, toks_a):
     forms = spec_forms(run)
     (toks, rate, rounds), counts, _, seconds = forms["captured"]
     (e_toks, _, _), e_counts, _, _ = forms["eager"]
+    # a second call with new caches: the graph cache's graphs, no capture
+    again = spec_forms(run, ("captured",))["captured"]
+    (a_toks, _, _), a_counts, a_cap, a_secs = again
     want = spec_launches(cfg, "llama", len(rounds))
     gaps = plain_gaps(llama, cfg, params, prompt, toks_a)
     got, ref = toks[0].tolist(), toks_a[0].tolist()
@@ -5171,9 +5321,17 @@ def run_spec_k1(smi, cfg, params, prompt, toks_a):
            "first_parting": part, "parting_decided": part_decided,
            "tokens_decided": int((gaps > 2 * tol).sum()),
            "all_decided_rounds": checked, "all_decided_rounds_emit_k1": full_ok,
-           "launches": counts, "expected_launches": want}
+           "launches": counts, "expected_launches": want,
+           "second_call": {"seconds": a_secs, "tok_s": N_NEW / a_secs,
+                           **a_cap, "tokens_equal": bool(torch.equal(
+                               a_toks, toks)),
+                           "launches_equal": a_counts == counts}}
     emit({"spec_llama_k1": res})
     expect_launches("k1", counts, want)
+    if a_cap["captures"] or not (res["second_call"]["tokens_equal"]
+                                 and res["second_call"]["launches_equal"]):
+        raise SystemExit(f"path k1: a second call captured or differs: "
+                         f"{res['second_call']}")
     require_launches("k1", counts, ("matmul_q4_0", "matmul_q4_0_mma"))
     if not (res["eager_tokens_equal"] and res["eager_launches_equal"]):
         raise SystemExit(f"path k1: the captured rounds differ from their "
@@ -6901,6 +7059,20 @@ def main(argv):
     log(f"[4/6] a host sync in a captured step raised "
         f"({cap_checks['host_sync'][:70]!r}); a sync buffer made in a "
         f"capture raised; the card works after both")
+    gc_res = graph_cache_phase(smi, cfg, params, prompt, toks)
+    gc_calls = gc_res["calls"]
+    log(f"[4/6] a2. graph cache, path a: {GRAPH_CACHE_CALLS} generate calls "
+        f"with fresh caches from an empty cache: captures "
+        f"{[c['captures'] for c in gc_calls]} (capture s "
+        f"{[round(c['capture_s'], 3) for c in gc_calls]}, of it warm-up "
+        f"{[round(c['warmup_s'], 3) for c in gc_calls]}), host s a call "
+        f"{[round(c['host_s'], 3) for c in gc_calls]} (eager "
+        f"{gc_res['eager_host_s']:.3f}), tokens, launches and rows equal to "
+        f"the eager form's; prefill ms captured "
+        f"{gc_res['prefill_ms_captured']:.2f} [eager "
+        f"{gc_res['prefill_ms_eager']:.2f}]; two caches keep their own "
+        f"prompts' rows; reserved GB after each call "
+        f"{[round(c['reserved_gb'], 3) for c in gc_calls]} ({smi})")
     eng, serve, serve_toks = run_serving(cfg, params)
     serve_counts = serve["launches"]
     # the main settings again (Q8_0 activations), an INT8 cache whose
@@ -7023,6 +7195,7 @@ def main(argv):
     kq_counts = {k: sum(c[k] for c in e_counts.values()) for k in counts}
     # f. the other formats at full width and F_LAYERS layers
     fmt_counts, f_cmp = run_format_paths(cfg, prompt, gen)
+    release_graphs()  # path f's trees are gone
     log(f"[4/6] f. Llama-7B widths, {F_LAYERS} layers, {PROMPT_LEN}-token "
         f"prompt + {F_NEW} tokens: f1 {', '.join(A_FORMATS[:5])} (matmul_q), "
         f"f2 GGML_TPU_INT_DOT=1 {', '.join(B_FORMATS)}; launches "
@@ -7071,6 +7244,7 @@ def main(argv):
         f"gain {tcheck['gain_b1_median']:.3f} at b = 1; lookup "
         f"{tcheck['lookup_us_per_launch']:.2f} us a launch")
     i_dec, i_counts = run_13b_path(dev, gen, smi)
+    release_graphs()  # path i's tree is gone
     log(f"[4/6] i. LLAMA_13B Q4_0 ({I_LAYERS} layers): {PROMPT_LEN}-token "
         f"prompt + {I_NEW} "
         f"greedy tokens, launches {i_counts}; geometry by shape "
@@ -7087,6 +7261,7 @@ def main(argv):
     j2, j2_counts = run_hf_path(smi, *g_models["124M"][:3])
     j3, j3_counts = run_checkpoint_path(smi, dev, g_state)
     del g_state
+    release_graphs()  # path j's trees are gone
     j_counts = {k: j1_counts[k] + j2_counts[k] + j3_counts[k] for k in counts}
     log(f"[4/6] j. from files in {time.perf_counter() - t0:.1f} s: j1 "
         f"Llama-7B Q4_0 GGUF {j1['file_bytes'] / 1e9:.3f} GB written at "
@@ -7129,7 +7304,9 @@ def main(argv):
     log(f"[4/6] k. speculative decoding in {time.perf_counter() - t0:.1f} "
         f"s, k = {SPEC_K}, each run captured [eager], tokens and launches "
         f"equal: k1 Llama-7B draft = target {k1['rounds']} rounds, "
-        f"{k1['mean_tokens_a_round']:.2f} tokens a round, {rate(k1)} tok/s, "
+        f"{k1['mean_tokens_a_round']:.2f} tokens a round, {rate(k1)} tok/s "
+        f"(a second call {k1['second_call']['tok_s']:.2f} tok/s, "
+        f"{k1['second_call']['captures']} captures, tokens equal), "
         f"path a's tokens {k1['tokens_equal_path_a']}/{N_NEW} "
         f"(first parting {k1['first_parting']}); k2 GPT-2 774M + 124M draft "
         f"{k2['mean_tokens_a_round']:.2f} tokens a round, {rate(k2)} tok/s, "
@@ -7160,12 +7337,15 @@ def main(argv):
                            for t in TWINS),
           "captures": sum(t["captures"] for t in TWINS),
           "replays": sum(t["replays"] for t in TWINS),
-          "capture_s": sum(t["capture_s"] for t in TWINS)}
+          "capture_s": sum(t["capture_s"] for t in TWINS),
+          "warmup_s": sum(t["warmup_s"] for t in TWINS)}
     emit({"captured_twins": tw, "calls": TWINS})
     log(f"[4/6] captured generate: {tw['calls']} greedy calls of paths a-l "
         f"({tw['tokens']} tokens) equal to their eager twins in tokens and "
         f"launches: {tw['all_equal']}; {tw['captures']} captures "
-        f"({tw['capture_s']:.2f} s), {tw['replays']} replays")
+        f"({tw['capture_s']:.2f} s, of it warm-up {tw['warmup_s']:.2f} s), "
+        f"{tw['replays']} replays")
+    release_graphs()  # path l's tree is gone
 
     # m. the perplexity chain (m1) and KV quality over its model (m2); n. the
     # user examples, OpProfiler and optax_compat
@@ -7413,7 +7593,7 @@ def main(argv):
         f"{fdec['device_idle_share']} "
         f"({fdec['eager']['device_idle_share']})")
     del params, params_d, params_m
-    torch.cuda.empty_cache()
+    release_graphs()
     ekv = cfg.n_head_kv * cfg.head_dim
     for fmt, (eparams, epeak) in e_models.items():
         wbytes = sum(v.nbytes() for blk in eparams["blocks"]
@@ -7433,7 +7613,7 @@ def main(argv):
             f"{edec['step_ms_median']:.3f} ms, device idle share "
             f"{edec['device_idle_share']}")
     del e_models, eparams
-    torch.cuda.empty_cache()
+    release_graphs()
     for tag, (gcfg, gparams, gprompt, _, gpeak) in g_models.items():
         gdec = (decode_forms if tag == "124M" else measure_decode)(
             gpt2, gcfg, gparams, gprompt, gpt2_weight_bytes(gparams),

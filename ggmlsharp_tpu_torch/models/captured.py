@@ -26,7 +26,8 @@ captures ``fn`` into a ``torch.cuda.CUDAGraph``, and every call replays it:
     there, outside the graph (made inside it, they would be zeroed at
     every replay). The ``state`` tensors that ``fn`` updates are put back
     after this warm-up, so the first call, too, is a replay. The graphs of
-    one CapturedStep share one memory pool;
+    one CapturedStep share one memory pool (``GraphPool``; those of a
+    graph cache entry one pool an entry);
   * the generators (``torch.Generator``) that ``fn`` draws from are
     registered with each graph (a replay then draws anew and advances the
     generator, as an eager call does), and their states are put back after
@@ -48,26 +49,50 @@ card.
 Launches: ``kernels/_build.py`` counts a launch in Python, so a replay by
 itself counts nothing. The warm-up and the capture count nothing, and each
 replay adds what the capture counted, so the counters read as after an
-eager run. ``COUNTS`` holds the captures, replays and seconds spent
-capturing (warm-up included) since ``reset_counts()``.
+eager run. ``COUNTS`` holds the captures, replays, host seconds spent capturing
+(``capture_s``, warm-up included) and the warm-ups' share of them
+(``warmup_s``) since ``reset_counts()``.
+
+The graph cache (the counterpart of JAX's jit cache with the cache
+donated): ``entry(maker, trees, caches)`` gives one ``Entry`` a (maker,
+parameter trees, trace-time settings, cache specs) key. An entry holds a
+home cache of each cache's spec (its layout, dtype and buffer shapes) and
+the CapturedSteps whose graphs read those home caches, so that graphs
+outlive a call: ``sampling.generate``, ``make_decode_fns``' prefill and
+``speculative.speculative_generate`` copy the caller's live rows into the
+home caches (``copy_rows``), run every graph there and copy the rows back.
+A tree is keyed by its identity, held while its entries live, and by the
+address, shape, stride and dtype of every leaf: a leaf replaced in place
+makes another key. The settings a forward reads on the host while it is
+traced (``settings_key``) are part of the key, as JAX keys its cache on its
+own config. The registry holds ``MAX_TREES`` trees (a target and its draft
+count as one), each with ``MAX_ENTRIES`` entries, least recently used
+first out; an evicted entry's graphs and home caches go with it.
+``clear()`` (the counterpart of ``jax.clear_caches()``) drops them all.
 """
 from __future__ import annotations
 
 import contextlib
+import enum
 import gc
 import time
+from collections import OrderedDict
 
 import torch
 
 from ..kernels import _build
+from . import kv_cache as kvc
 
-COUNTS = {"captures": 0, "replays": 0, "capture_s": 0.0}
+COUNTS = {"captures": 0, "replays": 0, "capture_s": 0.0, "warmup_s": 0.0}
 _DISABLED = [0]  # the depth of open disabled() contexts
 _STREAMS: dict = {}  # device -> its capture stream
+MAX_TREES = 2  # parameter trees (a target and its draft: one) the cache holds
+MAX_ENTRIES = 2  # entries a tree
+_REGISTRY: OrderedDict = OrderedDict()  # trees key -> _Trees
 
 
 def reset_counts():
-    COUNTS.update(captures=0, replays=0, capture_s=0.0)
+    COUNTS.update(captures=0, replays=0, capture_s=0.0, warmup_s=0.0)
 
 
 @contextlib.contextmanager
@@ -85,6 +110,38 @@ def is_disabled() -> bool:
     return _DISABLED[0] > 0
 
 
+class GraphPool:
+    """A CUDA graph memory pool, made at its first capture. The graphs
+    captured into one pool replay one at a time on one stream, and every
+    caller reads a graph's outputs before the next replay, so they share
+    the memory of their intermediates; the pool's memory goes when its
+    last graph does."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
+@contextlib.contextmanager
+def collector_off():
+    """Python's cyclic collector off for the block, a capture (left off if
+    it was off): a dead graph in a reference cycle (an engine dropped with
+    its CapturedSteps) destroyed by a collection inside a capture would
+    invalidate it, since CUDA refuses to destroy a graph while a stream
+    captures. Every capture of the package runs inside."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def capture_stream(device) -> torch.cuda.Stream:
     """The stream every capture on ``device`` warms up and captures on, made
     once: the per-stream buffers the graphs' kernels use are this stream's."""
@@ -98,7 +155,10 @@ class _Graph:
     """One key's static buffers, its graph and the launches it counts."""
 
     def __init__(self, inputs):
-        self.inputs = tuple(torch.empty_like(x) for x in inputs)
+        # normal tensors, so that calls in and out of inference mode share
+        # them
+        with torch.inference_mode(False):
+            self.inputs = tuple(torch.empty_like(x) for x in inputs)
         self.outputs = None  # a tuple of tensors once fn has run
         self.single = False  # fn returned one tensor, not a tuple
         self.graph = None
@@ -106,16 +166,17 @@ class _Graph:
 
 
 class CapturedStep:
-    def __init__(self, fn, state=(), generators=()):
+    def __init__(self, fn, state=(), generators=(), pool=None):
         """fn(*inputs, **key) -> tensor or tuple of tensors, capturable (no
         host sync). state: the tensors fn updates in place, restored after
         the warm-up before a capture. generators: the torch.Generators fn
-        draws from, registered with every graph."""
+        draws from, registered with every graph. pool: the GraphPool its
+        graphs are captured into (default: one of its own)."""
         self.fn = fn
         self.state = tuple(state)
         self.generators = tuple(generators)
+        self.pool = pool or GraphPool()
         self._graphs: dict = {}
-        self._pool = None
 
     def __call__(self, *inputs, **key):
         if _DISABLED[0]:
@@ -140,10 +201,10 @@ class CapturedStep:
         g.single = not isinstance(outs, tuple)
         outs = (outs,) if g.single else outs
         if g.outputs is None:
-            g.outputs = outs
-        else:
-            for static, o in zip(g.outputs, outs):
-                static.copy_(o)
+            with torch.inference_mode(False):
+                g.outputs = tuple(torch.empty_like(o) for o in outs)
+        for static, o in zip(g.outputs, outs):
+            static.copy_(o)
 
     def _capture(self, g, key):
         t0 = time.perf_counter()
@@ -160,8 +221,7 @@ class CapturedStep:
                     t.copy_(s)
             for gen, s in zip(self.generators, rng_saved):
                 gen.set_state(s)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
+            COUNTS["warmup_s"] += time.perf_counter() - t0  # host seconds
             graph = torch.cuda.CUDAGraph()
             for gen in self.generators:
                 if not hasattr(graph, "register_generator_state"):
@@ -170,10 +230,9 @@ class CapturedStep:
                         "generator with a CUDA graph "
                         "(CUDAGraph.register_generator_state)")
                 graph.register_generator_state(gen)
-            collecting = gc.isenabled()
-            gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                with collector_off(), torch.cuda.graph(
+                        graph, pool=self.pool.handle(), stream=stream):
                     before = _build.launch_counts()
                     outs = self.fn(*g.inputs, **key)
                     after = _build.launch_counts()
@@ -187,9 +246,6 @@ class CapturedStep:
                     ".cpu() of a tensor, boolean-mask indexing; and use only "
                     f"capturable ops). Cause: {str(cause).splitlines()[0]}"
                 ) from e
-            finally:
-                if collecting:
-                    gc.enable()
         finally:
             _build.set_launch_counts(counts)
         torch.cuda.current_stream(dev).wait_stream(stream)
@@ -224,3 +280,163 @@ class PerObjects:
                 a is not b for a, b in zip(held[0], objects)):
             self._held = held = (objects, addresses, self.make(*objects))
         return held[2]
+
+
+# --- the graph cache -------------------------------------------------------
+
+def _signature(node):
+    """What a graph reads of a parameter tree: the address, shape, stride,
+    dtype and device of every tensor (a QTensor's planes included), the
+    tree's structure and its other leaves (a value, else the object's
+    identity; the tree is held, so no identity is reused)."""
+    if isinstance(node, torch.Tensor):
+        return (node.data_ptr(), tuple(node.shape), node.stride(), node.dtype,
+                node.device)
+    if isinstance(node, dict):
+        return tuple((k, _signature(node[k])) for k in sorted(node, key=str))
+    if isinstance(node, (list, tuple)):
+        return type(node).__name__, tuple(_signature(x) for x in node)
+    planes = getattr(node, "planes", None)
+    if isinstance(planes, dict):  # a QTensor
+        return (type(node).__name__, node.gtype, node.shape,
+                _signature(planes))
+    if node is None or isinstance(node, (bool, int, float, str, enum.Enum)):
+        return node
+    return type(node).__name__, id(node)
+
+
+def settings_key() -> tuple:
+    """The switches a forward reads on the host while it is traced (its
+    route, its kernels' modes, the tune table, the kernels' builds): a
+    graph replays the function they chose at capture."""
+    from .. import config
+    from ..kernels import config as kcfg
+    from ..kernels import tune
+
+    key = (kcfg.kernels_setting(), kcfg.mm_dot_mode(),
+           config.quantize_activations(), config.mlp_fused(),
+           config.llama_fused(), config.layer_fused(), config.int_dot(),
+           config.attn_impl(), tune.table_path(),
+           tuple(sorted(_build._DEFINES.items())))
+    if key[7] == "ring":
+        from ..parallel.ring_attention import sequence_mesh
+
+        key += (id(sequence_mesh()),)
+    return key
+
+
+def buffers(cache) -> tuple:
+    """Every buffer of a KV cache, ``length`` first."""
+    return (cache.length, *cache.k, *cache.v, *(cache.k_scale or ()),
+            *(cache.v_scale or ()))
+
+
+def cache_spec(cache) -> tuple:
+    """A cache's layout, dtypes, device and buffer shapes: what a home
+    cache must match."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in buffers(cache))
+
+
+def home_like(cache) -> kvc.KVCache:
+    """A zeroed cache of ``cache``'s spec (normal tensors, which calls in
+    and out of inference mode can both write)."""
+    def zeros(bufs):
+        return None if bufs is None else [torch.zeros_like(x) for x in bufs]
+
+    with torch.inference_mode(False):
+        return kvc.KVCache(zeros(cache.k), zeros(cache.v),
+                           zeros(cache.k_scale), zeros(cache.v_scale),
+                           torch.zeros_like(cache.length))
+
+
+def copy_rows(dst, src, n: int):
+    """Rows [0, n) of every buffer of ``src`` (every slot) and its length
+    into ``dst``, in place, on the current stream: what a graph over
+    ``dst`` reads of ``src``. The rows past a slot's length are never read
+    (attention masks by position), so the live rows are enough."""
+    n = min(int(n), src.max_len)
+    dim = 1 if src.is_flat else 2  # the row axis of every buffer
+    if n > 0:
+        for d, s in zip(buffers(dst)[1:], buffers(src)[1:]):
+            d.narrow(dim, 0, n).copy_(s.narrow(dim, 0, n))
+    dst.length.copy_(src.length)
+
+
+class Entry:
+    """One key of the graph cache: a home cache for each cache of the key
+    (in its order) and the CapturedSteps whose graphs read them, by name,
+    all captured into the entry's one GraphPool (``pool``); for a sampled
+    round, the generator its graphs draw from."""
+
+    def __init__(self, caches):
+        self.homes = tuple(home_like(c) for c in caches)
+        self.steps: dict = {}
+        self.pool = GraphPool()
+        self.generator = None
+
+    def step(self, name, make):
+        """The entry's CapturedStep ``name``, made by ``make(*homes)`` at
+        its first call."""
+        s = self.steps.get(name)
+        if s is None:
+            s = self.steps[name] = make(*self.homes)
+        return s
+
+    def own_generator(self, like: torch.Generator) -> torch.Generator:
+        """The generator the entry's graphs register, on ``like``'s device
+        (a caller's state is copied in and out around the graphs)."""
+        if self.generator is None:
+            self.generator = torch.Generator(device=like.device)
+        return self.generator
+
+
+class _Trees:
+    def __init__(self, trees):
+        self.trees = trees  # held, so that no identity is reused
+        self.entries: OrderedDict = OrderedDict()
+
+
+def entry(maker: tuple, trees: tuple, caches: tuple) -> Entry:
+    """The graph cache's entry of (``maker``: the forwards, configs and
+    what they make; the parameter ``trees``; the trace-time settings; the
+    specs of ``caches``), made (with zeroed home caches) at its first
+    call. Least recently used trees and entries beyond MAX_TREES and
+    MAX_ENTRIES are evicted."""
+    tkey = tuple((id(t), _signature(t)) for t in trees)
+    held = _REGISTRY.get(tkey)
+    if held is None:
+        held = _REGISTRY[tkey] = _Trees(trees)
+        while len(_REGISTRY) > MAX_TREES:
+            _REGISTRY.popitem(last=False)
+    else:
+        _REGISTRY.move_to_end(tkey)
+    key = (maker, settings_key(), tuple(cache_spec(c) for c in caches))
+    e = held.entries.get(key)
+    if e is None:
+        e = held.entries[key] = Entry(caches)
+        while len(held.entries) > MAX_ENTRIES:
+            held.entries.popitem(last=False)
+    else:
+        held.entries.move_to_end(key)
+    return e
+
+
+def clear():
+    """Drop every entry of the graph cache: its graphs, their pools and its
+    home caches (the counterpart of ``jax.clear_caches()``; the memory goes
+    back to PyTorch's allocator, ``torch.cuda.empty_cache()`` returns it to
+    the device)."""
+    _REGISTRY.clear()
+
+
+def cache_info() -> dict:
+    """The graph cache's trees, entries, static keys (graphs on the card;
+    on the CPU the keys the CapturedSteps run eagerly) and the bytes its
+    home caches hold."""
+    entries = [e for held in _REGISTRY.values()
+               for e in held.entries.values()]
+    return {"trees": len(_REGISTRY), "entries": len(entries),
+            "keys": sum(len(s._graphs) for e in entries
+                        for s in e.steps.values()),
+            "home_bytes": sum(t.numel() * t.element_size() for e in entries
+                              for h in e.homes for t in buffers(h))}

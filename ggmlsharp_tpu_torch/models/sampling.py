@@ -4,20 +4,27 @@ ggmlsharp_tpu/models/sampling.py:16-164).
 
 Works with any model module exposing
 forward(params, cfg, tokens, cache, positions, prefix_bound=...). The JAX
-package jits the decode step with ``t_eff`` static; here, on the card, the
-step is a ``captured.CapturedStep``: one CUDA graph a length bucket, for
-each parameter tree and cache (a graph reads both at the addresses they had
-at capture, so a new cache, as each ``generate`` call is given, is captured
-anew). The step writes the cache's new length in place (``copy_``), so the
-``KVCache`` object and every buffer address stay fixed. On the CPU, inside
-``captured.disabled()`` and for a tensor-parallel tree (whose collectives
-go through the host) the step runs eagerly. The prefill stays eager (one
-call a request; its shapes vary). The live-prefix bound is tracked on the
-host as in the JAX package. Sampling (``torch.multinomial``) and the
-repeat-penalty window stay outside the graph and read its logits. A
-``torch.Generator`` takes the place of a JAX key: the two draw different
-numbers from one seed, so sampled (temperature > 0) tokens are compared
-by distribution, not value. ``generate_scan``, the TPU ``while_loop``
+package jits the prefill and the decode step with ``t_eff`` static and the
+cache donated; here, on the card, each is a ``captured.CapturedStep``: one
+CUDA graph a static key (a prompt length and ``t_eff`` for the prefill, a
+length bucket for the step). ``generate`` and ``make_decode_fns``' prefill
+take theirs from the graph cache (``captured.entry``): one entry a
+(forward, cfg, parameter tree, settings, cache spec), whose graphs read the
+entry's home cache; a call copies the caller's live rows in, runs there
+and copies the rows back (the counterpart of donation), so a second call
+with a new cache of the same spec captures nothing. ``make_decode_fns``'
+step and ``make_greedy_step``, called a step at a time, read the caller's
+own cache: one graph a ``t_eff`` for each (parameter tree, cache) pair,
+nothing copied a step. A step writes the cache's new length in place
+(``copy_``), so the ``KVCache`` object and every buffer address stay fixed.
+On the CPU the same objects run eagerly; inside ``captured.disabled()`` and
+for a tensor-parallel tree (whose collectives go through the host)
+everything runs eagerly on the caller's cache. The live-prefix bound is
+tracked on the host as in the JAX package. Sampling (``torch.multinomial``)
+and the repeat-penalty window stay outside the graph and read its logits.
+A ``torch.Generator`` takes the place of a JAX key: the two draw different
+numbers from one seed, so sampled (temperature > 0) tokens are compared by
+distribution, not value. ``generate_scan``, the TPU ``while_loop``
 formulation, is not ported.
 """
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF
+from . import captured
 from .captured import CapturedStep, PerObjects
 from .common import _chunk_buckets, tp_axis
 
@@ -42,9 +50,41 @@ def length_bucket(n: int, max_len: int, base: int = 256) -> int:
 def _addresses(cache) -> tuple:
     """The addresses of every buffer of ``cache``: what a captured step
     reads and writes."""
-    bufs = (cache.length, *cache.k, *cache.v, *(cache.k_scale or ()),
-            *(cache.v_scale or ()))
-    return tuple(t.data_ptr() for t in bufs)
+    return tuple(t.data_ptr() for t in captured.buffers(cache))
+
+
+def _prefill_body(forward, cfg, params, cache):
+    """The prefill over ``cache`` as a step: (tokens [B, S], S=, t_eff=) ->
+    last logits [B, V], the rows and the cache's length written in place
+    (S static: one graph a prompt length)."""
+
+    def prefill(tokens, S, t_eff):
+        positions = cache.length[:, None] + torch.arange(
+            S, dtype=torch.int32, device=tokens.device)[None, :]
+        logits, out = forward(params, cfg, tokens, cache, positions,
+                              prefix_bound=t_eff)
+        cache.length.copy_(out.length)
+        return logits[:, -1, :]
+
+    return prefill
+
+
+def _step_body(forward, cfg, params, cache, greedy: bool):
+    """The decode step over ``cache``: (token [B, 1], t_eff=) -> logits
+    [B, V] (greedy: the argmax, int32 [B, 1]), the row and the length
+    written in place."""
+
+    def step(token, t_eff):
+        positions = cache.length[:, None]
+        logits, out = forward(params, cfg, token, cache, positions,
+                              prefix_bound=t_eff)
+        cache.length.copy_(out.length)
+        logits = logits[:, -1, :]
+        if greedy:
+            return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        return logits
+
+    return step
 
 
 class _StepGraphs:
@@ -54,29 +94,43 @@ class _StepGraphs:
     itself: it runs eagerly."""
 
     def __init__(self, forward, cfg, greedy: bool):
-        self.forward, self.cfg, self.greedy = forward, cfg, greedy
-        self._held = PerObjects(self._make)
+        # made by a closure, not a bound method: no reference cycle holds a
+        # dropped object's graphs until a collection
+        def make(params, cache):
+            step = _step_body(forward, cfg, params, cache, greedy)
+            if tp_axis(params) is not None:
+                return step
+            return CapturedStep(step, state=(cache.length,))
 
-    def _make(self, params, cache):
-        forward, cfg, greedy = self.forward, self.cfg, self.greedy
-
-        def step(token, t_eff):
-            positions = cache.length[:, None]
-            logits, out = forward(params, cfg, token, cache, positions,
-                                  prefix_bound=t_eff)
-            cache.length.copy_(out.length)
-            logits = logits[:, -1, :]
-            if greedy:
-                return torch.argmax(logits, dim=-1,
-                                    keepdim=True).to(torch.int32)
-            return logits
-
-        if tp_axis(params) is not None:
-            return step
-        return CapturedStep(step, state=(cache.length,))
+        self._held = PerObjects(make)
 
     def __call__(self, params, cache):
         return self._held((params, cache), _addresses(cache))
+
+
+def _decode_entry(forward, cfg, params, cache):
+    """The graph cache's entry for a decode loop of ``forward`` over a cache
+    of ``cache``'s spec, None where the loop runs eagerly on the caller's
+    cache (inside captured.disabled(), for a tensor-parallel tree). Its
+    home cache is ``homes[0]``; ``_prefill_of`` and ``_step_of`` give its
+    CapturedSteps."""
+    if captured.is_disabled() or tp_axis(params) is not None:
+        return None
+    return captured.entry(("decode", forward, cfg), (params,), (cache,))
+
+
+def _prefill_of(e, forward, cfg, params, which: int = 0):
+    """Entry ``e``'s captured prefill over its home cache ``which``."""
+    return e.step(("prefill", which), lambda *homes: CapturedStep(
+        _prefill_body(forward, cfg, params, homes[which]),
+        state=(homes[which].length,), pool=e.pool))
+
+
+def _step_of(e, forward, cfg, params):
+    """Entry ``e``'s captured decode step (logits) over its home cache."""
+    return e.step("step", lambda home: CapturedStep(
+        _step_body(forward, cfg, params, home, greedy=False),
+        state=(home.length,), pool=e.pool))
 
 
 def _bound(cache, t_eff):
@@ -94,16 +148,29 @@ def make_decode_fns(forward, cfg):
     prefill(params, tokens [B, S], cache, t_eff=None) -> (last logits [B, V], cache)
     step(params, token [B, 1], cache, t_eff=None) -> (logits [B, V], cache)
 
-    step updates ``cache`` in place (its rows and its length) and returns
-    it; on the card it replays one captured graph a ``t_eff``."""
+    Both update ``cache`` in place (its rows and its length) and return it.
+    On the card the prefill replays the graph cache's graph for (S,
+    ``t_eff``) over the entry's home cache, the caller's live rows copied
+    in and out (``t_eff`` None: the bucket of the live prefix, read on the
+    host); the step replays one graph a ``t_eff`` over the caller's own
+    cache."""
 
     def prefill(params, tokens, cache, t_eff=None):
         S = tokens.shape[1]
-        positions = cache.length[:, None] + torch.arange(
-            S, dtype=torch.int32, device=tokens.device)[None, :]
-        logits, cache = forward(params, cfg, tokens, cache, positions,
-                                prefix_bound=t_eff)
-        return logits[:, -1, :], cache
+        e = _decode_entry(forward, cfg, params, cache)
+        if e is None:
+            return _prefill_body(forward, cfg, params, cache)(
+                tokens, S=S, t_eff=t_eff), cache
+        n0 = int(cache.length.max())
+        if t_eff is None:
+            t_eff = length_bucket(n0 + S, cache.max_len)
+        home = e.homes[0]
+        captured.copy_rows(home, cache, n0)
+        # a clone: the graph's logits buffer is rewritten by its next replay
+        logits = _prefill_of(e, forward, cfg, params)(
+            tokens, S=S, t_eff=t_eff).clone()
+        captured.copy_rows(cache, home, n0 + S)
+        return logits, cache
 
     graphs = _StepGraphs(forward, cfg, greedy=False)
 
@@ -203,16 +270,27 @@ def generate(forward, cfg, params, prompt, cache, n_tokens: int,
              repeat_penalty: float = 1.0, repeat_last_n: int = 64):
     """Host-driven decode: prefill once, then n_tokens single-token steps.
     prompt: int [B, S] on the cache's device; rng: a torch.Generator on
-    that device for temperature > 0. Returns (tokens int32 [B, n_tokens],
-    cache)."""
-    prefill, _ = make_decode_fns(forward, cfg)
+    that device for temperature > 0. On the card the prefill and the steps
+    replay the graph cache's graphs over its home cache, the caller's live
+    rows copied in before and back after. Returns (tokens int32
+    [B, n_tokens], cache), the cache updated in place."""
     T = cache.max_len
-    # host-tracked upper bound on the live prefix (one small fetch up front)
-    cur = prompt.shape[1] + int(cache.length.max())
-    logits, cache = prefill(params, prompt, cache, t_eff=length_bucket(cur, T))
-    # the captured step of this tree and cache: its logits are the graph's
-    # buffer, sampled from before the next replay rewrites it
-    step = _StepGraphs(forward, cfg, greedy=False)(params, cache)
+    S = prompt.shape[1]
+    n0 = int(cache.length.max())  # one small fetch up front
+    cur = S + n0  # host-tracked upper bound on the live prefix
+    e = _decode_entry(forward, cfg, params, cache)
+    if e is None:
+        run = cache
+        prefill = _prefill_body(forward, cfg, params, run)
+        step = _step_body(forward, cfg, params, run, greedy=False)
+    else:
+        run = e.homes[0]
+        captured.copy_rows(run, cache, n0)
+        prefill = _prefill_of(e, forward, cfg, params)
+        step = _step_of(e, forward, cfg, params)
+    # on the card the logits are a graph's buffer, sampled from before the
+    # next replay rewrites it
+    logits = prefill(prompt, S=S, t_eff=length_bucket(cur, T))
     penalize = repeat_penalty != 1.0 and repeat_last_n > 0
     history = prompt.cpu().numpy().astype(np.int32) if penalize else None
     out = []
@@ -226,4 +304,6 @@ def generate(forward, cfg, params, prompt, cache, n_tokens: int,
             history = np.concatenate([history, tok.cpu().numpy()], axis=1)
         cur += 1
         logits = step(tok, t_eff=length_bucket(cur, T))
+    if e is not None:
+        captured.copy_rows(cache, run, cur)
     return torch.cat(out, dim=1), cache

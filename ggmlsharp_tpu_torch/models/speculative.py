@@ -8,14 +8,22 @@ weights once for up to k+1 tokens.
 
 The JAX package jits a round into one executable with ``t_eff`` / ``d_eff``
 static and its caches donated; here a round is a ``captured.CapturedStep``:
-on the card one CUDA graph a (``t_eff``, ``d_eff``) for each (target
-tree, draft tree, target cache, draft cache[, generator]), replayed each
-round. The round writes both caches in place: the K/V rows (kv_cache) and
-each ``length`` with ``copy_``, so it returns its input cache objects and
-every buffer address stays fixed; its tokens, ``n_emit`` and next seed are
-the graph's buffers, which the next round overwrites (read or clone them
-first). On the CPU, inside ``captured.disabled()`` and for a
-tensor-parallel tree the same round runs eagerly. Rollback is O(1):
+on the card one CUDA graph a (``t_eff``, ``d_eff``). Called a round at a
+time (``make_spec_round``, ``make_spec_round_sampled``), it has one for
+each (target tree, draft tree, target cache, draft cache[, generator]).
+``speculative_generate`` takes its rounds and both prefills from the graph
+cache (``captured.entry``): one entry a (forwards, configs, trees,
+settings, cache specs), whose graphs read the entry's two home caches; a
+call copies the caller's live rows in and back, so a second call with new
+caches of the same specs captures nothing; a sampled call copies its
+generator's state into the entry's generator, which the graphs register,
+and back. The round writes both caches in place: the K/V rows (kv_cache)
+and each ``length`` with ``copy_``, so it returns its input cache objects
+and every buffer address stays fixed; its tokens, ``n_emit`` and next seed
+are the graph's buffers, which the next round overwrites (read or clone
+them first). On the CPU the same objects run eagerly; inside
+``captured.disabled()`` and for a tensor-parallel tree everything runs
+eagerly on the caller's caches. Rollback is O(1):
 attention masks by per-slot position, so rejecting drafts only resets
 ``length``, and the stale rows past it are overwritten by the next round's
 writes at those positions. Every reader bounds itself by positions (einsum
@@ -44,10 +52,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import captured
 from . import kv_cache as kvc
 from .captured import CapturedStep, PerObjects
 from .common import tp_axis
-from .sampling import _addresses, length_bucket, make_decode_fns, sample_token
+from .sampling import (_addresses, _prefill_body, _prefill_of, length_bucket,
+                       sample_token)
 
 
 def set_length(cache: kvc.KVCache, length) -> kvc.KVCache:
@@ -140,7 +150,31 @@ def _round_graphs(body, sampled):
     return graphs
 
 
-def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
+def _entry_graphs(e, k: int):
+    """The rounds of graph cache entry ``e`` (over its two home caches and
+    its own generator), in ``_round_graphs``' form: one CapturedStep a k
+    and kind, made at the first call."""
+
+    def held(body, sampled):
+        def graphs(tp, dp, tc, dc, rng=None):
+            def make(htc, hdc):
+                def run(*inputs, t_eff, d_eff):
+                    return body(tp, dp, htc, hdc, rng, *inputs, t_eff=t_eff,
+                                d_eff=d_eff)
+
+                return CapturedStep(run, state=(htc.length, hdc.length),
+                                    generators=(rng,) if sampled else (),
+                                    pool=e.pool)
+
+            return e.step(("round", k, sampled), make)
+
+        return graphs
+
+    return held
+
+
+def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int,
+                    held=None):
     """The greedy speculative round.
 
     spec_round(t_params, d_params, t_cache, d_cache, seed [B, 2],
@@ -155,7 +189,11 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
     captured graph a (t_eff, d_eff) (a None bound is read on the host
     first). Both forwards must take ``cached_prefix=`` (gpt2, llama and
     gptj do): the verify and the seed prefill run at positions > 0, so a
-    flat cache's attention must read the cache's live prefix."""
+    flat cache's attention must read the cache's live prefix. ``held``:
+    where the round's CapturedStep comes from, (body, sampled) ->
+    graphs(t_params, d_params, t_cache, d_cache, rng) (default: one for the
+    objects it was last called with; speculative_generate passes its graph
+    cache entry's)."""
     _check_vocab(t_cfg, d_cfg)
 
     def body(t_params, d_params, t_cache, d_cache, _rng, seed, t_eff,
@@ -191,7 +229,7 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
         return _accept(x, d, torch.take_along_dim(g, m[:, None], dim=1), m,
                        t_cache, d_cache, k)
 
-    graphs = _round_graphs(body, sampled=False)
+    graphs = (held or _round_graphs)(body, sampled=False)
 
     @torch.no_grad()
     def spec_round(t_params, d_params, t_cache, d_cache, seed,
@@ -205,6 +243,7 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int):
     return spec_round
 
 
+@torch.inference_mode()
 def speculative_generate(t_forward, t_cfg, t_params,
                          d_forward, d_cfg, d_params,
                          prompt, t_cache, d_cache,
@@ -216,10 +255,13 @@ def speculative_generate(t_forward, t_cfg, t_params,
     temperature <= 0 (the default): greedy-exact, the target's own greedy
     decode. temperature > 0 (needs ``rng``, a torch.Generator on the
     device): rejection-sampled speculative sampling, distributed as sampling
-    the target alone under the same temperature, top_k and top_p. Returns
-    (tokens int32 [B, n_tokens] on the prompt's device, the mean tokens
-    emitted a round a slot, in [1, k+1]: the amortisation of a target
-    forward actually reached)."""
+    the target alone under the same temperature, top_k and top_p. On the
+    card both prefills and every round replay the graph cache's graphs over
+    its home caches, the caller's live rows copied in before and back
+    after (both caches are updated in place). Returns (tokens int32
+    [B, n_tokens] on the prompt's device, the mean tokens emitted a round a
+    slot, in [1, k+1]: the amortisation of a target forward actually
+    reached)."""
     B, S = prompt.shape
     sampled = temperature > 0.0
     if sampled and rng is None:
@@ -231,45 +273,59 @@ def speculative_generate(t_forward, t_cfg, t_params,
                 f"{who} cache max_len {c.max_len} < {need} needed for "
                 f"S={S} + n_tokens={n_tokens} + k={k} headroom")
 
-    t_prefill, _ = make_decode_fns(t_forward, t_cfg)
-    d_prefill, _ = make_decode_fns(d_forward, d_cfg)
     dev = prompt.device
+    e = None
+    if not (captured.is_disabled() or tp_axis(t_params) is not None
+            or tp_axis(d_params) is not None):
+        e = captured.entry(("speculative", t_forward, t_cfg, d_forward,
+                            d_cfg), (t_params, d_params), (t_cache, d_cache))
+    if e is None:  # eagerly, on the caller's caches and generator
+        tc, dc, held, draws = t_cache, d_cache, None, rng
+        t_prefill = _prefill_body(t_forward, t_cfg, t_params, tc)
+        d_prefill = _prefill_body(d_forward, d_cfg, d_params, dc)
+    else:
+        tc, dc = e.homes
+        n0 = torch.stack([t_cache.length.max(), d_cache.length.max()])
+        n0 = n0.tolist()
+        captured.copy_rows(tc, t_cache, n0[0])
+        captured.copy_rows(dc, d_cache, n0[1])
+        held = _entry_graphs(e, k)
+        draws = e.own_generator(rng) if sampled else None
+        t_prefill = _prefill_of(e, t_forward, t_cfg, t_params, 0)
+        d_prefill = _prefill_of(e, d_forward, d_cfg, d_params, 1)
     if sampled:
         round_s = make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg,
-                                          k)
+                                          k, held=held)
         tv = torch.full((B,), temperature, dtype=torch.float32, device=dev)
         kv_ = torch.full((B,), top_k, dtype=torch.int32, device=dev)
         pv = torch.full((B,), top_p, dtype=torch.float32, device=dev)
 
         def spec_round(tp, dp, tc, dc, seed, t_eff=None, d_eff=None):
-            return round_s(tp, dp, tc, dc, seed, rng, tv, kv_, pv,
+            return round_s(tp, dp, tc, dc, seed, draws, tv, kv_, pv,
                            t_eff=t_eff, d_eff=d_eff)
     else:
-        spec_round = make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k)
+        spec_round = make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k,
+                                     held=held)
 
-    with torch.no_grad():
-        logits, t_cache = t_prefill(
-            t_params, prompt, t_cache,
-            t_eff=length_bucket(S, t_cache.max_len))
-        a0 = sample_token(logits, rng, temperature, top_k, top_p) \
-            if sampled else \
-            torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
-        if S > 1:  # the draft holds history[0:S-1]; prompt[-1] rides the seed
-            _, d_cache = d_prefill(
-                d_params, prompt[:, :-1], d_cache,
-                t_eff=length_bucket(S - 1, d_cache.max_len))
+    logits = t_prefill(prompt, S=S, t_eff=length_bucket(S, tc.max_len))
+    a0 = sample_token(logits, rng, temperature, top_k, top_p) if sampled \
+        else torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+    if S > 1:  # the draft holds history[0:S-1]; prompt[-1] rides the seed
+        d_prefill(prompt[:, :-1], S=S - 1,
+                  t_eff=length_bucket(S - 1, dc.max_len))
     seed = torch.cat([prompt[:, -1:].to(torch.int32), a0], dim=1)
+    if sampled and draws is not rng:  # the rounds draw where rng would
+        draws.set_state(rng.get_state())
 
     a0_host = a0.cpu().numpy()
     out = [[int(a0_host[b, 0])] for b in range(B)]
     h_max = S  # an upper bound on any slot's history length
     rounds = emitted_total = 0
     while min(len(o) for o in out) < n_tokens:
-        t_eff = length_bucket(h_max + k + 2, t_cache.max_len)
-        d_eff = length_bucket(h_max + k + 2, d_cache.max_len)
-        emitted, n_emit, t_cache, d_cache, seed = spec_round(
-            t_params, d_params, t_cache, d_cache, seed,
-            t_eff=t_eff, d_eff=d_eff)
+        t_eff = length_bucket(h_max + k + 2, tc.max_len)
+        d_eff = length_bucket(h_max + k + 2, dc.max_len)
+        emitted, n_emit, tc, dc, seed = spec_round(
+            t_params, d_params, tc, dc, seed, t_eff=t_eff, d_eff=d_eff)
         # ONE fetch a round: the tokens and their count side by side
         both = torch.cat([emitted, n_emit[:, None]], dim=1).cpu().numpy()
         em, ne = both[:, :-1], both[:, -1]
@@ -278,6 +334,11 @@ def speculative_generate(t_forward, t_cfg, t_params,
         h_max += int(ne.max())
         rounds += 1
         emitted_total += int(ne.sum())
+    if e is not None:  # every row a round may have written, and the lengths
+        captured.copy_rows(t_cache, tc, h_max + k + 2)
+        captured.copy_rows(d_cache, dc, h_max + k + 2)
+        if sampled:
+            rng.set_state(draws.get_state())
     toks = np.stack([o[:n_tokens] for o in out]).astype(np.int32)
     return torch.from_numpy(toks).to(dev), emitted_total / max(1, rounds * B)
 
@@ -319,7 +380,8 @@ def _draw(probs, rng):
     return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
-def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int):
+def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int,
+                            held=None):
     """The sampled speculative round: standard rejection sampling
     (Leviathan et al.; Chen et al.). The draft SAMPLES k tokens from its
     modified distributions q_i; the target computes p_i in one forward;
@@ -335,7 +397,7 @@ def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int):
          seed' [B, 2])
 
     rng: a torch.Generator on the device, drawn in the order the module
-    docstring gives."""
+    docstring gives. ``held`` as make_spec_round's."""
     _check_vocab(t_cfg, d_cfg)
 
     def body(t_params, d_params, t_cache, d_cache, rng, seed, temp, top_k,
@@ -398,7 +460,7 @@ def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int):
         return _accept(x, d, _draw(res, rng)[:, None], m, t_cache, d_cache,
                        k)
 
-    graphs = _round_graphs(body, sampled=True)
+    graphs = (held or _round_graphs)(body, sampled=True)
 
     @torch.no_grad()
     def spec_round(t_params, d_params, t_cache, d_cache, seed, rng,

@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from ..models.captured import collector_off
 from .params import LineSearch, OptParams, OptResult
 from .tree import tree_leaves, tree_unflatten
 
@@ -275,7 +276,7 @@ def _capture(st, x_try, vg, p):
         st[k].copy_(v)
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph):
+        with collector_off(), torch.cuda.graph(graph):
             _probe(st, x_try, vg, p)
     except RuntimeError as e:
         cause = e  # the first error of the capture, not capture_end's

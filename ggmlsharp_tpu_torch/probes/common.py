@@ -9,6 +9,7 @@ import subprocess
 import torch
 
 from ..device import resolve_device
+from ..models.captured import collector_off
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_S = 67e12     # H100 SXM f32 outside the tensor cores
@@ -36,7 +37,7 @@ def time_ms(fn, reps, warmup=3):
         fn(i)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_off(), torch.cuda.graph(graph):
         for i in range(reps):
             fn(i)
     graph.replay()  # warm

@@ -48,6 +48,7 @@ def test_captured_generate_gives_the_eager_tokens_and_launches():
                             n_head_kv=4, n_layer=2, n_ff=512)
     p = llama.synthetic_q4_0_params(cfg, seed=1, device=dev)
     prompt = torch.arange(3, 11, dtype=torch.int32, device=dev)[None]
+    captured.clear()  # this tree's prefill and step not yet captured
     out = []
     for eager in (True, False):
         kernels.reset_launches()
@@ -63,5 +64,6 @@ def test_captured_generate_gives_the_eager_tokens_and_launches():
                     dict(captured.COUNTS)))
     (te, le, ce), (tc, lc, cc) = out
     assert torch.equal(te, tc) and le == lc
-    assert ce["captures"] == 0 and cc["captures"] == 1
-    assert cc["replays"] == 6
+    # the prefill's graph and the step's, replayed once and 6 times
+    assert ce["captures"] == 0 and cc["captures"] == 2
+    assert cc["replays"] == 7

@@ -41,7 +41,11 @@ version):
      counted), and the captured call must give its tokens bit for bit and
      its launches kernel by kernel (eager_twins); b and s serve their
      requests in both forms likewise; a step with a host sync, and a
-     per-stream buffer made inside a capture, must raise:
+     per-stream buffer made inside a capture, must raise. Training and
+     evaluation run captured too (an opt_adam / opt_torch call one graph,
+     its first iteration the eager warm-up; Graph.compute one graph a
+     topology and input spec; a perplexity call one graph): g's and h2's
+     runs each beside their eager form:
      a. b = 1 decode: Llama-7B (full width and depth, random Q4_0 weights
         from a seed), a 16-token prompt and 32 greedy tokens through
         sampling.generate;
@@ -86,7 +90,9 @@ version):
         seed), one batch of 8 x 129 tokens, the JAX bench's loss; the loss
         and every gradient against the plain route, then 4 Adam steps
         through optim.opt_fn (the cached flash entry's Function in every
-        layer, its backward a dense recompute);
+        layer, its backward a dense recompute, every product in bf16 on
+        the tensor cores with f32 accumulation) in the eager form and then
+        captured, losses and launches held to each other;
      h. the graph layer: the reference's Test3 (4096 x 256 L-BFGS fit) by
         ggml_opt on the card (opt_lbfgs_jit: one probe captured into a CUDA
         graph, replayed in batches) and by the host loop (opt_lbfgs_host)
@@ -94,8 +100,10 @@ version):
         opt_lbfgs_jit on the card against its CPU run under each line
         search; a fun_vg with a host sync, whose capture must raise; then a
         graph-API decoder (E 768, 12 heads, S 128, 2 layers) with
-        flash_attn: forward, backward graph against the plain route, and 4
-        Adam steps of opt() (the uncached flash entry);
+        flash_attn: forward, backward graph against the plain route and
+        against its eager form, computed again after set_data on the
+        tokens (a replay, no capture), and 4 Adam steps of opt() (the
+        uncached flash entry) in both forms;
      and GPT-2 124M behind serving.Engine with an INT8 (head-major) cache,
      against the same engine's plain run; then the tuning path:
      the TPU probes' counterparts (probes/: the three Q4_UNPACK builds of
@@ -119,7 +127,8 @@ version):
         sentence, path a's prompt logits bit for bit and its 32 greedy
         tokens, decoded; perplexity over two 256-token windows of the
         corpus (matmul_q4_0's multi-row instance and flash, against the
-        plain route), and a "text" request through EngineServer; j2 path
+        plain route; captured, then eager), and a "text" request through
+        EngineServer; j2 path
         c's GPT-2 124M weights written as HF safetensors (F32 matrices,
         BF16 vectors), io.load_hf_gpt2, Q8_0 on the card, path c's route
         (kernels 4, 8, 11); j3 path g's trained parameters and a Q4_0 tree
@@ -149,9 +158,11 @@ version):
         the same tokens);
      m. the perplexity chain (eval.chain, scripts/ppl_chain_torch.py's
         defaults for seed 0 on a corpus of 1500 sentences in place of 3000):
-        m1 a 4L/192E Llama trained by 300 full-batch Adam steps on the
+        m1 a 4L/192E Llama trained by up to 300 full-batch Adam steps (the
+        chain's relative-change rule, eps_f 1e-5, may stop it sooner) on the
         corpus's first third (flash at D 32 under
-        autograd, its first step held against the plain route), written with
+        autograd, its first step held against the plain route; captured,
+        and a 4-step run in both forms for the step's ms), written with
         its vocabulary to a GGUF, reloaded and re-tokenized exactly, and
         scored on the held-out ids at fp32 and in four formats (w_down
         through the dequant-matmuls' multi-row instances), fp32 and Q4_0
@@ -162,7 +173,7 @@ version):
         three ways, http_server_torch, quantize_model_torch's round trip,
         train_graph_torch, graph_transformer_torch), OpProfiler over path
         h2's decoder graph against Graph.compute, and GgmlAdam through
-        opt_torch against opt_adam on Test2's objectives;
+        opt_torch against opt_adam on Test2's objectives, both captured;
      p. the parallel layer, its ranks spawned by torch.multiprocessing
         (a failed rank or a collective past its timeout fails the script):
         p0 a world of one on NCCL, tiny Llama Q4_0 and GPT-2 Q8_0 through
@@ -202,7 +213,8 @@ version):
      and the share of the batched roofline; the same decode measurements
      for GPT-2 124M and 774M, for Llama-7B on its whole-block route and
      for path e in Q4_K and Q6_K; path g's step time, tokens/s, share of
-     the bf16 dense peak and peak memory; k1's round in both forms (host
+     the bf16 dense peak, idle share, capture seconds and peak memory in
+     both forms; k1's round in both forms (host
      ms and p84, device ms, idle share, tokens a round, steady tok/s,
      capture seconds apart); path b's traffic twice on one engine, captured
      (TTFT, latency and tok/s a wave, its captures); the admission
@@ -3210,6 +3222,57 @@ def train_step_flops(n_params, tokens):
     return 6.0 * n_params * tokens
 
 
+def train_form(form, loss, params):
+    """TRAIN_STEPS Adam steps of ``loss`` from ``params`` through
+    optim.opt_fn in ``form``: "captured" (the default: step 1 the eager
+    warm-up, step 2 the capture and its replay, 3.. replays) or "eager"
+    (captured.disabled()). Host seconds a step (synchronised in the
+    callback, after opt_adam's read of f), the median of steps 2-4 and of
+    the replays 3-4, the launch counters and captured.COUNTS of the run,
+    its peak memory, then a profiler window of two more steps (3-4 of a
+    second run) for the device time a step and the idle share."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured
+    from ggmlsharp_tpu_torch.optim import opt_fn
+
+    stamps, losses = [], []
+
+    def on_step(it, f):  # opt_adam has read f back: the step is done
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(f)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    captured.reset_counts()
+    t0 = time.perf_counter()
+    with captured.disabled() if form == "eager" else contextlib.nullcontext():
+        x, fx, res, iters = opt_fn(loss, params, adam_params(TRAIN_STEPS),
+                                   on_step)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    cap = dict(captured.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    med = statistics.median(step_s[1:])
+    prof = profile_adam_window(loss, params, 3, 2, form == "eager")
+    dev_ms = prof["device_ms_per_step"]
+    return {"form": form, "x": x, "iters": iters, "result": res.name,
+            "losses": losses, "step_s": step_s,
+            "step_ms_median_2_4": med * 1e3,
+            "step_ms_median_3_4": statistics.median(step_s[2:]) * 1e3,
+            "tokens_per_s": TRAIN_B * TRAIN_S / med,
+            "launches": counts, "captures": cap["captures"],
+            "replays": cap["replays"], "capture_s": cap["capture_s"],
+            "peak": peak, "profile": prof,
+            "device_idle_share": (1.0 - dev_ms / (med * 1e3)
+                                  if isinstance(dev_ms, float)
+                                  else "not measured")}
+
+
 def run_train_path(dev, smi, cfg):
     """Path g: GPT-2 124M at full width and depth, bf16 parameters from
     init_params (seed 0), one fixed batch of TRAIN_B x (TRAIN_S + 1) tokens
@@ -3222,22 +3285,25 @@ def run_train_path(dev, smi, cfg):
     a one-ulp flip (up to 2^-8 relative) at one place starts a difference
     that each later bf16 rounding on the backward's path (12 layers x ~15
     ops) can grow by as much again: as a random walk, 2^-8 * sqrt(180) =
-    0.05. Then TRAIN_STEPS Adam steps through
-    optim.opt_fn (AdamParams' alpha 1e-3, stopping rules off), the launch
-    counters reset just before and read just after: one flash launch a
-    layer a step. The loss at the final parameters must be below the first;
-    the median step time of steps 2-4 gives tokens/s and the share of the
-    bf16 dense peak at 6 FLOPs a parameter a token; peak memory counts what
-    the path allocates above what earlier paths keep resident. Last, a
-    torch.profiler window of two more steps (device time, launches, idle
-    share)."""
+    0.05. Then TRAIN_STEPS Adam steps through optim.opt_fn (AdamParams'
+    alpha 1e-3, stopping rules off) in each form (train_form): eager
+    (captured.disabled()), then captured (step 1 the warm-up, one capture,
+    replays), from the same parameters, the launch counters reset just
+    before and read just after: one flash launch a layer a step in both.
+    The captured losses must be the eager form's within 1e-3 relative (the
+    kernel-versus-plain bar; the same operations run in both), one capture
+    and TRAIN_STEPS - 1 replays; the loss at the final parameters must be
+    below the first; the median step time of steps 2-4 gives tokens/s and
+    the share of the bf16 dense peak at 6 FLOPs a parameter a token; peak
+    memory counts what the path allocates above what earlier paths keep
+    resident. Each form's torch.profiler window of two more steps gives
+    device time, launches and the idle share."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
     from ggmlsharp_tpu_torch.models import gpt2
     from ggmlsharp_tpu_torch.models.common import lm_loss
-    from ggmlsharp_tpu_torch.optim import OptParams, OptType, opt_fn, \
-        value_and_grad
+    from ggmlsharp_tpu_torch.optim import value_and_grad
     from ggmlsharp_tpu_torch.optim.tree import tree_leaves
 
     torch.cuda.synchronize()
@@ -3273,54 +3339,47 @@ def run_train_path(dev, smi, cfg):
         raise SystemExit(f"path g: a loss evaluation launched {vg_counts}")
     del g_k, g_p
 
-    prm = OptParams(type=OptType.ADAM)
-    prm.adam.n_iter = TRAIN_STEPS
-    prm.adam.eps_f = 0.0
-    prm.past = prm.max_no_improvement = 0
-    stamps, losses = [], []
-
-    def on_step(it, f):  # opt_adam has read f back: the step is done
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        losses.append(f)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    x, fx, res, iters = opt_fn(loss, params, prm, on_step)
-    torch.cuda.synchronize()
-    counts = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    forms = {form: train_form(form, loss, params) for form in
+             ("eager", "captured")}
+    cap, eag = forms["captured"], forms["eager"]
+    del eag["x"]
+    eag["bf16_peak_share"] = train_step_flops(
+        n_params, eag["tokens_per_s"]) / BF16_FLOP_S
+    x, counts, losses, med = cap["x"], cap["launches"], cap["losses"], \
+        cap["step_ms_median_2_4"] / 1e3
     with torch.no_grad():
         f_end = float(loss(x))
-    one = OptParams(type=OptType.ADAM)
-    one.adam.n_iter = 1
-    prof = profile_steps(lambda: opt_fn(loss, x, one), 2)
-    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
-    med = statistics.median(step_s[1:])
     tok_s = TRAIN_B * TRAIN_S / med
     want = dict.fromkeys(kernels.LAUNCHES, 0) | {
         "flash_attn": cfg.n_layer * TRAIN_STEPS}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, eag["losses"]))
     out = {"config": f"GPT-2 E {cfg.n_embd} x {cfg.n_layer} layers, bf16",
            "card": smi, "n_params": n_params,
-           "batch": TRAIN_B, "seq": TRAIN_S, "steps": iters,
-           "result": res.name, "losses": losses, "loss_after": f_end,
-           "step_s": step_s, "step_ms_median_2_4": med * 1e3,
+           "batch": TRAIN_B, "seq": TRAIN_S, "steps": cap["iters"],
+           "result": cap["result"], "losses": losses, "loss_after": f_end,
+           "step_s": cap["step_s"], "step_ms_median_2_4": med * 1e3,
            "tokens_per_s": tok_s,
            "model_flop_s": train_step_flops(n_params, TRAIN_B * TRAIN_S) / med,
            "bf16_peak_share": train_step_flops(n_params, tok_s) / BF16_FLOP_S,
-           "peak_mem_gb": (peak - base) / 1e9, "launches": counts,
-           "profile": prof,
-           "device_idle_share": (1.0 - prof["device_ms_per_step"] / (med * 1e3)
-                                 if isinstance(prof["device_ms_per_step"],
-                                               float) else "not measured"),
+           "peak_mem_gb": (cap["peak"] - base) / 1e9, "launches": counts,
+           "profile": cap["profile"],
+           "device_idle_share": cap["device_idle_share"],
+           "capture_s": cap["capture_s"], "captures": cap["captures"],
+           "replays": cap["replays"],
+           "eager": {k: v for k, v in eag.items() if k != "peak"}
+           | {"peak_mem_gb": (eag["peak"] - base) / 1e9},
+           "loss_rel_err_vs_eager": loss_err, "loss_bar_vs_eager": 1e-3,
            "expected_launches": want,
            "flash_launches_per_step": counts["flash_attn"] / TRAIN_STEPS}
     emit({"train_path": out})
-    if counts != want:
-        raise SystemExit(f"path g launch counts {counts} != {want}")
-    if iters != TRAIN_STEPS or not f_end < losses[0] or f_end != f_end:
+    if counts != want or eag["launches"] != want:
+        raise SystemExit(f"path g launch counts {counts} (eager "
+                         f"{eag['launches']}) != {want}")
+    if (cap["captures"], cap["replays"]) != (1, TRAIN_STEPS - 1) \
+            or eag["captures"] or not loss_err <= 1e-3:
+        raise SystemExit(f"path g: the captured steps differ from the eager "
+                         f"form's: {out}")
+    if cap["iters"] != TRAIN_STEPS or not f_end < losses[0] or f_end != f_end:
         raise SystemExit(f"path g: the loss did not fall: {out}")
     return out, counts, (x, loss, cfg.n_layer)
 
@@ -3590,18 +3649,24 @@ def run_graph_decoder(dev, gen, smi):
     once on the plain route (the same graph built with plain=True), held to
     1e-4 relative on the loss and 1e-3 relative L2 a weight's gradient (f32
     throughout; the routes differ in summation order, and the generic VJPs
-    add the dense backward's own). Then GRAPH_STEPS Adam steps of opt()
-    (stopping rules off), the counters reset just before: the uncached
-    entry launches once a layer a forward, and the backward graph's generic
-    VJPs of each flash_attn node rerun its forward once a source (3 a
-    layer)."""
+    add the dense backward's own). The kernel route's compute runs first
+    in the eager form (captured.disabled()), then captured (one graph),
+    held to the eager form at the same bars with the same launches; then
+    the token leaf gets new tokens (set_data) and the graph computes again:
+    one replay, no capture. Then GRAPH_STEPS Adam steps of opt() (stopping
+    rules off) in both forms from the same weights, the counters reset just
+    before: the uncached entry launches once a layer a forward, and the
+    backward graph's generic VJPs of each flash_attn node rerun its forward
+    once a source (3 a layer); the captured losses within 1e-4 relative of
+    the eager form's, one capture and GRAPH_STEPS - 1 replays."""
     import torch
 
     from ggmlsharp_tpu_torch import kernels
     from ggmlsharp_tpu_torch.graph import (build_backward, build_forward,
                                            builders as B, leaf, set_data,
                                            set_f32)
-    from ggmlsharp_tpu_torch.optim import OptParams, OptType, opt
+    from ggmlsharp_tpu_torch.models import captured
+    from ggmlsharp_tpu_torch.optim import opt
 
     V, E, H, S = GRAPH_V, GRAPH_E, GRAPH_H, GRAPH_S
     shapes = [(V, E)] + ([(E, E)] * 4 + [(4 * E, E), (E, 4 * E)]) \
@@ -3623,58 +3688,128 @@ def run_graph_decoder(dev, gen, smi):
         gb = build_backward(gf)
         gf.reset()
         set_f32(obj.grad, 1.0)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        gb.compute()
-        torch.cuda.synchronize()
-        runs[plain] = {"obj": obj, "ws": ws, "f": float(obj.data[0]),
-                       "grads": [x.grad.data.clone() for x in ws],
-                       "launches": dict(kernels.LAUNCHES),
-                       "seconds": time.perf_counter() - t0,
-                       "n_nodes": len(gb.nodes)}
+        forms = {}
+        for form in ("captured",) if plain else ("eager", "captured"):
+            forms[form] = graph_compute_form(form, gb, obj, ws)
+        runs[plain] = forms["captured"] | {
+            "obj": obj, "ws": ws, "tok": tok, "gb": gb,
+            "eager": forms.get("eager"), "n_nodes": len(gb.nodes)}
     k, p = runs[False], runs[True]
     rel = [float((a - b).norm() / b.norm()) for a, b in
            zip(k["grads"], p["grads"])]
+    e = k["eager"]
+    rel_e = [float((a - b).norm() / b.norm()) for a, b in
+             zip(k["grads"], e["grads"])]
+    # the same compute after set_data on the token leaf: a replay
+    toks2 = torch.randint(0, V, (S,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    set_data(k["tok"], toks2)
+    again = graph_compute_form("captured", k["gb"], k["obj"], k["ws"])
+    set_data(k["tok"], toks)
+    computed = [n.data for n in k["gb"].nodes if n.op != "none"]
+    inputs = [n.data for n in k["gb"].nodes + k["gb"].leafs
+              if n.op == "none"]
     want_bwd = dict.fromkeys(kernels.LAUNCHES, 0) | {
         "flash_attn_uncached": 4 * GRAPH_LAYERS}
     cmp = {"loss": k["f"], "loss_plain": p["f"],
            "loss_rel_err": abs(k["f"] - p["f"]) / abs(p["f"]),
            "grad_rel_l2_max": max(rel), "n_nodes": k["n_nodes"],
            "backward_graph_seconds": k["seconds"],
-           "launches": k["launches"], "expected_launches": want_bwd,
-           "plain_launches": {n: c for n, c in p["launches"].items() if c}}
+           "backward_graph_seconds_eager": e["seconds"],
+           "captures": k["captures"], "capture_s": k["capture_s"],
+           "loss_rel_err_vs_eager": abs(k["f"] - e["f"]) / abs(e["f"]),
+           "grad_rel_l2_max_vs_eager": max(rel_e),
+           "launches": k["launches"], "eager_launches": e["launches"],
+           "expected_launches": want_bwd,
+           "plain_launches": {n: c for n, c in p["launches"].items() if c},
+           "second_compute": {"seconds": again["seconds"],
+                              "captures": again["captures"],
+                              "replays": again["replays"],
+                              "loss": again["f"],
+                              "launches_equal": again["launches"]
+                              == want_bwd},
+           "output_copy_bytes": sum(t.numel() * t.element_size()
+                                    for t in computed),
+           "input_copy_bytes": sum(t.numel() * t.element_size()
+                                   for t in inputs)}
     emit({"graph_decoder_compare": cmp})
     if cmp["loss_rel_err"] > 1e-4 or max(rel) > 1e-3 \
             or k["launches"] != want_bwd or any(p["launches"].values()):
         raise SystemExit(f"path h2: the graph disagrees or launched wrong: "
                          f"{cmp}")
-    prm = OptParams(type=OptType.ADAM)
-    prm.adam.n_iter = GRAPH_STEPS
-    prm.adam.eps_f = 0.0
-    prm.past = prm.max_no_improvement = 0
-    losses = []
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res2, fx = opt(k["obj"], prm, lambda it, fv: losses.append(fv))
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = dict(kernels.LAUNCHES)
+    if cmp["loss_rel_err_vs_eager"] > 1e-4 or max(rel_e) > 1e-3 \
+            or e["launches"] != want_bwd or k["captures"] != 1 \
+            or (again["captures"], again["replays"]) != (0, 1) \
+            or again["launches"] != want_bwd or again["f"] == k["f"]:
+        raise SystemExit(f"path h2: the captured compute differs from the "
+                         f"eager form's or captured again: {cmp}")
+    prm = adam_params(GRAPH_STEPS)
+    start = [w.data for w in k["ws"]]
+    opt_runs = {}
+    for form in ("eager", "captured"):
+        for w, d in zip(k["ws"], start):
+            w.data = d
+        losses = []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        captured.reset_counts()
+        t0 = time.perf_counter()
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            opt(k["obj"], prm, lambda it, fv: losses.append(fv))
+        torch.cuda.synchronize()
+        opt_runs[form] = {"losses": losses,
+                          "seconds": time.perf_counter() - t0,
+                          "launches": dict(kernels.LAUNCHES),
+                          **{c: captured.COUNTS[c] for c in
+                             ("captures", "replays", "capture_s")}}
+    oc, oe = opt_runs["captured"], opt_runs["eager"]
+    losses, counts = oc["losses"], oc["launches"]
     gf = build_forward(k["obj"])
     gf.compute()
     f_end = float(k["obj"].data[0])
     want = dict.fromkeys(kernels.LAUNCHES, 0) | {
         "flash_attn_uncached": GRAPH_LAYERS * GRAPH_STEPS}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, oe["losses"]))
     h2 = {"decoder": f"E {E}, {H} heads, S {S}, {GRAPH_LAYERS} layers, V {V}",
           "card": smi, "steps": GRAPH_STEPS, "losses": losses,
-          "loss_after": f_end, "seconds": secs, "launches": counts,
+          "loss_after": f_end, "seconds": oc["seconds"],
+          "captures": oc["captures"], "replays": oc["replays"],
+          "capture_s": oc["capture_s"], "launches": counts,
+          "eager": oe, "loss_rel_err_vs_eager": loss_err,
           "expected_launches": want}
     emit({"graph_decoder_train": h2})
-    if counts != want or not f_end < losses[0]:
+    if counts != want or oe["launches"] != want or not f_end < losses[0]:
         raise SystemExit(f"path h2: opt() failed: {h2}")
+    if loss_err > 1e-4 or (oc["captures"], oc["replays"]) != (
+            1, GRAPH_STEPS - 1):
+        raise SystemExit(f"path h2: opt()'s captured steps differ from the "
+                         f"eager form's: {h2}")
     total = {n: k["launches"][n] + counts[n] for n in counts}
     return cmp, h2, total
+
+
+def graph_compute_form(form, gb, obj, ws):
+    """gb.compute() in ``form`` ("eager": captured.disabled()), the
+    counters reset just before: the loss, the weights' gradients, the
+    launches, captured.COUNTS and the host seconds."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    captured.reset_counts()
+    t0 = time.perf_counter()
+    with captured.disabled() if form == "eager" else contextlib.nullcontext():
+        gb.compute()
+    torch.cuda.synchronize()
+    return {"f": float(obj.data[0]), "grads": [x.grad.data for x in ws],
+            "launches": dict(kernels.LAUNCHES),
+            "seconds": time.perf_counter() - t0,
+            **{c: captured.COUNTS[c] for c in
+               ("captures", "replays", "capture_s")}}
 
 
 def run_gpt2_int8_serving(gcfg, gparams):
@@ -4269,6 +4404,55 @@ def profile_steps(one_step, n_steps):
             one_step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return profile_summary(prof, wall, n_steps)
+
+
+def profile_adam_window(loss, x0, first, n_steps, eager):
+    """torch.profiler over Adam iterations first .. first + n_steps - 1 of
+    one opt_fn call from x0 (stopping rules off), started and stopped from
+    its callback, each iteration's host read included: in the captured
+    form (first >= 3) graph replays, iteration 1 being the eager warm-up
+    and 2 the capture; with ``eager`` the eager form's iterations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggmlsharp_tpu_torch.models import captured
+    from ggmlsharp_tpu_torch.optim import opt_fn
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t = {}
+
+    def on_step(it, f):
+        if it == first - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            t["start"] = time.perf_counter()
+        elif it == first + n_steps - 1:
+            torch.cuda.synchronize()
+            t["wall"] = time.perf_counter() - t["start"]
+            prof.stop()
+
+    with captured.disabled() if eager else contextlib.nullcontext():
+        opt_fn(loss, x0, adam_params(first + n_steps - 1), on_step)
+    return profile_summary(prof, t["wall"], n_steps)
+
+
+def adam_params(n_iter):
+    """Adam for n_iter iterations, AdamParams' alpha, no stopping rule."""
+    from ggmlsharp_tpu_torch.optim import OptParams, OptType
+
+    prm = OptParams(type=OptType.ADAM)
+    prm.adam.n_iter = n_iter
+    prm.adam.eps_f = 0.0
+    prm.past = prm.max_no_improvement = 0
+    return prm
+
+
+def profile_summary(prof, wall, n_steps):
+    """A profiler window's device kernel time, kernel launches and aten
+    calls a step, and the kernels that take the most device time."""
+    import torch
+
     events = prof.events()
     kern = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -4746,7 +4930,8 @@ def run_gguf_path(smi, repo, cfg, params, prompt, toks_a):
     mm_dot "f32": kernels against the plain route, per-token NLL within
     2e-3, twice path a's weight-only 1e-3 on logits, as a log-softmax moves
     by at most twice its logits' largest difference; then timed in the
-    default settings); a "text" request through EngineServer with the
+    default settings, captured (one graph a call) and then eager, the same
+    perplexity in both); a "text" request through EngineServer with the
     file's tokenizer. Counters reset before each part and read after."""
     import functools
     import hashlib
@@ -4762,7 +4947,7 @@ def run_gguf_path(smi, repo, cfg, params, prompt, toks_a):
                                         tokenizer_from_gguf)
     from ggmlsharp_tpu_torch.io.gguf import (llama_tensor_names,
                                              qtensor_to_wire, wire_nbytes)
-    from ggmlsharp_tpu_torch.models import llama, sampling
+    from ggmlsharp_tpu_torch.models import captured, llama, sampling
     from ggmlsharp_tpu_torch.quant.formats import QTensor
     from ggmlsharp_tpu_torch.serving import EngineServer
 
@@ -4887,16 +5072,32 @@ def run_gguf_path(smi, repo, cfg, params, prompt, toks_a):
                          f"{res['perplexity_weight_only']}")
     torch.cuda.synchronize()
     kernels.reset_launches()
+    captured.reset_counts()
     t0 = time.perf_counter()
     ppl_d = perplexity(llama.forward, cfg, fused, stream, J_CHUNK)
     torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cap = dict(captured.COUNTS)
+    parts["perplexity_default"] = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    with captured.disabled():
+        ppl_e = perplexity(llama.forward, cfg, fused, stream, J_CHUNK)
+    torch.cuda.synchronize()
+    secs_e = time.perf_counter() - t0
     res["perplexity_default"] = {
         "ppl": ppl_d[0], "mean_nll": ppl_d[1],
-        "chunk_ms": (time.perf_counter() - t0) * 1e3 / J_CHUNKS,
+        "chunk_ms": secs * 1e3 / J_CHUNKS,
+        "window_ms_replayed": (secs - cap["capture_s"]) * 1e3 / J_CHUNKS,
+        "captures": cap["captures"], "replays": cap["replays"],
+        "capture_s": cap["capture_s"], "eager_chunk_ms": secs_e * 1e3
+        / J_CHUNKS, "eager_mean_nll": ppl_e[1],
         "rows_a_chunk": J_CHUNK - 1, "clock": "host, after a sync"}
-    parts["perplexity_default"] = dict(kernels.LAUNCHES)
     expect_launches("j1 perplexity (default settings)",
                     parts["perplexity_default"], want)
+    if (cap["captures"], cap["replays"]) != (1, J_CHUNKS) \
+            or abs(ppl_e[1] - ppl_d[1]) > 2e-3:
+        raise SystemExit(f"path j1: captured perplexity vs its eager form: "
+                         f"{res['perplexity_default']}")
 
     t0 = time.perf_counter()
     eng = new_engine(cfg, fused)
@@ -6000,10 +6201,40 @@ def chain_train_check(cfg, toks, dev):
     return {"loss_rel_err": loss_err, "grad_rel_l2_max": grad_err}
 
 
+def chain_step_ms(cfg, toks, dev, form, steps=4):
+    """m1's training step (chain.train from the seed-0 parameters) in
+    ``form`` ("eager": captured.disabled()): the median host ms of steps
+    2..steps (synchronised in the callback), the losses and the captures
+    made."""
+    import torch
+
+    from ggmlsharp_tpu_torch.eval import chain
+    from ggmlsharp_tpu_torch.models import captured, llama
+
+    p0 = llama.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev, dtype=torch.float32)
+    stamps, losses = [], []
+
+    def on_step(it, f):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(f)
+
+    captured.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with captured.disabled() if form == "eager" else contextlib.nullcontext():
+        chain.train(cfg, toks, p0, steps, callback=on_step)
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    return {"step_ms_median_2_4": statistics.median(step_s[1:]) * 1e3,
+            "losses": losses, "captures": captured.COUNTS["captures"]}
+
+
 def run_chain_m1(smi, repo, dev, workdir):
     """Path m1: scripts/ppl_chain_torch.py's chain for seed 0 at its
     defaults but for the corpus (4L/192E/6 heads/512F, a 512-piece
-    vocabulary on make_text(CHAIN_SENT), 300 full-batch Adam iterations
+    vocabulary on make_text(CHAIN_SENT), up to 300 full-batch Adam
+    iterations (the chain's eps_f rule may end them sooner)
     over every 128-token chunk of the train third), through eval.chain on
     the card: training
     (flash at D 32 under autograd), the GGUF round trip, held-out perplexity
@@ -6022,7 +6253,7 @@ def run_chain_m1(smi, repo, dev, workdir):
     from ggmlsharp_tpu_torch.eval.perplexity import perplexity
     from ggmlsharp_tpu_torch.io import load_gguf_llama
     from ggmlsharp_tpu_torch.kernels.config import set_kernels
-    from ggmlsharp_tpu_torch.models import llama
+    from ggmlsharp_tpu_torch.models import captured, llama
 
     sys.path.insert(0, os.path.join(repo, "scripts"))
     from gen_corpus import make_text
@@ -6034,12 +6265,25 @@ def run_chain_m1(smi, repo, dev, workdir):
     cfg = chain.model_config(len(tk.tokens), "small")
     toks_t = torch.as_tensor(toks, device=dev)
     step_check = chain_train_check(cfg, toks_t, dev)
+    step_forms = {form: chain_step_ms(cfg, toks_t, dev, form)
+                  for form in ("eager", "captured")}
     path = os.path.join(workdir, "ppl_chain_torch_s0.gguf")
     torch.cuda.synchronize()
     kernels.reset_launches()
+    captured.reset_counts()
     res = chain.run_seed(0, cfg, toks, CHAIN_STEPS, tk, text, ids, path, dev)
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
+    cap = dict(captured.COUNTS)
+    # one training capture, one a perplexity call (fp32 and each format)
+    n_ppl = 1 + len(chain.FORMATS) + len(chain.QA_AB)
+    if cap["captures"] != 1 + n_ppl or step_forms["eager"]["captures"] \
+            or step_forms["captured"]["captures"] != 1 or max(
+                abs(a - b) / abs(b) for a, b in zip(
+                    step_forms["captured"]["losses"],
+                    step_forms["eager"]["losses"])) > 1e-5:
+        raise SystemExit(f"m1: captures {cap} (a 4-step run: "
+                         f"{step_forms}), want {1 + n_ppl}")
     require_launches("m1", counts, ("matmul_q4_0_mma", "matmul_q_mma",
                                     "matmul_q8_0_mma", "flash_attn"))
     sc = res["scores"]
@@ -6075,6 +6319,11 @@ def run_chain_m1(smi, repo, dev, workdir):
            "dppl": {k: v - ppl_fp for k, v in sc.items() if k != "fp32"},
            "plain_ppl": {"fp32": plain_fp, "Q4_0": plain_q4},
            "ppl_rel_err_vs_plain": errs, "train_step_vs_plain": step_check,
+           "step_ms_median_2_4": step_forms["captured"]["step_ms_median_2_4"],
+           "eager_step_ms_median_2_4":
+               step_forms["eager"]["step_ms_median_2_4"],
+           "captures": cap["captures"], "replays": cap["replays"],
+           "capture_s": cap["capture_s"],
            "seconds": time.perf_counter() - t_all}
     emit({"chain_m1": out})
     return out, counts, (path, text)
@@ -6169,11 +6418,13 @@ def run_optax_compat_check(dev, n_iter=200):
     """optim.optax_compat on the card: opt_torch over GgmlAdam (alpha 0.01,
     Test2's setting, the default stopping rules, the first ``n_iter``
     iterations: thousands to convergence, each a host round trip) against
-    opt_adam on each Test2 objective: the same losses at every iteration,
-    the same iterations, result and final point (the same f32 operations on
-    the same card: bit for bit)."""
+    opt_adam on each Test2 objective, both captured (one graph a call,
+    replayed from the second iteration): the same losses at every
+    iteration, the same iterations, result and final point (the same f32
+    operations on the same card: bit for bit)."""
     import torch
 
+    from ggmlsharp_tpu_torch.models import captured
     from ggmlsharp_tpu_torch.optim import (GgmlAdam, OptParams, opt_adam,
                                            opt_torch, value_and_grad)
 
@@ -6184,6 +6435,7 @@ def run_optax_compat_check(dev, n_iter=200):
         x0 = tuple(torch.tensor(v, device=dev) for v in start)
         vg = value_and_grad(fun)
         la, lt = [], []
+        captured.reset_counts()
         xa, fa, ra, ia = opt_adam(vg, x0, p, lambda i, f: la.append(f))
         xt, ft, rt, it = opt_torch(vg, x0, lambda ps: GgmlAdam(ps, p.adam), p,
                                    lambda i, f: lt.append(f))
@@ -6191,8 +6443,10 @@ def run_optax_compat_check(dev, n_iter=200):
             torch.equal(a, b) for a, b in zip(xa, xt))
         res[name] = {"iters": it, "result": rt.name, "x": [float(v) for v in
                                                            xt],
-                     "trajectory_equal": same}
-        if not same:
+                     "trajectory_equal": same,
+                     "captures": captured.COUNTS["captures"],
+                     "replays": captured.COUNTS["replays"]}
+        if not same or res[name]["captures"] != 2:
             raise SystemExit(f"n: GgmlAdam vs opt_adam on {name}: {res}")
     return res
 
@@ -7206,8 +7460,11 @@ def main(argv):
     train, g_counts, g_state = run_train_path(dev, smi, gpt2.GPT2_124M)
     log(f"[4/6] g. GPT-2 124M training, B {TRAIN_B} x S {TRAIN_S}: losses "
         f"{[round(x, 4) for x in train['losses']]} -> "
-        f"{train['loss_after']:.4f}; flash launches a step "
-        f"{train['flash_launches_per_step']:.0f}; launches {g_counts}")
+        f"{train['loss_after']:.4f} (the eager form's within "
+        f"{train['loss_rel_err_vs_eager']:.3g}); {train['captures']} capture "
+        f"({train['capture_s']:.2f} s), {train['replays']} replays; flash "
+        f"launches a step {train['flash_launches_per_step']:.0f} (both "
+        f"forms); launches {g_counts}")
     # h. the graph layer: Test3 by ggml_opt (L-BFGS), a flash decoder's
     # forward, backward and opt() (the uncached entry)
     h1 = run_graph_test3(dev, smi)
@@ -7218,8 +7475,16 @@ def main(argv):
         f"{ {k: v['iterations'] for k, v in h1['rosenbrock'].items()} }; "
         f"capture failure raised; decoder "
         f"kernel vs plain loss err {h2cmp['loss_rel_err']:.3g}, grad rel L2 "
-        f"{h2cmp['grad_rel_l2_max']:.3g}; opt() losses "
-        f"{[round(x, 5) for x in h2['losses']]}; launches {h_counts}")
+        f"{h2cmp['grad_rel_l2_max']:.3g}; backward graph "
+        f"{h2cmp['backward_graph_seconds']:.3f} s with its capture, "
+        f"{h2cmp['second_compute']['seconds']:.4f} s replayed after set_data "
+        f"(captures {h2cmp['second_compute']['captures']}) [eager "
+        f"{h2cmp['backward_graph_seconds_eager']:.3f} s], copies "
+        f"{h2cmp['output_copy_bytes'] / 1e6:.1f} MB out, "
+        f"{h2cmp['input_copy_bytes'] / 1e6:.1f} MB in a compute; opt() "
+        f"losses {[round(x, 5) for x in h2['losses']]} in "
+        f"{h2['seconds']:.3f} s [eager {h2['eager']['seconds']:.3f} s]; "
+        f"launches {h_counts}")
     # GPT-2 124M behind the engine with an INT8 (head-major) cache
     gserve, gs_counts = run_gpt2_int8_serving(*g_models["124M"][:2])
     log(f"[4/6] GPT-2 124M INT8 serving: {SERVE_G_REQS} requests through "
@@ -7270,7 +7535,10 @@ def main(argv):
         f"tokens and prompt logits bit for bit, text "
         f"{j1['text'][:60]!r}; perplexity {J_CHUNKS} x {J_CHUNK} tokens "
         f"{j1['perplexity_default']['ppl']:.4g} "
-        f"({j1['perplexity_default']['chunk_ms']:.1f} ms a chunk), "
+        f"({j1['perplexity_default']['chunk_ms']:.1f} ms a chunk, its "
+        f"capture included; "
+        f"{j1['perplexity_default']['window_ms_replayed']:.1f} replayed; "
+        f"eager {j1['perplexity_default']['eager_chunk_ms']:.1f}), "
         f"weight-only vs plain NLL err "
         f"{j1['perplexity_weight_only']['max_abs_nll_err']:.3g}; HTTP text "
         f"{j1['http']['text'][:40]!r}; j2 GPT-2 124M safetensors "
@@ -7366,7 +7634,11 @@ def main(argv):
         f"{m1['train_chunks']} chunks, {m1['scored']} scored) in {t_m1:.1f} "
         f"s: ppl_fp {m1['ppl_fp32']:.4f}, dppl "
         f"{ {k: round(v, 4) for k, v in m1['dppl'].items()} }, train "
-        f"{m1['train_s']:.1f} s ({m1['step_ms']:.1f} ms a step), nll "
+        f"{m1['train_s']:.1f} s ({m1['step_ms']:.1f} ms a step, its capture "
+        f"included; a 4-step run's median {m1['step_ms_median_2_4']:.2f} "
+        f"[eager {m1['eager_step_ms_median_2_4']:.2f}] ms), captures "
+        f"{m1['captures']} ({m1['capture_s']:.2f} s), replays "
+        f"{m1['replays']}, nll "
         f"{m1['nll_start']:.3f} -> {m1['nll']:.3f}; vs plain "
         f"{ {k: float(f'{v:.3g}') for k, v in m1['ppl_rel_err_vs_plain'].items()} }"
         f"; launches {({k: v for k, v in m1_counts.items() if v})} ({smi})")
@@ -7633,11 +7905,17 @@ def main(argv):
     train["flash_share_of_step"] = ft["fwd_bwd_ms"] * gpt2.GPT2_124M.n_layer / (
         train["step_ms_median_2_4"])
     emit({"train": train})
-    log(f"[6/6] g. GPT-2 124M training B {TRAIN_B} x S {TRAIN_S} bf16: "
-        f"step median {train['step_ms_median_2_4']:.1f} ms, "
-        f"{train['tokens_per_s']:.0f} tok/s, {train['bf16_peak_share']:.4f} "
-        f"of the bf16 dense peak, peak memory {train['peak_mem_gb']:.2f} GB "
-        f"({smi})")
+    ge = train["eager"]
+    log(f"[6/6] g. GPT-2 124M training B {TRAIN_B} x S {TRAIN_S} bf16, "
+        f"captured [eager]: step median {train['step_ms_median_2_4']:.1f} "
+        f"[{ge['step_ms_median_2_4']:.1f}] ms, replays "
+        f"{train['profile']['traced_step_ms']:.1f} ms traced, "
+        f"{train['tokens_per_s']:.0f} [{ge['tokens_per_s']:.0f}] tok/s, "
+        f"{train['bf16_peak_share']:.4f} [{ge['bf16_peak_share']:.4f}] of "
+        f"the bf16 dense peak, device idle share "
+        f"{train['device_idle_share']} [{ge['device_idle_share']}], capture "
+        f"{train['capture_s']:.2f} s, peak memory "
+        f"{train['peak_mem_gb']:.2f} [{ge['peak_mem_gb']:.2f}] GB ({smi})")
     log(f"total {time.perf_counter() - t_start:.0f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

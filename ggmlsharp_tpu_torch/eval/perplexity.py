@@ -12,7 +12,13 @@ without external data: Δppl and the mean logits KL between the two on text
 sampled from the float model itself. The absolute perplexity of random
 weights means nothing; the delta under quantization is the quantity.
 
-The JAX package jits the chunk; the port runs it eagerly. A
+The JAX package jits the chunk, one executable a ``perplexity`` call; the
+port captures it, one CUDA graph a call (``models.captured.CapturedStep``,
+built under ``inference_mode``): the forward over its fresh f32 cache, the
+log-softmax and the gather, a window's tokens copied into the graph's
+static input and the graph replayed; a window of another shape gets its
+own key. ``logits_kl``'s two forwards take the same route. On the CPU, and
+inside ``captured.disabled()``, the same function runs eagerly. A
 ``torch.Generator`` takes the place of the JAX key, so a sampled stream
 differs from the JAX package's; ``logits_kl`` and ``perplexity`` on a given
 stream compute the same numbers.
@@ -22,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models import captured
 from ..models import kv_cache as kvc
 from ..models import sampling
 from ..models.common import cache_heads
@@ -53,7 +60,8 @@ def _chunk_logits(forward, cfg, params, inp):
                            device=inp.device)
     positions = torch.arange(S, dtype=torch.int32,
                              device=inp.device)[None].expand(B, S)
-    logits, _ = forward(params, cfg, inp, cache, positions)
+    # the attended prefix is S rows: the forward reads no bound back
+    logits, _ = forward(params, cfg, inp, cache, positions, prefix_bound=S)
     return torch.log_softmax(logits.to(torch.float32), dim=-1)
 
 
@@ -73,14 +81,31 @@ def perplexity(forward, cfg, params, tokens, chunk_len: int = 256,
     tokens = np.asarray(tokens, np.int32)
     stride = stride or chunk_len
     lo = chunk_len // 2 if score_tail_only else 0
+    window = captured.CapturedStep(
+        lambda chunk, shape: nll_chunk(forward, cfg, params, chunk))
     total, count = 0.0, 0
-    for start in range(0, len(tokens) - chunk_len, stride):
-        chunk = torch.from_numpy(tokens[start:start + chunk_len][None]).to(dev)
-        nll = nll_chunk(forward, cfg, params, chunk)[0, lo:]
-        total += float(nll.sum())
-        count += nll.numel()
+    try:
+        for start in range(0, len(tokens) - chunk_len, stride):
+            chunk = torch.from_numpy(
+                tokens[start:start + chunk_len][None]).to(dev)
+            nll = window(chunk, shape=tuple(chunk.shape))[0, lo:]
+            total += float(nll.sum())  # JAX reads each window back too
+            count += nll.numel()
+    finally:
+        window.release()  # one graph a call, as JAX's one jit a call
     mean_nll = total / max(count, 1)
     return float(np.exp(mean_nll)), mean_nll, count
+
+
+def _logits_once(forward, cfg, params, chunk):
+    """_chunk_logits of ``chunk`` through a CapturedStep of its own (the
+    JAX package jits this forward): on the card one capture and a replay."""
+    step = captured.CapturedStep(
+        lambda c: _chunk_logits(forward, cfg, params, c))
+    try:
+        return step(chunk).clone()
+    finally:
+        step.release()
 
 
 @torch.inference_mode()
@@ -91,8 +116,8 @@ def logits_kl(forward, cfg, params_fp, params_q, stream,
     dev = _device_of(params_fp)
     chunk = torch.as_tensor(np.asarray(stream[:chunk_len], np.int32)[None],
                             device=dev)
-    lp_fp = _chunk_logits(forward, cfg, params_fp, chunk)
-    lp_q = _chunk_logits(forward, cfg, params_q, chunk)
+    lp_fp = _logits_once(forward, cfg, params_fp, chunk)
+    lp_q = _logits_once(forward, cfg, params_q, chunk)
     return float(torch.mean(torch.sum(torch.exp(lp_fp) * (lp_fp - lp_q),
                                       dim=-1)))
 

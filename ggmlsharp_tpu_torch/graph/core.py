@@ -7,12 +7,22 @@ VJPs as NEW graph nodes, so a backward graph can be differentiated again
 (backward of backward: the Hessian-vector products of the reference's
 Test1).
 
-Execution: ``Graph.compute()`` runs the nodes eagerly in topological order on
-the device their tensors lie on (the JAX package stages the DAG into one
-jitted computation; PyTorch runs eagerly) and stores each node's value,
-detached, in ``.data``. Shape inference runs each new node's op on the
-``meta`` device, so a builder given incompatible shapes raises at build time
-with the op and the operand shapes.
+Execution: ``Graph.compute()`` stages the DAG into one function of the
+input values (the leaf, param and seed nodes, ``op == "none"``), as the JAX
+package stages it for ``jax.jit``, and runs it through a
+``models.captured.CapturedStep`` held on the Graph: on the card one
+captured CUDA graph a (topology, input spec), the topology being the uids
+of the inputs and computed nodes, the spec each input's shape, dtype and
+device (JAX retraces on a new one). Every compute copies the inputs'
+current ``.data`` into the graph's static buffers, so ``set_data``,
+``set_f32`` and ``reset`` between computes replay it; ``build_expand``
+drops it. Each computed node's ``.data`` becomes a copy of the graph's
+output, so a value held from one compute is not changed by the next (as
+JAX's arrays are immutable). On the CPU, and inside
+``captured.disabled()``, the same function runs eagerly. Shape inference
+runs each new node's op on the ``meta`` device, so a builder given
+incompatible shapes raises at build time with the op and the operand
+shapes.
 
 Seeding protocol as in ggml: ``Graph.reset`` zeros every grad seed, the
 caller sets ``f.grad`` to 1 (``set_f32``) and computes the backward graph.
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models import captured
 from ..quant.formats import QTensor
 
 _counter = itertools.count()
@@ -155,6 +166,8 @@ class Graph:
         # perf counters (ggml's perf_runs / perf_time_us)
         self.perf_runs = 0
         self.perf_time_us = 0.0
+        self._step = None  # the staged DAG's CapturedStep
+        self._key = None  # the topology it was staged for
 
     def visit(self, t: GTensor):
         """ggml_visit_parents: post-order DFS with set dedup, iterative
@@ -178,16 +191,50 @@ class Graph:
     def build_expand(self, t: GTensor):
         """ggml_build_forward_expand: add another output to this graph."""
         self.visit(t)
+        self._step = None
+
+    def _stage(self):
+        """(input nodes, computed nodes, fun(*input tensors) -> the computed
+        nodes' values), in the JAX package's order; a QTensor input is
+        passed as its planes (sorted by name)."""
+        order = self.leafs + [n for n in self.nodes if n.op == "none"] + [
+            n for n in self.nodes if n.op != "none"]
+        inputs = [n for n in order if n.op == "none"]
+        computed = [n for n in order if n.op != "none"]
+
+        def fun(*flat, spec):
+            it = iter(flat)
+            env = {}
+            for n, sp in zip(inputs, spec):
+                if sp[0] == "q":
+                    env[n.uid] = QTensor(sp[1], sp[2], {
+                        name: next(it) for name, _ in sp[3]})
+                else:
+                    env[n.uid] = next(it)
+            outs = []
+            with torch.no_grad():
+                for n in computed:
+                    v = n._fwd(*[env[s.uid] for s in n.srcs], **n.kwargs)
+                    env[n.uid] = v
+                    outs.append(v.detach())
+            return tuple(outs)
+
+        return inputs, computed, fun
 
     def compute(self):
-        """ggml_graph_compute analog: run every interior node in
-        topological order and store its value, detached, in ``.data``."""
+        """ggml_graph_compute analog: run the staged DAG (captured on the
+        card, cached on the topology and the inputs' spec) and store a copy
+        of each computed node's value in ``.data``."""
         t0 = time.perf_counter()
-        with torch.no_grad():
-            for n in self.nodes:
-                if n.op != "none":
-                    n.data = n._fwd(*[s.data for s in n.srcs],
-                                    **n.kwargs).detach()
+        inputs, computed, fun = self._stage()
+        key = tuple(n.uid for n in inputs + computed)
+        if self._step is None or self._key != key:
+            self._step = captured.CapturedStep(fun)
+            self._key = key
+        flat, spec = _flatten_inputs(inputs)
+        vals = self._step(*flat, spec=spec) if computed else ()
+        for n, v in zip(computed, vals):
+            n.data = v.clone()
         self.perf_runs += 1
         self.perf_time_us += (time.perf_counter() - t0) * 1e6
         return self
@@ -199,6 +246,30 @@ class Graph:
             if g is not None and g.op == "none" and g.data is not None:
                 g.data = torch.zeros_like(g.data)
         return self
+
+
+def _flatten_inputs(inputs) -> tuple:
+    """(the input nodes' tensors, their spec): a QTensor's planes sorted by
+    name; the spec holds each input's shape, dtype and device."""
+    flat, spec = [], []
+    for n in inputs:
+        d = n.data
+        if isinstance(d, QTensor):
+            names = sorted(d.planes)
+            flat += [d.planes[k] for k in names]
+            spec.append(("q", d.gtype, d.shape, tuple(
+                (k, _spec_of(d.planes[k])) for k in names)))
+        elif isinstance(d, torch.Tensor):
+            flat.append(d)
+            spec.append(("t", _spec_of(d)))
+        else:
+            raise ValueError(f"Graph.compute: input {n.name} holds no "
+                             f"tensor ({type(d).__name__})")
+    return flat, tuple(spec)
+
+
+def _spec_of(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), t.dtype, t.device
 
 
 def set_f32(t: GTensor, v) -> GTensor:

@@ -4,7 +4,9 @@ graph a static key (JAX compiles ``make_decode_fns``' step,
 with ``t_eff`` (and ``want_lps``) static: one executable a length bucket;
 the speculative rounds with ``t_eff`` / ``d_eff`` static; the engine's
 admission prefill a (bucket, total, cached, draft) and its grouped
-admission a (bucket, padded group)).
+admission a (bucket, padded group); and the training and evaluation
+forms: an ``opt_adam`` / ``opt_torch`` call's step, ``Graph.compute`` a
+topology and input spec, a ``perplexity`` call's window).
 
 A ``CapturedStep`` wraps ``fn(*inputs, **key)``, which returns a tensor or a
 tuple of tensors: the inputs are tensors of fixed shape, the keywords are
@@ -25,9 +27,13 @@ captures ``fn`` into a ``torch.cuda.CUDAGraph``, and every call replays it:
     ``kernels/_sync.py`` and attn_decode's counters are made and zeroed
     there, outside the graph (made inside it, they would be zeroed at
     every replay). The ``state`` tensors that ``fn`` updates are put back
-    after this warm-up, so the first call, too, is a replay. The graphs of
+    after this warm-up, so the first call, too, is a replay. With
+    ``warm_first_call`` (an optimizer's step, whose state is its
+    parameters and moments) the first call of a key is the warm-up itself,
+    run eagerly on the capture stream, its result returned and its
+    updates kept; the key is captured at its second call. The graphs of
     one CapturedStep share one memory pool (``GraphPool``; those of a
-    graph cache entry one pool an entry);
+    graph cache entry one pool an entry); ``release()`` drops them;
   * the generators (``torch.Generator``) that ``fn`` draws from are
     registered with each graph (a replay then draws anew and advances the
     generator, as an eager call does), and their states are put back after
@@ -163,19 +169,28 @@ class _Graph:
         self.single = False  # fn returned one tensor, not a tuple
         self.graph = None
         self.launches = None  # _build.launch_delta of one replay
+        self.warmed = False  # the first call ran (warm_first_call)
 
 
 class CapturedStep:
-    def __init__(self, fn, state=(), generators=(), pool=None):
+    def __init__(self, fn, state=(), generators=(), pool=None, device=None,
+                 warm_first_call=False):
         """fn(*inputs, **key) -> tensor or tuple of tensors, capturable (no
         host sync). state: the tensors fn updates in place, restored after
         the warm-up before a capture. generators: the torch.Generators fn
         draws from, registered with every graph. pool: the GraphPool its
-        graphs are captured into (default: one of its own)."""
+        graphs are captured into (default: one of its own). device: where
+        fn runs when it takes no input (else its first input's device).
+        warm_first_call: the first call of a key runs fn eagerly on the
+        capture stream and is that key's warm-up: its result is returned
+        and its updates kept (an optimizer's step), and the key is
+        captured at its second call; ``state`` is then not restored."""
         self.fn = fn
         self.state = tuple(state)
         self.generators = tuple(generators)
         self.pool = pool or GraphPool()
+        self.device = None if device is None else torch.device(device)
+        self.warm_first_call = warm_first_call
         self._graphs: dict = {}
 
     def __call__(self, *inputs, **key):
@@ -188,13 +203,34 @@ class CapturedStep:
         for static, x in zip(g.inputs, inputs):
             if x is not static:
                 static.copy_(x, non_blocking=True)
-        if g.inputs[0].is_cuda:
+        dev = self._device(g)
+        if dev is not None and dev.type == "cuda":
             if g.graph is None:
+                if self.warm_first_call and not g.warmed:
+                    g.warmed = True
+                    return self._warm_call(g, key, dev)
                 self._capture(g, key)
             self._replay(g)
         else:
             self._run_eagerly(g, key)
         return g.outputs[0] if g.single else g.outputs
+
+    def _device(self, g):
+        return g.inputs[0].device if g.inputs else self.device
+
+    def release(self):
+        """Drop every graph (their pool's memory goes with the last one)."""
+        self._graphs.clear()
+
+    def _warm_call(self, g, key, dev):
+        """fn run eagerly on the capture stream: a key's first call under
+        ``warm_first_call``; its launches count as an eager call's."""
+        stream = capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            outs = self.fn(*g.inputs, **key)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return outs
 
     def _run_eagerly(self, g, key):
         outs = self.fn(*g.inputs, **key)
@@ -208,20 +244,14 @@ class CapturedStep:
 
     def _capture(self, g, key):
         t0 = time.perf_counter()
-        dev = g.inputs[0].device
+        dev = self._device(g)
         stream = capture_stream(dev)
         counts = _build.launch_counts()
-        saved = [t.clone() for t in self.state]
-        rng_saved = [gen.get_state() for gen in self.generators]
         try:
             stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                self.fn(*g.inputs, **key)  # the warm-up
-                for t, s in zip(self.state, saved):
-                    t.copy_(s)
-            for gen, s in zip(self.generators, rng_saved):
-                gen.set_state(s)
-            COUNTS["warmup_s"] += time.perf_counter() - t0  # host seconds
+            if not self.warm_first_call:
+                self._warm_up(g, key, stream)
+                COUNTS["warmup_s"] += time.perf_counter() - t0  # host s
             graph = torch.cuda.CUDAGraph()
             for gen in self.generators:
                 if not hasattr(graph, "register_generator_state"):
@@ -255,6 +285,18 @@ class CapturedStep:
         g.graph = graph
         COUNTS["captures"] += 1
         COUNTS["capture_s"] += time.perf_counter() - t0
+
+    def _warm_up(self, g, key, stream):
+        """fn once on the capture stream, then its state and generators
+        put back."""
+        saved = [t.clone() for t in self.state]
+        rng_saved = [gen.get_state() for gen in self.generators]
+        with torch.cuda.stream(stream):
+            self.fn(*g.inputs, **key)
+            for t, s in zip(self.state, saved):
+                t.copy_(s)
+        for gen, s in zip(self.generators, rng_saved):
+            gen.set_state(s)
 
     def _replay(self, g):
         g.graph.replay()

@@ -31,9 +31,7 @@ def diag_mask_inf(a, n_past: int = 0):
     n_q, n_k = a.shape[-2], a.shape[-1]
     i = torch.arange(n_q, device=a.device)[:, None]
     j = torch.arange(n_k, device=a.device)[None, :]
-    return torch.where(j > i + n_past,
-                       torch.tensor(NEG_INF, dtype=a.dtype, device=a.device),
-                       a)
+    return a.masked_fill(j > i + n_past, NEG_INF)
 
 
 def rope(a, positions, n_dims: int | None = None, mode: int = 0,
@@ -79,11 +77,14 @@ def alibi_slopes(n_head: int, bias_max: float = 8.0, device=None):
     interpolated tail for head counts that are no power of two."""
     n = 2 ** math.floor(math.log2(n_head))
     m0 = 2.0 ** (-bias_max / n)
-    slopes = [m0 ** (i + 1) for i in range(n)]
+    # made on the device in f64 (no host copy, so a graph can capture it)
+    f64 = dict(dtype=torch.float64, device=device)
+    slopes = m0 ** torch.arange(1, n + 1, **f64)
     if n < n_head:
         m1 = 2.0 ** (-bias_max / (2 * n))
-        slopes += [m1 ** (2 * i + 1) for i in range(n_head - n)]
-    return torch.tensor(slopes, dtype=torch.float32, device=device)
+        slopes = torch.cat([slopes, m1 ** torch.arange(
+            1, 2 * (n_head - n), 2, **f64)])
+    return slopes.to(torch.float32)
 
 
 def alibi(scores, n_past: int, n_head: int, bias_max: float = 8.0):

@@ -15,16 +15,56 @@ and a CPU tensor to its plain version.
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..dtypes import TYPE_TRAITS, GType
 from ..quant.formats import QTensor
 from ..quant.quantize import dequantize, quantize
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+class _HalfProduct(torch.autograd.Function):
+    """b2 [m, k] · aᵀ [k, n] -> f32 [m, n] for two bf16 (or two f16)
+    operands on the card: cuBLAS on the tensor cores in the operands' dtype
+    with an f32 output (``aten::mm.dtype``), so each product accumulates
+    in f32 and is rounded once by the caller, whatever
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    says (that flag lets a bf16 output's split-K partials be summed in
+    bf16; an f32 output never is). The backward's two products take the
+    same route."""
+
+    @staticmethod
+    def forward(ctx, a, b2):
+        ctx.save_for_backward(a, b2)
+        return torch.mm(b2, a.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b2 = ctx.saved_tensors
+        g = g.to(a.dtype)  # the gradient of a rounded output: exact
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g.t(), b2, out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(g, a, out_dtype=torch.float32).to(b2.dtype)
+        return ga, gb
+
+
 def mul_mat_f(a, b):
     """Float mul_mat: a [n_out, k], b [..., k] -> [..., n_out], f32
-    accumulation, result in the promoted type of a and b."""
+    accumulation, result in the promoted type of a and b (JAX: a matmul in
+    the operands' dtype with an f32 accumulator). Two bf16 (or two f16)
+    operands with a 2-D ``a`` on the card multiply on the tensor cores
+    (``_HalfProduct``); elsewhere both are widened to f32, which computes
+    the same function (a product of two 16-bit floats is exact in f32)."""
     out_dtype = torch.promote_types(a.dtype, b.dtype)
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in _HALF \
+            and a.dim() == 2:
+        y = _HalfProduct.apply(a, b.reshape(-1, b.shape[-1]))
+        return y.reshape(*b.shape[:-1], a.shape[0]).to(out_dtype)
     return torch.matmul(b.to(torch.float32),
                         a.to(torch.float32).transpose(-1, -2)).to(out_dtype)
 

@@ -18,13 +18,28 @@ Two directions, as in the JAX package:
     bound to its tensors, so it is passed as a factory: ``opt_torch`` hands
     it the parameter leaves it made from ``x0``.
 
-JAX's ``opt_optax`` jits its step; the port runs it eagerly.
+JAX's ``opt_optax`` jits its step (value, gradient, ``tx.update`` and
+``apply_updates``). The port captures it as ``opt_adam`` captures its own
+(``models.captured.CapturedStep``, one graph an ``opt_torch`` call): each
+gradient is written into a fixed ``leaf.grad`` buffer with ``copy_`` and
+``opt.step()`` updates the leaves in place; the first iteration runs
+eagerly on the capture stream (the warm-up, which also makes the
+optimizer's lazy state) and iterations 2..n replay the graph. So the
+optimizer must be capturable: ``GgmlAdam`` is (its step count is a device
+tensor); of torch's own, those with a ``capturable`` flag (``Adam``,
+``AdamW`` and the others whose step count is a tensor) need
+``capturable=True``, or their step raises inside the capture and
+``opt_torch`` raises naming the cause. On the CPU, and inside
+``captured.disabled()``, the same step runs eagerly.
 """
 from __future__ import annotations
 
 import torch
 
-from .params import AdamParams, OptParams, OptResult
+from ..models import captured
+from .adam import (_bias_corrections, _clip, _direction, _first_moment,
+                   _second_moment, _iterate)
+from .params import AdamParams, OptParams
 from .tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -32,12 +47,14 @@ class GgmlAdam(torch.optim.Optimizer):
     """This package's Adam as a torch.optim.Optimizer: the update math of
     ``optim.adam._adam_step`` (trajectory-equal to ``opt_adam``, tested).
     One step count and one global gradient norm (for ``gclip``) span every
-    parameter group; moments are kept in each parameter's dtype."""
+    parameter group; moments are kept in each parameter's dtype. The step
+    count is a 0-d f32 tensor on the parameters' device and the moments are
+    written in place, so a step can be captured into a CUDA graph."""
 
     def __init__(self, params, adam: AdamParams | None = None):
         self.adam = adam or AdamParams()
         super().__init__(params, {})
-        self._count = 0
+        self._count = None  # the step count, made at the first update
 
     def _params(self) -> list:
         return [p for g in self.param_groups for p in g["params"]]
@@ -54,26 +71,24 @@ class GgmlAdam(torch.optim.Optimizer):
             raise ValueError("weight_decay needs params passed to update()")
         grads = list(grads)
         if a.gclip > 0:
-            gn = torch.sqrt(sum(torch.sum(gi.to(torch.float32) ** 2)
-                                for gi in grads))
-            scale = torch.clamp(a.gclip / torch.clamp(gn, min=1e-30), max=1.0)
-            grads = [gi * scale for gi in grads]
-        self._count += 1
-        t = float(self._count)
-        bc1 = 1 - a.beta1 ** t
-        bc2 = 1 - a.beta2 ** t
+            grads = _clip(grads, a.gclip)
+        ps = self._params()
+        if self._count is None:
+            self._count = torch.zeros((), dtype=torch.float32,
+                                      device=ps[0].device)
+        self._count.add_(1.0)
+        bc1, bc2 = _bias_corrections(self._count, a.beta1, a.beta2)
         updates = []
-        for i, (p, gi) in enumerate(zip(self._params(), grads)):
+        for i, (p, gi) in enumerate(zip(ps, grads)):
             st = self.state[p]
             if not st:
                 st["m"] = torch.zeros_like(p)
                 st["v"] = torch.zeros_like(p)
-            st["m"] = a.beta1 * st["m"] + (1 - a.beta1) * gi
-            st["v"] = a.beta2 * st["v"] + (1 - a.beta2) * gi * gi
+            st["m"].copy_(_first_moment(st["m"], gi, a.beta1))
+            st["v"].copy_(_second_moment(st["v"], gi, a.beta2))
             xi = params[i] if params is not None else torch.zeros_like(p)
-            updates.append(-a.alpha * ((st["m"] / bc1)
-                                       / (torch.sqrt(st["v"] / bc2) + a.eps)
-                                       + a.weight_decay * xi))
+            updates.append(-a.alpha * _direction(st["m"], st["v"], xi, bc1,
+                                                 bc2, a.eps, a.weight_decay))
         return updates
 
     @torch.no_grad()
@@ -95,17 +110,20 @@ class GgmlAdam(torch.optim.Optimizer):
 def opt_torch(fun_vg, x0, make_optimizer, params: OptParams | None = None,
               callback=None):
     """Minimize f with any torch.optim.Optimizer under ggml's stopping rules.
-    fun_vg: x -> (f, gradient tree); make_optimizer: the list of parameter
-    tensors (x0's leaves, copied) -> an optimizer over them, e.g.
-    ``lambda ps: torch.optim.SGD(ps, lr=0.1)`` or
-    ``lambda ps: GgmlAdam(ps, adam)``. Returns (x, f, OptResult, n_iters),
-    the contract of opt_adam: each iteration evaluates f at x, then steps;
-    a stopping rule keeps the stepped x; f is evaluated at the final x."""
+    fun_vg: x -> (f, gradient tree), with no host sync; make_optimizer: the
+    list of parameter tensors (x0's leaves, copied) -> an optimizer over
+    them, e.g. ``lambda ps: torch.optim.SGD(ps, lr=0.1)``,
+    ``lambda ps: GgmlAdam(ps, adam)`` or, on the card,
+    ``lambda ps: torch.optim.Adam(ps, capturable=True)``. Returns (x, f,
+    OptResult, n_iters), the contract of opt_adam: each iteration evaluates
+    f at x, then steps; a stopping rule keeps the stepped x; f is evaluated
+    at the final x."""
     p = params or OptParams()
-    a = p.adam  # stopping knobs (n_iter/eps_f/past/max_no_improvement)
     leaves = [torch.as_tensor(xi, dtype=torch.float32).detach().clone()
               if not isinstance(xi, torch.Tensor) else xi.detach().clone()
               for xi in tree_leaves(x0)]
+    for leaf in leaves:
+        leaf.grad = torch.zeros_like(leaf)  # written in place every step
     opt = make_optimizer(leaves)
 
     def current():
@@ -113,39 +131,17 @@ def opt_torch(fun_vg, x0, make_optimizer, params: OptParams | None = None,
 
     def step():
         f, g = fun_vg(current())
-        for leaf, gi in zip(leaves, tree_leaves(g)):
-            leaf.grad = gi.detach().to(leaf.dtype)
+        with torch.no_grad():
+            for leaf, gi in zip(leaves, tree_leaves(g)):
+                leaf.grad.copy_(gi)
         opt.step()
-        return float(f)
+        return f
 
-    fx_prev = fx_best = None
-    n_no_improvement = 0
-    pf = []
-    result = OptResult.DID_NOT_CONVERGE
-    it = 0
-    for it in range(1, a.n_iter + 1):
-        f = step()
-        if callback:
-            callback(it, f)
-        if fx_prev is not None:
-            if abs(f - fx_prev) / max(abs(f), 1e-30) < a.eps_f:
-                result = OptResult.OK
-                break
-        if p.past > 0:  # identical to opt_adam's window-rate test
-            if len(pf) == p.past:
-                if abs((pf[0] - f) / p.past) < p.delta:
-                    result = OptResult.OK
-                    break
-                pf.pop(0)
-            pf.append(f)
-        if p.max_no_improvement > 0:
-            if fx_best is None or f < fx_best:
-                fx_best, n_no_improvement = f, 0
-            else:
-                n_no_improvement += 1
-                if n_no_improvement >= p.max_no_improvement:
-                    result = OptResult.OK
-                    break
-        fx_prev = f
+    captured_step = captured.CapturedStep(step, device=leaves[0].device,
+                                          warm_first_call=True)
+    try:
+        result, _, it = _iterate(captured_step, p, callback)
+    finally:
+        captured_step.release()
     x = tree_map(lambda t: t.detach(), current())
     return x, float(fun_vg(x)[0]), result, it

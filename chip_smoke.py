@@ -29,7 +29,9 @@ version):
      f32 caches, MHA and GQA; decode attention at head dims 32 and 256
      (path m2's step: B 96, 6 KV heads of 32) and n_rep 40; flash at D 32
      (path m1's training forward and prefill); path m1's w_down (192 x 512)
-     in Q4_0, Q4_K, Q6_K and Q8_0 at 127 and 128 rows;
+     in Q4_0, Q4_K, Q6_K and Q8_0 at 127 and 128 rows; the bucket
+     switch's selector kernel (run alone) against its plain version on
+     random lengths of 1-96 slots, one and two bounds, T 1024 and 2048;
   4. the paths, each with the launch counters reset just before and
      read just after, and each held against its plain path. The decode
      step runs captured (models.captured: one CUDA graph a length bucket,
@@ -57,6 +59,17 @@ version):
         cache holding its own prompt's rows; memory reserved after each
         call (no creep). Every progress line prints the memory reserved and
         the graph cache's trees, entries and home caches;
+     a3. t_eff=None (JAX's in-graph lax.switch) on path a's tree over a
+        1024-row cache: make_decode_fns' prefill (240 tokens) and 300
+        steps, and make_greedy_step's, each ONE parent graph (a selector
+        kernel, csrc/graph_switch.cu, and a conditional node over one body
+        a bucket: 256, 512, 1024 all visited), replayed under
+        torch.cuda.set_sync_debug_mode("error"); tokens and launches equal
+        to the t_eff-passing form's (a graph a bucket); then k1's round
+        (draft = target) at t_eff = d_eff = None against the t_eff-passing
+        rounds until the target passes 520 rows; host ms a step (a round)
+        and tok/s of each form on a second pass with every graph made; the
+        parent's design printed;
      b. serving: serving.Engine over the same model with an INT8 flat KV
         cache, 8 slots, 24 requests of 16 prompt tokens and 24 new tokens
         each; then a replay of its admission prefill and decode steps
@@ -168,7 +181,10 @@ version):
         through the dequant-matmuls' multi-row instances), fp32 and Q4_0
         held against the plain route; m2 the decode-path KV scoring over
         m1's GGUF (eval.kv_quality: 96 chunks x 127 steps; attn_decode at
-        D 32 over bf16 and int8 flat caches), held against the plain route;
+        D 32 over bf16 and int8 flat caches; each cache's step one captured
+        graph), held against its eager form (captured.disabled(): every
+        row's ppl within 1e-6 relative, argmax agreement equal; the ms a
+        step of both) and against the plain route;
      n. the user examples in-process on the card (serve_torch at GPT-2 124M
         three ways, http_server_torch, quantize_model_torch's round trip,
         train_graph_torch, graph_transformer_torch), OpProfiler over path
@@ -180,6 +196,15 @@ version):
         the TP forward, the TP engine, forward_pp, the ring route, the
         overlapped matmul and the sharded checkpoint pair, bit for bit
         against the unsharded port where the route is the same function;
+        then (b) path a's Llama-7B Q4_0 served by Engine(mesh=) on the
+        model = 1 mesh, captured over NCCL (its decode step and admissions
+        CUDA graphs, the collectives in them) and eager, tokens and
+        launches equal, tokens held to the single-device engine's on
+        decided tokens, captures, replays, host and device ms a decode
+        step of each; the tiny GPT-2 Q8_0 TP engine likewise (kernel 4 in
+        its graphs); (c) examples/train_distributed_torch.py's train() for
+        10 steps captured (one CapturedStep over NCCL) and eager, losses
+        bit-equal, each resumed from its own checkpoint for 5, equal;
         p1 a world of two on gloo, both ranks on this card, path a's
         Llama-7B Q4_0: (a) Engine(mesh=) at model 2 (bf16 head-major cache
         of the rank's 16 KV heads, 4 slots, 8 requests of 16 + 16 greedy
@@ -196,7 +221,8 @@ version):
         once), then the example resumed from its sharded checkpoint for 5
         by a new world started as the dry run ends (p0 beside it), which
         waits for the first run's end; p1's single-device reference runs
-        while p1's ranks start;
+        while p1's ranks start; p1's TP engine and p2's training step run
+        eagerly (gloo stages through the host), which both assert;
   5. each kernel's time at the paths' shapes (CUDA events), beside its
      plain version, one PyTorch library call and its bound; kernel 2 also
      at path g's shape, both entries, softcap, and its backward against
@@ -282,6 +308,10 @@ CHAIN_PPL_RTOL = 1e-3
 # both; mm_dot "bf16" may round a softmax weight to the neighbouring bf16
 # value (decode_flip_allowance): 1e-3 relative
 KVQ_PPL_RTOL = 1e-3
+# m2's captured steps against their eager form: the same kernels on the
+# same inputs, so bit for bit is expected; the bar allows f64 summation
+# of the host scoring alone (1e-6 relative)
+KVQ_FORMS_RTOL = 1e-6
 SERVE_EX_ARGS = ["--requests", "8", "--slots", "4"]  # n: serve_torch's runs
 # Llama-7B matmuls a decode token runs: (name, N, K, launches a token)
 Q4_SHAPES = [("wqkv", 12288, 4096, 32), ("wo", 4096, 4096, 32),
@@ -1037,6 +1067,327 @@ def graph_cache_phase(smi, cfg, params, prompt, toks_a, reps=5):
             and all(res["no_alias"].values())):
         raise SystemExit(f"graph cache on path a failed: {res}")
     return res
+
+
+# phase 4 a3: t_eff=None through the in-graph bucket switch
+SWITCH_LEN = 1024  # a3's caches: buckets 256, 512 and 1024
+SWITCH_PROMPT = 240  # a3's prompt: the steps cross 256 and 512
+SWITCH_STEPS = 300
+SWITCH_ROUND_TO = 520  # a3's k1 rounds run until the target passes this
+SWITCH_PROFILE_AT = 100  # a3's profiler window: lims 341.. (bucket 512)
+SWITCH_PROFILE_STEPS = 20
+
+
+def check_graph_switch(dev, gen):
+    """The selector kernel (csrc/graph_switch.cu, run alone through
+    graph_switch_select) against its plain version (graph_switch.
+    select_index) on random lengths of 1-96 slots, for a decode step, a
+    prefill and a round's two caches at T 1024 and 2048; each index as
+    JAX's formula gives it. Returns (max abs index error, the row's
+    timings)."""
+    import torch
+
+    from ggmlsharp_tpu_torch.kernels import graph_switch as gs
+    from ggmlsharp_tpu_torch.models.common import _chunk_buckets
+
+    err = 0
+    cases = 0
+    for T in (1024, 2048):
+        for B in (1, 8, 96):
+            for add in (1, SPEC_K + 1, 240):
+                ln = torch.randint(0, T - add + 1, (B,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                dl = torch.randint(0, T - add + 1, (B,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                one = (gs.bucket_bound("t_eff", ln, add, _chunk_buckets(T)),)
+                two = one + (gs.bucket_bound("d_eff", dl, add,
+                                             _chunk_buckets(T)),)
+                for bounds in (one, two):
+                    got = int(gs.select(bounds))
+                    want = int(gs.select_index(bounds))
+                    err = max(err, abs(got - want))
+                    cases += 1
+    if err:
+        raise SystemExit(f"graph_switch: the selector's index differs from "
+                         f"its plain version by {err}")
+    # timing at a3's step (one slot, T 1024) and path b's engine (8 slots)
+    ln = torch.randint(0, 700, (8,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    bounds = (gs.bucket_bound("t_eff", ln, 1, _chunk_buckets(SWITCH_LEN)),)
+    reps = 200
+    ms = time_ms(lambda i: gs.select(bounds), reps)
+    plain_ms = time_ms(lambda i: gs.select_index(bounds), reps)
+    # the least work: the lengths read once, the index written once
+    bound_ms = (ln.numel() * 4 + 4) / HBM_BYTES_S * 1e3
+    return err, {"cases": cases, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": "bytes",
+                 "library_ms": None, "design": gs.design()}
+
+
+def run_switch_phase(smi, cfg, params, dev, gen):
+    """Phase 4 a3: make_decode_fns' prefill and step, and make_greedy_step,
+    at t_eff=None over a 1024-row cache at Llama-7B Q4_0 full width (path
+    a's tree): a SWITCH_PROMPT-token prompt, then SWITCH_STEPS greedy
+    steps (lims 241..540: buckets 256, 512 and 1024). The switched step
+    captures once and replays one parent graph for the whole run, under
+    torch.cuda.set_sync_debug_mode("error") (no host sync); its tokens
+    and launches (the selector's aside) equal the t_eff-passing form's,
+    whose graphs are one a bucket. The switched step is run again with
+    the older toolkits' parent (a chain of if nodes, -DGS_SWITCH=0): the
+    switch node's tokens and launches. Then one k1 speculative call
+    (draft = target, k = SPEC_K) round by round at t_eff = d_eff = None
+    against the t_eff-passing rounds, until the target passes
+    SWITCH_ROUND_TO. Host ms a step (a round) and tok/s of both forms.
+    Last, after every timed run (a profiler leaves the host slower for
+    the rest of the process), each form's step under a torch.profiler
+    window of SWITCH_PROFILE_STEPS steps from one length: device ms and
+    kernels a step, and the idle share against the same window's untraced
+    ms a step. Returns (record, the switched runs' launches)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.kernels import _build
+    from ggmlsharp_tpu_torch.kernels import graph_switch as gs
+    from ggmlsharp_tpu_torch.models import captured, llama, sampling
+    from ggmlsharp_tpu_torch.models.speculative import make_spec_round
+
+    T = SWITCH_LEN
+    prompt = torch.randint(0, cfg.n_vocab, (1, SWITCH_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    res = {"card": smi, "design": gs.design(), "max_len": T,
+           "prompt": SWITCH_PROMPT, "steps": SWITCH_STEPS}
+
+    def decode(form, greedy=False):
+        """Two passes of SWITCH_STEPS steps from the prefill: the first
+        captures (its launches and captured.COUNTS recorded), the second,
+        from the same cache rows and length, replays only and is timed
+        (the switched one under the sync check; the host's ms a step to
+        issue it beside the ms a step to its end); then the untraced
+        window of SWITCH_PROFILE_STEPS steps from length SWITCH_PROMPT +
+        SWITCH_PROFILE_AT. Returns the tokens of both passes, the record
+        and trace(), which profiles the same window."""
+        switched = form == "switched"
+        prefill, step = sampling.make_decode_fns(llama.forward, cfg)
+        if greedy:
+            step = sampling.make_greedy_step(llama.forward, cfg)
+        cache = llama.new_cache(cfg, 1, max_len=T)
+        outs = [torch.empty((1, SWITCH_STEPS), dtype=torch.int32,
+                            device=dev) for _ in range(2)]
+
+        def run(out):
+            tok = tok0
+            for i in range(SWITCH_STEPS):
+                t_eff = None if switched else sampling.length_bucket(
+                    SWITCH_PROMPT + i + 1, T)
+                y, _ = step(params, tok, cache, t_eff=t_eff)
+                tok = y if greedy else torch.argmax(
+                    y, -1, keepdim=True).to(torch.int32)
+                out[:, i:i + 1] = tok
+
+        with torch.inference_mode():
+            lg, cache = prefill(params, prompt, cache, t_eff=None if switched
+                                else sampling.length_bucket(SWITCH_PROMPT, T))
+            tok0 = torch.argmax(lg, -1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            k0 = dict(captured.COUNTS)
+            c0 = _build.launch_counts()
+            run(outs[0])  # the captures
+            torch.cuda.synchronize()
+            launches = _build.launch_delta(c0, _build.launch_counts())[0]
+            rec = {"launches": launches, "final_length": int(cache.length[0]),
+                   **{k: captured.COUNTS[k] - k0[k] for k in k0}}
+            cache.length.fill_(SWITCH_PROMPT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if switched:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                run(outs[1])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            issued = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            at = {}
+
+            def window():
+                """SWITCH_PROFILE_STEPS steps ready to run from one length
+                (the same for both forms)."""
+                at.update(i=SWITCH_PROFILE_AT, tok=tok0)
+                cache.length.fill_(SWITCH_PROMPT + SWITCH_PROFILE_AT)
+                torch.cuda.synchronize()
+
+            def one_step():
+                i = at["i"]
+                t_eff = None if switched else sampling.length_bucket(
+                    SWITCH_PROMPT + i + 1, T)
+                y, _ = step(params, at["tok"], cache, t_eff=t_eff)
+                at["tok"] = y if greedy else torch.argmax(
+                    y, -1, keepdim=True).to(torch.int32)
+                at["i"] = i + 1
+
+            window()  # untraced: the window's ms a step
+            w0 = time.perf_counter()
+            for _ in range(SWITCH_PROFILE_STEPS):
+                one_step()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - w0) * 1e3 / SWITCH_PROFILE_STEPS
+
+        def trace():
+            """The window again under the profiler, into the record."""
+            with torch.inference_mode():
+                window()
+                prof = profile_steps(one_step, SWITCH_PROFILE_STEPS)
+            dev_ms = prof["device_ms_per_step"]
+            rec.update(profile=prof, device_idle_share=(
+                1.0 - dev_ms / window_ms if isinstance(dev_ms, float)
+                else "not measured"))
+
+        rec.update(host_ms_per_step=secs * 1e3 / SWITCH_STEPS,
+                   tok_s=SWITCH_STEPS / secs,
+                   issue_ms_per_step=issued * 1e3 / SWITCH_STEPS,
+                   window_ms_per_step=window_ms,
+                   passes_equal=bool(torch.equal(outs[0], outs[1])))
+        return outs[0], rec, trace
+
+    btoks, brec, btrace = decode("bucketed")
+    stoks, srec, strace = decode("switched")
+    gtoks, grec, _ = decode("switched", greedy=True)
+    sel = srec["launches"].pop("graph_switch", 0)
+    gsel = grec["launches"].pop("graph_switch", 0)
+    res.update(bucketed=brec, switched=srec, greedy=grec,
+               tokens_equal=bool(torch.equal(btoks, stoks)),
+               greedy_tokens_equal=bool(torch.equal(gtoks, stoks)),
+               launches_equal=brec["launches"] == srec["launches"]
+               == grec["launches"],
+               selector_launches=sel + gsel,
+               lims=[SWITCH_PROMPT + 1, SWITCH_PROMPT + SWITCH_STEPS])
+    srec["launches"]["graph_switch"] = sel
+    if not (res["tokens_equal"] and res["greedy_tokens_equal"]
+            and res["launches_equal"] and sel == gsel == SWITCH_STEPS
+            and all(r["passes_equal"] for r in (brec, srec, grec))):
+        raise SystemExit(f"a3: the switched step differs from the "
+                         f"t_eff-passing form: {res}")
+    if not (srec["captures"] == grec["captures"] == 1
+            and srec["switch_bodies"] == grec["switch_bodies"] == 3
+            and srec["replays"] == SWITCH_STEPS
+            and brec["captures"] == 3):
+        raise SystemExit(f"a3: captures {srec}, {grec}, {brec}")
+    gs.set_design("if_chain")  # the older toolkits' parent, built here
+    try:
+        ctoks, crec, _ = decode("switched")
+        cdesign = gs.design()
+    finally:
+        gs.set_design()
+    res["if_chain"] = {
+        "design": cdesign, "captures": crec["captures"],
+        "switch_bodies": crec["switch_bodies"],
+        "host_ms_per_step": crec["host_ms_per_step"],
+        "window_ms_per_step": crec["window_ms_per_step"],
+        "tokens_equal": bool(torch.equal(ctoks, stoks)),
+        # the selector's launches included, one a step in both
+        "launches_equal": crec["launches"] == srec["launches"]}
+    if not (cdesign == "if_chain" and res["if_chain"]["tokens_equal"]
+            and res["if_chain"]["launches_equal"] and crec["passes_equal"]
+            and crec["captures"] == 1 and crec["switch_bodies"] == 3):
+        raise SystemExit(f"a3: the if-chain parent differs from the switch "
+                         f"node's: {res['if_chain']}")
+
+    # k1: rounds at t_eff = d_eff = None against the t_eff-passing rounds
+    rnd = make_spec_round(llama.forward, cfg, llama.forward, cfg, SPEC_K)
+
+    def rounds(form, n=None):
+        """Rounds from the prefilled caches (until the target passes
+        SWITCH_ROUND_TO, or n), twice: the first captures, the second, from
+        the same caches' rows, lengths and seed, replays only and is timed
+        (the switched one under the sync check; the t_eff-passing one reads
+        each round's count back to track its bound)."""
+        switched = form == "switched"
+        tc = llama.new_cache(cfg, 1, max_len=T)
+        dc = llama.new_cache(cfg, 1, max_len=T)
+        S = SWITCH_PROMPT
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+
+        def run(n):
+            seed, outs, h, lims, i = seed0, [], S, [], 0
+            while (h <= SWITCH_ROUND_TO) if n is None else i < n:
+                # the bounds the selector picks: the target's lim h + k + 1,
+                # the draft's (d_len = h - 1) h + k
+                t_eff, d_eff = (None, None) if switched else (
+                    sampling.length_bucket(h + SPEC_K + 1, T),
+                    sampling.length_bucket(h + SPEC_K, T))
+                em, ne, _, _, seed = rnd(params, params, tc, dc, seed,
+                                         t_eff=t_eff, d_eff=d_eff)
+                seed = seed.clone()
+                outs.append(torch.cat([em, ne[:, None]], 1).clone())
+                if not switched:  # the host tracks the bound
+                    lims.append(h + SPEC_K + 1)
+                    h += int(ne[0])
+                i += 1
+            return torch.cat(outs), lims, i
+
+        with torch.inference_mode():
+            lg, o = llama.forward(params, cfg, prompt, tc, pos,
+                                  prefix_bound=256)
+            tc.length.copy_(o.length)
+            _, o = llama.forward(params, cfg, prompt[:, :-1], dc,
+                                 pos[:, :-1], prefix_bound=256)
+            dc.length.copy_(o.length)
+            seed0 = torch.cat([prompt[:, -1:], torch.argmax(
+                lg[:, -1], -1, keepdim=True).to(torch.int32)], 1)
+            torch.cuda.synchronize()
+            k0 = dict(captured.COUNTS)
+            c0 = _build.launch_counts()
+            got, lims, n = run(n)  # the captures
+            torch.cuda.synchronize()
+            rec = {"rounds": n, "final_length": int(tc.length[0]),
+                   "lims": lims[:1] + lims[-1:],
+                   "launches": _build.launch_delta(
+                       c0, _build.launch_counts())[0],
+                   **{k: captured.COUNTS[k] - k0[k] for k in k0}}
+            tc.length.fill_(S)
+            dc.length.fill_(S - 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if switched:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                again, _, _ = run(n)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        got = got.cpu()
+        rec.update(host_ms_per_round=secs * 1e3 / n,
+                   tok_s=float(got[:, -1].sum()) / secs,
+                   passes_equal=bool(torch.equal(got, again.cpu())))
+        return got, rec
+
+    b_out, b_rec = rounds("bucketed")
+    s_out, s_rec = rounds("switched", b_rec["rounds"])
+    rsel = s_rec["launches"].pop("graph_switch", 0)
+    res["k1_rounds"] = {
+        "bucketed": b_rec, "switched": s_rec,
+        "tokens_equal": bool(torch.equal(b_out, s_out)),
+        "launches_equal": b_rec["launches"] == s_rec["launches"],
+        "selector_launches": rsel}
+    s_rec["launches"]["graph_switch"] = rsel
+    if not (res["k1_rounds"]["tokens_equal"]
+            and res["k1_rounds"]["launches_equal"]
+            and b_rec["passes_equal"] and s_rec["passes_equal"]
+            and rsel == b_rec["rounds"] and s_rec["captures"] == 1
+            and b_rec["lims"][0] <= 256 < 512 < b_rec["lims"][-1]):
+        raise SystemExit(f"a3: the switched k1 rounds differ from the "
+                         f"t_eff-passing ones: {res['k1_rounds']}")
+    res["capture_s"] = {"step": srec["capture_s"],
+                        "round": s_rec["capture_s"]}
+    btrace()  # the profiler windows, after every timed run
+    strace()
+    release_graphs()
+    emit({"switch_a3": res})
+    # the switched runs' launches: the step and the rounds
+    return res, {k: srec["launches"].get(k, 0) + s_rec["launches"].get(k, 0)
+                 for k in kernels.LAUNCHES}
 
 
 def compare_plain(model, cfg, params, prompt, quant_acts, cache_dtype, tol,
@@ -6253,6 +6604,7 @@ def run_chain_m1(smi, repo, dev, workdir):
     from ggmlsharp_tpu_torch.eval.perplexity import perplexity
     from ggmlsharp_tpu_torch.io import load_gguf_llama
     from ggmlsharp_tpu_torch.kernels.config import set_kernels
+    from ggmlsharp_tpu_torch.models import captured
     from ggmlsharp_tpu_torch.models import captured, llama
 
     sys.path.insert(0, os.path.join(repo, "scripts"))
@@ -6333,9 +6685,12 @@ def run_kvq_m2(smi, dev, path, text):
     """Path m2: scripts/kv_quality_torch.py over m1's GGUF: 96 chunks of the
     held-out ids, 127 teacher-forced steps each through an f32 head-major
     cache, a bf16 flat one and an int8 flat one (attn_decode at D 32, B 96,
-    E_kv 192), then the two flat caches on the plain route (set_kernels
-    (False)), each decode ppl within KVQ_PPL_RTOL of its kernel route's;
-    kernel 3 launched on the kernel route."""
+    E_kv 192), each cache's step one captured graph (eval.kv_quality), then
+    the same three in the eager form (captured.disabled()): every row's ppl
+    equal within KVQ_FORMS_RTOL and its argmax agreement equal, the ms a
+    step of both forms recorded; then the two flat caches on the plain
+    route (set_kernels(False)), each decode ppl within KVQ_PPL_RTOL of its
+    kernel route's; kernel 3 launched on the kernel route."""
     import numpy as np
     import torch
 
@@ -6344,17 +6699,34 @@ def run_kvq_m2(smi, dev, path, text):
     from ggmlsharp_tpu_torch.io import (GGUFReader, load_gguf_llama,
                                         tokenizer_from_gguf)
     from ggmlsharp_tpu_torch.kernels.config import set_kernels
+    from ggmlsharp_tpu_torch.models import captured
 
     t0 = time.perf_counter()
     cfg, params = load_gguf_llama(path, device=dev)
     tk = tokenizer_from_gguf(GGUFReader(path), native=True)
     ids = np.asarray(tk.encode(text), np.int32)
     X, Y = kv_quality.chunks(ids[len(ids) // 3:], KVQ_CHUNKS)
+    steps = len(kv_quality.CACHES) * (X.shape[1] - 1)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    k0 = dict(captured.COUNTS)
+    t1 = time.perf_counter()
     rows = kv_quality.run(cfg, params, X, Y)
     torch.cuda.synchronize()
+    cap_ms = (time.perf_counter() - t1) * 1e3 / steps
+    cap_counts = {k: captured.COUNTS[k] - k0[k] for k in k0}
     counts = dict(kernels.LAUNCHES)
+    t1 = time.perf_counter()
+    with captured.disabled():
+        eager = kv_quality.run(cfg, params, X, Y)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1e3 / steps
+    form_err = {r[0]: abs(r[1] - e[1]) / e[1] for r, e in zip(rows, eager)}
+    if max(form_err.values()) > KVQ_FORMS_RTOL or any(
+            r[3] != e[3] for r, e in zip(rows, eager)) \
+            or cap_counts["captures"] != len(kv_quality.CACHES):
+        raise SystemExit(f"m2: the captured steps' rows {rows} vs the eager "
+                         f"form's {eager} ({cap_counts})")
     want = cfg.n_layer * (X.shape[1] - 1) * 2  # two flat caches
     if counts["attn_decode"] != want:
         raise SystemExit(f"m2: attn_decode launches {counts['attn_decode']}"
@@ -6374,6 +6746,11 @@ def run_kvq_m2(smi, dev, path, text):
                     for n, p, d, a in rows],
            "plain_ppl": {n: p for n, p, _, _ in plain},
            "ppl_rel_err_vs_plain": errs,
+           "eager_rows": [{"cache": n, "ppl": p, "argmax_agree": a}
+                          for n, p, _, a in eager],
+           "ppl_rel_err_captured_vs_eager": form_err,
+           "step_ms": cap_ms, "eager_step_ms": eager_ms,
+           "captured_counts": cap_counts,
            "seconds": time.perf_counter() - t0}
     emit({"kvq_m2": out})
     return out, counts
@@ -6637,7 +7014,109 @@ def p_serve(cfg, params, prompts, n_new, slots, mesh=None, model=None,
     res = eng.run()
     torch.cuda.synchronize()
     return ([r.out_tokens for r in res], time.perf_counter() - t0,
-            eng.stats(), eng.cache.k[0].shape[1])
+            eng.stats(), eng.cache.k[0].shape[1], eng.captured)
+
+
+P0_REQS, P0_PLEN, P0_NEW, P0_SLOTS = 4, 16, 8, 4  # p0(b)'s 7B TP engine
+P0_TIME_STEPS = 8  # p0(b): decode steps timed a form
+P0_TRAIN_STEPS = 10  # p0(c): the training example's steps a form
+
+
+def p_engine_form(cfg, params, prompts, n_new, slots, mesh, eager,
+                  model=None):
+    """One engine form over ``prompts`` (greedy): captured, or eager
+    inside captured.disabled(). Its tokens, route, launches and
+    captured.COUNTS over the run, then host ms a decode step (P0_TIME_STEPS
+    steps at the run's bucket, no slot advancing, the card synchronized at
+    the end) and device ms a step (a profiler window of one step: its
+    post-processing takes seconds for an eager 7B step)."""
+    import torch
+
+    from ggmlsharp_tpu_torch import kernels
+    from ggmlsharp_tpu_torch.models import captured, llama
+    from ggmlsharp_tpu_torch.serving import Engine, Request
+
+    model = model or llama
+    with captured.disabled() if eager else contextlib.nullcontext():
+        eng = Engine(model.forward, cfg, params, batch_slots=slots,
+                     max_len=64, cache_dtype=torch.bfloat16, int8_kv=False,
+                     mesh=mesh)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(id=i, prompt=p, max_new_tokens=n_new))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        k0 = dict(captured.COUNTS)
+        t0 = time.perf_counter()
+        toks = [r.out_tokens for r in eng.run()]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = {"tokens": toks, "captured": eng.captured, "seconds": secs,
+               "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+               **{k: captured.COUNTS[k] - k0[k] for k in k0}}
+        tok = torch.zeros((slots, 1), dtype=torch.int32, device=eng.device)
+        idle = torch.zeros(slots, dtype=torch.bool, device=eng.device)
+        with torch.no_grad():
+            rec["host_ms_per_step"] = p_time(
+                lambda: eng._step(tok, idle, 64), P0_TIME_STEPS)
+            prof = profile_steps(lambda: eng._step(tok, idle, 64), 1)
+        rec["device_ms_per_step"] = prof["device_ms_per_step"]
+    return rec
+
+
+def p0_engines(res, mesh):
+    """p0 (b): path a's Llama-7B Q4_0 (full width and depth, SEED) served
+    tensor-parallel on the model = 1 mesh over NCCL, captured then eager,
+    beside the single-device engine on the same requests; the tiny GPT-2
+    Q8_0 TP engine (kernel 4 in a TP graph) in both forms."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import gpt2, llama
+    from ggmlsharp_tpu_torch.parallel import (gpt2_param_specs,
+                                              llama_param_specs, shard_params)
+
+    cfg = llama.LLAMA_7B
+    full = llama.synthetic_q4_0_params(cfg, seed=SEED, mlp_fused=False,
+                                       layer_fused=False)
+    sp = shard_params(full, llama_param_specs(), mesh)
+    prompts = p_prompts(cfg, P0_REQS, P0_PLEN)
+    forms = {f: p_engine_form(cfg, sp, prompts, P0_NEW, P0_SLOTS, mesh,
+                              f == "eager") for f in ("captured", "eager")}
+    single = p_engine_form(cfg, full, prompts, P0_NEW, P0_SLOTS, None, False)
+    res["tp7b"] = {"prompts": prompts, **forms, "single": single}
+    del sp, full
+    torch.cuda.empty_cache()
+    gcfg = gpt2.GPT2Config(**P_TINY_GPT2)
+    sg = shard_params(gpt2.synthetic_q8_0_params(gcfg, seed=1),
+                      gpt2_param_specs(), mesh)
+    res["tp_gpt2"] = {f: p_engine_form(gcfg, sg, p_prompts(gcfg, 4, 8), 6,
+                                       2, mesh, f == "eager", model=gpt2)
+                      for f in ("captured", "eager")}
+
+
+def p0_train(res, repo, wd, dev):
+    """p0 (c): examples/train_distributed_torch.py's train() on the world
+    of one over NCCL: P0_TRAIN_STEPS steps captured, then eager
+    (captured.disabled()) from the same seed, each checkpointing; then
+    each resumed from its own checkpoint for 5 more, in its form."""
+    from ggmlsharp_tpu_torch.models import captured
+
+    ex = load_example(repo, "train_distributed_torch")
+    out = {}
+    for form in ("captured", "eager"):
+        ck_dir = os.path.join(wd, f"p0_train_{form}")
+        with captured.disabled() if form == "eager" \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            first = ex.train(ex.parse(["--steps", str(P0_TRAIN_STEPS),
+                                       "--ckpt", ck_dir]), dev)
+            secs = time.perf_counter() - t0
+            resumed = ex.train(ex.parse(["--steps", "5", "--ckpt", ck_dir]),
+                               dev)
+        out[form] = {"losses": first["losses"], "captured": first["captured"],
+                     "seconds": secs, "resumed_at": resumed["resumed_at"],
+                     "resumed_losses": resumed["losses"],
+                     "resumed_captured": resumed["captured"]}
+    res["train"] = out
 
 
 def p_time(fn, n):
@@ -6731,10 +7210,12 @@ def p_save(wd, name, rank, obj):
     torch.save(obj, os.path.join(wd, f"{name}_{rank}.pt"))
 
 
-def _p0_rank(rank, wd):
+def _p0_rank(rank, wd, repo):
     """p0: a world of one on NCCL. Tiny Llama Q4_0 and GPT-2 Q8_0 through
     every entry point, each against the unsharded port: bit for bit where
-    the route is the same function (one rank's sum is an identity)."""
+    the route is the same function (one rank's sum is an identity); then
+    (b) the captured TP engines (p0_engines) and (c) the training example
+    captured and eager (p0_train)."""
     import shutil
 
     import torch
@@ -6822,6 +7303,8 @@ def _p0_rank(rank, wd):
     # the fused GELU MLP kernel: path c's bar
     res["gpt2_forward_max_abs_err"] = float((got - want).abs().max())
     res["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    p0_engines(res, mesh)
+    p0_train(res, repo, wd, dev)
     p_save(wd, "p0", rank, res)
 
 
@@ -6858,7 +7341,7 @@ def _p1_rank(rank, wd):
     sp = shard_params(full, llama_param_specs(), mesh)
     torch.cuda.synchronize()
     marks["sharded"] = time.perf_counter() - t0
-    (toks, secs, st, heads), rec = p_part(
+    (toks, secs, st, heads, route), rec = p_part(
         "a", lambda: p_serve(cfg, sp, p_prompts(cfg, P_REQS, P_PLEN), P_NEW,
                              P_SLOTS, mesh=mesh), 1)
     marks["a_served"] = time.perf_counter() - t0
@@ -6869,8 +7352,8 @@ def _p1_rank(rank, wd):
     prof = profile_steps(lambda: llama.forward(sp, cfg, tok, cache, pos,
                                                prefix_bound=64), 2)
     steps = st["decode_forwards"] + st["prefill_dispatches"]
-    rec.update(host_ms_per_step=rec["host_ms_per_step"] / steps,
-               steps=steps, seconds=secs, tokens_per_s=sum(map(len, toks))
+    rec.update(captured=route,
+               host_ms_per_step=rec["host_ms_per_step"] / steps, steps=steps, seconds=secs, tokens_per_s=sum(map(len, toks))
                / secs, device_ms_per_decode_step=prof["device_ms_per_step"],
                decode_step_traced_ms=prof["traced_step_ms"],
                cache_heads=heads, tokens=toks, stats=st)
@@ -6971,7 +7454,7 @@ def _p1_reference(cfg, params):
     """p1(a)'s reference: the single-device engine's tokens (kernels) over
     the requests the ranks serve."""
     prompts = p_prompts(cfg, P_REQS, P_PLEN)
-    toks, secs, st, _ = p_serve(cfg, params, prompts, P_NEW, P_SLOTS)
+    toks, secs, st, _, _ = p_serve(cfg, params, prompts, P_NEW, P_SLOTS)
     return prompts, toks, secs
 
 
@@ -6994,7 +7477,82 @@ def _p2_resume_rank(rank, wd, repo, argv):
     if status != "ok":
         raise SystemExit(f"p2: the first run failed ({status}); no resume")
     ex = load_example(repo, "train_distributed_torch")
-    ex.train(ex.parse(argv), torch.device("cuda", 0))
+    if ex.train(ex.parse(argv), torch.device("cuda", 0))["captured"]:
+        raise SystemExit("p2: a step over gloo was captured")
+
+
+def p0_checks(smi, p0, cfg, params):
+    """p0 (b) and (c) held: the captured 7B TP engine's tokens and launches
+    equal its eager twin's, and its tokens the single-device engine's on
+    every decided position (plain top-2 gap above 2 * P_TOL); the GPT-2 TP
+    engine likewise, kernel 4 in its graphs; the training example's losses
+    bit-equal in both forms, and each resumed at its checkpoint."""
+    import torch
+
+    from ggmlsharp_tpu_torch.models import llama
+
+    tp = p0["tp7b"]
+    c, e, sd = tp["captured"], tp["eager"], tp["single"]
+    if not (c["captured"] and c["tokens"] == e["tokens"]
+            and c["launches"] == e["launches"] and c["captures"] > 0
+            and c["replays"] > 0 and e["captures"] == 0
+            and all(len(t) == P0_NEW for t in c["tokens"])):
+        raise SystemExit(f"p0 (b): the captured TP engine differs from its "
+                         f"eager twin: {tp}")
+    partings = {}
+    dev = torch.device("cuda")
+    for i, (g, w, pr) in enumerate(zip(c["tokens"], sd["tokens"],
+                                       tp["prompts"])):
+        if g == w:
+            continue
+        gp = plain_gaps(llama, cfg, params,
+                        torch.tensor([pr], dtype=torch.int32, device=dev),
+                        torch.tensor([w], dtype=torch.int32,
+                                     device=dev)).tolist()
+        j, decided = held_to_reference(g, w, gp, P_TOL)
+        if decided:
+            raise SystemExit(f"p0 (b): request {i} parts from the "
+                             f"single-device engine at {j} (decided)")
+        partings[i] = {"at": j, "plain_gap": gp[j]}
+    g2 = p0["tp_gpt2"]
+    gc, ge = g2["captured"], g2["eager"]
+    if not (gc["captured"] and gc["tokens"] == ge["tokens"]
+            and gc["launches"] == ge["launches"] and gc["captures"] > 0
+            and (gc["launches"].get("matmul_q8_0", 0)
+                 + gc["launches"].get("matmul_q8_0_mma", 0)) > 0):
+        raise SystemExit(f"p0 (b): the captured GPT-2 TP engine: {g2}")
+    tr = p0["train"]
+    tc, te = tr["captured"], tr["eager"]
+    if not (tc["captured"] and tc["resumed_captured"]
+            and tc["losses"] == te["losses"]
+            and tc["resumed_losses"] == te["resumed_losses"]
+            and tc["resumed_at"] == te["resumed_at"] == P0_TRAIN_STEPS
+            and len(tc["losses"]) == P0_TRAIN_STEPS
+            and all(x == x and abs(x) < 1e30 for x in tc["losses"]
+                    + tc["resumed_losses"])):
+        raise SystemExit(f"p0 (c): the training example's forms: {tr}")
+    rec = {"card": smi, "tp7b": {f: {k: v for k, v in tp[f].items()
+                                     if k != "tokens"}
+                                 for f in ("captured", "eager", "single")},
+           "tp7b_partings_from_single_device": partings,
+           "tp_gpt2": {f: {k: v for k, v in g2[f].items() if k != "tokens"}
+                       for f in ("captured", "eager")},
+           "train": tr}
+    emit({"parallel_p0_captured": rec})
+    log(f"[4/6] p0 (b) Llama-7B Q4_0 TP engine on NCCL (model 1), "
+        f"{P0_REQS} x {P0_PLEN}+{P0_NEW}, captured [eager]: tokens and "
+        f"launches equal, {c['captures']} captures, {c['replays']} replays "
+        f"[{e['replays']}], decode step host {c['host_ms_per_step']:.2f} "
+        f"[{e['host_ms_per_step']:.2f}] ms, device "
+        f"{c['device_ms_per_step']} [{e['device_ms_per_step']}] ms; the "
+        f"single-device engine {sd['host_ms_per_step']:.2f} ms host, "
+        f"partings {partings}; GPT-2 Q8_0 TP engine captured = eager, "
+        f"launches {gc['launches']}; (c) train_distributed_torch "
+        f"{P0_TRAIN_STEPS} steps captured = eager bit for bit (losses "
+        f"{tc['losses'][0]:.4f} -> {tc['losses'][-1]:.4f}, "
+        f"{tc['seconds']:.2f} [{te['seconds']:.2f}] s), resumed at "
+        f"{tc['resumed_at']} for 5, equal ({smi})")
+    return rec
 
 
 def run_parallel_phase(smi, repo, cfg, params):
@@ -7054,7 +7612,8 @@ def run_parallel_phase(smi, repo, cfg, params):
                                  f"single-device engine at {j} (decided)")
             partings[i] = {"at": j, "plain_gap": gp[j]}
         for r in p1:
-            if r["backend"] != "gloo" or not r["a"]["launches"].get(
+            if r["backend"] != "gloo" or r["a"]["captured"] or \
+                    not r["a"]["launches"].get(
                     "matmul_q4_0_mma") or not r["a"]["launches"].get(
                     "flash_attn"):
                 raise SystemExit(f"p1: launches {r}")
@@ -7104,7 +7663,8 @@ def run_parallel_phase(smi, repo, cfg, params):
                     f.write(status)
 
         def p0_world():
-            spawn(_p0_rank, 1, args=(wd,), backend="nccl", device="cuda:0",
+            spawn(_p0_rank, 1, args=(wd, repo), backend="nccl",
+                  device="cuda:0",
                   init_file=os.path.join(wd, "p0_store"), timeout_s=600)
 
         # the dry run's world and the example's beside it (two worlds of
@@ -7138,6 +7698,7 @@ def run_parallel_phase(smi, repo, cfg, params):
             f"{p0['ring_vs_legacy_max_abs_err']:.3g}; GPT-2 TP route vs "
             f"whole {p0['gpt2_forward_max_abs_err']:.3g}; launches "
             f"{p0['launches']}")
+        p0_checks(smi, p0, cfg, params)
         ck_dirs = sorted(os.listdir(ckd))
         if ck_dirs != ["step_00000010", "step_00000020", "step_00000025"]:
             raise SystemExit(f"p2: checkpoints {ck_dirs}")
@@ -7216,7 +7777,9 @@ def main(argv):
                                    for v in ("i2f", "half2")]
                          + [(q8_acts.ENTRY, q8_acts.variant_defines("bf16")),
                             ("llama_layer", LAYER_NO_MATVEC),
-                            ("gpt2_layer", LAYER_NO_MATVEC)])
+                            ("gpt2_layer", LAYER_NO_MATVEC),
+                            # a3's if-chain parent
+                            ("graph_switch", ("GS_SWITCH=0",))])
     log(f"[2/6] built {sorted(logs) or 'nothing new'} in "
         f"{time.perf_counter() - t0:.1f} s")
     if argv[:1] == ["--parallel"]:  # phase p alone (development mode)
@@ -7254,6 +7817,7 @@ def main(argv):
     q_card = quantizers_on_card(dev, gen)
     geom_cases = check_geometries(dev, gen)
     chain_mm_err = check_chain_matmuls(dev, gen)
+    gs_err, gs_row = check_graph_switch(dev, gen)
     if not q4_rows_ok:
         raise SystemExit("a Q4_0 row's result depends on b")
     log(f"[3/6] kernels agree with their plain versions: Q4_0 max abs err "
@@ -7275,7 +7839,9 @@ def main(argv):
         f"vs the CPU, share of blocks differing: "
         f"{max(q_card.values()):.3g}; launch geometries bit-equal to the "
         f"default in {geom_cases} cases; path m1's w_down (192 x 512, 127 "
-        f"and 128 rows, Q4_0 Q4_K Q6_K Q8_0) {chain_mm_err:.3g}; rms rows "
+        f"and 128 rows, Q4_0 Q4_K Q6_K Q8_0) {chain_mm_err:.3g}; the bucket "
+        f"switch's selector ({gs_row['design']}) vs its plain version "
+        f"{gs_err} in {gs_row['cases']} cases; rms rows "
         f"differing alone "
         f"vs in a batch of {SLOTS}: "
         f"{ {k: v['rms_rows_differ'] for k, v in rms_rows.items()} }")
@@ -7327,6 +7893,44 @@ def main(argv):
         f"{gc_res['prefill_ms_eager']:.2f}]; two caches keep their own "
         f"prompts' rows; reserved GB after each call "
         f"{[round(c['reserved_gb'], 3) for c in gc_calls]} ({smi})")
+    a3, a3_counts = run_switch_phase(smi, cfg, params, dev, gen)
+    a3s, a3g, a3k = a3["switched"], a3["greedy"], a3["k1_rounds"]
+    log(f"[4/6] a3. t_eff=None, Llama-7B Q4_0, {SWITCH_LEN}-row cache, "
+        f"parent graph {a3['design']}: {SWITCH_PROMPT}-token prompt + "
+        f"{SWITCH_STEPS} steps (lims {a3['lims']}: 3 buckets) in "
+        f"{a3s['captures']} capture ({a3s['switch_bodies']} bodies, "
+        f"{a3s['capture_s']:.2f} s) and {a3s['replays']} replays of one "
+        f"graph, no host sync; tokens and launches equal to the "
+        f"t_eff-passing form's ({a3['bucketed']['captures']} graphs): host "
+        f"{a3s['host_ms_per_step']:.3f} ms a step, {a3s['tok_s']:.1f} tok/s "
+        f"[t_eff passed {a3['bucketed']['host_ms_per_step']:.3f} ms, "
+        f"{a3['bucketed']['tok_s']:.1f} tok/s]; greedy step "
+        f"{a3g['host_ms_per_step']:.3f} ms; k1 rounds at t_eff = d_eff = None"
+        f": {a3k['switched']['rounds']} rounds (target lims "
+        f"{a3k['bucketed']['lims']}), {a3k['switched']['captures']} capture "
+        f"({a3k['switched']['switch_bodies']} bodies, "
+        f"{a3k['switched']['capture_s']:.2f} s), host "
+        f"{a3k['switched']['host_ms_per_round']:.2f} ms a round, "
+        f"{a3k['switched']['tok_s']:.1f} tok/s [t_eff passed "
+        f"{a3k['bucketed']['host_ms_per_round']:.2f} ms, "
+        f"{a3k['bucketed']['tok_s']:.1f} tok/s], tokens and launches equal "
+        f"({smi})")
+    a3b, a3c = a3["bucketed"], a3["if_chain"]
+    log(f"[4/6] a3. windows of {SWITCH_PROFILE_STEPS} steps from "
+        f"length {SWITCH_PROMPT + SWITCH_PROFILE_AT}, switched [t_eff "
+        f"passed]: ms a step {a3s['window_ms_per_step']:.3f} "
+        f"[{a3b['window_ms_per_step']:.3f}], traced device ms a step "
+        f"{a3s['profile']['device_ms_per_step']} "
+        f"[{a3b['profile']['device_ms_per_step']}], kernels a step "
+        f"{a3s['profile']['kernels_per_step']} "
+        f"[{a3b['profile']['kernels_per_step']}], idle share "
+        f"{a3s['device_idle_share']} [{a3b['device_idle_share']}]; host ms "
+        f"a step to issue {a3s['issue_ms_per_step']:.3f} "
+        f"[{a3b['issue_ms_per_step']:.3f}] of {a3s['host_ms_per_step']:.3f} "
+        f"[{a3b['host_ms_per_step']:.3f}]; the if-chain parent "
+        f"({a3c['design']}, -DGS_SWITCH=0): tokens and launches equal to the "
+        f"switch node's, host {a3c['host_ms_per_step']:.3f} ms a step, "
+        f"window {a3c['window_ms_per_step']:.3f} ({smi})")
     eng, serve, serve_toks = run_serving(cfg, params)
     serve_counts = serve["launches"]
     # the main settings again (Q8_0 activations), an INT8 cache whose
@@ -7645,8 +8249,12 @@ def main(argv):
     log(f"[4/6] m2. KV quality ({m2['chunks']} x {m2['steps']} steps): "
         + "; ".join(f"{r['cache']} ppl {r['ppl']:.4f} dppl {r['dppl']:+.4f} "
                     f"agree {r['argmax_agree']:.4f}" for r in m2["rows"])
-        + f"; vs plain {m2['ppl_rel_err_vs_plain']}; launches "
-        f"{({k: v for k, v in m2_counts.items() if v})}")
+        + f"; vs plain {m2['ppl_rel_err_vs_plain']}; captured = eager "
+        f"within {max(m2['ppl_rel_err_captured_vs_eager'].values()):.3g}, "
+        f"argmax agreement equal; {m2['step_ms']:.2f} "
+        f"[eager {m2['eager_step_ms']:.2f}] ms a step, scoring included "
+        f"({m2['captured_counts']['captures']} captures); launches "
+        f"{({k: v for k, v in m2_counts.items() if v})} ({smi})")
     log(f"[4/6] n. examples and modules in {t_mn - t_m:.1f} s: serve "
         f"{ {k: (v['tokens'], round(v['seconds'], 2)) for k, v in n_res.items() if k.startswith('serve_')} }"
         f", http {len(n_res['http']['tokens'])} tokens, train_graph "
@@ -7741,9 +8349,18 @@ def main(argv):
     for kind in ("int8", "bf16"):  # path m2's step, the D 32 instance
         for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
             ad_row[f"m2_{kind}_d32_{k}"] = ad[f"m2_{kind}_d32_T128"][k]
+    gs_row.update(name="graph_switch", route="cuda",
+                  source="ggmlsharp_tpu_torch/csrc/graph_switch.cu",
+                  replaces="ggmlsharp_tpu/models/common.py:181 (lax.switch's "
+                           "index; no pallas_call)",
+                  max_abs_err=gs_err,
+                  unit="one selector launch alone (graph_switch_select): 8 "
+                       "slots' lengths, T 1024; in a parent graph it is one "
+                       "node ahead of the body; plain = graph_switch."
+                       "select_index; no library call computes it")
     rows = (q4_row, q4_mma_row, fl_row, ad_row, q8_row, q8_mma_row, mlp_row,
             mlp_mma_row, layer_row, silu_row, silu_mma_row, llayer_row, mq_row, mq_mma_row,
-            ib_row, unc_row, *tune_rows(probes))
+            ib_row, unc_row, *tune_rows(probes), gs_row)
     g124, g774 = g_models["124M"][3], g_models["774M"][3]
     for row in rows:
         name = row["name"]
@@ -7769,6 +8386,7 @@ def main(argv):
         row["launches_kvq_m2"] = m2_counts[name]
         row["launches_examples_n"] = n_counts[name]
         row["launches_parallel_p"] = p_counts[name]
+        row["launches_switch_a3"] = a3_counts[name]
         # the count on the first main path that runs the kernel
         row["launches"] = next(c[name] for c in (counts, serve_counts, g124,
                                                  fcounts, mcounts, kq_counts,
@@ -7779,7 +8397,7 @@ def main(argv):
                                                  k2_counts, k3_counts,
                                                  l_counts, m1_counts,
                                                  m2_counts, n_counts,
-                                                 p_counts)
+                                                 p_counts, a3_counts)
                                if c[name])
     log("[5/6] kernel times taken")
 
@@ -7928,7 +8546,7 @@ def main(argv):
             "launches_llama_13b", "launches_io_j", "launches_spec_k1",
             "launches_spec_k2", "launches_spec_k3", "launches_gptj_l",
             "launches_chain_m1", "launches_kvq_m2", "launches_examples_n",
-            "launches_parallel_p")
+            "launches_parallel_p", "launches_switch_a3")
     extra = ("attn_layout_max_abs_err", "attn_layout_ms",
              "heads_layout_bf16_ms",  # kernel 3's second lane map
              "b1_T64_ms", "b1_T64_bound_ms", "b1_T64_plain_ms",
@@ -7963,7 +8581,9 @@ def main(argv):
              # kernels 8 and 9 at one row: their routes, their other shapes
              "fused_route_ms", "unfused_ms", "one_row_ms",
              # kernel 1 at GPT-J 6B's shapes: a token (b = 1), a verify (5)
-             "gptj_b1_forward", "gptj_b5_forward")
+             "gptj_b1_forward", "gptj_b5_forward",
+             # the bucket switch's parent graph design and checked cases
+             "design", "cases")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -13,7 +13,12 @@ cache's rounding; this does. The caches compared, each a flat or head-major
 The flat ones are forced flat (the JAX script does the same), so on the
 card every step's attention is the attn_decode kernel. Reports decode ppl,
 dppl and the per-step argmax agreement against f32. The JAX script jits the
-step; the port runs it eagerly.
+step; here each cache's step is one ``models.captured.CapturedStep`` (on
+the card one CUDA graph, replayed T - 1 times): the token column and the
+positions are copied into its static buffers, it writes the cache (rows
+and length) in place, and its logits are cloned before the host scores
+them, as the JAX script scores its step's output. Inside
+``captured.disabled()`` the same step runs eagerly (the eager form).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from ..models import kv_cache as kvc
 from ..models import llama
+from ..models.captured import CapturedStep
 
 S = 128  # chunk length: S - 1 decode steps a chunk
 CACHES = [("f32 head-major (ref)", torch.float32, False, False),
@@ -50,12 +56,19 @@ def decode_score(cfg, params, X, Y, dtype, int8: bool, flat: bool):
     cache = kvc.init_cache(cfg.n_layer, B, cfg.n_head_kv, T, cfg.head_dim,
                            dtype=dtype, int8=int8, flat=flat, device=dev)
     toks = torch.as_tensor(X, device=dev)
+
+    def body(tok, pos):
+        logits, out = llama.forward(params, cfg, tok, cache, pos)
+        cache.length.copy_(out.length)
+        return logits[:, -1]
+
+    step = CapturedStep(body, state=(cache.length,))
     nll_sum, n, tops = 0.0, 0, []
     for t in range(T - 1):
         pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
-        logits, cache = llama.forward(params, cfg, toks[:, t:t + 1], cache,
-                                      pos)
-        lg = logits[:, -1].to(torch.float32).cpu().numpy()
+        # a clone: the graph's logits buffer is rewritten by its next replay
+        logits = step(toks[:, t:t + 1], pos).clone()
+        lg = logits.to(torch.float32).cpu().numpy()
         lg = lg - lg.max(-1, keepdims=True)
         lse = np.log(np.exp(lg).sum(-1))
         nll_sum += float((lse - lg[np.arange(B), Y[:, t]]).sum())

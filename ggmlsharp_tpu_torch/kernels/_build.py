@@ -81,6 +81,21 @@ KERNELS = {
                      [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 + [_P]),
     "matmul_int_dot": ("matmul_int_dot.cu", "int_dot_matmul",
                        [_I] + [_P] * 8 + [_I, _I, _P]),
+    # the in-graph length-bucket switch (kernels/graph_switch.py): a
+    # parent graph's launch (its selector kernel), its build and teardown,
+    # the selector alone (a check), the design the toolkit gave, an error's
+    # name
+    "graph_switch": ("graph_switch.cu", "graph_switch_launch", [_P, _P]),
+    "graph_switch_build": ("graph_switch.cu", "graph_switch_build",
+                           [_P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
+                            _P]),
+    "graph_switch_destroy": ("graph_switch.cu", "graph_switch_destroy", [_P]),
+    "graph_switch_select": ("graph_switch.cu", "graph_switch_select",
+                            [_P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P,
+                             _P]),
+    "graph_switch_design": ("graph_switch.cu", "graph_switch_design", [_P]),
+    "graph_switch_error": ("graph_switch.cu", "graph_switch_error",
+                           [_I, _P, _I]),
     # the tuning path's probes (ggmlsharp_tpu_torch/probes/)
     "matmul_q4_0_kmajor": ("matmul_q4_0_kmajor.cu", "q4_0_kmajor_matmul",
                            [_P] * 5 + [_I] * 4 + [_P]),

@@ -46,6 +46,27 @@ captures ``fn`` into a ``torch.cuda.CUDAGraph``, and every call replays it:
   * a capture that fails raises RuntimeError naming the first CUDA error;
     nothing runs eagerly in its place.
 
+The in-graph bucket switch (JAX's ``lax.switch`` for a ``t_eff=None``
+call, one executable): ``step.switch(bounds, *inputs, **key)`` calls ``fn``
+with each bound's keyword at the bucket that bound's lengths select on the
+device (``kernels.graph_switch``). On the card its first call of a key
+warms ``fn`` up once at the widest buckets and captures one body a bucket
+combination (``keep_graph=True``, the CapturedStep's pool: one body runs a
+launch), each writing its outputs into one set of output buffers; the
+parent graph (a selector kernel and a conditional node over the bodies) is
+launched at every call, with no host read. It counts as one capture
+(``COUNTS["switch_bodies"]`` counts its bodies) and each launch as one
+replay plus one ``graph_switch`` launch; the bodies must launch the same
+kernels (they differ only in how many cache rows attention reads). A
+sampled step's generators are registered with every body and with a small
+prologue graph replayed before each launch, which writes the generators'
+seed and offset where the bodies read them; the offset then advances by
+what one call draws. ``SWITCH["design"]`` names the parent the build made
+("switch" or "if_chain"). On the CPU ``fn`` runs at each bound's widest
+bucket (attention masks every row past a slot's position, so the function
+is the same) and reads nothing back; inside ``disabled()`` the buckets are
+read on the host.
+
 On a CPU tensor the same object runs ``fn`` eagerly through the same static
 buffers: the plain version, which the tests hold against the JAX package.
 Inside ``disabled()`` (the counterpart of ``jax.disable_jit()``) every
@@ -81,15 +102,19 @@ from __future__ import annotations
 import contextlib
 import enum
 import gc
+import itertools
 import time
 from collections import OrderedDict
 
 import torch
 
 from ..kernels import _build
+from ..kernels import graph_switch as gs
 from . import kv_cache as kvc
 
-COUNTS = {"captures": 0, "replays": 0, "capture_s": 0.0, "warmup_s": 0.0}
+COUNTS = {"captures": 0, "replays": 0, "capture_s": 0.0, "warmup_s": 0.0,
+          "switch_bodies": 0}
+SWITCH = {"design": None}  # the parent graph the last switch build made
 _DISABLED = [0]  # the depth of open disabled() contexts
 _STREAMS: dict = {}  # device -> its capture stream
 MAX_TREES = 2  # parameter trees (a target and its draft: one) the cache holds
@@ -98,7 +123,8 @@ _REGISTRY: OrderedDict = OrderedDict()  # trees key -> _Trees
 
 
 def reset_counts():
-    COUNTS.update(captures=0, replays=0, capture_s=0.0, warmup_s=0.0)
+    COUNTS.update(captures=0, replays=0, capture_s=0.0, warmup_s=0.0,
+                  switch_bodies=0)
 
 
 @contextlib.contextmanager
@@ -172,6 +198,18 @@ class _Graph:
         self.warmed = False  # the first call ran (warm_first_call)
 
 
+class _Switch(_Graph):
+    """One switched key: _Graph's buffers, the parent graph over its bodies
+    and, for a sampled step, the prologue graph and each generator's draw
+    a call."""
+
+    def __init__(self, inputs):
+        super().__init__(inputs)
+        self.parent = None  # gs.ParentGraph
+        self.prologue = None  # a CUDAGraph registering the generators
+        self.advance = ()  # each generator's offset advance a call
+
+
 class CapturedStep:
     def __init__(self, fn, state=(), generators=(), pool=None, device=None,
                  warm_first_call=False):
@@ -192,6 +230,7 @@ class CapturedStep:
         self.device = None if device is None else torch.device(device)
         self.warm_first_call = warm_first_call
         self._graphs: dict = {}
+        self._switches: dict = {}
 
     def __call__(self, *inputs, **key):
         if _DISABLED[0]:
@@ -221,6 +260,35 @@ class CapturedStep:
     def release(self):
         """Drop every graph (their pool's memory goes with the last one)."""
         self._graphs.clear()
+        self._switches.clear()
+
+    def switch(self, bounds, *inputs, **key):
+        """fn(*inputs, **key) with each Bound's keyword at the bucket its
+        lengths select (kernels.graph_switch): on the card one parent
+        graph a key, which picks the body on the device (the module
+        docstring); on the CPU fn at the widest buckets; inside disabled()
+        at the buckets read on the host."""
+        bounds = tuple(bounds)
+        if _DISABLED[0]:
+            return self.fn(*inputs, **key, **gs.host_buckets(bounds))
+        k = (tuple(sorted(key.items())),
+             tuple((b.name, b.add, b.buckets, b.length.data_ptr())
+                   for b in bounds))
+        sw = self._switches.get(k)
+        if sw is None:
+            sw = self._switches[k] = _Switch(inputs)
+        for static, x in zip(sw.inputs, inputs):
+            if x is not static:
+                static.copy_(x, non_blocking=True)
+        dev = self._device(sw)
+        if dev is not None and dev.type == "cuda":
+            if sw.parent is None:
+                self._capture_switch(sw, bounds, key, dev)
+            self._launch_switch(sw)
+        else:
+            self._run_eagerly(sw, {**key, **{b.name: b.buckets[-1]
+                                             for b in bounds}})
+        return sw.outputs[0] if sw.single else sw.outputs
 
     def _warm_call(self, g, key, dev):
         """fn run eagerly on the capture stream: a key's first call under
@@ -267,15 +335,7 @@ class CapturedStep:
                     outs = self.fn(*g.inputs, **key)
                     after = _build.launch_counts()
             except RuntimeError as e:
-                cause = e  # the first error of the capture, not capture_end's
-                while isinstance(cause.__context__, RuntimeError):
-                    cause = cause.__context__
-                raise RuntimeError(
-                    "CapturedStep: the step could not be captured into a CUDA "
-                    "graph (it must make no host sync: .item(), int() or "
-                    ".cpu() of a tensor, boolean-mask indexing; and use only "
-                    f"capturable ops). Cause: {str(cause).splitlines()[0]}"
-                ) from e
+                raise _capture_error(e) from e
         finally:
             _build.set_launch_counts(counts)
         torch.cuda.current_stream(dev).wait_stream(stream)
@@ -285,6 +345,86 @@ class CapturedStep:
         g.graph = graph
         COUNTS["captures"] += 1
         COUNTS["capture_s"] += time.perf_counter() - t0
+
+    def _capture_switch(self, sw, bounds, key, dev):
+        """The bodies of a switched key, one a bucket combination (after
+        one warm-up at the widest), and the parent graph over them."""
+        t0 = time.perf_counter()
+        stream = capture_stream(dev)
+        names = [b.name for b in bounds]
+        combos = list(itertools.product(*(b.buckets for b in bounds)))
+        counts = _build.launch_counts()
+        bodies, deltas = [], []
+        try:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            saved = [t.clone() for t in self.state]
+            rng_saved = [gen.get_state() for gen in self.generators]
+            offsets = [gen.get_offset() for gen in self.generators]
+            with torch.cuda.stream(stream):
+                outs = self.fn(*sw.inputs, **key,
+                               **dict(zip(names, combos[-1])))
+                for t, v in zip(self.state, saved):
+                    t.copy_(v)
+            sw.advance = tuple(gen.get_offset() - off for gen, off in
+                               zip(self.generators, offsets))
+            for gen, v in zip(self.generators, rng_saved):
+                gen.set_state(v)
+            sw.single = not isinstance(outs, tuple)
+            outs = (outs,) if sw.single else outs
+            with torch.inference_mode(False):
+                sw.outputs = tuple(torch.empty_like(o) for o in outs)
+            del outs
+            COUNTS["warmup_s"] += time.perf_counter() - t0
+            for combo in combos:
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                for gen in self.generators:
+                    graph.register_generator_state(gen)
+                try:
+                    with collector_off(), torch.cuda.graph(
+                            graph, pool=self.pool.handle(), stream=stream):
+                        before = _build.launch_counts()
+                        outs = self.fn(*sw.inputs, **key,
+                                       **dict(zip(names, combo)))
+                        for static, o in zip(sw.outputs, (outs,) if sw.single
+                                             else outs):
+                            static.copy_(o)
+                        after = _build.launch_counts()
+                except RuntimeError as e:
+                    raise _capture_error(e) from e
+                del outs
+                bodies.append(graph)
+                deltas.append(_build.launch_delta(before, after))
+            if self.generators:
+                sw.prologue = torch.cuda.CUDAGraph()
+                for gen in self.generators:
+                    sw.prologue.register_generator_state(gen)
+                with collector_off(), torch.cuda.graph(sw.prologue,
+                                                       stream=stream):
+                    for gen in self.generators:
+                        torch.rand(1, generator=gen, device=dev)
+        finally:
+            _build.set_launch_counts(counts)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        if any(d != deltas[0] for d in deltas):
+            raise RuntimeError(
+                "CapturedStep.switch: the bodies launch different kernels "
+                f"({deltas}); the switch counts one body's launches")
+        sw.parent = gs.ParentGraph(bodies, bounds)
+        SWITCH["design"] = sw.parent.design
+        sw.launches = deltas[0]
+        COUNTS["captures"] += 1
+        COUNTS["switch_bodies"] += len(bodies)
+        COUNTS["capture_s"] += time.perf_counter() - t0
+
+    def _launch_switch(self, sw):
+        offsets = [gen.get_offset() for gen in self.generators]
+        if sw.prologue is not None:
+            sw.prologue.replay()  # the generators' seed and offset written
+        sw.parent.launch()
+        for gen, off, adv in zip(self.generators, offsets, sw.advance):
+            gen.set_offset(off + adv)
+        _build.add_launches(sw.launches)
+        COUNTS["replays"] += 1
 
     def _warm_up(self, g, key, stream):
         """fn once on the capture stream, then its state and generators
@@ -302,6 +442,19 @@ class CapturedStep:
         g.graph.replay()
         _build.add_launches(g.launches)
         COUNTS["replays"] += 1
+
+
+def _capture_error(e: RuntimeError) -> RuntimeError:
+    """The error a failed capture raises, naming its first cause (not
+    capture_end's)."""
+    cause = e
+    while isinstance(cause.__context__, RuntimeError):
+        cause = cause.__context__
+    return RuntimeError(
+        "CapturedStep: the step could not be captured into a CUDA graph (it "
+        "must make no host sync: .item(), int() or .cpu() of a tensor, "
+        "boolean-mask indexing; and use only capturable ops). Cause: "
+        f"{str(cause).splitlines()[0]}")
 
 
 class PerObjects:
@@ -359,7 +512,7 @@ def settings_key() -> tuple:
            config.quantize_activations(), config.mlp_fused(),
            config.llama_fused(), config.layer_fused(), config.int_dot(),
            config.attn_impl(), tune.table_path(),
-           tuple(sorted(_build._DEFINES.items())))
+           tuple(sorted((k, d) for k, d in _build._DEFINES.items() if d)))
     if key[7] == "ring":
         from ..parallel.ring_attention import sequence_mesh
 

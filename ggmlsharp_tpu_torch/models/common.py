@@ -164,6 +164,17 @@ def tp_axis(params):
     return s.axis if s is not None else None
 
 
+def capturable(*trees) -> bool:
+    """Whether a step over these parameter trees (None entries skipped) is
+    captured on the card: every tree whole, or sharded over a model axis
+    that is not a gloo group. NCCL collectives are recorded in a CUDA graph;
+    a gloo group stages every CUDA collective through pinned host buffers
+    (parallel/comm.py), which no graph can hold, so its steps run eagerly.
+    A route fixed by the backend's name."""
+    return all(t is None or tp_axis(t) is None or tp_axis(t).backend != "gloo"
+               for t in trees)
+
+
 def local_count(n: int, tp, what: str) -> int:
     """n over the model axis (heads, n_ff); a ValueError names the count
     when the axis does not divide it."""
@@ -221,7 +232,11 @@ def cached_attention(q, k_new, v_new, cache, layer, positions,
     per batch row. Writes k/v into the cache (in place), then attends over
     the first ``prefix_bound`` rows (a bound >= every position + 1; without
     one, the smallest bucket of ``_chunk_buckets`` that holds the live
-    prefix). GGML_TPU_ATTN (config.attn_impl) picks the route, as in the
+    prefix, read from ``positions`` on the host, which a CUDA graph capture
+    refuses (a cache of one bucket takes its T rows, with no read); a
+    captured ``t_eff=None`` step gets its bound from the
+    in-graph switch, ``captured.CapturedStep.switch``, and passes it here).
+    GGML_TPU_ATTN (config.attn_impl) picks the route, as in the
     JAX package: auto (default) runs the flash kernel for S > 8 and grouped
     einsum for S <= 8; einsum always grouped einsum; flash always the flash
     kernel, decode included; legacy materialised scores over the whole
@@ -252,11 +267,14 @@ def cached_attention(q, k_new, v_new, cache, layer, positions,
             v_all = v_all.repeat_interleave(n_rep, dim=1)
         out = _einsum_attention(q, k_all, v_all, positions, 1, softcap)
         return out.to(q.dtype), cache
+    buckets = _chunk_buckets(T)
     if prefix_bound is not None:
         t = min(int(prefix_bound), T)
+    elif len(buckets) == 1:
+        t = T
     else:
         lim = int(positions[:, -1].max()) + 1
-        t = next(b for b in _chunk_buckets(T) if lim <= b)
+        t = next(b for b in buckets if lim <= b)
     if impl == "flash" or (impl == "auto" and S > 8):
         npast = positions[:, 0]
         if plain or cache.int8:

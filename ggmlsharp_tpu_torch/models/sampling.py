@@ -15,12 +15,19 @@ and copies the rows back (the counterpart of donation), so a second call
 with a new cache of the same spec captures nothing. ``make_decode_fns``'
 step and ``make_greedy_step``, called a step at a time, read the caller's
 own cache: one graph a ``t_eff`` for each (parameter tree, cache) pair,
-nothing copied a step. A step writes the cache's new length in place
-(``copy_``), so the ``KVCache`` object and every buffer address stay fixed.
-On the CPU the same objects run eagerly; inside ``captured.disabled()`` and
-for a tensor-parallel tree (whose collectives go through the host)
-everything runs eagerly on the caller's cache. The live-prefix bound is
-tracked on the host as in the JAX package. Sampling (``torch.multinomial``)
+nothing copied a step. Called with ``t_eff=None`` (JAX's in-graph
+``lax.switch``, one executable), the step, the greedy step and the prefill
+(one a prompt length) are each ONE parent graph
+(``captured.CapturedStep.switch``): a selector kernel reads the cache's
+``length`` on the device and runs the body captured for that bucket, so a
+run across buckets replays one graph and makes no host read. A step writes
+the cache's new length in place (``copy_``), so the ``KVCache`` object and
+every buffer address stay fixed. On the CPU the same objects run eagerly;
+inside ``captured.disabled()`` and for a tensor-parallel tree over gloo
+(whose collectives go through the host; an NCCL tree is captured,
+``common.capturable``) everything runs eagerly on the caller's cache, a
+``None`` bound read on the host. ``generate`` tracks the live-prefix bound
+on the host as in the JAX package. Sampling (``torch.multinomial``)
 and the repeat-penalty window stay outside the graph and read its logits.
 A ``torch.Generator`` takes the place of a JAX key: the two draw different
 numbers from one seed, so sampled (temperature > 0) tokens are compared by
@@ -33,9 +40,10 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF
+from ..kernels.graph_switch import bucket_bound, host_buckets
 from . import captured
 from .captured import CapturedStep, PerObjects
-from .common import _chunk_buckets, tp_axis
+from .common import _chunk_buckets, capturable
 
 
 def length_bucket(n: int, max_len: int, base: int = 256) -> int:
@@ -90,15 +98,15 @@ def _step_body(forward, cfg, params, cache, greedy: bool):
 class _StepGraphs:
     """The decode step of one model as a CapturedStep for the (parameter
     tree, cache) pair it was last called with (captured.PerObjects);
-    another pair gets a new one. A tensor-parallel tree gets the step
-    itself: it runs eagerly."""
+    another pair gets a new one. A tensor-parallel tree over gloo gets the
+    step itself: it runs eagerly."""
 
     def __init__(self, forward, cfg, greedy: bool):
         # made by a closure, not a bound method: no reference cycle holds a
         # dropped object's graphs until a collection
         def make(params, cache):
             step = _step_body(forward, cfg, params, cache, greedy)
-            if tp_axis(params) is not None:
+            if not capturable(params):
                 return step
             return CapturedStep(step, state=(cache.length,))
 
@@ -111,10 +119,11 @@ class _StepGraphs:
 def _decode_entry(forward, cfg, params, cache):
     """The graph cache's entry for a decode loop of ``forward`` over a cache
     of ``cache``'s spec, None where the loop runs eagerly on the caller's
-    cache (inside captured.disabled(), for a tensor-parallel tree). Its
+    cache (inside captured.disabled(), for a tensor-parallel tree over
+    gloo). Its
     home cache is ``homes[0]``; ``_prefill_of`` and ``_step_of`` give its
     CapturedSteps."""
-    if captured.is_disabled() or tp_axis(params) is not None:
+    if captured.is_disabled() or not capturable(params):
         return None
     return captured.entry(("decode", forward, cfg), (params,), (cache,))
 
@@ -133,13 +142,29 @@ def _step_of(e, forward, cfg, params):
         state=(home.length,), pool=e.pool))
 
 
-def _bound(cache, t_eff):
-    """t_eff, or (None) the bucket of the longest live prefix after this
-    step, which the forward would compute from the device (read here,
-    outside the graph)."""
+def length_switch(name: str, cache, add: int):
+    """The Bound of a ``t_eff=None`` call that writes ``add`` rows a slot:
+    the bucket of max(``cache.length``) + add among ``_chunk_buckets``,
+    chosen on the device (kernels.graph_switch)."""
+    return bucket_bound(name, cache.length, add,
+                        _chunk_buckets(cache.max_len))
+
+
+def switched(step, bounds, *inputs, **key):
+    """``step`` (a CapturedStep, or a step run eagerly) at the buckets the
+    bounds select: a CapturedStep's in-graph switch, else the buckets read
+    on the host."""
+    if isinstance(step, CapturedStep):
+        return step.switch(bounds, *inputs, **key)
+    return step(*inputs, **key, **host_buckets(bounds))
+
+
+def _step_call(step, token, cache, t_eff):
+    """One decode step: the graph of ``t_eff``, or (None) the in-graph
+    switch over the cache's buckets."""
     if t_eff is not None:
-        return t_eff
-    return length_bucket(int(cache.length.max()) + 1, cache.max_len)
+        return step(token, t_eff=t_eff)
+    return switched(step, (length_switch("t_eff", cache, 1),), token)
 
 
 def make_decode_fns(forward, cfg):
@@ -151,9 +176,12 @@ def make_decode_fns(forward, cfg):
     Both update ``cache`` in place (its rows and its length) and return it.
     On the card the prefill replays the graph cache's graph for (S,
     ``t_eff``) over the entry's home cache, the caller's live rows copied
-    in and out (``t_eff`` None: the bucket of the live prefix, read on the
-    host); the step replays one graph a ``t_eff`` over the caller's own
-    cache."""
+    in and out (the longest live prefix, n0, is read on the host for that
+    copy, as the graph cache does for every call); the step replays one
+    graph a ``t_eff`` over the caller's own cache. ``t_eff=None`` (JAX's
+    one executable): the prefill is one parent graph a prompt length and
+    the step one parent graph, each picking its bucket on the device
+    (``switched``); the step then makes no host read."""
 
     def prefill(params, tokens, cache, t_eff=None):
         S = tokens.shape[1]
@@ -162,13 +190,15 @@ def make_decode_fns(forward, cfg):
             return _prefill_body(forward, cfg, params, cache)(
                 tokens, S=S, t_eff=t_eff), cache
         n0 = int(cache.length.max())
-        if t_eff is None:
-            t_eff = length_bucket(n0 + S, cache.max_len)
         home = e.homes[0]
         captured.copy_rows(home, cache, n0)
+        graph = _prefill_of(e, forward, cfg, params)
         # a clone: the graph's logits buffer is rewritten by its next replay
-        logits = _prefill_of(e, forward, cfg, params)(
-            tokens, S=S, t_eff=t_eff).clone()
+        if t_eff is None:
+            logits = graph.switch((length_switch("t_eff", home, S),), tokens,
+                                  S=S).clone()
+        else:
+            logits = graph(tokens, S=S, t_eff=t_eff).clone()
         captured.copy_rows(cache, home, n0 + S)
         return logits, cache
 
@@ -176,8 +206,8 @@ def make_decode_fns(forward, cfg):
 
     def step(params, token, cache, t_eff=None):
         # a clone: the graph's logits buffer is rewritten by its next replay
-        return graphs(params, cache)(token,
-                                     t_eff=_bound(cache, t_eff)).clone(), cache
+        return _step_call(graphs(params, cache), token, cache,
+                          t_eff).clone(), cache
 
     return prefill, step
 
@@ -185,12 +215,13 @@ def make_decode_fns(forward, cfg):
 def make_greedy_step(forward, cfg):
     """A decode step that also takes the argmax: (params, token [B, 1],
     cache, t_eff=None) -> (next token int32 [B, 1], cache), the cache
-    updated in place; on the card one captured graph a ``t_eff``."""
+    updated in place; on the card one captured graph a ``t_eff``, and for
+    ``t_eff=None`` one parent graph that picks the bucket on the device."""
     graphs = _StepGraphs(forward, cfg, greedy=True)
 
     def greedy_step(params, token, cache, t_eff=None):
-        return graphs(params, cache)(token,
-                                     t_eff=_bound(cache, t_eff)).clone(), cache
+        return _step_call(graphs(params, cache), token, cache,
+                          t_eff).clone(), cache
 
     return greedy_step
 

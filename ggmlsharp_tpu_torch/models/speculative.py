@@ -8,7 +8,11 @@ weights once for up to k+1 tokens.
 
 The JAX package jits a round into one executable with ``t_eff`` / ``d_eff``
 static and its caches donated; here a round is a ``captured.CapturedStep``:
-on the card one CUDA graph a (``t_eff``, ``d_eff``). Called a round at a
+on the card one CUDA graph a (``t_eff``, ``d_eff``). With both ``None``
+(JAX's in-graph switch, one executable) the round is one parent graph
+whose selector reads both caches' lengths on the device and runs the body
+captured for that (target bucket, draft bucket) pair
+(``CapturedStep.switch``): no host read. Called a round at a
 time (``make_spec_round``, ``make_spec_round_sampled``), it has one for
 each (target tree, draft tree, target cache, draft cache[, generator]).
 ``speculative_generate`` takes its rounds and both prefills from the graph
@@ -22,8 +26,9 @@ and each ``length`` with ``copy_``, so it returns its input cache objects
 and every buffer address stays fixed; its tokens, ``n_emit`` and next seed
 are the graph's buffers, which the next round overwrites (read or clone
 them first). On the CPU the same objects run eagerly; inside
-``captured.disabled()`` and for a tensor-parallel tree everything runs
-eagerly on the caller's caches. Rollback is O(1):
+``captured.disabled()`` and for a tensor-parallel tree over gloo
+(``common.capturable``) everything runs eagerly on the caller's caches, a
+``None`` bound read on the host. Rollback is O(1):
 attention masks by per-slot position, so rejecting drafts only resets
 ``length``, and the stale rows past it are overwritten by the next round's
 writes at those positions. Every reader bounds itself by positions (einsum
@@ -55,9 +60,9 @@ import torch
 from . import captured
 from . import kv_cache as kvc
 from .captured import CapturedStep, PerObjects
-from .common import tp_axis
+from .common import capturable
 from .sampling import (_addresses, _prefill_body, _prefill_of, length_bucket,
-                       sample_token)
+                       length_switch, sample_token, switched)
 
 
 def set_length(cache: kvc.KVCache, length) -> kvc.KVCache:
@@ -111,32 +116,36 @@ def _forward_in_place(forward, params, cfg, tokens, cache, positions,
     return logits
 
 
-def _bounds(t_cache, d_cache, k, t_eff, d_eff):
-    """t_eff and d_eff, each None resolved on the host (outside any graph):
-    the bucket of the round's longest live prefix, the bound the round's
-    last forward of that model would compute from the device."""
-    if t_eff is None:
-        t_eff = length_bucket(int(t_cache.length.max()) + k + 1,
-                              t_cache.max_len)
-    if d_eff is None:
-        d_eff = length_bucket(int(d_cache.length.max()) + k + 1,
-                              d_cache.max_len)
-    return t_eff, d_eff
+def _round_call(graphs, t_cache, d_cache, k, t_eff, d_eff, *inputs):
+    """One round at t_eff and d_eff; a None bound is the in-graph switch's
+    (the bucket of the round's longest live prefix, k + 1 rows past the
+    longest length: the bound its last forward of that model reaches),
+    chosen on the device."""
+    key, bounds = {}, []
+    for name, cache, eff in (("t_eff", t_cache, t_eff),
+                             ("d_eff", d_cache, d_eff)):
+        if eff is None:
+            bounds.append(length_switch(name, cache, k + 1))
+        else:
+            key[name] = eff
+    if not bounds:
+        return graphs(*inputs, **key)
+    return switched(graphs, bounds, *inputs, **key)
 
 
 def _round_graphs(body, sampled):
     """The round ``body(t_params, d_params, t_cache, d_cache, rng, *inputs,
     t_eff=, d_eff=)`` as a CapturedStep for the objects it was last called
     with (captured.PerObjects): both lengths its state, the generator (for
-    the sampled round) registered. A tensor-parallel tree gets the body
-    itself: it runs eagerly."""
+    the sampled round) registered. A tensor-parallel tree over gloo gets
+    the body itself: it runs eagerly."""
 
     def make(tp, dp, tc, dc, rng):
         def run(*inputs, t_eff, d_eff):
             return body(tp, dp, tc, dc, rng, *inputs, t_eff=t_eff,
                         d_eff=d_eff)
 
-        if tp_axis(tp) is not None or tp_axis(dp) is not None:
+        if not capturable(tp, dp):
             return run
         return CapturedStep(run, state=(tc.length, dc.length),
                             generators=(rng,) if sampled else ())
@@ -186,8 +195,8 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int,
     k+1 (all accepted and the bonus token) tokens a slot a round. Both
     caches are written in place and returned; emitted, n_emit and seed' are
     the round's buffers, rewritten by its next call. On the card one
-    captured graph a (t_eff, d_eff) (a None bound is read on the host
-    first). Both forwards must take ``cached_prefix=`` (gpt2, llama and
+    captured graph a (t_eff, d_eff); with both None one parent graph that
+    picks the buckets on the device. Both forwards must take ``cached_prefix=`` (gpt2, llama and
     gptj do): the verify and the seed prefill run at positions > 0, so a
     flat cache's attention must read the cache's live prefix. ``held``:
     where the round's CapturedStep comes from, (body, sampled) ->
@@ -234,10 +243,9 @@ def make_spec_round(t_forward, t_cfg, d_forward, d_cfg, k: int,
     @torch.no_grad()
     def spec_round(t_params, d_params, t_cache, d_cache, seed,
                    t_eff=None, d_eff=None):
-        t_eff, d_eff = _bounds(t_cache, d_cache, k, t_eff, d_eff)
-        emitted, n_emit, seed_next = graphs(
-            t_params, d_params, t_cache, d_cache)(seed, t_eff=t_eff,
-                                                  d_eff=d_eff)
+        emitted, n_emit, seed_next = _round_call(
+            graphs(t_params, d_params, t_cache, d_cache), t_cache, d_cache,
+            k, t_eff, d_eff, seed)
         return emitted, n_emit, t_cache, d_cache, seed_next
 
     return spec_round
@@ -275,8 +283,7 @@ def speculative_generate(t_forward, t_cfg, t_params,
 
     dev = prompt.device
     e = None
-    if not (captured.is_disabled() or tp_axis(t_params) is not None
-            or tp_axis(d_params) is not None):
+    if not captured.is_disabled() and capturable(t_params, d_params):
         e = captured.entry(("speculative", t_forward, t_cfg, d_forward,
                             d_cfg), (t_params, d_params), (t_cache, d_cache))
     if e is None:  # eagerly, on the caller's caches and generator
@@ -465,10 +472,9 @@ def make_spec_round_sampled(t_forward, t_cfg, d_forward, d_cfg, k: int,
     @torch.no_grad()
     def spec_round(t_params, d_params, t_cache, d_cache, seed, rng,
                    temp, top_k, top_p, t_eff=None, d_eff=None):
-        t_eff, d_eff = _bounds(t_cache, d_cache, k, t_eff, d_eff)
-        emitted, n_emit, seed_next = graphs(
-            t_params, d_params, t_cache, d_cache, rng)(
-                seed, temp, top_k, top_p, t_eff=t_eff, d_eff=d_eff)
+        emitted, n_emit, seed_next = _round_call(
+            graphs(t_params, d_params, t_cache, d_cache, rng), t_cache,
+            d_cache, k, t_eff, d_eff, seed, temp, top_k, top_p)
         return emitted, n_emit, t_cache, d_cache, seed_next
 
     return spec_round

@@ -85,9 +85,15 @@ class CheckpointedLoop:
 
     The checkpoints are sharded (``io.save_checkpoint_sharded``, each rank
     writing its shards) when a process group of more than one rank is up,
-    the npz ones otherwise. ``resume(init_state)`` loads the
+    or the state is a sharded tree (a world of one included: its ``"tp"``
+    entry holds process groups, which no npz can hold), the npz ones
+    otherwise. ``resume(init_state)`` loads the
     newest checkpoint into init_state's layout (a sharded tree restores
-    into its own shards; any other onto ``device``, the card by default).
+    into its own shards; any other onto ``device``, the card by default);
+    ``resume(init_state, in_place=True)`` copies it into init_state's own
+    tensors and returns init_state, so a captured step whose graph reads
+    those tensors (examples/train_distributed_torch.py) goes on reading
+    them.
     A step directory without its ``meta.json`` (a save cut short) is
     skipped.
 
@@ -118,30 +124,45 @@ class CheckpointedLoop:
                              self.ckpt_dir, e, "meta.json")))
         return os.path.join(self.ckpt_dir, entries[-1]) if entries else None
 
+    def _sharded(self, tree) -> bool:
+        return self.sharded or (isinstance(tree, dict)
+                                and tree.get("tp") is not None)
+
     def _save(self, state):
         from ..io import checkpoint as ck
 
-        if self.sharded:
+        if self._sharded(state):
             ck.save_checkpoint_sharded(self._ckpt_path(), state,
                                        step=self.step)
         else:
             ck.save_checkpoint(self._ckpt_path(), state, step=self.step)
         self._saved = self.step
 
-    def resume(self, init_state):
+    def resume(self, init_state, in_place: bool = False):
         from ..io import checkpoint as ck
+        from ..optim.tree import tree_leaves
 
         latest = self._latest()
         if latest is None:
             return init_state
-        if self.sharded:
+        if self._sharded(init_state):
             state, step = ck.load_checkpoint_sharded(latest, like=init_state,
                                                      device=self.device)
         else:
             state, step = ck.load_checkpoint(latest, device=self.device)
         self.step = step or 0
         self._saved = self.step
-        return state
+        if not in_place:
+            return state
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(init_state), tree_leaves(state),
+                                strict=True):
+                planes = getattr(dst, "planes", None)
+                pairs = [(planes[k], src.planes[k]) for k in planes] \
+                    if isinstance(planes, dict) else [(dst, src)]
+                for d, v in pairs:
+                    d.copy_(v)
+        return init_state
 
     def run(self, state, n_steps: int):
         target = self.step + n_steps

@@ -22,7 +22,8 @@ write the engine's cache in place:
 The last logits come back as the step's output and are written into the
 engine's ``_last_logits`` outside the graph (the decode step rebinds that
 buffer). On the CPU, inside ``captured.disabled()`` and for a
-tensor-parallel engine the same steps run eagerly.
+tensor-parallel engine over gloo the same steps run eagerly (over NCCL
+they are captured, the collectives in the graph).
 """
 from __future__ import annotations
 

@@ -20,8 +20,12 @@ Slot-based design:
     (``models.captured``; the graphs share one memory pool). Its inputs
     are tokens [B, 1] and ``active`` [B], copied into static buffers; it
     writes the cache's length in place, so ``self.cache`` and every buffer
-    address stay fixed. ``Engine(mesh=)`` runs it eagerly (a route fixed
-    at construction), as does ``captured.disabled()``.
+    address stay fixed. ``Engine(mesh=)`` over NCCL groups captures the
+    same way, its collectives recorded in the graphs; over gloo groups,
+    which stage every CUDA collective through pinned host buffers, it runs
+    eagerly (a route fixed at construction from the backend's name,
+    ``engine.captured``), as does everything inside
+    ``captured.disabled()``.
   * decode windows: when every live slot is greedy, up to W steps run back
     to back with every carried value (logits, cache, token columns) on the
     device and ONE fetch at the end: W replays of the step's graph, each
@@ -70,7 +74,7 @@ from ..config import int8_kv as _int8_kv_default
 from ..device import resolve_device
 from ..models import kv_cache as kvc
 from ..models.captured import CapturedStep
-from ..models.common import cache_heads, tp_axis, tp_sharding
+from ..models.common import cache_heads, capturable, tp_axis, tp_sharding
 from ..models.sampling import _recent_window, length_bucket, sample_token
 from ..models.speculative import make_spec_round, make_spec_round_sampled
 from .admission import AdmissionMixin
@@ -107,7 +111,8 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         target-verify round across all live slots (models.speculative),
         1..k+1 tokens a slot a target forward, spec_k drafts a round; on
         the card one captured graph a round's length bucket (eager inside
-        ``captured.disabled()`` and for a tensor-parallel tree).
+        ``captured.disabled()`` and for a tensor-parallel tree over
+        gloo).
         Greedy slots get the target's own greedy tokens; slots with
         temperature > 0 take the rejection-sampled round; repeat_penalty
         and want_logprobs are refused. The draft's cache follows the same
@@ -135,7 +140,13 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
         every rank of its mesh builds this engine, submits the same
         requests and runs it; the cache holds the rank's KV heads,
         head-major. mesh: the JAX API's spelling, optional; when given, it
-        must be the mesh the params (and draft_params) were sharded on."""
+        must be the mesh the params (and draft_params) were sharded on.
+        Over NCCL groups the tensor-parallel engine captures its decode
+        step, admissions and rounds as a single-device one does; over gloo
+        groups it runs them eagerly (``self.captured`` says which). The
+        NCCL capture is checked on a world of one rank only: over two or
+        more ranks it is unchecked, and ``captured.disabled()`` gives the
+        eager form."""
         if mesh is not None:
             for name, tree in (("params", params), ("draft_params",
                                                     draft_params)):
@@ -191,9 +202,9 @@ class Engine(AdmissionMixin, PrefixCacheMixin, SpecServingMixin):
                                "GGML_TPU_SERVE_MULTISTEP", "32")))
         # the decode step (a (t_eff, want_lps) key) and the admission
         # prefills (a (bucket, total, cached, draft) and a (bucket, G,
-        # draft) key) are captured unless the engine is tensor-parallel
-        capture = mesh is None and tp_axis(params) is None and \
-            tp_axis(draft_params) is None
+        # draft) key) are captured unless a tree is sharded over gloo
+        capture = capturable(params, draft_params)
+        self.captured = capture  # the route, fixed here
         self._decode = CapturedStep(
             self._decode_body, state=(self.cache.length,)) if capture \
             else self._decode_body

@@ -284,3 +284,101 @@ def ckpt(rank, out):
                               "wq_equal": bool(torch.equal(
                                   s3["blocks"][0]["wo"]["qs"],
                                   sp["blocks"][0]["wo"]["qs"]))})
+
+
+# --- the captured routes (2 ranks) --------------------------------------------
+
+def _as_nccl(tree):
+    """The tree's model axis reports the backend name "nccl" (the route
+    stub: the collectives still run on gloo over CPU tensors)."""
+    tree["tp"].axis.backend = "nccl"
+    return tree
+
+
+def _example(root):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_distributed_torch",
+        os.path.join(root, "examples", "train_distributed_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TRAIN_CFG = dict(n_vocab=512, n_ctx=64, n_embd=256, n_head=8, n_layer=2)
+
+
+def train_tokens(rank):
+    """Rank ``rank``'s data shard of the example's step: [2, 33] tokens."""
+    return np.random.default_rng(rank).integers(
+        0, TRAIN_CFG["n_vocab"], (2, 33)).astype(np.int64)
+
+
+def captured_routes(rank, out, root):
+    """Engine(mesh=) and the training example's step through their
+    CapturedStep route (the backend names stubbed to "nccl"; on the CPU a
+    CapturedStep runs eagerly through its static buffers), and the route
+    each backend name gives. The example's state starts from the JAX
+    example's init (trees.pt's "gpt2_train")."""
+    import contextlib
+
+    from ggmlsharp_tpu_torch.models import captured, gpt2, llama
+    from ggmlsharp_tpu_torch.models.captured import CapturedStep
+    from ggmlsharp_tpu_torch.models.common import params_from_jax
+    from ggmlsharp_tpu_torch.optim.tree import tree_leaves
+    from ggmlsharp_tpu_torch.parallel import (comm, gpt2_param_specs,
+                                              llama_param_specs, make_mesh,
+                                              shard_params)
+    from ggmlsharp_tpu_torch.serving import Engine, Request
+
+    t = _trees(out)
+    mesh = make_mesh(model=2)
+    cfg = llama.TINY_LLAMA
+    tp = llama.params_from_jax(t["llama"], device="cpu")
+    res = {}
+
+    def engine(tree):
+        return Engine(llama.forward, cfg, tree, batch_slots=2,
+                      cache_dtype=torch.float32, device="cpu", mesh=mesh)
+
+    gloo = engine(shard_params(tp, llama_param_specs(), mesh))
+    res["gloo_engine"] = (gloo.captured, isinstance(gloo._decode,
+                                                    CapturedStep))
+    eng = engine(_as_nccl(shard_params(tp, llama_param_specs(), mesh)))
+    res["nccl_engine"] = (eng.captured, all(
+        isinstance(s, CapturedStep) for s in (eng._decode, eng._prefill_one,
+                                              eng._prefill_rows)))
+    case = t["cases"]["llama"]
+    for i, p in enumerate(case["prompts"]):
+        eng.submit(Request(id=i, prompt=p, max_new_tokens=case["n_new"]))
+    res["tokens"] = {r.id: r.out_tokens for r in eng.run()}
+
+    # the example's step on a data mesh, both forms from one state
+    ex = _example(root)
+    dmesh = make_mesh(data=2, model=1)
+    gcfg = gpt2.GPT2Config(**TRAIN_CFG)
+    toks = torch.from_numpy(train_tokens(rank))
+
+    def run(form, n=3):
+        state = shard_params(params_from_jax(t["gpt2_train"], device="cpu"),
+                             gpt2_param_specs(), dmesh)
+        dax = comm.axis(dmesh, "data")
+        if form != "gloo":
+            _as_nccl(state)
+            dax.backend = "nccl"
+        step, route = ex.sgd_step(gcfg, state, toks, dax, 2)
+        leaves = tree_leaves(state)
+        ptrs = [w.data_ptr() for w in leaves]
+        before = [w.clone() for w in leaves]
+        with captured.disabled() if form == "eager" else \
+                contextlib.nullcontext():
+            losses = [float(step()) for _ in range(n)]
+        in_place = [w.data_ptr() for w in leaves] == ptrs and all(
+            not torch.equal(w, b) for w, b in zip(leaves, before))
+        return {"losses": losses, "captured": route, "in_place": in_place,
+                "state": [w.clone() for w in leaves]}
+
+    res["train"] = {form: run(form) for form in ("captured", "eager",
+                                                 "gloo")}
+    _save(out, "captured_routes", rank, res)

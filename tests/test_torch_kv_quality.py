@@ -121,3 +121,34 @@ def test_decode_scoring_matches_jax(n_head):
         else:
             np.testing.assert_allclose(dppl, want - ref_ppl, atol=2e-4 * want)
             assert abs(agree - float((top == ref_top).mean())) <= 1 / 64
+
+
+def test_captured_step_equals_eager_and_jax():
+    """decode_score's step through its CapturedStep (on the CPU: eagerly
+    through the static buffers, the cache written in place) gives the eager
+    form's (captured.disabled()) ppl and argmax bit for bit for every
+    cache, and the JAX script's ppl over the f32 cache within its bar."""
+    from ggmlsharp_tpu_torch.models import captured
+
+    jcfg = jllama.LlamaConfig(n_vocab=256, n_ctx=64, n_embd=128, n_head=4,
+                              n_head_kv=4, n_layer=1, n_ff=256)
+    cfg = llama.LlamaConfig(**{k: getattr(jcfg, k) for k in (
+        "n_vocab", "n_ctx", "n_embd", "n_head", "n_head_kv", "n_layer",
+        "n_ff")})
+    jp = jax.tree.map(lambda x: x * 8.0 if x.ndim == 2 else x,
+                      jllama.init_params(jax.random.PRNGKey(1), jcfg,
+                                         dtype=jnp.float32))
+    params = params_from_jax(_wire(jp), device="cpu")
+    stream = np.random.default_rng(1).integers(0, 256, B * T + 1)
+    X, Y = kv_quality.chunks(stream.astype(np.int32), B, chunk=T)
+    for _, dtype, int8, flat in kv_quality.CACHES:
+        ppl, top, n = kv_quality.decode_score(cfg, params, X, Y, dtype, int8,
+                                              flat)
+        with captured.disabled():
+            eppl, etop, en = kv_quality.decode_score(cfg, params, X, Y,
+                                                     dtype, int8, flat)
+        assert (ppl, n) == (eppl, en) and np.array_equal(top, etop)
+    want, _, _ = _jax_run(jcfg, jp, X, Y, jnp.float32, False, False)
+    ppl, _, _ = kv_quality.decode_score(cfg, params, X, Y, torch.float32,
+                                        False, False)
+    np.testing.assert_allclose(ppl, want, rtol=1e-5)
